@@ -1,0 +1,397 @@
+#!/usr/bin/env python3
+"""Chip smoke run of the torch port on one NVIDIA GPU (written for the H100).
+
+    python3 chip_smoke.py
+
+Phases, each of which fails the run (non-zero exit) when it fails:
+  1. prints the card's name and power limit, builds the CUDA kernels from
+     diffsinger_tpu_torch/csrc/ with nvcc (sm_90a) into build/kernels/;
+  2. diffnet_stack kernel at the serving shapes (B=8, T=1024, C=256, L=20),
+     bf16 and f32, dilation cycles 1 and 4, plus a row count that is not a
+     multiple of the tile, against its plain twin;
+  3. mrf_stage kernel on the three C<=128 HiFiGAN scales at 8 x 1024 mel
+     frames (C=128/64/32 at T=65536/131072/262144), f32 and bf16, plus a T
+     that is not a multiple of the tile, against its plain twin;
+  4. serving: the port's FusedSynthesizer with DiffSpeech-LJSpeech at full
+     width (configs/lj/ds_beta6.yaml with bench.py's overrides, HiFiGAN v1)
+     and seeded random weights answers 12 requests in three mel buckets,
+     including one 8 x 1024-frame batch and one single __call__; the launch
+     counts show both kernels ran on that path; the 8 x 1024 batch is run
+     again through the plain twins with the same noise and compared;
+  5. profiles one more 8 x 1024 batch with torch.profiler (device time by
+     kernel, busy share; table in build/chip_smoke/serve_profile.txt);
+  6. prints the kernels line and, last, the device line.
+The plain twins run with TF32 off (cuBLAS and cuDNN), so they are float32
+references. Long output goes to build/chip_smoke/chip_smoke.json.
+"""
+
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+from unittest import mock
+
+ROOT = Path(__file__).resolve().parent
+H100_BF16_FLOPS = 989e12   # dense tensor-core peak, H100 SXM data sheet
+H100_F32_FLOPS = 67e12     # float32 outside the tensor cores
+H100_BYTES = 3.35e12       # HBM3 bandwidth
+
+
+def card_line() -> str:
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         timeout=60, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+def cuda_ms(fn, reps: int) -> float:
+    """Mean milliseconds per call from CUDA events, after one warm-up call."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def bound_ms(flops: float, nbytes: float, peak_flops: float):
+    t_ops, t_bytes = flops / peak_flops * 1e3, nbytes / H100_BYTES * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def nbytes(*ts) -> int:
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
+# --------------------------------------------------------------------- phase 2
+def phase_stack(torch, ds):
+    c, num_layers = 256, 20
+    gen = torch.Generator(device="cuda").manual_seed(0)
+
+    def rn(*shape, scale=1.0):
+        return torch.randn(*shape, generator=gen, device="cuda") * scale
+
+    rows = []
+    # the serving shapes, then B*T = 903 rows: not a multiple of the 64-row tile
+    cases = [(dt, cycle, 8, 1024) for dt in ("bfloat16", "float32") for cycle in (1, 4)]
+    cases += [("bfloat16", 4, 3, 301), ("float32", 4, 3, 301)]
+    for dt_name, cycle, b, t in cases:
+        dt = torch.bfloat16 if dt_name == "bfloat16" else None
+        wdt = dt or torch.float32
+        args = (torch.relu(rn(b, t, c)), rn(num_layers, b, c, scale=0.5),
+                rn(num_layers, b, t, 2 * c, scale=0.5).to(wdt),
+                rn(num_layers, 3, c, 2 * c, scale=(3 * c) ** -0.5).to(wdt),
+                rn(num_layers, 2 * c, scale=0.1),
+                rn(num_layers, c, 2 * c, scale=c ** -0.5).to(wdt),
+                rn(num_layers, 2 * c, scale=0.1))
+        dil = tuple(2 ** (i % cycle) for i in range(num_layers))
+        got = ds.diffnet_stack(*args, dilations=dil, compute_dtype=dt)
+        want = ds.diffnet_stack_plain(*args, dilations=dil, compute_dtype=dt)
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        scale = want.abs().max().item()
+        # f32: same products, sums of up to 3C=768 terms in another order over
+        # 20 layers -> 1e-4 relative to the output scale (the JAX package's
+        # stack tolerance at scale 1). bf16: both round y and g at the same
+        # points, but a float32 sum in another order can round a value one
+        # bf16 step (2^-8) apart and carry it through later layers -> 1e-2
+        # relative to the output scale.
+        tol = (1e-2 if dt else 1e-4) * max(scale, 1.0)
+        ms = cuda_ms(lambda: ds.diffnet_stack(*args, dilations=dil, compute_dtype=dt), 5)
+        plain_ms = cuda_ms(lambda: ds.diffnet_stack_plain(*args, dilations=dil,
+                                                          compute_dtype=dt), 3)
+        flops = num_layers * 4 * 2 * (b * t) * c * (2 * c)
+        bnd, by = bound_ms(flops, nbytes(*args) + b * t * c * 4,
+                           H100_BF16_FLOPS if dt else H100_F32_FLOPS)
+        row = dict(dtype=dt_name, cycle=cycle, B=b, T=t, max_abs_err=err, tolerance=tol,
+                   out_scale=scale, ms=ms, plain_ms=plain_ms, bound_ms=bnd, bound_by=by)
+        print("diffnet_stack", json.dumps(row), flush=True)
+        if not err <= tol:
+            raise AssertionError(f"diffnet_stack {dt_name} cycle {cycle} T={t}: "
+                                 f"max|err| {err} > {tol}")
+        rows.append(row)
+    return rows
+
+
+# --------------------------------------------------------------------- phase 3
+def phase_mrf(torch, mrf):
+    ks, ds_ = (3, 7, 11), ((1, 3, 5),) * 3
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    rows = []
+    cases = [(dt, c, 8, t) for dt in ("float32", "bfloat16")
+             for c, t in ((128, 65536), (64, 131072), (32, 262144))]
+    cases.append(("float32", 64, 2, 1037))  # T not a multiple of the tile
+    for dt_name, c, b, t in cases:
+        dt = torch.bfloat16 if dt_name == "bfloat16" else None
+        x = torch.randn(b, t, c, generator=gen, device="cuda") * 0.3
+        w1 = torch.zeros(3, 3, 11 * c, c, device="cuda")
+        w2 = torch.zeros_like(w1)
+        for j, k in enumerate(ks):
+            for w in (w1, w2):
+                w[j, :, : k * c] = torch.randn(3, k * c, c, generator=gen,
+                                               device="cuda") * (k * c) ** -0.5
+        b1 = torch.randn(3, 3, c, generator=gen, device="cuda") * 0.05
+        b2 = torch.randn(3, 3, c, generator=gen, device="cuda") * 0.05
+        if dt is not None:
+            x, w1, w2 = x.to(dt), w1.to(dt), w2.to(dt)
+        kw = dict(kernel_sizes=ks, dilation_sets=ds_, compute_dtype=dt)
+        got = mrf.mrf_stage(x, w1, b1, w2, b2, **kw)
+        want = mrf.mrf_stage_plain(x, w1, b1, w2, b2, **kw)
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        scale = want.abs().max().item()
+        # f32: sums of up to 11C terms in another order through 18 convs ->
+        # 1e-4 relative to the output scale. bf16: same rounding points; a sum
+        # in another order can round the chain state one bf16 step apart ->
+        # 1e-2 relative to the output scale.
+        tol = (1e-2 if dt else 1e-4) * max(scale, 1.0)
+        reps = 2 if t > 10000 else 5
+        ms = cuda_ms(lambda: mrf.mrf_stage(x, w1, b1, w2, b2, **kw), reps)
+        plain_ms = cuda_ms(lambda: mrf.mrf_stage_plain(x, w1, b1, w2, b2, **kw), reps)
+        flops = 252 * c * c * b * t
+        useful_w = sum(2 * 3 * k * c * c for k in ks) * w1.element_size()
+        bnd, by = bound_ms(flops, nbytes(x, b1, b2) + useful_w + b * t * c * 4,
+                           H100_BF16_FLOPS if dt else H100_F32_FLOPS)
+        row = dict(dtype=dt_name, C=c, B=b, T=t, max_abs_err=err, tolerance=tol,
+                   out_scale=scale, ms=ms, plain_ms=plain_ms, bound_ms=bnd, bound_by=by)
+        print("mrf_stage", json.dumps(row), flush=True)
+        if not err <= tol:
+            raise AssertionError(f"mrf_stage {dt_name} C={c} T={t}: max|err| {err} > {tol}")
+        rows.append(row)
+    return rows
+
+
+# --------------------------------------------------------------------- phase 4
+FRAMES_PER_PHONE = 8
+
+
+def build_synth(torch, seed: int = 0):
+    import numpy as np
+    import torch.nn as nn
+
+    from diffsinger_tpu_torch.config.hparams import set_hparams
+    from diffsinger_tpu_torch.inference.serve import FusedSynthesizer
+    from diffsinger_tpu_torch.inference.vocoder import HifiGAN
+    from diffsinger_tpu_torch.training.tasks import DiffSingerTask
+
+    hp = set_hparams(str(ROOT / "configs" / "lj" / "ds_beta6.yaml"))
+    # bench.py's serving workload: DiffSpeech LJSpeech at its published width
+    # (its use_pallas_diffnet switch has no counterpart: the port's stack
+    # always runs through the kernel wrapper)
+    hp.update(hidden_size=256, enc_layers=4, dec_layers=4, residual_layers=20,
+              residual_channels=256, timesteps=100, K_step=71, max_beta=0.06,
+              schedule_type="linear", pitch_type="frame", compute_dtype="bfloat16",
+              seed=seed)
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(seed)
+        task = DiffSingerTask(hp, vocab_size=80, device="cpu")
+        voc = HifiGAN(hp, device="cpu")
+        with torch.no_grad():
+            # seeded random weights; the DiffNet output projection is zero at
+            # init and the HiFiGAN convs 0.01-scaled, so give both torch's
+            # default scale to make every layer move the waveform
+            nn.init.normal_(task.denoise_fn.output_projection.weight, 0.0, 0.05)
+            for m in voc.model.modules():
+                if isinstance(m, (nn.Conv1d, nn.ConvTranspose1d)):
+                    m.reset_parameters()
+            # known durations: every phone lasts FRAMES_PER_PHONE frames
+            lin = task.fs2.dur_predictor.linear
+            lin.weight.zero_()
+            lin.bias.fill_(float(np.log(FRAMES_PER_PHONE + 1.0)))
+    syn = FusedSynthesizer(hp, task, voc)  # default device: the card
+    return hp, syn
+
+
+def phase_serve(torch, ds, mrf, card: str):
+    import numpy as np
+
+    hp, syn = build_synth(torch)
+    rng = np.random.RandomState(0)
+
+    def request(n_phones, t_mel):
+        return {"txt_tokens": rng.randint(3, 80, size=(1, n_phones)).astype(np.int64)}, t_mel
+
+    big = [request(128, 1024) for _ in range(8)]                 # 8 x 1024 frames
+    small = [request(n, 480) for n in (40, 52, 60)]              # bucket 512
+    single = request(30, 240)                                    # bucket 256
+    t_w = time.perf_counter()
+    syn.warmup([1024, 512, 256], batch_sizes=(8, 4, 1))
+    torch.cuda.synchronize()
+    print(f"serving warm-up: {time.perf_counter() - t_w:.1f} s", flush=True)
+
+    ds.diffnet_stack.launches = 0
+    mrf.mrf_stage.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    wav_big = syn.synthesize_many(big)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    wav_small = syn.synthesize_many(small)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    wav_single = syn(*single)
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    launches = {"diffnet_stack": ds.diffnet_stack.launches,
+                "mrf_stage": mrf.mrf_stage.launches}
+
+    k_step = int(hp["K_step"])
+    n_batches = len(syn.plan(big)) + len(syn.plan(small)) + 1
+    expect = {"diffnet_stack": k_step * n_batches, "mrf_stage": 3 * n_batches}
+    if launches != expect:
+        raise AssertionError(f"kernel launches on the serving path {launches}, "
+                             f"expected {expect}")
+    hop = syn.hop
+    for (batch, _), wav in zip(big + small + [single], wav_big + wav_small + [wav_single]):
+        n_frames = batch["txt_tokens"].shape[1] * FRAMES_PER_PHONE
+        if wav.shape != (n_frames * hop,) or not np.isfinite(wav).all():
+            raise AssertionError(f"bad waveform {wav.shape} for {n_frames} frames")
+
+    # the 8 x 1024 batch again, kernels vs plain twins, same fixed noise
+    noise = torch.randn((k_step + 1, 8, 1024, 80), device="cuda",
+                        generator=torch.Generator(device="cuda").manual_seed(5))
+    wav_k = syn.synthesize_many(big, noises=[noise])
+    with mock.patch.object(ds, "diffnet_stack", ds.diffnet_stack_plain), \
+            mock.patch.object(mrf, "mrf_stage", mrf.mrf_stage_plain):
+        wav_p = syn.synthesize_many(big, noises=[noise])
+    a, b = np.concatenate(wav_k), np.concatenate(wav_p)
+    if not (np.isfinite(a).all() and np.isfinite(b).all()):
+        raise AssertionError("non-finite waveform in the kernel/plain comparison")
+    diff = float(np.abs(a - b).max())
+    corr = float(np.corrcoef(a, b)[0, 1])
+    # both paths round to bf16 at the same points in the stack and accumulate
+    # in float32, so they differ only by summation order (a value now and then
+    # one bf16 step apart), which the 71 clipped DDPM steps and the vocoder's
+    # branch mean keep small: 1e-4 relative to the waveform's scale. A wrong
+    # cast, transpose or weight layout in the glue moves it by far more.
+    wav_tol = 1e-4 * max(float(np.abs(b).max()), 1.0)
+    frames_big = 8 * 1024
+    frames_small = sum(r[0]["txt_tokens"].shape[1] for r in small) * FRAMES_PER_PHONE
+    out = {
+        "card": card, "requests": len(big) + len(small) + 1, "batches": n_batches,
+        "launches": launches,
+        "latency_s": {"batch_8x1024": t1 - t0, "batch_3_in_512": t2 - t1,
+                      "call_240_frames": t3 - t2},
+        "mel_frames_per_s": {"batch_8x1024": frames_big / (t1 - t0),
+                             "all": (frames_big + frames_small + 240) / (t3 - t0)},
+        "wav_max_abs": float(np.abs(a).max()),
+        "kernel_vs_plain_wav_max_abs_diff": diff,
+        "kernel_vs_plain_wav_tolerance": wav_tol,
+        "kernel_vs_plain_wav_corr": corr,
+    }
+    print("serving", json.dumps(out), flush=True)
+    if not diff <= wav_tol:
+        raise AssertionError(f"serving: kernel and plain waveforms differ by {diff} "
+                             f"> {wav_tol}")
+    return out, syn, big
+
+
+def phase_profile(torch, syn, requests, out_dir: Path):
+    """torch.profiler over one synthesize_many call: device time by kernel
+    (table in build/chip_smoke/serve_profile.txt) and the device's busy share."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 acc_events=True) as prof:
+        t0 = time.perf_counter()
+        syn.synthesize_many(requests)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    ka = prof.key_averages()
+    # device-side rows only (kernels, copies): CPU operator rows repeat the
+    # time of the kernels they launch
+    rows = sorted(((e.key, e.self_device_time_total / 1e3, e.count) for e in ka
+                   if e.device_type.name == "CUDA" and e.self_device_time_total > 0),
+                  key=lambda r: -r[1])
+    busy_ms = sum(r[1] for r in rows)
+    (out_dir / "serve_profile.txt").write_text(
+        ka.table(sort_by="self_device_time_total", row_limit=40))
+    summary = {"wall_ms": wall * 1e3, "device_busy_ms": busy_ms,
+               "device_busy_share": busy_ms / (wall * 1e3),
+               "top": [{"name": k[:80], "ms": ms, "calls": n} for k, ms, n in rows[:12]]}
+    print("profile", json.dumps(summary), flush=True)
+    return summary
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this script runs on the GPU only",
+              file=sys.stderr)
+        return 2
+    if not (ROOT / "diffsinger_tpu_torch" / "csrc").is_dir():
+        print("chip_smoke: diffsinger_tpu_torch/ not found beside this script",
+              file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    from diffsinger_tpu_torch.ops import _build
+    from diffsinger_tpu_torch.ops import diffnet_stack as ds
+    from diffsinger_tpu_torch.ops import hifigan_mrf as mrf
+
+    card = card_line()
+    print("card:", card, "| torch", torch.__version__, "cuda", torch.version.cuda,
+          flush=True)
+    t0 = time.perf_counter()
+    built = _build.build()
+    build_s = time.perf_counter() - t0
+    print(f"build: {build_s:.1f} s for {[n for n, _, _ in built]}", flush=True)
+    for name, secs, log in built:
+        for line in log.splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"  {name}: {line.strip()}")
+
+    stack_rows = phase_stack(torch, ds)
+    mrf_rows = phase_mrf(torch, mrf)
+    serving, syn, big = phase_serve(torch, ds, mrf, card)
+    out_dir = ROOT / "build" / "chip_smoke"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    profile = phase_profile(torch, syn, big, out_dir)
+
+    main_stack = stack_rows[0]                        # bf16, cycle 1: serving config
+    main_mrf = [r for r in mrf_rows if r["dtype"] == "float32" and r["B"] == 8]
+    kernels = [
+        {"name": "diffnet_stack", "route": "cuda",
+         "source": "diffsinger_tpu_torch/csrc/diffnet_stack.cu",
+         "replaces": "diffsinger_tpu/ops/diffnet_stack.py:311",
+         "launches": serving["launches"]["diffnet_stack"],
+         "max_abs_err": main_stack["max_abs_err"], "tolerance": main_stack["tolerance"],
+         "ms": main_stack["ms"], "plain_ms": main_stack["plain_ms"],
+         "bound_ms": main_stack["bound_ms"], "bound_by": main_stack["bound_by"],
+         "library_ms": None, "configs": stack_rows},
+        {"name": "mrf_stage", "route": "cuda",
+         "source": "diffsinger_tpu_torch/csrc/mrf_stage.cu",
+         "replaces": "diffsinger_tpu/ops/hifigan_mrf.py:197",
+         "also_replaces": "diffsinger_tpu/ops/hifigan_packed_mrf.py:231",
+         "launches": serving["launches"]["mrf_stage"],
+         "max_abs_err": max(r["max_abs_err"] for r in main_mrf),
+         "tolerance": min(r["tolerance"] for r in main_mrf),
+         "ms": sum(r["ms"] for r in main_mrf),
+         "plain_ms": sum(r["plain_ms"] for r in main_mrf),
+         "bound_ms": sum(r["bound_ms"] for r in main_mrf),
+         "bound_by": main_mrf[0]["bound_by"],
+         "library_ms": None, "configs": mrf_rows},
+    ]
+    with open(out_dir / "chip_smoke.json", "w") as f:
+        json.dump({"card": card, "build_s": build_s, "kernels": kernels,
+                   "serving": serving, "profile": profile}, f, indent=1)
+    print(card)
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                             "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

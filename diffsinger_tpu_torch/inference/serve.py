@@ -1,0 +1,185 @@
+"""Serving path: text -> mel -> waveform on the card (counterpart of
+diffsinger_tpu/inference/serve.py:FusedSynthesizer).
+
+One call runs the FS2 conditioner, the K-step reverse diffusion over the
+DiffNet kernel and the HiFiGAN vocoder over the MRF kernel, with the mel kept
+on the device. Shapes are bucketed as in the JAX synthesizer: text to
+``txt_pad_multiple`` (16), mel frames to ``mel_pad_multiple`` (128), and
+requests of one mel bucket are stacked into power-of-two batches of at most
+``max_serve_batch`` (16); pad rows repeat the first request and are dropped.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, List, Optional, Sequence
+
+import numpy as np
+import torch
+
+from diffsinger_tpu_torch.utils.device import resolve_device
+
+
+def _round_up(n: int, mult: int) -> int:
+    return n if mult <= 1 else -(-n // mult) * mult
+
+
+def _as_noise(noise) -> torch.Tensor:
+    return noise if isinstance(noise, torch.Tensor) else torch.as_tensor(np.asarray(noise))
+
+
+class FusedSynthesizer:
+    """Utterance synthesis for serving.
+
+    hp: hparams (``txt_pad_multiple``, ``mel_pad_multiple``, ``max_serve_batch``,
+    ``serve_wav_int16``, ``seed``); task: a ``DiffSingerTask``; vocoder: a
+    ``HifiGAN`` wrapper. Both are moved to ``device`` (default CUDA; raises
+    when no CUDA device is present)."""
+
+    # per-token keys padded to the text bucket; per-frame keys to the mel bucket
+    _TOKEN_KEYS = ("txt_tokens",)
+    _MEL_KEYS = ("mel2ph", "f0", "uv")
+
+    def __init__(self, hp: Dict[str, Any], task, vocoder, use_gt_dur: bool = False,
+                 use_gt_f0: bool = False, device="cuda"):
+        self.device = resolve_device(device)
+        self.hp = hp
+        self.task = task
+        self.vocoder = vocoder
+        if task.device != self.device:
+            task.to(self.device)
+            task.device = self.device
+        if vocoder.device != self.device:
+            vocoder.to(self.device)
+        self.use_gt_dur = use_gt_dur
+        self.use_gt_f0 = use_gt_f0
+        self.txt_mult = int(hp.get("txt_pad_multiple", 16))
+        self.mel_mult = int(hp.get("mel_pad_multiple", 128))
+        self.max_b = int(hp.get("max_serve_batch", 16))
+        self.wav_int16 = bool(hp.get("serve_wav_int16", False))
+        self.hop = vocoder.cfg.total_upsample
+
+    # ------------------------------------------------------------------ run
+    @torch.no_grad()
+    def _run(self, batch: Dict[str, Any], t_mel: int, noise=None, generator=None):
+        out = self.task.inference(batch, t_mel=t_mel, use_gt_dur=self.use_gt_dur,
+                                  use_gt_f0=self.use_gt_f0, noise=noise,
+                                  generator=generator)
+        mel = out["mel_out"]
+        # the sampler zero-masks mel2ph==0 frames, and 0 in the log10-mel
+        # domain is loud: set bucket padding to the batch's silence floor
+        # (one minimum over the whole padded batch) before vocoding
+        pad_mask = (out["mel2ph"] > 0)[..., None]
+        mel = torch.where(pad_mask, mel, mel.min())
+        wav = self.vocoder.apply(mel)
+        if self.wav_int16:
+            wav = (torch.clamp(wav, -1.0, 1.0) * 32767.0).to(torch.int16)
+        return wav.cpu().numpy(), out["mel2ph"].cpu().numpy()
+
+    def _generator(self, seed: Optional[int]) -> torch.Generator:
+        gen = torch.Generator(device=self.device)
+        gen.manual_seed(int(self.hp.get("seed", 1234) if seed is None else seed))
+        return gen
+
+    # --------------------------------------------------------- micro-batch
+    def _bucket_b(self, n: int) -> int:
+        b = 1
+        while b < n:
+            b *= 2
+        return min(b, self.max_b)
+
+    def _stack_group(self, items, t_txt_b: int, t_mel_b: int) -> Dict[str, np.ndarray]:
+        """Stack (idx, batch) single-utterance dicts into one padded batch."""
+        b_pad = self._bucket_b(len(items))
+        stacked: Dict[str, np.ndarray] = {}
+        for keys, pad_to in ((self._TOKEN_KEYS, t_txt_b), (self._MEL_KEYS, t_mel_b)):
+            for k in keys:
+                if not hasattr(items[0][1].get(k), "shape"):
+                    continue
+                rows = []
+                for _, b in items:
+                    a = np.asarray(b[k])
+                    if a.ndim == 2 and a.shape[1] < pad_to:
+                        a = np.pad(a, ((0, 0), (0, pad_to - a.shape[1])))
+                    rows.append(a)
+                a = np.concatenate(rows, axis=0)
+                if a.shape[0] < b_pad:  # pad batch rows (discarded after)
+                    a = np.concatenate([a] + [a[:1]] * (b_pad - a.shape[0]), axis=0)
+                stacked[k] = a
+        if self.use_gt_dur and "mel2ph" not in stacked:
+            raise ValueError("FusedSynthesizer(use_gt_dur=True) requires "
+                             "'mel2ph' in every request batch")
+        if self.use_gt_f0 and not {"f0", "uv"} <= stacked.keys():
+            raise ValueError("FusedSynthesizer(use_gt_f0=True) requires "
+                             "'f0' and 'uv' in every request batch")
+        return stacked
+
+    def plan(self, requests) -> List[tuple]:
+        """The device batches ``synthesize_many`` runs, in order:
+        (t_mel bucket, [(request index, batch), ...], padded batch size)."""
+        groups: Dict[int, list] = {}
+        for i, (batch, t_mel) in enumerate(requests):
+            groups.setdefault(_round_up(t_mel, self.mel_mult), []).append((i, batch))
+        out = []
+        for t_mel_b, group in sorted(groups.items()):
+            for s in range(0, len(group), self.max_b):
+                items = group[s:s + self.max_b]
+                out.append((t_mel_b, items, self._bucket_b(len(items))))
+        return out
+
+    def synthesize_many(self, requests, noises: Optional[Sequence] = None,
+                        seed: Optional[int] = None) -> List[np.ndarray]:
+        """``requests``: (batch, t_mel) pairs, each batch a single-utterance
+        dict. Requests are grouped by mel bucket, chunked, padded to a common
+        text bucket and a power-of-two batch, and each chunk runs as one
+        device batch. ``noises`` optionally fixes the sampler noise, one
+        [K+1, B_pad, T_bucket, M] array per batch of :meth:`plan`; otherwise a
+        generator seeded from ``seed`` (default ``hp['seed']``) draws it.
+        Returns the waveforms, trimmed to their frames * hop, in input order."""
+        plan = self.plan(requests)
+        if noises is not None and len(noises) != len(plan):
+            raise ValueError(f"need one noise array per batch ({len(plan)})")
+        gen = self._generator(seed) if noises is None else None
+        wavs: Dict[int, np.ndarray] = {}
+        for g, (t_mel_b, items, _) in enumerate(plan):
+            t_txt_b = _round_up(max(int(b["txt_tokens"].shape[1]) for _, b in items),
+                                self.txt_mult)
+            stacked = self._stack_group(items, t_txt_b, t_mel_b)
+            noise = None if noises is None else _as_noise(noises[g])
+            wav, mel2ph = self._run(stacked, t_mel_b, noise=noise, generator=gen)
+            for j, (i, _) in enumerate(items):
+                n = int((mel2ph[j] > 0).sum()) or t_mel_b
+                wavs[i] = wav[j][: n * self.hop]
+        return [wavs[i] for i in range(len(requests))]
+
+    def warmup(self, t_mel_buckets, batch_sizes=(1,), t_txt: Optional[int] = None):
+        """Run each (mel bucket, batch size) once on dummy inputs, so the first
+        real request does not pay the kernel build and library set-up."""
+        t_txt = _round_up(t_txt or self.txt_mult, self.txt_mult)
+        gen = self._generator(0)
+        for t_mel in t_mel_buckets:
+            t_mel_b = _round_up(t_mel, self.mel_mult)
+            for b in batch_sizes:
+                batch = {"txt_tokens": np.ones((b, t_txt), np.int64)}
+                if self.use_gt_dur:
+                    batch["mel2ph"] = np.ones((b, t_mel_b), np.int64)
+                if self.use_gt_f0:
+                    batch["f0"] = np.full((b, t_mel_b), 200.0, np.float32)
+                    batch["uv"] = np.zeros((b, t_mel_b), np.float32)
+                self._run(batch, t_mel_b, generator=gen)
+
+    def __call__(self, batch: Dict[str, Any], t_mel: int, noise=None,
+                 seed: Optional[int] = None) -> np.ndarray:
+        """One request as given (batch rows are not padded); returns the
+        trimmed waveform of its first item."""
+        t_txt = int(batch["txt_tokens"].shape[1])
+        t_txt_pad = _round_up(t_txt, self.txt_mult)
+        if t_txt_pad != t_txt:
+            batch = dict(batch)
+            batch["txt_tokens"] = np.pad(np.asarray(batch["txt_tokens"]),
+                                         ((0, 0), (0, t_txt_pad - t_txt)))
+        t_mel_b = _round_up(t_mel, self.mel_mult)
+        gen = self._generator(seed) if noise is None else None
+        noise = None if noise is None else _as_noise(noise)
+        wav, mel2ph = self._run(batch, t_mel_b, noise=noise, generator=gen)
+        n = int((mel2ph[0] > 0).sum()) or t_mel_b
+        return wav[0][: n * self.hop]

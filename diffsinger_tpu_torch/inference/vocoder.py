@@ -1,0 +1,57 @@
+"""HiFiGAN vocoder wrapper (counterpart of diffsinger_tpu/inference/vocoder.py,
+``HifiGAN`` only).
+
+``apply`` runs the serving forward, ``ops/hifigan_mrf.py:hifigan_mrf_apply``:
+the MRF scales of at most 128 channels go through the hand-written kernel.
+Their weights are packed into the kernel layout at the first ``apply`` and
+kept; ``load_state_dict`` and ``to`` repack. Checkpoint loading, Griffin-Lim
+and the other vocoders wait for later slices; weights come from the caller
+(seeded init or ``convert/from_jax.py``).
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, List, Sequence
+
+import numpy as np
+import torch
+
+from diffsinger_tpu_torch.models.hifigan import HifiGanConfig, HifiGanGenerator
+from diffsinger_tpu_torch.ops.hifigan_mrf import hifigan_mrf_apply, pack_mrf_scales
+from diffsinger_tpu_torch.utils.device import resolve_device
+
+
+class HifiGAN:
+    def __init__(self, hp: Dict[str, Any], device="cuda"):
+        self.device = resolve_device(device)
+        self.cfg = HifiGanConfig.from_hparams(hp)
+        self.model = HifiGanGenerator(self.cfg).to(self.device).eval()
+        self._packed = None
+
+    def load_state_dict(self, state_dict, strict: bool = True):
+        out = self.model.load_state_dict(state_dict, strict=strict)
+        self._packed = None
+        return out
+
+    def to(self, device) -> "HifiGAN":
+        self.device = torch.device(device)
+        self.model.to(self.device)
+        self._packed = None
+        return self
+
+    @torch.no_grad()
+    def apply(self, mel: torch.Tensor) -> torch.Tensor:
+        """mel [B, T, M] (log10 domain) -> wav [B, T * hop]."""
+        if self._packed is None:
+            self._packed = pack_mrf_scales(self.model)
+        return hifigan_mrf_apply(self.model, mel.to(self.device, torch.float32),
+                                 self._packed)
+
+    def spec2wav_batch(self, mels, lengths: Sequence[int]) -> List[np.ndarray]:
+        """Batched vocoding of padded mels [B, T, M]; returns the waveforms
+        trimmed to ``lengths[i] * hop`` samples."""
+        if not isinstance(mels, torch.Tensor):
+            mels = torch.as_tensor(np.asarray(mels))
+        wav = self.apply(mels).cpu().numpy()
+        hop = self.cfg.total_upsample
+        return [wav[i, : int(n) * hop] for i, n in enumerate(lengths)]

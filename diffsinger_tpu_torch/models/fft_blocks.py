@@ -1,0 +1,78 @@
+"""FFT (feed-forward transformer) encoder/decoder stacks (counterpart of
+diffsinger_tpu/models/fft_blocks.py).
+
+Padding positions are hard-zeroed after every layer and after the final norm;
+the encoder embedding is sqrt(d) * token_embed + sinusoidal positions.
+Upstream key layout: ``encoder.embed_tokens``, ``encoder.layers.<i>.op.*``,
+``encoder.layer_norm``, ``decoder.layers.<i>.op.*``, ``decoder.layer_norm``,
+``decoder.pos_embed_alpha``.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn as nn
+
+from diffsinger_tpu_torch.models.common import (LN_EPS, Embedding,
+                                                SinusoidalPositionalEmbedding,
+                                                TransformerEncoderLayer)
+
+
+class FFTBlocks(nn.Module):
+    def __init__(self, hidden_size: int, num_layers: int, ffn_kernel_size: int = 9,
+                 num_heads: int = 2, use_pos_embed: bool = True,
+                 ffn_act: str = "gelu"):
+        super().__init__()
+        self.use_pos_embed = use_pos_embed
+        if use_pos_embed:
+            self.pos_embed_alpha = nn.Parameter(torch.ones(1))
+            self.embed_positions = SinusoidalPositionalEmbedding(hidden_size)
+        self.layers = nn.ModuleList([
+            TransformerEncoderLayer(hidden_size, num_heads, ffn_kernel_size, ffn_act)
+            for _ in range(num_layers)])
+        self.layer_norm = nn.LayerNorm(hidden_size, eps=LN_EPS)
+
+    def forward(self, x: torch.Tensor,
+                padding_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """x [B, T, C]; padding_mask [B, T] True where PAD (all-zero feature
+        rows when omitted)."""
+        if padding_mask is None:
+            padding_mask = x.abs().sum(-1) == 0
+        nonpad = (~padding_mask).to(x.dtype)[:, :, None]
+        if self.use_pos_embed:
+            x = x + self.pos_embed_alpha * self.embed_positions(
+                (~padding_mask).to(torch.long))
+        x = x * nonpad
+        for layer in self.layers:
+            x = layer(x, padding_mask) * nonpad
+        return self.layer_norm(x) * nonpad
+
+
+class FastSpeechEncoder(FFTBlocks):
+    """Phoneme encoder: scaled token embedding + positions -> FFT blocks."""
+
+    def __init__(self, vocab_size: int, hidden_size: int, num_layers: int,
+                 ffn_kernel_size: int = 9, num_heads: int = 2,
+                 ffn_act: str = "gelu"):
+        super().__init__(hidden_size, num_layers, ffn_kernel_size, num_heads,
+                         use_pos_embed=False, ffn_act=ffn_act)
+        self.hidden_size = hidden_size
+        self.embed_tokens = Embedding(vocab_size, hidden_size, padding_idx=0)
+        self.embed_positions = SinusoidalPositionalEmbedding(hidden_size)
+
+    def forward(self, txt_tokens: torch.Tensor) -> torch.Tensor:
+        padding_mask = txt_tokens == 0
+        x = (self.hidden_size ** 0.5) * self.embed_tokens(txt_tokens)
+        x = x + self.embed_positions(txt_tokens)
+        return super().forward(x, padding_mask)
+
+
+class FastSpeechDecoder(FFTBlocks):
+    """Mel-frame FFT decoder."""
+
+    def __init__(self, hidden_size: int, num_layers: int, ffn_kernel_size: int = 9,
+                 num_heads: int = 2, ffn_act: str = "gelu"):
+        super().__init__(hidden_size, num_layers, ffn_kernel_size, num_heads,
+                         use_pos_embed=True, ffn_act=ffn_act)

@@ -1,0 +1,135 @@
+"""FastSpeech2 acoustic model, inference mode (counterpart of
+diffsinger_tpu/models/fs2.py).
+
+This slice covers ``pitch_type: frame`` with ``pitch_norm: log``, no energy,
+speaker or MIDI conditioning; the other variants raise. Inference uses a
+static ``t_mel`` bucket for length regulation, as the JAX model does.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, Optional
+
+import torch
+import torch.nn as nn
+
+from diffsinger_tpu_torch.models.common import Embedding, xavier_linear
+from diffsinger_tpu_torch.models.fft_blocks import FastSpeechDecoder, FastSpeechEncoder
+from diffsinger_tpu_torch.models.predictors import (DurationPredictor, PitchPredictor,
+                                                    expand_by_mel2ph, length_regulator)
+from diffsinger_tpu_torch.utils.pitch import denorm_f0, f0_to_coarse
+
+
+@dataclasses.dataclass(frozen=True)
+class FS2Config:
+    vocab_size: int
+    hidden_size: int = 256
+    enc_layers: int = 4
+    dec_layers: int = 4
+    enc_ffn_kernel_size: int = 9
+    dec_ffn_kernel_size: int = 9
+    num_heads: int = 2
+    ffn_act: str = "gelu"
+    out_dims: int = 80
+    predictor_hidden: int = -1
+    predictor_layers: int = 2
+    predictor_kernel: int = 5
+    dur_predictor_layers: int = 2
+    dur_predictor_kernel: int = 3
+    use_pitch_embed: bool = True
+    pitch_type: str = "frame"
+    use_uv: bool = True
+    pitch_norm: str = "log"
+    f0_mean: float = 0.0
+    f0_std: float = 1.0
+
+    @classmethod
+    def from_hparams(cls, hp: Dict[str, Any], vocab_size: int) -> "FS2Config":
+        unsupported = [k for k in ("use_energy_embed", "use_spk_id", "use_spk_embed",
+                                   "use_midi", "rel_pos") if hp.get(k)]
+        if hp.get("use_pitch_embed", True) and hp.get("pitch_type", "frame") != "frame":
+            unsupported.append(f"pitch_type={hp.get('pitch_type')}")
+        if hp.get("dur_loss", "mse") not in ("mse", "huber"):
+            unsupported.append(f"dur_loss={hp.get('dur_loss')}")
+        if hp.get("ffn_padding", "SAME") != "SAME":
+            unsupported.append(f"ffn_padding={hp.get('ffn_padding')}")
+        if str(hp.get("fs2_compute_dtype", "float32")) != "float32":
+            unsupported.append("fs2_compute_dtype")
+        if unsupported:
+            raise NotImplementedError(
+                f"the torch port does not cover {unsupported} yet")
+        fields = {f.name for f in dataclasses.fields(cls)}
+        kw = {k: v for k, v in hp.items() if k in fields}
+        kw["vocab_size"] = vocab_size
+        kw["out_dims"] = int(hp.get("audio_num_mel_bins", 80))
+        if hp.get("f0_mean") is not None:
+            kw["f0_mean"] = float(hp["f0_mean"])
+        if hp.get("f0_std") is not None:
+            kw["f0_std"] = float(hp["f0_std"])
+        return cls(**kw)
+
+    @property
+    def pred_hidden(self) -> int:
+        return self.predictor_hidden if self.predictor_hidden > 0 else self.hidden_size
+
+
+class FastSpeech2(nn.Module):
+    def __init__(self, cfg: FS2Config):
+        super().__init__()
+        c = self.cfg = cfg
+        self.encoder = FastSpeechEncoder(c.vocab_size, c.hidden_size, c.enc_layers,
+                                         c.enc_ffn_kernel_size, c.num_heads, c.ffn_act)
+        self.decoder = FastSpeechDecoder(c.hidden_size, c.dec_layers,
+                                         c.dec_ffn_kernel_size, c.num_heads, c.ffn_act)
+        self.mel_out = xavier_linear(c.hidden_size, c.out_dims)
+        self.dur_predictor = DurationPredictor(c.hidden_size, c.pred_hidden,
+                                               c.dur_predictor_layers,
+                                               c.dur_predictor_kernel)
+        if c.use_pitch_embed:
+            self.pitch_embed = Embedding(300, c.hidden_size, padding_idx=0)
+            self.pitch_predictor = PitchPredictor(c.hidden_size, c.pred_hidden,
+                                                  c.predictor_layers, odim=2,
+                                                  kernel_size=c.predictor_kernel)
+
+    def add_pitch(self, pitch_inp: torch.Tensor, f0, uv, mel2ph: torch.Tensor,
+                  ret: Dict[str, Any]) -> torch.Tensor:
+        """Frame-level pitch embedding from predicted or given F0."""
+        c = self.cfg
+        ret["pitch_pred"] = pitch_pred = self.pitch_predictor(pitch_inp)
+        if f0 is None:
+            f0 = pitch_pred[:, :, 0]
+        if c.use_uv and uv is None:
+            uv = pitch_pred[:, :, 1] > 0
+        ret["f0_denorm"] = f0_denorm = denorm_f0(
+            f0, uv, pitch_norm=c.pitch_norm, f0_mean=c.f0_mean, f0_std=c.f0_std,
+            use_uv=c.use_uv, pitch_padding=mel2ph == 0)
+        return self.pitch_embed(f0_to_coarse(f0_denorm))
+
+    def forward(self, txt_tokens: torch.Tensor, mel2ph: Optional[torch.Tensor] = None,
+                f0=None, uv=None, t_mel: Optional[int] = None,
+                skip_decoder: bool = False) -> Dict[str, Any]:
+        ret: Dict[str, Any] = {}
+        encoder_out = self.encoder(txt_tokens)
+        src_padding = txt_tokens == 0
+        src_nonpadding = (~src_padding).to(encoder_out.dtype)[:, :, None]
+        log_dur = self.dur_predictor(encoder_out * src_nonpadding, src_padding)
+        ret["dur"] = log_dur
+        if mel2ph is None:
+            if t_mel is None:
+                raise ValueError("inference without mel2ph needs a static t_mel")
+            mel2ph = length_regulator(self.dur_predictor.out2dur(log_dur), t_mel,
+                                      dur_padding=src_padding)
+        ret["mel2ph"] = mel2ph
+
+        decoder_inp = expand_by_mel2ph(encoder_out, mel2ph)
+        tgt_nonpadding = (mel2ph > 0).to(encoder_out.dtype)[:, :, None]
+        if self.cfg.use_pitch_embed:
+            decoder_inp = decoder_inp + self.add_pitch(
+                decoder_inp * tgt_nonpadding, f0, uv, mel2ph, ret)
+        ret["decoder_inp"] = decoder_inp = decoder_inp * tgt_nonpadding
+        if skip_decoder:
+            return ret
+        x = self.decoder(decoder_inp, padding_mask=mel2ph == 0)
+        ret["mel_out"] = self.mel_out(x) * tgt_nonpadding
+        return ret

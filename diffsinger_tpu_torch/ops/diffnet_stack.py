@@ -1,0 +1,197 @@
+"""Fused DiffNet residual stack: CUDA kernel wrapper, plain twin, packing.
+
+Counterpart of diffsinger_tpu/ops/diffnet_stack.py. The kernel
+(``csrc/diffnet_stack.cu``) replaces the Pallas TPU kernel ``diffnet_stack``
+(pallas_call at diffsinger_tpu/ops/diffnet_stack.py:311). Its source note
+states what bounds it on the H100 and how the design answers that.
+
+Layouts: x0 [B, T, C] f32; step_proj [L, B, C] f32; cond_proj [L, B, T, 2C];
+w_dil [L, 3, C, 2C]; b_dil [L, 2C] f32; w_out [L, C, 2C]; b_out [L, 2C] f32.
+Output: the skip sum [B, T, C] f32 (before the 1/sqrt(L) scale).
+
+``compute_dtype=torch.bfloat16`` gives bf16 GEMM inputs (cond, weights, the
+conv input y and the gate g) with f32 accumulation, the same cast points as
+the JAX kernel; ``None`` keeps everything float32.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional, Sequence
+
+import torch
+import torch.nn.functional as F
+
+from diffsinger_tpu_torch.ops._build import check, load_library
+
+SQRT_HALF = 0.5 ** 0.5
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def _shift_t(arr: torch.Tensor, offset: int) -> torch.Tensor:
+    """Shift [B, T, C] along T with zero fill: out[:, t] = arr[:, t + offset]."""
+    if offset == 0:
+        return arr
+    if offset > 0:
+        return F.pad(arr[:, offset:], (0, 0, 0, offset))
+    return F.pad(arr[:, :offset], (0, 0, -offset, 0))
+
+
+def diffnet_stack_plain(x0, step_proj, cond_proj, w_dil, b_dil, w_out, b_out, *,
+                        dilations: Sequence[int],
+                        compute_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """The kernel's math in plain PyTorch (twin of the JAX ``_stack_xla``).
+
+    Values are rounded to ``compute_dtype`` where the kernel rounds them and
+    multiplied in float32, which is exact for bf16 products, so the twin has
+    the kernel's "bf16 inputs, f32 accumulation" numerics on any device."""
+    f32 = torch.float32
+
+    def rnd(a):
+        return a.to(compute_dtype).to(f32) if compute_dtype is not None else a.to(f32)
+
+    x = x0.to(f32)
+    skips = torch.zeros_like(x)
+    for i, d in enumerate(dilations):
+        y = rnd(x + step_proj[i][:, None, :].to(f32))
+        w = rnd(w_dil[i])
+        conv = (_shift_t(y, -d) @ w[0] + y @ w[1] + _shift_t(y, d) @ w[2]
+                + b_dil[i].to(f32) + rnd(cond_proj[i]))
+        gate, filt = conv.chunk(2, dim=-1)
+        g = rnd(torch.sigmoid(gate) * torch.tanh(filt))
+        out = g @ rnd(w_out[i]) + b_out[i].to(f32)
+        residual, skip = out.chunk(2, dim=-1)
+        x = (x + residual) * SQRT_HALF
+        skips = skips + skip
+    return skips
+
+
+def _launch(x0, step_proj, cond_proj, w_dil, b_dil, w_out, b_out, dilations,
+            compute_dtype) -> torch.Tensor:
+    dt = compute_dtype or torch.float32
+    b, t, c = x0.shape
+    num_layers = w_dil.shape[0]
+    if c % 32:
+        raise ValueError(f"diffnet_stack kernel needs C % 32 == 0, got C={c}")
+    if dt not in _DTYPE_CODE:
+        raise ValueError(f"diffnet_stack kernel takes float32 or bfloat16, got {dt}")
+    expect = {"step_proj": (num_layers, b, c), "cond_proj": (num_layers, b, t, 2 * c),
+              "w_dil": (num_layers, 3, c, 2 * c), "b_dil": (num_layers, 2 * c),
+              "w_out": (num_layers, c, 2 * c), "b_out": (num_layers, 2 * c)}
+    args = dict(step_proj=step_proj, cond_proj=cond_proj, w_dil=w_dil, b_dil=b_dil,
+                w_out=w_out, b_out=b_out)
+    for k, shape in expect.items():
+        if tuple(args[k].shape) != shape:
+            raise ValueError(f"{k}: expected {shape}, got {tuple(args[k].shape)}")
+        if args[k].device != x0.device:
+            raise ValueError(f"{k} is on {args[k].device}, x0 on {x0.device}")
+    x = x0.to(torch.float32).contiguous().clone()
+    skip = torch.zeros_like(x)
+    g = torch.empty((b * t, c), dtype=dt, device=x.device)
+    step = step_proj.to(torch.float32).contiguous()
+    cond = cond_proj.to(dt).contiguous()
+    wd, wo = w_dil.to(dt).contiguous(), w_out.to(dt).contiguous()
+    bd, bo = b_dil.to(torch.float32).contiguous(), b_out.to(torch.float32).contiguous()
+    dil = (ctypes.c_int * num_layers)(*[int(d) for d in dilations])
+    lib = load_library("diffnet_stack")
+    fn = lib.diffnet_stack_run
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 9
+                   + [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int), ctypes.c_void_p])
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    err = fn(_DTYPE_CODE[dt], x.data_ptr(), skip.data_ptr(), g.data_ptr(),
+             step.data_ptr(), cond.data_ptr(), wd.data_ptr(), bd.data_ptr(),
+             wo.data_ptr(), bo.data_ptr(), b, t, c, num_layers, dil, stream)
+    check(err, "diffnet_stack")
+    return skip
+
+
+def diffnet_stack(x0, step_proj, cond_proj, w_dil, b_dil, w_out, b_out, *,
+                  dilations: Sequence[int],
+                  compute_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """Run the whole residual stack; returns the skip sum [B, T, C] f32.
+
+    CUDA tensors launch the hand-written kernel (and count the launch in
+    ``diffnet_stack.launches``); CPU tensors take the plain twin."""
+    if len(dilations) != w_dil.shape[0]:
+        raise ValueError("one dilation per layer is required")
+    if x0.device.type == "cpu":
+        return diffnet_stack_plain(x0, step_proj, cond_proj, w_dil, b_dil, w_out,
+                                   b_out, dilations=dilations,
+                                   compute_dtype=compute_dtype)
+    if x0.device.type != "cuda":
+        raise ValueError(f"diffnet_stack runs on cuda or cpu, not {x0.device}")
+    out = _launch(x0, step_proj, cond_proj, w_dil, b_dil, w_out, b_out, dilations,
+                  compute_dtype)
+    diffnet_stack.launches += 1
+    return out
+
+
+diffnet_stack.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# packing around the kernel (hoisted out of the reverse loop by the task)
+# ---------------------------------------------------------------------------
+def precompute_cond_packed(denoiser, cond: torch.Tensor,
+                           compute_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """All L conditioner projections as one matmul: cond [B, T, H] ->
+    [L, B, T, 2C]. The cast comes before the transpose, as in JAX."""
+    layers = denoiser.residual_layers
+    ks = torch.cat([ly.conditioner_projection.weight[..., 0].t() for ly in layers],
+                   dim=-1)                                      # [H, L*2C]
+    bs = torch.cat([ly.conditioner_projection.bias for ly in layers])
+    b, t, _ = cond.shape
+    out = cond @ ks + bs
+    if compute_dtype is not None:
+        out = out.to(compute_dtype)
+    return out.reshape(b, t, len(layers), -1).permute(2, 0, 1, 3).contiguous()
+
+
+def pack_diffnet_params(denoiser):
+    """Per-layer weights in the kernel's layout: (w_dil [L,3,C,2C], b_dil,
+    w_out [L,C,2C], b_out). Torch conv weights are [out, in, k]."""
+    layers = denoiser.residual_layers
+    w_dil = torch.stack([ly.dilated_conv.weight.permute(2, 1, 0) for ly in layers])
+    b_dil = torch.stack([ly.dilated_conv.bias for ly in layers])
+    w_out = torch.stack([ly.output_projection.weight[..., 0].t() for ly in layers])
+    b_out = torch.stack([ly.output_projection.bias for ly in layers])
+    return (w_dil.contiguous(), b_dil.contiguous(), w_out.contiguous(),
+            b_out.contiguous())
+
+
+def pack_sampling_ctx(denoiser, cond_proj: torch.Tensor,
+                      compute_dtype: Optional[torch.dtype] = None) -> dict:
+    """Pack weights (and the hoisted cond projections) once per sampler call,
+    cast to ``compute_dtype`` when given."""
+    w_dil, b_dil, w_out, b_out = pack_diffnet_params(denoiser)
+    if compute_dtype is not None:
+        w_dil, w_out = w_dil.to(compute_dtype), w_out.to(compute_dtype)
+        cond_proj = cond_proj.to(compute_dtype)
+    layers = denoiser.residual_layers
+    w_step = torch.cat([ly.diffusion_projection.weight.t() for ly in layers], dim=-1)
+    b_step = torch.cat([ly.diffusion_projection.bias for ly in layers])
+    return {"cond_proj": cond_proj, "w_dil": w_dil, "b_dil": b_dil, "w_out": w_out,
+            "b_out": b_out, "w_step": w_step, "b_step": b_step}
+
+
+def diffnet_forward(denoiser, spec: torch.Tensor, t: torch.Tensor, cond_proj, *,
+                    compute_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """DiffNet forward with the fused stack (counterpart of
+    ``diffnet_forward_pallas``). ``cond_proj`` is the raw [L, B, T, 2C]
+    projections or a :func:`pack_sampling_ctx` dict. The input, step, skip and
+    output projections run in float32 outside the kernel."""
+    from diffsinger_tpu_torch.models.diffnet import pointwise, timestep_embedding
+
+    num_layers = denoiser.num_layers
+    x0 = torch.relu(pointwise(spec, denoiser.input_projection))
+    step = denoiser.mlp(timestep_embedding(t, denoiser.residual_channels))
+    ctx = cond_proj if isinstance(cond_proj, dict) else pack_sampling_ctx(denoiser,
+                                                                          cond_proj)
+    step_proj = (step @ ctx["w_step"] + ctx["b_step"]).reshape(
+        step.shape[0], num_layers, -1).transpose(0, 1)
+    skips = diffnet_stack(x0, step_proj, ctx["cond_proj"], ctx["w_dil"], ctx["b_dil"],
+                          ctx["w_out"], ctx["b_out"], dilations=denoiser.dilations,
+                          compute_dtype=compute_dtype)
+    x = torch.relu(pointwise(skips * (num_layers ** -0.5), denoiser.skip_projection))
+    return pointwise(x, denoiser.output_projection)

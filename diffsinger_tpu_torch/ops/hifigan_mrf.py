@@ -1,0 +1,175 @@
+"""Fused HiFiGAN MRF scale: CUDA kernel wrapper, plain twin, packing, and the
+generator forward that uses it.
+
+Counterpart of diffsinger_tpu/ops/hifigan_mrf.py. The kernel
+(``csrc/mrf_stage.cu``) replaces the Pallas TPU kernels ``fused_mrf``
+(diffsinger_tpu/ops/hifigan_mrf.py:197) and ``fused_packed_stage``
+(diffsinger_tpu/ops/hifigan_packed_mrf.py:231), which compute the same
+function on two layouts. Its source note states what bounds it on the H100.
+
+One scale: x [B, T, C] -> mean over branches of ResBlock1 chains, each stage
+lrelu -> dilated conv (k, d) -> lrelu -> conv (k, 1) -> + residual, every
+conv zero-padded at the sequence edges. Packed weights w1/w2 are
+[n_branch, n_stage, k_max*C, C] (taps stacked tap-major on the contraction
+axis, zero rows for the shorter kernels); biases b1/b2 [n_branch, n_stage, C].
+``compute_dtype=torch.bfloat16`` rounds the conv inputs, weights and the chain
+state to bf16 at the JAX kernel's cast points; accumulation stays float32.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from diffsinger_tpu_torch.ops._build import check, load_library
+
+LRELU_SLOPE = 0.1
+KERNEL_CHANNELS = (16, 32, 64, 128)
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def _conv_same(x: torch.Tensor, w_packed: torch.Tensor, bias: torch.Tensor,
+               k: int, d: int) -> torch.Tensor:
+    """Zero-padded dilated conv on [B, T, C] from one packed [k_max*C, C] mat."""
+    c = x.shape[-1]
+    w = w_packed[: k * c].reshape(k, c, c).permute(2, 1, 0)   # [out, in, k]
+    pad = (k * d - d) // 2
+    y = F.conv1d(x.transpose(1, 2), w, bias, padding=pad, dilation=d)
+    return y.transpose(1, 2)
+
+
+def mrf_stage_plain(x, w1, b1, w2, b2, *, kernel_sizes: Tuple[int, ...],
+                    dilation_sets: Tuple[Tuple[int, ...], ...],
+                    compute_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """The kernel's math in plain PyTorch: the ResBlock1 chains with the
+    kernel's rounding points. Returns float32 [B, T, C]."""
+    f32 = torch.float32
+
+    def rnd(a):
+        return a.to(compute_dtype).to(f32) if compute_dtype is not None else a.to(f32)
+
+    x0 = rnd(x)
+    acc = torch.zeros_like(x0)
+    for bj, (k, dils) in enumerate(zip(kernel_sizes, dilation_sets)):
+        xc = x0
+        for i, d in enumerate(dils):
+            y = rnd(F.leaky_relu(xc, LRELU_SLOPE))
+            y = _conv_same(y, rnd(w1[bj, i]), b1[bj, i].to(f32), k, d)
+            y = rnd(F.leaky_relu(y, LRELU_SLOPE))
+            y = _conv_same(y, rnd(w2[bj, i]), b2[bj, i].to(f32), k, 1)
+            xc = rnd(xc + y)
+        acc = acc + xc
+    return acc * (1.0 / len(kernel_sizes))
+
+
+def _launch(x, w1, b1, w2, b2, kernel_sizes, dilation_sets, compute_dtype):
+    dt = compute_dtype or torch.float32
+    b, t, c = x.shape
+    nb, ns = len(kernel_sizes), len(dilation_sets[0])
+    k_max = max(kernel_sizes)
+    if c not in KERNEL_CHANNELS:
+        raise ValueError(f"mrf_stage kernel takes C in {KERNEL_CHANNELS}, got {c}")
+    if dt not in _DTYPE_CODE:
+        raise ValueError(f"mrf_stage kernel takes float32 or bfloat16, got {dt}")
+    if any(len(ds) != ns for ds in dilation_sets) or nb > 4 or ns > 4:
+        raise ValueError("mrf_stage kernel takes up to 4 branches of equal depth <= 4")
+    for name, a, shape in (("w1", w1, (nb, ns, k_max * c, c)), ("w2", w2, (nb, ns, k_max * c, c)),
+                           ("b1", b1, (nb, ns, c)), ("b2", b2, (nb, ns, c))):
+        if tuple(a.shape) != shape:
+            raise ValueError(f"{name}: expected {shape}, got {tuple(a.shape)}")
+        if a.device != x.device:
+            raise ValueError(f"{name} is on {a.device}, x on {x.device}")
+    xin = x.to(dt).contiguous()
+    w1c, w2c = w1.to(dt).contiguous(), w2.to(dt).contiguous()
+    b1c, b2c = b1.to(torch.float32).contiguous(), b2.to(torch.float32).contiguous()
+    out = torch.empty((b, t, c), dtype=torch.float32, device=x.device)
+    ks = (ctypes.c_int * nb)(*kernel_sizes)
+    dils = (ctypes.c_int * (nb * ns))(*[int(d) for ds in dilation_sets for d in ds])
+    fn = load_library("mrf_stage").mrf_stage_run
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
+                   + [ctypes.POINTER(ctypes.c_int)] * 2 + [ctypes.c_void_p])
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    err = fn(_DTYPE_CODE[dt], xin.data_ptr(), w1c.data_ptr(), b1c.data_ptr(),
+             w2c.data_ptr(), b2c.data_ptr(), out.data_ptr(), b, t, c, nb, ns, k_max,
+             ks, dils, stream)
+    check(err, "mrf_stage")
+    return out
+
+
+def mrf_stage(x, w1, b1, w2, b2, *, kernel_sizes: Tuple[int, ...],
+              dilation_sets: Tuple[Tuple[int, ...], ...],
+              compute_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """One whole MRF scale. CUDA tensors launch the hand-written kernel (and
+    count the launch in ``mrf_stage.launches``); CPU tensors take the plain
+    twin."""
+    kernel_sizes = tuple(int(k) for k in kernel_sizes)
+    dilation_sets = tuple(tuple(int(d) for d in ds) for ds in dilation_sets)
+    if x.device.type == "cpu":
+        return mrf_stage_plain(x, w1, b1, w2, b2, kernel_sizes=kernel_sizes,
+                               dilation_sets=dilation_sets,
+                               compute_dtype=compute_dtype)
+    if x.device.type != "cuda":
+        raise ValueError(f"mrf_stage runs on cuda or cpu, not {x.device}")
+    out = _launch(x, w1, b1, w2, b2, kernel_sizes, dilation_sets, compute_dtype)
+    mrf_stage.launches += 1
+    return out
+
+
+mrf_stage.launches = 0
+
+
+def pack_mrf_params(generator, stage_idx: int):
+    """Stack one scale's resblock conv weights into the kernel layout:
+    (w1, b1, w2, b2), w* [n_branch, n_stage, k_max*C, C], b* [n_branch,
+    n_stage, C]. Torch conv weights [out, in, k] become tap-major [k*C, C]."""
+    cfg = generator.cfg
+    ks = cfg.resblock_kernel_sizes
+    nb, k_max = len(ks), max(ks)
+
+    def pack_w(conv, k):
+        w = conv.weight.permute(2, 1, 0).reshape(k * conv.weight.shape[1], -1)
+        return F.pad(w, (0, 0, 0, (k_max - k) * w.shape[1]))
+
+    w1b, b1b, w2b, b2b = [], [], [], []
+    for j, k in enumerate(ks):
+        rb = generator.resblocks[stage_idx * nb + j]
+        w1b.append(torch.stack([pack_w(cv, k) for cv in rb.convs1]))
+        w2b.append(torch.stack([pack_w(cv, k) for cv in rb.convs2]))
+        b1b.append(torch.stack([cv.bias for cv in rb.convs1]))
+        b2b.append(torch.stack([cv.bias for cv in rb.convs2]))
+    return (torch.stack(w1b), torch.stack(b1b), torch.stack(w2b), torch.stack(b2b))
+
+
+def pack_mrf_scales(generator) -> list:
+    """``pack_mrf_params`` for every scale the kernel runs (at most 128
+    channels), ``None`` for the wider ones; detached, for reuse across calls."""
+    c0 = generator.cfg.upsample_initial_channel
+    with torch.no_grad():
+        return [pack_mrf_params(generator, i) if c0 // 2 ** (i + 1) <= 128 else None
+                for i in range(len(generator.cfg.upsample_rates))]
+
+
+def hifigan_mrf_apply(generator, mel: torch.Tensor,
+                      packed: Optional[list] = None) -> torch.Tensor:
+    """HiFiGAN forward with the fused MRF kernel on every scale of at most 128
+    channels (counterpart of ``hifigan_mrf_apply``). conv_pre, the upsamples,
+    conv_post and the wider scales run as plain convolutions, as the JAX
+    package leaves them to XLA. ``packed`` is :func:`pack_mrf_scales` of the
+    generator, packed now when not given. mel [B, T, M] -> wav [B, T * hop]."""
+    cfg = generator.cfg
+    ks = cfg.resblock_kernel_sizes
+    ds = tuple(tuple(d) for d in cfg.resblock_dilation_sizes)
+    if packed is None:
+        packed = pack_mrf_scales(generator)
+    x = generator.pre(mel)
+    for i in range(len(cfg.upsample_rates)):
+        x = generator.upsample(x, i)
+        if packed[i] is not None:
+            x = mrf_stage(x, *packed[i], kernel_sizes=ks, dilation_sets=ds)
+        else:
+            x = generator.mrf(x, i)
+    return generator.post(x)

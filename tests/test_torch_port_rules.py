@@ -1,0 +1,124 @@
+"""Rules of the torch port: what it may import, where it runs by default, and
+how its kernel wrappers dispatch."""
+
+import ast
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from diffsinger_tpu_torch.inference.serve import FusedSynthesizer
+from diffsinger_tpu_torch.inference.vocoder import HifiGAN
+from diffsinger_tpu_torch.ops import diffnet_stack as ds
+from diffsinger_tpu_torch.ops import hifigan_mrf as mrf
+from diffsinger_tpu_torch.training.tasks import DiffSingerTask
+
+torch.set_num_threads(1)
+ROOT = Path(__file__).resolve().parents[1]
+FORBIDDEN = ("jax", "flax", "diffsinger_tpu")
+TINY_HP = {"hidden_size": 16, "enc_layers": 1, "dec_layers": 1, "num_heads": 2,
+           "residual_layers": 2, "residual_channels": 16, "timesteps": 4,
+           "K_step": 3, "schedule_type": "linear", "audio_num_mel_bins": 8,
+           "keep_bins": 8, "pitch_type": "frame"}
+TINY_VOC = {"upsample_rates": [2, 2], "upsample_kernel_sizes": [4, 4],
+            "upsample_initial_channel": 16, "resblock_kernel_sizes": [3],
+            "resblock_dilation_sizes": [[1, 3]], "audio_num_mel_bins": 8}
+
+
+def _forbidden(module: str) -> bool:
+    return any(module == f or module.startswith(f + ".") for f in FORBIDDEN)
+
+
+def _port_sources():
+    files = sorted((ROOT / "diffsinger_tpu_torch").rglob("*.py"))
+    files.append(ROOT / "chip_smoke.py")
+    return files
+
+
+def test_port_imports_no_jax_and_nothing_of_the_jax_package():
+    files = _port_sources()
+    assert len(files) > 10 and (ROOT / "chip_smoke.py").exists()
+    bad = []
+    for path in files:
+        for node in ast.walk(ast.parse(path.read_text(), str(path))):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                names = [node.module or ""] if node.level == 0 else []
+            else:
+                continue
+            bad += [f"{path.relative_to(ROOT)}:{node.lineno} {n}"
+                    for n in names if _forbidden(n)]
+    assert not bad, bad
+
+
+def test_forbidden_prefix_is_a_module_match():
+    assert _forbidden("diffsinger_tpu.models") and _forbidden("jax.numpy")
+    assert not _forbidden("diffsinger_tpu_torch.models")
+    assert not _forbidden("jaxlib_free_name")
+
+
+def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    task = DiffSingerTask(TINY_HP, vocab_size=10, device="cpu")
+    voc = HifiGAN(TINY_VOC, device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        FusedSynthesizer(TINY_HP, task, voc)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        DiffSingerTask(TINY_HP, vocab_size=10)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        HifiGAN(TINY_VOC)
+    # the explicit CPU request works, and the modules stayed on the CPU
+    syn = FusedSynthesizer(TINY_HP, task, voc, device="cpu")
+    assert syn.device.type == "cpu"
+    assert all(p.device.type == "cpu" for p in task.parameters())
+
+
+def test_wrappers_take_the_plain_twin_on_cpu_and_count_nothing():
+    rng = np.random.RandomState(0)
+    f = lambda *s: torch.from_numpy(rng.randn(*s).astype(np.float32) * 0.3)
+    n_stack, n_mrf = ds.diffnet_stack.launches, mrf.mrf_stage.launches
+    args = (f(2, 8, 32), f(2, 2, 32), f(2, 2, 8, 64), f(2, 3, 32, 64), f(2, 64),
+            f(2, 32, 64), f(2, 64))
+    got = ds.diffnet_stack(*args, dilations=(1, 2))
+    torch.testing.assert_close(got, ds.diffnet_stack_plain(*args, dilations=(1, 2)),
+                               rtol=0, atol=0)
+    margs = (f(1, 20, 16), f(2, 2, 48, 16), f(2, 2, 16), f(2, 2, 48, 16), f(2, 2, 16))
+    kw = dict(kernel_sizes=(3, 3), dilation_sets=((1, 3), (1, 3)))
+    got = mrf.mrf_stage(*margs, **kw)
+    torch.testing.assert_close(got, mrf.mrf_stage_plain(*margs, **kw), rtol=0, atol=0)
+    assert ds.diffnet_stack.launches == n_stack
+    assert mrf.mrf_stage.launches == n_mrf
+
+
+def test_kernel_sources_and_build_dir_match_the_build_module():
+    from diffsinger_tpu_torch.ops import _build
+
+    for name in _build.KERNEL_SOURCES:
+        assert (_build.CSRC_DIR / f"{name}.cu").exists()
+    assert _build.BUILD_DIR == ROOT / "build" / "kernels"
+    assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
+
+
+@pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
+def test_task_samples_through_the_stack_wrapper_for_any_config(compute_dtype, monkeypatch):
+    """No config key picks the per-layer module: every reverse step calls the
+    kernel wrapper (the plain twin here, on the CPU)."""
+    calls = []
+    wrapper = ds.diffnet_stack
+
+    def counted(*args, **kw):
+        calls.append(kw["compute_dtype"])
+        return wrapper(*args, **kw)
+
+    monkeypatch.setattr(ds, "diffnet_stack", counted)
+    hp = dict(TINY_HP, compute_dtype=compute_dtype)
+    task = DiffSingerTask(hp, vocab_size=10, device="cpu")
+    batch = {"txt_tokens": np.full((2, 5), 3, np.int64),
+             "mel2ph": np.repeat(np.arange(1, 6), 2)[None].repeat(2, 0)}
+    out = task.inference(batch, t_mel=10, generator=torch.Generator().manual_seed(0))
+    want_dt = torch.bfloat16 if compute_dtype == "bfloat16" else None
+    assert calls == [want_dt] * TINY_HP["K_step"]
+    assert out["mel_out"].shape == (2, 10, 8) and torch.isfinite(out["mel_out"]).all()
+
