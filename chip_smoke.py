@@ -20,7 +20,18 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      again through the plain twins with the same noise and compared;
   5. profiles one more 8 x 1024 batch with torch.profiler (device time by
      kernel, busy share; table in build/chip_smoke/serve_profile.txt);
-  6. prints the kernels line and, last, the device line.
+  6. diffnet_train forward and backward kernels at the training shapes
+     (B=24, T=1024, C=H=256, L=20), bf16 and f32, dilation cycles 1 and 4,
+     plus 3 x 301 rows with H=200 (neither a tile multiple), against their
+     plain twins on the same inputs: skips, xs and all nine cotangents;
+  7. training: the port's Trainer on DiffSpeech-LJSpeech at full width
+     (configs/lj/ds_beta6.yaml with tools/bench_train.py's overrides, bf16
+     stack, dropout on, FS2 frozen but for its predictors) first holds one
+     step's losses and gradients against the same step through the plain
+     twins, then takes ten optimizer steps on one synthetic 24 x 1024-frame
+     batch (launch counts, ms/step, peak memory), and profiles one more step
+     (table in build/chip_smoke/train_profile.txt);
+  8. prints the kernels line and, last, the device line.
 The plain twins run with TF32 off (cuBLAS and cuDNN), so they are float32
 references. Long output goes to build/chip_smoke/chip_smoke.json.
 """
@@ -292,16 +303,16 @@ def phase_serve(torch, ds, mrf, card: str):
     return out, syn, big
 
 
-def phase_profile(torch, syn, requests, out_dir: Path):
-    """torch.profiler over one synthesize_many call: device time by kernel
-    (table in build/chip_smoke/serve_profile.txt) and the device's busy share."""
+def phase_profile(torch, run, out_dir: Path, name: str = "serve"):
+    """torch.profiler over one call of ``run``: device time by kernel (table
+    in build/chip_smoke/<name>_profile.txt) and the device's busy share."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                  acc_events=True) as prof:
         t0 = time.perf_counter()
-        syn.synthesize_many(requests)
+        run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     ka = prof.key_averages()
@@ -311,13 +322,227 @@ def phase_profile(torch, syn, requests, out_dir: Path):
                    if e.device_type.name == "CUDA" and e.self_device_time_total > 0),
                   key=lambda r: -r[1])
     busy_ms = sum(r[1] for r in rows)
-    (out_dir / "serve_profile.txt").write_text(
+    (out_dir / f"{name}_profile.txt").write_text(
         ka.table(sort_by="self_device_time_total", row_limit=40))
     summary = {"wall_ms": wall * 1e3, "device_busy_ms": busy_ms,
                "device_busy_share": busy_ms / (wall * 1e3),
                "top": [{"name": k[:80], "ms": ms, "calls": n} for k, ms, n in rows[:12]]}
-    print("profile", json.dumps(summary), flush=True)
+    print(f"{name}_profile", json.dumps(summary), flush=True)
     return summary
+
+
+# --------------------------------------------------------------------- phase 6
+def train_stack_flops(b, t, c, h, num_layers):
+    """Products of the training kernels: forward (taps, cond, out) and
+    backward (recompute, dg, dW_dil + dK, dW_out, dcond, dy)."""
+    rows = b * t
+    fwd = num_layers * 2 * rows * ((3 * c + h) * 2 * c + c * 2 * c)
+    bwd = num_layers * 2 * rows * (2 * (3 * c + h) * 2 * c + 2 * (2 * c * c) + 2 * c * h
+                                   + 6 * c * c)
+    return fwd, bwd
+
+
+def phase_train_stack(torch, tr):
+    c, num_layers = 256, 20
+    gen = torch.Generator(device="cuda").manual_seed(2)
+
+    def rn(*shape, scale=1.0):
+        return torch.randn(*shape, generator=gen, device="cuda") * scale
+
+    rows = []
+    # the training shapes, then B*T = 903 rows (not a multiple of the 64-row
+    # tile) with H=200 (not a multiple of the 16-deep contraction slice)
+    cases = [(dt, cycle, 24, 1024, 256) for dt in ("bfloat16", "float32") for cycle in (1, 4)]
+    cases += [("bfloat16", 4, 3, 301, 200), ("float32", 4, 3, 301, 200)]
+    for dt_name, cycle, b, t, h in cases:
+        dt = torch.bfloat16 if dt_name == "bfloat16" else None
+        args = (torch.relu(rn(b, t, c)), rn(num_layers, b, c, scale=0.5), rn(b, t, h),
+                rn(num_layers, h, 2 * c, scale=h ** -0.5), rn(num_layers, 2 * c, scale=0.1),
+                rn(num_layers, 3, c, 2 * c, scale=(3 * c) ** -0.5),
+                rn(num_layers, 2 * c, scale=0.1), rn(num_layers, c, 2 * c, scale=c ** -0.5),
+                rn(num_layers, 2 * c, scale=0.1))
+        ds = rn(b, t, c)
+        kw = dict(dilations=tuple(2 ** (i % cycle) for i in range(num_layers)),
+                  compute_dtype=dt)
+        skips, xs = tr.diffnet_train_fwd(*args, **kw)
+        want_skips, want_xs = tr.diffnet_train_stack_fwd_plain(*args, **kw)
+        # both backwards read the kernel's xs, so this compares the backward alone
+        got = tr.diffnet_train_bwd(xs, *args[1:8], ds, **kw)
+        want = tr.diffnet_train_stack_bwd_plain(xs, *args[1:8], ds, **kw)
+        torch.cuda.synchronize()
+        # f32: the same products summed in another order (up to 3C+H = 1024
+        # terms per output, 24576 rows per weight gradient) through 20 layers
+        # -> 1e-4 of each tensor's scale. bf16: both round at the same points,
+        # but a float32 sum in another order can round y, g, dout or dconv one
+        # bf16 step (2^-8) apart and carry it on -> 1e-2 of the scale.
+        rel = 1e-2 if dt else 1e-4
+        errs = {}
+        for name, g_, w_ in (("skips", skips, want_skips), ("xs", xs, want_xs),
+                             *zip(tr.GRAD_NAMES, got, want)):
+            err = (g_.float() - w_.float()).abs().max().item()
+            scale = w_.float().abs().max().item()
+            errs[name] = {"max_abs_err": err, "scale": scale,
+                          "tolerance": rel * max(scale, 1.0)}
+        ms = cuda_ms(lambda: tr.diffnet_train_fwd(*args, **kw), 3)
+        bwd_ms = cuda_ms(lambda: tr.diffnet_train_bwd(xs, *args[1:8], ds, **kw), 3)
+        plain_ms = cuda_ms(lambda: tr.diffnet_train_stack_fwd_plain(*args, **kw), 2)
+        plain_bwd_ms = cuda_ms(lambda: tr.diffnet_train_stack_bwd_plain(
+            xs, *args[1:8], ds, **kw), 2)
+        f_fwd, f_bwd = train_stack_flops(b, t, c, h, num_layers)
+        esz = 2 if dt else 4
+        w_bytes = sum(a.numel() for a in (args[2], args[3], args[5], args[7])) * esz
+        f32_in = nbytes(args[0], args[1], args[4], args[6], args[8])
+        xs_bytes = xs.numel() * esz
+        peak = H100_BF16_FLOPS if dt else H100_F32_FLOPS
+        bnd, by = bound_ms(f_fwd, w_bytes + f32_in + nbytes(skips) + xs_bytes, peak)
+        grad_bytes = nbytes(*got)
+        bwd_in = xs_bytes + w_bytes + nbytes(args[1], args[4], args[6]) + ds.numel() * esz
+        bwd_bnd, bwd_by = bound_ms(f_bwd, bwd_in + grad_bytes, peak)
+        row = dict(dtype=dt_name, cycle=cycle, B=b, T=t, H=h,
+                   fwd_max_abs_err=max(errs[k]["max_abs_err"] for k in ("skips", "xs")),
+                   bwd_max_abs_err=max(errs[k]["max_abs_err"] for k in tr.GRAD_NAMES),
+                   errors=errs, fwd_ms=ms, bwd_ms=bwd_ms, fwd_plain_ms=plain_ms,
+                   bwd_plain_ms=plain_bwd_ms, fwd_gflop=f_fwd / 1e9, bwd_gflop=f_bwd / 1e9,
+                   fwd_bound_ms=bnd, fwd_bound_by=by, bwd_bound_ms=bwd_bnd,
+                   bwd_bound_by=bwd_by)
+        print("diffnet_train", json.dumps({k: v for k, v in row.items() if k != "errors"}),
+              flush=True)
+        bad = {k: e for k, e in errs.items() if not e["max_abs_err"] <= e["tolerance"]}
+        if bad:
+            raise AssertionError(f"diffnet_train {dt_name} cycle {cycle} B={b} T={t}: {bad}")
+        rows.append(row)
+        del skips, xs, want_skips, want_xs, got, want
+    return rows
+
+
+# --------------------------------------------------------------------- phase 7
+def synthetic_batch(rng, b: int, t_txt: int, t_mel: int, n_mels: int = 80):
+    """The training batch of tools/bench_train.py: random phone durations of
+    1 to t_mel // t_txt frames, the rest of the frames padding."""
+    import numpy as np
+
+    dur = rng.randint(1, max(2, t_mel // t_txt + 1), size=(b, t_txt))
+    mel2ph = np.zeros((b, t_mel), np.int64)
+    for i in range(b):
+        pos = 0
+        for j, d in enumerate(dur[i]):
+            mel2ph[i, pos: pos + d] = j + 1
+            pos += d
+    return {
+        "txt_tokens": rng.randint(3, 10, size=(b, t_txt)).astype(np.int64),
+        "mels": (rng.randn(b, t_mel, n_mels) * 0.5 - 2.0).astype(np.float32),
+        "mel2ph": mel2ph,
+        "f0": rng.uniform(6, 9, size=(b, t_mel)).astype(np.float32),
+        "uv": (rng.rand(b, t_mel) < 0.1).astype(np.float32),
+        "energy": rng.uniform(0.1, 2.0, size=(b, t_mel)).astype(np.float32),
+    }
+
+
+def build_trainer(torch, seed: int = 0):
+    from diffsinger_tpu_torch.config.hparams import set_hparams
+    from diffsinger_tpu_torch.training.tasks import DiffSingerTask
+    from diffsinger_tpu_torch.training.trainer import Trainer
+
+    hp = set_hparams(str(ROOT / "configs" / "lj" / "ds_beta6.yaml"))
+    # tools/bench_train.py's workload: DiffSpeech LJSpeech at its published
+    # width with its training rates (fs2_ckpt stays set: FS2 is frozen but
+    # for its predictors, and the missing checkpoint means seeded weights)
+    hp.update(hidden_size=256, enc_layers=4, dec_layers=4, residual_layers=20,
+              residual_channels=256, timesteps=100, K_step=71, max_beta=0.06,
+              schedule_type="linear", pitch_type="frame", lr=0.001, decay_steps=50000,
+              clip_grad_norm=1, dropout=0.1, predictor_dropout=0.5,
+              compute_dtype="bfloat16", seed=seed)
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(seed)
+        # token 3 stands for a silence phone, so the word-duration loss has words
+        task = DiffSingerTask(hp, vocab_size=80, sil_ids=(3,))
+    with torch.no_grad():
+        # the DiffNet output projection is zero at init: give it weights so the
+        # stack's backward carries gradients from the first step
+        w = task.denoise_fn.output_projection.weight
+        w.copy_(torch.randn(w.shape, generator=torch.Generator().manual_seed(seed)) * 0.05)
+    trainer = Trainer(hp, task)  # default device: the card
+    trainer.initialize()
+    return hp, trainer
+
+
+def _grad_agreement(got, want):
+    """Worst cosine and worst max-error relative to each tensor's scale."""
+    worst_cos, worst_rel = 1.0, 0.0
+    for g_, w_ in zip(got, want):
+        g_, w_ = g_.double().flatten(), w_.double().flatten()
+        wn = w_.norm().item()
+        if wn == 0.0:
+            worst_rel = max(worst_rel, g_.abs().max().item())
+            continue
+        worst_cos = min(worst_cos, (g_ @ w_).item() / (g_.norm().item() * wn))
+        worst_rel = max(worst_rel, ((g_ - w_).abs().max() / w_.abs().max()).item())
+    return worst_cos, worst_rel
+
+
+def phase_train(torch, tr, card: str, out_dir: Path, steps: int = 10):
+    import numpy as np
+
+    hp, trainer = build_trainer(torch)
+    b, t_txt, t_mel = 24, 128, 1024
+    batch = trainer.prepare_batch(synthetic_batch(np.random.RandomState(0), b, t_txt, t_mel))
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    t = torch.randint(0, int(hp["K_step"]), (b,), generator=gen, device="cuda")
+    noise = torch.randn((b, t_mel, 80), generator=gen, device="cuda")
+
+    # the first step's losses and gradients, kernels vs plain twins (same
+    # weights, t and noise, dropout off); no update is applied
+    lk, gk = trainer.loss_and_grads(batch, t=t, noise=noise, deterministic=True)
+    with mock.patch.object(tr, "diffnet_train_fwd", tr.diffnet_train_stack_fwd_plain), \
+            mock.patch.object(tr, "diffnet_train_bwd", tr.diffnet_train_stack_bwd_plain):
+        lp, gp = trainer.loss_and_grads(batch, t=t, noise=noise, deterministic=True)
+    torch.cuda.synchronize()
+    loss_diff = {k: abs(float(lk[k]) - float(lp[k])) for k in lk}
+    cos, rel = _grad_agreement(gk, gp)
+    del gk, gp
+
+    tr.diffnet_train_fwd.launches = 0
+    tr.diffnet_train_bwd.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    times, history = [], []
+    for _ in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses = trainer.train_step(batch)  # dropout on, draws from the trainer's generator
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        history.append({k: float(v) for k, v in losses.items()})
+    launches = {"diffnet_train_fwd": tr.diffnet_train_fwd.launches,
+                "diffnet_train_bwd": tr.diffnet_train_bwd.launches}
+    peak_mem = torch.cuda.max_memory_allocated()
+    profile = phase_profile(torch, lambda: trainer.train_step(batch), out_dir, "train")
+
+    warm_ms = float(np.median(times[1:])) * 1e3
+    out = {
+        "card": card, "steps": steps, "B": b, "T_mel": t_mel, "T_txt": t_txt,
+        "launches": launches, "step_ms": [x * 1e3 for x in times],
+        "ms_per_step_median_warm": warm_ms,
+        "mel_frames_per_s": b * t_mel / (warm_ms / 1e3),
+        "max_memory_allocated_bytes": peak_mem,
+        "trainable_params": sum(p.numel() for p in trainer.params),
+        "first_loss": history[0], "last_loss": history[-1],
+        "kernel_vs_plain_loss_abs_diff": loss_diff,
+        "kernel_vs_plain_grad_worst_cos": cos, "kernel_vs_plain_grad_worst_rel": rel,
+    }
+    print("train", json.dumps(out), flush=True)
+    if launches != {"diffnet_train_fwd": steps, "diffnet_train_bwd": steps}:
+        raise AssertionError(f"training kernel launches {launches}, expected {steps} each")
+    if not all(np.isfinite(v) for h in history for v in h.values()):
+        raise AssertionError(f"non-finite training losses: {history}")
+    # the FS2 terms run the same code on both sides; the mel loss differs only
+    # by bf16 roundings one step apart (1e-3 of its scale). Gradients: the JAX
+    # package's bf16 criterion (cosine > 0.999, max error < 5% of each
+    # tensor's scale).
+    bad = {k: d for k, d in loss_diff.items() if not d <= 1e-3 * max(abs(float(lp[k])), 1.0)}
+    if bad or not (cos > 0.999 and rel < 0.05):
+        raise AssertionError(f"train step kernel vs plain: losses {bad}, grad cos {cos}, "
+                             f"rel {rel}")
+    return out, profile
 
 
 def main() -> int:
@@ -337,6 +562,7 @@ def main() -> int:
 
     from diffsinger_tpu_torch.ops import _build
     from diffsinger_tpu_torch.ops import diffnet_stack as ds
+    from diffsinger_tpu_torch.ops import diffnet_train as tr
     from diffsinger_tpu_torch.ops import hifigan_mrf as mrf
 
     card = card_line()
@@ -356,7 +582,10 @@ def main() -> int:
     serving, syn, big = phase_serve(torch, ds, mrf, card)
     out_dir = ROOT / "build" / "chip_smoke"
     out_dir.mkdir(parents=True, exist_ok=True)
-    profile = phase_profile(torch, syn, big, out_dir)
+    profile = phase_profile(torch, lambda: syn.synthesize_many(big), out_dir)
+    del syn
+    train_rows = phase_train_stack(torch, tr)
+    training, train_profile = phase_train(torch, tr, card, out_dir)
 
     main_stack = stack_rows[0]                        # bf16, cycle 1: serving config
     main_mrf = [r for r in mrf_rows if r["dtype"] == "float32" and r["B"] == 8]
@@ -382,9 +611,25 @@ def main() -> int:
          "bound_by": main_mrf[0]["bound_by"],
          "library_ms": None, "configs": mrf_rows},
     ]
+    main_train = train_rows[0]                        # bf16, cycle 1: the slice config
+    for name, part in (("diffnet_train_fwd", "fwd"), ("diffnet_train_bwd", "bwd")):
+        keys = ("skips", "xs") if part == "fwd" else tr.GRAD_NAMES
+        kernels.append(
+            {"name": name, "route": "cuda", "source": "diffsinger_tpu_torch/csrc/diffnet_train.cu",
+             "replaces": "diffsinger_tpu/ops/diffnet_train.py:" + ("315" if part == "fwd" else "389"),
+             "launches": training["launches"][name],
+             "max_abs_err": main_train[f"{part}_max_abs_err"],
+             # the tolerance of the tensor with the largest error
+             "tolerance": max((main_train["errors"][k] for k in keys),
+                              key=lambda e: e["max_abs_err"])["tolerance"],
+             "ms": main_train[f"{part}_ms"], "plain_ms": main_train[f"{part}_plain_ms"],
+             "bound_ms": main_train[f"{part}_bound_ms"],
+             "bound_by": main_train[f"{part}_bound_by"], "library_ms": None,
+             "configs": [{k: v for k, v in r.items() if k != "errors"} for r in train_rows]})
     with open(out_dir / "chip_smoke.json", "w") as f:
         json.dump({"card": card, "build_s": build_s, "kernels": kernels,
-                   "serving": serving, "profile": profile}, f, indent=1)
+                   "serving": serving, "profile": profile, "train_stack": train_rows,
+                   "training": training, "train_profile": train_profile}, f, indent=1)
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

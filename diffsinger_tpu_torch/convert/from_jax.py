@@ -142,6 +142,9 @@ def hifigan_state_dict(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
 
 
 def task_state_dict(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
-    """JAX task params {'fs2', 'denoiser'} -> ``DiffSingerTask`` state_dict."""
-    return {**apply_rules(params["fs2"], FS2_RULES, "fs2."),
-            **apply_rules(params["denoiser"], DIFFNET_RULES, "denoise_fn.")}
+    """JAX task params {'fs2', 'denoiser'} -> ``DiffSingerTask`` state_dict.
+
+    Gradient trees have the parameters' structure, so this maps them too. A
+    partial tree (the trainable subset of a frozen FS2) maps what it holds."""
+    return {**apply_rules(params.get("fs2", {}), FS2_RULES, "fs2."),
+            **apply_rules(params.get("denoiser", {}), DIFFNET_RULES, "denoise_fn.")}

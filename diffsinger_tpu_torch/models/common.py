@@ -5,6 +5,11 @@ Parameter names follow the upstream torch DiffSinger ``state_dict`` keys
 (``self_attn.in_proj_weight``, ``ffn.ffn_1.weight`` ...), so later slices can
 load released checkpoints; ``convert/from_jax.py`` maps the JAX trees onto
 them. Layer norms use the JAX package's epsilon (flax default 1e-6).
+
+Training mode: every module with dropout takes ``drop_gen``, a
+``torch.Generator`` that draws the masks (JAX passes its ``drop_rng`` the same
+way). ``drop_gen=None`` is the deterministic (eval) forward; the global RNG is
+never used.
 """
 
 from __future__ import annotations
@@ -20,6 +25,18 @@ import torch.nn.functional as F
 # big-negative mask value (the reference's -1e9 masked_fill)
 NEG_INF = -1e9
 LN_EPS = 1e-6
+
+
+def dropout(x: torch.Tensor, rate: float,
+            generator: Optional[torch.Generator]) -> torch.Tensor:
+    """Inverted dropout as flax's ``nn.Dropout``: keep with probability
+    1 - rate and scale by 1 / (1 - rate). Identity when ``generator`` is None
+    (eval) or ``rate`` is 0."""
+    if generator is None or rate <= 0.0:
+        return x
+    keep = 1.0 - rate
+    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    return torch.where(mask, x / keep, torch.zeros_like(x))
 
 
 def conv1d_btc(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor],
@@ -108,15 +125,17 @@ class ConvFFN(nn.Module):
     """Conv1d(k) -> * k^-0.5 -> act -> Linear (SAME padding)."""
 
     def __init__(self, hidden_size: int, filter_size: int, kernel_size: int = 9,
-                 act: str = "gelu"):
+                 act: str = "gelu", dropout: float = 0.0):
         super().__init__()
         self.kernel_size = kernel_size
         self.act = act
+        self.dropout = dropout
         self.ffn_1 = nn.Conv1d(hidden_size, filter_size, kernel_size)
         self.ffn_2 = nn.Linear(filter_size, hidden_size)
         nn.init.xavier_uniform_(self.ffn_2.weight)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                drop_gen: Optional[torch.Generator] = None) -> torch.Tensor:
         k = self.kernel_size
         x = conv1d_btc(x, self.ffn_1.weight, self.ffn_1.bias, k // 2, (k - 1) // 2)
         x = x * k ** -0.5
@@ -128,44 +147,49 @@ class ConvFFN(nn.Module):
             x = F.silu(x)
         else:
             raise ValueError(f"ffn_act={self.act}")
-        return self.ffn_2(x)
+        return self.ffn_2(dropout(x, self.dropout, drop_gen))
 
 
 class EncSALayer(nn.Module):
     """Pre-LN transformer encoder layer with conv-FFN and hard padding zeroing."""
 
     def __init__(self, hidden_size: int, num_heads: int, kernel_size: int = 9,
-                 act: str = "gelu"):
+                 act: str = "gelu", dropout: float = 0.0):
         super().__init__()
         self.num_heads = num_heads
+        self.dropout = dropout
         if num_heads > 0:
             self.layer_norm1 = nn.LayerNorm(hidden_size, eps=LN_EPS)
+            # no dropout on the attention probabilities: the JAX layer builds
+            # its attention with rate 0
             self.self_attn = MultiHeadSelfAttention(hidden_size, num_heads)
         self.layer_norm2 = nn.LayerNorm(hidden_size, eps=LN_EPS)
-        self.ffn = ConvFFN(hidden_size, 4 * hidden_size, kernel_size, act)
+        self.ffn = ConvFFN(hidden_size, 4 * hidden_size, kernel_size, act, dropout)
 
-    def forward(self, x: torch.Tensor, padding_mask: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, padding_mask: torch.Tensor,
+                drop_gen: Optional[torch.Generator] = None) -> torch.Tensor:
         """x [B, T, C]; padding_mask [B, T] True where PAD."""
         nonpad = (~padding_mask).to(x.dtype)[:, :, None]
         if self.num_heads > 0:
             residual = x
             x = self.self_attn(self.layer_norm1(x), key_padding_mask=padding_mask)
-            x = (residual + x) * nonpad
+            x = (residual + dropout(x, self.dropout, drop_gen)) * nonpad
         residual = x
-        x = self.ffn(self.layer_norm2(x))
-        return (residual + x) * nonpad
+        x = self.ffn(self.layer_norm2(x), drop_gen)
+        return (residual + dropout(x, self.dropout, drop_gen)) * nonpad
 
 
 class TransformerEncoderLayer(nn.Module):
     """Holder that gives the upstream key prefix ``layers.<i>.op``."""
 
     def __init__(self, hidden_size: int, num_heads: int, kernel_size: int = 9,
-                 act: str = "gelu"):
+                 act: str = "gelu", dropout: float = 0.0):
         super().__init__()
-        self.op = EncSALayer(hidden_size, num_heads, kernel_size, act)
+        self.op = EncSALayer(hidden_size, num_heads, kernel_size, act, dropout)
 
-    def forward(self, x: torch.Tensor, padding_mask: torch.Tensor) -> torch.Tensor:
-        return self.op(x, padding_mask)
+    def forward(self, x: torch.Tensor, padding_mask: torch.Tensor,
+                drop_gen: Optional[torch.Generator] = None) -> torch.Tensor:
+        return self.op(x, padding_mask, drop_gen)
 
 
 class Embedding(nn.Module):

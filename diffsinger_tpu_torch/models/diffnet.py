@@ -4,9 +4,11 @@ diffsinger_tpu/models/diffnet.py).
 Layout is [B, T, C] at the module boundary, as in the JAX package. Parameter
 names follow upstream ``denoise_fn.*`` keys (``residual_layers.<i>.
 dilated_conv`` ...). ``DiffNet`` holds the weights; its ``forward`` is the
-per-layer float32 module, held against the JAX ``DiffNet.apply`` by the tests.
-Sampling always goes through ``ops/diffnet_stack.py:diffnet_forward``, whose
-stack runs in the hand-written kernel on the card and carries the bf16 mode.
+per-layer float32 module, differentiable, held against the JAX
+``DiffNet.apply`` (values and gradients) by the tests. Sampling always goes
+through ``ops/diffnet_stack.py:diffnet_forward`` and training through
+``ops/diffnet_train.py:diffnet_train_forward``, whose stacks run in the
+hand-written kernels on the card and carry the bf16 mode.
 """
 
 from __future__ import annotations

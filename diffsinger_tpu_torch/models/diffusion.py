@@ -1,7 +1,10 @@
-"""Gaussian shallow diffusion over mel-spectrograms, DDPM sampler (counterpart
-of diffsinger_tpu/models/diffusion.py).
+"""Gaussian shallow diffusion over mel-spectrograms: the epsilon-prediction
+training loss and the DDPM sampler (counterpart of
+diffsinger_tpu/models/diffusion.py).
 
-The sampler is a pure function over a ``denoise_fn(x, t, cond)`` closure. The
+Loss and sampler are pure functions over a ``denoise_fn(x, t, cond)`` closure:
+the sampler calls the one the object is built with, the loss the one it is
+handed, so a caller that differentiates the denoiser names its own. The
 reverse loop is a Python loop of K steps; each step calls the denoiser once.
 Noise comes either from an explicit ``noise`` tensor [K+1, B, T, M] (the
 shallow-boost draw first, then one draw per reverse step in loop order) or
@@ -36,6 +39,7 @@ def cosine_beta_schedule(timesteps: int, s: float = 0.008) -> np.ndarray:
 class DiffusionConfig:
     timesteps: int = 100
     k_step: int = 100
+    loss_type: str = "l1"
     schedule_type: str = "cosine"
     max_beta: float = 0.01
     spec_min: Tuple[float, ...] = ()
@@ -50,6 +54,7 @@ class DiffusionConfig:
         return cls(
             timesteps=int(hp.get("timesteps", 100)),
             k_step=int(hp.get("K_step", hp.get("timesteps", 100))),
+            loss_type=hp.get("diff_loss_type", "l1"),
             schedule_type=hp.get("schedule_type", "cosine"),
             max_beta=float(hp.get("max_beta", 0.01)),
             spec_min=tuple(hp.get("spec_min", []) or []),
@@ -125,6 +130,29 @@ class GaussianDiffusion:
                  noise: torch.Tensor) -> torch.Tensor:
         return (self._extract("sqrt_alphas_cumprod", t) * x_start
                 + self._extract("sqrt_one_minus_alphas_cumprod", t) * noise)
+
+    def p_losses(self, denoise_fn: DenoiseFn, x_start: torch.Tensor, t: torch.Tensor,
+                 cond, noise: torch.Tensor,
+                 nonpadding: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Epsilon-prediction loss of ``denoise_fn``; x_start is the normalized
+        mel [B, T, M]."""
+        eps_hat = denoise_fn(self.q_sample(x_start, t, noise), t, cond)
+        if self.cfg.loss_type == "l1":
+            err = (noise - eps_hat).abs()
+        elif self.cfg.loss_type == "l2":
+            err = (noise - eps_hat) ** 2
+        else:
+            raise NotImplementedError(self.cfg.loss_type)
+        if nonpadding is not None:
+            err = err * nonpadding[:, :, None]
+        return err.mean()
+
+    def training_loss(self, denoise_fn: DenoiseFn, ref_mels: torch.Tensor,
+                      t: torch.Tensor, cond, noise: torch.Tensor,
+                      nonpadding: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """``norm_spec`` of the target mel, then :meth:`p_losses`."""
+        return self.p_losses(denoise_fn, self.norm_spec(ref_mels), t, cond, noise,
+                             nonpadding)
 
     def p_sample_step(self, x: torch.Tensor, t: torch.Tensor, cond,
                       noise: torch.Tensor, clip_denoised: bool = True) -> torch.Tensor:

@@ -3,6 +3,9 @@ diffsinger_tpu/models/fft_blocks.py).
 
 Padding positions are hard-zeroed after every layer and after the final norm;
 the encoder embedding is sqrt(d) * token_embed + sinusoidal positions.
+Dropout (training mode, masks from ``drop_gen``) follows the JAX places: the
+encoder's embedding, the decoder's positional embedding, and inside every
+layer.
 Upstream key layout: ``encoder.embed_tokens``, ``encoder.layers.<i>.op.*``,
 ``encoder.layer_norm``, ``decoder.layers.<i>.op.*``, ``decoder.layer_norm``,
 ``decoder.pos_embed_alpha``.
@@ -17,25 +20,27 @@ import torch.nn as nn
 
 from diffsinger_tpu_torch.models.common import (LN_EPS, Embedding,
                                                 SinusoidalPositionalEmbedding,
-                                                TransformerEncoderLayer)
+                                                TransformerEncoderLayer, dropout)
 
 
 class FFTBlocks(nn.Module):
     def __init__(self, hidden_size: int, num_layers: int, ffn_kernel_size: int = 9,
                  num_heads: int = 2, use_pos_embed: bool = True,
-                 ffn_act: str = "gelu"):
+                 ffn_act: str = "gelu", dropout: float = 0.0):
         super().__init__()
         self.use_pos_embed = use_pos_embed
+        self.dropout = dropout
         if use_pos_embed:
             self.pos_embed_alpha = nn.Parameter(torch.ones(1))
             self.embed_positions = SinusoidalPositionalEmbedding(hidden_size)
         self.layers = nn.ModuleList([
-            TransformerEncoderLayer(hidden_size, num_heads, ffn_kernel_size, ffn_act)
+            TransformerEncoderLayer(hidden_size, num_heads, ffn_kernel_size, ffn_act,
+                                    dropout)
             for _ in range(num_layers)])
         self.layer_norm = nn.LayerNorm(hidden_size, eps=LN_EPS)
 
-    def forward(self, x: torch.Tensor,
-                padding_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, padding_mask: Optional[torch.Tensor] = None,
+                drop_gen: Optional[torch.Generator] = None) -> torch.Tensor:
         """x [B, T, C]; padding_mask [B, T] True where PAD (all-zero feature
         rows when omitted)."""
         if padding_mask is None:
@@ -44,9 +49,10 @@ class FFTBlocks(nn.Module):
         if self.use_pos_embed:
             x = x + self.pos_embed_alpha * self.embed_positions(
                 (~padding_mask).to(torch.long))
+            x = dropout(x, self.dropout, drop_gen)
         x = x * nonpad
         for layer in self.layers:
-            x = layer(x, padding_mask) * nonpad
+            x = layer(x, padding_mask, drop_gen) * nonpad
         return self.layer_norm(x) * nonpad
 
 
@@ -55,24 +61,25 @@ class FastSpeechEncoder(FFTBlocks):
 
     def __init__(self, vocab_size: int, hidden_size: int, num_layers: int,
                  ffn_kernel_size: int = 9, num_heads: int = 2,
-                 ffn_act: str = "gelu"):
+                 ffn_act: str = "gelu", dropout: float = 0.0):
         super().__init__(hidden_size, num_layers, ffn_kernel_size, num_heads,
-                         use_pos_embed=False, ffn_act=ffn_act)
+                         use_pos_embed=False, ffn_act=ffn_act, dropout=dropout)
         self.hidden_size = hidden_size
         self.embed_tokens = Embedding(vocab_size, hidden_size, padding_idx=0)
         self.embed_positions = SinusoidalPositionalEmbedding(hidden_size)
 
-    def forward(self, txt_tokens: torch.Tensor) -> torch.Tensor:
+    def forward(self, txt_tokens: torch.Tensor,
+                drop_gen: Optional[torch.Generator] = None) -> torch.Tensor:
         padding_mask = txt_tokens == 0
         x = (self.hidden_size ** 0.5) * self.embed_tokens(txt_tokens)
-        x = x + self.embed_positions(txt_tokens)
-        return super().forward(x, padding_mask)
+        x = dropout(x + self.embed_positions(txt_tokens), self.dropout, drop_gen)
+        return super().forward(x, padding_mask, drop_gen)
 
 
 class FastSpeechDecoder(FFTBlocks):
     """Mel-frame FFT decoder."""
 
     def __init__(self, hidden_size: int, num_layers: int, ffn_kernel_size: int = 9,
-                 num_heads: int = 2, ffn_act: str = "gelu"):
+                 num_heads: int = 2, ffn_act: str = "gelu", dropout: float = 0.0):
         super().__init__(hidden_size, num_layers, ffn_kernel_size, num_heads,
-                         use_pos_embed=True, ffn_act=ffn_act)
+                         use_pos_embed=True, ffn_act=ffn_act, dropout=dropout)

@@ -1,9 +1,12 @@
-"""FastSpeech2 acoustic model, inference mode (counterpart of
-diffsinger_tpu/models/fs2.py).
+"""FastSpeech2 acoustic model (counterpart of diffsinger_tpu/models/fs2.py).
 
-This slice covers ``pitch_type: frame`` with ``pitch_norm: log``, no energy,
+The port covers ``pitch_type: frame`` with ``pitch_norm: log``, no energy,
 speaker or MIDI conditioning; the other variants raise. Inference uses a
 static ``t_mel`` bucket for length regulation, as the JAX model does.
+Training mode is the forward with ``drop_gen`` (a ``torch.Generator`` for the
+dropout masks), given ``mel2ph``, ``f0`` and ``uv``, and usually
+``skip_decoder=True`` (the diffusion conditioner). The predictors read their
+inputs through the ``predictor_grad`` partial stop-gradient.
 """
 
 from __future__ import annotations
@@ -30,6 +33,7 @@ class FS2Config:
     enc_ffn_kernel_size: int = 9
     dec_ffn_kernel_size: int = 9
     num_heads: int = 2
+    dropout: float = 0.1
     ffn_act: str = "gelu"
     out_dims: int = 80
     predictor_hidden: int = -1
@@ -37,6 +41,8 @@ class FS2Config:
     predictor_kernel: int = 5
     dur_predictor_layers: int = 2
     dur_predictor_kernel: int = 3
+    predictor_dropout: float = 0.5
+    predictor_grad: float = 0.1
     use_pitch_embed: bool = True
     pitch_type: str = "frame"
     use_uv: bool = True
@@ -79,24 +85,36 @@ class FastSpeech2(nn.Module):
         super().__init__()
         c = self.cfg = cfg
         self.encoder = FastSpeechEncoder(c.vocab_size, c.hidden_size, c.enc_layers,
-                                         c.enc_ffn_kernel_size, c.num_heads, c.ffn_act)
+                                         c.enc_ffn_kernel_size, c.num_heads, c.ffn_act,
+                                         c.dropout)
         self.decoder = FastSpeechDecoder(c.hidden_size, c.dec_layers,
-                                         c.dec_ffn_kernel_size, c.num_heads, c.ffn_act)
+                                         c.dec_ffn_kernel_size, c.num_heads, c.ffn_act,
+                                         c.dropout)
         self.mel_out = xavier_linear(c.hidden_size, c.out_dims)
         self.dur_predictor = DurationPredictor(c.hidden_size, c.pred_hidden,
                                                c.dur_predictor_layers,
-                                               c.dur_predictor_kernel)
+                                               c.dur_predictor_kernel,
+                                               dropout=c.predictor_dropout)
         if c.use_pitch_embed:
             self.pitch_embed = Embedding(300, c.hidden_size, padding_idx=0)
             self.pitch_predictor = PitchPredictor(c.hidden_size, c.pred_hidden,
                                                   c.predictor_layers, odim=2,
-                                                  kernel_size=c.predictor_kernel)
+                                                  kernel_size=c.predictor_kernel,
+                                                  dropout=c.predictor_dropout)
+
+    def _pred_grad(self, x: torch.Tensor) -> torch.Tensor:
+        """Same value; the gradient into the shared encoder is scaled by
+        ``predictor_grad``."""
+        sg = x.detach()
+        return sg + self.cfg.predictor_grad * (x - sg)
 
     def add_pitch(self, pitch_inp: torch.Tensor, f0, uv, mel2ph: torch.Tensor,
-                  ret: Dict[str, Any]) -> torch.Tensor:
+                  ret: Dict[str, Any],
+                  drop_gen: Optional[torch.Generator] = None) -> torch.Tensor:
         """Frame-level pitch embedding from predicted or given F0."""
         c = self.cfg
-        ret["pitch_pred"] = pitch_pred = self.pitch_predictor(pitch_inp)
+        ret["pitch_pred"] = pitch_pred = self.pitch_predictor(self._pred_grad(pitch_inp),
+                                                              drop_gen)
         if f0 is None:
             f0 = pitch_pred[:, :, 0]
         if c.use_uv and uv is None:
@@ -108,12 +126,14 @@ class FastSpeech2(nn.Module):
 
     def forward(self, txt_tokens: torch.Tensor, mel2ph: Optional[torch.Tensor] = None,
                 f0=None, uv=None, t_mel: Optional[int] = None,
-                skip_decoder: bool = False) -> Dict[str, Any]:
+                skip_decoder: bool = False,
+                drop_gen: Optional[torch.Generator] = None) -> Dict[str, Any]:
         ret: Dict[str, Any] = {}
-        encoder_out = self.encoder(txt_tokens)
+        encoder_out = self.encoder(txt_tokens, drop_gen)
         src_padding = txt_tokens == 0
         src_nonpadding = (~src_padding).to(encoder_out.dtype)[:, :, None]
-        log_dur = self.dur_predictor(encoder_out * src_nonpadding, src_padding)
+        log_dur = self.dur_predictor(self._pred_grad(encoder_out * src_nonpadding),
+                                     src_padding, drop_gen)
         ret["dur"] = log_dur
         if mel2ph is None:
             if t_mel is None:
@@ -126,10 +146,10 @@ class FastSpeech2(nn.Module):
         tgt_nonpadding = (mel2ph > 0).to(encoder_out.dtype)[:, :, None]
         if self.cfg.use_pitch_embed:
             decoder_inp = decoder_inp + self.add_pitch(
-                decoder_inp * tgt_nonpadding, f0, uv, mel2ph, ret)
+                decoder_inp * tgt_nonpadding, f0, uv, mel2ph, ret, drop_gen)
         ret["decoder_inp"] = decoder_inp = decoder_inp * tgt_nonpadding
         if skip_decoder:
             return ret
-        x = self.decoder(decoder_inp, padding_mask=mel2ph == 0)
+        x = self.decoder(decoder_inp, padding_mask=mel2ph == 0, drop_gen=drop_gen)
         ret["mel_out"] = self.mel_out(x) * tgt_nonpadding
         return ret

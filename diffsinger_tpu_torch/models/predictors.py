@@ -1,9 +1,11 @@
 """Variance predictors and length regulation (counterpart of
-diffsinger_tpu/models/predictors.py, inference subset).
+diffsinger_tpu/models/predictors.py: the duration and pitch heads,
+``length_regulator``, ``mel2ph_to_dur`` and ``expand_by_mel2ph``).
 
 Predictor layers keep the upstream ``conv.<i>.1`` (conv) / ``conv.<i>.3``
 (LayerNorm) key layout of a torch ``Sequential(pad, conv, relu, norm,
-dropout)``. The length regulator takes a static output length ``t_mel``.
+dropout)``; the dropout draws its masks from ``drop_gen`` (None: eval). The
+length regulator takes a static output length ``t_mel``.
 """
 
 from __future__ import annotations
@@ -14,43 +16,45 @@ import torch
 import torch.nn as nn
 
 from diffsinger_tpu_torch.models.common import (SinusoidalPositionalEmbedding,
-                                                conv1d_btc)
+                                                conv1d_btc, dropout)
 
 
 class _ConvReluLN(nn.Sequential):
-    """Conv1d -> ReLU -> LayerNorm(eps=1e-12), indexed like upstream."""
+    """Conv1d -> ReLU -> LayerNorm(eps=1e-12) -> dropout, indexed like upstream."""
 
-    def __init__(self, in_ch: int, channels: int, kernel_size: int):
+    def __init__(self, in_ch: int, channels: int, kernel_size: int, dropout: float = 0.0):
         super().__init__(nn.Identity(), nn.Conv1d(in_ch, channels, kernel_size),
                          nn.ReLU(), nn.LayerNorm(channels, eps=1e-12),
                          nn.Identity())
         self.kernel_size = kernel_size
+        self.dropout = dropout
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                drop_gen: Optional[torch.Generator] = None) -> torch.Tensor:
         pad = (self.kernel_size - 1) // 2
         x = conv1d_btc(x, self[1].weight, self[1].bias, pad, pad)
-        return self[3](torch.relu(x))
+        return dropout(self[3](torch.relu(x)), self.dropout, drop_gen)
 
 
 class DurationPredictor(nn.Module):
     """Log-domain duration regression head (``dur_loss: mse``)."""
 
     def __init__(self, in_dims: int, channels: int, num_layers: int = 2,
-                 kernel_size: int = 3, offset: float = 1.0):
+                 kernel_size: int = 3, offset: float = 1.0, dropout: float = 0.0):
         super().__init__()
         self.offset = offset
         self.conv = nn.ModuleList([
-            _ConvReluLN(in_dims if i == 0 else channels, channels, kernel_size)
+            _ConvReluLN(in_dims if i == 0 else channels, channels, kernel_size, dropout)
             for i in range(num_layers)])
         self.linear = nn.Linear(channels, 1)
 
-    def forward(self, x: torch.Tensor,
-                padding_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, padding_mask: Optional[torch.Tensor] = None,
+                drop_gen: Optional[torch.Generator] = None) -> torch.Tensor:
         """x [B, T, C] -> log-duration [B, T]."""
         nonpad = (None if padding_mask is None
                   else (~padding_mask).to(x.dtype)[:, :, None])
         for layer in self.conv:
-            x = layer(x)
+            x = layer(x, drop_gen)
             if nonpad is not None:
                 x = x * nonpad
         x = self.linear(x)
@@ -68,21 +72,22 @@ class PitchPredictor(nn.Module):
     """Conv-stack pitch predictor with sinusoidal input positions."""
 
     def __init__(self, in_dims: int, channels: int, num_layers: int = 5,
-                 odim: int = 2, kernel_size: int = 5):
+                 odim: int = 2, kernel_size: int = 5, dropout: float = 0.0):
         super().__init__()
         self.pos_embed_alpha = nn.Parameter(torch.ones(1))
         self.embed_positions = SinusoidalPositionalEmbedding(in_dims)
         self.conv = nn.ModuleList([
-            _ConvReluLN(in_dims if i == 0 else channels, channels, kernel_size)
+            _ConvReluLN(in_dims if i == 0 else channels, channels, kernel_size, dropout)
             for i in range(num_layers)])
         self.linear = nn.Linear(channels, odim)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                drop_gen: Optional[torch.Generator] = None) -> torch.Tensor:
         """x [B, T, C] -> [B, T, odim]."""
         pos_tokens = (x[..., 0].abs() > 0).to(torch.long)
         x = x + self.pos_embed_alpha * self.embed_positions(pos_tokens)
         for layer in self.conv:
-            x = layer(x)
+            x = layer(x, drop_gen)
         return self.linear(x)
 
 
@@ -99,6 +104,17 @@ def length_regulator(dur: torch.Tensor, t_mel: int,
     pos = torch.arange(t_mel, device=dur.device)[None, None, :]
     mask = (pos >= cum_prev[:, :, None]) & (pos < cum[:, :, None])
     return (token_idx * mask.to(torch.long)).sum(1)
+
+
+def mel2ph_to_dur(mel2ph: torch.Tensor, t_txt: int,
+                  max_dur: Optional[int] = None) -> torch.Tensor:
+    """Inverse of :func:`length_regulator`: mel2ph [B, T_mel] -> dur
+    [B, t_txt], the number of frames mapped to each phone."""
+    phones = torch.arange(1, t_txt + 1, dtype=mel2ph.dtype, device=mel2ph.device)
+    dur = (mel2ph[:, :, None] == phones[None, None, :]).sum(1)
+    if max_dur is not None:
+        dur = torch.clamp(dur, max=max_dur)
+    return dur
 
 
 def expand_by_mel2ph(encoder_out: torch.Tensor, mel2ph: torch.Tensor) -> torch.Tensor:

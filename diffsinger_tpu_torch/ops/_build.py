@@ -21,7 +21,7 @@ from typing import Dict, Iterable, List, Tuple
 PKG_DIR = Path(__file__).resolve().parents[1]
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR.parent / "build" / "kernels"
-KERNEL_SOURCES = ("diffnet_stack", "mrf_stage")
+KERNEL_SOURCES = ("diffnet_stack", "mrf_stage", "diffnet_train")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -160,6 +160,14 @@ def pack_diffnet_params(denoiser):
             b_out.contiguous())
 
 
+def pack_step_params(denoiser):
+    """All L step projections as one matmul: (w_step [C, L*C], b_step [L*C])."""
+    layers = denoiser.residual_layers
+    w_step = torch.cat([ly.diffusion_projection.weight.t() for ly in layers], dim=-1)
+    b_step = torch.cat([ly.diffusion_projection.bias for ly in layers])
+    return w_step, b_step
+
+
 def pack_sampling_ctx(denoiser, cond_proj: torch.Tensor,
                       compute_dtype: Optional[torch.dtype] = None) -> dict:
     """Pack weights (and the hoisted cond projections) once per sampler call,
@@ -168,9 +176,7 @@ def pack_sampling_ctx(denoiser, cond_proj: torch.Tensor,
     if compute_dtype is not None:
         w_dil, w_out = w_dil.to(compute_dtype), w_out.to(compute_dtype)
         cond_proj = cond_proj.to(compute_dtype)
-    layers = denoiser.residual_layers
-    w_step = torch.cat([ly.diffusion_projection.weight.t() for ly in layers], dim=-1)
-    b_step = torch.cat([ly.diffusion_projection.bias for ly in layers])
+    w_step, b_step = pack_step_params(denoiser)
     return {"cond_proj": cond_proj, "w_dil": w_dil, "b_dil": b_dil, "w_out": w_out,
             "b_out": b_out, "w_step": w_step, "b_step": b_step}
 

@@ -1,15 +1,16 @@
-"""Task layer, inference subset (counterpart of
-diffsinger_tpu/training/tasks.py: ``build_modules`` and
-``DiffSingerTask.inference``).
+"""Task layer (counterpart of diffsinger_tpu/training/tasks.py:
+``build_modules`` and ``DiffSingerTask`` for the non-MIDI, frame-pitch
+DiffSpeech task: inference, the training loss and the freezing rule).
 
 ``DiffSingerTask`` is an ``nn.Module`` holding ``fs2`` and ``denoise_fn`` (the
-upstream ``model.fs2.*`` / ``model.denoise_fn.*`` key prefixes). Training
-waits for a later slice.
+upstream ``model.fs2.*`` / ``model.denoise_fn.*`` key prefixes). The denoiser
+always runs through a fused stack: ``inference`` through the sampling kernel,
+``train_loss`` through the training kernels.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -20,6 +21,8 @@ from diffsinger_tpu_torch.models.diffusion import DiffusionConfig, GaussianDiffu
 from diffsinger_tpu_torch.models.fs2 import FS2Config, FastSpeech2
 from diffsinger_tpu_torch.ops.diffnet_stack import (diffnet_forward, pack_sampling_ctx,
                                                     precompute_cond_packed)
+from diffsinger_tpu_torch.ops.diffnet_train import diffnet_train_forward
+from diffsinger_tpu_torch.training import losses as L
 from diffsinger_tpu_torch.utils.device import resolve_device
 
 
@@ -45,6 +48,14 @@ def build_modules(hp: Dict[str, Any], vocab_size: int):
     return fs2, denoiser
 
 
+def make_is_sil(txt_tokens: torch.Tensor, sil_ids: Sequence[int]) -> torch.Tensor:
+    """[B, T_txt] 1.0 where the token is one of ``sil_ids``."""
+    if not sil_ids:
+        return torch.zeros_like(txt_tokens, dtype=torch.float32)
+    sil = torch.as_tensor(list(sil_ids), dtype=txt_tokens.dtype, device=txt_tokens.device)
+    return (txt_tokens[:, :, None] == sil).any(-1).to(torch.float32)
+
+
 def _as_tensor(v, dtype, device) -> torch.Tensor:
     if isinstance(v, torch.Tensor):
         return v.to(device=device, dtype=dtype)
@@ -54,20 +65,30 @@ def _as_tensor(v, dtype, device) -> torch.Tensor:
 class DiffSingerTask(nn.Module):
     """Diffusion text-to-mel task (DiffSpeech on LJSpeech in this slice)."""
 
-    def __init__(self, hp: Dict[str, Any], vocab_size: int, device="cuda"):
+    def __init__(self, hp: Dict[str, Any], vocab_size: int, device="cuda",
+                 sil_ids: Sequence[int] = ()):
         super().__init__()
         self.device = resolve_device(device)
         self.hp = dict(hp)
+        self.sil_ids = tuple(sil_ids)
         self.fs2, self.denoise_fn = build_modules(self.hp, vocab_size)
         self.compute_dtype = _compute_dtype(self.hp)
-        self.gd = GaussianDiffusion(DiffusionConfig.from_hparams(self.hp), self._denoise)
+        self.gd = GaussianDiffusion(DiffusionConfig.from_hparams(self.hp),
+                                    self._denoise_sample)
         self.to(self.device)
 
-    def _denoise(self, x: torch.Tensor, t: torch.Tensor, ctx: dict) -> torch.Tensor:
-        # ctx: a pack_sampling_ctx dict, weights and cond hoisted out of the
-        # reverse loop; the stack runs in the kernel on the card
-        return diffnet_forward(self.denoise_fn, x, t, ctx,
+    def _denoise_sample(self, x: torch.Tensor, t: torch.Tensor,
+                        cond_ctx: Dict[str, Any]) -> torch.Tensor:
+        """Sampling kernel; ``cond_ctx`` is a ``pack_sampling_ctx`` dict, the
+        weights and cond projections hoisted out of the reverse loop."""
+        return diffnet_forward(self.denoise_fn, x, t, cond_ctx,
                                compute_dtype=self.compute_dtype)
+
+    def _denoise_train(self, x: torch.Tensor, t: torch.Tensor,
+                       cond: torch.Tensor) -> torch.Tensor:
+        """Training kernels, differentiable; ``cond`` is the raw [B, T, H]."""
+        return diffnet_train_forward(self.denoise_fn, x, t, cond,
+                                     compute_dtype=self.compute_dtype)
 
     @torch.no_grad()
     def inference(self, batch: Dict[str, Any], t_mel: Optional[int] = None,
@@ -101,3 +122,96 @@ class DiffSingerTask(nn.Module):
                                         cond_ctx=cond_ctx, noise=noise,
                                         generator=generator)
         return ret
+
+    # ------------------------------------------------------------------ train
+    def _cond_forward(self, batch: Dict[str, Any],
+                      drop_gen: Optional[torch.Generator]) -> Dict[str, Any]:
+        """Training-mode FS2 conditioner (ground-truth durations, f0 and uv;
+        no mel decoder)."""
+        dev = self.device
+        return self.fs2(_as_tensor(batch["txt_tokens"], torch.long, dev),
+                        mel2ph=_as_tensor(batch["mel2ph"], torch.long, dev),
+                        f0=_as_tensor(batch["f0"], torch.float32, dev),
+                        uv=_as_tensor(batch["uv"], torch.float32, dev),
+                        skip_decoder=True, drop_gen=drop_gen)
+
+    def train_loss(self, batch: Dict[str, Any], t: Optional[torch.Tensor] = None,
+                   noise: Optional[torch.Tensor] = None,
+                   generator: Optional[torch.Generator] = None,
+                   deterministic: bool = False) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """(total_loss, loss terms): the diffusion mel loss plus the duration
+        and pitch losses. ``t`` [B] and ``noise`` [B, T, M] fix the diffusion
+        draws; ``generator`` supplies whatever is not given, and the dropout
+        masks unless ``deterministic``."""
+        dev = self.device
+        target = _as_tensor(batch["mels"], torch.float32, dev)
+        if generator is None and (t is None or noise is None or not deterministic):
+            raise ValueError("train_loss needs a torch.Generator for its random draws "
+                             "(or t, noise and deterministic=True)")
+        ret = self._cond_forward(batch, None if deterministic else generator)
+        b = target.shape[0]
+        if t is None:
+            t = torch.randint(0, self.gd.cfg.k_step, (b,), generator=generator, device=dev)
+        if noise is None:
+            noise = torch.randn(target.shape, generator=generator, device=dev)
+        losses: Dict[str, torch.Tensor] = {
+            "mel": self.gd.training_loss(self._denoise_train, target,
+                                         _as_tensor(t, torch.long, dev),
+                                         ret["decoder_inp"],
+                                         _as_tensor(noise, torch.float32, dev))}
+        self._aux_losses(losses, ret, batch)
+        return sum(losses.values()), losses
+
+    def _aux_losses(self, losses: Dict[str, torch.Tensor], ret: Dict[str, Any],
+                    batch: Dict[str, Any]) -> None:
+        """Duration losses and, with a pitch embedding, the frame f0/uv loss."""
+        hp, dev = self.hp, self.device
+        txt_tokens = _as_tensor(batch["txt_tokens"], torch.long, dev)
+        mel2ph = _as_tensor(batch["mel2ph"], torch.long, dev)
+        L.duration_losses(losses, ret["dur"], mel2ph, txt_tokens,
+                          make_is_sil(txt_tokens, self.sil_ids),
+                          lambda_ph_dur=hp.get("lambda_ph_dur", 1.0),
+                          lambda_word_dur=hp.get("lambda_word_dur", 1.0),
+                          lambda_sent_dur=hp.get("lambda_sent_dur", 1.0),
+                          dur_loss=hp.get("dur_loss", "mse"))
+        if hp.get("use_pitch_embed", True):
+            L.f0_loss(losses, ret["pitch_pred"], _as_tensor(batch["f0"], torch.float32, dev),
+                      _as_tensor(batch["uv"], torch.float32, dev),
+                      (mel2ph != 0).to(torch.float32), use_uv=hp.get("use_uv", True),
+                      pitch_loss=hp.get("pitch_loss", "l1"),
+                      lambda_f0=hp.get("lambda_f0", 1.0),
+                      lambda_uv=hp.get("lambda_uv", 1.0))
+
+    # ------------------------------------------------------------------ freeze
+    def fs2_fully_frozen(self) -> bool:
+        """True when the whole FS2 is frozen (DiffSinger semantics); DiffSpeech
+        (``freeze_fs2_all: false``) keeps its predictors trainable."""
+        hp = self.hp
+        return bool(hp.get("fs2_ckpt")) and bool(
+            hp.get("freeze_fs2_all", hp.get("task_cls", "").find("DiffSpeech") < 0))
+
+    def trainable_rule(self) -> Callable[[str], bool]:
+        """Parameter name -> trainable. Active only when warm-started from
+        ``fs2_ckpt``: then FS2 is frozen, all of it or all but its predictors."""
+        if not self.hp.get("fs2_ckpt"):
+            return lambda name: True
+        freeze_all_fs2 = self.fs2_fully_frozen()
+
+        def rule(name: str) -> bool:
+            parts = name.split(".")
+            if parts[0] != "fs2":
+                return True
+            return not freeze_all_fs2 and any("predictor" in p for p in parts)
+
+        return rule
+
+    def set_trainable(self) -> List[Tuple[str, nn.Parameter]]:
+        """Apply :meth:`trainable_rule` as ``requires_grad`` and return the
+        trainable (name, parameter) pairs."""
+        rule = self.trainable_rule()
+        out = []
+        for name, p in self.named_parameters():
+            p.requires_grad_(rule(name))
+            if p.requires_grad:
+                out.append((name, p))
+        return out

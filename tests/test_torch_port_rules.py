@@ -13,6 +13,7 @@ from diffsinger_tpu_torch.inference.vocoder import HifiGAN
 from diffsinger_tpu_torch.ops import diffnet_stack as ds
 from diffsinger_tpu_torch.ops import hifigan_mrf as mrf
 from diffsinger_tpu_torch.training.tasks import DiffSingerTask
+from diffsinger_tpu_torch.training.trainer import Trainer
 
 torch.set_num_threads(1)
 ROOT = Path(__file__).resolve().parents[1]
@@ -39,6 +40,11 @@ def _port_sources():
 def test_port_imports_no_jax_and_nothing_of_the_jax_package():
     files = _port_sources()
     assert len(files) > 10 and (ROOT / "chip_smoke.py").exists()
+    rel = {str(p.relative_to(ROOT)) for p in files}
+    assert {"diffsinger_tpu_torch/ops/diffnet_train.py",
+            "diffsinger_tpu_torch/training/trainer.py",
+            "diffsinger_tpu_torch/training/losses.py",
+            "diffsinger_tpu_torch/training/schedules.py"} <= rel
     bad = []
     for path in files:
         for node in ast.walk(ast.parse(path.read_text(), str(path))):
@@ -69,6 +75,8 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
         DiffSingerTask(TINY_HP, vocab_size=10)
     with pytest.raises(RuntimeError, match="CUDA"):
         HifiGAN(TINY_VOC)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Trainer(TINY_HP, task)
     # the explicit CPU request works, and the modules stayed on the CPU
     syn = FusedSynthesizer(TINY_HP, task, voc, device="cpu")
     assert syn.device.type == "cpu"
@@ -95,6 +103,7 @@ def test_wrappers_take_the_plain_twin_on_cpu_and_count_nothing():
 def test_kernel_sources_and_build_dir_match_the_build_module():
     from diffsinger_tpu_torch.ops import _build
 
+    assert set(_build.KERNEL_SOURCES) == {"diffnet_stack", "mrf_stage", "diffnet_train"}
     for name in _build.KERNEL_SOURCES:
         assert (_build.CSRC_DIR / f"{name}.cu").exists()
     assert _build.BUILD_DIR == ROOT / "build" / "kernels"
