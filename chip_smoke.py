@@ -7,11 +7,14 @@ Phases, each of which fails the run (non-zero exit) when it fails:
   1. prints the card's name and power limit, builds the CUDA kernels from
      diffsinger_tpu_torch/csrc/ with nvcc (sm_90a) into build/kernels/;
   2. diffnet_stack kernel at the serving shapes (B=8, T=1024, C=256, L=20),
-     bf16 and f32, dilation cycles 1 and 4, plus a row count that is not a
-     multiple of the tile, against its plain twin;
+     bf16 and f32, dilation cycles 1 and 4, the other serving buckets
+     (4 x 512, 1 x 256), a T that is not a multiple of the tile and a T
+     shorter than the largest dilation, against its plain twin; two calls
+     give the same bits and x0 stays untouched;
   3. mrf_stage kernel on the three C<=128 HiFiGAN scales at 8 x 1024 mel
-     frames (C=128/64/32 at T=65536/131072/262144), f32 and bf16, plus a T
-     that is not a multiple of the tile, against its plain twin;
+     frames (C=128/64/32 at T=65536/131072/262144), f32 and bf16, plus B=1,
+     a T that is not a multiple of the tile and a T shorter than one halo,
+     against its plain twin; two calls give the same bits;
   4. serving: the port's FusedSynthesizer with DiffSpeech-LJSpeech at full
      width (configs/lj/ds_beta6.yaml with bench.py's overrides, HiFiGAN v1)
      and seeded random weights answers 12 requests in three mel buckets,
@@ -46,6 +49,11 @@ from unittest import mock
 ROOT = Path(__file__).resolve().parent
 H100_BF16_FLOPS = 989e12   # dense tensor-core peak, H100 SXM data sheet
 H100_F32_FLOPS = 67e12     # float32 outside the tensor cores
+H100_TF32_FLOPS = 495e12   # dense TF32 tensor-core peak
+# float32 accuracy on the tensor cores takes three TF32 passes a product
+# (a_hi*b_hi + a_hi*b_lo + a_lo*b_hi): the rate the card can give the
+# float32 MRF kernel at the accuracy its tolerance needs
+H100_3XTF32_FLOPS = H100_TF32_FLOPS / 3
 H100_BYTES = 3.35e12       # HBM3 bandwidth
 
 
@@ -89,9 +97,12 @@ def phase_stack(torch, ds):
         return torch.randn(*shape, generator=gen, device="cuda") * scale
 
     rows = []
-    # the serving shapes, then B*T = 903 rows: not a multiple of the 64-row tile
+    # the serving shapes; T = 301: not a multiple of the 64-row tile; the other
+    # serving buckets; T = 5: shorter than cycle 4's largest dilation (8)
     cases = [(dt, cycle, 8, 1024) for dt in ("bfloat16", "float32") for cycle in (1, 4)]
-    cases += [("bfloat16", 4, 3, 301), ("float32", 4, 3, 301)]
+    cases += [("bfloat16", 4, 3, 301), ("float32", 4, 3, 301),
+              ("bfloat16", 1, 4, 512), ("bfloat16", 1, 1, 256),
+              ("bfloat16", 4, 2, 5), ("float32", 4, 2, 5)]
     for dt_name, cycle, b, t in cases:
         dt = torch.bfloat16 if dt_name == "bfloat16" else None
         wdt = dt or torch.float32
@@ -102,9 +113,18 @@ def phase_stack(torch, ds):
                 rn(num_layers, c, 2 * c, scale=c ** -0.5).to(wdt),
                 rn(num_layers, 2 * c, scale=0.1))
         dil = tuple(2 ** (i % cycle) for i in range(num_layers))
+        x0_before = args[0].clone()
         got = ds.diffnet_stack(*args, dilations=dil, compute_dtype=dt)
+        again = ds.diffnet_stack(*args, dilations=dil, compute_dtype=dt)
         want = ds.diffnet_stack_plain(*args, dilations=dil, compute_dtype=dt)
         torch.cuda.synchronize()
+        if not torch.equal(got, again):
+            raise AssertionError(f"diffnet_stack {dt_name} cycle {cycle} {b}x{t}: two calls "
+                                 "on the same inputs gave different bits")
+        if not torch.equal(args[0], x0_before):
+            raise AssertionError(f"diffnet_stack {dt_name} cycle {cycle} {b}x{t}: x0 was "
+                                 "written")
+        del again, x0_before
         err = (got - want).abs().max().item()
         scale = want.abs().max().item()
         # f32: same products, sums of up to 3C=768 terms in another order over
@@ -121,7 +141,8 @@ def phase_stack(torch, ds):
         bnd, by = bound_ms(flops, nbytes(*args) + b * t * c * 4,
                            H100_BF16_FLOPS if dt else H100_F32_FLOPS)
         row = dict(dtype=dt_name, cycle=cycle, B=b, T=t, max_abs_err=err, tolerance=tol,
-                   out_scale=scale, ms=ms, plain_ms=plain_ms, bound_ms=bnd, bound_by=by)
+                   out_scale=scale, ms=ms, tflops=flops / ms / 1e9, plain_ms=plain_ms,
+                   bound_ms=bnd, bound_by=by)
         print("diffnet_stack", json.dumps(row), flush=True)
         if not err <= tol:
             raise AssertionError(f"diffnet_stack {dt_name} cycle {cycle} T={t}: "
@@ -137,7 +158,9 @@ def phase_mrf(torch, mrf):
     rows = []
     cases = [(dt, c, 8, t) for dt in ("float32", "bfloat16")
              for c, t in ((128, 65536), (64, 131072), (32, 262144))]
-    cases.append(("float32", 64, 2, 1037))  # T not a multiple of the tile
+    # T not a multiple of the tile; B = 1 (a 256-frame request's first scale);
+    # T shorter than one halo (60 rows)
+    cases += [("float32", 64, 2, 1037), ("float32", 128, 1, 16384), ("float32", 32, 2, 37)]
     for dt_name, c, b, t in cases:
         dt = torch.bfloat16 if dt_name == "bfloat16" else None
         x = torch.randn(b, t, c, generator=gen, device="cuda") * 0.3
@@ -153,11 +176,17 @@ def phase_mrf(torch, mrf):
             x, w1, w2 = x.to(dt), w1.to(dt), w2.to(dt)
         kw = dict(kernel_sizes=ks, dilation_sets=ds_, compute_dtype=dt)
         got = mrf.mrf_stage(x, w1, b1, w2, b2, **kw)
+        again = mrf.mrf_stage(x, w1, b1, w2, b2, **kw)
         want = mrf.mrf_stage_plain(x, w1, b1, w2, b2, **kw)
         torch.cuda.synchronize()
+        if not torch.equal(got, again):
+            raise AssertionError(f"mrf_stage {dt_name} C={c} {b}x{t}: two calls on the same "
+                                 "inputs gave different bits")
+        del again
         err = (got - want).abs().max().item()
         scale = want.abs().max().item()
-        # f32: sums of up to 11C terms in another order through 18 convs ->
+        # f32: sums of up to 11C terms in another order (and, on the tensor
+        # cores, products split 3xTF32, exact to 2^-20) through 18 convs ->
         # 1e-4 relative to the output scale. bf16: same rounding points; a sum
         # in another order can round the chain state one bf16 step apart ->
         # 1e-2 relative to the output scale.
@@ -168,9 +197,10 @@ def phase_mrf(torch, mrf):
         flops = 252 * c * c * b * t
         useful_w = sum(2 * 3 * k * c * c for k in ks) * w1.element_size()
         bnd, by = bound_ms(flops, nbytes(x, b1, b2) + useful_w + b * t * c * 4,
-                           H100_BF16_FLOPS if dt else H100_F32_FLOPS)
+                           H100_BF16_FLOPS if dt else H100_3XTF32_FLOPS)
         row = dict(dtype=dt_name, C=c, B=b, T=t, max_abs_err=err, tolerance=tol,
-                   out_scale=scale, ms=ms, plain_ms=plain_ms, bound_ms=bnd, bound_by=by)
+                   out_scale=scale, ms=ms, tflops=flops / ms / 1e9, plain_ms=plain_ms,
+                   bound_ms=bnd, bound_by=by)
         print("mrf_stage", json.dumps(row), flush=True)
         if not err <= tol:
             raise AssertionError(f"mrf_stage {dt_name} C={c} T={t}: max|err| {err} > {tol}")
@@ -305,7 +335,8 @@ def phase_serve(torch, ds, mrf, card: str):
 
 def phase_profile(torch, run, out_dir: Path, name: str = "serve"):
     """torch.profiler over one call of ``run``: device time by kernel (table
-    in build/chip_smoke/<name>_profile.txt) and the device's busy share."""
+    in build/chip_smoke/<name>_profile.txt) and the device's busy share, the
+    union of the device intervals over the wall time."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -321,11 +352,27 @@ def phase_profile(torch, run, out_dir: Path, name: str = "serve"):
     rows = sorted(((e.key, e.self_device_time_total / 1e3, e.count) for e in ka
                    if e.device_type.name == "CUDA" and e.self_device_time_total > 0),
                   key=lambda r: -r[1])
-    busy_ms = sum(r[1] for r in rows)
+    # busy time is the union of the device intervals: a kernel launched to
+    # overlap the one before it (the stack's layers) starts early and waits, so
+    # its own duration counts time the device already spent on its predecessor
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if e.device_type.name == "CUDA" and e.time_range.end > e.time_range.start)
+    busy_us, cur_lo, cur_hi = 0.0, None, None
+    for lo, hi in spans:
+        if cur_hi is None or lo > cur_hi:
+            if cur_hi is not None:
+                busy_us += cur_hi - cur_lo
+            cur_lo, cur_hi = lo, hi
+        else:
+            cur_hi = max(cur_hi, hi)
+    if cur_hi is not None:
+        busy_us += cur_hi - cur_lo
+    busy_ms = busy_us / 1e3
     (out_dir / f"{name}_profile.txt").write_text(
         ka.table(sort_by="self_device_time_total", row_limit=40))
     summary = {"wall_ms": wall * 1e3, "device_busy_ms": busy_ms,
                "device_busy_share": busy_ms / (wall * 1e3),
+               "kernel_ms_sum": sum(r[1] for r in rows),
                "top": [{"name": k[:80], "ms": ms, "calls": n} for k, ms, n in rows[:12]]}
     print(f"{name}_profile", json.dumps(summary), flush=True)
     return summary

@@ -3,7 +3,7 @@
 // Replaces the Pallas TPU kernel diffsinger_tpu/ops/diffnet_stack.py:
 // diffnet_stack (pallas_call at :311, body _make_kernel :54-132).
 //
-// What it computes, per layer l with dilation d (x [B,T,C] f32, in place):
+// What it computes, per layer l with dilation d (x [B,T,C] f32):
 //   y    = cast(x + step[l])                       (f32 add, then input type)
 //   conv = y[t-d] @ w_dil[l,0] + y[t] @ w_dil[l,1] + y[t+d] @ w_dil[l,2]
 //          + b_dil[l] + cond[l]                    (f32 accumulation; rows
@@ -12,50 +12,392 @@
 //   out  = g @ w_out[l] + b_out[l]
 //   x    = (x + out[:, :C]) * sqrt(1/2);  skip += out[:, C:]
 //
-// Design. The TPU kernel keeps the whole [T,C] activation and skip sum
-// resident in a 9 MB VMEM budget across all layers; one H100 block has 227 KB
-// of shared memory, so that does not carry over. Here each layer is a pair of
-// launches: (A) the dilated-conv GEMM with bias, cond and the gate in its
-// epilogue, writing g; (B) the out-projection GEMM with the residual update
-// of x and the skip accumulation in its epilogue. A block of kernel A owns a
-// 64-row tile and the matching gate columns j and filter columns j + C, so the
-// gate is computed locally. Neighbouring rows are read straight from global
-// memory, zero-filled only outside [0,T), so no chunk/halo stitching exists.
+// Two instantiations:
+//
+// bfloat16 (the serving path) - the tensor-core kernel stack_layer_tc, one
+// launch a layer. The TPU kernel keeps the whole [T,C] activation resident in
+// VMEM across all layers; a block here has 227 KB, so a block owns 64 rows of
+// one batch row and all 2C columns for one layer:
+//   * y is staged once: the block's rows plus a d-row halo on each side are
+//     read from x, step is added, the sum is rounded to bf16 and kept in
+//     shared memory; each tap is a row offset into that tile. Blocks never
+//     span two batch rows (grid = T tiles x B), so the halo is zero exactly
+//     where t leaves [0,T).
+//   * the products are mma.sync.m16n8k16 (bf16 in, f32 accumulate) fed by
+//     ldmatrix; warp w owns gate columns [wC/8, (w+1)C/8) and the matching
+//     filter columns + C, so the gate is computed in registers.
+//   * the weights of the layer ([3C + C, 2C] bf16, 1 MB at C = 256) stream
+//     through cp.async rings of 16-row chunks, four stages deep. Every warp
+//     has a ring of its own that holds only its columns, so the GEMM loops
+//     need no block-wide barrier (a wait and a __syncwarp a chunk) and the
+//     warps drift apart and fill each other's bubbles; the out-projection
+//     chunks follow the conv chunks in the same ring. A block has two
+//     __syncthreads a layer: y staged, g written.
+//   * cond and x reach the epilogues through shared memory as well: each warp
+//     copies its own [64, C/4] cond tile with cp.async at the start and, once
+//     the gate is computed, its f32 x rows into the same place for the
+//     residual. Only skip is read from device memory in an epilogue.
+//   * g stays on chip: the gate epilogue writes it (bf16) to shared memory and
+//     the out GEMM reads it from there. The residual epilogue writes x_out:
+//     x is double-buffered between layers (a neighbouring block still reads
+//     x_in[t +- d]), the caller's x0 is layer 0's input and is never written.
+//
+// float32 - the earlier shared-memory tiled SIMT pair of launches a layer
+// (gate_kernel, out_kernel: f32 FMA, x updated in place, g through device
+// memory). Not on the serving path; kept as it was.
 //
 // Bound. At B=8, T=1024, C=256, L=20 one stack call does 171.8 GFLOP and
 // moves ~205 MB (168 MB of it the bf16 cond tensor): compute-bound on this
-// card. This first version is a shared-memory tiled SIMT GEMM (f32 FMA on
-// values converted from the input type), far from the tensor-core peak;
-// wgmma/TMA tiles are the next step.
+// card. What limits stack_layer_tc (tools/stack_phases.py times the phases of
+// a block): the two GEMMs take about half of a layer and are fed by the L2,
+// not by the tensor cores - every 64-row block streams the layer's whole 1 MB
+// of weights, 128 MB a layer over 128 blocks, about 4.3 TB/s while the GEMMs
+// run, and the bare fragment-load + mma.sync loop is twice as fast as that;
+// blocks of 128 rows do not fit the register file, so sharing the weight
+// stream needs a cluster with multicast copies. The other half is staging y,
+// the two epilogues (sigmoid * tanh; skip read from device memory) and the
+// tail of the launch, none of which overlaps the products with one block of
+// 8 warps an SM (230 registers a thread).
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 
+#include "mma_sm90.cuh"
+
 namespace {
 
-template <typename T> __device__ __forceinline__ float to_f(T v);
-template <> __device__ __forceinline__ float to_f<float>(float v) { return v; }
-template <> __device__ __forceinline__ float to_f<__nv_bfloat16>(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-template <typename T> __device__ __forceinline__ T from_f(float v);
-template <> __device__ __forceinline__ float from_f<float>(float v) { return v; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);  // round to nearest even, as astype does
+constexpr float SQRT_HALF = 0.70710678118654752f;
+
+// ------------------------------------------------------------------ bfloat16
+namespace tc {
+
+using namespace mma90;
+typedef __nv_bfloat16 bf16;
+
+constexpr int TM = 64;    // rows per block
+constexpr int KC = 16;    // contraction rows per staged weight chunk
+constexpr int NST = 4;    // stages of each warp's weight ring
+constexpr int NTHR = 256; // 8 warps, each 64 rows x (C/8 gate + C/8 filter) columns
+
+// Row strides carry 16 bytes of padding: ldmatrix's eight rows then fall on
+// eight different 16-byte bank groups.
+template <int C> __host__ __device__ constexpr int y_stride() { return C + 8; }      // bf16
+template <int C> __host__ __device__ constexpr int w_stride() { return C / 4 + 8; }  // bf16, a warp's columns
+template <int C> __host__ __device__ constexpr size_t smem_bytes(int d) {
+  return ((size_t)(TM + 2 * d) * y_stride<C>() + (size_t)TM * y_stride<C>() +
+          (size_t)8 * (NST * KC + TM) * w_stride<C>()) * sizeof(bf16);
 }
 
+__device__ __forceinline__ float sigmoid_f(float a) {
+  a = fminf(fmaxf(a, -30.f), 30.f);
+  return __fdividef(1.f, 1.f + __expf(-a));
+}
+__device__ __forceinline__ float tanh_f(float a) {
+  a = fminf(fmaxf(a, -15.f), 15.f);
+  return 1.f - __fdividef(2.f, 1.f + __expf(2.f * a));
+}
+
+// Built with -DSTACK_PHASE_CLOCKS (tools/stack_phases.py does), thread 0 of
+// every block records clock64() at six points of the last layer launched.
+#ifdef STACK_PHASE_CLOCKS
+constexpr int CLK_POINTS = 6, CLK_BLOCKS = 4096;
+__device__ long long g_clk[CLK_BLOCKS * CLK_POINTS];
+#define PHASE_CLOCK(i)                                                               \
+  if (threadIdx.x == 0 && blockIdx.y * gridDim.x + blockIdx.x < CLK_BLOCKS)          \
+  g_clk[(blockIdx.y * gridDim.x + blockIdx.x) * CLK_POINTS + (i)] = clock64()
+#else
+#define PHASE_CLOCK(i)
+#endif
+
+template <int C>
+__global__ void __launch_bounds__(NTHR, 1)
+stack_layer_tc(const float* __restrict__ x_in, float* __restrict__ x_out,
+               float* __restrict__ skip, const float* __restrict__ step,
+               const bf16* __restrict__ cond, const bf16* __restrict__ w_dil,
+               const float* __restrict__ b_dil, const bf16* __restrict__ w_out,
+               const float* __restrict__ b_out, int B, int T, int l, int d) {
+  constexpr int C2 = 2 * C, YS = y_stride<C>(), WS = w_stride<C>();
+  constexpr int WC = C / 8;              // columns a warp owns in each half
+  constexpr int NTH = C / 64;            // 8-column tiles per half per warp
+  constexpr int PPH = WC / 8;            // 16-byte pieces of a bf16 row per half
+  constexpr int NG = 3 * C / KC;         // weight chunks of the dilated conv
+  constexpr int NCH = NG + C / KC;       // ... plus those of the out projection
+  static_assert(C % 128 == 0, "two n-tiles per ldmatrix.x4");
+  static_assert(TM * WC * 4 <= TM * WS * 2, "the x tile fits the cond tile");
+
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* ys = reinterpret_cast<bf16*>(smem_raw);      // [TM + 2d][YS] y, shared
+  bf16* gs = ys + (size_t)(TM + 2 * d) * YS;         // [TM][YS] g, shared
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  // private to the warp: its weight ring and its cond tile (columns
+  // [0, WC) gate, [WC, 2WC) filter), which later holds its f32 x tile
+  bf16* wring = gs + (size_t)TM * YS + (size_t)warp * (NST * KC + TM) * WS;  // [NST][KC][WS]
+  bf16* ctile = wring + (size_t)NST * KC * WS;                               // [TM][WS]
+  float* xtile = reinterpret_cast<float*>(ctile);                            // [TM][WS / 2]
+
+  const int g8 = lane / 4, t4 = lane % 4;
+  const int b = blockIdx.y, t0 = blockIdx.x * TM;
+  const int wcol = warp * WC;             // this warp's first column in each half
+  const bf16* wd_l = w_dil + (size_t)l * 3 * C * C2;
+  const bf16* wo_l = w_out + (size_t)l * C * C2;
+  const bf16* cond_b = cond + ((size_t)l * B + b) * T * C2;
+  const float* xin_b = x_in + (size_t)b * T * C;
+
+  PHASE_CLOCK(0);
+  // Layers after the first are launched to overlap the layer before them:
+  // up to griddep_wait() only inputs of the whole call are touched (cond,
+  // weights), never x, skip or anything else a layer writes.
+  griddep_launch_dependents();
+  // the warp's cond tile first: the oldest copy group, landed before any chunk
+  for (int p = lane; p < TM * 2 * PPH; p += 32) {
+    const int r = p / (2 * PPH), hp = p % (2 * PPH), h = hp / PPH, q = hp % PPH;
+    if (t0 + r < T)
+      cp_async16(smem_u32(ctile + r * WS + h * WC + q * 8),
+                 cond_b + (size_t)(t0 + r) * C2 + h * C + wcol + q * 8);
+  }
+  cp_async_commit();
+  // chunk ch: rows [KC ch, KC ch + KC) of [w_dil[l] (3C rows); w_out[l] (C rows)],
+  // the warp's gate and filter columns only
+  auto fetch = [&](int ch) {
+    const bf16* src = (ch < NG ? wd_l + (size_t)ch * KC * C2
+                               : wo_l + (size_t)(ch - NG) * KC * C2) + wcol;
+    bf16* dst = wring + (size_t)(ch % NST) * KC * WS;
+#pragma unroll
+    for (int p = lane; p < KC * 2 * PPH; p += 32) {
+      const int r = p / (2 * PPH), hp = p % (2 * PPH), h = hp / PPH, q = hp % PPH;
+      cp_async16(smem_u32(dst + r * WS + h * WC + q * 8), src + (size_t)r * C2 + h * C + q * 8);
+    }
+  };
+#pragma unroll
+  for (int s = 0; s < NST - 1; ++s) {
+    fetch(s);
+    cp_async_commit();
+  }
+  griddep_wait();   // the layer before has completed: x_in and skip are final
+  // the residual epilogue's skip rows: pull them into L2 meanwhile
+  if (l > 0)
+    for (int i = tid; i < TM * (C * 4 / 128); i += NTHR) {
+      const int t = t0 + i / (C * 4 / 128);
+      if (t < T) prefetch_l2(skip + ((size_t)b * T + t) * C + (i % (C * 4 / 128)) * 32);
+    }
+  // y = bf16(x + step), rows t0 - d .. t0 + TM + d, zero outside [0, T);
+  // up to 24 loads in flight per thread (all of them for d <= 16 at C = 256)
+  {
+    constexpr int CP4 = C / 4, RPP = NTHR / CP4;   // float4 per row, rows per pass
+    const int c4 = tid % CP4, rq = tid / CP4;
+    const float4 sv = reinterpret_cast<const float4*>(step + ((size_t)l * B + b) * C)[c4];
+    const int nrows = TM + 2 * d;
+    constexpr int UN = 24;
+    for (int q0 = 0; q0 < nrows; q0 += UN * RPP) {
+      float4 v[UN];
+#pragma unroll
+      for (int u = 0; u < UN; ++u) {
+        const int q = q0 + u * RPP + rq, t = t0 - d + q;
+        v[u] = make_float4(0.f, 0.f, 0.f, 0.f);
+        if (q < nrows && t >= 0 && t < T)
+          v[u] = reinterpret_cast<const float4*>(xin_b + (size_t)t * C)[c4];
+      }
+#pragma unroll
+      for (int u = 0; u < UN; ++u) {
+        const int q = q0 + u * RPP + rq, t = t0 - d + q;
+        if (q >= nrows) continue;
+        const bool in = t >= 0 && t < T;
+        __nv_bfloat162 lo = __floats2bfloat162_rn(in ? v[u].x + sv.x : 0.f, in ? v[u].y + sv.y : 0.f);
+        __nv_bfloat162 hi = __floats2bfloat162_rn(in ? v[u].z + sv.z : 0.f, in ? v[u].w + sv.w : 0.f);
+        uint2 pk;
+        pk.x = *reinterpret_cast<uint32_t*>(&lo);
+        pk.y = *reinterpret_cast<uint32_t*>(&hi);
+        *reinterpret_cast<uint2*>(ys + (size_t)q * YS + c4 * 4) = pk;
+      }
+    }
+  }
+  __syncthreads();   // y is staged
+  PHASE_CLOCK(1);
+
+  float acc[4][2 * NTH][4];
+#pragma unroll
+  for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < 2 * NTH; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.f;
+
+  for (int ch = 0; ch < NCH; ++ch) {
+    if (ch == NG) {
+      PHASE_CLOCK(2);   // conv GEMM done
+      // gate epilogue: bias + cond, sigmoid * tanh, g -> shared memory (bf16)
+      const float* bd_l = b_dil + (size_t)l * C2;
+#pragma unroll
+      for (int nt = 0; nt < NTH; ++nt) {
+        const int cw = nt * 8 + 2 * t4, col = wcol + cw;
+        const float2 bg = *reinterpret_cast<const float2*>(bd_l + col);
+        const float2 bf = *reinterpret_cast<const float2*>(bd_l + C + col);
+#pragma unroll
+        for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+          for (int hr = 0; hr < 2; ++hr) {
+            const int r = mt * 16 + g8 + hr * 8;
+            __nv_bfloat162 gv = __floats2bfloat162_rn(0.f, 0.f);
+            if (t0 + r < T) {
+              const float2 cg = __bfloat1622float2(
+                  *reinterpret_cast<const __nv_bfloat162*>(ctile + r * WS + cw));
+              const float2 cf = __bfloat1622float2(
+                  *reinterpret_cast<const __nv_bfloat162*>(ctile + r * WS + WC + cw));
+              const float g0 = acc[mt][nt][hr * 2] + bg.x + cg.x;
+              const float g1 = acc[mt][nt][hr * 2 + 1] + bg.y + cg.y;
+              const float f0 = acc[mt][NTH + nt][hr * 2] + bf.x + cf.x;
+              const float f1 = acc[mt][NTH + nt][hr * 2 + 1] + bf.y + cf.y;
+              gv = __floats2bfloat162_rn(sigmoid_f(g0) * tanh_f(f0),
+                                         sigmoid_f(g1) * tanh_f(f1));
+            }
+            *reinterpret_cast<__nv_bfloat162*>(gs + (size_t)r * YS + col) = gv;
+          }
+      }
+#pragma unroll
+      for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < 2 * NTH; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.f;
+      __syncthreads();   // every warp's g columns are written
+      PHASE_CLOCK(3);
+      // the cond tile is spent: the warp's f32 x rows (its residual columns)
+      // take its place, copied with the next weight chunk's group
+      for (int p = lane; p < TM * 2 * PPH; p += 32) {
+        const int r = p / (2 * PPH), q = p % (2 * PPH);
+        if (t0 + r < T)
+          cp_async16(smem_u32(xtile + r * (WS / 2) + q * 4),
+                     xin_b + (size_t)(t0 + r) * C + wcol + q * 4);
+      }
+    }
+    cp_async_wait<NST - 2>();   // this lane's part of chunk ch has landed
+    __syncwarp();               // ... and the other lanes'; chunk ch - 1's stage is free
+    if (ch + NST - 1 < NCH) fetch(ch + NST - 1);
+    cp_async_commit();
+
+    const bf16* wst = wring + (size_t)(ch % NST) * KC * WS;
+    const bf16* abase;
+    if (ch < NG) {
+      const int tap = (ch * KC) / C, c0 = (ch * KC) % C;
+      abase = ys + (size_t)(tap * d) * YS + c0;   // tile row r + tap*d is t0 + r + (tap-1)d
+    } else {
+      abase = gs + (ch - NG) * KC;
+    }
+    uint32_t bfr[2 * NTH][2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int j = 0; j < NTH / 2; ++j) {
+        uint32_t r[4];
+        const int col = h * WC + j * 16 + (lane / 16) * 8;
+        ldmatrix_x4_trans(r, smem_u32(wst + (size_t)(lane % 16) * WS + col));
+        bfr[h * NTH + 2 * j][0] = r[0];
+        bfr[h * NTH + 2 * j][1] = r[1];
+        bfr[h * NTH + 2 * j + 1][0] = r[2];
+        bfr[h * NTH + 2 * j + 1][1] = r[3];
+      }
+#pragma unroll
+    for (int mt = 0; mt < 4; ++mt) {
+      uint32_t a[4];
+      ldmatrix_x4(a, smem_u32(abase + (size_t)(mt * 16 + lane % 16) * YS + (lane / 16) * 8));
+#pragma unroll
+      for (int nt = 0; nt < 2 * NTH; ++nt) mma_bf16(acc[mt][nt], a, bfr[nt][0], bfr[nt][1]);
+    }
+  }
+  cp_async_wait<0>();   // the x tile
+  __syncwarp();
+  PHASE_CLOCK(4);   // out GEMM done
+
+  // residual epilogue: x_out = (x_in + res) * sqrt(1/2), skip (+)= sk
+  const float* bo_l = b_out + (size_t)l * C2;
+#pragma unroll
+  for (int nt = 0; nt < NTH; ++nt) {
+    const int cw = nt * 8 + 2 * t4, col = wcol + cw;
+    const float2 br = *reinterpret_cast<const float2*>(bo_l + col);
+    const float2 bs = *reinterpret_cast<const float2*>(bo_l + C + col);
+    float2 so[4][2];
+#pragma unroll
+    for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) {
+        const int t = t0 + mt * 16 + g8 + hr * 8;
+        so[mt][hr] = make_float2(0.f, 0.f);
+        if (l > 0 && t < T)
+          so[mt][hr] = *reinterpret_cast<const float2*>(skip + ((size_t)b * T + t) * C + col);
+      }
+#pragma unroll
+    for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) {
+        const int r = mt * 16 + g8 + hr * 8, t = t0 + r;
+        if (t >= T) continue;
+        const size_t o = ((size_t)b * T + t) * C + col;
+        const float2 xi = *reinterpret_cast<const float2*>(xtile + r * (WS / 2) + cw);
+        float2 xo, sk;
+        xo.x = (xi.x + (acc[mt][nt][hr * 2] + br.x)) * SQRT_HALF;
+        xo.y = (xi.y + (acc[mt][nt][hr * 2 + 1] + br.y)) * SQRT_HALF;
+        sk.x = so[mt][hr].x + (acc[mt][NTH + nt][hr * 2] + bs.x);
+        sk.y = so[mt][hr].y + (acc[mt][NTH + nt][hr * 2 + 1] + bs.y);
+        *reinterpret_cast<float2*>(x_out + o) = xo;
+        *reinterpret_cast<float2*>(skip + o) = sk;
+      }
+  }
+  PHASE_CLOCK(5);
+}
+
+// x0 is read only; xbuf holds two [B,T,C] f32 buffers the layers alternate
+// between; skip needs no initial value (layer 0 writes it).
+template <int C>
+int run(const float* x0, float* xbuf, float* skip, const float* step, const bf16* cond,
+        const bf16* w_dil, const float* b_dil, const bf16* w_out, const float* b_out,
+        int B, int T, int L, const int* dil, cudaStream_t stream) {
+  int dmax = 0;
+  for (int l = 0; l < L; ++l) {
+    if (dil[l] < 1) return (int)cudaErrorInvalidValue;
+    if (dil[l] > dmax) dmax = dil[l];
+  }
+  if (smem_bytes<C>(dmax) > 227 * 1024) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(stack_layer_tc<C>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)smem_bytes<C>(dmax));
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((T + TM - 1) / TM, B);
+  const size_t n = (size_t)B * T * C;
+  for (int l = 0; l < L; ++l) {
+    const float* xin = l == 0 ? x0 : xbuf + ((l - 1) % 2) * n;
+    float* xout = xbuf + (l % 2) * n;
+    // layers after the first may start (their cond and weight copies) while
+    // the layer before them drains; layer 0 waits for the caller's kernels
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = grid;
+    cfg.blockDim = dim3(NTHR);
+    cfg.dynamicSmemBytes = smem_bytes<C>(dil[l]);
+    cfg.stream = stream;
+    cudaLaunchAttribute attr;
+    attr.id = cudaLaunchAttributeProgrammaticStreamSerialization;
+    attr.val.programmaticStreamSerializationAllowed = 1;
+    cfg.attrs = &attr;
+    cfg.numAttrs = l > 0 ? 1 : 0;
+    err = cudaLaunchKernelEx(&cfg, stack_layer_tc<C>, xin, xout, skip, step, cond, w_dil,
+                             b_dil, w_out, b_out, B, T, l, dil[l]);
+    if (err != cudaSuccess) return (int)err;
+  }
+  return (int)cudaSuccess;
+}
+
+}  // namespace tc
+
+// ------------------------------------------------------------------- float32
 constexpr int BM = 64;    // rows per block
 constexpr int BNH = 32;   // columns per half (gate|filter, residual|skip)
 constexpr int BK = 16;    // contraction slice staged in shared memory
 constexpr int NT = 256;   // threads: 16 row groups x 16 column groups
-constexpr float SQRT_HALF = 0.70710678118654752f;
 
 // Kernel A: gated dilated conv of layer l -> g [B*T, C].
-template <typename In>
 __global__ void __launch_bounds__(NT)
 gate_kernel(const float* __restrict__ x, const float* __restrict__ step,
-            const In* __restrict__ cond, const In* __restrict__ w_dil,
-            const float* __restrict__ b_dil, In* __restrict__ g,
+            const float* __restrict__ cond, const float* __restrict__ w_dil,
+            const float* __restrict__ b_dil, float* __restrict__ g,
             int B, int T, int C, int l, int d) {
   __shared__ float As[BK][BM];
   __shared__ float Bs[BK][2 * BNH];
@@ -84,8 +426,7 @@ gate_kernel(const float* __restrict__ x, const float* __restrict__ step,
         const int b = R / T, t = R % T, ts = t + (tap - 1) * d;
         if (ts >= 0 && ts < T) {
           const int c = c0 + kk;
-          v = to_f(from_f<In>(x[((size_t)b * T + ts) * C + c] +
-                              step[((size_t)l * B + b) * C + c]));
+          v = x[((size_t)b * T + ts) * C + c] + step[((size_t)l * B + b) * C + c];
         }
       }
       As[kk][r] = v;
@@ -94,7 +435,7 @@ gate_kernel(const float* __restrict__ x, const float* __restrict__ step,
     for (int q = 0; q < (BK * 2 * BNH) / NT; ++q) {
       const int e = tid + q * NT, kk = e / (2 * BNH), n = e % (2 * BNH);
       const int col = (n / BNH) * C + j0 + (n % BNH);
-      Bs[kk][n] = to_f(w_dil[(((size_t)l * 3 + tap) * C + c0 + kk) * C2 + col]);
+      Bs[kk][n] = w_dil[(((size_t)l * 3 + tap) * C + c0 + kk) * C2 + col];
     }
     __syncthreads();
 #pragma unroll
@@ -122,20 +463,18 @@ gate_kernel(const float* __restrict__ x, const float* __restrict__ step,
 #pragma unroll
     for (int j = 0; j < 2; ++j) {
       const int col = j0 + tx + 16 * j;
-      const float gate = acc[i][0][j] + b_dil[(size_t)l * C2 + col] + to_f(cond[crow + col]);
-      const float filt = acc[i][1][j] + b_dil[(size_t)l * C2 + C + col] +
-                         to_f(cond[crow + C + col]);
+      const float gate = acc[i][0][j] + b_dil[(size_t)l * C2 + col] + cond[crow + col];
+      const float filt = acc[i][1][j] + b_dil[(size_t)l * C2 + C + col] + cond[crow + C + col];
       const float sig = 1.f / (1.f + expf(-gate));
-      g[(size_t)R * C + col] = from_f<In>(sig * tanhf(filt));
+      g[(size_t)R * C + col] = sig * tanhf(filt);
     }
   }
 }
 
 // Kernel B: out projection of layer l, residual update of x, skip sum.
-template <typename In>
 __global__ void __launch_bounds__(NT)
-out_kernel(float* __restrict__ x, float* __restrict__ skip, const In* __restrict__ g,
-           const In* __restrict__ w_out, const float* __restrict__ b_out,
+out_kernel(float* __restrict__ x, float* __restrict__ skip, const float* __restrict__ g,
+           const float* __restrict__ w_out, const float* __restrict__ b_out,
            int BT, int C, int l) {
   __shared__ float As[BK][BM];
   __shared__ float Bs[BK][2 * BNH];
@@ -157,13 +496,13 @@ out_kernel(float* __restrict__ x, float* __restrict__ skip, const In* __restrict
     for (int q = 0; q < (BM * BK) / NT; ++q) {
       const int e = tid + q * NT, r = e / BK, kk = e % BK;
       const int R = row0 + r;
-      As[kk][r] = R < BT ? to_f(g[(size_t)R * C + k0 + kk]) : 0.f;
+      As[kk][r] = R < BT ? g[(size_t)R * C + k0 + kk] : 0.f;
     }
 #pragma unroll
     for (int q = 0; q < (BK * 2 * BNH) / NT; ++q) {
       const int e = tid + q * NT, kk = e / (2 * BNH), n = e % (2 * BNH);
       const int col = (n / BNH) * C + j0 + (n % BNH);
-      Bs[kk][n] = to_f(w_out[((size_t)l * C + k0 + kk) * C2 + col]);
+      Bs[kk][n] = w_out[((size_t)l * C + k0 + kk) * C2 + col];
     }
     __syncthreads();
 #pragma unroll
@@ -199,46 +538,60 @@ out_kernel(float* __restrict__ x, float* __restrict__ skip, const In* __restrict
   }
 }
 
-template <typename In>
-int run(float* x, float* skip, In* g, const float* step, const In* cond,
-        const In* w_dil, const float* b_dil, const In* w_out, const float* b_out,
-        int B, int T, int C, int L, const int* dil, cudaStream_t stream) {
+// x is updated in place, skip must start at zero, g is scratch [B*T, C].
+int run_f32(float* x, float* skip, float* g, const float* step, const float* cond,
+            const float* w_dil, const float* b_dil, const float* w_out,
+            const float* b_out, int B, int T, int C, int L, const int* dil,
+            cudaStream_t stream) {
+  if (C % BNH != 0 || C % BK != 0) return (int)cudaErrorInvalidValue;
   const int BT = B * T;
   const dim3 grid((BT + BM - 1) / BM, C / BNH);
   for (int l = 0; l < L; ++l) {
-    gate_kernel<In><<<grid, NT, 0, stream>>>(x, step, cond, w_dil, b_dil, g,
-                                             B, T, C, l, dil[l]);
+    gate_kernel<<<grid, NT, 0, stream>>>(x, step, cond, w_dil, b_dil, g, B, T, C, l, dil[l]);
     cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
-    out_kernel<In><<<grid, NT, 0, stream>>>(x, skip, g, w_out, b_out, BT, C, l);
+    out_kernel<<<grid, NT, 0, stream>>>(x, skip, g, w_out, b_out, BT, C, l);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }
-  return (int)cudaGetLastError();
+  return (int)cudaSuccess;
 }
 
 }  // namespace
 
-// dtype: 0 = float32 inputs, 1 = bfloat16 inputs (cond, w_dil, w_out, g).
-// x [B,T,C] f32 is updated in place; skip [B,T,C] f32 must start at zero;
-// g is scratch [B*T, C] of the input type. Returns a cudaError_t code.
-extern "C" int diffnet_stack_run(int dtype, void* x, void* skip, void* g,
+// dtype 0, float32 inputs: x [B,T,C] f32 is updated in place, skip [B,T,C] f32
+// must start at zero, scratch is g [B*T, C] f32; C % 32 == 0.
+// dtype 1, bfloat16 inputs (cond, w_dil, w_out): x is read only, skip needs no
+// initial value, scratch is two [B,T,C] f32 buffers; C is 128 or 256.
+// Returns a cudaError_t code.
+extern "C" int diffnet_stack_run(int dtype, void* x, void* skip, void* scratch,
                                  const void* step, const void* cond,
                                  const void* w_dil, const void* b_dil,
                                  const void* w_out, const void* b_out,
                                  int B, int T, int C, int L, const int* dil,
                                  void* stream) {
-  if (C % BNH != 0 || C % BK != 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == 0)
-    return run<float>((float*)x, (float*)skip, (float*)g, (const float*)step,
-                      (const float*)cond, (const float*)w_dil, (const float*)b_dil,
-                      (const float*)w_out, (const float*)b_out, B, T, C, L, dil, s);
-  if (dtype == 1)
-    return run<__nv_bfloat16>((float*)x, (float*)skip, (__nv_bfloat16*)g,
-                              (const float*)step, (const __nv_bfloat16*)cond,
-                              (const __nv_bfloat16*)w_dil, (const float*)b_dil,
-                              (const __nv_bfloat16*)w_out, (const float*)b_out,
-                              B, T, C, L, dil, s);
+    return run_f32((float*)x, (float*)skip, (float*)scratch, (const float*)step,
+                   (const float*)cond, (const float*)w_dil, (const float*)b_dil,
+                   (const float*)w_out, (const float*)b_out, B, T, C, L, dil, s);
+  if (dtype == 1) {
+    typedef __nv_bfloat16 bf16;
+#define STACK_TC(CH)                                                                  \
+  return tc::run<CH>((const float*)x, (float*)scratch, (float*)skip, (const float*)step, \
+                     (const bf16*)cond, (const bf16*)w_dil, (const float*)b_dil,      \
+                     (const bf16*)w_out, (const float*)b_out, B, T, L, dil, s)
+    if (C == 256) STACK_TC(256);
+    if (C == 128) STACK_TC(128);
+#undef STACK_TC
+  }
   return (int)cudaErrorInvalidValue;
 }
+
+#ifdef STACK_PHASE_CLOCKS
+// Copies the recorded clocks of the first n blocks ([n][6] int64) to the host.
+extern "C" int diffnet_stack_read_clocks(long long* dst, int n) {
+  if (n > tc::CLK_BLOCKS) return (int)cudaErrorInvalidValue;
+  return (int)cudaMemcpyFromSymbol(dst, tc::g_clk, sizeof(long long) * n * tc::CLK_POINTS);
+}
+#endif

@@ -15,42 +15,338 @@
 // outside [0,T): the bias and lrelu make them nonzero otherwise). f32
 // accumulation; cast() rounds to the input type (identity for float32).
 //
-// Design. One block owns one T tile of one batch row plus the chain halo H
-// (sum over stages of half*d + half: 60 rows for k=11, d=(1,3,5)) and keeps
-// that window in shared memory across all 18 convolutions: one buffer holds
-// the chain state xc, the other the intermediate y (2 * R * C floats, R rows).
-// Only x is read from and the output written to global memory; weights
-// (k*C*C per conv) stream from L2 in 16-row slices. Rows whose taps leave the
-// window compute garbage that never reaches the tile's centre, because the
-// window is H rows wider than the tile on each side.
+// Two instantiations:
+//
+// float32 (the serving path) - the tensor-core kernel mrf_tc_kernel, one
+// launch a branch. One block owns one T tile of one batch row and keeps a
+// window of it in shared memory across the convolutions of the branch (chain
+// state xc and intermediate y, float32); only x is read from and the branch
+// result written to device memory.
+//   * Products are mma.sync.m16n8k8 TF32 with float32 accumulators at float32
+//     accuracy by the 3xTF32 split: a = a_hi + a_lo (a_hi the top 10 mantissa
+//     bits), acc += a_lo*b_hi + a_hi*b_lo + a_hi*b_hi. One TF32 pass keeps
+//     three digits and does not hold 1e-4 through 18 chained convolutions.
+//     Activations are split when they are loaded into fragments (after the
+//     lrelu of a stage's first conv), weights when a warp loads its B
+//     fragments (once per 8-deep step, reused for all its row tiles).
+//   * The rows each conv computes come from a plan made on the host
+//     (ops/hifigan_mrf.py:mrf_window_plan): every branch has its own halo
+//     (12, 36, 60 rows for k = 3, 7, 11 with d = 1, 3, 5) and, being a launch
+//     of its own, its own tile (a narrow halo leaves room for a long tile);
+//     the range shrinks by the conv's reach after each conv, down to the tile
+//     itself. Rows outside a conv's range keep stale values that no kept row
+//     reads.
+//   * A warp owns 8*NT columns and up to MT 16-row tiles, interleaved over
+//     the warps that share its columns, so a range of any length balances to
+//     within one row tile (C = 128: 32 columns, two warps a column group).
+//     The host picks each branch's tile (ops/hifigan_mrf.py:choose_mrf_tiles)
+//     from the shared memory a block may take and the waves the grid makes.
+//     C <= 32 runs two blocks an SM; at C = 64 two blocks would cut the
+//     window to 160 rows (a 40-row tile under the 60-row halo, 2.3x
+//     recompute), so C >= 64 runs one block an SM with the longest window.
+//   * Weights stream through a 3-stage cp.async ring of KS-row slices, one
+//     __syncthreads a slice; each slice is staged once per conv and used for
+//     every row of the window, and the ring runs on across conv boundaries,
+//     so the next conv's first slices load during the epilogue.
+//   * The branch sum is kept in `out` (device memory): branch 0 writes, later
+//     branches add in stream order (no atomics), the last scales by 1/nb.
+//     Holding it in shared memory would tie all branches to one tile and cost
+//     a fifth of the tile rows at C = 128: more recompute than the 2 reads +
+//     2 writes of out save.
+//
+// bfloat16 - the earlier SIMT FMA kernel (mrf_kernel: one window with the
+// widest branch's halo for every branch, every conv over the whole window).
+// Not on the serving path (the vocoder runs float32); kept as it was.
 //
 // Bound. 252 * C^2 FLOP per frame and batch row, i.e. 2.16, 1.08 and 0.54
-// TFLOP for the C = 128, 64, 32 scales at 8 x 1024 mel frames: compute-bound
-// at the float32 SIMT peak. This first version is a SIMT FMA kernel; the
-// window recompute (R / tile rows: 2.7x at C=128, where 2H=120 of R=192 rows
-// are halo) is its main overhead besides the missing tensor-core path.
+// TFLOP for the C = 128, 64, 32 scales at 8 x 1024 mel frames: compute-bound.
+// With 3xTF32 every product costs three tensor-core passes, so the float32
+// rate the card can give at this accuracy is 495 / 3 = 165 TFLOP/s. What
+// limits mrf_tc_kernel: the halo recompute (about 1.2-1.7x by scale), the
+// split's integer and float arithmetic beside the products, and mma.sync.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 
+#include "mma_sm90.cuh"
+
 namespace {
 
-template <typename T> __device__ __forceinline__ float to_f(T v);
-template <> __device__ __forceinline__ float to_f<float>(float v) { return v; }
-template <> __device__ __forceinline__ float to_f<__nv_bfloat16>(__nv_bfloat16 v) {
-  return __bfloat162float(v);
+constexpr float SLOPE = 0.1f;
+constexpr int MAXB = 4;   // branches / stages a plan may hold
+
+__device__ __forceinline__ float lrelu(float v) { return v >= 0.f ? v : SLOPE * v; }
+// the same value in two operations: SLOPE < 1, so the larger of v and
+// SLOPE * v is v for v >= 0 and SLOPE * v below
+__device__ __forceinline__ float lrelu_max(float v) { return fmaxf(v, SLOPE * v); }
+
+// ------------------------------------------------------------------- float32
+namespace tc {
+
+using namespace mma90;
+
+constexpr int NST = 3;     // stages of the weight ring
+
+// Diagnostic builds (tools/mrf_ablate.py; the results are wrong, only the
+// times mean something): -DMRF_ABLATE_NO_SPLIT feeds the raw bits as both
+// halves, -DMRF_ABLATE_ONE_PASS runs one of the three products.
+__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
+#ifdef MRF_ABLATE_NO_SPLIT
+  hi = lo = __float_as_uint(x);
+#else
+  split_tf32(x, hi, lo);
+#endif
 }
-template <typename T> __device__ __forceinline__ float round_to(float v);
-template <> __device__ __forceinline__ float round_to<float>(float v) { return v; }
-template <> __device__ __forceinline__ float round_to<__nv_bfloat16>(float v) {
+
+// One branch's window plan, built by ops/hifigan_mrf.py:mrf_window_plan. Rows
+// are window rows: row q of the window is sequence row t0 - halo + q.
+struct WPlan {
+  int k, ns;                    // kernel size, stages
+  int tile, rows, halo;         // output rows per block, window rows, the branch's halo
+  int dil[MAXB];
+  int lo[2 * MAXB];             // rows [lo, hi) conv j computes
+  int hi[2 * MAXB];
+};
+
+// One branch of the scale: w1, w2 [ns, kmax*C, C] and b1, b2 [ns, C] are the
+// branch's. The branch result is written to out (accumulate == 0) or added to
+// it, then multiplied by scale (1/nb on the last branch, else 1).
+// NT: 8-column tiles a warp owns; MT: 16-row tiles a warp may own in one conv;
+// KS: rows of a weight slice; NW: warps of a block; MINB: blocks an SM should hold.
+template <int C, int NT, int MT, int KS, int NW, int MINB>
+__global__ void __launch_bounds__(NW * 32, MINB)
+mrf_tc_kernel(const float* __restrict__ x, const float* __restrict__ w1,
+              const float* __restrict__ b1, const float* __restrict__ w2,
+              const float* __restrict__ b2, float* __restrict__ out, int T, int kmax,
+              int accumulate, float scale, const WPlan p) {
+  constexpr int SA = C + 4;            // activation row stride: conflict-free ldmatrix
+  constexpr int SW = C + 8;            // weight row stride: conflict-free B fragments
+  constexpr int WN = C / (8 * NT);     // warps along the columns
+  constexpr int WM = NW / WN;          // warps along the rows
+  constexpr int NTHR = NW * 32;
+  constexpr int PW = MINB == 1 ? 2 : 1; // row tiles whose products are interleaved
+  static_assert(MT % PW == 0, "whole pairs of row tiles");
+  constexpr int SPT = C / KS;          // slices per tap
+  static_assert(C % (8 * NT) == 0 && NW % WN == 0 && C % KS == 0 && KS % 8 == 0, "tiling");
+
+  extern __shared__ __align__(16) float smem[];
+  float* xc = smem;                          // [rows][SA] chain state
+  float* yb = xc + (size_t)p.rows * SA;      // [rows][SA] intermediate
+  float* ring = yb + (size_t)p.rows * SA;    // [NST][KS][SW] weight slices
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g8 = lane / 4, t4 = lane % 4;
+  const int wn = warp % WN, wm = warp / WN;
+  const int b = blockIdx.y;
+  const int t0 = blockIdx.x * p.tile;
+  const int win0 = t0 - p.halo;
+  const float* xb = x + (size_t)b * T * C;
+  float* ob = out + (size_t)b * T * C;
+  const size_t wstride = (size_t)kmax * C * C;
+  const int ncv = 2 * p.ns;
+  const int k = p.k, half = (k - 1) / 2, nsl = k * SPT;
+
+  // producer side of the ring: walks every slice of every conv in order
+  int p_cv = 0, p_s = 0, p_stage = 0;
+  auto fetch_next = [&]() {
+    if (p_cv < ncv) {
+      const float* src = ((p_cv & 1) ? w2 : w1) + (size_t)(p_cv / 2) * wstride +
+                         (size_t)p_s * KS * C;
+      float* dst = ring + (size_t)p_stage * KS * SW;
+      for (int i = tid; i < KS * C / 4; i += NTHR) {
+        const int r = i / (C / 4), c = i % (C / 4);
+        cp_async16(smem_u32(dst + r * SW + c * 4), src + (size_t)r * C + c * 4);
+      }
+      p_stage = p_stage + 1 == NST ? 0 : p_stage + 1;
+      if (++p_s == nsl) {
+        p_s = 0;
+        ++p_cv;
+      }
+    }
+    cp_async_commit();
+  };
+#pragma unroll
+  for (int s = 0; s < NST - 1; ++s) fetch_next();
+  int c_stage = 0;
+
+  // the window of x, zero outside [0, T); the first slice's barrier publishes it
+  for (int i = tid; i < p.rows * (C / 4); i += NTHR) {
+    const int q = i / (C / 4), c4 = i % (C / 4);
+    const int gr = win0 + q;
+    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (gr >= 0 && gr < T) v = reinterpret_cast<const float4*>(xb + (size_t)gr * C)[c4];
+    *reinterpret_cast<float4*>(xc + (size_t)q * SA + c4 * 4) = v;
+  }
+  for (int cv = 0; cv < ncv; ++cv) {
+    const bool first = (cv & 1) == 0;
+    const int d = first ? p.dil[cv / 2] : 1;
+    const int lo = p.lo[cv], hi = p.hi[cv];
+    const int n_mt = (hi - lo + 15) / 16;   // 16-row tiles; warp row wm owns wm, wm + WM, ...
+    const float* src = first ? xc : yb;
+    float acc[MT][NT][4];
+#pragma unroll
+    for (int i = 0; i < MT; ++i)
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[i][nt][e] = 0.f;
+
+    for (int s = 0; s < nsl; ++s) {
+      cp_async_wait<NST - 2>();
+      __syncthreads();
+      fetch_next();
+      const float* wst = ring + (size_t)c_stage * KS * SW;
+      c_stage = c_stage + 1 == NST ? 0 : c_stage + 1;
+      const int off = (s / SPT - half) * d, kc = (s % SPT) * KS;
+#pragma unroll
+      for (int k8 = 0; k8 < KS / 8; ++k8) {
+        uint32_t bh[NT][2], bl[NT][2];
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt) {
+          const float* wp = wst + (size_t)(k8 * 8 + t4) * SW + (wn * NT + nt) * 8 + g8;
+          split(wp[0], bh[nt][0], bl[nt][0]);
+          split(wp[4 * SW], bh[nt][1], bl[nt][1]);
+        }
+        // rows past the window only feed output rows past hi: clamp them
+        auto load_split = [&](int mt, uint32_t (&ah)[4], uint32_t (&al)[4]) {
+          int row = lo + mt * 16 + off + (lane % 16);
+          row = min(max(row, 0), p.rows - 1);
+          uint32_t a[4];
+          ldmatrix_x4(a, smem_u32(src + (size_t)row * SA + kc + k8 * 8 + (lane / 16) * 4));
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            float v = __uint_as_float(a[e]);
+            if (first) v = lrelu_max(v);
+            split(v, ah[e], al[e]);
+          }
+        };
+        // PW row tiles at a time, one split product over all of their column
+        // tiles before the next: an accumulator's three products are PW * NT
+        // mma apart, not back to back (two tiles where registers allow)
+#pragma unroll
+        for (int i = 0; i < MT; i += PW) {
+          if (wm + i * WM >= n_mt) break;
+          uint32_t ah[PW][4], al[PW][4];
+#pragma unroll
+          for (int j = 0; j < PW; ++j)
+            if (wm + (i + j) * WM < n_mt) load_split(wm + (i + j) * WM, ah[j], al[j]);
+#pragma unroll
+          for (int pass = 0; pass < 3; ++pass) {
+#ifdef MRF_ABLATE_ONE_PASS
+            if (pass != 2) continue;
+#endif
+#pragma unroll
+            for (int j = 0; j < PW; ++j) {
+              if (wm + (i + j) * WM >= n_mt) continue;
+              const uint32_t (&af)[4] = pass == 0 ? al[j] : ah[j];
+#pragma unroll
+              for (int nt = 0; nt < NT; ++nt) {
+                if (pass == 1) mma_tf32(acc[i + j][nt], af, bl[nt][0], bl[nt][1]);
+                else mma_tf32(acc[i + j][nt], af, bh[nt][0], bh[nt][1]);
+              }
+            }
+          }
+        }
+      }
+    }
+
+    // epilogue: first conv -> y = mask(lrelu(conv + b1)); second conv ->
+    // xc = mask(xc + conv + b2), or the branch result for the last one
+    const float* bias = (first ? b1 : b2) + (size_t)(cv / 2) * C;
+    const bool last = cv == ncv - 1;
+#pragma unroll
+    for (int i = 0; i < MT; ++i) {
+      const int mt = wm + i * WM;
+      if (mt >= n_mt) continue;
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        const int col = (wn * NT + nt) * 8 + 2 * t4;
+        const float2 bv = *reinterpret_cast<const float2*>(bias + col);
+#pragma unroll
+        for (int hr = 0; hr < 2; ++hr) {
+          const int row = lo + mt * 16 + g8 + hr * 8;
+          if (row >= hi) continue;
+          const int gr = win0 + row;
+          const bool valid = gr >= 0 && gr < T;
+          float2 v;
+          v.x = acc[i][nt][hr * 2] + bv.x;
+          v.y = acc[i][nt][hr * 2 + 1] + bv.y;
+          if (first) {
+            v.x = valid ? lrelu_max(v.x) : 0.f;
+            v.y = valid ? lrelu_max(v.y) : 0.f;
+            *reinterpret_cast<float2*>(yb + (size_t)row * SA + col) = v;
+            continue;
+          }
+          const float2 xo = *reinterpret_cast<const float2*>(xc + (size_t)row * SA + col);
+          v.x = valid ? xo.x + v.x : 0.f;
+          v.y = valid ? xo.y + v.y : 0.f;
+          if (!last) {
+            *reinterpret_cast<float2*>(xc + (size_t)row * SA + col) = v;
+          } else if (valid) {   // the plan's last range is the tile itself
+            float2* o = reinterpret_cast<float2*>(ob + (size_t)gr * C + col);
+            if (accumulate) {
+              const float2 prev = *o;
+              v.x = prev.x + v.x;
+              v.y = prev.y + v.y;
+            }
+            v.x *= scale;
+            v.y *= scale;
+            *o = v;
+          }
+        }
+      }
+    }
+  }
+}
+
+// One launch per branch, each with its own tile: branch 0 writes out, the
+// others add to it, the last one scales the sum to the mean.
+template <int C, int NT, int MT, int KS, int NW, int MINB>
+int launch(const float* x, const float* w1, const float* b1, const float* w2,
+           const float* b2, float* out, int B, int T, int nb, int kmax, const WPlan* plans,
+           cudaStream_t stream) {
+  constexpr int WM = NW / (C / (8 * NT));
+  auto smem_of = [](const WPlan& p) {
+    return ((size_t)2 * p.rows * (C + 4) + (size_t)NST * KS * (C + 8)) * sizeof(float);
+  };
+  size_t smem_max = 0;
+  for (int bj = 0; bj < nb; ++bj) {
+    const WPlan& p = plans[bj];
+    // one pass per conv: every range fits the warps' MT tiles
+    for (int cv = 0; cv < 2 * p.ns; ++cv)
+      if (p.hi[cv] - p.lo[cv] > 16 * MT * WM) return (int)cudaErrorInvalidValue;
+    if (smem_of(p) > smem_max) smem_max = smem_of(p);
+  }
+  if (smem_max > 227 * 1024) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(mrf_tc_kernel<C, NT, MT, KS, NW, MINB>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)smem_max);
+  if (err != cudaSuccess) return (int)err;
+  for (int bj = 0; bj < nb; ++bj) {
+    const WPlan& p = plans[bj];
+    const size_t wofs = (size_t)bj * p.ns * kmax * C * C, bofs = (size_t)bj * p.ns * C;
+    const dim3 grid((T + p.tile - 1) / p.tile, B);
+    mrf_tc_kernel<C, NT, MT, KS, NW, MINB><<<grid, NW * 32, smem_of(p), stream>>>(
+        x, w1 + wofs, b1 + bofs, w2 + wofs, b2 + bofs, out, T, kmax, bj > 0,
+        bj == nb - 1 ? 1.f / nb : 1.f, p);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  return (int)cudaSuccess;
+}
+
+}  // namespace tc
+
+// ------------------------------------------------------------------ bfloat16
+typedef __nv_bfloat16 In;
+
+__device__ __forceinline__ float round_bf16(float v) {
   return __bfloat162float(__float2bfloat16(v));
 }
 
 constexpr int NT = 256;   // 16 row groups x 16 column groups
 constexpr int BK = 16;    // input channels per staged weight slice
 constexpr int RC = 64;    // rows per output chunk
-constexpr float SLOPE = 0.1f;
-constexpr int MAXB = 4;   // branches / stages a plan may hold
 
 struct Plan {
   int nb, ns, kmax;
@@ -58,12 +354,10 @@ struct Plan {
   int dil[MAXB][MAXB];
 };
 
-__device__ __forceinline__ float lrelu(float v) { return v >= 0.f ? v : SLOPE * v; }
-
 // One convolution over the whole window. FIRST: src = xc, input lrelu+cast,
 // output y = cast(mask(lrelu(conv + bias))) into dst. Otherwise: src = y,
 // output xc = mask(cast(xc + conv + bias)) updated in place in dst.
-template <typename In, int C, bool FIRST>
+template <int C, bool FIRST>
 __device__ __forceinline__ void conv(const float* __restrict__ src, float* __restrict__ dst,
                                      float* __restrict__ ws, const In* __restrict__ w,
                                      const float* __restrict__ bias, int k, int d,
@@ -82,7 +376,7 @@ __device__ __forceinline__ void conv(const float* __restrict__ src, float* __res
       for (int kc = 0; kc < C; kc += BK) {
         __syncthreads();
         for (int e = tid; e < BK * C; e += NT)
-          ws[e] = to_f(w[(size_t)(tap * C + kc) * C + e]);
+          ws[e] = __bfloat162float(w[(size_t)(tap * C + kc) * C + e]);
         __syncthreads();
 #pragma unroll 4
         for (int kk = 0; kk < BK; ++kk) {
@@ -91,7 +385,7 @@ __device__ __forceinline__ void conv(const float* __restrict__ src, float* __res
           for (int i = 0; i < 4; ++i) {
             const int sr = rc + ty + 16 * i + off;
             float v = (sr >= 0 && sr < R) ? src[sr * C + kc + kk] : 0.f;
-            if (FIRST) v = round_to<In>(lrelu(v));
+            if (FIRST) v = round_bf16(lrelu(v));
             a[i] = v;
           }
 #pragma unroll
@@ -113,9 +407,9 @@ __device__ __forceinline__ void conv(const float* __restrict__ src, float* __res
         const int col = tx + 16 * j;
         const float v = acc[i][j] + bias[col];
         if (FIRST) {
-          dst[row * C + col] = valid ? round_to<In>(lrelu(v)) : 0.f;
+          dst[row * C + col] = valid ? round_bf16(lrelu(v)) : 0.f;
         } else {
-          const float nv = round_to<In>(dst[row * C + col] + v);
+          const float nv = round_bf16(dst[row * C + col] + v);
           dst[row * C + col] = valid ? nv : 0.f;
         }
       }
@@ -123,7 +417,7 @@ __device__ __forceinline__ void conv(const float* __restrict__ src, float* __res
   }
 }
 
-template <typename In, int C>
+template <int C>
 __global__ void __launch_bounds__(NT)
 mrf_kernel(const In* __restrict__ x, const In* __restrict__ w1,
            const float* __restrict__ b1, const In* __restrict__ w2,
@@ -146,17 +440,15 @@ mrf_kernel(const In* __restrict__ x, const In* __restrict__ w1,
     __syncthreads();
     for (int e = tid; e < R * C; e += NT) {
       const int gr = win0 + e / C;
-      xc[e] = (gr >= 0 && gr < T) ? to_f(xb[(size_t)gr * C + e % C]) : 0.f;
+      xc[e] = (gr >= 0 && gr < T) ? __bfloat162float(xb[(size_t)gr * C + e % C]) : 0.f;
     }
     __syncthreads();
     const int k = plan.ks[bj];
     for (int s = 0; s < plan.ns; ++s) {
       const int cs = bj * plan.ns + s;
-      conv<In, C, true>(xc, yb, ws, w1 + cs * wstride, b1 + cs * C, k,
-                        plan.dil[bj][s], R, win0, T);
+      conv<C, true>(xc, yb, ws, w1 + cs * wstride, b1 + cs * C, k, plan.dil[bj][s], R, win0, T);
       __syncthreads();
-      conv<In, C, false>(yb, xc, ws, w2 + cs * wstride, b2 + cs * C, k, 1, R,
-                         win0, T);
+      conv<C, false>(yb, xc, ws, w2 + cs * wstride, b2 + cs * C, k, 1, R, win0, T);
       __syncthreads();
     }
     for (int e = tid; e < TT * C; e += NT) {
@@ -171,10 +463,10 @@ mrf_kernel(const In* __restrict__ x, const In* __restrict__ w1,
   }
 }
 
-template <typename In, int C>
-int launch(const void* x, const void* w1, const void* b1, const void* w2,
-           const void* b2, void* out, int B, int T, int H, const Plan& plan,
-           cudaStream_t stream) {
+template <int C>
+int launch_bf16(const void* x, const void* w1, const void* b1, const void* w2,
+                const void* b2, void* out, int B, int T, int H, const Plan& plan,
+                cudaStream_t stream) {
   const int budget = 220 * 1024 / 4;  // floats of dynamic shared memory
   int R = ((budget - BK * C) / (2 * C)) / RC * RC;
   const int need = ((T + 2 * H + RC - 1) / RC) * RC;
@@ -182,28 +474,15 @@ int launch(const void* x, const void* w1, const void* b1, const void* w2,
   const int TT = R - 2 * H;
   if (TT <= 0) return (int)cudaErrorInvalidValue;
   const size_t smem = (size_t)(2 * R * C + BK * C) * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(mrf_kernel<In, C>,
+  cudaError_t err = cudaFuncSetAttribute(mrf_kernel<C>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((T + TT - 1) / TT, B);
-  mrf_kernel<In, C><<<grid, NT, smem, stream>>>(
+  mrf_kernel<C><<<grid, NT, smem, stream>>>(
       (const In*)x, (const In*)w1, (const float*)b1, (const In*)w2,
       (const float*)b2, (float*)out, T, TT, R, H, plan);
   return (int)cudaGetLastError();
-}
-
-template <typename In>
-int dispatch(int C, const void* x, const void* w1, const void* b1, const void* w2,
-             const void* b2, void* out, int B, int T, int H, const Plan& plan,
-             cudaStream_t s) {
-  switch (C) {
-    case 16: return launch<In, 16>(x, w1, b1, w2, b2, out, B, T, H, plan, s);
-    case 32: return launch<In, 32>(x, w1, b1, w2, b2, out, B, T, H, plan, s);
-    case 64: return launch<In, 64>(x, w1, b1, w2, b2, out, B, T, H, plan, s);
-    case 128: return launch<In, 128>(x, w1, b1, w2, b2, out, B, T, H, plan, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
 }
 
 }  // namespace
@@ -211,30 +490,72 @@ int dispatch(int C, const void* x, const void* w1, const void* b1, const void* w
 // dtype: 0 = float32, 1 = bfloat16 for x, w1, w2. x [B,T,C];
 // w1, w2 [nb, ns, kmax*C, C] (tap-major rows); b1, b2 [nb, ns, C] f32;
 // out [B,T,C] f32. ks [nb] kernel sizes, dils [nb*ns] stage dilations.
-// C must be 16, 32, 64 or 128. Returns a cudaError_t code.
+// C must be 16, 32, 64 or 128. win is the float32 kernel's window plan as
+// ops/hifigan_mrf.py:_launch_plan lays it out: per branch tile, rows, halo and
+// 2*ns pairs (lo, hi). Returns a cudaError_t code.
 extern "C" int mrf_stage_run(int dtype, const void* x, const void* w1, const void* b1,
                              const void* w2, const void* b2, void* out, int B, int T,
                              int C, int nb, int ns, int kmax, const int* ks,
-                             const int* dils, void* stream) {
+                             const int* dils, const int* win, void* stream) {
   if (nb < 1 || nb > MAXB || ns < 1 || ns > MAXB) return (int)cudaErrorInvalidValue;
-  Plan plan;
-  plan.nb = nb;
-  plan.ns = ns;
-  plan.kmax = kmax;
-  int H = 0;
-  for (int b = 0; b < nb; ++b) {
-    plan.ks[b] = ks[b];
-    const int half = (ks[b] - 1) / 2;
-    int h = 0;
-    for (int s = 0; s < ns; ++s) {
-      plan.dil[b][s] = dils[b * ns + s];
-      h += half * dils[b * ns + s] + half;
-    }
-    if (h > H) H = h;
-  }
   cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == 0) return dispatch<float>(C, x, w1, b1, w2, b2, out, B, T, H, plan, s);
-  if (dtype == 1)
-    return dispatch<__nv_bfloat16>(C, x, w1, b1, w2, b2, out, B, T, H, plan, s);
+  if (dtype == 0) {
+    tc::WPlan plans[MAXB];
+    const int* q = win;
+    for (int b = 0; b < nb; ++b) {
+      tc::WPlan& p = plans[b];
+      p.k = ks[b];
+      p.ns = ns;
+      for (int i = 0; i < ns; ++i) p.dil[i] = dils[b * ns + i];
+      p.tile = *q++;
+      p.rows = *q++;
+      p.halo = *q++;
+      if (p.k < 1 || p.k % 2 == 0 || p.tile < 1 || p.rows < p.tile)
+        return (int)cudaErrorInvalidValue;
+      for (int cv = 0; cv < 2 * ns; ++cv) {
+        p.lo[cv] = *q++;
+        p.hi[cv] = *q++;
+        if (p.lo[cv] < 0 || p.hi[cv] > p.rows || p.lo[cv] >= p.hi[cv])
+          return (int)cudaErrorInvalidValue;
+      }
+    }
+#define MRF_TC(CH, NTL, MTL, KSL, NWL, MINB)                                          \
+  return tc::launch<CH, NTL, MTL, KSL, NWL, MINB>((const float*)x, (const float*)w1,  \
+                                                  (const float*)b1, (const float*)w2, \
+                                                  (const float*)b2, (float*)out, B,   \
+                                                  T, nb, kmax, plans, s)
+    switch (C) {
+      case 16: MRF_TC(16, 2, 4, 16, 8, 2);
+      case 32: MRF_TC(32, 4, 4, 32, 8, 2);
+      case 64: MRF_TC(64, 4, 8, 32, 8, 1);
+      case 128: MRF_TC(128, 4, 8, 16, 8, 1);
+      default: return (int)cudaErrorInvalidValue;
+    }
+#undef MRF_TC
+  }
+  if (dtype == 1) {
+    Plan plan;
+    plan.nb = nb;
+    plan.ns = ns;
+    plan.kmax = kmax;
+    int H = 0;
+    for (int b = 0; b < nb; ++b) {
+      plan.ks[b] = ks[b];
+      const int half = (ks[b] - 1) / 2;
+      int h = 0;
+      for (int i = 0; i < ns; ++i) {
+        plan.dil[b][i] = dils[b * ns + i];
+        h += half * dils[b * ns + i] + half;
+      }
+      if (h > H) H = h;
+    }
+    switch (C) {
+      case 16: return launch_bf16<16>(x, w1, b1, w2, b2, out, B, T, H, plan, s);
+      case 32: return launch_bf16<32>(x, w1, b1, w2, b2, out, B, T, H, plan, s);
+      case 64: return launch_bf16<64>(x, w1, b1, w2, b2, out, B, T, H, plan, s);
+      case 128: return launch_bf16<128>(x, w1, b1, w2, b2, out, B, T, H, plan, s);
+      default: return (int)cudaErrorInvalidValue;
+    }
+  }
   return (int)cudaErrorInvalidValue;
 }

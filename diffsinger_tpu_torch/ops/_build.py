@@ -2,8 +2,9 @@
 
 Each source compiles with ``nvcc`` for ``sm_90a`` into a shared library with
 a plain C interface, loaded with ``ctypes``. Libraries land in
-``build/kernels/`` at the repository root, named by a hash of the source and
-flags, so an edited source rebuilds and an unchanged one is reused. Nothing
+``build/kernels/`` at the repository root, named by a hash of the source, the
+shared headers (``csrc/*.cuh``) and the flags, so an edited source or header
+rebuilds and an unchanged one is reused. Nothing
 here runs at import time: the CPU tests import every module without ``nvcc``.
 """
 
@@ -16,7 +17,7 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict, Iterable, List, Tuple
+from typing import Dict, Iterable, List, Optional, Tuple
 
 PKG_DIR = Path(__file__).resolve().parents[1]
 CSRC_DIR = PKG_DIR / "csrc"
@@ -25,7 +26,8 @@ KERNEL_SOURCES = ("diffnet_stack", "mrf_stage", "diffnet_train")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-_loaded: Dict[str, ctypes.CDLL] = {}
+_loaded: Dict[Tuple[str, Tuple[str, ...]], ctypes.CDLL] = {}
+_variant: Dict[str, Tuple[str, ...]] = {}
 
 
 def _nvcc() -> str:
@@ -36,24 +38,31 @@ def _nvcc() -> str:
     return path
 
 
-def _lib_path(name: str) -> Path:
+def _lib_path(name: str, extra_flags: Tuple[str, ...] = ()) -> Path:
+    # every header counts for every source: an edited header rebuilds them all
     src = (CSRC_DIR / f"{name}.cu").read_bytes()
-    digest = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        src += header.name.encode() + header.read_bytes()
+    flags = " ".join(NVCC_FLAGS + tuple(extra_flags))
+    digest = hashlib.sha1(src + flags.encode()).hexdigest()[:12]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 
-def build(names: Iterable[str] = KERNEL_SOURCES) -> List[Tuple[str, float, str]]:
+def build(names: Iterable[str] = KERNEL_SOURCES,
+          extra_flags: Tuple[str, ...] = ()) -> List[Tuple[str, float, str]]:
     """Compile every library not built yet, one ``nvcc`` per source, all
-    started together. Returns (name, seconds, compiler log) per source
-    compiled; raises with the log when a compile fails."""
+    started together. ``extra_flags`` (``-D...``) make a variant with a name
+    of its own. Returns (name, seconds, compiler log) per source compiled;
+    raises with the log when a compile fails."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = []
     for name in names:
-        out = _lib_path(name)
+        out = _lib_path(name, extra_flags)
         if out.exists():
             continue
         tmp = out.with_name(f"{out.stem}.tmp{os.getpid()}.so")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")]
+        cmd = [_nvcc(), *NVCC_FLAGS, *extra_flags, "-o", str(tmp),
+               str(CSRC_DIR / f"{name}.cu")]
         procs.append((name, out, tmp, time.perf_counter(),
                       subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                        stderr=subprocess.STDOUT, text=True)))
@@ -71,16 +80,26 @@ def build(names: Iterable[str] = KERNEL_SOURCES) -> List[Tuple[str, float, str]]
     return done
 
 
-def load_library(name: str) -> ctypes.CDLL:
-    """The loaded library for ``csrc/<name>.cu``, building it if needed."""
-    lib = _loaded.get(name)
+def load_library(name: str, extra_flags: Optional[Tuple[str, ...]] = None) -> ctypes.CDLL:
+    """The loaded library for ``csrc/<name>.cu``, building it if needed: the
+    variant built with ``extra_flags``, or the one :func:`use_variant` chose
+    (the plain build unless a diagnostic tool asked for another)."""
+    flags = _variant.get(name, ()) if extra_flags is None else tuple(extra_flags)
+    lib = _loaded.get((name, flags))
     if lib is None:
-        path = _lib_path(name)
+        path = _lib_path(name, flags)
         if not path.exists():
-            build([name])
+            build([name], flags)
         lib = ctypes.CDLL(str(path))
-        _loaded[name] = lib
+        _loaded[(name, flags)] = lib
     return lib
+
+
+def use_variant(name: str, extra_flags: Tuple[str, ...] = ()) -> None:
+    """Make ``load_library(name)`` return the build with ``extra_flags`` from
+    now on (``()`` is the plain one). For the diagnostic tools; a wrapper that
+    caches its entry point has to drop that cache as well."""
+    _variant[name] = tuple(extra_flags)
 
 
 def check(err: int, what: str) -> None:

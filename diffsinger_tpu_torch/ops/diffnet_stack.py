@@ -11,13 +11,16 @@ Output: the skip sum [B, T, C] f32 (before the 1/sqrt(L) scale).
 
 ``compute_dtype=torch.bfloat16`` gives bf16 GEMM inputs (cond, weights, the
 conv input y and the gate g) with f32 accumulation, the same cast points as
-the JAX kernel; ``None`` keeps everything float32.
+the JAX kernel; ``None`` keeps everything float32. The bfloat16 kernel runs
+on the tensor cores, one launch a layer, and leaves ``x0`` untouched; the
+float32 kernel is the earlier SIMT pair of launches a layer.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Sequence
+import functools
+from typing import Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -32,6 +35,8 @@ def _shift_t(arr: torch.Tensor, offset: int) -> torch.Tensor:
     """Shift [B, T, C] along T with zero fill: out[:, t] = arr[:, t + offset]."""
     if offset == 0:
         return arr
+    if abs(offset) >= arr.shape[1]:
+        return torch.zeros_like(arr)
     if offset > 0:
         return F.pad(arr[:, offset:], (0, 0, 0, offset))
     return F.pad(arr[:, :offset], (0, 0, -offset, 0))
@@ -66,15 +71,34 @@ def diffnet_stack_plain(x0, step_proj, cond_proj, w_dil, b_dil, w_out, b_out, *,
     return skips
 
 
+TC_CHANNELS = (128, 256)   # widths the bfloat16 tensor-core kernel is built for
+
+
+@functools.lru_cache(maxsize=None)
+def _entry():
+    fn = load_library("diffnet_stack").diffnet_stack_run
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 9
+                   + [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int), ctypes.c_void_p])
+    return fn
+
+
+@functools.lru_cache(maxsize=64)
+def _dilation_array(dilations: Tuple[int, ...]):
+    return (ctypes.c_int * len(dilations))(*dilations)
+
+
 def _launch(x0, step_proj, cond_proj, w_dil, b_dil, w_out, b_out, dilations,
             compute_dtype) -> torch.Tensor:
     dt = compute_dtype or torch.float32
     b, t, c = x0.shape
     num_layers = w_dil.shape[0]
-    if c % 32:
-        raise ValueError(f"diffnet_stack kernel needs C % 32 == 0, got C={c}")
     if dt not in _DTYPE_CODE:
         raise ValueError(f"diffnet_stack kernel takes float32 or bfloat16, got {dt}")
+    if dt == torch.bfloat16 and c not in TC_CHANNELS:
+        raise ValueError(f"diffnet_stack bfloat16 kernel takes C in {TC_CHANNELS}, got C={c}")
+    if c % 32:
+        raise ValueError(f"diffnet_stack kernel needs C % 32 == 0, got C={c}")
     expect = {"step_proj": (num_layers, b, c), "cond_proj": (num_layers, b, t, 2 * c),
               "w_dil": (num_layers, 3, c, 2 * c), "b_dil": (num_layers, 2 * c),
               "w_out": (num_layers, c, 2 * c), "b_out": (num_layers, 2 * c)}
@@ -85,23 +109,25 @@ def _launch(x0, step_proj, cond_proj, w_dil, b_dil, w_out, b_out, dilations,
             raise ValueError(f"{k}: expected {shape}, got {tuple(args[k].shape)}")
         if args[k].device != x0.device:
             raise ValueError(f"{k} is on {args[k].device}, x0 on {x0.device}")
-    x = x0.to(torch.float32).contiguous().clone()
-    skip = torch.zeros_like(x)
-    g = torch.empty((b * t, c), dtype=dt, device=x.device)
+    x = x0.to(torch.float32).contiguous()
+    if dt == torch.bfloat16:
+        # the kernel reads x0 and alternates between two buffers of its own;
+        # layer 0 writes skip, so it needs no zeros
+        skip = torch.empty_like(x)
+        scratch = torch.empty((2, b * t, c), dtype=torch.float32, device=x.device)
+    else:
+        x = x.clone()           # updated in place
+        skip = torch.zeros_like(x)
+        scratch = torch.empty((b * t, c), dtype=dt, device=x.device)   # g
     step = step_proj.to(torch.float32).contiguous()
     cond = cond_proj.to(dt).contiguous()
     wd, wo = w_dil.to(dt).contiguous(), w_out.to(dt).contiguous()
     bd, bo = b_dil.to(torch.float32).contiguous(), b_out.to(torch.float32).contiguous()
-    dil = (ctypes.c_int * num_layers)(*[int(d) for d in dilations])
-    lib = load_library("diffnet_stack")
-    fn = lib.diffnet_stack_run
-    fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 9
-                   + [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int), ctypes.c_void_p])
+    dil = _dilation_array(tuple(int(d) for d in dilations))
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    err = fn(_DTYPE_CODE[dt], x.data_ptr(), skip.data_ptr(), g.data_ptr(),
-             step.data_ptr(), cond.data_ptr(), wd.data_ptr(), bd.data_ptr(),
-             wo.data_ptr(), bo.data_ptr(), b, t, c, num_layers, dil, stream)
+    err = _entry()(_DTYPE_CODE[dt], x.data_ptr(), skip.data_ptr(), scratch.data_ptr(),
+                   step.data_ptr(), cond.data_ptr(), wd.data_ptr(), bd.data_ptr(),
+                   wo.data_ptr(), bo.data_ptr(), b, t, c, num_layers, dil, stream)
     check(err, "diffnet_stack")
     return skip
 

@@ -14,11 +14,17 @@ conv zero-padded at the sequence edges. Packed weights w1/w2 are
 axis, zero rows for the shorter kernels); biases b1/b2 [n_branch, n_stage, C].
 ``compute_dtype=torch.bfloat16`` rounds the conv inputs, weights and the chain
 state to bf16 at the JAX kernel's cast points; accumulation stays float32.
+
+The float32 kernel (the vocoder's path) runs on the tensor cores with the
+3xTF32 split and computes, per T tile, only the rows :func:`mrf_window_plan`
+lists, a branch at a time; :func:`choose_mrf_tiles` picks each branch's tile. The bfloat16 kernel is the
+earlier SIMT one.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional, Tuple
 
 import torch
@@ -65,6 +71,111 @@ def mrf_stage_plain(x, w1, b1, w2, b2, *, kernel_sizes: Tuple[int, ...],
     return acc * (1.0 / len(kernel_sizes))
 
 
+def mrf_window_plan(kernel_sizes: Tuple[int, ...],
+                    dilation_sets: Tuple[Tuple[int, ...], ...], tile) -> list:
+    """Rows of a T tile's window that each convolution has to compute, one
+    dict per branch. ``tile`` is one tile size or one per branch.
+
+    The float32 kernel runs a branch at a time; a block owns ``tile`` output
+    rows of the branch and a window of ``rows = tile + 2 * halo`` rows around
+    them, window row q being sequence row ``t0 - halo + q``. A branch with
+    kernel size k and stage dilations d_s reaches ``halo = sum_s (k // 2) *
+    (d_s + 1)`` rows to each side and loads x on the whole window. Each conv
+    then gives up its own reach: conv 2s (dilation d_s) computes
+    ``ranges[2s]``, conv 2s + 1 (dilation 1) ``ranges[2s + 1]``, each the
+    range before it less ``(k // 2) * d`` rows on both sides; the last one is
+    the tile itself, ``(halo, halo + tile)``. A conv reads only rows that the
+    conv before it computed (or that were loaded from x), which keeps the
+    stale values outside the ranges away from every kept row."""
+    tiles = (tile,) * len(kernel_sizes) if isinstance(tile, int) else tuple(tile)
+    if len(tiles) != len(kernel_sizes) or any(t < 1 for t in tiles):
+        raise ValueError(f"one positive tile per branch is required, got {tile}")
+    plan = []
+    for k, ds, tl in zip(kernel_sizes, dilation_sets, tiles):
+        halo = sum((k // 2) * (d + 1) for d in ds)
+        rem, ranges = halo, []
+        for d in ds:
+            for reach in ((k // 2) * d, k // 2):
+                rem -= reach
+                ranges.append((halo - rem, halo + tl + rem))
+        plan.append({"kernel_size": k, "tile": tl, "halo": halo, "rows": tl + 2 * halo,
+                     "ranges": ranges})
+    return plan
+
+
+# float32 kernel geometry per channel count (csrc/mrf_stage.cu, MRF_TC):
+# 8-column tiles per warp, 16-row tiles a warp may own in one conv, rows of a
+# weight slice, blocks per SM, warps per block.
+_TC_GEOMETRY = {16: (2, 4, 16, 2, 8), 32: (4, 4, 32, 2, 8), 64: (4, 8, 32, 1, 8),
+                128: (4, 8, 16, 1, 8)}
+_SMEM_PER_SM = 228 * 1024       # H100; a block may use 227 KB, 1 KB is reserved per block
+
+
+def _ceil_div(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _branch_cost(branch: dict, warps_m: int) -> int:
+    """Products a block makes per column tile for one branch, in 16-row tile
+    steps: every conv costs its taps times the row tiles of the busiest warp."""
+    return sum(branch["kernel_size"] * _ceil_div(_ceil_div(hi - lo, 16), warps_m)
+               for lo, hi in branch["ranges"])
+
+
+@functools.lru_cache(maxsize=256)
+def choose_mrf_tiles(c: int, b: int, t: int, kernel_sizes, dilation_sets,
+                     n_sm: int) -> Tuple[int, ...]:
+    """The T tile of each branch of the float32 kernel for x [b, t, c] on a
+    card of ``n_sm`` SMs: among the tiles whose window fits shared memory (two
+    blocks an SM for C <= 32) and one pass of the warps, the one with the
+    least modelled time ``waves * cost of a block``."""
+    n_tiles, row_tiles, slice_rows, blocks_per_sm, n_warps = _TC_GEOMETRY[c]
+    warps_m = n_warps // (c // (8 * n_tiles))
+    budget = _SMEM_PER_SM // blocks_per_sm - 1024 - 3 * slice_rows * (c + 8) * 4
+    max_rows = min(budget // (2 * (c + 4) * 4), 16 * row_tiles * warps_m)
+    tiles = []
+    for k, ds in zip(kernel_sizes, dilation_sets):
+        halo = mrf_window_plan((k,), (ds,), 1)[0]["halo"]
+        if max_rows - 2 * halo < 1:
+            raise ValueError(f"mrf_stage: a halo of {halo} rows leaves no tile at C={c}")
+        best, best_time = None, None
+        for tile in range(1, min(max_rows - 2 * halo, t) + 1):
+            waves = _ceil_div(b * _ceil_div(t, tile), n_sm * blocks_per_sm)
+            time = waves * _branch_cost(mrf_window_plan((k,), (ds,), tile)[0], warps_m)
+            if best_time is None or time <= best_time:
+                best, best_time = tile, time
+        tiles.append(best)
+    return tuple(tiles)
+
+
+@functools.lru_cache(maxsize=256)
+def _launch_plan(kernel_sizes, dilation_sets, tiles):
+    """ctypes arrays of a launch: kernel sizes, dilations and the window plan
+    flattened as csrc/mrf_stage.cu:mrf_stage_run reads it (per branch: tile,
+    rows, halo, then a (lo, hi) pair per conv)."""
+    nb, ns = len(kernel_sizes), len(dilation_sets[0])
+    flat = []
+    for br in mrf_window_plan(kernel_sizes, dilation_sets, tiles):
+        flat += [br["tile"], br["rows"], br["halo"]] + [v for r in br["ranges"] for v in r]
+    return ((ctypes.c_int * nb)(*kernel_sizes),
+            (ctypes.c_int * (nb * ns))(*[d for ds in dilation_sets for d in ds]),
+            (ctypes.c_int * len(flat))(*flat))
+
+
+@functools.lru_cache(maxsize=None)
+def _entry():
+    fn = load_library("mrf_stage").mrf_stage_run
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
+                   + [ctypes.POINTER(ctypes.c_int)] * 3 + [ctypes.c_void_p])
+    return fn
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 def _launch(x, w1, b1, w2, b2, kernel_sizes, dilation_sets, compute_dtype):
     dt = compute_dtype or torch.float32
     b, t, c = x.shape
@@ -76,6 +187,8 @@ def _launch(x, w1, b1, w2, b2, kernel_sizes, dilation_sets, compute_dtype):
         raise ValueError(f"mrf_stage kernel takes float32 or bfloat16, got {dt}")
     if any(len(ds) != ns for ds in dilation_sets) or nb > 4 or ns > 4:
         raise ValueError("mrf_stage kernel takes up to 4 branches of equal depth <= 4")
+    if any(k % 2 == 0 for k in kernel_sizes):
+        raise ValueError(f"mrf_stage kernel takes odd kernel sizes, got {kernel_sizes}")
     for name, a, shape in (("w1", w1, (nb, ns, k_max * c, c)), ("w2", w2, (nb, ns, k_max * c, c)),
                            ("b1", b1, (nb, ns, c)), ("b2", b2, (nb, ns, c))):
         if tuple(a.shape) != shape:
@@ -86,16 +199,15 @@ def _launch(x, w1, b1, w2, b2, kernel_sizes, dilation_sets, compute_dtype):
     w1c, w2c = w1.to(dt).contiguous(), w2.to(dt).contiguous()
     b1c, b2c = b1.to(torch.float32).contiguous(), b2.to(torch.float32).contiguous()
     out = torch.empty((b, t, c), dtype=torch.float32, device=x.device)
-    ks = (ctypes.c_int * nb)(*kernel_sizes)
-    dils = (ctypes.c_int * (nb * ns))(*[int(d) for ds in dilation_sets for d in ds])
-    fn = load_library("mrf_stage").mrf_stage_run
-    fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
-                   + [ctypes.POINTER(ctypes.c_int)] * 2 + [ctypes.c_void_p])
+    # the window plan is the float32 kernel's; the bfloat16 kernel ignores it
+    tiles = (choose_mrf_tiles(c, b, t, kernel_sizes, dilation_sets,
+                              _sm_count(x.device.index or 0))
+             if dt == torch.float32 else (1,) * nb)
+    ks, dils, win = _launch_plan(kernel_sizes, dilation_sets, tiles)
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    err = fn(_DTYPE_CODE[dt], xin.data_ptr(), w1c.data_ptr(), b1c.data_ptr(),
-             w2c.data_ptr(), b2c.data_ptr(), out.data_ptr(), b, t, c, nb, ns, k_max,
-             ks, dils, stream)
+    err = _entry()(_DTYPE_CODE[dt], xin.data_ptr(), w1c.data_ptr(), b1c.data_ptr(),
+                   w2c.data_ptr(), b2c.data_ptr(), out.data_ptr(), b, t, c, nb, ns, k_max,
+                   ks, dils, win, stream)
     check(err, "mrf_stage")
     return out
 
