@@ -25,8 +25,15 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      kernel, busy share; table in build/chip_smoke/serve_profile.txt);
   6. diffnet_train forward and backward kernels at the training shapes
      (B=24, T=1024, C=H=256, L=20), bf16 and f32, dilation cycles 1 and 4,
-     plus 3 x 301 rows with H=200 (neither a tile multiple), against their
-     plain twins on the same inputs: skips, xs and all nine cotangents;
+     plus 3 x 301 rows with H=200 and with H=256 (not a tile multiple; the
+     first on the SIMT kernels, the second on the tensor cores), 1 x 1024,
+     2 x 5 (T below the largest dilation) and 2 x 100 with dilations up to
+     16 (the widest halo that fits), against their plain twins on the
+     same inputs: skips, xs and all nine cotangents; two calls give the same
+     bits, and the backward writes none of its inputs; the kernels a call
+     launched are counted inside the library, where it launches them, and
+     the library's own report of its tensor-core tiles is held against the
+     wrapper's dispatch rule;
   7. training: the port's Trainer on DiffSpeech-LJSpeech at full width
      (configs/lj/ds_beta6.yaml with tools/bench_train.py's overrides, bf16
      stack, dropout on, FS2 frozen but for its predictors) first holds one
@@ -347,16 +354,21 @@ def phase_profile(torch, run, out_dir: Path, name: str = "serve"):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     ka = prof.key_averages()
-    # device-side rows only (kernels, copies): CPU operator rows repeat the
-    # time of the kernels they launch
+
+    def on_device(e):
+        # kernels and copies only: CPU operator rows repeat the time of the
+        # kernels they launch, and an annotation mirrored onto the device
+        # timeline (the optimizer's step) spans the idle gaps between them
+        return e.device_type.name == "CUDA" and not e.is_user_annotation
+
     rows = sorted(((e.key, e.self_device_time_total / 1e3, e.count) for e in ka
-                   if e.device_type.name == "CUDA" and e.self_device_time_total > 0),
+                   if on_device(e) and e.self_device_time_total > 0),
                   key=lambda r: -r[1])
     # busy time is the union of the device intervals: a kernel launched to
     # overlap the one before it (the stack's layers) starts early and waits, so
     # its own duration counts time the device already spent on its predecessor
     spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
-                   if e.device_type.name == "CUDA" and e.time_range.end > e.time_range.start)
+                   if on_device(e) and e.time_range.end > e.time_range.start)
     busy_us, cur_lo, cur_hi = 0.0, None, None
     for lo, hi in spans:
         if cur_hi is None or lo > cur_hi:
@@ -389,7 +401,21 @@ def train_stack_flops(b, t, c, h, num_layers):
     return fwd, bwd
 
 
-def phase_train_stack(torch, tr):
+TRAIN_STACK_CASES = (
+    # the training shapes (dtype, dilation cycle, B, T, H)
+    [(dt, cycle, 24, 1024, 256) for dt in ("bfloat16", "float32") for cycle in (1, 4)]
+    # B*T = 903 rows (not a multiple of the 64-row tile) with H=200, a width
+    # the tensor-core kernels are not built for: the SIMT kernels take it
+    + [("bfloat16", 4, 3, 301, 200), ("float32", 4, 3, 301, 200),
+       # ragged row blocks on the tensor-core kernels; one batch row (one
+       # slab of weight gradients); T below cycle 4's largest dilation (8)
+       ("bfloat16", 4, 3, 301, 256), ("bfloat16", 1, 1, 1024, 256),
+       ("bfloat16", 4, 2, 5, 256),
+       # cycle 5: d = 16, the widest halo the tensor-core tiles hold in 227 KB
+       ("bfloat16", 5, 2, 100, 256)])
+
+
+def phase_train_stack(torch, tr, cases=TRAIN_STACK_CASES):
     c, num_layers = 256, 20
     gen = torch.Generator(device="cuda").manual_seed(2)
 
@@ -397,10 +423,6 @@ def phase_train_stack(torch, tr):
         return torch.randn(*shape, generator=gen, device="cuda") * scale
 
     rows = []
-    # the training shapes, then B*T = 903 rows (not a multiple of the 64-row
-    # tile) with H=200 (not a multiple of the 16-deep contraction slice)
-    cases = [(dt, cycle, 24, 1024, 256) for dt in ("bfloat16", "float32") for cycle in (1, 4)]
-    cases += [("bfloat16", 4, 3, 301, 200), ("float32", 4, 3, 301, 200)]
     for dt_name, cycle, b, t, h in cases:
         dt = torch.bfloat16 if dt_name == "bfloat16" else None
         args = (torch.relu(rn(b, t, c)), rn(num_layers, b, c, scale=0.5), rn(b, t, h),
@@ -409,14 +431,36 @@ def phase_train_stack(torch, tr):
                 rn(num_layers, 2 * c, scale=0.1), rn(num_layers, c, 2 * c, scale=c ** -0.5),
                 rn(num_layers, 2 * c, scale=0.1))
         ds = rn(b, t, c)
-        kw = dict(dilations=tuple(2 ** (i % cycle) for i in range(num_layers)),
-                  compute_dtype=dt)
+        dil = tuple(2 ** (i % cycle) for i in range(num_layers))
+        kw = dict(dilations=dil, compute_dtype=dt)
+        what = f"diffnet_train {dt_name} cycle {cycle} B={b} T={t} H={h}"
+        x0_before = args[0].clone()
         skips, xs = tr.diffnet_train_fwd(*args, **kw)
+        # counted by the library where it launches, and which kernels it ran
+        fwd_launched = tr.diffnet_train_fwd.device_launches
+        fwd_tc = tr.diffnet_train_fwd.ran_tensor_cores
+        skips2, xs2 = tr.diffnet_train_fwd(*args, **kw)
         want_skips, want_xs = tr.diffnet_train_stack_fwd_plain(*args, **kw)
-        # both backwards read the kernel's xs, so this compares the backward alone
-        got = tr.diffnet_train_bwd(xs, *args[1:8], ds, **kw)
-        want = tr.diffnet_train_stack_bwd_plain(xs, *args[1:8], ds, **kw)
         torch.cuda.synchronize()
+        if not (torch.equal(skips, skips2) and torch.equal(xs, xs2)):
+            raise AssertionError(f"{what}: two forward calls gave different bits")
+        if not torch.equal(args[0], x0_before):
+            raise AssertionError(f"{what}: the forward wrote x0")
+        del skips2, xs2, x0_before
+        # both backwards read the kernel's xs, so this compares the backward alone
+        bwd_in = (xs, *args[1:8], ds)
+        before = [a.clone() for a in bwd_in]
+        got = tr.diffnet_train_bwd(*bwd_in, **kw)
+        bwd_launched = tr.diffnet_train_bwd.device_launches
+        bwd_tc = tr.diffnet_train_bwd.ran_tensor_cores
+        again = tr.diffnet_train_bwd(*bwd_in, **kw)
+        want = tr.diffnet_train_stack_bwd_plain(*bwd_in, **kw)
+        torch.cuda.synchronize()
+        if not all(torch.equal(g_, a_) for g_, a_ in zip(got, again)):
+            raise AssertionError(f"{what}: two backward calls gave different bits")
+        if not all(torch.equal(a_, b_) for a_, b_ in zip(bwd_in, before)):
+            raise AssertionError(f"{what}: the backward wrote xs, ds or a weight")
+        del again, before
         # f32: the same products summed in another order (up to 3C+H = 1024
         # terms per output, 24576 rows per weight gradient) through 20 layers
         # -> 1e-4 of each tensor's scale. bf16: both round at the same points,
@@ -431,10 +475,9 @@ def phase_train_stack(torch, tr):
             errs[name] = {"max_abs_err": err, "scale": scale,
                           "tolerance": rel * max(scale, 1.0)}
         ms = cuda_ms(lambda: tr.diffnet_train_fwd(*args, **kw), 3)
-        bwd_ms = cuda_ms(lambda: tr.diffnet_train_bwd(xs, *args[1:8], ds, **kw), 3)
+        bwd_ms = cuda_ms(lambda: tr.diffnet_train_bwd(*bwd_in, **kw), 3)
         plain_ms = cuda_ms(lambda: tr.diffnet_train_stack_fwd_plain(*args, **kw), 2)
-        plain_bwd_ms = cuda_ms(lambda: tr.diffnet_train_stack_bwd_plain(
-            xs, *args[1:8], ds, **kw), 2)
+        plain_bwd_ms = cuda_ms(lambda: tr.diffnet_train_stack_bwd_plain(*bwd_in, **kw), 2)
         f_fwd, f_bwd = train_stack_flops(b, t, c, h, num_layers)
         esz = 2 if dt else 4
         w_bytes = sum(a.numel() for a in (args[2], args[3], args[5], args[7])) * esz
@@ -443,12 +486,28 @@ def phase_train_stack(torch, tr):
         peak = H100_BF16_FLOPS if dt else H100_F32_FLOPS
         bnd, by = bound_ms(f_fwd, w_bytes + f32_in + nbytes(skips) + xs_bytes, peak)
         grad_bytes = nbytes(*got)
-        bwd_in = xs_bytes + w_bytes + nbytes(args[1], args[4], args[6]) + ds.numel() * esz
-        bwd_bnd, bwd_by = bound_ms(f_bwd, bwd_in + grad_bytes, peak)
+        in_bytes = xs_bytes + w_bytes + nbytes(args[1], args[4], args[6]) + ds.numel() * esz
+        bwd_bnd, bwd_by = bound_ms(f_bwd, in_bytes + grad_bytes, peak)
+        # the library's own account of its tensor-core kernels for this shape
+        info = tr.tensor_core_info(b, c, h, dil, dt)
+        expect_tc = tr.takes_tensor_cores(c, h, dil, dt)
+        if (info is not None) != expect_tc or fwd_tc != expect_tc or bwd_tc != expect_tc:
+            raise AssertionError(f"{what}: the wrapper's rule says tensor cores={expect_tc}, "
+                                 f"the library {info}, forward ran {fwd_tc}, backward {bwd_tc}")
+        if info and max(info["smem"].values()) > 227 * 1024:
+            raise AssertionError(f"{what}: shared memory {info['smem']} above 227 KB")
+        # tensor cores: one launch a layer forward, at most five backward
+        if expect_tc and not (fwd_launched == num_layers and bwd_launched <= 5 * num_layers):
+            raise AssertionError(f"{what}: {fwd_launched} forward and {bwd_launched} backward "
+                                 f"launches for {num_layers} layers")
         row = dict(dtype=dt_name, cycle=cycle, B=b, T=t, H=h,
+                   kernels="tensor-core" if fwd_tc and bwd_tc else "simt",
+                   fwd_device_launches=fwd_launched, bwd_device_launches=bwd_launched,
+                   tensor_core_info=info,
                    fwd_max_abs_err=max(errs[k]["max_abs_err"] for k in ("skips", "xs")),
                    bwd_max_abs_err=max(errs[k]["max_abs_err"] for k in tr.GRAD_NAMES),
-                   errors=errs, fwd_ms=ms, bwd_ms=bwd_ms, fwd_plain_ms=plain_ms,
+                   errors=errs, fwd_ms=ms, bwd_ms=bwd_ms, fwd_tflops=f_fwd / ms / 1e9,
+                   bwd_tflops=f_bwd / bwd_ms / 1e9, fwd_plain_ms=plain_ms,
                    bwd_plain_ms=plain_bwd_ms, fwd_gflop=f_fwd / 1e9, bwd_gflop=f_bwd / 1e9,
                    fwd_bound_ms=bnd, fwd_bound_by=by, bwd_bound_ms=bwd_bnd,
                    bwd_bound_by=bwd_by)
@@ -456,9 +515,9 @@ def phase_train_stack(torch, tr):
               flush=True)
         bad = {k: e for k, e in errs.items() if not e["max_abs_err"] <= e["tolerance"]}
         if bad:
-            raise AssertionError(f"diffnet_train {dt_name} cycle {cycle} B={b} T={t}: {bad}")
+            raise AssertionError(f"{what}: {bad}")
         rows.append(row)
-        del skips, xs, want_skips, want_xs, got, want
+        del skips, xs, want_skips, want_xs, got, want, bwd_in
     return rows
 
 
@@ -561,13 +620,18 @@ def phase_train(torch, tr, card: str, out_dir: Path, steps: int = 10):
         history.append({k: float(v) for k, v in losses.items()})
     launches = {"diffnet_train_fwd": tr.diffnet_train_fwd.launches,
                 "diffnet_train_bwd": tr.diffnet_train_bwd.launches}
+    # the last step's kernels, as the library counted them where it launched
+    device_launches = {"diffnet_train_fwd": tr.diffnet_train_fwd.device_launches,
+                       "diffnet_train_bwd": tr.diffnet_train_bwd.device_launches}
+    ran_tc = tr.diffnet_train_fwd.ran_tensor_cores and tr.diffnet_train_bwd.ran_tensor_cores
     peak_mem = torch.cuda.max_memory_allocated()
     profile = phase_profile(torch, lambda: trainer.train_step(batch), out_dir, "train")
 
     warm_ms = float(np.median(times[1:])) * 1e3
     out = {
         "card": card, "steps": steps, "B": b, "T_mel": t_mel, "T_txt": t_txt,
-        "launches": launches, "step_ms": [x * 1e3 for x in times],
+        "launches": launches, "device_launches_last_step": device_launches,
+        "ran_tensor_cores": ran_tc, "step_ms": [x * 1e3 for x in times],
         "ms_per_step_median_warm": warm_ms,
         "mel_frames_per_s": b * t_mel / (warm_ms / 1e3),
         "max_memory_allocated_bytes": peak_mem,
@@ -579,6 +643,8 @@ def phase_train(torch, tr, card: str, out_dir: Path, steps: int = 10):
     print("train", json.dumps(out), flush=True)
     if launches != {"diffnet_train_fwd": steps, "diffnet_train_bwd": steps}:
         raise AssertionError(f"training kernel launches {launches}, expected {steps} each")
+    if not ran_tc:
+        raise AssertionError("the training step did not run the tensor-core kernels")
     if not all(np.isfinite(v) for h in history for v in h.values()):
         raise AssertionError(f"non-finite training losses: {history}")
     # the FS2 terms run the same code on both sides; the mel loss differs only

@@ -6,7 +6,7 @@
 //   _fwd_call (pallas_call at :315, body _make_fwd_kernel :74-135)  -> diffnet_train_fwd
 //   _bwd_call (pallas_call at :389, body _make_bwd_kernel :141-257) -> diffnet_train_bwd
 //
-// Forward, per layer l with dilation d (x [R=B*T, C] f32, updated in place):
+// Forward, per layer l with dilation d (x [R=B*T, C] f32):
 //   xs[l] = cast(x)                                   (saved for the backward)
 //   y     = cast(x + step[l])                         (f32 add, then input type)
 //   conv  = y[t-d] @ W0 + y[t] @ W1 + y[t+d] @ W2 + cond @ K[l]
@@ -14,45 +14,84 @@
 //   g     = cast(sigmoid(conv[:, :C]) * tanh(conv[:, C:]))
 //   out   = g @ w_out[l] + b_out[l]
 //   x     = (x + out[:, :C]) * sqrt(1/2);   skip += out[:, C:]
-// Two launches per layer: (A) one GEMM with K = 3C + H (the three taps and
-// the cond projection, read straight from x and cond) with the gate in its
-// epilogue; (B) the out projection with the residual, skip and xs[l+1]
-// writes in its epilogue. xs[0] is written by the caller.
-//
-// Backward, per layer in reverse, carrying dx [R, C] f32 and dcond [R, H] f32:
-//   1 recompute  conv (f32) and g from xs[l]: y = cast(float(xs) + step), as
-//                the TPU kernel does from its bf16-saved xs
-//   2 dg         dg = cast(dout) @ w_out^T, dout = [dx*sqrt(1/2), ds];
-//                epilogue dconv = [dg*tf*sg*(1-sg), dg*sg*(1-tf^2)] (f32)
-//   3 wgrad      [dW_dil taps; dK] = [y[t-d], y, y[t+d], cond]^T @ cast(dconv)
-//   4 reduce     split-K partials -> dw_dil[l], dk_cond[l]
-//   5 wgrad      dW_out = cast(g)^T @ cast(dout)
-//   6 reduce     -> dw_out[l]
-//   7 bias       column sums of dconv (db_dil = db_cond) and of dout (db_out)
-//   8 reduce x2  -> db_dil[l]; -> db_out[l]
-//  10 dcond      dcond += cast(dconv) @ K^T
-//  11 dy         dy = sum_tap shift(cast(dconv) @ W_tap^T) (tap 0 read y[t-d],
-//                so its cotangent lands at t-d); epilogue dx = dx*sqrt(1/2)+dy
-//  12 dstep      dstep[l, b] = sum over t of dy
-// Twelve launches per layer: each product has its own output shape, and the
-// three contractions over all B*T rows (3, 5, 7) need a second, reducing pass
-// (4, 6, 8-9) to stay deterministic. No atomics: every partial slab is summed in a fixed
-// order, so two runs give the same bits.
-//
-// Gradient layout. The TPU kernel writes weight gradients per batch tile in
-// bf16 and rounds dcond to bf16, both to fit its 16 MB VMEM. Here weight
-// gradients and dcond are accumulated and returned in f32.
+// Backward, per layer in reverse, carrying dx [R, C] f32 and dcond [R, H] f32,
+// with dout = [dx*sqrt(1/2), ds]:
+//   y, conv, sg, tf, g   recomputed from xs[l]: y = cast(float(xs) + step)
+//   dW_out = cast(g)^T @ cast(dout);  db_out = column sums of dout (f32)
+//   dg     = cast(dout) @ w_out^T
+//   dconv  = [dg*tf*sg*(1-sg), dg*sg*(1-tf^2)];  db_dil = db_cond = column sums (f32)
+//   [dW_dil taps; dK] = [y[t-d], y, y[t+d], cond]^T @ cast(dconv)
+//   dcond += cast(dconv) @ K^T
+//   dy     = sum_tap shift(cast(dconv) @ W_tap^T)   (tap 0 read y[t-d], so its
+//            cotangent lands at t-d);  dstep[l, b] = sum over t of dy (f32)
+//   dx     = dx*sqrt(1/2) + dy
+// The TPU kernel writes weight gradients per batch tile in bf16 and rounds
+// dcond to bf16, both to fit its 16 MB VMEM. Here weight gradients and dcond
+// are accumulated and returned in f32. No atomics anywhere: every sum across
+// blocks goes through per-block or per-slab partials added in a fixed order,
+// so two runs give the same bits.
 //
 // Bound. At B=24, T=1024, C=H=256, L=20 the forward does 644 GFLOP and the
-// backward 1.80 TFLOP; the bytes are well under a GB, so both are
-// operation-bound on this card. This first version is a shared-memory tiled
-// SIMT GEMM (f32 FMA on values converted from the input type), far from the
-// tensor-core peak; wgmma/TMA tiles are later work. Neighbour rows of a
-// dilation tap are read from global memory with zero fill only outside [0,T)
-// of the same batch row, so a shift never crosses into the next batch row.
+// backward 1.80 TFLOP over well under a GB of inputs and outputs: both are
+// operation-bound on this card, by the bf16 tensor cores.
+//
+// Two sets of kernels (the wrapper picks by shape and type):
+//
+// bfloat16 with C = H = 256 (namespace tc, the shipped training shape) - all
+// products are mma.sync.m16n8k16 (bf16 in, f32 accumulate) fed by ldmatrix,
+// in the tile design of the serving stack (diffnet_stack.cu): a row block is
+// 64 frames of one batch row (grid = T tiles x B, so a dilation halo is zero
+// exactly where t leaves [0, T)), eight warps, warp w owns all 64 rows and
+// the gate columns [wC/8, (w+1)C/8) with the matching filter columns, and
+// each warp streams only its own columns of the layer's weights through a
+// cp.async ring of its own (16-deep chunks, four stages), so the GEMM loops
+// need no block-wide barrier. Layers and kernels after the first are
+// launched as programmatic dependents: their weight prefetch overlaps the
+// tail of the kernel before.
+//   forward, one launch a layer (fwd_layer_tc): y = bf16(x + step) with its
+//     halo and the cond tile are staged once in shared memory; one product
+//     over K = 3C + H (taps as row offsets into the y tile, then cond);
+//     gate in registers; g stays in shared memory for the out product; the
+//     epilogue writes x, skip and xs[l+1]. A neighbouring block still reads
+//     x[t +- d] while this one writes, so x alternates between two buffers
+//     and the caller's x0 is layer 0's read-only input.
+//   backward, four launches a layer:
+//   1 bwd_gate_tc (row block). dg depends only on dx and ds, so it runs first:
+//     dout is staged as bf16 (its f32 column sums taken on the way: db_out),
+//     dg = dout @ w_out^T is parked in shared memory in f32, in the layout
+//     of the accumulators that will need it. The dout tile's space then
+//     takes y and cond; the recompute leaves conv in registers, and one
+//     epilogue forms sg, tf, g and dconv, writes y, g and dconv in bf16 and
+//     reduces the f32 dconv to the block's column sums (db_dil). No f32 conv
+//     or dconv ever reaches device memory.
+//   2 bwd_dx_tc (row block). One staged bf16 dconv tile with its halo feeds
+//     dy (three taps as row offsets, K = 6C) and dcond (K = 2C); the weights
+//     enter transposed, which for mma.sync is a plain ldmatrix of [n][k]
+//     rows. Epilogue: dx = dx sqrt(1/2) + dy in place, dcond +=, and the
+//     block's column sums of the f32 dy (dstep).
+//   3 wgrad_tc. [dW_dil; dK; dW_out] as one split-K product over slabs of
+//     whole batch rows: 128 x 128 output tiles ((4C + H) / 128 x 2C / 128 =
+//     40 of them) times as many slabs as fill the SMs once; both operands are
+//     stored by row, so both fragments are transposed ldmatrix loads from a
+//     four-stage cp.async pipeline of 64-row slices; a tap is a row offset of
+//     the copy, zero-filled outside [0, T).
+//   4 finish_kernel. All fixed-order sums of the layer: slabs -> dw_dil,
+//     dk_cond, dw_out; row blocks' column sums -> db_dil, db_out, dstep.
+//   What bounds them: each 64-row block streams the layer's weights (1.25 MB
+//   forward and gate, 1 MB dx) through the L2, as the serving stack does, and
+//   mma.sync tops out near 640 TFLOP/s on this card.
+//
+// float32, and bfloat16 at any other width - the earlier shared-memory tiled
+// SIMT kernels (f32 FMA on values converted from the input type): two
+// launches a layer forward, twelve backward, f32 conv, dconv and dy through
+// device memory. No shipped configuration runs them; kept as they were.
+// Neighbour rows of a dilation tap are read with zero fill only outside
+// [0,T) of the same batch row, so a shift never crosses into the next one.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+
+#include "mma_sm90.cuh"
 
 namespace {
 
@@ -481,17 +520,46 @@ size_t part_floats(const Dims& g) {
   return m > c ? m : c;
 }
 
+size_t align256(size_t n) { return (n + 255) / 256 * 256; }
+
+// The SIMT backward's scratch, carved from one allocation: conv [R,2C] f32,
+// g [R,C] in the compute type, dconv [R,2C] f32, dy [R,C] f32, split-K partials.
+struct SimtScratch {
+  float* conv;
+  void* g;
+  float *dconv, *dy, *part;
+  size_t bytes;
+};
+SimtScratch simt_carve(void* base, const Dims& g, int esize) {
+  const size_t R = (size_t)g.R, C = (size_t)g.C;
+  char* p = (char*)base;
+  size_t o = 0;
+  auto take = [&](size_t n) { char* q = p + o; o += align256(n); return q; };
+  SimtScratch s;
+  s.conv = (float*)take(R * 2 * C * 4);
+  s.g = take(R * C * esize);
+  s.dconv = (float*)take(R * 2 * C * 4);
+  s.dy = (float*)take(R * C * 4);
+  s.part = (float*)take(part_floats(g) * 4);
+  s.bytes = o;
+  return s;
+}
+
+// After a <<<>>> launch: returns the error, or counts the launch in the
+// caller's *n_launched.
 #define LAUNCH_CHECK()                              \
   do {                                              \
     cudaError_t err_ = cudaGetLastError();          \
     if (err_ != cudaSuccess) return (int)err_;      \
+    ++*n_launched;                                  \
   } while (0)
 
 template <typename In>
 int fwd_run(float* x, float* skip, In* gbuf, In* xs, const float* step, const In* cond,
             const In* k_cond, const float* b_cond, const In* w_dil, const float* b_dil,
             const In* w_out, const float* b_out, Dims g, int L, const int* dil,
-            cudaStream_t s) {
+            cudaStream_t s, int* n_launched) {
+  n_launched[1] = 0;  // the report's second int: the SIMT kernels ran
   const dim3 grid(cdiv(g.R, BM), g.C / HALF);
   for (int l = 0; l < L; ++l) {
     gate_kernel<In, float><<<grid, NT, 0, s>>>(x, step, cond, k_cond, b_cond, w_dil, b_dil,
@@ -508,10 +576,13 @@ template <typename In>
 int bwd_run(const In* xs, const float* step, const In* cond, const In* k_cond,
             const float* b_cond, const In* w_dil, const float* b_dil, const In* w_out,
             const In* ds, float* dx, float* dstep, float* dcond, float* dk_cond,
-            float* dw_dil, float* db_dil, float* dw_out, float* db_out, float* conv,
-            In* gbuf, float* dconv, float* dy, float* part, Dims g, int L, const int* dil,
-            cudaStream_t s) {
+            float* dw_dil, float* db_dil, float* dw_out, float* db_out, void* scratch,
+            Dims g, int L, const int* dil, cudaStream_t s, int* n_launched) {
+  n_launched[1] = 0;
   const int C = g.C, C2 = 2 * C;
+  const SimtScratch sc = simt_carve(scratch, g, (int)sizeof(In));
+  float *conv = sc.conv, *dconv = sc.dconv, *dy = sc.dy, *part = sc.part;
+  In* gbuf = (In*)sc.g;
   const Splits sp = splits_for(g);
   const int ma = 3 * C + g.H;
   const dim3 paired(cdiv(g.R, BM), C / HALF);
@@ -564,70 +635,1169 @@ int bwd_run(const In* xs, const float* step, const In* cond, const In* k_cond,
   return 0;
 }
 
-}  // namespace
+// =================================================================== bfloat16
+// The tensor-core kernels (C = H = 256). See the note at the top of the file.
+namespace tc {
 
-// Floats of split-K scratch the backward needs for these shapes.
-extern "C" long long diffnet_train_part_floats(int B, int T, int C, int H) {
-  const Dims g{B, T, C, H, B * T};
-  return (long long)part_floats(g);
+using namespace mma90;
+typedef __nv_bfloat16 bf16;
+
+constexpr int TM = 64;      // rows of a row block (one batch row, 64 frames)
+constexpr int KC = 16;      // contraction depth of a weight chunk
+constexpr int NST = 4;      // stages of a warp's weight ring
+constexpr int NTHR = 256;   // 8 warps
+constexpr int NKC = 32;     // contraction depth of an [n][k] weight chunk
+constexpr int NKS = NKC + 8; // its row stride (bf16)
+constexpr int SMEM_LIMIT = 227 * 1024;
+
+// Built with -DTRAIN_PHASE_CLOCKS (tools/train_phases.py does), thread 0 of
+// every row block records clock64() at six points of the last launch of the
+// forward (k = 0), gate (1) and dx (2) kernels.
+#ifdef TRAIN_PHASE_CLOCKS
+constexpr int CLK_POINTS = 6, CLK_BLOCKS = 1024;
+__device__ long long g_clk[3 * CLK_BLOCKS * CLK_POINTS];
+#define PHASE_CLOCK(k, i)                                                            \
+  if (threadIdx.x == 0 && blockIdx.y * gridDim.x + blockIdx.x < CLK_BLOCKS)          \
+  g_clk[((k) * CLK_BLOCKS + blockIdx.y * gridDim.x + blockIdx.x) * CLK_POINTS + (i)] = clock64()
+#else
+#define PHASE_CLOCK(k, i)
+#endif
+
+// Row strides carry 16 bytes of padding: the eight rows of an ldmatrix then
+// fall on eight different 16-byte bank groups.
+template <int C> __host__ __device__ constexpr int kn_stride() { return C / 4 + 8; }
+template <int C, int H> __host__ __device__ constexpr int stage_elems() {
+  // a [16 k][gate | filter columns of a warp] chunk or an [n of a warp][32 k] chunk
+  return KC * kn_stride<C>() > ((C > H ? C : H) / 8) * NKS ? KC * kn_stride<C>()
+                                                            : ((C > H ? C : H) / 8) * NKS;
+}
+template <int C, int H> __host__ __device__ constexpr size_t ring_bytes() {
+  return (size_t)8 * NST * stage_elems<C, H>() * sizeof(bf16);
+}
+template <int C, int H> constexpr size_t smem_fwd(int d) {
+  return ((size_t)(TM + 2 * d) * (C + 8) + (size_t)TM * (C + 8) + (size_t)TM * (H + 8)) *
+             sizeof(bf16) + ring_bytes<C, H>();
+}
+template <int C, int H> __host__ __device__ constexpr size_t gate_union_elems(int d) {
+  return (size_t)TM * (2 * C + 8) > (size_t)(TM + 2 * d) * (C + 8) + (size_t)TM * (H + 8)
+             ? (size_t)TM * (2 * C + 8)
+             : (size_t)(TM + 2 * d) * (C + 8) + (size_t)TM * (H + 8);
+}
+template <int C, int H> constexpr size_t smem_gate(int d) {
+  return gate_union_elems<C, H>(d) * sizeof(bf16) + (size_t)TM * C * sizeof(float) +
+         ring_bytes<C, H>();
+}
+template <int C, int H> constexpr size_t smem_dx(int d) {
+  return (size_t)(TM + 2 * d) * (2 * C + 8) * sizeof(bf16) + ring_bytes<C, H>();
 }
 
-// dtype: 0 = float32, 1 = bfloat16 for cond, k_cond, w_dil, w_out, g and xs.
-// x [B,T,C] f32 starts as x0 and is updated in place; skip [B,T,C] f32 must
-// start at zero; g is scratch [B*T, C]; xs [L,B,T,C] (or null: no saves) has
-// xs[0] written by the caller. Returns a cudaError_t code.
-extern "C" int diffnet_train_fwd(int dtype, void* x, void* skip, void* g, void* xs,
-                                 const void* step, const void* cond, const void* k_cond,
-                                 const void* b_cond, const void* w_dil, const void* b_dil,
-                                 const void* w_out, const void* b_out, int B, int T, int C,
-                                 int H, int L, const int* dil, void* stream) {
-  if (C % HALF != 0) return (int)cudaErrorInvalidValue;
-  const Dims gd{B, T, C, H, B * T};
+__device__ __forceinline__ float sigmoid_f(float a) {
+  a = fminf(fmaxf(a, -30.f), 30.f);
+  return __fdividef(1.f, 1.f + __expf(-a));
+}
+__device__ __forceinline__ float tanh_f(float a) {
+  a = fminf(fmaxf(a, -15.f), 15.f);
+  return 1.f - __fdividef(2.f, 1.f + __expf(2.f * a));
+}
+__device__ __forceinline__ uint32_t pack_bf16(float a, float b) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(a, b);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+__device__ __forceinline__ float2 unpack_bf16(uint32_t u) {
+  return __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&u));
+}
+
+// Rows [k0, k0 + 16) of a [K][2C] weight matrix, the warp's gate and filter
+// columns only; src points at row k0, the warp's first gate column.
+template <int C>
+__device__ __forceinline__ void fetch_kn(bf16* dst, const bf16* src, int lane) {
+  constexpr int WC = C / 8, PPH = WC / 8, WS = kn_stride<C>();
+#pragma unroll
+  for (int p = lane; p < KC * 2 * PPH; p += 32) {
+    const int r = p / (2 * PPH), hp = p % (2 * PPH), h = hp / PPH, q = hp % PPH;
+    cp_async16(smem_u32(dst + r * WS + h * WC + q * 8), src + (size_t)r * (2 * C) + h * C + q * 8);
+  }
+}
+// Columns [k0, k0 + 32) of WN rows of an [N][ld] weight matrix (the operand of
+// a product with the matrix transposed; 64 bytes a row, so the L2 serves half
+// lines as it does for the [k][n] chunks); src points at the warp's first
+// row, column k0.
+template <int WN>
+__device__ __forceinline__ void fetch_nk(bf16* dst, const bf16* src, int ld, int lane) {
+#pragma unroll
+  for (int p = lane; p < WN * (NKC / 8); p += 32) {
+    const int n = p / (NKC / 8), q = p % (NKC / 8);
+    cp_async16(smem_u32(dst + n * NKS + q * 8), src + (size_t)n * ld + q * 8);
+  }
+}
+
+// acc += A[64 x 16] (abase, row stride as) * chunk[16 k][gate | filter]
+template <int C>
+__device__ __forceinline__ void mma_kn(float (&acc)[4][C / 32][4], const bf16* abase, int as,
+                                       const bf16* wst, int lane) {
+  constexpr int WC = C / 8, NTH = C / 64, WS = kn_stride<C>();
+  uint32_t bfr[2 * NTH][2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+#pragma unroll
+    for (int j = 0; j < NTH / 2; ++j) {
+      uint32_t r[4];
+      const int col = h * WC + j * 16 + (lane / 16) * 8;
+      ldmatrix_x4_trans(r, smem_u32(wst + (size_t)(lane % 16) * WS + col));
+      bfr[h * NTH + 2 * j][0] = r[0];
+      bfr[h * NTH + 2 * j][1] = r[1];
+      bfr[h * NTH + 2 * j + 1][0] = r[2];
+      bfr[h * NTH + 2 * j + 1][1] = r[3];
+    }
+#pragma unroll
+  for (int mt = 0; mt < 4; ++mt) {
+    uint32_t a[4];
+    ldmatrix_x4(a, smem_u32(abase + (size_t)(mt * 16 + lane % 16) * as + (lane / 16) * 8));
+#pragma unroll
+    for (int nt = 0; nt < 2 * NTH; ++nt) mma_bf16(acc[mt][nt], a, bfr[nt][0], bfr[nt][1]);
+  }
+}
+
+// acc += A[64 x 32] (abase, row stride as) * chunk[8 NT n][32 k]^T
+template <int NT>
+__device__ __forceinline__ void mma_nk(float (&acc)[4][NT][4], const bf16* abase, int as,
+                                       const bf16* wst, int lane) {
+#pragma unroll
+  for (int kk = 0; kk < NKC; kk += 16) {
+    uint32_t bfr[NT][2];
+#pragma unroll
+    for (int j = 0; j < NT / 2; ++j) {
+      uint32_t r[4];
+      const int n = j * 16 + (lane / 16) * 8 + lane % 8, k = kk + ((lane / 8) % 2) * 8;
+      ldmatrix_x4(r, smem_u32(wst + (size_t)n * NKS + k));
+      bfr[2 * j][0] = r[0];
+      bfr[2 * j][1] = r[1];
+      bfr[2 * j + 1][0] = r[2];
+      bfr[2 * j + 1][1] = r[3];
+    }
+#pragma unroll
+    for (int mt = 0; mt < 4; ++mt) {
+      uint32_t a[4];
+      ldmatrix_x4(a, smem_u32(abase + (size_t)(mt * 16 + lane % 16) * as + kk + (lane / 16) * 8));
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) mma_bf16(acc[mt][nt], a, bfr[nt][0], bfr[nt][1]);
+    }
+  }
+}
+
+template <int N>
+__device__ __forceinline__ void zero_acc(float (&acc)[4][N][4]) {
+#pragma unroll
+  for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < N; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.f;
+}
+
+// One step of a warp's weight ring: chunk ch has landed for every lane, the
+// stage of chunk ch - 1 is free and takes chunk ch + NST - 1.
+#define RING_STEP(ch, nch)                          \
+  cp_async_wait<NST - 2>();                         \
+  __syncwarp();                                     \
+  if ((ch) + NST - 1 < (nch)) fetch((ch) + NST - 1); \
+  cp_async_commit()
+
+// Sum over the eight row groups of a warp (lanes that share lane % 4), in a
+// fixed order.
+__device__ __forceinline__ float sum_rows(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 4);
+  v += __shfl_xor_sync(0xffffffffu, v, 8);
+  v += __shfl_xor_sync(0xffffffffu, v, 16);
+  return v;
+}
+
+// ------------------------------------------------------------------- forward
+// One layer: conv + cond product, gate, out product, residual / skip / xs.
+template <int C, int H>
+__global__ void __launch_bounds__(NTHR, 1)
+fwd_layer_tc(const float* __restrict__ x_in, float* __restrict__ x_out,
+             float* __restrict__ skip, bf16* __restrict__ xs_next,
+             const float* __restrict__ step, const bf16* __restrict__ cond,
+             const bf16* __restrict__ k_cond, const float* __restrict__ b_cond,
+             const bf16* __restrict__ w_dil, const float* __restrict__ b_dil,
+             const bf16* __restrict__ w_out, const float* __restrict__ b_out, int B, int T,
+             int l, int d) {
+  constexpr int C2 = 2 * C, YS = C + 8, CS = H + 8, WC = C / 8, NTH = C / 64;
+  constexpr int NG = 3 * C / KC, NCV = NG + H / KC, NCH = NCV + C / KC;
+  constexpr int STG = stage_elems<C, H>();
+  static_assert(C % 128 == 0 && H % KC == 0, "two n-tiles per ldmatrix.x4");
+
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* ys = reinterpret_cast<bf16*>(smem_raw);      // [TM + 2d][YS] y
+  bf16* gs = ys + (size_t)(TM + 2 * d) * YS;         // [TM][YS] g
+  bf16* cs = gs + (size_t)TM * YS;                   // [TM][CS] cond
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  bf16* wring = cs + (size_t)TM * CS + (size_t)warp * NST * STG;   // the warp's own
+
+  const int g8 = lane / 4, t4 = lane % 4;
+  const int b = blockIdx.y, t0 = blockIdx.x * TM;
+  const int wcol = warp * WC;
+  const bf16* wd_l = w_dil + (size_t)l * 3 * C * C2;
+  const bf16* kc_l = k_cond + (size_t)l * H * C2;
+  const bf16* wo_l = w_out + (size_t)l * C * C2;
+  const float* xin_b = x_in + (size_t)b * T * C;
+
+  PHASE_CLOCK(0, 0);
+  // Up to griddep_wait() only inputs of the whole call are touched.
+  griddep_launch_dependents();
+  for (int p = tid; p < TM * (H / 8); p += NTHR) {
+    const int r = p / (H / 8), q = p % (H / 8), t = t0 + r;
+    cp_async16_zfill(smem_u32(cs + r * CS + q * 8),
+                     cond + ((size_t)b * T + (t < T ? t : T - 1)) * H + q * 8, t < T);
+  }
+  cp_async_commit();
+  auto fetch = [&](int ch) {
+    const bf16* src = ch < NG ? wd_l + (size_t)ch * KC * C2
+                      : ch < NCV ? kc_l + (size_t)(ch - NG) * KC * C2
+                                 : wo_l + (size_t)(ch - NCV) * KC * C2;
+    fetch_kn<C>(wring + (size_t)(ch % NST) * STG, src + wcol, lane);
+  };
+#pragma unroll
+  for (int s = 0; s < NST - 1; ++s) {
+    fetch(s);
+    cp_async_commit();
+  }
+  griddep_wait();   // the layer before has completed: x_in and skip are final
+  if (l > 0)
+    for (int i = tid; i < TM * (C * 4 / 128); i += NTHR) {
+      const int t = t0 + i / (C * 4 / 128);
+      if (t < T) prefetch_l2(skip + ((size_t)b * T + t) * C + (i % (C * 4 / 128)) * 32);
+    }
+  // y = bf16(x + step), rows t0 - d .. t0 + TM + d, zero outside [0, T)
+  {
+    constexpr int CP4 = C / 4, RPP = NTHR / CP4;
+    const int c4 = tid % CP4, rq = tid / CP4;
+    const float4 sv = reinterpret_cast<const float4*>(step + ((size_t)l * B + b) * C)[c4];
+    const int nrows = TM + 2 * d;
+    constexpr int UN = 24;
+    for (int q0 = 0; q0 < nrows; q0 += UN * RPP) {
+      float4 v[UN];
+#pragma unroll
+      for (int u = 0; u < UN; ++u) {
+        const int q = q0 + u * RPP + rq, t = t0 - d + q;
+        v[u] = make_float4(0.f, 0.f, 0.f, 0.f);
+        if (q < nrows && t >= 0 && t < T)
+          v[u] = reinterpret_cast<const float4*>(xin_b + (size_t)t * C)[c4];
+      }
+#pragma unroll
+      for (int u = 0; u < UN; ++u) {
+        const int q = q0 + u * RPP + rq, t = t0 - d + q;
+        if (q >= nrows) continue;
+        const bool in = t >= 0 && t < T;
+        uint2 pk;
+        pk.x = pack_bf16(in ? v[u].x + sv.x : 0.f, in ? v[u].y + sv.y : 0.f);
+        pk.y = pack_bf16(in ? v[u].z + sv.z : 0.f, in ? v[u].w + sv.w : 0.f);
+        *reinterpret_cast<uint2*>(ys + (size_t)q * YS + c4 * 4) = pk;
+      }
+    }
+  }
+  cp_async_wait<NST - 1>();   // this thread's part of the cond tile
+  __syncthreads();            // y and cond are staged
+  PHASE_CLOCK(0, 1);
+
+  float acc[4][2 * NTH][4];
+  zero_acc(acc);
+  for (int ch = 0; ch < NCV; ++ch) {
+    RING_STEP(ch, NCH);
+    const bf16* wst = wring + (size_t)(ch % NST) * STG;
+    if (ch < NG) {
+      const int tap = (ch * KC) / C, c0 = (ch * KC) % C;
+      mma_kn<C>(acc, ys + (size_t)(tap * d) * YS + c0, YS, wst, lane);
+    } else {
+      mma_kn<C>(acc, cs + (ch - NG) * KC, CS, wst, lane);
+    }
+  }
+  PHASE_CLOCK(0, 2);
+  // gate epilogue: biases, sigmoid * tanh, g -> shared memory (bf16)
+  {
+    const float* bd_l = b_dil + (size_t)l * C2;
+    const float* bc_l = b_cond + (size_t)l * C2;
+#pragma unroll
+    for (int nt = 0; nt < NTH; ++nt) {
+      const int col = wcol + nt * 8 + 2 * t4;
+      const float2 bg1 = *reinterpret_cast<const float2*>(bd_l + col);
+      const float2 bg2 = *reinterpret_cast<const float2*>(bc_l + col);
+      const float2 bf1 = *reinterpret_cast<const float2*>(bd_l + C + col);
+      const float2 bf2 = *reinterpret_cast<const float2*>(bc_l + C + col);
+#pragma unroll
+      for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+        for (int hr = 0; hr < 2; ++hr) {
+          const int r = mt * 16 + g8 + hr * 8;
+          uint32_t gv = 0u;
+          if (t0 + r < T) {
+            const float g0 = acc[mt][nt][hr * 2] + bg1.x + bg2.x;
+            const float g1 = acc[mt][nt][hr * 2 + 1] + bg1.y + bg2.y;
+            const float f0 = acc[mt][NTH + nt][hr * 2] + bf1.x + bf2.x;
+            const float f1 = acc[mt][NTH + nt][hr * 2 + 1] + bf1.y + bf2.y;
+            gv = pack_bf16(sigmoid_f(g0) * tanh_f(f0), sigmoid_f(g1) * tanh_f(f1));
+          }
+          *reinterpret_cast<uint32_t*>(gs + (size_t)r * YS + col) = gv;
+        }
+    }
+  }
+  zero_acc(acc);
+  __syncthreads();   // every warp's g columns are written
+  PHASE_CLOCK(0, 3);
+  for (int ch = NCV; ch < NCH; ++ch) {
+    RING_STEP(ch, NCH);
+    mma_kn<C>(acc, gs + (ch - NCV) * KC, YS, wring + (size_t)(ch % NST) * STG, lane);
+  }
+  PHASE_CLOCK(0, 4);
+  // residual epilogue: x_out = (x_in + res) * sqrt(1/2), skip (+)= sk, xs[l+1]
+  const float* bo_l = b_out + (size_t)l * C2;
+#pragma unroll
+  for (int nt = 0; nt < NTH; ++nt) {
+    const int col = wcol + nt * 8 + 2 * t4;
+    const float2 br = *reinterpret_cast<const float2*>(bo_l + col);
+    const float2 bs = *reinterpret_cast<const float2*>(bo_l + C + col);
+    float2 so[4][2], xi[4][2];
+#pragma unroll
+    for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) {
+        const int t = t0 + mt * 16 + g8 + hr * 8;
+        so[mt][hr] = make_float2(0.f, 0.f);
+        xi[mt][hr] = make_float2(0.f, 0.f);
+        if (t < T) {
+          const size_t o = ((size_t)b * T + t) * C + col;
+          xi[mt][hr] = *reinterpret_cast<const float2*>(x_in + o);
+          if (l > 0) so[mt][hr] = *reinterpret_cast<const float2*>(skip + o);
+        }
+      }
+#pragma unroll
+    for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) {
+        const int t = t0 + mt * 16 + g8 + hr * 8;
+        if (t >= T) continue;
+        const size_t o = ((size_t)b * T + t) * C + col;
+        float2 xo, sk;
+        xo.x = (xi[mt][hr].x + (acc[mt][nt][hr * 2] + br.x)) * SQRT_HALF;
+        xo.y = (xi[mt][hr].y + (acc[mt][nt][hr * 2 + 1] + br.y)) * SQRT_HALF;
+        sk.x = so[mt][hr].x + (acc[mt][NTH + nt][hr * 2] + bs.x);
+        sk.y = so[mt][hr].y + (acc[mt][NTH + nt][hr * 2 + 1] + bs.y);
+        *reinterpret_cast<float2*>(x_out + o) = xo;
+        *reinterpret_cast<float2*>(skip + o) = sk;
+        if (xs_next != nullptr) *reinterpret_cast<uint32_t*>(xs_next + o) = pack_bf16(xo.x, xo.y);
+      }
+  }
+  PHASE_CLOCK(0, 5);
+}
+
+// ---------------------------------------------------------------- backward 1
+// Row block of layer l: dg, recompute, gate derivatives. Writes y, g, dconv
+// and bf16(dx sqrt(1/2)) in bf16 and the block's float32 column sums of dout
+// (biaspart[1]) and dconv (biaspart[0]).
+template <int C, int H>
+__global__ void __launch_bounds__(NTHR, 1)
+bwd_gate_tc(const bf16* __restrict__ xs_l, const float* __restrict__ step,
+            const bf16* __restrict__ cond, const bf16* __restrict__ k_cond,
+            const float* __restrict__ b_cond, const bf16* __restrict__ w_dil,
+            const float* __restrict__ b_dil, const bf16* __restrict__ w_out,
+            const bf16* __restrict__ ds, const float* __restrict__ dx,
+            bf16* __restrict__ ybuf, bf16* __restrict__ gbuf, bf16* __restrict__ dconv,
+            bf16* __restrict__ dxh, float* __restrict__ biaspart, int B, int T, int l, int d) {
+  constexpr int C2 = 2 * C, YS = C + 8, CS = H + 8, DS = C2 + 8, WC = C / 8, NTH = C / 64;
+  constexpr int NDG = C2 / NKC, NG = 3 * C / KC, NCH = NDG + NG + H / KC;
+  constexpr int STG = stage_elems<C, H>();
+  static_assert(C % 128 == 0 && H % KC == 0 && 12 * C <= TM * C, "layout");
+
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* un = reinterpret_cast<bf16*>(smem_raw);
+  bf16* douts = un;                                // [TM][DS] bf16(dout), then ...
+  bf16* ys = un;                                   // ... [TM + 2d][YS] y
+  bf16* cs = un + (size_t)(TM + 2 * d) * YS;       // ... and [TM][CS] cond
+  float* dgs = reinterpret_cast<float*>(un + gate_union_elems<C, H>(d));  // [8][64][32] dg
+  float* red = dgs;                                // before dg: [4 + 8][C] partial column sums
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  bf16* wring = reinterpret_cast<bf16*>(dgs + (size_t)TM * C) + (size_t)warp * NST * STG;
+
+  const int g8 = lane / 4, t4 = lane % 4;
+  const int b = blockIdx.y, t0 = blockIdx.x * TM;
+  const int blk = b * gridDim.x + blockIdx.x, nblk = gridDim.x * gridDim.y;
+  const int wcol = warp * WC;
+  const bf16* wd_l = w_dil + (size_t)l * 3 * C * C2;
+  const bf16* kc_l = k_cond + (size_t)l * H * C2;
+  const bf16* wo_l = w_out + (size_t)l * C * C2;
+  const size_t row_b = (size_t)b * T;
+
+  PHASE_CLOCK(1, 0);
+  griddep_launch_dependents();
+  auto fetch = [&](int ch) {
+    bf16* dst = wring + (size_t)(ch % NST) * STG;
+    if (ch < NDG) fetch_nk<WC>(dst, wo_l + (size_t)wcol * C2 + ch * NKC, C2, lane);
+    else if (ch < NDG + NG) fetch_kn<C>(dst, wd_l + (size_t)(ch - NDG) * KC * C2 + wcol, lane);
+    else fetch_kn<C>(dst, kc_l + (size_t)(ch - NDG - NG) * KC * C2 + wcol, lane);
+  };
+#pragma unroll
+  for (int s = 0; s < NST - 1; ++s) {
+    fetch(s);
+    cp_async_commit();
+  }
+  griddep_wait();   // dx of the layer above is final
+
+  // dout = [dx sqrt(1/2), ds]: bf16 tile, the dx half also to device memory
+  // for the weight gradients; column sums of the float32 values
+  {
+    constexpr int CP4 = C / 4, RPP = NTHR / CP4, NR = TM / RPP;
+    const int c4 = tid % CP4, rq = tid / CP4;
+    float4 v[NR];
+#pragma unroll
+    for (int i = 0; i < NR; ++i) {
+      const int t = t0 + rq + i * RPP;
+      v[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (t < T) v[i] = reinterpret_cast<const float4*>(dx + (row_b + t) * C)[c4];
+    }
+    float4 s = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+    for (int i = 0; i < NR; ++i) {
+      const int r = rq + i * RPP, t = t0 + r;
+      const float a0 = v[i].x * SQRT_HALF, a1 = v[i].y * SQRT_HALF;
+      const float a2 = v[i].z * SQRT_HALF, a3 = v[i].w * SQRT_HALF;
+      s.x += a0; s.y += a1; s.z += a2; s.w += a3;
+      uint2 pk;
+      pk.x = pack_bf16(a0, a1);
+      pk.y = pack_bf16(a2, a3);
+      *reinterpret_cast<uint2*>(douts + (size_t)r * DS + c4 * 4) = pk;
+      if (t < T) *reinterpret_cast<uint2*>(dxh + (row_b + t) * C + c4 * 4) = pk;
+    }
+    *reinterpret_cast<float4*>(red + rq * C + c4 * 4) = s;
+  }
+  {
+    constexpr int P8 = C / 8, RPP = NTHR / P8, NR = TM / RPP;
+    const int p8 = tid % P8, rq = tid / P8;
+    uint4 v[NR];
+#pragma unroll
+    for (int i = 0; i < NR; ++i) {
+      const int t = t0 + rq + i * RPP;
+      v[i] = make_uint4(0u, 0u, 0u, 0u);
+      if (t < T) v[i] = reinterpret_cast<const uint4*>(ds + (row_b + t) * C)[p8];
+    }
+    float s[8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) s[j] = 0.f;
+#pragma unroll
+    for (int i = 0; i < NR; ++i) {
+      const int r = rq + i * RPP;
+      const float2 f0 = unpack_bf16(v[i].x), f1 = unpack_bf16(v[i].y);
+      const float2 f2 = unpack_bf16(v[i].z), f3 = unpack_bf16(v[i].w);
+      s[0] += f0.x; s[1] += f0.y; s[2] += f1.x; s[3] += f1.y;
+      s[4] += f2.x; s[5] += f2.y; s[6] += f3.x; s[7] += f3.y;
+      *reinterpret_cast<uint4*>(douts + (size_t)r * DS + C + p8 * 8) = v[i];
+    }
+#pragma unroll
+    for (int j = 0; j < 8; ++j) red[(4 + rq) * C + p8 * 8 + j] = s[j];
+  }
+  __syncthreads();   // dout is staged
+  PHASE_CLOCK(1, 1);
+  for (int col = tid; col < C2; col += NTHR) {
+    float s = 0.f;
+    if (col < C) {
+#pragma unroll
+      for (int q = 0; q < 4; ++q) s += red[q * C + col];
+    } else {
+#pragma unroll
+      for (int q = 0; q < 8; ++q) s += red[(4 + q) * C + col - C];
+    }
+    biaspart[((size_t)nblk + blk) * C2 + col] = s;
+  }
+
+  // dg = bf16(dout) @ w_out^T: the warp's WC columns
+  {
+    float accd[4][NTH][4];
+    zero_acc(accd);
+    for (int ch = 0; ch < NDG; ++ch) {
+      RING_STEP(ch, NCH);
+      mma_nk<NTH>(accd, douts + ch * NKC, DS, wring + (size_t)(ch % NST) * STG, lane);
+    }
+    __syncthreads();   // every warp is done with the dout tile (and with red)
+#pragma unroll
+    for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < NTH; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          dgs[((size_t)warp * 64 + (mt * NTH + nt) * 4 + e) * 32 + lane] = accd[mt][nt][e];
+  }
+
+  PHASE_CLOCK(1, 2);
+  // recompute: y = bf16(float(xs) + step) with its halo, cond
+  for (int p = tid; p < TM * (H / 8); p += NTHR) {
+    const int r = p / (H / 8), q = p % (H / 8), t = t0 + r;
+    cp_async16_zfill(smem_u32(cs + r * CS + q * 8),
+                     cond + (row_b + (t < T ? t : T - 1)) * H + q * 8, t < T);
+  }
+  cp_async_commit();
+  {
+    constexpr int P8 = C / 8, RPP = NTHR / P8;
+    const int p8 = tid % P8, rq = tid / P8;
+    const float4* st4 = reinterpret_cast<const float4*>(step + ((size_t)l * B + b) * C) + p8 * 2;
+    const float4 s0 = st4[0], s1 = st4[1];
+    const int nrows = TM + 2 * d;
+    constexpr int UN = 12;
+    for (int q0 = 0; q0 < nrows; q0 += UN * RPP) {
+      uint4 v[UN];
+#pragma unroll
+      for (int u = 0; u < UN; ++u) {
+        const int q = q0 + u * RPP + rq, t = t0 - d + q;
+        v[u] = make_uint4(0u, 0u, 0u, 0u);
+        if (q < nrows && t >= 0 && t < T)
+          v[u] = reinterpret_cast<const uint4*>(xs_l + (row_b + t) * C)[p8];
+      }
+#pragma unroll
+      for (int u = 0; u < UN; ++u) {
+        const int q = q0 + u * RPP + rq, t = t0 - d + q;
+        if (q >= nrows) continue;
+        uint4 pk = make_uint4(0u, 0u, 0u, 0u);
+        if (t >= 0 && t < T) {
+          const float2 f0 = unpack_bf16(v[u].x), f1 = unpack_bf16(v[u].y);
+          const float2 f2 = unpack_bf16(v[u].z), f3 = unpack_bf16(v[u].w);
+          pk.x = pack_bf16(f0.x + s0.x, f0.y + s0.y);
+          pk.y = pack_bf16(f1.x + s0.z, f1.y + s0.w);
+          pk.z = pack_bf16(f2.x + s1.x, f2.y + s1.y);
+          pk.w = pack_bf16(f3.x + s1.z, f3.y + s1.w);
+          if (q >= d && q < d + TM)
+            *reinterpret_cast<uint4*>(ybuf + (row_b + t) * C + p8 * 8) = pk;
+        }
+        *reinterpret_cast<uint4*>(ys + (size_t)q * YS + p8 * 8) = pk;
+      }
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();   // y and cond are staged
+  PHASE_CLOCK(1, 3);
+
+  float acc[4][2 * NTH][4];
+  zero_acc(acc);
+  for (int ch = NDG; ch < NCH; ++ch) {
+    RING_STEP(ch, NCH);
+    const bf16* wst = wring + (size_t)(ch % NST) * STG;
+    const int cv = ch - NDG;
+    if (cv < NG) {
+      const int tap = (cv * KC) / C, c0 = (cv * KC) % C;
+      mma_kn<C>(acc, ys + (size_t)(tap * d) * YS + c0, YS, wst, lane);
+    } else {
+      mma_kn<C>(acc, cs + (cv - NG) * KC, CS, wst, lane);
+    }
+  }
+
+  PHASE_CLOCK(1, 4);
+  // epilogue: sg, tf, g and dconv at once; column sums of the float32 dconv
+  const float* bd_l = b_dil + (size_t)l * C2;
+  const float* bc_l = b_cond + (size_t)l * C2;
+#pragma unroll
+  for (int nt = 0; nt < NTH; ++nt) {
+    const int col = wcol + nt * 8 + 2 * t4;
+    const float2 bg1 = *reinterpret_cast<const float2*>(bd_l + col);
+    const float2 bg2 = *reinterpret_cast<const float2*>(bc_l + col);
+    const float2 bf1 = *reinterpret_cast<const float2*>(bd_l + C + col);
+    const float2 bf2 = *reinterpret_cast<const float2*>(bc_l + C + col);
+    float sg0 = 0.f, sg1 = 0.f, sf0 = 0.f, sf1 = 0.f;
+#pragma unroll
+    for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) {
+        const int t = t0 + mt * 16 + g8 + hr * 8;
+        if (t >= T) continue;
+        const float* dgp = dgs + ((size_t)warp * 64 + (mt * NTH + nt) * 4 + hr * 2) * 32 + lane;
+        const float dg0 = dgp[0], dg1 = dgp[32];
+        const float s0 = sigmoid_f(acc[mt][nt][hr * 2] + bg1.x + bg2.x);
+        const float s1 = sigmoid_f(acc[mt][nt][hr * 2 + 1] + bg1.y + bg2.y);
+        const float h0 = tanh_f(acc[mt][NTH + nt][hr * 2] + bf1.x + bf2.x);
+        const float h1 = tanh_f(acc[mt][NTH + nt][hr * 2 + 1] + bf1.y + bf2.y);
+        const float cg0 = dg0 * h0 * s0 * (1.f - s0), cg1 = dg1 * h1 * s1 * (1.f - s1);
+        const float cf0 = dg0 * s0 * (1.f - h0 * h0), cf1 = dg1 * s1 * (1.f - h1 * h1);
+        sg0 += cg0; sg1 += cg1; sf0 += cf0; sf1 += cf1;
+        const size_t o = row_b + t;
+        *reinterpret_cast<uint32_t*>(gbuf + o * C + col) = pack_bf16(s0 * h0, s1 * h1);
+        *reinterpret_cast<uint32_t*>(dconv + o * C2 + col) = pack_bf16(cg0, cg1);
+        *reinterpret_cast<uint32_t*>(dconv + o * C2 + C + col) = pack_bf16(cf0, cf1);
+      }
+    sg0 = sum_rows(sg0); sg1 = sum_rows(sg1); sf0 = sum_rows(sf0); sf1 = sum_rows(sf1);
+    if (g8 == 0) {
+      *reinterpret_cast<float2*>(biaspart + (size_t)blk * C2 + col) = make_float2(sg0, sg1);
+      *reinterpret_cast<float2*>(biaspart + (size_t)blk * C2 + C + col) = make_float2(sf0, sf1);
+    }
+  }
+  PHASE_CLOCK(1, 5);
+}
+
+// ---------------------------------------------------------------- backward 2
+// Row block of layer l: dy and dcond from one staged dconv tile with its
+// halo; dx = dx sqrt(1/2) + dy, dcond += ..., the block's column sums of dy.
+template <int C, int H>
+__global__ void __launch_bounds__(NTHR, 1)
+bwd_dx_tc(const bf16* __restrict__ dconv, const bf16* __restrict__ w_dil,
+          const bf16* __restrict__ k_cond, float* __restrict__ dx, float* __restrict__ dcond,
+          float* __restrict__ dsp, int B, int T, int l, int d) {
+  constexpr int C2 = 2 * C, DS = C2 + 8, WC = C / 8, WH = H / 8, NTH = C / 64, NTHH = H / 64;
+  constexpr int NSEG = C2 / NKC, NDY = 3 * NSEG, NCH = NDY + NSEG;
+  constexpr int STG = stage_elems<C, H>();
+  static_assert(C % 128 == 0 && H % 128 == 0, "two n-tiles per ldmatrix.x4");
+
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* tile = reinterpret_cast<bf16*>(smem_raw);   // [TM + 2d][DS] dconv
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  bf16* wring = tile + (size_t)(TM + 2 * d) * DS + (size_t)warp * NST * STG;
+
+  const int g8 = lane / 4, t4 = lane % 4;
+  const int b = blockIdx.y, t0 = blockIdx.x * TM;
+  const int blk = b * gridDim.x + blockIdx.x;
+  const bf16* wd_l = w_dil + (size_t)l * 3 * C * C2;
+  const bf16* kc_l = k_cond + (size_t)l * H * C2;
+  const size_t row_b = (size_t)b * T;
+
+  PHASE_CLOCK(2, 0);
+  griddep_launch_dependents();
+  auto fetch = [&](int ch) {
+    bf16* dst = wring + (size_t)(ch % NST) * STG;
+    const int seg = ch / NSEG, k0 = (ch % NSEG) * NKC;
+    if (seg < 3) fetch_nk<WC>(dst, wd_l + ((size_t)seg * C + warp * WC) * C2 + k0, C2, lane);
+    else fetch_nk<WH>(dst, kc_l + (size_t)(warp * WH) * C2 + k0, C2, lane);
+  };
+#pragma unroll
+  for (int s = 0; s < NST - 1; ++s) {
+    fetch(s);
+    cp_async_commit();
+  }
+  griddep_wait();   // dconv of this layer is final
+  for (int p = tid; p < (TM + 2 * d) * (C2 / 8); p += NTHR) {
+    const int q = p / (C2 / 8), pc = p % (C2 / 8), t = t0 - d + q;
+    const bool in = t >= 0 && t < T;
+    cp_async16_zfill(smem_u32(tile + (size_t)q * DS + pc * 8),
+                     dconv + (row_b + (in ? t : 0)) * C2 + pc * 8, in);
+  }
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();   // the dconv tile is staged
+  PHASE_CLOCK(2, 1);
+
+  // dy[t] = dconv[t+d] @ W0^T + dconv[t] @ W1^T + dconv[t-d] @ W2^T; tile row
+  // q is frame t0 - d + q, so tap k starts (2 - k) d rows into the tile
+  {
+    float acc[4][NTH][4];
+    zero_acc(acc);
+    for (int ch = 0; ch < NDY; ++ch) {
+      RING_STEP(ch, NCH);
+      const int seg = ch / NSEG, k0 = (ch % NSEG) * NKC;
+      mma_nk<NTH>(acc, tile + (size_t)((2 - seg) * d) * DS + k0, DS,
+                  wring + (size_t)(ch % NST) * STG, lane);
+    }
+    PHASE_CLOCK(2, 2);
+#pragma unroll
+    for (int nt = 0; nt < NTH; ++nt) {
+      const int col = warp * WC + nt * 8 + 2 * t4;
+      float s0 = 0.f, s1 = 0.f;
+      float2 xv[4][2];
+#pragma unroll
+      for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+        for (int hr = 0; hr < 2; ++hr) {
+          const int t = t0 + mt * 16 + g8 + hr * 8;
+          xv[mt][hr] = make_float2(0.f, 0.f);
+          if (t < T) xv[mt][hr] = *reinterpret_cast<const float2*>(dx + (row_b + t) * C + col);
+        }
+#pragma unroll
+      for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+        for (int hr = 0; hr < 2; ++hr) {
+          const int t = t0 + mt * 16 + g8 + hr * 8;
+          if (t >= T) continue;
+          const float y0 = acc[mt][nt][hr * 2], y1 = acc[mt][nt][hr * 2 + 1];
+          s0 += y0;
+          s1 += y1;
+          *reinterpret_cast<float2*>(dx + (row_b + t) * C + col) =
+              make_float2(xv[mt][hr].x * SQRT_HALF + y0, xv[mt][hr].y * SQRT_HALF + y1);
+        }
+      s0 = sum_rows(s0);
+      s1 = sum_rows(s1);
+      if (g8 == 0) *reinterpret_cast<float2*>(dsp + (size_t)blk * C + col) = make_float2(s0, s1);
+    }
+  }
+  PHASE_CLOCK(2, 3);
+  // dcond += dconv[t] @ K^T
+  {
+    float acc[4][NTHH][4];
+    zero_acc(acc);
+    for (int ch = NDY; ch < NCH; ++ch) {
+      RING_STEP(ch, NCH);
+      mma_nk<NTHH>(acc, tile + (size_t)d * DS + (ch - NDY) * NKC, DS,
+                   wring + (size_t)(ch % NST) * STG, lane);
+    }
+    PHASE_CLOCK(2, 4);
+#pragma unroll
+    for (int nt = 0; nt < NTHH; ++nt) {
+      const int col = warp * WH + nt * 8 + 2 * t4;
+      float2 cv[4][2];   // all loads of the column pair first, then the stores
+#pragma unroll
+      for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+        for (int hr = 0; hr < 2; ++hr) {
+          const int t = t0 + mt * 16 + g8 + hr * 8;
+          cv[mt][hr] = make_float2(0.f, 0.f);
+          if (t < T) cv[mt][hr] = *reinterpret_cast<const float2*>(dcond + (row_b + t) * H + col);
+        }
+#pragma unroll
+      for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+        for (int hr = 0; hr < 2; ++hr) {
+          const int t = t0 + mt * 16 + g8 + hr * 8;
+          if (t >= T) continue;
+          *reinterpret_cast<float2*>(dcond + (row_b + t) * H + col) =
+              make_float2(cv[mt][hr].x + acc[mt][nt][hr * 2],
+                          cv[mt][hr].y + acc[mt][nt][hr * 2 + 1]);
+        }
+    }
+  }
+  PHASE_CLOCK(2, 5);
+}
+
+// ---------------------------------------------------------------- backward 3
+// Weight gradients of layer l as one split-K product over slabs of whole batch
+// rows: part[slab, m, n] = sum over the slab's rows r of A[r + shift, m] B[r, n]
+// with m over [y[t-d] | y | y[t+d] | cond | g] (3C + H + C rows) and B = dconv,
+// or [bf16(dx sqrt(1/2)), ds] for the g rows. 128 x 128 output tiles, 64 rows a
+// stage; both operands are stored by row, so both fragments are transposed loads.
+constexpr int WT = 128;     // output tile
+constexpr int WK = 64;      // rows (contraction) per stage
+constexpr int WST = 4;      // stages
+constexpr int WLD = WT + 8; // row stride (bf16) of a staged operand
+constexpr size_t SMEM_WGRAD = (size_t)WST * 2 * WK * WLD * sizeof(bf16);
+
+// The largest dilation the tensor-core kernels take: the gate kernel's y tile
+// with its halo still fits beside the parked dg and the weight rings. The
+// wrapper's dispatch rule names the same width and dilation.
+constexpr int MAX_DIL = 16;
+static_assert(smem_fwd<256, 256>(MAX_DIL) <= SMEM_LIMIT &&
+                  smem_gate<256, 256>(MAX_DIL) <= SMEM_LIMIT &&
+                  smem_dx<256, 256>(MAX_DIL) <= SMEM_LIMIT && SMEM_WGRAD <= SMEM_LIMIT,
+              "a tensor-core kernel's tiles exceed the block's shared memory");
+
+template <int C, int H>
+__global__ void __launch_bounds__(NTHR, 1)
+wgrad_tc(const bf16* __restrict__ ybuf, const bf16* __restrict__ cond,
+         const bf16* __restrict__ gbuf, const bf16* __restrict__ dconv,
+         const bf16* __restrict__ dxh, const bf16* __restrict__ ds, float* __restrict__ part,
+         int B, int T, int d, int bps) {
+  constexpr int C2 = 2 * C, M_ALL = 3 * C + H + C;
+  static_assert(C % WT == 0 && H % WT == 0, "whole tiles");
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* As = reinterpret_cast<bf16*>(smem_raw);          // [WST][WK][WLD]
+  bf16* Bs = As + (size_t)WST * WK * WLD;                // [WST][WK][WLD]
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int m0 = blockIdx.x * WT, n0 = blockIdx.y * WT, slab = blockIdx.z;
+
+  const bf16 *a_src, *b_src;
+  int a_ld, b_ld, off = 0;
+  if (m0 < 3 * C) {
+    a_src = ybuf + m0 % C; a_ld = C; off = (m0 / C - 1) * d;
+    b_src = dconv + n0; b_ld = C2;
+  } else if (m0 < 3 * C + H) {
+    a_src = cond + (m0 - 3 * C); a_ld = H;
+    b_src = dconv + n0; b_ld = C2;
+  } else {
+    a_src = gbuf + (m0 - 3 * C - H); a_ld = C;
+    b_src = n0 < C ? dxh + n0 : ds + (n0 - C); b_ld = C;
+  }
+  const int b_begin = slab * bps, b_end = min(B, b_begin + bps);
+  const int n_t = (T + WK - 1) / WK, nit = (b_end - b_begin) * n_t;
+
+  griddep_launch_dependents();
+  griddep_wait();   // y, g, dconv and dxh of this layer are final
+  auto load = [&](int it) {
+    const size_t row_b = (size_t)(b_begin + it / n_t) * T;
+    const int tt0 = (it % n_t) * WK;
+    bf16* as = As + (size_t)(it % WST) * WK * WLD;
+    bf16* bs = Bs + (size_t)(it % WST) * WK * WLD;
+#pragma unroll
+    for (int p = tid; p < WK * (WT / 8); p += NTHR) {
+      const int r = p / (WT / 8), q = p % (WT / 8), t = tt0 + r, ta = t + off;
+      const bool ok_b = t < T, ok_a = ok_b && ta >= 0 && ta < T;
+      cp_async16_zfill(smem_u32(as + r * WLD + q * 8),
+                       a_src + (row_b + (ok_a ? ta : 0)) * a_ld + q * 8, ok_a);
+      cp_async16_zfill(smem_u32(bs + r * WLD + q * 8),
+                       b_src + (row_b + (ok_b ? t : 0)) * b_ld + q * 8, ok_b);
+    }
+  };
+#pragma unroll
+  for (int s = 0; s < WST - 1; ++s) {
+    if (s < nit) load(s);
+    cp_async_commit();
+  }
+  // warp (wm, wn) owns rows [64 wm, +64) and columns [32 wn, +32) of the tile
+  const int wm = warp / 4, wn = warp % 4;
+  float acc[4][4][4];
+  zero_acc(acc);
+  for (int it = 0; it < nit; ++it) {
+    cp_async_wait<WST - 2>();
+    __syncthreads();   // stage `it` has landed; the stage of it - 1 is free
+    if (it + WST - 1 < nit) load(it + WST - 1);
+    cp_async_commit();
+    const bf16* as = As + (size_t)(it % WST) * WK * WLD + wm * 64;
+    const bf16* bs = Bs + (size_t)(it % WST) * WK * WLD + wn * 32;
+#pragma unroll
+    for (int kk = 0; kk < WK / 16; ++kk) {
+      uint32_t bfr[4][2];
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        uint32_t r[4];
+        ldmatrix_x4_trans(r, smem_u32(bs + (size_t)(kk * 16 + lane % 16) * WLD + j * 16 +
+                                      (lane / 16) * 8));
+        bfr[2 * j][0] = r[0];
+        bfr[2 * j][1] = r[1];
+        bfr[2 * j + 1][0] = r[2];
+        bfr[2 * j + 1][1] = r[3];
+      }
+#pragma unroll
+      for (int mi = 0; mi < 4; ++mi) {
+        uint32_t a[4];
+        ldmatrix_x4_trans(a, smem_u32(as + (size_t)(kk * 16 + (lane / 16) * 8 + lane % 8) * WLD +
+                                      mi * 16 + ((lane / 8) % 2) * 8));
+#pragma unroll
+        for (int ni = 0; ni < 4; ++ni) mma_bf16(acc[mi][ni], a, bfr[ni][0], bfr[ni][1]);
+      }
+    }
+  }
+  const int g8 = lane / 4, t4 = lane % 4;
+  float* out = part + ((size_t)slab * M_ALL + m0 + wm * 64) * C2 + n0 + wn * 32;
+#pragma unroll
+  for (int mi = 0; mi < 4; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr)
+        *reinterpret_cast<float2*>(out + (size_t)(mi * 16 + g8 + hr * 8) * C2 + ni * 8 + 2 * t4) =
+            make_float2(acc[mi][ni][hr * 2], acc[mi][ni][hr * 2 + 1]);
+}
+
+// ---------------------------------------------------------------- backward 4
+// Every cross-block sum of layer l, each in a fixed order. Blocks below
+// `red_blocks`: the weight-gradient slabs -> dw_dil[l], dk_cond[l], dw_out[l].
+// The others, 32 columns x 8 lanes each: the row blocks' column sums of dconv
+// and dout -> db_dil[l], db_out[l], and of dy -> dstep[l, b].
+__global__ void __launch_bounds__(NTHR)
+finish_kernel(const float* __restrict__ part, int nslab, int C, int H,
+              float* __restrict__ dw_dil, float* __restrict__ dk_cond,
+              float* __restrict__ dw_out, const float* __restrict__ biaspart, int nblk,
+              float* __restrict__ db_dil, float* __restrict__ db_out,
+              const float* __restrict__ dsp, int n_tile, float* __restrict__ dstep,
+              int red_blocks) {
+  griddep_wait();
+  const int C2 = 2 * C;
+  if ((int)blockIdx.x < red_blocks) {
+    const size_t n4 = (size_t)(4 * C + H) * C2 / 4, e_dil = (size_t)3 * C * C2 / 4,
+                 e_k = e_dil + (size_t)H * C2 / 4;
+    const float4* p4 = reinterpret_cast<const float4*>(part);
+    for (size_t e = (size_t)blockIdx.x * NTHR + threadIdx.x; e < n4;
+         e += (size_t)red_blocks * NTHR) {
+      float4 s = p4[e];
+      for (int z = 1; z < nslab; ++z) {
+        const float4 v = p4[(size_t)z * n4 + e];
+        s.x += v.x; s.y += v.y; s.z += v.z; s.w += v.w;
+      }
+      float4* dst = e < e_dil ? reinterpret_cast<float4*>(dw_dil) + e
+                    : e < e_k ? reinterpret_cast<float4*>(dk_cond) + (e - e_dil)
+                              : reinterpret_cast<float4*>(dw_out) + (e - e_k);
+      *dst = s;
+    }
+    return;
+  }
+  __shared__ float sh[8][32];
+  const int gi = blockIdx.x - red_blocks, q = threadIdx.x / 32, cl = threadIdx.x % 32;
+  const float* src;
+  float* dst;
+  int n, ld;
+  if (gi < 2 * (C2 / 32)) {
+    const int which = gi / (C2 / 32), col = (gi % (C2 / 32)) * 32 + cl;
+    src = biaspart + (size_t)which * nblk * C2 + col;
+    dst = (which ? db_out : db_dil) + col;
+    n = nblk; ld = C2;
+  } else {
+    const int gj = gi - 2 * (C2 / 32), b = gj / (C / 32), col = (gj % (C / 32)) * 32 + cl;
+    src = dsp + (size_t)b * n_tile * C + col;
+    dst = dstep + (size_t)b * C + col;
+    n = n_tile; ld = C;
+  }
+  float s = 0.f;
+  for (int i = q; i < n; i += 8) s += src[(size_t)i * ld];
+  sh[q][cl] = s;
+  __syncthreads();
+  if (q == 0) {
+    float t = 0.f;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) t += sh[i][cl];
+    *dst = t;
+  }
+}
+
+// Launch on `s`, counted in *n_launched when the card took it; `dependent`
+// lets the kernel start while the one before it in the stream drains (it
+// waits in griddep_wait() before touching its outputs).
+template <typename... KArgs, typename... Args>
+cudaError_t launch(int* n_launched, void (*kern)(KArgs...), dim3 grid, size_t smem,
+                   cudaStream_t s, bool dependent, Args... args) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(NTHR);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = s;
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr.val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = &attr;
+#ifdef TRAIN_NO_DEPENDENT_LAUNCH   // tools/train_phases.py: each kernel's time alone
+  dependent = false;
+#endif
+  cfg.numAttrs = dependent ? 1 : 0;
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, kern, args...);
+  if (err == cudaSuccess) ++*n_launched;
+  return err;
+}
+
+#define TC_TRY(expr)                          \
+  do {                                        \
+    cudaError_t err_ = (expr);                \
+    if (err_ != cudaSuccess) return (int)err_; \
+  } while (0)
+
+int max_dilation(const int* dil, int L) {
+  int dmax = 0;
+  for (int l = 0; l < L; ++l) {
+    if (dil[l] < 1) return -1;
+    if (dil[l] > dmax) dmax = dil[l];
+  }
+  return dmax;
+}
+
+// x0 is read only; xbuf holds two [B,T,C] f32 buffers the layers alternate
+// between; skip needs no initial value; xs[0] is the caller's.
+template <int C, int H>
+int fwd_run(const float* x0, float* xbuf, float* skip, bf16* xs, const float* step,
+            const bf16* cond, const bf16* k_cond, const float* b_cond, const bf16* w_dil,
+            const float* b_dil, const bf16* w_out, const float* b_out, int B, int T, int L,
+            const int* dil, cudaStream_t s, int* n_launched) {
+  n_launched[1] = 1;  // the report's second int: the tensor-core kernels ran
+  const int dmax = max_dilation(dil, L);
+  if (dmax < 1 || dmax > MAX_DIL) return (int)cudaErrorInvalidValue;
+  TC_TRY(cudaFuncSetAttribute(fwd_layer_tc<C, H>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)smem_fwd<C, H>(dmax)));
+  const dim3 grid((T + TM - 1) / TM, B);
+  const size_t n = (size_t)B * T * C;
+  for (int l = 0; l < L; ++l) {
+    const float* xin = l == 0 ? x0 : xbuf + ((l - 1) % 2) * n;
+    bf16* xs_next = (xs != nullptr && l + 1 < L) ? xs + (size_t)(l + 1) * n : nullptr;
+    TC_TRY(launch(n_launched, fwd_layer_tc<C, H>, grid, smem_fwd<C, H>(dil[l]), s, l > 0,
+                  xin, xbuf + (l % 2) * n, skip, xs_next, step, cond, k_cond, b_cond, w_dil, b_dil,
+                  w_out, b_out, B, T, l, dil[l]));
+  }
+  return (int)cudaSuccess;
+}
+
+// The weight gradients' split of the batch: slabs of whole batch rows, as many
+// as give every SM at most one of the (4C + H) / 128 x 2C / 128 output tiles,
+// none of them empty.
+struct Slabs {
+  int n, batch_rows;
+};
+Slabs slabs_for(int B, int C, int H) {
+  const int tiles = ((4 * C + H) / WT) * (2 * C / WT);
+  int n = NUM_SMS / tiles;
+  n = n < 1 ? 1 : (n > B ? B : n);
+  const int batch_rows = (B + n - 1) / n;
+  return {(B + batch_rows - 1) / batch_rows, batch_rows};
+}
+
+// The backward's scratch, carved from one allocation.
+struct BwdScratch {
+  bf16 *ybuf, *gbuf, *dconv, *dxh;
+  float *biaspart, *dsp, *part;
+  size_t bytes;
+};
+BwdScratch carve(void* base, int B, int T, int C, int H) {
+  const size_t R = (size_t)B * T, nblk = (size_t)B * ((T + TM - 1) / TM);
+  char* p = (char*)base;
+  size_t o = 0;
+  auto take = [&](size_t n) { char* q = p + o; o += align256(n); return q; };
+  BwdScratch s;
+  s.ybuf = (bf16*)take(R * C * 2);
+  s.gbuf = (bf16*)take(R * C * 2);
+  s.dconv = (bf16*)take(R * 2 * C * 2);
+  s.dxh = (bf16*)take(R * C * 2);
+  s.biaspart = (float*)take(2 * nblk * 2 * C * 4);
+  s.dsp = (float*)take(nblk * C * 4);
+  s.part = (float*)take((size_t)slabs_for(B, C, H).n * (4 * C + H) * 2 * C * 4);
+  s.bytes = o;
+  return s;
+}
+
+template <int C, int H>
+int bwd_run(const bf16* xs, const float* step, const bf16* cond, const bf16* k_cond,
+            const float* b_cond, const bf16* w_dil, const float* b_dil, const bf16* w_out,
+            const bf16* ds, float* dx, float* dstep, float* dcond, float* dk_cond,
+            float* dw_dil, float* db_dil, float* dw_out, float* db_out, void* scratch, int B,
+            int T, int L, const int* dil, cudaStream_t s, int* n_launched) {
+  n_launched[1] = 1;
+  constexpr int C2 = 2 * C;
+  const int dmax = max_dilation(dil, L);
+  if (dmax < 1 || dmax > MAX_DIL) return (int)cudaErrorInvalidValue;
+  TC_TRY(cudaFuncSetAttribute(bwd_gate_tc<C, H>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)smem_gate<C, H>(dmax)));
+  TC_TRY(cudaFuncSetAttribute(bwd_dx_tc<C, H>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)smem_dx<C, H>(dmax)));
+  TC_TRY(cudaFuncSetAttribute(wgrad_tc<C, H>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)SMEM_WGRAD));
+  const Slabs sl = slabs_for(B, C, H);
+  const BwdScratch sc = carve(scratch, B, T, C, H);
+  const int n_tile = (T + TM - 1) / TM, nblk = B * n_tile, bps = sl.batch_rows;
+  const dim3 rows(n_tile, B);
+  const dim3 wgrid((4 * C + H) / WT, C2 / WT, sl.n);
+  const int red_blocks = 2 * NUM_SMS, sum_blocks = 2 * (C2 / 32) + B * (C / 32);
+  const size_t n = (size_t)B * T * C;
+  for (int l = L - 1; l >= 0; --l) {
+    const int d = dil[l];
+    TC_TRY(launch(n_launched, bwd_gate_tc<C, H>, rows, smem_gate<C, H>(d), s, l < L - 1,
+                  xs + (size_t)l * n, step, cond, k_cond, b_cond, w_dil, b_dil, w_out, ds, (const float*)dx, sc.ybuf,
+                  sc.gbuf, sc.dconv, sc.dxh, sc.biaspart, B, T, l, d));
+    TC_TRY(launch(n_launched, bwd_dx_tc<C, H>, rows, smem_dx<C, H>(d), s, true,
+                  (const bf16*)sc.dconv, w_dil, k_cond, dx, dcond, sc.dsp, B, T, l, d));
+    TC_TRY(launch(n_launched, wgrad_tc<C, H>, wgrid, SMEM_WGRAD, s, true,
+                  (const bf16*)sc.ybuf, cond, (const bf16*)sc.gbuf, (const bf16*)sc.dconv, (const bf16*)sc.dxh, ds, sc.part,
+                  B, T, d, bps));
+    TC_TRY(launch(n_launched, finish_kernel, dim3(red_blocks + sum_blocks), 0, s, true,
+                  (const float*)sc.part, (int)wgrid.z, C, H, dw_dil + (size_t)l * 3 * C * C2,
+                  dk_cond + (size_t)l * H * C2, dw_out + (size_t)l * C * C2,
+                  (const float*)sc.biaspart, nblk, db_dil + (size_t)l * C2,
+                  db_out + (size_t)l * C2, (const float*)sc.dsp, n_tile,
+                  dstep + (size_t)l * B * C, red_blocks));
+  }
+  return (int)cudaSuccess;
+}
+
+}  // namespace tc
+
+}  // namespace
+
+// path: 0 = the SIMT kernels (dtype 0 float32 or 1 bfloat16), 1 = the
+// tensor-core kernels (bfloat16, C = H = 256, dilations up to 16).
+// report (two ints) is written by the code that ran: [0] the kernels it
+// launched in this call, [1] which set they were (0 SIMT, 1 tensor cores).
+
+// What the tensor-core kernels take and how they would run it: returns 1 when
+// they serve this type, width and largest dilation, and then fills out with
+// the weight-gradient slab count for B batch rows and the shared memory
+// (bytes) of the forward, gate, dx and weight-gradient kernels at dmax.
+extern "C" int diffnet_train_tc_info(int dtype, int B, int C, int H, int dmax, int* out) {
+  if (dtype != 1 || C != 256 || H != 256 || dmax < 1 || dmax > tc::MAX_DIL) return 0;
+  out[0] = tc::slabs_for(B, C, H).n;
+  out[1] = (int)tc::smem_fwd<256, 256>(dmax);
+  out[2] = (int)tc::smem_gate<256, 256>(dmax);
+  out[3] = (int)tc::smem_dx<256, 256>(dmax);
+  out[4] = (int)tc::SMEM_WGRAD;
+  return 1;
+}
+
+// Bytes of scratch the backward needs for these shapes.
+extern "C" long long diffnet_train_bwd_scratch_bytes(int path, int dtype, int B, int T, int C,
+                                                     int H) {
+  if (path == 1) return (long long)tc::carve(nullptr, B, T, C, H).bytes;
+  const Dims g{B, T, C, H, B * T};
+  return (long long)simt_carve(nullptr, g, dtype == 1 ? 2 : 4).bytes;
+}
+
+// cond, k_cond, w_dil, w_out and xs are in the compute type.
+// path 0: x [B,T,C] f32 starts as x0 and is updated in place; skip [B,T,C]
+// f32 must start at zero; scratch is g [B*T, C] in the compute type.
+// path 1: x is x0, read only; skip needs no initial value; scratch is two
+// [B,T,C] f32 buffers.
+// xs [L,B,T,C] (or null: no saves) has xs[0] written by the caller.
+// Returns a cudaError_t code.
+extern "C" int diffnet_train_fwd(int path, int dtype, void* x, void* skip, void* scratch,
+                                 void* xs, const void* step, const void* cond,
+                                 const void* k_cond, const void* b_cond, const void* w_dil,
+                                 const void* b_dil, const void* w_out, const void* b_out,
+                                 int B, int T, int C, int H, int L, const int* dil,
+                                 void* stream, int* report) {
+  typedef __nv_bfloat16 bf16;
   cudaStream_t s = (cudaStream_t)stream;
+  report[0] = 0;
+  report[1] = -1;
+  if (path == 1) {
+    if (dtype != 1 || C != 256 || H != 256) return (int)cudaErrorInvalidValue;
+    return tc::fwd_run<256, 256>((const float*)x, (float*)scratch, (float*)skip, (bf16*)xs,
+                                 (const float*)step, (const bf16*)cond, (const bf16*)k_cond,
+                                 (const float*)b_cond, (const bf16*)w_dil, (const float*)b_dil,
+                                 (const bf16*)w_out, (const float*)b_out, B, T, L, dil, s,
+                                 report);
+  }
+  if (path != 0 || C % HALF != 0) return (int)cudaErrorInvalidValue;
+  const Dims gd{B, T, C, H, B * T};
   if (dtype == 0)
-    return fwd_run<float>((float*)x, (float*)skip, (float*)g, (float*)xs, (const float*)step,
-                          (const float*)cond, (const float*)k_cond, (const float*)b_cond,
-                          (const float*)w_dil, (const float*)b_dil, (const float*)w_out,
-                          (const float*)b_out, gd, L, dil, s);
+    return fwd_run<float>((float*)x, (float*)skip, (float*)scratch, (float*)xs,
+                          (const float*)step, (const float*)cond, (const float*)k_cond,
+                          (const float*)b_cond, (const float*)w_dil, (const float*)b_dil,
+                          (const float*)w_out, (const float*)b_out, gd, L, dil, s, report);
   if (dtype == 1)
-    return fwd_run<__nv_bfloat16>(
-        (float*)x, (float*)skip, (__nv_bfloat16*)g, (__nv_bfloat16*)xs, (const float*)step,
-        (const __nv_bfloat16*)cond, (const __nv_bfloat16*)k_cond, (const float*)b_cond,
-        (const __nv_bfloat16*)w_dil, (const float*)b_dil, (const __nv_bfloat16*)w_out,
-        (const float*)b_out, gd, L, dil, s);
+    return fwd_run<bf16>((float*)x, (float*)skip, (bf16*)scratch, (bf16*)xs, (const float*)step,
+                         (const bf16*)cond, (const bf16*)k_cond, (const float*)b_cond,
+                         (const bf16*)w_dil, (const float*)b_dil, (const bf16*)w_out,
+                         (const float*)b_out, gd, L, dil, s, report);
   return (int)cudaErrorInvalidValue;
 }
 
-// Backward. ds [B,T,C] in the input type; dx [B,T,C] and dcond [B,T,H] f32
+// Backward. ds [B,T,C] in the compute type; dx [B,T,C] and dcond [B,T,H] f32
 // must start at zero; outputs dstep [L,B,C], dk_cond [L,H,2C], dw_dil
 // [L,3,C,2C], db_dil [L,2C] (= db_cond), dw_out [L,C,2C], db_out [L,2C], all
-// f32. Scratch: conv [B*T,2C] f32, g [B*T,C] input type, dconv [B*T,2C] f32,
-// dy [B*T,C] f32, part of diffnet_train_part_floats floats.
-extern "C" int diffnet_train_bwd(int dtype, const void* xs, const void* step,
+// f32; scratch of diffnet_train_bwd_scratch_bytes bytes. Nothing else is
+// written.
+extern "C" int diffnet_train_bwd(int path, int dtype, const void* xs, const void* step,
                                  const void* cond, const void* k_cond, const void* b_cond,
                                  const void* w_dil, const void* b_dil, const void* w_out,
                                  const void* ds, void* dx, void* dstep, void* dcond,
                                  void* dk_cond, void* dw_dil, void* db_dil, void* dw_out,
-                                 void* db_out, void* conv, void* g, void* dconv, void* dy,
-                                 void* part, int B, int T, int C, int H, int L,
-                                 const int* dil, void* stream) {
-  if (C % HALF != 0) return (int)cudaErrorInvalidValue;
-  const Dims gd{B, T, C, H, B * T};
+                                 void* db_out, void* scratch, int B, int T, int C, int H,
+                                 int L, const int* dil, void* stream, int* report) {
+  typedef __nv_bfloat16 bf16;
   cudaStream_t s = (cudaStream_t)stream;
+  report[0] = 0;
+  report[1] = -1;
+  if (path == 1) {
+    if (dtype != 1 || C != 256 || H != 256) return (int)cudaErrorInvalidValue;
+    return tc::bwd_run<256, 256>(
+        (const bf16*)xs, (const float*)step, (const bf16*)cond, (const bf16*)k_cond,
+        (const float*)b_cond, (const bf16*)w_dil, (const float*)b_dil, (const bf16*)w_out,
+        (const bf16*)ds, (float*)dx, (float*)dstep, (float*)dcond, (float*)dk_cond,
+        (float*)dw_dil, (float*)db_dil, (float*)dw_out, (float*)db_out, scratch, B, T, L, dil,
+        s, report);
+  }
+  if (path != 0 || C % HALF != 0) return (int)cudaErrorInvalidValue;
+  const Dims gd{B, T, C, H, B * T};
   if (dtype == 0)
     return bwd_run<float>(
         (const float*)xs, (const float*)step, (const float*)cond, (const float*)k_cond,
         (const float*)b_cond, (const float*)w_dil, (const float*)b_dil, (const float*)w_out,
         (const float*)ds, (float*)dx, (float*)dstep, (float*)dcond, (float*)dk_cond,
-        (float*)dw_dil, (float*)db_dil, (float*)dw_out, (float*)db_out, (float*)conv,
-        (float*)g, (float*)dconv, (float*)dy, (float*)part, gd, L, dil, s);
+        (float*)dw_dil, (float*)db_dil, (float*)dw_out, (float*)db_out, scratch, gd, L, dil, s,
+        report);
   if (dtype == 1)
-    return bwd_run<__nv_bfloat16>(
-        (const __nv_bfloat16*)xs, (const float*)step, (const __nv_bfloat16*)cond,
-        (const __nv_bfloat16*)k_cond, (const float*)b_cond, (const __nv_bfloat16*)w_dil,
-        (const float*)b_dil, (const __nv_bfloat16*)w_out, (const __nv_bfloat16*)ds,
-        (float*)dx, (float*)dstep, (float*)dcond, (float*)dk_cond, (float*)dw_dil,
-        (float*)db_dil, (float*)dw_out, (float*)db_out, (float*)conv, (__nv_bfloat16*)g,
-        (float*)dconv, (float*)dy, (float*)part, gd, L, dil, s);
+    return bwd_run<bf16>(
+        (const bf16*)xs, (const float*)step, (const bf16*)cond, (const bf16*)k_cond,
+        (const float*)b_cond, (const bf16*)w_dil, (const float*)b_dil, (const bf16*)w_out,
+        (const bf16*)ds, (float*)dx, (float*)dstep, (float*)dcond, (float*)dk_cond,
+        (float*)dw_dil, (float*)db_dil, (float*)dw_out, (float*)db_out, scratch, gd, L, dil, s,
+        report);
   return (int)cudaErrorInvalidValue;
 }
+
+#ifdef TRAIN_PHASE_CLOCKS
+// Copies the recorded clocks ([3 kernels][1024 blocks][6] int64) to the host.
+extern "C" int diffnet_train_read_clocks(long long* dst) {
+  return (int)cudaMemcpyFromSymbol(dst, tc::g_clk, sizeof(tc::g_clk));
+}
+#endif

@@ -20,22 +20,33 @@ bf16 to fit VMEM; here both stay float32.
 
 ``diffnet_train_stack`` is the differentiable entry: an autograd function
 whose forward and backward call ``diffnet_train_fwd`` / ``diffnet_train_bwd``.
-Each of those launches its kernel for CUDA tensors (counted in
-``.launches``) and runs its plain twin for CPU tensors. When no gradient is
-needed (``torch.no_grad()`` or no input requires one) the forward saves no
-``xs``.
+Each of those launches its kernels for CUDA tensors (counted in
+``.launches``, one a call; ``.device_launches`` and ``.ran_tensor_cores``
+hold what the library counted and ran in the last call) and runs its plain
+twin for CPU tensors. When no
+gradient is needed (``torch.no_grad()`` or no input requires one) the forward
+saves no ``xs``.
+
+Which kernels a CUDA call runs is decided here, by shape (``takes_tensor_cores``):
+bfloat16 at C = H = 256 with dilations up to 16 takes the tensor-core kernels
+(one launch a layer forward, four backward); float32 and every other shape
+take the SIMT kernels (two and twelve). Neither ever reaches a plain twin.
+Tile sizes, shared memory and the weight gradients' slab count are the
+library's own (``diffnet_train_tc_info`` reports them).
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional, Sequence, Tuple
 
 import torch
 
 from diffsinger_tpu_torch.ops._build import check, load_library
-from diffsinger_tpu_torch.ops.diffnet_stack import (SQRT_HALF, _DTYPE_CODE, _shift_t,
-                                                    pack_diffnet_params, pack_step_params)
+from diffsinger_tpu_torch.ops.diffnet_stack import (SQRT_HALF, _DTYPE_CODE, _dilation_array,
+                                                    _shift_t, pack_diffnet_params,
+                                                    pack_step_params)
 
 GRAD_NAMES = ("x0", "step_proj", "cond", "k_cond", "b_cond", "w_dil", "b_dil", "w_out",
               "b_out")
@@ -136,6 +147,50 @@ def diffnet_train_stack_bwd_plain(xs, step_proj, cond, k_cond, b_cond, w_dil, b_
 # ---------------------------------------------------------------------------
 # kernel launches
 # ---------------------------------------------------------------------------
+TC_WIDTH = 256        # C = H the bfloat16 tensor-core kernels are built for
+TC_MAX_DILATION = 16  # the widest halo their tiles hold in a block's shared memory
+
+
+def takes_tensor_cores(c: int, h: int, dilations: Sequence[int],
+                       compute_dtype: Optional[torch.dtype]) -> bool:
+    """The dispatch rule: bfloat16, C = H = 256 and every dilation <= 16 go
+    to the tensor-core kernels, everything else to the SIMT kernels. The
+    library holds the same rule and refuses a call outside it."""
+    return (compute_dtype == torch.bfloat16 and c == TC_WIDTH and h == TC_WIDTH
+            and max(int(d) for d in dilations) <= TC_MAX_DILATION)
+
+
+@functools.lru_cache(maxsize=None)
+def _entries():
+    lib = load_library("diffnet_train")
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    dil = ctypes.POINTER(ctypes.c_int)
+    fwd, bwd, nbytes = (lib.diffnet_train_fwd, lib.diffnet_train_bwd,
+                        lib.diffnet_train_bwd_scratch_bytes)
+    fwd.restype = bwd.restype = i32
+    fwd.argtypes = [i32] * 2 + [ptr] * 12 + [i32] * 5 + [dil, ptr, dil]
+    bwd.argtypes = [i32] * 2 + [ptr] * 18 + [i32] * 5 + [dil, ptr, dil]
+    nbytes.restype = ctypes.c_longlong
+    nbytes.argtypes = [i32] * 6
+    return fwd, bwd, nbytes
+
+
+def tensor_core_info(b: int, c: int, h: int, dilations: Sequence[int],
+                     compute_dtype: Optional[torch.dtype]) -> Optional[dict]:
+    """What the built library says of these shapes: None when its tensor-core
+    kernels do not take them, else their weight-gradient slab count for ``b``
+    batch rows and each kernel's shared memory (bytes) at the largest
+    dilation. Needs the built library, so it runs on the card's machine."""
+    info = load_library("diffnet_train").diffnet_train_tc_info
+    info.restype = ctypes.c_int
+    info.argtypes = [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_int)]
+    out = (ctypes.c_int * 5)()
+    code = _DTYPE_CODE.get(compute_dtype or torch.float32, -1)
+    if not info(code, b, c, h, max(int(d) for d in dilations), out):
+        return None
+    return {"nslab": out[0], "smem": dict(zip(("fwd", "gate", "dx", "wgrad"), out[1:]))}
+
+
 def _checked(name: str, t: torch.Tensor, shape, device) -> None:
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name}: expected {tuple(shape)}, got {tuple(t.shape)}")
@@ -145,13 +200,16 @@ def _checked(name: str, t: torch.Tensor, shape, device) -> None:
 
 def _prepare(x0, step_proj, cond, k_cond, b_cond, w_dil, b_dil, w_out, extra, dilations,
              compute_dtype):
-    """Shape/device checks and the kernels' operand types (contiguous)."""
+    """Shape/device checks, the kernels' operand types (contiguous) and the
+    choice of kernels (1: tensor cores; 0: SIMT)."""
     dt = compute_dtype or torch.float32
     if dt not in _DTYPE_CODE:
         raise ValueError(f"diffnet_train kernels take float32 or bfloat16, got {dt}")
     num_layers, (b, t, c), h = w_dil.shape[0], x0.shape[-3:], cond.shape[-1]
     if c % 32:
         raise ValueError(f"diffnet_train kernels need C % 32 == 0, got C={c}")
+    if min(int(d) for d in dilations) < 1:
+        raise ValueError(f"dilations must be positive, got {tuple(dilations)}")
     dev = x0.device
     for name, ten, shape in (("step_proj", step_proj, (num_layers, b, c)),
                              ("cond", cond, (b, t, h)),
@@ -162,83 +220,81 @@ def _prepare(x0, step_proj, cond, k_cond, b_cond, w_dil, b_dil, w_out, extra, di
                              ("w_out", w_out, (num_layers, c, 2 * c)), *extra):
         _checked(name, ten, shape, dev)
     f32 = torch.float32
-    ops = dict(step=step_proj.to(f32).contiguous(), cond=cond.to(dt).contiguous(),
-               k_cond=k_cond.to(dt).contiguous(), b_cond=b_cond.to(f32).contiguous(),
-               w_dil=w_dil.to(dt).contiguous(), b_dil=b_dil.to(f32).contiguous(),
-               w_out=w_out.to(dt).contiguous())
-    dil = (ctypes.c_int * num_layers)(*[int(d) for d in dilations])
-    return dt, (b, t, c, h, num_layers), ops, dil
+    ops = [step_proj.to(f32).contiguous(), cond.to(dt).contiguous(),
+           k_cond.to(dt).contiguous(), b_cond.to(f32).contiguous(),
+           w_dil.to(dt).contiguous(), b_dil.to(f32).contiguous(), w_out.to(dt).contiguous()]
+    path = int(takes_tensor_cores(c, h, dilations, compute_dtype))
+    dil = _dilation_array(tuple(int(d) for d in dilations))
+    return dt, (b, t, c, h, num_layers), ops, dil, path
+
+
+def _report(fn, err: int, report) -> None:
+    """Raise on a launch error; else keep what the library counted and ran."""
+    check(err, fn.__name__)
+    fn.device_launches, fn.ran_tensor_cores = report[0], bool(report[1])
 
 
 def _launch_fwd(x0, step_proj, cond, k_cond, b_cond, w_dil, b_dil, w_out, b_out,
                 dilations, compute_dtype, save_xs):
-    dt, (b, t, c, h, num_layers), ops, dil = _prepare(
+    dt, (b, t, c, h, num_layers), ops, dil, path = _prepare(
         x0, step_proj, cond, k_cond, b_cond, w_dil, b_dil, w_out,
         [("b_out", b_out, (w_dil.shape[0], 2 * x0.shape[-1]))], dilations, compute_dtype)
-    x = x0.to(torch.float32).contiguous().clone()
-    skip = torch.zeros_like(x)
-    g = torch.empty((b * t, c), dtype=dt, device=x.device)
+    x = x0.to(torch.float32).contiguous()
+    if path:
+        # x0 is read only, the layers alternate between two buffers of the
+        # kernel's own; layer 0 writes skip, so it needs no zeros
+        skip = torch.empty_like(x)
+        scratch = torch.empty((2, b * t, c), dtype=torch.float32, device=x.device)
+    else:
+        x = x.clone()            # updated in place
+        skip = torch.zeros_like(x)
+        scratch = torch.empty((b * t, c), dtype=dt, device=x.device)   # g
     xs = None
     if save_xs:
         xs = torch.empty((num_layers, b, t, c), dtype=dt, device=x.device)
         xs[0].copy_(x)
-    bo = b_out.to(torch.float32).contiguous()
-    lib = load_library("diffnet_train")
-    fn = lib.diffnet_train_fwd
-    fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 12 + [ctypes.c_int] * 5
-                   + [ctypes.POINTER(ctypes.c_int), ctypes.c_void_p])
+    ops.append(b_out.to(torch.float32).contiguous())
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    err = fn(_DTYPE_CODE[dt], x.data_ptr(), skip.data_ptr(), g.data_ptr(),
-             xs.data_ptr() if xs is not None else None, ops["step"].data_ptr(),
-             ops["cond"].data_ptr(), ops["k_cond"].data_ptr(), ops["b_cond"].data_ptr(),
-             ops["w_dil"].data_ptr(), ops["b_dil"].data_ptr(), ops["w_out"].data_ptr(),
-             bo.data_ptr(), b, t, c, h, num_layers, dil, stream)
-    check(err, "diffnet_train_fwd")
+    report = (ctypes.c_int * 2)()
+    err = _entries()[0](path, _DTYPE_CODE[dt], x.data_ptr(), skip.data_ptr(),
+                        scratch.data_ptr(), xs.data_ptr() if xs is not None else None,
+                        *[o.data_ptr() for o in ops], b, t, c, h, num_layers, dil, stream,
+                        report)
+    _report(diffnet_train_fwd, err, report)
     return skip, xs
 
 
 def _launch_bwd(xs, step_proj, cond, k_cond, b_cond, w_dil, b_dil, w_out, ds, dilations,
                 compute_dtype):
     num_layers = w_dil.shape[0]
-    dt, (b, t, c, h, _), ops, dil = _prepare(
+    dt, (b, t, c, h, _), ops, dil, path = _prepare(
         xs[0], step_proj, cond, k_cond, b_cond, w_dil, b_dil, w_out,
         [("xs", xs, (num_layers,) + tuple(xs.shape[1:])), ("ds", ds, tuple(xs.shape[1:]))],
         dilations, compute_dtype)
     if xs.dtype != dt:
         raise ValueError(f"xs must be saved in {dt}, got {xs.dtype}")
     dev, f32 = xs.device, torch.float32
-    lib = load_library("diffnet_train")
-    nparts = lib.diffnet_train_part_floats
-    nparts.restype = ctypes.c_longlong
-    nparts.argtypes = [ctypes.c_int] * 4
-    rows = b * t
+    _, bwd, scratch_bytes = _entries()
 
-    def buf(*shape, dtype=f32, zero=False):
-        return (torch.zeros if zero else torch.empty)(shape, dtype=dtype, device=dev)
+    def buf(*shape, zero=False):
+        return (torch.zeros if zero else torch.empty)(shape, dtype=f32, device=dev)
 
     dx, dcond = buf(b, t, c, zero=True), buf(b, t, h, zero=True)
     dstep, dk = buf(num_layers, b, c), buf(num_layers, h, 2 * c)
     dwd, dbd = buf(num_layers, 3, c, 2 * c), buf(num_layers, 2 * c)
     dwo, dbo = buf(num_layers, c, 2 * c), buf(num_layers, 2 * c)
-    conv, g, dconv, dy = buf(rows, 2 * c), buf(rows, c, dtype=dt), buf(rows, 2 * c), \
-        buf(rows, c)
-    part = buf(int(nparts(b, t, c, h)))
+    # the kernels carve their per-layer intermediates from one allocation
+    scratch = torch.empty(int(scratch_bytes(path, _DTYPE_CODE[dt], b, t, c, h)),
+                          dtype=torch.uint8, device=dev)
     dsc = ds.to(dt).contiguous()
-    fn = lib.diffnet_train_bwd
-    fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 22 + [ctypes.c_int] * 5
-                   + [ctypes.POINTER(ctypes.c_int), ctypes.c_void_p])
     stream = torch.cuda.current_stream(dev).cuda_stream
     xs = xs.contiguous()
-    err = fn(_DTYPE_CODE[dt], xs.data_ptr(), ops["step"].data_ptr(),
-             ops["cond"].data_ptr(), ops["k_cond"].data_ptr(), ops["b_cond"].data_ptr(),
-             ops["w_dil"].data_ptr(), ops["b_dil"].data_ptr(), ops["w_out"].data_ptr(),
-             dsc.data_ptr(), dx.data_ptr(), dstep.data_ptr(), dcond.data_ptr(),
-             dk.data_ptr(), dwd.data_ptr(), dbd.data_ptr(), dwo.data_ptr(), dbo.data_ptr(),
-             conv.data_ptr(), g.data_ptr(), dconv.data_ptr(), dy.data_ptr(),
-             part.data_ptr(), b, t, c, h, num_layers, dil, stream)
-    check(err, "diffnet_train_bwd")
+    report = (ctypes.c_int * 2)()
+    err = bwd(path, _DTYPE_CODE[dt], xs.data_ptr(), *[o.data_ptr() for o in ops],
+              dsc.data_ptr(), dx.data_ptr(), dstep.data_ptr(), dcond.data_ptr(),
+              dk.data_ptr(), dwd.data_ptr(), dbd.data_ptr(), dwo.data_ptr(), dbo.data_ptr(),
+              scratch.data_ptr(), b, t, c, h, num_layers, dil, stream, report)
+    _report(diffnet_train_bwd, err, report)
     # db_cond == db_dil: both are the row sum of dconv
     return dx, dstep, dcond, dk, dbd.clone(), dwd, dbd, dwo, dbo
 
@@ -286,8 +342,10 @@ def diffnet_train_bwd(xs, step_proj, cond, k_cond, b_cond, w_dil, b_dil, w_out, 
     return out
 
 
-diffnet_train_fwd.launches = 0
-diffnet_train_bwd.launches = 0
+for _fn in (diffnet_train_fwd, diffnet_train_bwd):
+    _fn.launches = 0             # calls that launched kernels
+    _fn.device_launches = None   # kernels the library launched in the last such call
+    _fn.ran_tensor_cores = None  # which set of kernels that call ran
 
 
 class _TrainStack(torch.autograd.Function):

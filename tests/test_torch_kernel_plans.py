@@ -232,5 +232,5 @@ def test_lib_path_follows_the_source_the_headers_and_the_flags(tmp_path, monkeyp
 def test_shared_header_is_found_and_hashed_for_every_kernel_source():
     headers = sorted(p.name for p in _build.CSRC_DIR.glob("*.cuh"))
     assert headers == ["mma_sm90.cuh"]
-    for name in ("diffnet_stack", "mrf_stage"):
+    for name in ("diffnet_stack", "mrf_stage", "diffnet_train"):
         assert '#include "mma_sm90.cuh"' in (_build.CSRC_DIR / f"{name}.cu").read_text()
