@@ -8,9 +8,10 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      diffsinger_tpu_torch/csrc/ with nvcc (sm_90a) into build/kernels/;
   2. diffnet_stack kernel at the serving shapes (B=8, T=1024, C=256, L=20),
      bf16 and f32, dilation cycles 1 and 4, the other serving buckets
-     (4 x 512, 1 x 256), a T that is not a multiple of the tile and a T
-     shorter than the largest dilation, against its plain twin; two calls
-     give the same bits and x0 stays untouched;
+     (4 x 512, 1 x 256), the singing lengths at cycle 4 (2 x 4096 and
+     1 x 7936), a T that is not a multiple of the tile and a T shorter than
+     the largest dilation, against its plain twin; two calls give the same
+     bits and x0 stays untouched;
   3. mrf_stage kernel on the three C<=128 HiFiGAN scales at 8 x 1024 mel
      frames (C=128/64/32 at T=65536/131072/262144), f32 and bf16, plus B=1,
      a T that is not a multiple of the tile and a T shorter than one halo,
@@ -23,6 +24,15 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      again through the plain twins with the same noise and compared;
   5. profiles one more 8 x 1024 batch with torch.profiler (device time by
      kernel, busy share; table in build/chip_smoke/serve_profile.txt);
+  5b. singing: DiffSinger-Opencpop (configs/opencpop/ds1000.yaml at full
+     width: MIDI + rel_pos conditioner, PLMS-25 over the cycle-4 bf16 stack,
+     a PitchExtractor, NSF-HiFiGAN at hop 128 with the 8/8/2 geometry of
+     tools/bench_opencpop.py) with seeded weights answers an 8 x 1024 batch,
+     a 2 x 4096 batch, DiffSingerE2EInfer on EXAMPLE_INPUT and one word-level
+     input; 26 stack and 2 MRF launches a batch; the 8 x 1024 batch's
+     sampler mel and its vocoder (same mel, F0 and source draws) are each held
+     against the plain twins; one more batch of each size is profiled
+     (build/chip_smoke/sing_profile.txt, sing_long_profile.txt);
   6. diffnet_train forward and backward kernels at the training shapes
      (B=24, T=1024, C=H=256, L=20), bf16 and f32, dilation cycles 1 and 4,
      plus 3 x 301 rows with H=200 and with H=256 (not a tile multiple; the
@@ -109,7 +119,9 @@ def phase_stack(torch, ds):
     cases = [(dt, cycle, 8, 1024) for dt in ("bfloat16", "float32") for cycle in (1, 4)]
     cases += [("bfloat16", 4, 3, 301), ("float32", 4, 3, 301),
               ("bfloat16", 1, 4, 512), ("bfloat16", 1, 1, 256),
-              ("bfloat16", 4, 2, 5), ("float32", 4, 2, 5)]
+              ("bfloat16", 4, 2, 5), ("float32", 4, 2, 5),
+              # the singing batches: cycle 4 at 2 x 4096 and at max_frames
+              ("bfloat16", 4, 2, 4096), ("bfloat16", 4, 1, 7936)]
     for dt_name, cycle, b, t in cases:
         dt = torch.bfloat16 if dt_name == "bfloat16" else None
         wdt = dt or torch.float32
@@ -388,6 +400,215 @@ def phase_profile(torch, run, out_dir: Path, name: str = "serve"):
                "top": [{"name": k[:80], "ms": ms, "calls": n} for k, ms, n in rows[:12]]}
     print(f"{name}_profile", json.dumps(summary), flush=True)
     return summary
+
+
+# -------------------------------------------------------------------- phase 5b
+SING_FRAMES_PER_PHONE = 8
+SING_HOP = 128
+SING_FRAMES_PER_S = 24000 / SING_HOP     # 187.5 mel frames = 1 s of audio
+# the NSF-HiFiGAN geometry tools/bench_opencpop.py assumes for the released
+# hop-128 vocoder, until its config.yaml is in the repository
+SING_VOCODER = dict(resblock="1", upsample_rates=[8, 8, 2], upsample_kernel_sizes=[16, 16, 4],
+                    upsample_initial_channel=512, resblock_kernel_sizes=[3, 7, 11],
+                    resblock_dilation_sizes=[[1, 3, 5], [1, 3, 5], [1, 3, 5]],
+                    nsf_source_mode="exact")
+SING_WORD_INPUT = {
+    "text": "小酒窝长睫毛AP是你最美的记号",
+    "notes": "C#4/Db4 | F#4/Gb4 | G#4/Ab4 | A#4/Bb4 F#4/Gb4 | F#4/Gb4 C#4/Db4 | C#4/Db4 | "
+             "rest | C#4/Db4 | A#4/Bb4 | G#4/Ab4 | A#4/Bb4 G#4/Ab4 | F#4/Gb4 | C#4/Db4 | "
+             "C#4/Db4",
+    "notes_duration": "0.407 | 0.376 | 0.242 | 0.509 0.183 | 0.315 0.235 | 0.361 | 0.223 | "
+                      "0.377 | 0.340 | 0.299 | 0.344 0.283 | 0.323 | 0.360 | 0.300",
+    "input_type": "word"}
+
+
+def build_singer(torch, seed: int = 0):
+    import numpy as np
+    import torch.nn as nn
+
+    from diffsinger_tpu_torch.config.hparams import set_hparams
+    from diffsinger_tpu_torch.inference.svs import CPOP_PHONE_LIST, DiffSingerE2EInfer
+    from diffsinger_tpu_torch.inference.vocoder import HifiGAN
+    from diffsinger_tpu_torch.models.pe import PEConfig, PitchExtractor
+    from diffsinger_tpu_torch.training.tasks import DiffSingerTask
+
+    hp = set_hparams(str(ROOT / "configs" / "opencpop" / "ds1000.yaml"))
+    # the released DiffSinger-Opencpop model at its published width, the
+    # stack in bf16 (tools/bench_opencpop.py's setting); the vocoder's
+    # geometry is given explicitly (hop 8 * 8 * 2 = 128 = hop_size)
+    hp.update(compute_dtype="bfloat16", seed=seed, **SING_VOCODER)
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(seed)
+        task = DiffSingerTask(hp, vocab_size=len(CPOP_PHONE_LIST) + 3, device="cpu")
+        voc = HifiGAN(hp, device="cpu")
+        pe = PitchExtractor(PEConfig.from_hparams(hp))
+        with torch.no_grad():
+            # as build_synth: a nonzero DiffNet output projection, the
+            # vocoder's convs at torch's default scale, fixed phone durations
+            nn.init.normal_(task.denoise_fn.output_projection.weight, 0.0, 0.05)
+            for m in voc.model.modules():
+                if isinstance(m, (nn.Conv1d, nn.ConvTranspose1d)):
+                    m.reset_parameters()
+            lin = task.fs2.dur_predictor.linear
+            lin.weight.zero_()
+            lin.bias.fill_(float(np.log(SING_FRAMES_PER_PHONE + 1.0)))
+            # a seeded PE with running statistics, its F0 head centred on
+            # 2^7.5 = 181 Hz with a uv logit around 0 (voiced and unvoiced
+            # frames both occur)
+            for layer in pe.mel_prenet.layers:
+                layer[2].running_mean.normal_(0.0, 0.2)
+                layer[2].running_var.uniform_(0.5, 2.0)
+            head = pe.pitch_predictor.linear
+            head.weight.mul_(0.01)
+            head.bias.copy_(torch.tensor([7.5, 0.0]))
+    infer = DiffSingerE2EInfer(hp, task, voc, pe=pe)  # default device: the card
+    return hp, infer
+
+
+def phase_sing(torch, ds, mrf, card: str, out_dir: Path):
+    import numpy as np
+
+    from diffsinger_tpu_torch.inference.svs import EXAMPLE_INPUT
+    from diffsinger_tpu_torch.models.hifigan import draw_source
+
+    hp, infer = build_singer(torch)
+    syn = infer.fused
+    n_calls = syn.task.gd.denoiser_calls()
+    if n_calls != 26:
+        raise AssertionError(f"PLMS-25 makes {n_calls} denoiser calls, expected 26")
+    rng = np.random.RandomState(1)
+    vocab = len(infer.ph_encoder)
+
+    def request(n_phones, t_mel):
+        return {"txt_tokens": rng.randint(3, vocab, size=(1, n_phones)).astype(np.int64),
+                "pitch_midi": rng.randint(48, 80, size=(1, n_phones)).astype(np.int64),
+                "midi_dur": rng.uniform(0.05, 0.6, size=(1, n_phones)).astype(np.float32),
+                "is_slur": (rng.rand(1, n_phones) < 0.1).astype(np.int64)}, t_mel
+
+    # tools/bench_opencpop.py's sampler row (8 x 1024) and e2e row (2 x 4096)
+    big = [request(1024 // SING_FRAMES_PER_PHONE, 1024) for _ in range(8)]
+    long = [request(4096 // SING_FRAMES_PER_PHONE, 4096) for _ in range(2)]
+    items = {k: infer.preprocess_input(inp, inp["input_type"])
+             for k, inp in (("e2e", EXAMPLE_INPUT), ("word", SING_WORD_INPUT))}
+    t_w = time.perf_counter()
+    syn.warmup([1024], batch_sizes=(8,))
+    syn.warmup([4096], batch_sizes=(2,))
+    syn.warmup([infer.estimate_t_mel(it) for it in items.values()], batch_sizes=(1,))
+    torch.cuda.synchronize()
+    print(f"singing warm-up: {time.perf_counter() - t_w:.1f} s", flush=True)
+
+    ds.diffnet_stack.launches = 0
+    mrf.mrf_stage.launches = 0
+    times = {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    wav_big = syn.synthesize_many(big)
+    torch.cuda.synchronize()
+    times["batch_8x1024"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    wav_long = syn.synthesize_many(long)
+    torch.cuda.synchronize()
+    times["batch_2x4096"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    wav_e2e = infer.infer_once(EXAMPLE_INPUT)
+    torch.cuda.synchronize()
+    times["e2e_example"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    wav_word = infer.infer_once(SING_WORD_INPUT)
+    torch.cuda.synchronize()
+    times["word_level"] = time.perf_counter() - t0
+    launches = {"diffnet_stack": ds.diffnet_stack.launches,
+                "mrf_stage": mrf.mrf_stage.launches}
+
+    n_batches = len(syn.plan(big)) + len(syn.plan(long)) + 2
+    expect = {"diffnet_stack": n_calls * n_batches, "mrf_stage": 2 * n_batches}
+    if launches != expect:
+        raise AssertionError(f"kernel launches on the singing path {launches}, "
+                             f"expected {expect}")
+    frames = {"batch_8x1024": 8 * 1024, "batch_2x4096": 2 * 4096,
+              "e2e_example": len(items["e2e"]["ph_token"]) * SING_FRAMES_PER_PHONE,
+              "word_level": len(items["word"]["ph_token"]) * SING_FRAMES_PER_PHONE}
+    for name, wavs, per_row in (("batch_8x1024", wav_big, 1024),
+                                ("batch_2x4096", wav_long, 4096),
+                                ("e2e_example", [wav_e2e], frames["e2e_example"]),
+                                ("word_level", [wav_word], frames["word_level"])):
+        for wav in wavs:
+            if wav.shape != (per_row * SING_HOP,) or not np.isfinite(wav).all():
+                raise AssertionError(f"singing {name}: bad waveform {wav.shape} for "
+                                     f"{per_row} frames")
+
+    # kernel against plain on the 8 x 1024 batch, in two parts: a mel a hair
+    # apart can flip the PE's voicing of a frame, which moves the waveform
+    # far more than any kernel error, so sampler and vocoder are held apart
+    (t_mel_b, group, _), = syn.plan(big)
+    stacked = syn._stack_group(group, big[0][0]["txt_tokens"].shape[1], t_mel_b)
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    noise = torch.randn((1, 8, t_mel_b, 80), device="cuda", generator=gen)
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = syn.task.inference(stacked, t_mel=t_mel_b, noise=noise)
+        torch.cuda.synchronize()
+        t_sampler = time.perf_counter() - t0
+        with mock.patch.object(ds, "diffnet_stack", ds.diffnet_stack_plain):
+            out_p = syn.task.inference(stacked, t_mel=t_mel_b, noise=noise)
+        mel_k, mel_p = out["mel_out"], out_p["mel_out"]
+        mel_scale = mel_p.abs().max().item()
+        mel_diff = (mel_k - mel_p).abs().max().item()
+        t0 = time.perf_counter()
+        f0 = syn.pe(mel_k)["f0_denorm_pred"]
+        torch.cuda.synchronize()
+        t_pe = time.perf_counter() - t0
+        mel_v = torch.where((out["mel2ph"] > 0)[..., None], mel_k, mel_k.min())
+        source = draw_source(8, t_mel_b * SING_HOP, "cuda", gen)
+        t0 = time.perf_counter()
+        wav_k = syn.vocoder.apply(mel_v, f0=f0, source=source)
+        torch.cuda.synchronize()
+        t_vocoder = time.perf_counter() - t0
+        with mock.patch.object(mrf, "mrf_stage", mrf.mrf_stage_plain):
+            wav_p = syn.vocoder.apply(mel_v, f0=f0, source=source)
+    wav_scale = wav_p.abs().max().item()
+    wav_diff = (wav_k - wav_p).abs().max().item()
+    finite = all(bool(torch.isfinite(a).all()) for a in (mel_k, mel_p, wav_k, wav_p))
+    # sampler: both stacks round to bf16 at the same points and differ by
+    # float32 summation order, a value now and then one bf16 step apart: the
+    # stack's own tolerance, 1e-2 of the output's scale (26 calls of a PLMS
+    # with no clipping carry such a step on, scaled like the mel itself).
+    # Vocoder: the float32 MRF kernel (3xTF32) against float32 convolutions,
+    # 1e-4 of the waveform's scale, as on the serving path.
+    mel_tol = 1e-2 * max(mel_scale, 1.0)
+    wav_tol = 1e-4 * max(wav_scale, 1.0)
+    voiced = float((f0[out["mel2ph"] > 0] > 0).float().mean())
+    total_frames = sum(frames.values())
+    result = {
+        "card": card, "config": "configs/opencpop/ds1000.yaml (bf16 stack, NSF-HiFiGAN "
+                                "8/8/2, 512 ch, exact source), seeded weights",
+        "requests": len(big) + len(long) + 2, "batches": n_batches,
+        "denoiser_calls_per_batch": n_calls, "launches": launches,
+        "latency_s": times,
+        "mel_frames_per_s": {k: frames[k] / times[k] for k in times},
+        "audio_s_per_s": {k: frames[k] / SING_FRAMES_PER_S / times[k] for k in times},
+        "all_mel_frames_per_s": total_frames / sum(times.values()),
+        "batch_8x1024_parts_s": {"sampler_with_fs2": t_sampler, "pe": t_pe,
+                                 "vocoder_with_nsf": t_vocoder},
+        "pe_voiced_share": voiced,
+        "sampler_mel_scale": mel_scale,
+        "kernel_vs_plain_mel_max_abs_diff": mel_diff,
+        "kernel_vs_plain_mel_tolerance": mel_tol,
+        "wav_max_abs": wav_scale,
+        "kernel_vs_plain_wav_max_abs_diff": wav_diff,
+        "kernel_vs_plain_wav_tolerance": wav_tol,
+    }
+    print("singing", json.dumps(result), flush=True)
+    if not finite:
+        raise AssertionError("singing: non-finite mel or waveform in the kernel/plain check")
+    if not (mel_diff <= mel_tol and wav_diff <= wav_tol):
+        raise AssertionError(f"singing: kernel vs plain mel {mel_diff} (tolerance {mel_tol}), "
+                             f"waveform {wav_diff} (tolerance {wav_tol})")
+    profile = phase_profile(torch, lambda: syn.synthesize_many(big), out_dir, "sing")
+    profile_long = phase_profile(torch, lambda: syn.synthesize_many(long), out_dir,
+                                 "sing_long")
+    return result, {"batch_8x1024": profile, "batch_2x4096": profile_long}
 
 
 # --------------------------------------------------------------------- phase 6
@@ -697,16 +918,23 @@ def main() -> int:
     out_dir.mkdir(parents=True, exist_ok=True)
     profile = phase_profile(torch, lambda: syn.synthesize_many(big), out_dir)
     del syn
+    singing, sing_profile = phase_sing(torch, ds, mrf, card, out_dir)
     train_rows = phase_train_stack(torch, tr)
     training, train_profile = phase_train(torch, tr, card, out_dir)
 
     main_stack = stack_rows[0]                        # bf16, cycle 1: serving config
     main_mrf = [r for r in mrf_rows if r["dtype"] == "float32" and r["B"] == 8]
+
+    def path_launches(name):
+        """A serving kernel's launches on each main path it runs, and their sum."""
+        by_path = {"serving": serving["launches"][name], "singing": singing["launches"][name]}
+        return {"launches": sum(by_path.values()), "launches_by_path": by_path}
+
     kernels = [
         {"name": "diffnet_stack", "route": "cuda",
          "source": "diffsinger_tpu_torch/csrc/diffnet_stack.cu",
          "replaces": "diffsinger_tpu/ops/diffnet_stack.py:311",
-         "launches": serving["launches"]["diffnet_stack"],
+         **path_launches("diffnet_stack"),
          "max_abs_err": main_stack["max_abs_err"], "tolerance": main_stack["tolerance"],
          "ms": main_stack["ms"], "plain_ms": main_stack["plain_ms"],
          "bound_ms": main_stack["bound_ms"], "bound_by": main_stack["bound_by"],
@@ -715,7 +943,7 @@ def main() -> int:
          "source": "diffsinger_tpu_torch/csrc/mrf_stage.cu",
          "replaces": "diffsinger_tpu/ops/hifigan_mrf.py:197",
          "also_replaces": "diffsinger_tpu/ops/hifigan_packed_mrf.py:231",
-         "launches": serving["launches"]["mrf_stage"],
+         **path_launches("mrf_stage"),
          "max_abs_err": max(r["max_abs_err"] for r in main_mrf),
          "tolerance": min(r["tolerance"] for r in main_mrf),
          "ms": sum(r["ms"] for r in main_mrf),
@@ -741,7 +969,8 @@ def main() -> int:
              "configs": [{k: v for k, v in r.items() if k != "errors"} for r in train_rows]})
     with open(out_dir / "chip_smoke.json", "w") as f:
         json.dump({"card": card, "build_s": build_s, "kernels": kernels,
-                   "serving": serving, "profile": profile, "train_stack": train_rows,
+                   "serving": serving, "profile": profile, "singing": singing,
+                   "sing_profile": sing_profile, "train_stack": train_rows,
                    "training": training, "train_profile": train_profile}, f, indent=1)
     print(card)
     print(json.dumps({"kernels": kernels}))

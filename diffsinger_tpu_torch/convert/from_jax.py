@@ -7,7 +7,11 @@ the upstream torch keys the port's modules use. Layouts:
   * Conv           [k, in, out]    -> Conv1d weight [out, in, k]
   * ConvTranspose  [k, C_out, C_in] -> ConvTranspose1d weight [C_in, C_out, k]
     (the JAX module applies torch semantics, so no kernel flip)
-  * LayerNorm scale -> weight; embeddings and biases unchanged.
+  * LayerNorm / GroupNorm / BatchNorm scale -> weight; embeddings and biases
+    unchanged; BatchNorm ``batch_stats`` mean / var -> running_mean /
+    running_var.
+Key names follow the upstream torch checkpoints
+(diffsinger_tpu/convert/torch_names.py maps the same pairs the other way).
 """
 
 from __future__ import annotations
@@ -78,8 +82,8 @@ def _fft_rules() -> List[Rule]:
     ]
 
 
-def _predictor_rules() -> List[Rule]:
-    pr = r"(dur_predictor|pitch_predictor)/"
+def _predictor_rules(names: str = "dur_predictor|pitch_predictor") -> List[Rule]:
+    pr = rf"({names})/"
     return [
         (pr + r"conv_(\d+)/conv/kernel", r"\1.conv.\2.1.weight", _conv),
         (pr + r"conv_(\d+)/conv/bias", r"\1.conv.\2.1.bias", None),
@@ -96,6 +100,10 @@ FS2_RULES: List[Rule] = [
     (r"pitch_embed/embedding", "pitch_embed.weight", None),
     (r"mel_out/kernel", "mel_out.weight", _linear),
     (r"mel_out/bias", "mel_out.bias", None),
+    (r"midi_embed/embedding", "midi_embed.weight", None),
+    (r"midi_dur_layer/kernel", "midi_dur_layer.weight", _linear),
+    (r"midi_dur_layer/bias", "midi_dur_layer.bias", None),
+    (r"is_slur_embed/embedding", "is_slur_embed.weight", None),
 ] + _fft_rules() + _predictor_rules()
 
 DIFFNET_RULES: List[Rule] = [
@@ -123,6 +131,28 @@ HIFIGAN_RULES: List[Rule] = [
     (r"ups_(\d+)/bias", r"ups.\1.bias", None),
     (r"resblocks_(\d+)/convs(1|2)_(\d+)/kernel", r"resblocks.\1.convs\2.\3.weight", _conv),
     (r"resblocks_(\d+)/convs(1|2)_(\d+)/bias", r"resblocks.\1.convs\2.\3.bias", None),
+    (r"noise_convs_(\d+)/kernel", r"noise_convs.\1.weight", _conv),
+    (r"noise_convs_(\d+)/bias", r"noise_convs.\1.bias", None),
+    (r"m_source/l_linear/kernel", "m_source.l_linear.weight", _linear),
+    (r"m_source/l_linear/bias", "m_source.l_linear.bias", None),
+]
+
+PE_RULES: List[Rule] = [
+    (r"mel_prenet/conv_(\d+)/kernel", r"mel_prenet.layers.\1.0.weight", _conv),
+    (r"mel_prenet/conv_(\d+)/bias", r"mel_prenet.layers.\1.0.bias", None),
+    (r"mel_prenet/bn_(\d+)/scale", r"mel_prenet.layers.\1.2.weight", None),
+    (r"mel_prenet/bn_(\d+)/bias", r"mel_prenet.layers.\1.2.bias", None),
+    (r"(mel_prenet|mel_encoder)/(in_proj|out_proj)/kernel", r"\1.\2.weight", _linear),
+    (r"(mel_prenet|mel_encoder)/(in_proj|out_proj)/bias", r"\1.\2.bias", None),
+    (r"mel_encoder/conv_(\d+)/kernel", r"mel_encoder.conv.\1.conv.conv.weight", _conv),
+    (r"mel_encoder/conv_(\d+)/bias", r"mel_encoder.conv.\1.conv.conv.bias", None),
+    (r"mel_encoder/norm_(\d+)/scale", r"mel_encoder.conv.\1.norm.weight", None),
+    (r"mel_encoder/norm_(\d+)/bias", r"mel_encoder.conv.\1.norm.bias", None),
+] + _predictor_rules("pitch_predictor")
+
+PE_STATS_RULES: List[Rule] = [
+    (r"mel_prenet/bn_(\d+)/mean", r"mel_prenet.layers.\1.2.running_mean", None),
+    (r"mel_prenet/bn_(\d+)/var", r"mel_prenet.layers.\1.2.running_var", None),
 ]
 
 
@@ -139,6 +169,16 @@ def denoiser_state_dict(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
 def hifigan_state_dict(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
     """JAX ``HifiGanGenerator`` params -> the port's generator state_dict."""
     return apply_rules(params, HIFIGAN_RULES)
+
+
+def pe_state_dict(variables: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """JAX ``PitchExtractor`` variables {'params', 'batch_stats'} -> the port's
+    ``PitchExtractor`` state_dict, BatchNorm running statistics included."""
+    sd = {**apply_rules(variables["params"], PE_RULES),
+          **apply_rules(variables["batch_stats"], PE_STATS_RULES)}
+    for key in [k for k in sd if k.endswith(".running_mean")]:
+        sd[key[: -len("running_mean")] + "num_batches_tracked"] = torch.tensor(0)
+    return sd
 
 
 def task_state_dict(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:

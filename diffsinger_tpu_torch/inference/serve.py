@@ -1,12 +1,19 @@
 """Serving path: text -> mel -> waveform on the card (counterpart of
 diffsinger_tpu/inference/serve.py:FusedSynthesizer).
 
-One call runs the FS2 conditioner, the K-step reverse diffusion over the
-DiffNet kernel and the HiFiGAN vocoder over the MRF kernel, with the mel kept
-on the device. Shapes are bucketed as in the JAX synthesizer: text to
-``txt_pad_multiple`` (16), mel frames to ``mel_pad_multiple`` (128), and
-requests of one mel bucket are stacked into power-of-two batches of at most
-``max_serve_batch`` (16); pad rows repeat the first request and are dropped.
+One call runs the FS2 conditioner (MIDI inputs for singing), the reverse
+diffusion (DDPM or PLMS) over the DiffNet kernel, the optional
+PitchExtractor, and the HiFiGAN (or NSF-HiFiGAN) vocoder over the MRF
+kernel, with the mel kept on the device. Shapes are bucketed as in the JAX
+synthesizer: text to ``txt_pad_multiple`` (16), mel frames to
+``mel_pad_multiple`` (128), and requests of one mel bucket are stacked into
+power-of-two batches of at most ``max_serve_batch`` (16); pad rows repeat
+the first request and are dropped.
+
+The F0 that drives an NSF vocoder comes from the PitchExtractor when one is
+given (it reads the raw sampler mel, whose zero-masked padding frames it
+turns to 0 Hz), else from the model's own ``f0_denorm`` when it has a pitch
+predictor.
 """
 
 from __future__ import annotations
@@ -24,32 +31,40 @@ def _round_up(n: int, mult: int) -> int:
 
 
 def _as_noise(noise) -> torch.Tensor:
-    return noise if isinstance(noise, torch.Tensor) else torch.as_tensor(np.asarray(noise))
+    return noise if isinstance(noise, torch.Tensor) else torch.from_numpy(np.array(noise))
+
+
+def _as_source(source):
+    return None if source is None else tuple(_as_noise(a) for a in source)
 
 
 class FusedSynthesizer:
     """Utterance synthesis for serving.
 
     hp: hparams (``txt_pad_multiple``, ``mel_pad_multiple``, ``max_serve_batch``,
-    ``serve_wav_int16``, ``seed``); task: a ``DiffSingerTask``; vocoder: a
-    ``HifiGAN`` wrapper. Both are moved to ``device`` (default CUDA; raises
-    when no CUDA device is present)."""
+    ``serve_wav_int16``, ``seed``, ``use_midi``); task: a ``DiffSingerTask``;
+    vocoder: a ``HifiGAN`` wrapper; pe: an optional ``PitchExtractor`` whose
+    F0 drives an NSF vocoder. All are moved to ``device`` (default CUDA;
+    raises when no CUDA device is present)."""
 
     # per-token keys padded to the text bucket; per-frame keys to the mel bucket
-    _TOKEN_KEYS = ("txt_tokens",)
+    _TOKEN_KEYS = ("txt_tokens", "pitch_midi", "midi_dur", "is_slur")
     _MEL_KEYS = ("mel2ph", "f0", "uv")
 
-    def __init__(self, hp: Dict[str, Any], task, vocoder, use_gt_dur: bool = False,
-                 use_gt_f0: bool = False, device="cuda"):
+    def __init__(self, hp: Dict[str, Any], task, vocoder, pe=None,
+                 use_gt_dur: bool = False, use_gt_f0: bool = False, device="cuda"):
         self.device = resolve_device(device)
         self.hp = hp
         self.task = task
         self.vocoder = vocoder
+        self.pe = pe
         if task.device != self.device:
             task.to(self.device)
             task.device = self.device
         if vocoder.device != self.device:
             vocoder.to(self.device)
+        if pe is not None:
+            pe.to(self.device).eval()
         self.use_gt_dur = use_gt_dur
         self.use_gt_f0 = use_gt_f0
         self.txt_mult = int(hp.get("txt_pad_multiple", 16))
@@ -60,17 +75,27 @@ class FusedSynthesizer:
 
     # ------------------------------------------------------------------ run
     @torch.no_grad()
-    def _run(self, batch: Dict[str, Any], t_mel: int, noise=None, generator=None):
+    def _run(self, batch: Dict[str, Any], t_mel: int, noise=None, source=None,
+             generator=None):
+        """One device batch. ``noise`` fixes the sampler's draws and
+        ``source`` (rand_ini, noise) the NSF source's; ``generator`` draws
+        whatever is not fixed."""
         out = self.task.inference(batch, t_mel=t_mel, use_gt_dur=self.use_gt_dur,
                                   use_gt_f0=self.use_gt_f0, noise=noise,
                                   generator=generator)
         mel = out["mel_out"]
+        if self.pe is not None:
+            # the raw sampler mel: its zeroed padding frames are the PE's
+            # padding mask, so their F0 comes out 0 Hz
+            f0 = self.pe(mel)["f0_denorm_pred"]
+        else:
+            f0 = out.get("f0_denorm")
         # the sampler zero-masks mel2ph==0 frames, and 0 in the log10-mel
         # domain is loud: set bucket padding to the batch's silence floor
         # (one minimum over the whole padded batch) before vocoding
         pad_mask = (out["mel2ph"] > 0)[..., None]
         mel = torch.where(pad_mask, mel, mel.min())
-        wav = self.vocoder.apply(mel)
+        wav = self.vocoder.apply(mel, f0=f0, generator=generator, source=source)
         if self.wav_int16:
             wav = (torch.clamp(wav, -1.0, 1.0) * 32767.0).to(torch.int16)
         return wav.cpu().numpy(), out["mel2ph"].cpu().numpy()
@@ -127,25 +152,32 @@ class FusedSynthesizer:
         return out
 
     def synthesize_many(self, requests, noises: Optional[Sequence] = None,
-                        seed: Optional[int] = None) -> List[np.ndarray]:
+                        seed: Optional[int] = None,
+                        sources: Optional[Sequence] = None) -> List[np.ndarray]:
         """``requests``: (batch, t_mel) pairs, each batch a single-utterance
         dict. Requests are grouped by mel bucket, chunked, padded to a common
         text bucket and a power-of-two batch, and each chunk runs as one
         device batch. ``noises`` optionally fixes the sampler noise, one
-        [K+1, B_pad, T_bucket, M] array per batch of :meth:`plan`; otherwise a
-        generator seeded from ``seed`` (default ``hp['seed']``) draws it.
-        Returns the waveforms, trimmed to their frames * hop, in input order."""
+        array per batch of :meth:`plan` ([K+1, B_pad, T_bucket, M] for DDPM,
+        [1, B_pad, T_bucket, M] for PLMS), and ``sources`` the NSF source
+        draws, one (rand_ini [B_pad, 1, 9], noise [B_pad, T_bucket * hop, 9])
+        pair per batch; a generator seeded from ``seed`` (default
+        ``hp['seed']``) draws what is not given. Returns the waveforms,
+        trimmed to their frames * hop, in input order."""
         plan = self.plan(requests)
-        if noises is not None and len(noises) != len(plan):
-            raise ValueError(f"need one noise array per batch ({len(plan)})")
-        gen = self._generator(seed) if noises is None else None
+        for name, given in (("noise array", noises), ("source pair", sources)):
+            if given is not None and len(given) != len(plan):
+                raise ValueError(f"need one {name} per batch ({len(plan)})")
+        gen = self._generator(seed)
         wavs: Dict[int, np.ndarray] = {}
         for g, (t_mel_b, items, _) in enumerate(plan):
             t_txt_b = _round_up(max(int(b["txt_tokens"].shape[1]) for _, b in items),
                                 self.txt_mult)
             stacked = self._stack_group(items, t_txt_b, t_mel_b)
             noise = None if noises is None else _as_noise(noises[g])
-            wav, mel2ph = self._run(stacked, t_mel_b, noise=noise, generator=gen)
+            source = None if sources is None else _as_source(sources[g])
+            wav, mel2ph = self._run(stacked, t_mel_b, noise=noise, source=source,
+                                    generator=gen)
             for j, (i, _) in enumerate(items):
                 n = int((mel2ph[j] > 0).sum()) or t_mel_b
                 wavs[i] = wav[j][: n * self.hop]
@@ -160,6 +192,10 @@ class FusedSynthesizer:
             t_mel_b = _round_up(t_mel, self.mel_mult)
             for b in batch_sizes:
                 batch = {"txt_tokens": np.ones((b, t_txt), np.int64)}
+                if self.hp.get("use_midi"):
+                    batch["pitch_midi"] = np.full((b, t_txt), 60, np.int64)
+                    batch["midi_dur"] = np.full((b, t_txt), 0.2, np.float32)
+                    batch["is_slur"] = np.zeros((b, t_txt), np.int64)
                 if self.use_gt_dur:
                     batch["mel2ph"] = np.ones((b, t_mel_b), np.int64)
                 if self.use_gt_f0:
@@ -168,18 +204,20 @@ class FusedSynthesizer:
                 self._run(batch, t_mel_b, generator=gen)
 
     def __call__(self, batch: Dict[str, Any], t_mel: int, noise=None,
-                 seed: Optional[int] = None) -> np.ndarray:
+                 seed: Optional[int] = None, source=None) -> np.ndarray:
         """One request as given (batch rows are not padded); returns the
-        trimmed waveform of its first item."""
+        trimmed waveform of its first item. ``noise`` and ``source`` fix the
+        draws as in :meth:`synthesize_many`."""
         t_txt = int(batch["txt_tokens"].shape[1])
         t_txt_pad = _round_up(t_txt, self.txt_mult)
         if t_txt_pad != t_txt:
             batch = dict(batch)
-            batch["txt_tokens"] = np.pad(np.asarray(batch["txt_tokens"]),
-                                         ((0, 0), (0, t_txt_pad - t_txt)))
+            for k in self._TOKEN_KEYS:
+                if hasattr(batch.get(k), "shape"):
+                    batch[k] = np.pad(np.asarray(batch[k]), ((0, 0), (0, t_txt_pad - t_txt)))
         t_mel_b = _round_up(t_mel, self.mel_mult)
-        gen = self._generator(seed) if noise is None else None
         noise = None if noise is None else _as_noise(noise)
-        wav, mel2ph = self._run(batch, t_mel_b, noise=noise, generator=gen)
+        wav, mel2ph = self._run(batch, t_mel_b, noise=noise, source=_as_source(source),
+                                generator=self._generator(seed))
         n = int((mel2ph[0] > 0).sum()) or t_mel_b
         return wav[0][: n * self.hop]

@@ -1,0 +1,197 @@
+"""Raw-input singing synthesis: lyrics + MIDI notes -> waveform (counterpart of
+diffsinger_tpu/inference/svs.py).
+
+``BaseSVSInfer`` turns an opencpop-style input into a MIDI batch: phoneme
+level (the ``transcriptions.txt`` format: phonemes, notes, note durations,
+slur flags) or word level (Chinese lyrics through pinyin, one note group per
+word, the extra notes of a word sung as slurs on its last phone). The batch
+runs through the port's ``FusedSynthesizer``: conditioner, reverse diffusion,
+PitchExtractor (``DiffSingerE2EInfer``) or the model's own F0
+(``DiffSingerCascadeInfer``), and the NSF vocoder, all on the device.
+
+Loading checkpoints is not ported yet: the constructor takes a built
+``DiffSingerTask``, ``HifiGAN`` and optional ``PitchExtractor`` (seeded or
+converted weights) instead of reading ``work_dir``, ``pe_ckpt`` and
+``vocoder_ckpt``, and raises when one of those checkpoints exists on disk
+rather than ignore it.
+"""
+
+from __future__ import annotations
+
+import os
+from typing import Any, Dict, Optional
+
+import numpy as np
+
+from diffsinger_tpu_torch.data.binarize import note_to_midi
+from diffsinger_tpu_torch.data.text.pinyin import build_pinyin2ph_map
+from diffsinger_tpu_torch.inference.serve import FusedSynthesizer
+from diffsinger_tpu_torch.utils.text_encoder import TokenTextEncoder
+
+# the opencpop models' 60-phone Chinese vocabulary (ids 3-62 after the reserved ones)
+CPOP_PHONE_LIST = [
+    "AP", "SP", "a", "ai", "an", "ang", "ao", "b", "c", "ch", "d", "e", "ei",
+    "en", "eng", "er", "f", "g", "h", "i", "ia", "ian", "iang", "iao", "ie",
+    "in", "ing", "iong", "iu", "j", "k", "l", "m", "n", "o", "ong", "ou", "p",
+    "q", "r", "s", "sh", "t", "u", "ua", "uai", "uan", "uang", "ui", "un",
+    "uo", "v", "van", "ve", "vn", "w", "x", "y", "z", "zh"]
+
+# pypinyin polyphone workarounds applied before the lookup
+_POLYPHONE_FIXES = [("最长", "最常"), ("长睫毛", "常睫毛"), ("那么长", "那么常"),
+                    ("多长", "多常"), ("很长", "很常")]
+
+
+def _lazy_pinyin(text: str):
+    try:
+        from pypinyin import lazy_pinyin
+    except ImportError:
+        from diffsinger_tpu_torch.data.text.hanzi_pinyin import lazy_pinyin_fallback
+
+        return lazy_pinyin_fallback(text)
+    return lazy_pinyin(text, strict=False)
+
+
+def _existing_checkpoint(hp: Dict[str, Any]) -> Optional[str]:
+    """The first of ``work_dir``, ``pe_ckpt`` and ``vocoder_ckpt`` that names a
+    file or a non-empty directory."""
+    for key in ("work_dir", "pe_ckpt", "vocoder_ckpt"):
+        path = hp.get(key) or ""
+        if path and (os.path.isfile(path) or (os.path.isdir(path) and os.listdir(path))):
+            return f"{key}={path}"
+    return None
+
+
+class BaseSVSInfer:
+    # whether the synthesizer takes its F0 from the PitchExtractor
+    uses_pe = True
+
+    def __init__(self, hp: Dict[str, Any], task, vocoder, pe=None, device="cuda"):
+        found = _existing_checkpoint(hp)
+        if found is not None:
+            raise NotImplementedError(f"{found}: loading checkpoints into the torch port "
+                                      "is not ported yet")
+        self.hp = hp
+        self.ph_encoder = TokenTextEncoder(CPOP_PHONE_LIST, replace_oov=",")
+        self.pinyin2phs = build_pinyin2ph_map()
+        self.spk_map = {"opencpop": 0}
+        self.fused = FusedSynthesizer(hp, task, vocoder, pe=pe if self.uses_pe else None,
+                                      device=device)
+
+    # ------------------------------------------------------------- frontend
+    def preprocess_word_level_input(self, inp: Dict[str, str]):
+        text_raw = inp["text"]
+        for a, b in _POLYPHONE_FIXES:
+            text_raw = text_raw.replace(a, b)
+        pinyins = _lazy_pinyin(text_raw)
+        ph_per_word = [self.pinyin2phs[p.strip()] for p in pinyins
+                       if p.strip() in self.pinyin2phs]
+        note_per_word = [x.strip() for x in inp["notes"].split("|") if x.strip()]
+        dur_per_word = [x.strip() for x in inp["notes_duration"].split("|") if x.strip()]
+        if not (len(note_per_word) == len(ph_per_word) == len(dur_per_word)):
+            print("| word/notes count mismatch:", len(ph_per_word), len(note_per_word),
+                  len(dur_per_word))
+            return None
+        ph_lst, note_lst, dur_lst, is_slur = [], [], [], []
+        for phs, notes, durs in zip(ph_per_word, note_per_word, dur_per_word):
+            phs, notes, durs = phs.split(), notes.split(), durs.split()
+            for ph in phs:
+                ph_lst.append(ph)
+                note_lst.append(notes[0])
+                dur_lst.append(durs[0])
+                is_slur.append(0)
+            # extra notes on the same word: repeat the last phone as a slur
+            for k in range(1, len(notes)):
+                ph_lst.append(phs[-1])
+                note_lst.append(notes[k])
+                dur_lst.append(durs[k])
+                is_slur.append(1)
+        return " ".join(ph_lst), note_lst, dur_lst, is_slur
+
+    def preprocess_phoneme_level_input(self, inp: Dict[str, str]):
+        ph_seq = inp["ph_seq"]
+        note_lst = inp["note_seq"].split()
+        dur_lst = inp["note_dur_seq"].split()
+        is_slur = [int(float(x)) for x in inp["is_slur_seq"].split()]
+        if not (len(note_lst) == len(ph_seq.split()) == len(dur_lst)):
+            print("| phoneme/notes count mismatch")
+            return None
+        return ph_seq, note_lst, dur_lst, is_slur
+
+    def preprocess_input(self, inp: Dict[str, str],
+                         input_type: str = "word") -> Optional[Dict[str, Any]]:
+        if input_type == "word":
+            ret = self.preprocess_word_level_input(inp)
+        elif input_type == "phoneme":
+            ret = self.preprocess_phoneme_level_input(inp)
+        else:
+            print("| invalid input type")
+            return None
+        if ret is None:
+            return None
+        ph_seq, note_lst, dur_lst, is_slur = ret
+        midis = [note_to_midi(x.split("/")[0]) if x != "rest" else 0 for x in note_lst]
+        return {
+            "item_name": inp.get("item_name", "<ITEM_NAME>"),
+            "text": inp["text"], "ph": ph_seq,
+            "spk_id": self.spk_map.get(inp.get("spk_name", "opencpop"), 0),
+            "ph_token": self.ph_encoder.encode(ph_seq),
+            "pitch_midi": np.asarray(midis),
+            "midi_dur": np.asarray([float(x) for x in dur_lst], np.float32),
+            "is_slur": np.asarray(is_slur),
+        }
+
+    def input_to_batch(self, item: Dict[str, Any]) -> Dict[str, Any]:
+        mf = self.hp.get("max_frames", 8000)
+        return {
+            "item_name": [item["item_name"]], "text": [item["text"]], "ph": [item["ph"]],
+            "txt_tokens": np.asarray(item["ph_token"], np.int64)[None],
+            "spk_ids": np.asarray([item["spk_id"]], np.int64),
+            "pitch_midi": item["pitch_midi"][None, :mf],
+            "midi_dur": item["midi_dur"][None, :mf],
+            "is_slur": item["is_slur"][None, :mf],
+        }
+
+    # ------------------------------------------------------------- forward
+    def estimate_t_mel(self, item) -> int:
+        """Frames for the notes' total duration, with 20% and 64 frames of
+        headroom, clamped to [64, max_frames]."""
+        total_dur = float(item["midi_dur"].sum())
+        frames = int(total_dur * self.hp["audio_sample_rate"] / self.hp["hop_size"] * 1.2) + 64
+        return min(max(frames, 64), int(self.hp.get("max_frames", 8000)))
+
+    def forward_model(self, item, noise=None, source=None,
+                      seed: Optional[int] = None) -> np.ndarray:
+        """One item through the synthesizer; ``noise`` and ``source`` fix the
+        draws as in ``FusedSynthesizer.__call__``."""
+        return self.fused(self.input_to_batch(item), self.estimate_t_mel(item),
+                          noise=noise, seed=seed, source=source)
+
+    def infer_once(self, inp: Dict[str, str], **kw) -> np.ndarray:
+        item = self.preprocess_input(inp, inp.get("input_type", "word"))
+        if item is None:
+            raise ValueError("the input's phonemes, notes and durations do not line up")
+        return self.forward_model(item, **kw)
+
+
+class DiffSingerE2EInfer(BaseSVSInfer):
+    """e2e: F0 re-extracted from the generated mel by the PitchExtractor (the
+    model's own ``f0_denorm`` when no PitchExtractor is given)."""
+
+
+class DiffSingerCascadeInfer(BaseSVSInfer):
+    """cascade: F0 from the model's pitch predictor, even when a
+    PitchExtractor is given."""
+
+    uses_pe = False
+
+
+# phoneme-level example in the opencpop transcription format (a slur on the
+# second word: the final 'iu' repeats on a new note with is_slur=1)
+EXAMPLE_INPUT = {
+    "text": "小酒窝",
+    "ph_seq": "SP x iao j iu iu w o AP",
+    "note_seq": "rest C#4/Db4 C#4/Db4 F#4/Gb4 F#4/Gb4 G#4/Ab4 A#4/Bb4 A#4/Bb4 rest",
+    "note_dur_seq": "0.25 0.41 0.41 0.38 0.38 0.24 0.51 0.51 0.25",
+    "is_slur_seq": "0 0 0 0 0 1 0 0 0",
+    "input_type": "phoneme",
+}

@@ -65,6 +65,19 @@ def fairseq_sinusoidal_table(num_embeddings: int, dim: int,
     return table.astype(np.float32)
 
 
+def espnet_positional_table(length: int, dim: int, reverse: bool = False) -> np.ndarray:
+    """Interleaved sin/cos table (ESPnet layout: even columns sin, odd cos)."""
+    if reverse:
+        position = np.arange(length - 1, -1, -1.0, dtype=np.float64)[:, None]
+    else:
+        position = np.arange(0, length, dtype=np.float64)[:, None]
+    div_term = np.exp(np.arange(0, dim, 2, dtype=np.float64) * -(math.log(10000.0) / dim))
+    table = np.zeros((length, dim))
+    table[:, 0::2] = np.sin(position * div_term)
+    table[:, 1::2] = np.cos(position * div_term)
+    return table.astype(np.float32)
+
+
 def make_positions(tokens: torch.Tensor, padding_idx: int = 0) -> torch.Tensor:
     """Position ids counting only non-pad tokens, offset by padding_idx+1."""
     mask = (tokens != padding_idx).to(torch.long)
@@ -91,6 +104,33 @@ class SinusoidalPositionalEmbedding(nn.Module):
             table = torch.from_numpy(fairseq_sinusoidal_table(
                 need, self.dim, self.padding_idx)).to(table.device)
         return table[make_positions(tokens_or_mask, self.padding_idx)]
+
+
+class RelPositionalEncoding(nn.Module):
+    """ESPnet's legacy relative encoding: ``x * sqrt(d)`` plus a reversed
+    position table (no params).
+
+    The table is built once at ``max_len`` rows and its *first* t rows are
+    added, so the positions are ``max_len - 1 .. max_len - t`` whatever t is,
+    not ``t - 1 .. 0``: the upstream module behaves so and released weights
+    were trained with it. A sequence longer than ``max_len`` gets a table of
+    its own length."""
+
+    def __init__(self, dim: int, max_len: int = 5000):
+        super().__init__()
+        self.dim = dim
+        self.max_len = max_len
+        self.register_buffer("table", torch.from_numpy(
+            espnet_positional_table(max_len, dim, reverse=True)), persistent=False)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """x [B, T, C] -> x * sqrt(C) + table[:T]."""
+        t = x.shape[1]
+        table = self.table
+        if t > table.shape[0]:
+            table = torch.from_numpy(espnet_positional_table(t, self.dim, reverse=True)
+                                     ).to(table.device)
+        return x * math.sqrt(self.dim) + table[None, :t]
 
 
 class MultiHeadSelfAttention(nn.Module):

@@ -1,14 +1,20 @@
 """Gaussian shallow diffusion over mel-spectrograms: the epsilon-prediction
-training loss and the DDPM sampler (counterpart of
+training loss and the DDPM and PLMS samplers (counterpart of
 diffsinger_tpu/models/diffusion.py).
 
 Loss and sampler are pure functions over a ``denoise_fn(x, t, cond)`` closure:
 the sampler calls the one the object is built with, the loss the one it is
 handed, so a caller that differentiates the denoiser names its own. The
-reverse loop is a Python loop of K steps; each step calls the denoiser once.
-Noise comes either from an explicit ``noise`` tensor [K+1, B, T, M] (the
-shallow-boost draw first, then one draw per reverse step in loop order) or
-from a ``torch.Generator``. PLMS sampling is not part of this slice.
+reverse loop is a Python loop.
+  * DDPM (``pndm_speedup`` 0): K steps, one denoiser call each. Noise comes
+    from an explicit ``noise`` tensor [K+1, B, T, M] (the start draw first,
+    then one draw per reverse step in loop order) or from a
+    ``torch.Generator``.
+  * PLMS (``pndm_speedup`` = interval): the steps ``arange(0, K, interval)``
+    in reverse; the first is the order-1 warm-up with two denoiser calls, the
+    rest ramp through Adams-Bashforth orders 2, 3 and 4 over the last three
+    epsilon estimates, so K / interval steps make K / interval + 1 calls. The
+    only draw is the start, ``noise`` [1, B, T, M].
 """
 
 from __future__ import annotations
@@ -45,12 +51,11 @@ class DiffusionConfig:
     spec_min: Tuple[float, ...] = ()
     spec_max: Tuple[float, ...] = ()
     keep_bins: int = 80
+    pndm_speedup: int = 0  # 0: DDPM
     gaussian_start: bool = False
 
     @classmethod
     def from_hparams(cls, hp: Dict[str, Any]) -> "DiffusionConfig":
-        if hp.get("pndm_speedup"):
-            raise NotImplementedError("the torch port samples with DDPM only so far")
         return cls(
             timesteps=int(hp.get("timesteps", 100)),
             k_step=int(hp.get("K_step", hp.get("timesteps", 100))),
@@ -60,11 +65,12 @@ class DiffusionConfig:
             spec_min=tuple(hp.get("spec_min", []) or []),
             spec_max=tuple(hp.get("spec_max", []) or []),
             keep_bins=int(hp.get("keep_bins", 80)),
+            pndm_speedup=int(hp.get("pndm_speedup") or 0),
             gaussian_start=bool(hp.get("gaussian_start", False)),
         )
 
 
-_TABLES = ("sqrt_alphas_cumprod", "sqrt_one_minus_alphas_cumprod",
+_TABLES = ("alphas_cumprod", "sqrt_alphas_cumprod", "sqrt_one_minus_alphas_cumprod",
            "sqrt_recip_alphas_cumprod", "sqrt_recipm1_alphas_cumprod",
            "posterior_mean_coef1", "posterior_mean_coef2",
            "posterior_log_variance_clipped", "_spec_min", "_spec_max")
@@ -85,6 +91,7 @@ class GaussianDiffusion:
         alphas = 1.0 - betas
         alphas_cumprod = np.cumprod(alphas)
         alphas_cumprod_prev = np.append(1.0, alphas_cumprod[:-1])
+        self.alphas_cumprod = alphas_cumprod
         self.sqrt_alphas_cumprod = np.sqrt(alphas_cumprod)
         self.sqrt_one_minus_alphas_cumprod = np.sqrt(1.0 - alphas_cumprod)
         self.sqrt_recip_alphas_cumprod = np.sqrt(1.0 / alphas_cumprod)
@@ -168,22 +175,73 @@ class GaussianDiffusion:
         nonzero = (t > 0).to(x.dtype)[:, None, None]
         return mean + nonzero * torch.exp(0.5 * log_var) * noise
 
+    def _plms_x_pred(self, x: torch.Tensor, eps: torch.Tensor, t: torch.Tensor,
+                     interval: int) -> torch.Tensor:
+        """x_t -> x_{t - interval} given an epsilon estimate; the target's
+        alpha-bar is 1 once t < interval."""
+        a_t = self._extract("alphas_cumprod", t)
+        a_prev = torch.where((t < interval)[:, None, None], torch.ones_like(a_t),
+                             self._extract("alphas_cumprod",
+                                           torch.clamp(t - interval, min=0)))
+        a_t_sq, a_prev_sq = torch.sqrt(a_t), torch.sqrt(a_prev)
+        x_delta = (a_prev - a_t) * (
+            (1 / (a_t_sq * (a_t_sq + a_prev_sq))) * x
+            - 1 / (a_t_sq * (torch.sqrt((1 - a_prev) * a_t)
+                             + torch.sqrt((1 - a_t) * a_prev))) * eps)
+        return x + x_delta
+
+    def _plms_loop(self, x: torch.Tensor, cond_ctx) -> torch.Tensor:
+        interval = int(self.cfg.pndm_speedup)
+        ts = np.arange(0, self.cfg.k_step, interval)[::-1]
+        b = x.shape[0]
+
+        def t_vec(t: int) -> torch.Tensor:
+            return torch.full((b,), int(t), dtype=torch.long, device=x.device)
+
+        # warm-up (order 1): the one step that calls the denoiser twice
+        t0 = t_vec(ts[0])
+        eps0 = self.denoise_fn(x, t0, cond_ctx)
+        x_pred = self._plms_x_pred(x, eps0, t0, interval)
+        eps_prev = self.denoise_fn(x_pred, torch.clamp(t0 - interval, min=0), cond_ctx)
+        x = self._plms_x_pred(x, (eps0 + eps_prev) / 2, t0, interval)
+        ring = [eps0]  # earlier epsilon estimates, newest first, at most three
+        for t in ts[1:]:
+            tv = t_vec(t)
+            eps = self.denoise_fn(x, tv, cond_ctx)
+            if len(ring) == 1:
+                eps_prime = (3 * eps - ring[0]) / 2
+            elif len(ring) == 2:
+                eps_prime = (23 * eps - 16 * ring[0] + 5 * ring[1]) / 12
+            else:
+                eps_prime = (55 * eps - 59 * ring[0] + 37 * ring[1] - 9 * ring[2]) / 24
+            x = self._plms_x_pred(x, eps_prime, tv, interval)
+            ring = [eps] + ring[:2]
+        return x
+
+    def denoiser_calls(self) -> int:
+        """Denoiser calls of one :meth:`sample`."""
+        if self.cfg.pndm_speedup:
+            return len(range(0, self.cfg.k_step, int(self.cfg.pndm_speedup))) + 1
+        return self.cfg.k_step
+
     def sample(self, cond: torch.Tensor, fs2_mel: Optional[torch.Tensor] = None,
                tgt_nonpadding: Optional[torch.Tensor] = None, cond_ctx=None,
                noise: Optional[torch.Tensor] = None,
                generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        """Full DDPM reverse diffusion from the shallow boost at K_step-1 (or
-        from Gaussian noise). cond [B, T, H]; fs2_mel [B, T, M] boost mel.
-        ``cond_ctx`` replaces what reaches ``denoise_fn`` (e.g. the hoisted
-        per-layer conditioner projections). Returns the denormalized mel."""
+        """Full reverse diffusion from the shallow boost at K_step-1 (or from
+        Gaussian noise), DDPM or PLMS by ``pndm_speedup``. cond [B, T, H];
+        fs2_mel [B, T, M] boost mel. ``cond_ctx`` replaces what reaches
+        ``denoise_fn`` (e.g. the hoisted per-layer conditioner projections).
+        Returns the denormalized mel."""
         cfg = self.cfg
         b, t_mel, _ = cond.shape
         shape = (b, t_mel, cfg.keep_bins)
         k = cfg.k_step
         if cond_ctx is None:
             cond_ctx = cond
-        if noise is not None and tuple(noise.shape) != (k + 1,) + shape:
-            raise ValueError(f"noise must be {(k + 1,) + shape}, got {tuple(noise.shape)}")
+        n_draws = 1 if cfg.pndm_speedup else k + 1
+        if noise is not None and tuple(noise.shape) != (n_draws,) + shape:
+            raise ValueError(f"noise must be {(n_draws,) + shape}, got {tuple(noise.shape)}")
 
         def draw(i: int) -> torch.Tensor:
             if noise is not None:
@@ -196,9 +254,12 @@ class GaussianDiffusion:
             x = self.q_sample(self.norm_spec(fs2_mel),
                               torch.full((b,), k - 1, dtype=torch.long,
                                          device=cond.device), draw(0))
-        for i, t_step in enumerate(range(k - 1, -1, -1)):
-            t_vec = torch.full((b,), t_step, dtype=torch.long, device=cond.device)
-            x = self.p_sample_step(x, t_vec, cond_ctx, draw(i + 1))
+        if cfg.pndm_speedup:
+            x = self._plms_loop(x, cond_ctx)
+        else:
+            for i, t_step in enumerate(range(k - 1, -1, -1)):
+                t_vec = torch.full((b,), t_step, dtype=torch.long, device=cond.device)
+                x = self.p_sample_step(x, t_vec, cond_ctx, draw(i + 1))
         x = self.denorm_spec(x)
         if tgt_nonpadding is not None:
             x = x * tgt_nonpadding[:, :, None]

@@ -2,7 +2,8 @@
 diffsinger_tpu/models/fft_blocks.py).
 
 Padding positions are hard-zeroed after every layer and after the final norm;
-the encoder embedding is sqrt(d) * token_embed + sinusoidal positions.
+the encoder embedding is sqrt(d) * token_embed (plus the MIDI extras), then
+sinusoidal positions added or, with ``rel_pos``, ESPnet's relative encoding.
 Dropout (training mode, masks from ``drop_gen``) follows the JAX places: the
 encoder's embedding, the decoder's positional embedding, and inside every
 layer.
@@ -18,7 +19,7 @@ from typing import Optional
 import torch
 import torch.nn as nn
 
-from diffsinger_tpu_torch.models.common import (LN_EPS, Embedding,
+from diffsinger_tpu_torch.models.common import (LN_EPS, Embedding, RelPositionalEncoding,
                                                 SinusoidalPositionalEmbedding,
                                                 TransformerEncoderLayer, dropout)
 
@@ -57,22 +58,33 @@ class FFTBlocks(nn.Module):
 
 
 class FastSpeechEncoder(FFTBlocks):
-    """Phoneme encoder: scaled token embedding + positions -> FFT blocks."""
+    """Phoneme encoder: scaled token embedding (+ ``extra_embed``) +
+    positions -> FFT blocks."""
 
     def __init__(self, vocab_size: int, hidden_size: int, num_layers: int,
                  ffn_kernel_size: int = 9, num_heads: int = 2,
-                 ffn_act: str = "gelu", dropout: float = 0.0):
+                 ffn_act: str = "gelu", dropout: float = 0.0, rel_pos: bool = False):
         super().__init__(hidden_size, num_layers, ffn_kernel_size, num_heads,
                          use_pos_embed=False, ffn_act=ffn_act, dropout=dropout)
         self.hidden_size = hidden_size
+        self.rel_pos = rel_pos
         self.embed_tokens = Embedding(vocab_size, hidden_size, padding_idx=0)
-        self.embed_positions = SinusoidalPositionalEmbedding(hidden_size)
+        self.embed_positions = (RelPositionalEncoding(hidden_size) if rel_pos
+                                else SinusoidalPositionalEmbedding(hidden_size))
 
-    def forward(self, txt_tokens: torch.Tensor,
+    def forward(self, txt_tokens: torch.Tensor, extra_embed: Optional[torch.Tensor] = None,
                 drop_gen: Optional[torch.Generator] = None) -> torch.Tensor:
+        """txt_tokens [B, T]; extra_embed [B, T, C] (the MIDI embeddings) is
+        added to the scaled token embedding before the positions."""
         padding_mask = txt_tokens == 0
         x = (self.hidden_size ** 0.5) * self.embed_tokens(txt_tokens)
-        x = dropout(x + self.embed_positions(txt_tokens), self.dropout, drop_gen)
+        if extra_embed is not None:
+            x = x + extra_embed
+        if self.rel_pos:  # scales x by sqrt(d) a second time, as upstream does
+            x = self.embed_positions(x)
+        else:
+            x = x + self.embed_positions(txt_tokens)
+        x = dropout(x, self.dropout, drop_gen)
         return super().forward(x, padding_mask, drop_gen)
 
 

@@ -1,8 +1,11 @@
 """FastSpeech2 acoustic model (counterpart of diffsinger_tpu/models/fs2.py).
 
-The port covers ``pitch_type: frame`` with ``pitch_norm: log``, no energy,
-speaker or MIDI conditioning; the other variants raise. Inference uses a
-static ``t_mel`` bucket for length regulation, as the JAX model does.
+The port covers ``pitch_type: frame`` with ``pitch_norm: log`` or no pitch
+embedding at all (``use_pitch_embed: false``, the e2e singing configs), and
+the MIDI encoder inputs (``use_midi``: note, note duration and slur
+embeddings summed into the token embedding) with ESPnet's relative positions
+(``rel_pos``); energy and speaker conditioning raise. Inference uses a static
+``t_mel`` bucket for length regulation, as the JAX model does.
 Training mode is the forward with ``drop_gen`` (a ``torch.Generator`` for the
 dropout masks), given ``mel2ph``, ``f0`` and ``uv``, and usually
 ``skip_decoder=True`` (the diffusion conditioner). The predictors read their
@@ -49,11 +52,15 @@ class FS2Config:
     pitch_norm: str = "log"
     f0_mean: float = 0.0
     f0_std: float = 1.0
+    use_midi: bool = False
+    rel_pos: bool = False
 
     @classmethod
     def from_hparams(cls, hp: Dict[str, Any], vocab_size: int) -> "FS2Config":
-        unsupported = [k for k in ("use_energy_embed", "use_spk_id", "use_spk_embed",
-                                   "use_midi", "rel_pos") if hp.get(k)]
+        unsupported = [k for k in ("use_energy_embed", "use_spk_id", "use_spk_embed")
+                       if hp.get(k)]
+        if not hp.get("use_pos_embed", True):
+            unsupported.append("use_pos_embed=False")
         if hp.get("use_pitch_embed", True) and hp.get("pitch_type", "frame") != "frame":
             unsupported.append(f"pitch_type={hp.get('pitch_type')}")
         if hp.get("dur_loss", "mse") not in ("mse", "huber"):
@@ -69,6 +76,8 @@ class FS2Config:
         kw = {k: v for k, v in hp.items() if k in fields}
         kw["vocab_size"] = vocab_size
         kw["out_dims"] = int(hp.get("audio_num_mel_bins", 80))
+        kw["use_midi"] = bool(hp.get("use_midi", False))
+        kw["rel_pos"] = bool(hp.get("rel_pos", False))
         if hp.get("f0_mean") is not None:
             kw["f0_mean"] = float(hp["f0_mean"])
         if hp.get("f0_std") is not None:
@@ -86,7 +95,7 @@ class FastSpeech2(nn.Module):
         c = self.cfg = cfg
         self.encoder = FastSpeechEncoder(c.vocab_size, c.hidden_size, c.enc_layers,
                                          c.enc_ffn_kernel_size, c.num_heads, c.ffn_act,
-                                         c.dropout)
+                                         c.dropout, rel_pos=c.rel_pos)
         self.decoder = FastSpeechDecoder(c.hidden_size, c.dec_layers,
                                          c.dec_ffn_kernel_size, c.num_heads, c.ffn_act,
                                          c.dropout)
@@ -101,6 +110,10 @@ class FastSpeech2(nn.Module):
                                                   c.predictor_layers, odim=2,
                                                   kernel_size=c.predictor_kernel,
                                                   dropout=c.predictor_dropout)
+        if c.use_midi:
+            self.midi_embed = Embedding(300, c.hidden_size, padding_idx=0)
+            self.midi_dur_layer = xavier_linear(1, c.hidden_size)
+            self.is_slur_embed = Embedding(2, c.hidden_size)
 
     def _pred_grad(self, x: torch.Tensor) -> torch.Tensor:
         """Same value; the gradient into the shared encoder is scaled by
@@ -127,9 +140,24 @@ class FastSpeech2(nn.Module):
     def forward(self, txt_tokens: torch.Tensor, mel2ph: Optional[torch.Tensor] = None,
                 f0=None, uv=None, t_mel: Optional[int] = None,
                 skip_decoder: bool = False,
-                drop_gen: Optional[torch.Generator] = None) -> Dict[str, Any]:
+                drop_gen: Optional[torch.Generator] = None,
+                pitch_midi: Optional[torch.Tensor] = None,
+                midi_dur: Optional[torch.Tensor] = None,
+                is_slur: Optional[torch.Tensor] = None) -> Dict[str, Any]:
+        """``pitch_midi`` [B, T_txt] (MIDI numbers, 0 = pad), ``midi_dur``
+        [B, T_txt] (note seconds) and ``is_slur`` [B, T_txt] are read when the
+        config has ``use_midi``."""
         ret: Dict[str, Any] = {}
-        encoder_out = self.encoder(txt_tokens, drop_gen)
+        extra_embed = None
+        if self.cfg.use_midi:  # the encoder's extra_embed: note, duration, slur
+            if pitch_midi is None:
+                raise ValueError("a use_midi model needs pitch_midi")
+            extra_embed = self.midi_embed(pitch_midi)
+            if midi_dur is not None:
+                extra_embed = extra_embed + self.midi_dur_layer(midi_dur[:, :, None])
+            if is_slur is not None:
+                extra_embed = extra_embed + self.is_slur_embed(is_slur)
+        encoder_out = self.encoder(txt_tokens, extra_embed, drop_gen)
         src_padding = txt_tokens == 0
         src_nonpadding = (~src_padding).to(encoder_out.dtype)[:, :, None]
         log_dur = self.dur_predictor(self._pred_grad(encoder_out * src_nonpadding),

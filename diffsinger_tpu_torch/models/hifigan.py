@@ -1,18 +1,28 @@
-"""HiFi-GAN v1 generator without NSF (counterpart of
-diffsinger_tpu/models/hifigan.py).
+"""HiFi-GAN v1 generator with optional NSF harmonic excitation (counterpart
+of diffsinger_tpu/models/hifigan.py).
 
 Layout [B, T, C] at the boundary; parameters carry the upstream keys
-(``conv_pre``, ``ups.<i>``, ``resblocks.<j>.convs1.<i>``, ``conv_post``) with
-weight norm already folded. Upsampling follows torch ``ConvTranspose1d``
-semantics with padding (k - u) // 2. ``forward`` is the plain module path;
+(``conv_pre``, ``ups.<i>``, ``resblocks.<j>.convs1.<i>``, ``conv_post``, and
+for NSF ``m_source.l_linear``, ``noise_convs.<i>``) with weight norm already
+folded. Upsampling follows torch ``ConvTranspose1d`` semantics with padding
+(k - u) // 2. ``forward`` is the plain module path;
 ``ops/hifigan_mrf.py:hifigan_mrf_apply`` is the serving path that runs the
 MRF scales in the hand-written kernel.
+
+NSF (``use_pitch_embed``): the frame F0 is repeated to the sample rate, a
+bank of 9 harmonic sines is built from it (``sine_source``; its phase cumsum
+stays exact in float32 through the mod-1 carry, or ``sine_source_framewise``
+takes a frame-rate prefix sum plus an in-frame ramp), mixed to one channel
+by ``tanh(l_linear(.))``, and added after every upsample through a strided
+``noise_convs`` conv. The random phase offsets ``rand_ini`` [B, 1, 9] and the
+noise [B, T_wav, 9] are explicit arguments (:func:`draw_source` makes them
+from a ``torch.Generator``), so a caller can fix them.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -20,6 +30,92 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 LRELU_SLOPE = 0.1
+# the NSF source: the fundamental and 8 overtones, sines of amplitude 0.1,
+# noise of std 0.003 on voiced samples (F0 > 0 Hz)
+N_SINES = 9
+SINE_AMP = 0.1
+NOISE_STD = 0.003
+
+
+def _excite(sines: torch.Tensor, uv: torch.Tensor, noise: torch.Tensor) -> torch.Tensor:
+    """Voiced samples: sines + small noise; unvoiced: noise of amplitude
+    SINE_AMP / 3."""
+    noise_amp = uv * NOISE_STD + (1 - uv) * SINE_AMP / 3
+    return sines * uv + noise_amp * noise
+
+
+def sine_source(f0_up: torch.Tensor, sample_rate: int, rand_ini: torch.Tensor,
+                noise: torch.Tensor):
+    """Harmonic sine bank with uv gating and noise. f0_up [B, T_wav] audio-rate
+    F0 -> (sines [B, T_wav, 9], uv [B, T_wav, 1]).
+
+    The phase is a cumsum over the whole waveform; a second cumsum of the
+    per-sample increments, shifted by -1 wherever the first one wrapped past
+    an integer, keeps it within a cycle, so float32 holds it exactly. Both
+    cumsums run along the last axis of a [B, H+1, T_wav] layout: a scan along
+    the middle axis of [B, T_wav, H+1] has only B * 9 independent columns to
+    spread over the card and took 68 ms at 8 x 131,072 samples on the H100."""
+    harmonics = torch.arange(1, N_SINES + 1, dtype=torch.float32, device=f0_up.device)
+    rad = torch.remainder(f0_up[:, None, :] * harmonics[:, None] / sample_rate, 1.0)
+    rad = torch.cat([rad[:, :, :1] + rand_ini.transpose(1, 2), rad[:, :, 1:]], dim=2)
+    tmp_over_one = torch.remainder(torch.cumsum(rad, dim=2), 1.0)
+    over_one = (tmp_over_one[:, :, 1:] - tmp_over_one[:, :, :-1]) < 0
+    cumsum_shift = F.pad(-1.0 * over_one.to(torch.float32), (1, 0))
+    phase = torch.cumsum(rad + cumsum_shift, dim=2) * 2 * np.pi
+    sines = (torch.sin(phase) * SINE_AMP).transpose(1, 2)
+    uv = (f0_up > 0).to(torch.float32)[:, :, None]
+    return _excite(sines, uv, noise), uv
+
+
+def sine_source_framewise(f0_frame: torch.Tensor, upsample: int, sample_rate: int,
+                          rand_ini: torch.Tensor, noise: torch.Tensor):
+    """``sine_source(repeat(f0_frame, upsample))`` without sample-rate
+    cumsums: within a frame the phase increment is constant, so the phase mod
+    1 is an exclusive frame-rate prefix sum plus an in-frame ramp, each
+    reduced mod 1 as it is built. f0_frame [B, F] -> (sines [B, F*U, 9],
+    uv [B, F*U, 1])."""
+    b, f = f0_frame.shape
+    dev = f0_frame.device
+    harmonics = torch.arange(1, N_SINES + 1, dtype=torch.float32, device=dev)
+    r = torch.remainder(f0_frame[:, :, None] * harmonics / sample_rate, 1.0)
+    step = torch.remainder(r * float(upsample), 1.0)
+    base = torch.remainder(torch.cumsum(step, dim=1) - step + rand_ini, 1.0)
+    j = torch.arange(1, upsample + 1, dtype=torch.float32, device=dev)
+    ramp = torch.remainder(r[:, :, None, :] * j[None, None, :, None], 1.0)
+    phase = torch.remainder(base[:, :, None, :] + ramp, 1.0)
+    sines = (torch.sin(phase * (2 * np.pi)) * SINE_AMP).reshape(b, f * upsample, N_SINES)
+    uv = torch.repeat_interleave((f0_frame > 0).to(torch.float32), upsample, dim=1)
+    uv = uv[:, :, None]
+    return _excite(sines, uv, noise), uv
+
+
+def draw_source(b: int, t_wav: int, device, generator: torch.Generator):
+    """The source's random draws: ``rand_ini`` [B, 1, 9] uniform phases (the
+    fundamental's set to 0) and ``noise`` [B, T_wav, 9] normal."""
+    rand_ini = torch.rand((b, 1, N_SINES), generator=generator, device=device)
+    rand_ini[:, :, 0] = 0.0
+    noise = torch.randn((b, t_wav, N_SINES), generator=generator, device=device)
+    return rand_ini, noise
+
+
+class SourceModuleHnNSF(nn.Module):
+    """tanh(Linear(sine bank)): the harmonic source merged to one channel."""
+
+    def __init__(self, sample_rate: int):
+        super().__init__()
+        self.sample_rate = sample_rate
+        self.l_linear = nn.Linear(N_SINES, 1)
+
+    def forward(self, f0: torch.Tensor, upsample: int, rand_ini: torch.Tensor,
+                noise: torch.Tensor, framewise: bool = False) -> torch.Tensor:
+        """f0 [B, F] frame-rate -> source [B, F * upsample, 1]."""
+        if framewise:
+            sines, _ = sine_source_framewise(f0, upsample, self.sample_rate, rand_ini,
+                                             noise)
+        else:
+            f0_up = torch.repeat_interleave(f0, upsample, dim=1)
+            sines, _ = sine_source(f0_up, self.sample_rate, rand_ini, noise)
+        return torch.tanh(self.l_linear(sines))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -33,26 +129,46 @@ class HifiGanConfig:
                                                             (1, 3, 5))
     audio_sample_rate: int = 22050
     num_mels: int = 80
+    use_pitch_embed: bool = False  # NSF excitation
+    source_mode: str = "exact"     # NSF phase: "exact" or "framewise"
 
     @classmethod
     def from_hparams(cls, hp: Dict[str, Any]) -> "HifiGanConfig":
-        if hp.get("use_nsf"):
-            raise NotImplementedError("the torch port does not cover NSF yet")
+        """From vocoder hparams, as the JAX ``HifiGAN`` wrapper reads them: NSF
+        is on with ``use_nsf``, or, when the hparams give the geometry
+        (``upsample_rates``), also with ``use_pitch_embed``. Without
+        ``upsample_rates`` the 22.05 kHz HiFiGAN v1 geometry (hop 256) is
+        assumed; hparams that name a ``hop_size`` must then agree with the
+        product of the rates, else this raises (a hop-256 vocoder under a
+        hop-128 mel would make every waveform twice as long)."""
         if str(hp.get("vocoder_compute_dtype", "float32")) != "float32":
             raise NotImplementedError("the torch port's vocoder runs in float32")
+        source_mode = str(hp.get("nsf_source_mode", "exact"))
+        if source_mode not in ("exact", "framewise"):
+            raise ValueError(f"nsf_source_mode={source_mode}")
+        common = dict(audio_sample_rate=int(hp.get("audio_sample_rate", 22050)),
+                      num_mels=int(hp.get("audio_num_mel_bins", 80)),
+                      source_mode=source_mode)
         if "upsample_rates" not in hp:
-            return cls(audio_sample_rate=int(hp.get("audio_sample_rate", 22050)),
-                       num_mels=int(hp.get("audio_num_mel_bins", 80)))
-        return cls(
-            resblock=str(hp.get("resblock", "1")),
-            upsample_rates=tuple(hp["upsample_rates"]),
-            upsample_kernel_sizes=tuple(hp["upsample_kernel_sizes"]),
-            upsample_initial_channel=int(hp["upsample_initial_channel"]),
-            resblock_kernel_sizes=tuple(hp["resblock_kernel_sizes"]),
-            resblock_dilation_sizes=tuple(tuple(d) for d in hp["resblock_dilation_sizes"]),
-            audio_sample_rate=int(hp.get("audio_sample_rate", 22050)),
-            num_mels=int(hp.get("audio_num_mel_bins", 80)),
-        )
+            cfg = cls(use_pitch_embed=bool(hp.get("use_nsf", False)), **common)
+        else:
+            cfg = cls(
+                resblock=str(hp.get("resblock", "1")),
+                upsample_rates=tuple(hp["upsample_rates"]),
+                upsample_kernel_sizes=tuple(hp["upsample_kernel_sizes"]),
+                upsample_initial_channel=int(hp["upsample_initial_channel"]),
+                resblock_kernel_sizes=tuple(hp["resblock_kernel_sizes"]),
+                resblock_dilation_sizes=tuple(tuple(d) for d in
+                                              hp["resblock_dilation_sizes"]),
+                use_pitch_embed=bool(hp.get("use_nsf", False)
+                                     or hp.get("use_pitch_embed", False)),
+                **common)
+        if hp.get("hop_size") is not None and cfg.total_upsample != int(hp["hop_size"]):
+            raise ValueError(
+                f"vocoder upsample_rates {cfg.upsample_rates} give a hop of "
+                f"{cfg.total_upsample} samples, the hparams' hop_size is {hp['hop_size']}: "
+                "give the vocoder's geometry (upsample_rates, upsample_kernel_sizes, ...)")
+        return cfg
 
     @property
     def total_upsample(self) -> int:
@@ -112,12 +228,41 @@ class HifiGanGenerator(nn.Module):
                 self.resblocks.append(ResBlock1(ch, rk, tuple(rd)))
         self.conv_post = _normal_conv(nn.Conv1d(c0 // (2 ** len(cfg.upsample_rates)),
                                                 1, 7, padding=3))
+        if cfg.use_pitch_embed:
+            self.m_source = SourceModuleHnNSF(cfg.audio_sample_rate)
+            self.noise_convs = nn.ModuleList()
+            rates = cfg.upsample_rates
+            for i in range(len(rates)):
+                ch = c0 // (2 ** (i + 1))
+                if i + 1 < len(rates):
+                    s = int(np.prod(rates[i + 1:]))
+                    self.noise_convs.append(nn.Conv1d(1, ch, 2 * s, stride=s,
+                                                      padding=s // 2))
+                else:
+                    self.noise_convs.append(nn.Conv1d(1, ch, 1))
 
     # The forward in pieces, shared with ops/hifigan_mrf.py (all [B, T, C]).
     def pre(self, mel: torch.Tensor) -> torch.Tensor:
         x = F.conv1d(mel.transpose(1, 2), self.conv_pre.weight, self.conv_pre.bias,
                      padding=3)
         return x.transpose(1, 2)
+
+    def source(self, f0: torch.Tensor, rand_ini: torch.Tensor,
+               noise: torch.Tensor) -> torch.Tensor:
+        """NSF harmonic source [B, T_wav, 1] of the frame F0 [B, F]."""
+        if rand_ini is None or noise is None:
+            raise ValueError("the NSF source needs its draws rand_ini and noise")
+        return self.m_source(f0, self.cfg.total_upsample, rand_ini, noise,
+                             framewise=self.cfg.source_mode == "framewise")
+
+    def add_source(self, x: torch.Tensor, har_source: torch.Tensor,
+                   i: int) -> torch.Tensor:
+        """x [B, T_i, C_i] after upsample i, plus the source brought to its
+        rate by ``noise_convs[i]``."""
+        conv = self.noise_convs[i]
+        y = F.conv1d(har_source.transpose(1, 2), conv.weight, conv.bias,
+                     stride=conv.stride, padding=conv.padding)
+        return x + y.transpose(1, 2)
 
     def upsample(self, x: torch.Tensor, i: int) -> torch.Tensor:
         up = self.ups[i]
@@ -140,8 +285,17 @@ class HifiGanGenerator(nn.Module):
         x = F.conv1d(x, self.conv_post.weight, self.conv_post.bias, padding=3)
         return torch.tanh(x)[:, 0]
 
-    def forward(self, mel: torch.Tensor) -> torch.Tensor:
+    def forward(self, mel: torch.Tensor, f0: Optional[torch.Tensor] = None,
+                rand_ini: Optional[torch.Tensor] = None,
+                noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """mel [B, T, M] (+ f0 [B, T] and the source draws, for NSF)."""
+        har_source = None
+        if self.cfg.use_pitch_embed and f0 is not None:
+            har_source = self.source(f0, rand_ini, noise)
         x = self.pre(mel)
         for i in range(len(self.cfg.upsample_rates)):
-            x = self.mrf(self.upsample(x, i), i)
+            x = self.upsample(x, i)
+            if har_source is not None:
+                x = self.add_source(x, har_source, i)
+            x = self.mrf(x, i)
         return self.post(x)

@@ -265,21 +265,32 @@ def pack_mrf_scales(generator) -> list:
                 for i in range(len(generator.cfg.upsample_rates))]
 
 
-def hifigan_mrf_apply(generator, mel: torch.Tensor,
-                      packed: Optional[list] = None) -> torch.Tensor:
+def hifigan_mrf_apply(generator, mel: torch.Tensor, packed: Optional[list] = None,
+                      f0: Optional[torch.Tensor] = None,
+                      rand_ini: Optional[torch.Tensor] = None,
+                      noise: Optional[torch.Tensor] = None) -> torch.Tensor:
     """HiFiGAN forward with the fused MRF kernel on every scale of at most 128
     channels (counterpart of ``hifigan_mrf_apply``). conv_pre, the upsamples,
-    conv_post and the wider scales run as plain convolutions, as the JAX
-    package leaves them to XLA. ``packed`` is :func:`pack_mrf_scales` of the
-    generator, packed now when not given. mel [B, T, M] -> wav [B, T * hop]."""
+    the NSF source and its noise convs, conv_post and the wider scales run as
+    plain convolutions, as the JAX package leaves them to XLA. ``packed`` is
+    :func:`pack_mrf_scales` of the generator, packed now when not given.
+    mel [B, T, M] -> wav [B, T * hop]. An NSF generator given ``f0`` [B, T]
+    also takes the source draws ``rand_ini`` [B, 1, 9] and ``noise``
+    [B, T * hop, 9]; its harmonic source enters each scale after the upsample,
+    before the MRF."""
     cfg = generator.cfg
     ks = cfg.resblock_kernel_sizes
     ds = tuple(tuple(d) for d in cfg.resblock_dilation_sizes)
     if packed is None:
         packed = pack_mrf_scales(generator)
+    har_source = None
+    if cfg.use_pitch_embed and f0 is not None:
+        har_source = generator.source(f0, rand_ini, noise)
     x = generator.pre(mel)
     for i in range(len(cfg.upsample_rates)):
         x = generator.upsample(x, i)
+        if har_source is not None:
+            x = generator.add_source(x, har_source, i)
         if packed[i] is not None:
             x = mrf_stage(x, *packed[i], kernel_sizes=ks, dilation_sets=ds)
         else:

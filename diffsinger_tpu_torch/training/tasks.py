@@ -1,6 +1,7 @@
 """Task layer (counterpart of diffsinger_tpu/training/tasks.py:
-``build_modules`` and ``DiffSingerTask`` for the non-MIDI, frame-pitch
-DiffSpeech task: inference, the training loss and the freezing rule).
+``build_modules`` and ``DiffSingerTask``: inference for the frame-pitch
+DiffSpeech task and the MIDI singing task (``task_type: midi``), the
+training loss and the freezing rule for the non-MIDI task).
 
 ``DiffSingerTask`` is an ``nn.Module`` holding ``fs2`` and ``denoise_fn`` (the
 upstream ``model.fs2.*`` / ``model.denoise_fn.*`` key prefixes). The denoiser
@@ -34,8 +35,8 @@ def _compute_dtype(hp: Dict[str, Any]) -> Optional[torch.dtype]:
 def build_modules(hp: Dict[str, Any], vocab_size: int):
     """(fs2, denoiser) for a DiffSpeech/DiffSinger config with a WaveNet
     denoiser."""
-    if hp.get("task_type", "diff") != "diff" or hp.get("use_midi"):
-        raise NotImplementedError("the torch port covers the 'diff' task so far")
+    if hp.get("task_type", "diff") not in ("diff", "midi"):
+        raise NotImplementedError("the torch port covers the 'diff' and 'midi' tasks")
     if hp.get("diff_decoder_type", "wavenet") != "wavenet":
         raise NotImplementedError("the torch port covers the wavenet denoiser")
     fs2 = FastSpeech2(FS2Config.from_hparams(hp, vocab_size))
@@ -63,13 +64,15 @@ def _as_tensor(v, dtype, device) -> torch.Tensor:
 
 
 class DiffSingerTask(nn.Module):
-    """Diffusion text-to-mel task (DiffSpeech on LJSpeech in this slice)."""
+    """Diffusion text- or MIDI-to-mel task (DiffSpeech, DiffSinger)."""
 
     def __init__(self, hp: Dict[str, Any], vocab_size: int, device="cuda",
                  sil_ids: Sequence[int] = ()):
         super().__init__()
         self.device = resolve_device(device)
         self.hp = dict(hp)
+        self.hp.setdefault("task_type", "midi" if self.hp.get("use_midi") else "diff")
+        self.use_midi = bool(self.hp.get("use_midi", False))
         self.sil_ids = tuple(sil_ids)
         self.fs2, self.denoise_fn = build_modules(self.hp, vocab_size)
         self.compute_dtype = _compute_dtype(self.hp)
@@ -90,14 +93,27 @@ class DiffSingerTask(nn.Module):
         return diffnet_train_forward(self.denoise_fn, x, t, cond,
                                      compute_dtype=self.compute_dtype)
 
+    def _fs2_kwargs(self, batch: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+        """The MIDI encoder inputs of a batch (none for a non-MIDI task)."""
+        if not self.use_midi:
+            return {}
+        dev = self.device
+        kw = {"pitch_midi": _as_tensor(batch["pitch_midi"], torch.long, dev)}
+        if batch.get("midi_dur") is not None:
+            kw["midi_dur"] = _as_tensor(batch["midi_dur"], torch.float32, dev)
+        if batch.get("is_slur") is not None:
+            kw["is_slur"] = _as_tensor(batch["is_slur"], torch.long, dev)
+        return kw
+
     @torch.no_grad()
     def inference(self, batch: Dict[str, Any], t_mel: Optional[int] = None,
                   use_gt_dur: bool = True, use_gt_f0: bool = False,
                   noise: Optional[torch.Tensor] = None,
                   generator: Optional[torch.Generator] = None) -> Dict[str, Any]:
-        """FS2 forward -> shallow boost from the FS2 mel -> DDPM reverse loop
-        -> denormalized mel masked by mel2ph. ``noise`` [K+1, B, T, M] fixes
-        the draws; otherwise ``generator`` supplies them."""
+        """FS2 forward -> shallow boost from the FS2 mel (or Gaussian start)
+        -> DDPM or PLMS reverse loop -> denormalized mel masked by mel2ph.
+        ``noise`` ([K+1, B, T, M] for DDPM, [1, B, T, M] for PLMS) fixes the
+        draws; otherwise ``generator`` supplies them."""
         hp, dev = self.hp, self.device
         txt_tokens = _as_tensor(batch["txt_tokens"], torch.long, dev)
         mel2ph = (_as_tensor(batch["mel2ph"], torch.long, dev)
@@ -107,7 +123,8 @@ class DiffSingerTask(nn.Module):
         if t_mel is None:
             t_mel = int(batch["mels"].shape[1]) if batch.get("mels") is not None \
                 else int(hp["max_frames"])
-        ret = self.fs2(txt_tokens, mel2ph=mel2ph, f0=f0, uv=uv, t_mel=t_mel)
+        ret = self.fs2(txt_tokens, mel2ph=mel2ph, f0=f0, uv=uv, t_mel=t_mel,
+                       **self._fs2_kwargs(batch))
         cond = ret["decoder_inp"]
         ret["fs2_mel"] = fs2_mel = ret["mel_out"]
         tgt_nonpadding = (ret["mel2ph"] > 0).to(torch.float32)
@@ -143,6 +160,10 @@ class DiffSingerTask(nn.Module):
         and pitch losses. ``t`` [B] and ``noise`` [B, T, M] fix the diffusion
         draws; ``generator`` supplies whatever is not given, and the dropout
         masks unless ``deterministic``."""
+        if self.use_midi:
+            raise NotImplementedError(
+                "the MIDI task's word-boundary and MIDI duration losses are not ported "
+                "yet; its training would silently take the DiffSpeech losses")
         dev = self.device
         target = _as_tensor(batch["mels"], torch.float32, dev)
         if generator is None and (t is None or noise is None or not deterministic):
