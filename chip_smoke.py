@@ -24,6 +24,11 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      again through the plain twins with the same noise and compared;
   5. profiles one more 8 x 1024 batch with torch.profiler (device time by
      kernel, busy share; table in build/chip_smoke/serve_profile.txt);
+  5a. serve_cwt: the same workload with configs/lj/ds_beta6.yaml's own
+     pitch_type cwt (no override; the CWT statistics head biased to a 181 Hz
+     voice): one warm 8 x 1024 batch, 71 stack and 3 MRF launches, its time
+     and profile (serve_cwt_profile.txt), and the batch held against the
+     plain twins on the same noise;
   5b. singing: DiffSinger-Opencpop (configs/opencpop/ds1000.yaml at full
      width: MIDI + rel_pos conditioner, PLMS-25 over the cycle-4 bf16 stack,
      a PitchExtractor, NSF-HiFiGAN at hop 128 with the 8/8/2 geometry of
@@ -51,6 +56,10 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      twins, then takes ten optimizer steps on one synthetic 24 x 1024-frame
      batch (launch counts, ms/step, peak memory), and profiles one more step
      (table in build/chip_smoke/train_profile.txt);
+  7a. train_cwt: the same with the config's own cwt pitch (targets from
+     get_f0cwt of voiced/unvoiced F0 contours): the first step's losses (mel,
+     C, uv, f0_mean, f0_std, the duration terms) and gradients against the
+     plain twins, then five steps;
   8. prints the kernels line and, last, the device line.
 The plain twins run with TF32 off (cuBLAS and cuDNN), so they are float32
 references. Long output goes to build/chip_smoke/chip_smoke.json.
@@ -231,7 +240,9 @@ def phase_mrf(torch, mrf):
 FRAMES_PER_PHONE = 8
 
 
-def build_synth(torch, seed: int = 0):
+def build_synth(torch, seed: int = 0, frame_pitch: bool = True):
+    """DiffSpeech-LJSpeech for serving; ``frame_pitch`` keeps bench.py's
+    pitch_type override, else the config's own cwt pitch."""
     import numpy as np
     import torch.nn as nn
 
@@ -246,8 +257,9 @@ def build_synth(torch, seed: int = 0):
     # always runs through the kernel wrapper)
     hp.update(hidden_size=256, enc_layers=4, dec_layers=4, residual_layers=20,
               residual_channels=256, timesteps=100, K_step=71, max_beta=0.06,
-              schedule_type="linear", pitch_type="frame", compute_dtype="bfloat16",
-              seed=seed)
+              schedule_type="linear", compute_dtype="bfloat16", seed=seed)
+    if frame_pitch:
+        hp["pitch_type"] = "frame"
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(seed)
         task = DiffSingerTask(hp, vocab_size=80, device="cpu")
@@ -264,6 +276,11 @@ def build_synth(torch, seed: int = 0):
             lin = task.fs2.dur_predictor.linear
             lin.weight.zero_()
             lin.bias.fill_(float(np.log(FRAMES_PER_PHONE + 1.0)))
+            if not frame_pitch:
+                # the CWT statistics: log-F0 around 5.2 (181 Hz), std 0.35
+                stats = task.fs2.cwt_stats_layers[4]
+                stats.weight.mul_(0.1)
+                stats.bias.copy_(torch.tensor([5.2, 0.35]))
     syn = FusedSynthesizer(hp, task, voc)  # default device: the card
     return hp, syn
 
@@ -350,6 +367,76 @@ def phase_serve(torch, ds, mrf, card: str):
         raise AssertionError(f"serving: kernel and plain waveforms differ by {diff} "
                              f"> {wav_tol}")
     return out, syn, big
+
+
+def phase_serve_cwt(torch, ds, mrf, card: str, out_dir: Path):
+    """configs/lj/ds_beta6.yaml with its own cwt pitch (no pitch_type
+    override): one warm 8 x 1024 batch, its launches, its time and profile,
+    and the batch again through the plain twins on the same noise."""
+    import numpy as np
+
+    hp, syn = build_synth(torch, frame_pitch=False)
+    if hp["pitch_type"] != "cwt" or not hasattr(syn.task.fs2, "cwt_predictor"):
+        raise AssertionError("serve_cwt: the model is not the config's cwt-pitch FS2")
+    rng = np.random.RandomState(2)
+    big = [({"txt_tokens": rng.randint(3, 80, size=(1, 128)).astype(np.int64)}, 1024)
+           for _ in range(8)]
+    t_w = time.perf_counter()
+    syn.warmup([1024], batch_sizes=(8,))
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t_w
+
+    ds.diffnet_stack.launches = 0
+    mrf.mrf_stage.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    wavs = syn.synthesize_many(big)
+    torch.cuda.synchronize()
+    t_batch = time.perf_counter() - t0
+    launches = {"diffnet_stack": ds.diffnet_stack.launches,
+                "mrf_stage": mrf.mrf_stage.launches}
+    k_step = int(hp["K_step"])
+    if launches != {"diffnet_stack": k_step, "mrf_stage": 3}:
+        raise AssertionError(f"serve_cwt: kernel launches {launches}, expected "
+                             f"{k_step} stack and 3 MRF")
+    for wav in wavs:
+        if wav.shape != (1024 * syn.hop,) or not np.isfinite(wav).all():
+            raise AssertionError(f"serve_cwt: bad waveform {wav.shape}")
+
+    # the predicted pitch the conditioner embedded, on the first row
+    (t_mel_b, group, _), = syn.plan(big)
+    stacked = syn._stack_group(group, 128, t_mel_b)
+    with torch.no_grad():
+        ret = syn.task.fs2(torch.as_tensor(stacked["txt_tokens"], device="cuda"),
+                           t_mel=t_mel_b, skip_decoder=True)
+    f0 = ret["f0_denorm"][ret["mel2ph"] > 0]
+    noise = torch.randn((k_step + 1, 8, 1024, 80), device="cuda",
+                        generator=torch.Generator(device="cuda").manual_seed(6))
+    wav_k = syn.synthesize_many(big, noises=[noise])
+    with mock.patch.object(ds, "diffnet_stack", ds.diffnet_stack_plain), \
+            mock.patch.object(mrf, "mrf_stage", mrf.mrf_stage_plain):
+        wav_p = syn.synthesize_many(big, noises=[noise])
+    a, b = np.concatenate(wav_k), np.concatenate(wav_p)
+    if not (np.isfinite(a).all() and np.isfinite(b).all()):
+        raise AssertionError("serve_cwt: non-finite waveform in the kernel/plain comparison")
+    diff = float(np.abs(a - b).max())
+    # the frame phase's tolerance: the same kernels, casts and vocoder
+    wav_tol = 1e-4 * max(float(np.abs(b).max()), 1.0)
+    out = {"card": card, "config": "configs/lj/ds_beta6.yaml as shipped (pitch_type cwt) "
+                                   "with bench.py's width and precision, seeded weights",
+           "warmup_s": warm_s, "launches": launches, "latency_s": {"batch_8x1024": t_batch},
+           "mel_frames_per_s": {"batch_8x1024": 8 * 1024 / t_batch},
+           "voiced_share": float((f0 > 0).float().mean()),
+           "f0_hz_median": float(f0[f0 > 0].median()) if bool((f0 > 0).any()) else 0.0,
+           "wav_max_abs": float(np.abs(a).max()),
+           "kernel_vs_plain_wav_max_abs_diff": diff,
+           "kernel_vs_plain_wav_tolerance": wav_tol}
+    print("serve_cwt", json.dumps(out), flush=True)
+    if not diff <= wav_tol:
+        raise AssertionError(f"serve_cwt: kernel and plain waveforms differ by {diff} "
+                             f"> {wav_tol}")
+    profile = phase_profile(torch, lambda: syn.synthesize_many(big), out_dir, "serve_cwt")
+    return out, profile
 
 
 def phase_profile(torch, run, out_dir: Path, name: str = "serve"):
@@ -765,7 +852,30 @@ def synthetic_batch(rng, b: int, t_txt: int, t_mel: int, n_mels: int = 80):
     }
 
 
-def build_trainer(torch, seed: int = 0):
+def synthetic_cwt_batch(rng, b: int, t_txt: int, t_mel: int):
+    """``synthetic_batch`` with cwt pitch targets: per row a voiced/unvoiced
+    F0 contour (a vibrato around 110-250 Hz, 15% unvoiced frames), its uv,
+    and its CWT spectrogram and log-F0 statistics from the port's
+    ``get_f0cwt``."""
+    import numpy as np
+
+    from diffsinger_tpu_torch.data.binarize import collate_cwt, get_f0cwt
+
+    batch = synthetic_batch(rng, b, t_txt, t_mel)
+    items = []
+    for i in range(b):
+        f0 = rng.uniform(110, 250) * 2 ** (0.2 * np.sin(np.arange(t_mel)
+                                                       / rng.uniform(3, 9)))
+        f0[rng.rand(t_mel) < 0.15] = 0.0
+        res = {}
+        get_f0cwt(f0, res)
+        items.append(res)
+        batch["uv"][i] = (f0 == 0).astype(np.float32)
+    batch.update(collate_cwt(items, t_mel))
+    return batch
+
+
+def build_trainer(torch, seed: int = 0, frame_pitch: bool = True):
     from diffsinger_tpu_torch.config.hparams import set_hparams
     from diffsinger_tpu_torch.training.tasks import DiffSingerTask
     from diffsinger_tpu_torch.training.trainer import Trainer
@@ -773,12 +883,15 @@ def build_trainer(torch, seed: int = 0):
     hp = set_hparams(str(ROOT / "configs" / "lj" / "ds_beta6.yaml"))
     # tools/bench_train.py's workload: DiffSpeech LJSpeech at its published
     # width with its training rates (fs2_ckpt stays set: FS2 is frozen but
-    # for its predictors, and the missing checkpoint means seeded weights)
+    # for its predictors, and the missing checkpoint means seeded weights);
+    # frame_pitch keeps its pitch_type override, else the config's cwt pitch
     hp.update(hidden_size=256, enc_layers=4, dec_layers=4, residual_layers=20,
               residual_channels=256, timesteps=100, K_step=71, max_beta=0.06,
-              schedule_type="linear", pitch_type="frame", lr=0.001, decay_steps=50000,
+              schedule_type="linear", lr=0.001, decay_steps=50000,
               clip_grad_norm=1, dropout=0.1, predictor_dropout=0.5,
               compute_dtype="bfloat16", seed=seed)
+    if frame_pitch:
+        hp["pitch_type"] = "frame"
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(seed)
         # token 3 stands for a silence phone, so the word-duration loss has words
@@ -807,12 +920,15 @@ def _grad_agreement(got, want):
     return worst_cos, worst_rel
 
 
-def phase_train(torch, tr, card: str, out_dir: Path, steps: int = 10):
+def phase_train(torch, tr, card: str, out_dir: Path, steps: int = 10, cwt: bool = False):
+    """Frame pitch (``steps`` steps and a profiled one), or with ``cwt`` the
+    config's own cwt pitch (``steps`` steps, no profile)."""
     import numpy as np
 
-    hp, trainer = build_trainer(torch)
+    hp, trainer = build_trainer(torch, frame_pitch=not cwt)
     b, t_txt, t_mel = 24, 128, 1024
-    batch = trainer.prepare_batch(synthetic_batch(np.random.RandomState(0), b, t_txt, t_mel))
+    make = synthetic_cwt_batch if cwt else synthetic_batch
+    batch = trainer.prepare_batch(make(np.random.RandomState(0), b, t_txt, t_mel))
     gen = torch.Generator(device="cuda").manual_seed(7)
     t = torch.randint(0, int(hp["K_step"]), (b,), generator=gen, device="cuda")
     noise = torch.randn((b, t_mel, 80), generator=gen, device="cuda")
@@ -824,6 +940,10 @@ def phase_train(torch, tr, card: str, out_dir: Path, steps: int = 10):
             mock.patch.object(tr, "diffnet_train_bwd", tr.diffnet_train_stack_bwd_plain):
         lp, gp = trainer.loss_and_grads(batch, t=t, noise=noise, deterministic=True)
     torch.cuda.synchronize()
+    want_terms = {"mel", "pdur", "wdur", "sdur"} | (
+        {"C", "uv", "f0_mean", "f0_std"} if cwt else {"uv", "f0"})
+    if not want_terms <= set(lk):
+        raise AssertionError(f"training loss terms {sorted(lk)}, expected {sorted(want_terms)}")
     loss_diff = {k: abs(float(lk[k]) - float(lp[k])) for k in lk}
     cos, rel = _grad_agreement(gk, gp)
     del gk, gp
@@ -846,11 +966,13 @@ def phase_train(torch, tr, card: str, out_dir: Path, steps: int = 10):
                        "diffnet_train_bwd": tr.diffnet_train_bwd.device_launches}
     ran_tc = tr.diffnet_train_fwd.ran_tensor_cores and tr.diffnet_train_bwd.ran_tensor_cores
     peak_mem = torch.cuda.max_memory_allocated()
-    profile = phase_profile(torch, lambda: trainer.train_step(batch), out_dir, "train")
+    profile = (None if cwt else
+               phase_profile(torch, lambda: trainer.train_step(batch), out_dir, "train"))
 
     warm_ms = float(np.median(times[1:])) * 1e3
     out = {
-        "card": card, "steps": steps, "B": b, "T_mel": t_mel, "T_txt": t_txt,
+        "card": card, "pitch_type": hp["pitch_type"], "steps": steps, "B": b,
+        "T_mel": t_mel, "T_txt": t_txt,
         "launches": launches, "device_launches_last_step": device_launches,
         "ran_tensor_cores": ran_tc, "step_ms": [x * 1e3 for x in times],
         "ms_per_step_median_warm": warm_ms,
@@ -861,7 +983,7 @@ def phase_train(torch, tr, card: str, out_dir: Path, steps: int = 10):
         "kernel_vs_plain_loss_abs_diff": loss_diff,
         "kernel_vs_plain_grad_worst_cos": cos, "kernel_vs_plain_grad_worst_rel": rel,
     }
-    print("train", json.dumps(out), flush=True)
+    print("train_cwt" if cwt else "train", json.dumps(out), flush=True)
     if launches != {"diffnet_train_fwd": steps, "diffnet_train_bwd": steps}:
         raise AssertionError(f"training kernel launches {launches}, expected {steps} each")
     if not ran_tc:
@@ -918,23 +1040,28 @@ def main() -> int:
     out_dir.mkdir(parents=True, exist_ok=True)
     profile = phase_profile(torch, lambda: syn.synthesize_many(big), out_dir)
     del syn
+    serving_cwt, cwt_profile = phase_serve_cwt(torch, ds, mrf, card, out_dir)
     singing, sing_profile = phase_sing(torch, ds, mrf, card, out_dir)
     train_rows = phase_train_stack(torch, tr)
     training, train_profile = phase_train(torch, tr, card, out_dir)
+    training_cwt, _ = phase_train(torch, tr, card, out_dir, steps=5, cwt=True)
 
     main_stack = stack_rows[0]                        # bf16, cycle 1: serving config
     main_mrf = [r for r in mrf_rows if r["dtype"] == "float32" and r["B"] == 8]
 
-    def path_launches(name):
-        """A serving kernel's launches on each main path it runs, and their sum."""
-        by_path = {"serving": serving["launches"][name], "singing": singing["launches"][name]}
+    def path_launches(name, paths):
+        """A kernel's launches on each main path it runs, and their sum."""
+        by_path = {path: out["launches"][name] for path, out in paths.items()}
         return {"launches": sum(by_path.values()), "launches_by_path": by_path}
+
+    serve_paths = {"serving": serving, "serve_cwt": serving_cwt, "singing": singing}
+    train_paths = {"train": training, "train_cwt": training_cwt}
 
     kernels = [
         {"name": "diffnet_stack", "route": "cuda",
          "source": "diffsinger_tpu_torch/csrc/diffnet_stack.cu",
          "replaces": "diffsinger_tpu/ops/diffnet_stack.py:311",
-         **path_launches("diffnet_stack"),
+         **path_launches("diffnet_stack", serve_paths),
          "max_abs_err": main_stack["max_abs_err"], "tolerance": main_stack["tolerance"],
          "ms": main_stack["ms"], "plain_ms": main_stack["plain_ms"],
          "bound_ms": main_stack["bound_ms"], "bound_by": main_stack["bound_by"],
@@ -943,7 +1070,7 @@ def main() -> int:
          "source": "diffsinger_tpu_torch/csrc/mrf_stage.cu",
          "replaces": "diffsinger_tpu/ops/hifigan_mrf.py:197",
          "also_replaces": "diffsinger_tpu/ops/hifigan_packed_mrf.py:231",
-         **path_launches("mrf_stage"),
+         **path_launches("mrf_stage", serve_paths),
          "max_abs_err": max(r["max_abs_err"] for r in main_mrf),
          "tolerance": min(r["tolerance"] for r in main_mrf),
          "ms": sum(r["ms"] for r in main_mrf),
@@ -958,7 +1085,7 @@ def main() -> int:
         kernels.append(
             {"name": name, "route": "cuda", "source": "diffsinger_tpu_torch/csrc/diffnet_train.cu",
              "replaces": "diffsinger_tpu/ops/diffnet_train.py:" + ("315" if part == "fwd" else "389"),
-             "launches": training["launches"][name],
+             **path_launches(name, train_paths),
              "max_abs_err": main_train[f"{part}_max_abs_err"],
              # the tolerance of the tensor with the largest error
              "tolerance": max((main_train["errors"][k] for k in keys),
@@ -969,9 +1096,11 @@ def main() -> int:
              "configs": [{k: v for k, v in r.items() if k != "errors"} for r in train_rows]})
     with open(out_dir / "chip_smoke.json", "w") as f:
         json.dump({"card": card, "build_s": build_s, "kernels": kernels,
-                   "serving": serving, "profile": profile, "singing": singing,
+                   "serving": serving, "profile": profile, "serve_cwt": serving_cwt,
+                   "serve_cwt_profile": cwt_profile, "singing": singing,
                    "sing_profile": sing_profile, "train_stack": train_rows,
-                   "training": training, "train_profile": train_profile}, f, indent=1)
+                   "training": training, "train_profile": train_profile,
+                   "train_cwt": training_cwt}, f, indent=1)
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -64,47 +64,57 @@ def apply_rules(tree: Dict[str, Any], rules: List[Rule],
     return sd
 
 
-def _fft_rules() -> List[Rule]:
-    blk = r"(encoder|decoder)/blocks/layers_(\d+)/"
-    op = r"\1.layers.\2.op."
+def _fft_rules(blocks: str = r"(encoder|decoder)/blocks/", to: str = r"\1.") -> List[Rule]:
+    """An FFT stack's layers, final norm and position scale; ``blocks``
+    matches the JAX path of its FFTBlocks, ``to`` is the torch prefix."""
+    n = blocks.count("(") + 1  # the group of the layer index
+    blk = blocks + r"layers_(\d+)/"
+    op = to + rf"layers.\{n}.op."
     return [
-        (blk + r"layer_norm(1|2)/scale", op + r"layer_norm\3.weight", None),
-        (blk + r"layer_norm(1|2)/bias", op + r"layer_norm\3.bias", None),
+        (blk + r"layer_norm(1|2)/scale", op + rf"layer_norm\{n + 1}.weight", None),
+        (blk + r"layer_norm(1|2)/bias", op + rf"layer_norm\{n + 1}.bias", None),
         (blk + r"self_attn/in_proj/kernel", op + "self_attn.in_proj_weight", _linear),
         (blk + r"self_attn/out_proj/kernel", op + "self_attn.out_proj.weight", _linear),
         (blk + r"ffn/ffn_1/kernel", op + "ffn.ffn_1.weight", _conv),
         (blk + r"ffn/ffn_1/bias", op + "ffn.ffn_1.bias", None),
         (blk + r"ffn/ffn_2/kernel", op + "ffn.ffn_2.weight", _linear),
         (blk + r"ffn/ffn_2/bias", op + "ffn.ffn_2.bias", None),
-        (r"(encoder|decoder)/blocks/layer_norm/scale", r"\1.layer_norm.weight", None),
-        (r"(encoder|decoder)/blocks/layer_norm/bias", r"\1.layer_norm.bias", None),
-        (r"decoder/blocks/pos_embed_alpha", "decoder.pos_embed_alpha", None),
+        (blocks + r"layer_norm/scale", to + "layer_norm.weight", None),
+        (blocks + r"layer_norm/bias", to + "layer_norm.bias", None),
+        (blocks + r"pos_embed_alpha", to + "pos_embed_alpha", None),
     ]
 
 
-def _predictor_rules(names: str = "dur_predictor|pitch_predictor") -> List[Rule]:
+def _predictor_rules(names: str = "dur_predictor|pitch_predictor|energy_predictor",
+                     to: str = r"\1") -> List[Rule]:
     pr = rf"({names})/"
     return [
-        (pr + r"conv_(\d+)/conv/kernel", r"\1.conv.\2.1.weight", _conv),
-        (pr + r"conv_(\d+)/conv/bias", r"\1.conv.\2.1.bias", None),
-        (pr + r"conv_(\d+)/norm/scale", r"\1.conv.\2.3.weight", None),
-        (pr + r"conv_(\d+)/norm/bias", r"\1.conv.\2.3.bias", None),
-        (pr + r"linear/kernel", r"\1.linear.weight", _linear),
-        (pr + r"linear/bias", r"\1.linear.bias", None),
-        (pr + r"pos_embed_alpha", r"\1.pos_embed_alpha", None),
+        (pr + r"conv_(\d+)/conv/kernel", to + r".conv.\2.1.weight", _conv),
+        (pr + r"conv_(\d+)/conv/bias", to + r".conv.\2.1.bias", None),
+        (pr + r"conv_(\d+)/norm/scale", to + r".conv.\2.3.weight", None),
+        (pr + r"conv_(\d+)/norm/bias", to + r".conv.\2.3.bias", None),
+        (pr + r"linear/kernel", to + r".linear.weight", _linear),
+        (pr + r"linear/bias", to + r".linear.bias", None),
+        (pr + r"pos_embed_alpha", to + r".pos_embed_alpha", None),
     ]
 
 
+def _dense(jax_name: str, torch_name: str) -> List[Rule]:
+    return [(jax_name + "/kernel", torch_name + ".weight", _linear),
+            (jax_name + "/bias", torch_name + ".bias", None)]
+
+
+# upstream names (modules/fastspeech/fs2.py): cwt_predictor.0 is the CWT input
+# projection and .1 its predictor, cwt_stats_layers.0/2/4 the statistics MLP;
+# spk_embed_proj is an embedding with use_spk_id and a Linear with use_spk_embed
 FS2_RULES: List[Rule] = [
     (r"encoder/embed_tokens/embedding", "encoder.embed_tokens.weight", None),
-    (r"pitch_embed/embedding", "pitch_embed.weight", None),
-    (r"mel_out/kernel", "mel_out.weight", _linear),
-    (r"mel_out/bias", "mel_out.bias", None),
-    (r"midi_embed/embedding", "midi_embed.weight", None),
-    (r"midi_dur_layer/kernel", "midi_dur_layer.weight", _linear),
-    (r"midi_dur_layer/bias", "midi_dur_layer.bias", None),
-    (r"is_slur_embed/embedding", "is_slur_embed.weight", None),
-] + _fft_rules() + _predictor_rules()
+    (r"(pitch_embed|energy_embed|midi_embed|is_slur_embed|spk_embed_proj|spk_embed_f0"
+     r"|spk_embed_dur)/embedding", r"\1.weight", None),
+    *_dense("(mel_out|midi_dur_layer|spk_embed_proj)", r"\1"),
+    *_dense("cwt_in_proj", "cwt_predictor.0"), *_dense("cwt_stats_0", "cwt_stats_layers.0"),
+    *_dense("cwt_stats_1", "cwt_stats_layers.2"), *_dense("cwt_stats_2", "cwt_stats_layers.4"),
+] + _fft_rules() + _predictor_rules() + _predictor_rules("cwt_predictor", "cwt_predictor.1")
 
 DIFFNET_RULES: List[Rule] = [
     (r"(input_projection|skip_projection|output_projection)/kernel", r"\1.weight", _conv),
@@ -136,6 +146,14 @@ HIFIGAN_RULES: List[Rule] = [
     (r"m_source/l_linear/kernel", "m_source.l_linear.weight", _linear),
     (r"m_source/l_linear/bias", "m_source.l_linear.bias", None),
 ]
+
+# the FFT denoiser (diff_decoder_type: fft), upstream FFT of
+# usr/diff/candidate_decoder.py: FastspeechDecoder keys plus its projections
+FFT_DENOISER_RULES: List[Rule] = [
+    (r"input_projection/kernel", "input_projection.weight", _conv),
+    (r"input_projection/bias", "input_projection.bias", None),
+    *_dense(r"mlp_(0|2)", r"mlp.\1"), *_dense("(get_decode_inp|get_mel_out)", r"\1"),
+] + _fft_rules("blocks/", "")
 
 PE_RULES: List[Rule] = [
     (r"mel_prenet/conv_(\d+)/kernel", r"mel_prenet.layers.\1.0.weight", _conv),
@@ -182,9 +200,12 @@ def pe_state_dict(variables: Dict[str, Any]) -> Dict[str, torch.Tensor]:
 
 
 def task_state_dict(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
-    """JAX task params {'fs2', 'denoiser'} -> ``DiffSingerTask`` state_dict.
+    """JAX task params {'fs2', 'denoiser'} -> ``DiffSingerTask`` state_dict,
+    for the WaveNet or the FFT denoiser (told apart by the tree).
 
     Gradient trees have the parameters' structure, so this maps them too. A
     partial tree (the trainable subset of a frozen FS2) maps what it holds."""
+    denoiser = params.get("denoiser", {})
+    rules = FFT_DENOISER_RULES if "get_mel_out" in denoiser else DIFFNET_RULES
     return {**apply_rules(params.get("fs2", {}), FS2_RULES, "fs2."),
-            **apply_rules(params.get("denoiser", {}), DIFFNET_RULES, "denoise_fn.")}
+            **apply_rules(denoiser, rules, "denoise_fn.")}

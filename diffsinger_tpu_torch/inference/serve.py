@@ -23,6 +23,7 @@ from typing import Any, Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
+from diffsinger_tpu_torch.models.fs2 import SPK_EMBED_DIM
 from diffsinger_tpu_torch.utils.device import resolve_device
 
 
@@ -42,14 +43,17 @@ class FusedSynthesizer:
     """Utterance synthesis for serving.
 
     hp: hparams (``txt_pad_multiple``, ``mel_pad_multiple``, ``max_serve_batch``,
-    ``serve_wav_int16``, ``seed``, ``use_midi``); task: a ``DiffSingerTask``;
+    ``serve_wav_int16``, ``seed``, ``use_midi``, ``use_spk_embed``); task: a
+    ``DiffSingerTask``;
     vocoder: a ``HifiGAN`` wrapper; pe: an optional ``PitchExtractor`` whose
     F0 drives an NSF vocoder. All are moved to ``device`` (default CUDA;
     raises when no CUDA device is present)."""
 
-    # per-token keys padded to the text bucket; per-frame keys to the mel bucket
+    # per-token keys padded to the text bucket; per-frame keys to the mel
+    # bucket; speaker ids [B] and speaker embeddings [B, 256] stacked as given
     _TOKEN_KEYS = ("txt_tokens", "pitch_midi", "midi_dur", "is_slur")
     _MEL_KEYS = ("mel2ph", "f0", "uv")
+    _FLAT_KEYS = ("spk_ids", "spk_embed")
 
     def __init__(self, hp: Dict[str, Any], task, vocoder, pe=None,
                  use_gt_dur: bool = False, use_gt_f0: bool = False, device="cuda"):
@@ -116,14 +120,15 @@ class FusedSynthesizer:
         """Stack (idx, batch) single-utterance dicts into one padded batch."""
         b_pad = self._bucket_b(len(items))
         stacked: Dict[str, np.ndarray] = {}
-        for keys, pad_to in ((self._TOKEN_KEYS, t_txt_b), (self._MEL_KEYS, t_mel_b)):
+        for keys, pad_to in ((self._TOKEN_KEYS, t_txt_b), (self._MEL_KEYS, t_mel_b),
+                             (self._FLAT_KEYS, None)):
             for k in keys:
                 if not hasattr(items[0][1].get(k), "shape"):
                     continue
                 rows = []
                 for _, b in items:
                     a = np.asarray(b[k])
-                    if a.ndim == 2 and a.shape[1] < pad_to:
+                    if pad_to is not None and a.ndim == 2 and a.shape[1] < pad_to:
                         a = np.pad(a, ((0, 0), (0, pad_to - a.shape[1])))
                     rows.append(a)
                 a = np.concatenate(rows, axis=0)
@@ -191,7 +196,10 @@ class FusedSynthesizer:
         for t_mel in t_mel_buckets:
             t_mel_b = _round_up(t_mel, self.mel_mult)
             for b in batch_sizes:
-                batch = {"txt_tokens": np.ones((b, t_txt), np.int64)}
+                batch = {"txt_tokens": np.ones((b, t_txt), np.int64),
+                         "spk_ids": np.zeros((b,), np.int64)}
+                if self.hp.get("use_spk_embed"):
+                    batch["spk_embed"] = np.zeros((b, SPK_EMBED_DIM), np.float32)
                 if self.hp.get("use_midi"):
                     batch["pitch_midi"] = np.full((b, t_txt), 60, np.int64)
                     batch["midi_dur"] = np.full((b, t_txt), 0.2, np.float32)

@@ -9,11 +9,13 @@ from ``source`` (rand_ini, noise) or a ``torch.Generator``.
 Their weights are packed into the kernel layout at the first ``apply`` and
 kept; ``load_state_dict`` and ``to`` repack. Checkpoint loading, Griffin-Lim
 and the other vocoders wait for later slices; weights come from the caller
-(seeded init or ``convert/from_jax.py``).
+(seeded init or ``convert/from_jax.py``), and a ``vocoder_ckpt`` that names an
+existing file or a non-empty directory raises rather than being ignored.
 """
 
 from __future__ import annotations
 
+import os
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -26,6 +28,10 @@ from diffsinger_tpu_torch.utils.device import resolve_device
 
 class HifiGAN:
     def __init__(self, hp: Dict[str, Any], device="cuda"):
+        ckpt = hp.get("vocoder_ckpt") or ""
+        if ckpt and (os.path.isfile(ckpt) or (os.path.isdir(ckpt) and os.listdir(ckpt))):
+            raise NotImplementedError(f"vocoder_ckpt={ckpt}: loading a vocoder checkpoint "
+                                      "into the torch port is not ported yet")
         self.device = resolve_device(device)
         self.cfg = HifiGanConfig.from_hparams(hp)
         self.model = HifiGanGenerator(self.cfg).to(self.device).eval()

@@ -27,6 +27,11 @@ NEG_INF = -1e9
 LN_EPS = 1e-6
 
 
+def _cast(x: Optional[torch.Tensor],
+          dtype: Optional[torch.dtype]) -> Optional[torch.Tensor]:
+    return x if x is None or dtype is None else x.to(dtype)
+
+
 def dropout(x: torch.Tensor, rate: float,
             generator: Optional[torch.Generator]) -> torch.Tensor:
     """Inverted dropout as flax's ``nn.Dropout``: keep with probability
@@ -134,11 +139,17 @@ class RelPositionalEncoding(nn.Module):
 
 
 class MultiHeadSelfAttention(nn.Module):
-    """Fairseq-style self-attention without biases, on [B, T, C]."""
+    """Fairseq-style self-attention without biases, on [B, T, C].
 
-    def __init__(self, dim: int, num_heads: int):
+    With ``dtype`` (bfloat16) the projections compute in that dtype from
+    float32 parameters, the scores and softmax in float32 (products of
+    bfloat16 values summed in float32), and the output returns as float32:
+    flax's ``Dense(dtype=...)`` semantics, as the JAX module has them."""
+
+    def __init__(self, dim: int, num_heads: int, dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.num_heads = num_heads
+        self.dtype = dtype
         self.in_proj_weight = nn.Parameter(torch.empty(3 * dim, dim))
         self.out_proj = nn.Linear(dim, dim, bias=False)
         nn.init.xavier_uniform_(self.in_proj_weight)
@@ -149,35 +160,47 @@ class MultiHeadSelfAttention(nn.Module):
         b, t, c = x.shape
         h = self.num_heads
         hd = c // h
-        q, k, v = (x @ self.in_proj_weight.t()).split(c, dim=-1)
+        x = _cast(x, self.dtype)
+        q, k, v = (x @ _cast(self.in_proj_weight, self.dtype).t()).split(c, dim=-1)
         q = q.reshape(b, t, h, hd).transpose(1, 2) * (hd ** -0.5)
         k = k.reshape(b, t, h, hd).transpose(1, 2)
         v = v.reshape(b, t, h, hd).transpose(1, 2)
-        scores = q @ k.transpose(-1, -2)
+        scores = q.float() @ k.float().transpose(-1, -2)
         if key_padding_mask is not None:  # [B, T] True where PAD
             scores = scores.masked_fill(key_padding_mask[:, None, None, :],
                                         NEG_INF)
-        out = torch.softmax(scores, dim=-1) @ v
-        return self.out_proj(out.transpose(1, 2).reshape(b, t, c))
+        out = torch.softmax(scores, dim=-1).to(v.dtype) @ v
+        out = F.linear(out.transpose(1, 2).reshape(b, t, c),
+                       _cast(self.out_proj.weight, self.dtype))
+        return out.float()
 
 
 class ConvFFN(nn.Module):
-    """Conv1d(k) -> * k^-0.5 -> act -> Linear (SAME padding)."""
+    """Conv1d(k) -> * k^-0.5 -> act -> Linear. ``padding`` SAME centres the
+    kernel, LEFT makes it causal; ``dtype`` as in
+    :class:`MultiHeadSelfAttention` (the output returns as float32)."""
 
     def __init__(self, hidden_size: int, filter_size: int, kernel_size: int = 9,
-                 act: str = "gelu", dropout: float = 0.0):
+                 act: str = "gelu", dropout: float = 0.0, padding: str = "SAME",
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
+        if padding not in ("SAME", "LEFT"):
+            raise ValueError(f"ffn_padding={padding}")
         self.kernel_size = kernel_size
         self.act = act
         self.dropout = dropout
+        self.padding = padding
+        self.dtype = dtype
         self.ffn_1 = nn.Conv1d(hidden_size, filter_size, kernel_size)
         self.ffn_2 = nn.Linear(filter_size, hidden_size)
         nn.init.xavier_uniform_(self.ffn_2.weight)
 
     def forward(self, x: torch.Tensor,
                 drop_gen: Optional[torch.Generator] = None) -> torch.Tensor:
-        k = self.kernel_size
-        x = conv1d_btc(x, self.ffn_1.weight, self.ffn_1.bias, k // 2, (k - 1) // 2)
+        k, dt = self.kernel_size, self.dtype
+        pad = (k // 2, (k - 1) // 2) if self.padding == "SAME" else (k - 1, 0)
+        x = conv1d_btc(_cast(x, dt), _cast(self.ffn_1.weight, dt),
+                       _cast(self.ffn_1.bias, dt), *pad)
         x = x * k ** -0.5
         if self.act == "gelu":
             x = F.gelu(x)
@@ -187,14 +210,16 @@ class ConvFFN(nn.Module):
             x = F.silu(x)
         else:
             raise ValueError(f"ffn_act={self.act}")
-        return self.ffn_2(dropout(x, self.dropout, drop_gen))
+        x = dropout(x, self.dropout, drop_gen)
+        return F.linear(x, _cast(self.ffn_2.weight, dt), _cast(self.ffn_2.bias, dt)).float()
 
 
 class EncSALayer(nn.Module):
     """Pre-LN transformer encoder layer with conv-FFN and hard padding zeroing."""
 
     def __init__(self, hidden_size: int, num_heads: int, kernel_size: int = 9,
-                 act: str = "gelu", dropout: float = 0.0):
+                 act: str = "gelu", dropout: float = 0.0, padding: str = "SAME",
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.num_heads = num_heads
         self.dropout = dropout
@@ -202,9 +227,10 @@ class EncSALayer(nn.Module):
             self.layer_norm1 = nn.LayerNorm(hidden_size, eps=LN_EPS)
             # no dropout on the attention probabilities: the JAX layer builds
             # its attention with rate 0
-            self.self_attn = MultiHeadSelfAttention(hidden_size, num_heads)
+            self.self_attn = MultiHeadSelfAttention(hidden_size, num_heads, dtype)
         self.layer_norm2 = nn.LayerNorm(hidden_size, eps=LN_EPS)
-        self.ffn = ConvFFN(hidden_size, 4 * hidden_size, kernel_size, act, dropout)
+        self.ffn = ConvFFN(hidden_size, 4 * hidden_size, kernel_size, act, dropout,
+                           padding, dtype)
 
     def forward(self, x: torch.Tensor, padding_mask: torch.Tensor,
                 drop_gen: Optional[torch.Generator] = None) -> torch.Tensor:
@@ -223,9 +249,11 @@ class TransformerEncoderLayer(nn.Module):
     """Holder that gives the upstream key prefix ``layers.<i>.op``."""
 
     def __init__(self, hidden_size: int, num_heads: int, kernel_size: int = 9,
-                 act: str = "gelu", dropout: float = 0.0):
+                 act: str = "gelu", dropout: float = 0.0, padding: str = "SAME",
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
-        self.op = EncSALayer(hidden_size, num_heads, kernel_size, act, dropout)
+        self.op = EncSALayer(hidden_size, num_heads, kernel_size, act, dropout, padding,
+                             dtype)
 
     def forward(self, x: torch.Tensor, padding_mask: torch.Tensor,
                 drop_gen: Optional[torch.Generator] = None) -> torch.Tensor:
@@ -246,6 +274,17 @@ class Embedding(nn.Module):
         if self.padding_idx is not None:
             out = out * (ids != self.padding_idx)[..., None].to(out.dtype)
         return out
+
+    def take(self, ids: torch.Tensor) -> torch.Tensor:
+        """The lookup of ``jnp.take`` (the JAX embedding) for ids that may
+        fall outside the table: an id in [-N, 0) reads row id + N (the padding
+        row reads as zero, also when a wrapped id lands on it), an id outside
+        [-N, N) reads a row of NaN."""
+        n = self.weight.shape[0]
+        idx = torch.where(ids < 0, ids + n, ids)
+        inside = (idx >= 0) & (idx < n)
+        out = self(torch.where(inside, idx, torch.zeros_like(idx)))
+        return torch.where(inside[..., None], out, torch.full_like(out, float("nan")))
 
 
 def xavier_linear(in_features: int, out_features: int,

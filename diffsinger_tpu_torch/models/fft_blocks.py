@@ -3,7 +3,10 @@ diffsinger_tpu/models/fft_blocks.py).
 
 Padding positions are hard-zeroed after every layer and after the final norm;
 the encoder embedding is sqrt(d) * token_embed (plus the MIDI extras), then
-sinusoidal positions added or, with ``rel_pos``, ESPnet's relative encoding.
+(unless ``use_pos_embed`` is off) sinusoidal positions added or, with
+``rel_pos``, ESPnet's relative encoding. The decoder always adds its
+positions. ``ffn_padding`` (SAME or LEFT) and ``dtype`` (bfloat16 for
+``fs2_compute_dtype``) reach every layer's attention and conv FFN.
 Dropout (training mode, masks from ``drop_gen``) follows the JAX places: the
 encoder's embedding, the decoder's positional embedding, and inside every
 layer.
@@ -27,7 +30,8 @@ from diffsinger_tpu_torch.models.common import (LN_EPS, Embedding, RelPositional
 class FFTBlocks(nn.Module):
     def __init__(self, hidden_size: int, num_layers: int, ffn_kernel_size: int = 9,
                  num_heads: int = 2, use_pos_embed: bool = True,
-                 ffn_act: str = "gelu", dropout: float = 0.0):
+                 ffn_act: str = "gelu", dropout: float = 0.0, ffn_padding: str = "SAME",
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.use_pos_embed = use_pos_embed
         self.dropout = dropout
@@ -36,7 +40,7 @@ class FFTBlocks(nn.Module):
             self.embed_positions = SinusoidalPositionalEmbedding(hidden_size)
         self.layers = nn.ModuleList([
             TransformerEncoderLayer(hidden_size, num_heads, ffn_kernel_size, ffn_act,
-                                    dropout)
+                                    dropout, ffn_padding, dtype)
             for _ in range(num_layers)])
         self.layer_norm = nn.LayerNorm(hidden_size, eps=LN_EPS)
 
@@ -63,11 +67,15 @@ class FastSpeechEncoder(FFTBlocks):
 
     def __init__(self, vocab_size: int, hidden_size: int, num_layers: int,
                  ffn_kernel_size: int = 9, num_heads: int = 2,
-                 ffn_act: str = "gelu", dropout: float = 0.0, rel_pos: bool = False):
+                 ffn_act: str = "gelu", dropout: float = 0.0, rel_pos: bool = False,
+                 use_pos_embed: bool = True, ffn_padding: str = "SAME",
+                 dtype: Optional[torch.dtype] = None):
         super().__init__(hidden_size, num_layers, ffn_kernel_size, num_heads,
-                         use_pos_embed=False, ffn_act=ffn_act, dropout=dropout)
+                         use_pos_embed=False, ffn_act=ffn_act, dropout=dropout,
+                         ffn_padding=ffn_padding, dtype=dtype)
         self.hidden_size = hidden_size
         self.rel_pos = rel_pos
+        self.embed_pos = use_pos_embed  # the blocks' own use_pos_embed stays off
         self.embed_tokens = Embedding(vocab_size, hidden_size, padding_idx=0)
         self.embed_positions = (RelPositionalEncoding(hidden_size) if rel_pos
                                 else SinusoidalPositionalEmbedding(hidden_size))
@@ -80,9 +88,9 @@ class FastSpeechEncoder(FFTBlocks):
         x = (self.hidden_size ** 0.5) * self.embed_tokens(txt_tokens)
         if extra_embed is not None:
             x = x + extra_embed
-        if self.rel_pos:  # scales x by sqrt(d) a second time, as upstream does
-            x = self.embed_positions(x)
-        else:
+        if self.embed_pos and self.rel_pos:  # scales x by sqrt(d) a second time,
+            x = self.embed_positions(x)        # as upstream does
+        elif self.embed_pos:
             x = x + self.embed_positions(txt_tokens)
         x = dropout(x, self.dropout, drop_gen)
         return super().forward(x, padding_mask, drop_gen)
@@ -92,6 +100,8 @@ class FastSpeechDecoder(FFTBlocks):
     """Mel-frame FFT decoder."""
 
     def __init__(self, hidden_size: int, num_layers: int, ffn_kernel_size: int = 9,
-                 num_heads: int = 2, ffn_act: str = "gelu", dropout: float = 0.0):
+                 num_heads: int = 2, ffn_act: str = "gelu", dropout: float = 0.0,
+                 ffn_padding: str = "SAME", dtype: Optional[torch.dtype] = None):
         super().__init__(hidden_size, num_layers, ffn_kernel_size, num_heads,
-                         use_pos_embed=True, ffn_act=ffn_act, dropout=dropout)
+                         use_pos_embed=True, ffn_act=ffn_act, dropout=dropout,
+                         ffn_padding=ffn_padding, dtype=dtype)

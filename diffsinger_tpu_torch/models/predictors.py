@@ -22,35 +22,47 @@ from diffsinger_tpu_torch.models.common import (SinusoidalPositionalEmbedding,
 class _ConvReluLN(nn.Sequential):
     """Conv1d -> ReLU -> LayerNorm(eps=1e-12) -> dropout, indexed like upstream."""
 
-    def __init__(self, in_ch: int, channels: int, kernel_size: int, dropout: float = 0.0):
+    def __init__(self, in_ch: int, channels: int, kernel_size: int, dropout: float = 0.0,
+                 padding: str = "SAME"):
         super().__init__(nn.Identity(), nn.Conv1d(in_ch, channels, kernel_size),
                          nn.ReLU(), nn.LayerNorm(channels, eps=1e-12),
                          nn.Identity())
-        self.kernel_size = kernel_size
+        if padding not in ("SAME", "LEFT"):
+            raise ValueError(f"padding={padding}")
+        k = kernel_size
+        self.pad = ((k - 1) // 2, (k - 1) // 2) if padding == "SAME" else (k - 1, 0)
         self.dropout = dropout
 
     def forward(self, x: torch.Tensor,
                 drop_gen: Optional[torch.Generator] = None) -> torch.Tensor:
-        pad = (self.kernel_size - 1) // 2
-        x = conv1d_btc(x, self[1].weight, self[1].bias, pad, pad)
+        x = conv1d_btc(x, self[1].weight, self[1].bias, *self.pad)
         return dropout(self[3](torch.relu(x)), self.dropout, drop_gen)
 
 
 class DurationPredictor(nn.Module):
-    """Log-domain duration regression head (``dur_loss: mse``)."""
+    """Duration head. ``dur_loss`` picks the output: ``mse`` and ``huber``
+    regress log-durations (odim 1), ``mog`` has 15 outputs and no duration
+    decoding (as in the JAX package and upstream); ``crf`` is not ported."""
+
+    ODIM = {"mse": 1, "huber": 1, "mog": 15}
 
     def __init__(self, in_dims: int, channels: int, num_layers: int = 2,
-                 kernel_size: int = 3, offset: float = 1.0, dropout: float = 0.0):
+                 kernel_size: int = 3, offset: float = 1.0, dropout: float = 0.0,
+                 padding: str = "SAME", dur_loss: str = "mse"):
         super().__init__()
+        if dur_loss not in self.ODIM:
+            raise NotImplementedError(f"dur_loss={dur_loss} is not ported yet")
         self.offset = offset
+        self.dur_loss = dur_loss
         self.conv = nn.ModuleList([
-            _ConvReluLN(in_dims if i == 0 else channels, channels, kernel_size, dropout)
+            _ConvReluLN(in_dims if i == 0 else channels, channels, kernel_size, dropout,
+                        padding)
             for i in range(num_layers)])
-        self.linear = nn.Linear(channels, 1)
+        self.linear = nn.Linear(channels, self.ODIM[dur_loss])
 
     def forward(self, x: torch.Tensor, padding_mask: Optional[torch.Tensor] = None,
                 drop_gen: Optional[torch.Generator] = None) -> torch.Tensor:
-        """x [B, T, C] -> log-duration [B, T]."""
+        """x [B, T, C] -> log-duration [B, T] (``mog``: [B, T, 15])."""
         nonpad = (None if padding_mask is None
                   else (~padding_mask).to(x.dtype)[:, :, None])
         for layer in self.conv:
@@ -60,24 +72,29 @@ class DurationPredictor(nn.Module):
         x = self.linear(x)
         if nonpad is not None:
             x = x * nonpad
-        return x[..., 0]
+        return x[..., 0] if self.dur_loss in ("mse", "huber") else x
 
     def out2dur(self, log_dur: torch.Tensor) -> torch.Tensor:
         """round(exp(x) - offset), clamped >= 0."""
+        if self.dur_loss == "mog":
+            raise NotImplementedError("dur_loss=mog has no duration decoding")
         return torch.clamp(torch.round(torch.exp(log_dur) - self.offset),
                            min=0).to(torch.long)
 
 
 class PitchPredictor(nn.Module):
-    """Conv-stack pitch predictor with sinusoidal input positions."""
+    """Conv-stack pitch (or energy, or CWT) predictor with sinusoidal input
+    positions."""
 
     def __init__(self, in_dims: int, channels: int, num_layers: int = 5,
-                 odim: int = 2, kernel_size: int = 5, dropout: float = 0.0):
+                 odim: int = 2, kernel_size: int = 5, dropout: float = 0.0,
+                 padding: str = "SAME"):
         super().__init__()
         self.pos_embed_alpha = nn.Parameter(torch.ones(1))
         self.embed_positions = SinusoidalPositionalEmbedding(in_dims)
         self.conv = nn.ModuleList([
-            _ConvReluLN(in_dims if i == 0 else channels, channels, kernel_size, dropout)
+            _ConvReluLN(in_dims if i == 0 else channels, channels, kernel_size, dropout,
+                        padding)
             for i in range(num_layers)])
         self.linear = nn.Linear(channels, odim)
 

@@ -1,12 +1,15 @@
 """Task layer (counterpart of diffsinger_tpu/training/tasks.py:
-``build_modules`` and ``DiffSingerTask``: inference for the frame-pitch
-DiffSpeech task and the MIDI singing task (``task_type: midi``), the
-training loss and the freezing rule for the non-MIDI task).
+``build_modules`` and ``DiffSingerTask``: inference for the DiffSpeech task
+(frame, ph or cwt pitch, energy, speakers, ``offline_boost``) and the MIDI
+singing task (``task_type: midi``), the training loss with its pitch and
+energy terms and the freezing rule for the non-MIDI task).
 
 ``DiffSingerTask`` is an ``nn.Module`` holding ``fs2`` and ``denoise_fn`` (the
-upstream ``model.fs2.*`` / ``model.denoise_fn.*`` key prefixes). The denoiser
-always runs through a fused stack: ``inference`` through the sampling kernel,
-``train_loss`` through the training kernels.
+upstream ``model.fs2.*`` / ``model.denoise_fn.*`` key prefixes). The WaveNet
+denoiser always runs through a fused stack: ``inference`` through the
+sampling kernel, ``train_loss`` through the training kernels. The FFT
+denoiser (``diff_decoder_type: fft``) is plain PyTorch and takes the raw
+conditioner in both.
 """
 
 from __future__ import annotations
@@ -19,6 +22,7 @@ import torch.nn as nn
 
 from diffsinger_tpu_torch.models.diffnet import DiffNet
 from diffsinger_tpu_torch.models.diffusion import DiffusionConfig, GaussianDiffusion
+from diffsinger_tpu_torch.models.fft_denoiser import FFTDenoiser
 from diffsinger_tpu_torch.models.fs2 import FS2Config, FastSpeech2
 from diffsinger_tpu_torch.ops.diffnet_stack import (diffnet_forward, pack_sampling_ctx,
                                                     precompute_cond_packed)
@@ -33,13 +37,22 @@ def _compute_dtype(hp: Dict[str, Any]) -> Optional[torch.dtype]:
 
 
 def build_modules(hp: Dict[str, Any], vocab_size: int):
-    """(fs2, denoiser) for a DiffSpeech/DiffSinger config with a WaveNet
-    denoiser."""
+    """(fs2, denoiser) for a DiffSpeech/DiffSinger config: the WaveNet
+    denoiser, or the FFT one with ``diff_decoder_type: fft``."""
     if hp.get("task_type", "diff") not in ("diff", "midi"):
         raise NotImplementedError("the torch port covers the 'diff' and 'midi' tasks")
-    if hp.get("diff_decoder_type", "wavenet") != "wavenet":
-        raise NotImplementedError("the torch port covers the wavenet denoiser")
     fs2 = FastSpeech2(FS2Config.from_hparams(hp, vocab_size))
+    decoder_type = hp.get("diff_decoder_type", "wavenet")
+    if decoder_type == "fft":
+        return fs2, FFTDenoiser(
+            in_dims=int(hp.get("audio_num_mel_bins", 80)),
+            hidden_size=int(hp["hidden_size"]),
+            residual_channels=int(hp.get("residual_channels", 256)),
+            num_layers=int(hp.get("dec_layers", 4)),
+            ffn_kernel_size=int(hp.get("dec_ffn_kernel_size", 9)),
+            num_heads=int(hp.get("num_heads", 2)))
+    if decoder_type != "wavenet":
+        raise NotImplementedError(f"diff_decoder_type={decoder_type}")
     denoiser = DiffNet(
         in_dims=int(hp.get("audio_num_mel_bins", 80)),
         encoder_hidden=int(hp["hidden_size"]),
@@ -55,6 +68,12 @@ def make_is_sil(txt_tokens: torch.Tensor, sil_ids: Sequence[int]) -> torch.Tenso
         return torch.zeros_like(txt_tokens, dtype=torch.float32)
     sil = torch.as_tensor(list(sil_ids), dtype=txt_tokens.dtype, device=txt_tokens.device)
     return (txt_tokens[:, :, None] == sil).any(-1).to(torch.float32)
+
+
+def _spk_input(hp: Dict[str, Any], batch: Dict[str, Any]):
+    """The batch's speaker input: ``spk_ids`` with ``use_spk_id``, else
+    ``spk_embed`` (None when absent)."""
+    return batch.get("spk_ids") if hp.get("use_spk_id") else batch.get("spk_embed")
 
 
 def _as_tensor(v, dtype, device) -> torch.Tensor:
@@ -75,6 +94,7 @@ class DiffSingerTask(nn.Module):
         self.use_midi = bool(self.hp.get("use_midi", False))
         self.sil_ids = tuple(sil_ids)
         self.fs2, self.denoise_fn = build_modules(self.hp, vocab_size)
+        self.wavenet = isinstance(self.denoise_fn, DiffNet)
         self.compute_dtype = _compute_dtype(self.hp)
         self.gd = GaussianDiffusion(DiffusionConfig.from_hparams(self.hp),
                                     self._denoise_sample)
@@ -83,26 +103,35 @@ class DiffSingerTask(nn.Module):
     def _denoise_sample(self, x: torch.Tensor, t: torch.Tensor,
                         cond_ctx: Dict[str, Any]) -> torch.Tensor:
         """Sampling kernel; ``cond_ctx`` is a ``pack_sampling_ctx`` dict, the
-        weights and cond projections hoisted out of the reverse loop."""
+        weights and cond projections hoisted out of the reverse loop (the raw
+        cond for the FFT denoiser)."""
+        if not self.wavenet:
+            return self.denoise_fn(x, t, cond_ctx)
         return diffnet_forward(self.denoise_fn, x, t, cond_ctx,
                                compute_dtype=self.compute_dtype)
 
     def _denoise_train(self, x: torch.Tensor, t: torch.Tensor,
                        cond: torch.Tensor) -> torch.Tensor:
         """Training kernels, differentiable; ``cond`` is the raw [B, T, H]."""
+        if not self.wavenet:
+            return self.denoise_fn(x, t, cond)
         return diffnet_train_forward(self.denoise_fn, x, t, cond,
                                      compute_dtype=self.compute_dtype)
 
     def _fs2_kwargs(self, batch: Dict[str, Any]) -> Dict[str, torch.Tensor]:
-        """The MIDI encoder inputs of a batch (none for a non-MIDI task)."""
-        if not self.use_midi:
-            return {}
+        """The MIDI encoder inputs and the speaker input of a batch."""
         dev = self.device
-        kw = {"pitch_midi": _as_tensor(batch["pitch_midi"], torch.long, dev)}
-        if batch.get("midi_dur") is not None:
-            kw["midi_dur"] = _as_tensor(batch["midi_dur"], torch.float32, dev)
-        if batch.get("is_slur") is not None:
-            kw["is_slur"] = _as_tensor(batch["is_slur"], torch.long, dev)
+        kw = {}
+        if self.use_midi:
+            kw["pitch_midi"] = _as_tensor(batch["pitch_midi"], torch.long, dev)
+            if batch.get("midi_dur") is not None:
+                kw["midi_dur"] = _as_tensor(batch["midi_dur"], torch.float32, dev)
+            if batch.get("is_slur") is not None:
+                kw["is_slur"] = _as_tensor(batch["is_slur"], torch.long, dev)
+        spk = _spk_input(self.hp, batch)
+        if spk is not None:
+            kw["spk_embed"] = _as_tensor(
+                spk, torch.long if self.hp.get("use_spk_id") else torch.float32, dev)
         return kw
 
     @torch.no_grad()
@@ -110,10 +139,12 @@ class DiffSingerTask(nn.Module):
                   use_gt_dur: bool = True, use_gt_f0: bool = False,
                   noise: Optional[torch.Tensor] = None,
                   generator: Optional[torch.Generator] = None) -> Dict[str, Any]:
-        """FS2 forward -> shallow boost from the FS2 mel (or Gaussian start)
-        -> DDPM or PLMS reverse loop -> denormalized mel masked by mel2ph.
-        ``noise`` ([K+1, B, T, M] for DDPM, [1, B, T, M] for PLMS) fixes the
-        draws; otherwise ``generator`` supplies them."""
+        """FS2 forward -> shallow boost from the FS2 mel (or, with
+        ``offline_boost`` and a batch carrying ``fs2_mels``, from that mel,
+        the FS2 decoder skipped; or a Gaussian start) -> DDPM or PLMS reverse
+        loop -> denormalized mel masked by mel2ph. ``noise`` ([K+1, B, T, M]
+        for DDPM, [1, B, T, M] for PLMS) fixes the draws; otherwise
+        ``generator`` supplies them."""
         hp, dev = self.hp, self.device
         txt_tokens = _as_tensor(batch["txt_tokens"], torch.long, dev)
         mel2ph = (_as_tensor(batch["mel2ph"], torch.long, dev)
@@ -123,17 +154,26 @@ class DiffSingerTask(nn.Module):
         if t_mel is None:
             t_mel = int(batch["mels"].shape[1]) if batch.get("mels") is not None \
                 else int(hp["max_frames"])
+        offline = bool(hp.get("offline_boost")) and batch.get("fs2_mels") is not None
         ret = self.fs2(txt_tokens, mel2ph=mel2ph, f0=f0, uv=uv, t_mel=t_mel,
-                       **self._fs2_kwargs(batch))
+                       skip_decoder=offline, **self._fs2_kwargs(batch))
         cond = ret["decoder_inp"]
-        ret["fs2_mel"] = fs2_mel = ret["mel_out"]
+        # offline boost: the mel of a separately trained FS2 (upstream's
+        # OfflineGaussianDiffusion)
+        fs2_mel = (_as_tensor(batch["fs2_mels"], torch.float32, dev) if offline
+                   else ret["mel_out"])
+        ret["fs2_mel"] = fs2_mel
         tgt_nonpadding = (ret["mel2ph"] > 0).to(torch.float32)
-        # the stack always runs through the kernel wrapper, so the cond cast
-        # follows compute_dtype (JAX's rule for its use_pallas_diffnet path)
-        cdt = self.compute_dtype
-        cond_ctx = pack_sampling_ctx(
-            self.denoise_fn, precompute_cond_packed(self.denoise_fn, cond, compute_dtype=cdt),
-            compute_dtype=cdt)
+        cond_ctx = None
+        if self.wavenet:
+            # the stack always runs through the kernel wrapper, so the cond
+            # cast follows compute_dtype (JAX's rule for its use_pallas_diffnet
+            # path)
+            cdt = self.compute_dtype
+            cond_ctx = pack_sampling_ctx(
+                self.denoise_fn,
+                precompute_cond_packed(self.denoise_fn, cond, compute_dtype=cdt),
+                compute_dtype=cdt)
         ret["mel_out"] = self.gd.sample(cond, fs2_mel=fs2_mel,
                                         tgt_nonpadding=tgt_nonpadding,
                                         cond_ctx=cond_ctx, noise=noise,
@@ -143,14 +183,22 @@ class DiffSingerTask(nn.Module):
     # ------------------------------------------------------------------ train
     def _cond_forward(self, batch: Dict[str, Any],
                       drop_gen: Optional[torch.Generator]) -> Dict[str, Any]:
-        """Training-mode FS2 conditioner (ground-truth durations, f0 and uv;
-        no mel decoder)."""
-        dev = self.device
+        """Training-mode FS2 conditioner (ground-truth durations, f0, uv and
+        energy; no mel decoder). With cwt pitch the f0 it embeds is the one
+        the batch's CWT spectrogram and log-F0 statistics give."""
+        hp, dev = self.hp, self.device
+        f0 = _as_tensor(batch["f0"], torch.float32, dev)
+        if hp.get("pitch_type") == "cwt":
+            f0 = self.fs2.cwt2f0_norm(_as_tensor(batch["cwt_spec"], torch.float32, dev),
+                                      _as_tensor(batch["f0_mean"], torch.float32, dev),
+                                      _as_tensor(batch["f0_std"], torch.float32, dev))
+        energy = (_as_tensor(batch["energy"], torch.float32, dev)
+                  if hp.get("use_energy_embed") else None)
         return self.fs2(_as_tensor(batch["txt_tokens"], torch.long, dev),
                         mel2ph=_as_tensor(batch["mel2ph"], torch.long, dev),
-                        f0=_as_tensor(batch["f0"], torch.float32, dev),
-                        uv=_as_tensor(batch["uv"], torch.float32, dev),
-                        skip_decoder=True, drop_gen=drop_gen)
+                        f0=f0, uv=_as_tensor(batch["uv"], torch.float32, dev),
+                        energy=energy, skip_decoder=True, drop_gen=drop_gen,
+                        **self._fs2_kwargs(batch))
 
     def train_loss(self, batch: Dict[str, Any], t: Optional[torch.Tensor] = None,
                    noise: Optional[torch.Tensor] = None,
@@ -185,7 +233,9 @@ class DiffSingerTask(nn.Module):
 
     def _aux_losses(self, losses: Dict[str, torch.Tensor], ret: Dict[str, Any],
                     batch: Dict[str, Any]) -> None:
-        """Duration losses and, with a pitch embedding, the frame f0/uv loss."""
+        """Duration losses; with a pitch embedding the cwt, phone-level
+        (``f0`` of the batch is then [B, T_txt]) or frame pitch losses; with
+        an energy embedding the energy loss."""
         hp, dev = self.hp, self.device
         txt_tokens = _as_tensor(batch["txt_tokens"], torch.long, dev)
         mel2ph = _as_tensor(batch["mel2ph"], torch.long, dev)
@@ -195,13 +245,30 @@ class DiffSingerTask(nn.Module):
                           lambda_word_dur=hp.get("lambda_word_dur", 1.0),
                           lambda_sent_dur=hp.get("lambda_sent_dur", 1.0),
                           dur_loss=hp.get("dur_loss", "mse"))
-        if hp.get("use_pitch_embed", True):
-            L.f0_loss(losses, ret["pitch_pred"], _as_tensor(batch["f0"], torch.float32, dev),
-                      _as_tensor(batch["uv"], torch.float32, dev),
-                      (mel2ph != 0).to(torch.float32), use_uv=hp.get("use_uv", True),
-                      pitch_loss=hp.get("pitch_loss", "l1"),
-                      lambda_f0=hp.get("lambda_f0", 1.0),
-                      lambda_uv=hp.get("lambda_uv", 1.0))
+        if hp.get("use_pitch_embed"):
+            f0 = _as_tensor(batch["f0"], torch.float32, dev)
+            uv = _as_tensor(batch["uv"], torch.float32, dev)
+            nonpadding = (mel2ph != 0).to(torch.float32)
+            pitch = dict(lambda_f0=hp.get("lambda_f0", 1.0))
+            if hp.get("pitch_type") == "cwt":
+                L.cwt_pitch_loss(losses, ret, _as_tensor(batch["cwt_spec"], torch.float32, dev),
+                                 _as_tensor(batch["f0_mean"], torch.float32, dev),
+                                 _as_tensor(batch["f0_std"], torch.float32, dev), uv,
+                                 nonpadding, use_uv=hp.get("use_uv", True),
+                                 cwt_loss=hp.get("cwt_loss", "l1"),
+                                 lambda_uv=hp.get("lambda_uv", 1.0), **pitch)
+            elif hp.get("pitch_type") == "ph":
+                L.ph_pitch_loss(losses, ret["pitch_pred"], f0, txt_tokens,
+                                pitch_loss=hp.get("pitch_loss", "l1"), **pitch)
+            else:
+                L.f0_loss(losses, ret["pitch_pred"], f0, uv, nonpadding,
+                          use_uv=hp.get("use_uv", True),
+                          pitch_loss=hp.get("pitch_loss", "l1"),
+                          lambda_uv=hp.get("lambda_uv", 1.0), **pitch)
+        if hp.get("use_energy_embed"):
+            L.energy_loss(losses, ret["energy_pred"],
+                          _as_tensor(batch["energy"], torch.float32, dev),
+                          lambda_energy=hp.get("lambda_energy", 0.1))
 
     # ------------------------------------------------------------------ freeze
     def fs2_fully_frozen(self) -> bool:
@@ -222,6 +289,10 @@ class DiffSingerTask(nn.Module):
             parts = name.split(".")
             if parts[0] != "fs2":
                 return True
+            if parts[1:3] == ["cwt_predictor", "0"]:
+                # the CWT input projection: cwt_in_proj in the JAX tree, which
+                # freezes it with the rest of FS2
+                return False
             return not freeze_all_fs2 and any("predictor" in p for p in parts)
 
         return rule
