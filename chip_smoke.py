@@ -60,6 +60,20 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      get_f0cwt of voiced/unvoiced F0 contours): the first step's losses (mel,
      C, uv, f0_mean, f0_std, the duration terms) and gradients against the
      plain twins, then five steps;
+  7b. cli: the user path from a corpus on disk to waveforms on disk with
+     configs/lj/ds_beta6.yaml at full width (cwt pitch, bf16 stack): writes
+     an LJ-style corpus of 64 harmonic-tone utterances with TextGrids under
+     build/chip_smoke/cli/, binarizes it with
+     ``python -m diffsinger_tpu_torch.data.binarize`` in a child process,
+     writes a seeded FS2 checkpoint (fs2_ckpt) and a seeded HiFiGAN v1
+     directory (vocoder_ckpt, weight-norm pairs) in upstream's layout, trains
+     20 steps through ``cli.train`` (sanity validation, validation and a
+     checkpoint at steps 10 and 20), restores step 20 into a fresh Trainer bit
+     for bit, resumes to step 30, runs ``cli.infer`` on the 4 test items
+     (71 stack launches each, 3 MRF launches a vocoder call), and holds the
+     first test utterance's mel and waveform against the plain twins; one
+     step on a dataset batch and one test utterance are profiled
+     (cli_fit_profile.txt, cli_infer_profile.txt);
   8. prints the kernels line and, last, the device line.
 The plain twins run with TF32 off (cuBLAS and cuDNN), so they are float32
 references. Long output goes to build/chip_smoke/chip_smoke.json.
@@ -920,6 +934,34 @@ def _grad_agreement(got, want):
     return worst_cos, worst_rel
 
 
+def step_vs_plain(torch, tr, trainer, batch, k_step: int):
+    """One step's losses and gradients, kernels vs plain twins (same weights,
+    t and noise, dropout off); no update is applied. Returns the kernel
+    run's losses, the plain run's, each term's difference and the worst
+    gradient cosine and relative error."""
+    b, t_mel, n_mels = batch["mels"].shape
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    t = torch.randint(0, k_step, (b,), generator=gen, device="cuda")
+    noise = torch.randn((b, t_mel, n_mels), generator=gen, device="cuda")
+    lk, gk = trainer.loss_and_grads(batch, t=t, noise=noise, deterministic=True)
+    with mock.patch.object(tr, "diffnet_train_fwd", tr.diffnet_train_stack_fwd_plain), \
+            mock.patch.object(tr, "diffnet_train_bwd", tr.diffnet_train_stack_bwd_plain):
+        lp, gp = trainer.loss_and_grads(batch, t=t, noise=noise, deterministic=True)
+    torch.cuda.synchronize()
+    loss_diff = {k: abs(float(lk[k]) - float(lp[k])) for k in lk}
+    cos, rel = _grad_agreement(gk, gp)
+    return lk, lp, loss_diff, cos, rel
+
+
+def step_agrees(lp, loss_diff, cos: float, rel: float) -> bool:
+    """The FS2 terms run the same code on both sides; the mel loss differs
+    only by bf16 roundings one step apart (1e-3 of its scale). Gradients: the
+    JAX package's bf16 criterion (cosine > 0.999, max error < 5% of each
+    tensor's scale)."""
+    bad = [k for k, d in loss_diff.items() if not d <= 1e-3 * max(abs(float(lp[k])), 1.0)]
+    return not bad and cos > 0.999 and rel < 0.05
+
+
 def phase_train(torch, tr, card: str, out_dir: Path, steps: int = 10, cwt: bool = False):
     """Frame pitch (``steps`` steps and a profiled one), or with ``cwt`` the
     config's own cwt pitch (``steps`` steps, no profile)."""
@@ -929,24 +971,12 @@ def phase_train(torch, tr, card: str, out_dir: Path, steps: int = 10, cwt: bool 
     b, t_txt, t_mel = 24, 128, 1024
     make = synthetic_cwt_batch if cwt else synthetic_batch
     batch = trainer.prepare_batch(make(np.random.RandomState(0), b, t_txt, t_mel))
-    gen = torch.Generator(device="cuda").manual_seed(7)
-    t = torch.randint(0, int(hp["K_step"]), (b,), generator=gen, device="cuda")
-    noise = torch.randn((b, t_mel, 80), generator=gen, device="cuda")
-
-    # the first step's losses and gradients, kernels vs plain twins (same
-    # weights, t and noise, dropout off); no update is applied
-    lk, gk = trainer.loss_and_grads(batch, t=t, noise=noise, deterministic=True)
-    with mock.patch.object(tr, "diffnet_train_fwd", tr.diffnet_train_stack_fwd_plain), \
-            mock.patch.object(tr, "diffnet_train_bwd", tr.diffnet_train_stack_bwd_plain):
-        lp, gp = trainer.loss_and_grads(batch, t=t, noise=noise, deterministic=True)
-    torch.cuda.synchronize()
+    # the first step, kernels vs plain twins
+    lk, lp, loss_diff, cos, rel = step_vs_plain(torch, tr, trainer, batch, int(hp["K_step"]))
     want_terms = {"mel", "pdur", "wdur", "sdur"} | (
         {"C", "uv", "f0_mean", "f0_std"} if cwt else {"uv", "f0"})
     if not want_terms <= set(lk):
         raise AssertionError(f"training loss terms {sorted(lk)}, expected {sorted(want_terms)}")
-    loss_diff = {k: abs(float(lk[k]) - float(lp[k])) for k in lk}
-    cos, rel = _grad_agreement(gk, gp)
-    del gk, gp
 
     tr.diffnet_train_fwd.launches = 0
     tr.diffnet_train_bwd.launches = 0
@@ -990,15 +1020,367 @@ def phase_train(torch, tr, card: str, out_dir: Path, steps: int = 10, cwt: bool 
         raise AssertionError("the training step did not run the tensor-core kernels")
     if not all(np.isfinite(v) for h in history for v in h.values()):
         raise AssertionError(f"non-finite training losses: {history}")
-    # the FS2 terms run the same code on both sides; the mel loss differs only
-    # by bf16 roundings one step apart (1e-3 of its scale). Gradients: the JAX
-    # package's bf16 criterion (cosine > 0.999, max error < 5% of each
-    # tensor's scale).
-    bad = {k: d for k, d in loss_diff.items() if not d <= 1e-3 * max(abs(float(lp[k])), 1.0)}
-    if bad or not (cos > 0.999 and rel < 0.05):
-        raise AssertionError(f"train step kernel vs plain: losses {bad}, grad cos {cos}, "
+    if not step_agrees(lp, loss_diff, cos, rel):
+        raise AssertionError(f"train step kernel vs plain: losses {loss_diff}, grad cos {cos}, "
                              f"rel {rel}")
     return out, profile
+
+
+# -------------------------------------------------------------------- phase 7b
+CLI_ITEMS, CLI_TEST, CLI_VALID, CLI_STEPS, CLI_RESUME_STEPS = 64, 4, 4, 20, 30
+# HiFiGAN v1 (hop 256) as the vocoder directory's config.yaml gives it; not
+# an NSF vocoder, though the acoustic config embeds pitch
+CLI_VOCODER = dict(resblock="1", upsample_rates=[8, 8, 2, 2], upsample_kernel_sizes=[16, 16, 4, 4],
+                   upsample_initial_channel=512, resblock_kernel_sizes=[3, 7, 11],
+                   resblock_dilation_sizes=[[1, 3, 5], [1, 3, 5], [1, 3, 5]],
+                   audio_sample_rate=22050, audio_num_mel_bins=80, hop_size=256,
+                   use_pitch_embed=False, use_nsf=False)
+
+
+def _cli_corpus(root: Path) -> Path:
+    """The raw corpus and the run's config (ds_beta6.yaml and the paths)."""
+    import yaml
+
+    from diffsinger_tpu_torch.tools import fixtures
+
+    fixtures.write_lj_corpus(str(root / "raw"), str(root / "processed"), CLI_ITEMS, seed=0)
+    cfg = {"base_config": [str(ROOT / "configs" / "lj" / "ds_beta6.yaml")],
+           "raw_data_dir": str(root / "raw"), "processed_data_dir": str(root / "processed"),
+           "binary_data_dir": str(root / "binary"), "test_num": CLI_TEST,
+           "valid_num": CLI_VALID, "num_test_samples": 0, "test_ids": [],
+           # tools/bench_train.py's bf16 stack; a 30-step duration predictor is
+           # no product, so --infer takes ground-truth durations and F0
+           "compute_dtype": "bfloat16", "max_updates": CLI_STEPS, "val_check_interval": 10,
+           "num_sanity_val_steps": 1, "log_interval": 5, "use_gt_dur": True,
+           "use_gt_f0": True, "profile_infer": True,
+           "fs2_ckpt": str(root / "fs2_start"), "vocoder_ckpt": str(root / "hifigan")}
+    path = root / "cli.yaml"
+    path.write_text(yaml.safe_dump(cfg))
+    return path
+
+
+def _cli_start_ckpts(torch, root: Path, cfg_path: Path):
+    """A seeded FS2 (model_ckpt_steps_0.ckpt, keys under model.) for
+    fs2_ckpt and a seeded HiFiGAN v1 directory (config.yaml, weight-norm
+    pairs) for vocoder_ckpt, both in upstream's layout."""
+    import torch.nn as nn
+
+    from diffsinger_tpu_torch.config.hparams import set_hparams
+    from diffsinger_tpu_torch.models.hifigan import HifiGanConfig, HifiGanGenerator
+    from diffsinger_tpu_torch.tools import fixtures
+    from diffsinger_tpu_torch.training.tasks import DiffSingerTask
+    from diffsinger_tpu_torch.utils.text_encoder import build_phone_encoder
+
+    hp = set_hparams(str(cfg_path))
+    vocab = len(build_phone_encoder(hp["binary_data_dir"]))
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(0)
+        fs2 = DiffSingerTask(hp, vocab_size=vocab, device="cpu").fs2
+        gen = HifiGanGenerator(HifiGanConfig.from_hparams(CLI_VOCODER))
+        with torch.no_grad():
+            for m in gen.modules():  # torch's default scale, as build_synth
+                if isinstance(m, (nn.Conv1d, nn.ConvTranspose1d)):
+                    m.reset_parameters()
+    fs2_path = fixtures.write_task_ckpt(str(root / "fs2_start"), fs2.state_dict(), step=0)
+    voc_path = fixtures.write_hifigan_dir(str(root / "hifigan"), gen.state_dict(), CLI_VOCODER)
+    return fs2_path, voc_path
+
+
+class _Tee:
+    """Copies what is printed to stdout while it is active."""
+
+    def __enter__(self):
+        self.out, self.parts = sys.stdout, []
+        sys.stdout = self
+        return self
+
+    def write(self, text):
+        self.parts.append(text)
+        return self.out.write(text)
+
+    def flush(self):
+        self.out.flush()
+
+    def __exit__(self, *exc):
+        sys.stdout = self.out
+
+    @property
+    def text(self) -> str:
+        return "".join(self.parts)
+
+
+class _Clock:
+    """Wall seconds of each call of a patched method, the device synchronized."""
+
+    def __init__(self, torch, owner, name: str):
+        self.torch, self.times = torch, []
+        self.orig = getattr(owner, name)
+        self.patch = mock.patch.object(owner, name, self)
+
+    def __get__(self, obj, objtype=None):
+        return lambda *a, **k: self(obj, *a, **k)
+
+    def __call__(self, *args, **kw):
+        self.torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = self.orig(*args, **kw)
+        self.torch.cuda.synchronize()
+        self.times.append(time.perf_counter() - t0)
+        return out
+
+
+def phase_cli(torch, ds, mrf, tr, card: str, out_dir: Path):
+    """The user path: corpus on disk -> binarizer -> cli.train (validation,
+    checkpoints) -> resume -> cli.infer -> waveforms on disk, with
+    configs/lj/ds_beta6.yaml at full width."""
+    import os
+    import shutil
+
+    import numpy as np
+    from scipy.io import wavfile
+
+    from diffsinger_tpu_torch import cli
+    from diffsinger_tpu_torch.config.hparams import set_hparams
+    from diffsinger_tpu_torch.data.dataset import FastSpeechDataset
+    from diffsinger_tpu_torch.data.indexed_dataset import IndexedDataset
+    from diffsinger_tpu_torch.inference.vocoder import HifiGAN
+    from diffsinger_tpu_torch.training.trainer import Trainer
+
+    device = "cuda"
+    root = out_dir / "cli"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    t0 = time.perf_counter()
+    cfg_path = _cli_corpus(root)
+    corpus_s = time.perf_counter() - t0
+
+    # 1. binarize, in a child process: its worker pool forks, and forked
+    # workers cannot use the CUDA context this process holds
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "diffsinger_tpu_torch.data.binarize",
+                           "--config", str(cfg_path)], cwd=ROOT, capture_output=True,
+                          text=True, timeout=600,
+                          env={**os.environ, "N_PROC": str(min(8, os.cpu_count() or 1))})
+    binarize_s = time.perf_counter() - t0
+    (root / "binarize.log").write_text(proc.stdout + proc.stderr)
+    if proc.returncode != 0:
+        raise AssertionError(f"cli: binarize failed ({proc.returncode}): {proc.stderr[-2000:]}")
+    binary = root / "binary"
+    want = {"test": CLI_TEST, "valid": CLI_TEST + CLI_VALID,
+            "train": CLI_ITEMS - CLI_TEST - CLI_VALID}
+    got, frames, voiced_min, f0_lo, f0_hi = {}, 0, 1.0, 1e9, 0.0
+    for split, n in want.items():
+        items = IndexedDataset(str(binary / split))
+        got[split] = len(items)
+        lengths = np.load(binary / f"{split}_lengths.npy")
+        if len(lengths) != len(items):
+            raise AssertionError(f"cli: {split}_lengths.npy has {len(lengths)} entries")
+        for i in range(len(items)):
+            it = items[i]
+            if "cwt_spec" not in it or it["mel"].shape != (it["len"], 80):
+                raise AssertionError(f"cli: item {it['item_name']} lacks cwt_spec or its mel")
+            f0 = it["f0"]
+            voiced = f0[f0 > 0]
+            voiced_min = min(voiced_min, len(voiced) / len(f0))
+            f0_lo, f0_hi = min(f0_lo, float(voiced.min())), max(f0_hi, float(voiced.max()))
+            if split != "valid":
+                frames += int(it["len"])
+        items.close()
+    if got != want or not (binary / "phone_set.json").exists():
+        raise AssertionError(f"cli: split sizes {got}, expected {want}, or no phone_set.json")
+    if not (voiced_min > 0.5 and 80.0 <= f0_lo and f0_hi <= 750.0):
+        raise AssertionError(f"cli: F0 voiced share {voiced_min} or range [{f0_lo}, {f0_hi}]")
+
+    # 2. checkpoints to start from
+    _cli_start_ckpts(torch, root, cfg_path)
+
+    # 3. train: 20 steps, validation and checkpoints at 10 and 20
+    ckpt_root = str(root / "checkpoints")
+    hp = set_hparams(str(cfg_path), "chip_cli", ckpt_root=ckpt_root)
+    step_clock = _Clock(torch, Trainer, "train_step")
+    val_clock = _Clock(torch, Trainer, "validate")
+    save_clock = _Clock(torch, Trainer, "save_checkpoint")
+    for fn in (tr.diffnet_train_fwd, tr.diffnet_train_bwd, ds.diffnet_stack, mrf.mrf_stage):
+        fn.launches = 0
+    t0 = time.perf_counter()
+    with step_clock.patch, val_clock.patch, save_clock.patch:
+        trainer = cli.train(hp, device=device)
+    train_s = time.perf_counter() - t0
+    launches = {"diffnet_train_fwd": tr.diffnet_train_fwd.launches,
+                "diffnet_train_bwd": tr.diffnet_train_bwd.launches}
+    work = Path(hp["work_dir"])
+    ckpt20 = work / f"model_ckpt_steps_{CLI_STEPS}.ckpt"
+    steps_saved = sorted(int(p.stem.split("_")[-1]) for p in work.glob("model_ckpt_steps_*.ckpt"))
+    history = trainer.history
+    if trainer.global_step != CLI_STEPS or steps_saved != [10, CLI_STEPS] \
+            or not (work / "best_valid.npy").exists():
+        raise AssertionError(f"cli: train ended at {trainer.global_step}, checkpoints "
+                             f"{steps_saved}")
+    if not all(np.isfinite(v) for _, _, sc in history for v in sc.values()) or \
+            {kind for _, kind, _ in history} != {"train", "val"}:
+        raise AssertionError(f"cli: train/validation losses {history}")
+    if not (launches["diffnet_train_bwd"] == CLI_STEPS
+            and launches["diffnet_train_fwd"] >= CLI_STEPS):
+        raise AssertionError(f"cli: training kernel launches {launches} for {CLI_STEPS} steps")
+    del trainer
+
+    # 4. a fresh Trainer restores step 20 bit for bit: params and AdamW moments
+    _, task_r = cli._build(hp, device)
+    fresh = Trainer(hp, task_r, device=device)
+    t0 = time.perf_counter()
+    fresh.initialize()
+    restore_s = time.perf_counter() - t0
+    raw = torch.load(ckpt20, map_location="cpu", weights_only=False)
+    sd = task_r.state_dict()
+    params_equal = all(torch.equal(sd[k].cpu(), v) for k, v in raw["state_dict"]["model"].items())
+    saved_state = raw["optimizer_states"][0]["state"]
+    live_state = fresh.optimizer.adamw.state_dict()["state"]
+    moments_equal = saved_state.keys() == live_state.keys() and all(
+        torch.equal(live_state[i][m].cpu(), saved_state[i][m])
+        for i in saved_state for m in ("exp_avg", "exp_avg_sq", "step"))
+    if not (fresh.global_step == CLI_STEPS and params_equal and moments_equal):
+        raise AssertionError(f"cli: restore at step {fresh.global_step}: params equal "
+                             f"{params_equal}, moments equal {moments_equal}")
+    del task_r, fresh, raw
+
+    # 5. resume to step 30
+    hp_resume = set_hparams(str(cfg_path), "chip_cli", f"max_updates={CLI_RESUME_STEPS}",
+                            ckpt_root=ckpt_root)
+    tr.diffnet_train_fwd.launches = tr.diffnet_train_bwd.launches = 0
+    with _Tee() as tee:
+        trainer = cli.train(hp_resume, device=device)
+    if f"restored checkpoint at step {CLI_STEPS}" not in tee.text:
+        raise AssertionError(f"cli: the resume printed no restore at step {CLI_STEPS}")
+    resume_launches = {"diffnet_train_fwd": tr.diffnet_train_fwd.launches,
+                       "diffnet_train_bwd": tr.diffnet_train_bwd.launches}
+    kept = sorted(int(p.stem.split("_")[-1]) for p in work.glob("model_ckpt_steps_*.ckpt"))
+    if trainer.global_step != CLI_RESUME_STEPS or len(kept) > int(hp["num_ckpt_keep"]) \
+            or kept[-1] != CLI_RESUME_STEPS:
+        raise AssertionError(f"cli: resume ended at {trainer.global_step}, kept {kept}")
+    if resume_launches["diffnet_train_bwd"] != CLI_RESUME_STEPS - CLI_STEPS:
+        raise AssertionError(f"cli: the resume took {resume_launches} kernel launches; "
+                             "it did not start at the saved step")
+    for k in launches:
+        launches[k] += resume_launches[k]
+
+    # the training kernels at this path's own shapes, against their plain
+    # twins: the dataset's largest training batch and a validation batch
+    # (fit's eval batching: max_eval_sentences utterances)
+    np.random.seed(0)
+    batch = trainer.prepare_batch(max(
+        FastSpeechDataset(hp_resume, "train", shuffle=True).iter_batches(),
+        key=lambda b: b["mels"].size))
+    valid_batch = trainer.prepare_batch(next(FastSpeechDataset(hp_resume, "valid").iter_batches(
+        max_sentences=int(hp_resume["max_eval_sentences"]))))
+    fit_vs_plain = {}
+    for kind, b in (("train", batch), ("valid", valid_batch)):
+        _, lp, loss_diff, cos, rel = step_vs_plain(torch, tr, trainer, b, int(hp_resume["K_step"]))
+        fit_vs_plain[kind] = {"batch_shape": list(b["mels"].shape), "loss_abs_diff": loss_diff,
+                              "grad_worst_cos": cos, "grad_worst_rel": rel,
+                              "agrees": step_agrees(lp, loss_diff, cos, rel)}
+    # one more step on the largest batch, profiled, to set beside the train
+    # phase's synthetic 24 x 1024 step
+    trainer.train_step(batch)
+    fit_profile = phase_profile(torch, lambda: trainer.train_step(batch), out_dir, "cli_fit")
+    fit_profile["batch_shape"] = list(batch["mels"].shape)
+    del trainer, batch, valid_batch
+
+    # 6. --infer on the test split
+    hp_inf = set_hparams(str(cfg_path), "chip_cli", infer=True, ckpt_root=ckpt_root)
+    ds.diffnet_stack.launches = mrf.mrf_stage.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with _Tee() as tee:
+        gen_dir = Path(cli.infer(hp_inf, device=device))
+    torch.cuda.synchronize()
+    infer_s = time.perf_counter() - t0
+    rtf_line = [ln for ln in tee.text.splitlines() if "RTF" in ln]
+    where = torch.cuda.get_device_name(0)
+    if not (rtf_line and rtf_line[-1].endswith(f"on {where}")):
+        raise AssertionError(f"cli: --infer printed no RTF line for {where}: {rtf_line}")
+    launches.update(diffnet_stack=ds.diffnet_stack.launches, mrf_stage=mrf.mrf_stage.launches)
+    if not gen_dir.name.startswith(f"generated_{CLI_RESUME_STEPS}_"):
+        raise AssertionError(f"cli: --infer wrote {gen_dir}: not from the step-30 checkpoint")
+    test_items = IndexedDataset(str(binary / "test"))
+    audio_s, names = 0.0, []
+    for i in range(len(test_items)):
+        it = test_items[i]
+        names.append(it["item_name"])
+        t_mel = int(it["len"])
+        mel = np.load(gen_dir / "P_mels_npy" / f"{it['item_name']}.npy")
+        if mel.shape != (t_mel, 80) or not np.isfinite(mel).all():
+            raise AssertionError(f"cli: P mel {mel.shape} for {t_mel} frames")
+        for kind in ("P", "G"):
+            sr, wav = wavfile.read(gen_dir / "wavs" / f"{kind}_{it['item_name']}.wav")
+            if sr != 22050 or wav.shape != (t_mel * 256,):
+                raise AssertionError(f"cli: {kind} wav {wav.shape} at {sr} Hz for {t_mel} frames")
+            if kind == "P":
+                audio_s += len(wav) / sr
+    test_items.close()
+    k_step = int(hp_inf["K_step"])
+    if (launches["diffnet_stack"] != k_step * CLI_TEST
+            or launches["mrf_stage"] != 3 * 2 * CLI_TEST):
+        raise AssertionError(f"cli: --infer launches {launches}, expected {k_step} stack a "
+                             "test utterance and 3 MRF a vocoder call (P and G)")
+
+    # 7. the first test utterance again, kernels and plain twins, same seed
+    # and weights; the kernel run must also repeat what --infer saved
+    _, task = cli._build(hp_inf, device)
+    Trainer(hp_inf, task, device=device).initialize()
+    voc = HifiGAN(hp_inf, device=device)
+    batch = next(FastSpeechDataset(hp_inf, "test").iter_batches(max_sentences=1))
+
+    def utterance():
+        gen = torch.Generator(device=device).manual_seed(int(hp_inf["seed"]))
+        out = task.inference(batch, use_gt_dur=True, use_gt_f0=True, generator=gen)
+        n = int((out["mel2ph"][0] > 0).sum())
+        mel = out["mel_out"][0, :n].float().cpu().numpy()
+        return mel, voc.spec2wav(mel, f0=out["f0_denorm"][0, :n].float().cpu().numpy())
+
+    mel_k, wav_k = utterance()
+    infer_profile = phase_profile(torch, utterance, out_dir, "cli_infer")
+    with mock.patch.object(ds, "diffnet_stack", ds.diffnet_stack_plain), \
+            mock.patch.object(mrf, "mrf_stage", mrf.mrf_stage_plain):
+        mel_p, wav_p = utterance()
+    saved = np.load(gen_dir / "P_mels_npy" / f"{batch['item_name'][0]}.npy")
+    mel_diff = float(np.abs(mel_k - mel_p).max())
+    wav_diff = float(np.abs(wav_k - wav_p).max())
+    saved_diff = float(np.abs(saved - mel_k).max())
+    # the serving phases' rule: both paths round to bf16 at the same points
+    # and differ by summation order only; the waveform at 1e-4 of its scale,
+    # the log10 mel (values around -5..1) at 1e-3 of its scale after 71 steps
+    mel_tol = 1e-3 * max(float(np.abs(mel_p).max()), 1.0)
+    wav_tol = 1e-4 * max(float(np.abs(wav_p).max()), 1.0)
+
+    out = {
+        "card": card, "config": "configs/lj/ds_beta6.yaml as shipped (cwt pitch, full width) "
+                                "with the bf16 stack, ground-truth durations and F0 at --infer",
+        "corpus_s": corpus_s, "binarize_s": binarize_s, "items": got,
+        "frames_train_and_test": frames, "voiced_share_min": voiced_min,
+        "f0_hz_range": [f0_lo, f0_hi],
+        "train_s": train_s, "steps": CLI_STEPS, "resumed_to": CLI_RESUME_STEPS,
+        "fit_step_ms_median": float(np.median(step_clock.times)) * 1e3,
+        "fit_step_ms": [x * 1e3 for x in step_clock.times],
+        "fit_kernel_vs_plain": fit_vs_plain,
+        "validation_s": val_clock.times, "checkpoint_bytes": ckpt20.stat().st_size,
+        "checkpoint_save_s": save_clock.times, "checkpoint_restore_s": restore_s,
+        "last_train_loss": [sc for _, k, sc in history if k == "train"][-1],
+        "last_val_loss": [sc for _, k, sc in history if k == "val"][-1],
+        "infer_s": infer_s, "audio_s": audio_s, "rtf": audio_s / infer_s,
+        "infer_rtf_line": rtf_line[-1],
+        "test_items": names, "launches": launches,
+        "kernel_vs_plain_mel_max_abs_diff": mel_diff, "mel_tolerance": mel_tol,
+        "kernel_vs_plain_wav_max_abs_diff": wav_diff, "wav_tolerance": wav_tol,
+        "infer_vs_rerun_mel_max_abs_diff": saved_diff,
+        "fit_step_profile": fit_profile, "infer_utterance_profile": infer_profile,
+    }
+    print("cli", json.dumps(out), flush=True)
+    if not all(c["agrees"] for c in fit_vs_plain.values()):
+        raise AssertionError(f"cli: training kernels vs plain twins {fit_vs_plain}")
+    if not (mel_diff <= mel_tol and wav_diff <= wav_tol and saved_diff <= mel_tol):
+        raise AssertionError(f"cli: kernel vs plain mel {mel_diff} (tol {mel_tol}), wav "
+                             f"{wav_diff} (tol {wav_tol}); --infer vs rerun {saved_diff}")
+    return out
 
 
 def main() -> int:
@@ -1045,6 +1427,7 @@ def main() -> int:
     train_rows = phase_train_stack(torch, tr)
     training, train_profile = phase_train(torch, tr, card, out_dir)
     training_cwt, _ = phase_train(torch, tr, card, out_dir, steps=5, cwt=True)
+    cli_run = phase_cli(torch, ds, mrf, tr, card, out_dir)
 
     main_stack = stack_rows[0]                        # bf16, cycle 1: serving config
     main_mrf = [r for r in mrf_rows if r["dtype"] == "float32" and r["B"] == 8]
@@ -1054,8 +1437,9 @@ def main() -> int:
         by_path = {path: out["launches"][name] for path, out in paths.items()}
         return {"launches": sum(by_path.values()), "launches_by_path": by_path}
 
-    serve_paths = {"serving": serving, "serve_cwt": serving_cwt, "singing": singing}
-    train_paths = {"train": training, "train_cwt": training_cwt}
+    serve_paths = {"serving": serving, "serve_cwt": serving_cwt, "singing": singing,
+                   "cli": cli_run}
+    train_paths = {"train": training, "train_cwt": training_cwt, "cli": cli_run}
 
     kernels = [
         {"name": "diffnet_stack", "route": "cuda",
@@ -1100,7 +1484,7 @@ def main() -> int:
                    "serve_cwt_profile": cwt_profile, "singing": singing,
                    "sing_profile": sing_profile, "train_stack": train_rows,
                    "training": training, "train_profile": train_profile,
-                   "train_cwt": training_cwt}, f, indent=1)
+                   "train_cwt": training_cwt, "cli": cli_run}, f, indent=1)
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

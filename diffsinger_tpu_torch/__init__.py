@@ -6,6 +6,9 @@ It imports ``torch`` only. Entry points run on ``device="cuda"`` unless the
 caller asks for the CPU, and raise when no CUDA device is present.
 
 Hand-written Hopper kernels (CUDA C++ under ``csrc/``, built with ``nvcc`` at
-first use into ``build/kernels/``) replace the JAX package's Pallas kernels on
-the serving path: ``ops.diffnet_stack`` and ``ops.hifigan_mrf``.
+first use into ``build/kernels/``) replace the JAX package's Pallas kernels:
+``ops.diffnet_stack`` and ``ops.hifigan_mrf`` for serving, ``ops.diffnet_train``
+for training. ``python -m diffsinger_tpu_torch.data.binarize`` and
+``python -m diffsinger_tpu_torch.cli`` run the whole path from a corpus on
+disk to waveforms on disk.
 """

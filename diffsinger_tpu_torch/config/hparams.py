@@ -6,13 +6,20 @@ Same semantics as ``diffsinger_tpu/config/hparams.py``:
     (dicts merge recursively, everything else replaces);
   * paths starting with ``.`` resolve relative to the including file;
   * a visited set guards against include cycles;
-  * ``k=v,k2=v2`` overrides are coerced to the type of the existing value.
+  * ``k=v,k2=v2`` overrides are coerced to the type of the existing value;
+  * ``set_hparams`` resolves a run: ``work_dir = ckpt_root/exp_name``, a
+    saved ``<work_dir>/config.yaml`` overrides the chain unless ``reset`` (and
+    stands in for a missing ``--config``), the resolved config is written
+    there unless inferring, and ``infer`` / ``validate`` / ``debug`` /
+    ``exp_name`` / ``work_dir`` are set. No module-level global: the result
+    is passed by value.
 """
 
 from __future__ import annotations
 
+import argparse
 import os
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Iterable, Optional
 
 import yaml
 
@@ -80,8 +87,58 @@ def parse_overrides(hp: Dict[str, Any], hparams_str: str) -> None:
             hp[k] = type(hp[k])(v)
 
 
-def set_hparams(config: str, hparams_str: str = "") -> HParams:
-    """Resolve a config file plus ``k=v`` overrides into one ``HParams``."""
+def set_hparams(config: str = "", exp_name: str = "", hparams_str: str = "", *,
+                reset: bool = False, infer: bool = False, validate: bool = False,
+                debug: bool = False, ckpt_root: str = "checkpoints",
+                argv: Optional[Iterable[str]] = None,
+                print_hparams: bool = False) -> HParams:
+    """Resolve the configuration of a run. With neither ``config`` nor
+    ``exp_name``, the flags ``--config --exp_name --hparams --infer
+    --validate --reset --debug`` are parsed from ``argv`` (default
+    ``sys.argv``)."""
+    if config == "" and exp_name == "":
+        parser = argparse.ArgumentParser(description="diffsinger_tpu_torch")
+        parser.add_argument("--config", type=str, default="")
+        parser.add_argument("--exp_name", type=str, default="")
+        parser.add_argument("--hparams", type=str, default="")
+        parser.add_argument("--infer", action="store_true")
+        parser.add_argument("--validate", action="store_true")
+        parser.add_argument("--reset", action="store_true")
+        parser.add_argument("--debug", action="store_true")
+        args, _ = parser.parse_known_args(argv)
+        config, exp_name, hparams_str = args.config, args.exp_name, args.hparams
+        infer, validate, reset, debug = args.infer, args.validate, args.reset, args.debug
+
+    work_dir = os.path.join(ckpt_root, exp_name) if exp_name else ""
+    saved_config_path = os.path.join(work_dir, "config.yaml") if work_dir else ""
+    saved: Dict[str, Any] = {}
+    if saved_config_path and os.path.exists(saved_config_path):
+        try:
+            with open(saved_config_path) as f:
+                saved = yaml.safe_load(f) or {}
+        except Exception:
+            saved = {}
+        if config == "":
+            config = saved_config_path
+    if not config:
+        raise ValueError("either --config or a saved config in work_dir is required")
+
     hp = load_config(config)
+    if not reset:
+        _deep_override(hp, saved)
+    hp["work_dir"] = work_dir
     parse_overrides(hp, hparams_str)
+    if work_dir and (not os.path.exists(saved_config_path) or reset) and not infer:
+        os.makedirs(work_dir, exist_ok=True)
+        with open(saved_config_path, "w") as f:
+            yaml.safe_dump(dict(hp), f)
+    hp["infer"] = infer
+    hp["validate"] = validate
+    hp["debug"] = debug
+    if not hp.get("exp_name"):
+        hp["exp_name"] = exp_name
+    if print_hparams:
+        print("| HParams:")
+        for k in sorted(hp):
+            print(f"|   {k}: {hp[k]}")
     return hp

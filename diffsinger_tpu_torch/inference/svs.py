@@ -9,11 +9,12 @@ runs through the port's ``FusedSynthesizer``: conditioner, reverse diffusion,
 PitchExtractor (``DiffSingerE2EInfer``) or the model's own F0
 (``DiffSingerCascadeInfer``), and the NSF vocoder, all on the device.
 
-Loading checkpoints is not ported yet: the constructor takes a built
-``DiffSingerTask``, ``HifiGAN`` and optional ``PitchExtractor`` (seeded or
-converted weights) instead of reading ``work_dir``, ``pe_ckpt`` and
-``vocoder_ckpt``, and raises when one of those checkpoints exists on disk
-rather than ignore it.
+What the caller does not pass is built from the run's files, as the JAX
+``build_model`` / ``_build_pe`` do: the task from the newest checkpoint of
+``work_dir`` (through ``Trainer.initialize``), the vocoder through
+``HifiGAN(hp)`` (``vocoder_ckpt``) and the PitchExtractor from ``pe_ckpt``
+(``pe_enable``). An object passed for a part whose checkpoint is also on disk
+raises rather than silently leave one of the two unused.
 """
 
 from __future__ import annotations
@@ -26,6 +27,9 @@ import numpy as np
 from diffsinger_tpu_torch.data.binarize import note_to_midi
 from diffsinger_tpu_torch.data.text.pinyin import build_pinyin2ph_map
 from diffsinger_tpu_torch.inference.serve import FusedSynthesizer
+from diffsinger_tpu_torch.inference.synthesize import _maybe_load_pe
+from diffsinger_tpu_torch.inference.vocoder import HifiGAN
+from diffsinger_tpu_torch.utils.device import resolve_device
 from diffsinger_tpu_torch.utils.text_encoder import TokenTextEncoder
 
 # the opencpop models' 60-phone Chinese vocabulary (ids 3-62 after the reserved ones)
@@ -51,31 +55,43 @@ def _lazy_pinyin(text: str):
     return lazy_pinyin(text, strict=False)
 
 
-def _existing_checkpoint(hp: Dict[str, Any]) -> Optional[str]:
-    """The first of ``work_dir``, ``pe_ckpt`` and ``vocoder_ckpt`` that names a
-    file or a non-empty directory."""
-    for key in ("work_dir", "pe_ckpt", "vocoder_ckpt"):
-        path = hp.get(key) or ""
-        if path and (os.path.isfile(path) or (os.path.isdir(path) and os.listdir(path))):
-            return f"{key}={path}"
-    return None
+def _existing_checkpoint(path: str) -> bool:
+    return bool(path) and (os.path.isfile(path) or (os.path.isdir(path)
+                                                    and bool(os.listdir(path))))
 
 
 class BaseSVSInfer:
     # whether the synthesizer takes its F0 from the PitchExtractor
     uses_pe = True
 
-    def __init__(self, hp: Dict[str, Any], task, vocoder, pe=None, device="cuda"):
-        found = _existing_checkpoint(hp)
-        if found is not None:
-            raise NotImplementedError(f"{found}: loading checkpoints into the torch port "
-                                      "is not ported yet")
+    def __init__(self, hp: Dict[str, Any], task=None, vocoder=None, pe=None, device="cuda"):
+        dev = resolve_device(device)
+        for key, obj in (("work_dir", task), ("vocoder_ckpt", vocoder), ("pe_ckpt", pe)):
+            if obj is not None and _existing_checkpoint(hp.get(key) or ""):
+                raise ValueError(f"{key}={hp[key]} holds a checkpoint and an object for it "
+                                 "was passed as well: pass one of the two")
         self.hp = hp
         self.ph_encoder = TokenTextEncoder(CPOP_PHONE_LIST, replace_oov=",")
         self.pinyin2phs = build_pinyin2ph_map()
         self.spk_map = {"opencpop": 0}
+        if task is None:
+            task = self.build_model(dev)
+        if vocoder is None:
+            vocoder = HifiGAN(hp, device=dev)
+        if pe is None and self.uses_pe:
+            loaded = _maybe_load_pe(hp, device=dev)
+            pe = loaded.module if loaded is not None else None
         self.fused = FusedSynthesizer(hp, task, vocoder, pe=pe if self.uses_pe else None,
-                                      device=device)
+                                      device=dev)
+
+    def build_model(self, device):
+        """The task with the newest checkpoint of ``work_dir`` restored."""
+        from diffsinger_tpu_torch.training.tasks import DiffSingerTask
+        from diffsinger_tpu_torch.training.trainer import Trainer
+
+        task = DiffSingerTask(self.hp, vocab_size=len(self.ph_encoder), device=device)
+        Trainer(self.hp, task, device=device).initialize()
+        return task
 
     # ------------------------------------------------------------- frontend
     def preprocess_word_level_input(self, inp: Dict[str, str]):

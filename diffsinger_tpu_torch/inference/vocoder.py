@@ -1,45 +1,122 @@
-"""HiFiGAN vocoder wrapper (counterpart of diffsinger_tpu/inference/vocoder.py,
-``HifiGAN`` only, with NSF).
+"""Vocoders (counterpart of diffsinger_tpu/inference/vocoder.py): the
+registry, HiFiGAN (with NSF) and the Griffin-Lim fallback.
 
-``apply`` runs the serving forward, ``ops/hifigan_mrf.py:hifigan_mrf_apply``:
-the MRF scales of at most 128 channels go through the hand-written kernel.
-NSF is on with ``use_nsf`` (or ``use_pitch_embed`` beside an explicit
-geometry), as the JAX wrapper keys it; an NSF call given F0 draws its source
-from ``source`` (rand_ini, noise) or a ``torch.Generator``.
-Their weights are packed into the kernel layout at the first ``apply`` and
-kept; ``load_state_dict`` and ``to`` repack. Checkpoint loading, Griffin-Lim
-and the other vocoders wait for later slices; weights come from the caller
-(seeded init or ``convert/from_jax.py``), and a ``vocoder_ckpt`` that names an
-existing file or a non-empty directory raises rather than being ignored.
+``HifiGAN.apply`` runs the serving forward, ``ops/hifigan_mrf.py:
+hifigan_mrf_apply``: the MRF scales of at most 128 channels go through the
+hand-written kernel. NSF is on with ``use_nsf`` (or ``use_pitch_embed``
+beside an explicit geometry), as the JAX wrapper keys it; an NSF call given
+F0 draws its source from ``source`` (rand_ini, noise) or a
+``torch.Generator``. The MRF weights are packed into the kernel layout at the
+first ``apply`` and kept; ``load_state_dict`` and ``to`` repack.
+
+``HifiGAN(hp)`` loads ``vocoder_ckpt``: the newest ``model_ckpt_steps_*.ckpt``
+of that directory with the geometry of its ``config.yaml``, or the official
+release layout (``config.json`` + ``generator_v1``); the generator sits under
+``model_gen``, ``generator`` or ``model``, and weight-norm pairs are folded.
+``spec2wav`` / ``spec2wav_batch`` vocode by Griffin-Lim (numpy + scipy on the
+host) when neither a checkpoint nor the caller's ``load_state_dict`` gave the
+generator its weights, as the JAX wrapper does when it has no params.
 """
 
 from __future__ import annotations
 
+import json
 import os
-from typing import Any, Dict, List, Optional, Sequence, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple, Type
 
 import numpy as np
 import torch
 
+from diffsinger_tpu_torch.convert.checkpoint import (find_latest_ckpt, fold_weight_norm,
+                                                     load_torch_state_dict, sub_dict)
 from diffsinger_tpu_torch.models.hifigan import HifiGanConfig, HifiGanGenerator, draw_source
 from diffsinger_tpu_torch.ops.hifigan_mrf import hifigan_mrf_apply, pack_mrf_scales
+from diffsinger_tpu_torch.ops.mel import MelConfig, mel_filterbank
 from diffsinger_tpu_torch.utils.device import resolve_device
 
+VOCODERS: Dict[str, Type] = {}
+# vocoders of the JAX package the port does not have yet
+_NOT_PORTED = ("pwg", "melgan")
 
+
+def register_vocoder(cls):
+    VOCODERS[cls.__name__.lower()] = cls
+    return cls
+
+
+def get_vocoder_cls(hp) -> Type:
+    """Short names ('hifigan') or reference dotted paths
+    ('vocoders.hifigan.HifiGAN')."""
+    name = str(hp.get("vocoder", "hifigan")).split(".")[-1].lower()
+    if name in VOCODERS:
+        return VOCODERS[name]
+    if name in _NOT_PORTED:
+        raise NotImplementedError(f"vocoder {hp.get('vocoder')} is not ported yet "
+                                  "(ROADMAP.md Queue 1 item 7)")
+    raise KeyError(f"unknown vocoder {hp.get('vocoder')}")
+
+
+def pad_frames(t: int, hp) -> int:
+    """A frame count rounded up to ``vocoder_pad_multiple`` (1: unchanged)."""
+    mult = int(hp.get("vocoder_pad_multiple", 1))
+    return t if mult <= 1 else -(-t // mult) * mult
+
+
+def _to_tensor(a, device) -> torch.Tensor:
+    t = a if isinstance(a, torch.Tensor) else torch.from_numpy(np.array(a, np.float32))
+    return t.to(device, torch.float32)
+
+
+def _vocoder_hparams(hp: Dict[str, Any]) -> Tuple[Dict[str, Any], Optional[str]]:
+    """(the generator's hparams, the checkpoint to load) for ``vocoder_ckpt``."""
+    base_dir = hp.get("vocoder_ckpt") or ""
+    ckpt = find_latest_ckpt(base_dir) if base_dir else None
+    gen_hp: Dict[str, Any] = dict(hp)
+    if base_dir and os.path.exists(os.path.join(base_dir, "config.yaml")):
+        import yaml
+
+        with open(os.path.join(base_dir, "config.yaml")) as f:
+            gen_hp.update(yaml.safe_load(f) or {})
+    elif base_dir and ckpt is None and os.path.exists(os.path.join(base_dir, "config.json")):
+        # the official HiFi-GAN release: config.json + generator_v1 whose
+        # weights sit under 'generator'
+        with open(os.path.join(base_dir, "config.json")) as f:
+            cfg_json = json.load(f)
+        if "sampling_rate" in cfg_json:
+            cfg_json.setdefault("audio_sample_rate", cfg_json["sampling_rate"])
+        gen_hp.update(cfg_json)
+        if os.path.exists(os.path.join(base_dir, "generator_v1")):
+            ckpt = os.path.join(base_dir, "generator_v1")
+    gen_hp["use_pitch_embed"] = bool(hp.get("use_nsf", False)
+                                     or gen_hp.get("use_pitch_embed", False))
+    return gen_hp, ckpt
+
+
+@register_vocoder
 class HifiGAN:
     def __init__(self, hp: Dict[str, Any], device="cuda"):
-        ckpt = hp.get("vocoder_ckpt") or ""
-        if ckpt and (os.path.isfile(ckpt) or (os.path.isdir(ckpt) and os.listdir(ckpt))):
-            raise NotImplementedError(f"vocoder_ckpt={ckpt}: loading a vocoder checkpoint "
-                                      "into the torch port is not ported yet")
         self.device = resolve_device(device)
-        self.cfg = HifiGanConfig.from_hparams(hp)
-        self.model = HifiGanGenerator(self.cfg).to(self.device).eval()
+        self.hp = hp
+        gen_hp, ckpt = _vocoder_hparams(hp)
+        self.cfg = HifiGanConfig.from_hparams(gen_hp)
+        self.model = HifiGanGenerator(self.cfg).eval()
         self._packed = None
+        self.has_weights = False
+        if ckpt is not None:
+            sd = load_torch_state_dict(ckpt, prefix="")
+            for key in ("model_gen", "generator", "model"):
+                inner = sub_dict(sd, key)
+                if inner:
+                    sd = inner
+                    break
+            self.load_state_dict(fold_weight_norm(sd))
+            print(f"| loaded hifigan vocoder from {ckpt}")
+        self.model.to(self.device)
 
     def load_state_dict(self, state_dict, strict: bool = True):
         out = self.model.load_state_dict(state_dict, strict=strict)
         self._packed = None
+        self.has_weights = True
         return out
 
     def to(self, device) -> "HifiGAN":
@@ -58,7 +135,7 @@ class HifiGAN:
         ``generator`` (a generator seeded 0 when that is None too)."""
         if self._packed is None:
             self._packed = pack_mrf_scales(self.model)
-        mel = mel.to(self.device, torch.float32)
+        mel = _to_tensor(mel, self.device)
         if not (self.cfg.use_pitch_embed and f0 is not None):
             return hifigan_mrf_apply(self.model, mel, self._packed)
         b, t = mel.shape[:2]
@@ -66,18 +143,73 @@ class HifiGAN:
             if generator is None:
                 generator = torch.Generator(device=self.device).manual_seed(0)
             source = draw_source(b, t * self.cfg.total_upsample, self.device, generator)
-        rand_ini, noise = (a.to(self.device, torch.float32) if isinstance(a, torch.Tensor)
-                           else torch.from_numpy(np.array(a, np.float32)).to(self.device)
-                           for a in source)
-        return hifigan_mrf_apply(self.model, mel, self._packed,
-                                 f0=f0.to(self.device, torch.float32),
+        rand_ini, noise = (_to_tensor(a, self.device) for a in source)
+        return hifigan_mrf_apply(self.model, mel, self._packed, f0=_to_tensor(f0, self.device),
                                  rand_ini=rand_ini, noise=noise)
 
-    def spec2wav_batch(self, mels, lengths: Sequence[int]) -> List[np.ndarray]:
-        """Batched vocoding of padded mels [B, T, M]; returns the waveforms
+    def spec2wav(self, mel, f0=None, generator: Optional[torch.Generator] = None,
+                 source=None) -> np.ndarray:
+        """mel [T, M], f0 [T] -> wav [T * hop]. The mel is padded to
+        ``vocoder_pad_multiple`` frames with its minimum and F0 with zeros
+        (unvoiced); NSF ``source`` draws then cover the padded length."""
+        mel = np.asarray(mel.cpu() if isinstance(mel, torch.Tensor) else mel, np.float32)
+        if not self.has_weights:
+            return GriffinLim(self.hp).spec2wav(mel)
+        t = int(mel.shape[0])
+        t_pad = pad_frames(t, self.hp)
+        if t_pad != t:
+            mel = np.pad(mel, ((0, t_pad - t), (0, 0)), constant_values=float(mel.min()))
+            if f0 is not None:
+                f0 = np.pad(np.asarray(f0.cpu() if isinstance(f0, torch.Tensor) else f0,
+                                       np.float32), (0, t_pad - t))
+        f0_b = None if f0 is None else _to_tensor(f0, self.device)[None]
+        wav = self.apply(mel[None], f0_b, generator=generator, source=source)
+        return wav[0, : t * self.cfg.total_upsample].cpu().numpy()
+
+    def spec2wav_batch(self, mels, lengths: Sequence[int], f0s=None,
+                       generator: Optional[torch.Generator] = None,
+                       source=None) -> List[np.ndarray]:
+        """Batched vocoding of padded mels [B, T, M] (with NSF, F0 [B, T] and
+        optional source draws for B x T * hop samples); returns the waveforms
         trimmed to ``lengths[i] * hop`` samples."""
-        if not isinstance(mels, torch.Tensor):
-            mels = torch.as_tensor(np.asarray(mels))
-        wav = self.apply(mels).cpu().numpy()
+        if not self.has_weights:
+            gl = GriffinLim(self.hp)
+            return [gl.spec2wav(np.asarray(m)[:n]) for m, n in zip(mels, lengths)]
+        wav = self.apply(mels, f0s, generator=generator, source=source).cpu().numpy()
         hop = self.cfg.total_upsample
         return [wav[i, : int(n) * hop] for i, n in enumerate(lengths)]
+
+
+@register_vocoder
+class GriffinLim:
+    """Phase-retrieval vocoder that needs no checkpoint (numpy + scipy on the
+    host; ``device`` is accepted for the registry's call and not used)."""
+
+    def __init__(self, hp, n_iter: int = 32, device=None):
+        self.cfg = MelConfig.from_hparams(hp)
+        self.n_iter = n_iter
+
+    def spec2wav(self, mel, **kwargs) -> np.ndarray:
+        from scipy.signal import istft, stft
+
+        cfg = self.cfg
+        mel = np.asarray(mel)
+        min_frames = cfg.win_length // cfg.hop_size + 2
+        if mel.shape[0] < min_frames:  # too short for an STFT frame: pad
+            mel = np.pad(mel, ((0, min_frames - mel.shape[0]), (0, 0)),
+                         constant_values=mel.min() if mel.size else -5.0)
+        basis = mel_filterbank(cfg.sample_rate, cfg.n_fft, cfg.n_mels, cfg.fmin, cfg.fmax)
+        mag = np.maximum(1e-10, np.linalg.pinv(basis) @ (10.0 ** mel).T)  # [F, T]
+        angles = np.exp(2j * np.pi * np.random.RandomState(0).rand(*mag.shape))
+        nper, nov = cfg.win_length, cfg.win_length - cfg.hop_size
+        for _ in range(self.n_iter):
+            _, wav = istft(mag * angles, nperseg=nper, noverlap=nov, window="hann",
+                           input_onesided=True)
+            _, _, spec = stft(wav, nperseg=nper, noverlap=nov, window="hann", nfft=cfg.n_fft)
+            spec = spec[:, : mag.shape[1]]
+            if spec.shape[1] < mag.shape[1]:
+                spec = np.pad(spec, ((0, 0), (0, mag.shape[1] - spec.shape[1])))
+            angles = np.exp(1j * np.angle(spec))
+        _, wav = istft(mag * angles, nperseg=nper, noverlap=nov, window="hann",
+                       input_onesided=True)
+        return wav.astype(np.float32)

@@ -1,5 +1,6 @@
 """Training runtime (counterpart of diffsinger_tpu/training/trainer.py): the
-optimizer and ``Trainer.train_step`` on one device.
+optimizer, ``Trainer.train_step``, validation, checkpoints and the ``fit``
+loop on one device.
 
 One step: the task's loss, gradients of the trainable parameters only
 (frozen ones have ``requires_grad=False``, as ``partition_params`` keeps them
@@ -9,23 +10,39 @@ over ``accumulate_grad_batches`` mini-steps, clipped by
 ``g * min(1, max_norm / norm)`` and applied by ``torch.optim.AdamW`` at the
 schedule's rate for the number of updates made so far.
 
-Not ported: checkpoints and warm starts from an existing ``fs2_ckpt``,
-validation and ``fit``, a per-epoch ``accumulate_grad_batches`` dict, the
-flat-vector optimizer and the ``lax.scan`` multi-step (both worked around TPU
-dispatch) and the device mesh.
+Checkpoints use upstream DiffSinger's own layout (the JAX package saves its
+runs with Orbax; this is the torch counterpart):
+``work_dir/model_ckpt_steps_{step}.ckpt`` holds ``state_dict: {"model":
+<the task's state_dict>}``, ``optimizer_states``, ``global_step`` and here
+also ``num_updates``, the trainer generator's state and ``best_val_loss``.
+The newest ``num_ckpt_keep`` are kept. One loader reads the port's own runs
+(a full resume) and released checkpoints (params and step, fresh moments).
+
+``fit`` runs one optimizer step per call. The JAX package's
+``train_steps_per_call`` (a ``lax.scan`` over steps), ``cond_precompute``
+and ``use_pallas_*`` switches work around TPU dispatch and are not read
+here: the updates are the same. Not ported: a per-epoch
+``accumulate_grad_batches`` dict, the flat-vector optimizer and the device
+mesh.
 """
 
 from __future__ import annotations
 
-import glob
 import os
-from typing import Any, Dict, List, Optional, Sequence, Tuple
+import shutil
+import time
+from typing import Any, Callable, Dict, Iterable, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from diffsinger_tpu_torch.convert.checkpoint import (ckpt_step, find_latest_ckpt,
+                                                     load_torch_state_dict, load_warm_start,
+                                                     merge_state_dict, split_keys,
+                                                     torch_load)
 from diffsinger_tpu_torch.training.schedules import Schedule, build_lr_schedule
 from diffsinger_tpu_torch.utils.device import resolve_device
+from diffsinger_tpu_torch.utils.misc import MetricsDict
 
 ARRAY_KEYS_EXCLUDE = ("item_name", "text", "nsamples", "id")
 
@@ -87,42 +104,52 @@ def build_optimizer(hp: Dict[str, Any], params: List[torch.nn.Parameter]) -> Opt
                      int(accum))
 
 
-class Trainer:
-    """Optimizer steps of a task on one device (the card unless the caller
-    names another)."""
+def _threshold(v) -> Optional[int]:
+    """An eval batching limit: None for absent, 0 or negative."""
+    return None if not v or v < 0 else int(v)
 
-    def __init__(self, hp: Dict[str, Any], task, device="cuda"):
+
+class Trainer:
+    """Optimizer steps, validation and checkpoints of a task on one device
+    (the card unless the caller names another). ``work_dir`` (default
+    ``hp["work_dir"]``) holds the checkpoints; without one nothing is
+    restored or saved."""
+
+    def __init__(self, hp: Dict[str, Any], task, device="cuda",
+                 work_dir: Optional[str] = None):
         self.device = resolve_device(device)
         if task.device != self.device:
             raise ValueError(f"the task is on {task.device}, the trainer on {self.device}")
         self.hp = dict(hp)
         self.task = task
+        self.work_dir = work_dir or self.hp.get("work_dir") or None
         self.global_step = 0
         self.params: List[torch.nn.Parameter] = []
         self.optimizer: Optional[Optimizer] = None
         self.generator = torch.Generator(device=self.device).manual_seed(
             int(self.hp.get("seed", 1234)))
+        self.best_val_loss = float("inf")
+        self.plotter: Optional[Callable] = None  # plotter(trainer, batch, batch_idx)
+        self._writer = None
+        self._writer_tried = False
+        # (step, "train" or "val", scalars) of every log line and validation of fit
+        self.history: List[Tuple[int, str, Dict[str, float]]] = []
 
     def initialize(self) -> None:
+        """Warm start, optimizer over the trainable parameters, then the
+        newest checkpoint in ``work_dir``."""
         self.load_warm_start()
         self.params = [p for _, p in self.task.set_trainable()]
         self.optimizer = build_optimizer(self.hp, self.params)
+        self.restore()
         for top in ("fs2", "denoise_fn"):
             n = sum(p.numel() for p in getattr(self.task, top).parameters())
             print(f"| {top} params: {n / 1e6:.3f}M")
 
     def load_warm_start(self) -> None:
-        """``fs2_ckpt`` warm start: a missing checkpoint trains from scratch
-        with a warning, as the JAX package does."""
-        fs2_ckpt = self.hp.get("fs2_ckpt") or ""
-        if not fs2_ckpt:
-            return
-        if not (os.path.isfile(fs2_ckpt)
-                or glob.glob(os.path.join(fs2_ckpt, "model_ckpt_steps_*.ckpt"))):
-            print(f"| warning: fs2_ckpt {fs2_ckpt} not found; training from scratch")
-            return
-        raise NotImplementedError(f"warm start from {fs2_ckpt}: loading a torch "
-                                  "checkpoint is not ported yet")
+        """``fs2_ckpt`` into the task's FS2 (``convert/checkpoint.py``); a
+        missing checkpoint trains from scratch with a warning."""
+        load_warm_start(self.hp, self.task)
 
     def prepare_batch(self, batch: Dict[str, Any]) -> Dict[str, torch.Tensor]:
         """Array entries to the device: pinned host memory and a non-blocking
@@ -136,6 +163,22 @@ class Trainer:
                 t = t.pin_memory()
             out[k] = t.to(self.device, non_blocking=True)
         return out
+
+    def prefetch(self, batches: Iterable[Dict[str, Any]], size: int = 2
+                 ) -> Iterator[Dict[str, torch.Tensor]]:
+        """``size`` batches of device lookahead: batch k+1's copy overlaps step k."""
+        queue: List[Dict[str, torch.Tensor]] = []
+        for b in batches:
+            queue.append(self.prepare_batch(b))
+            if len(queue) >= size:
+                yield queue.pop(0)
+        yield from queue
+
+    def _on_device(self, batch: Dict[str, Any]) -> Dict[str, Any]:
+        if all(isinstance(v, torch.Tensor) and v.device.type == self.device.type
+               for v in batch.values() if isinstance(v, (np.ndarray, torch.Tensor))):
+            return batch
+        return self.prepare_batch(batch)
 
     def loss_and_grads(self, batch: Dict[str, Any], t: Optional[torch.Tensor] = None,
                        noise: Optional[torch.Tensor] = None,
@@ -168,11 +211,242 @@ class Trainer:
         mini-steps) an update. Returns the losses as device scalars."""
         if self.optimizer is None:
             raise RuntimeError("call Trainer.initialize() first")
-        if not all(isinstance(v, torch.Tensor) and v.device.type == self.device.type
-                   for k, v in batch.items() if isinstance(v, (np.ndarray, torch.Tensor))):
-            batch = self.prepare_batch(batch)
-        losses, grads = self.loss_and_grads(batch, t=t, noise=noise, generator=generator,
+        losses, grads = self.loss_and_grads(self._on_device(batch), t=t, noise=noise,
+                                            generator=generator,
                                             deterministic=deterministic)
         self.optimizer.step(grads, losses["grad_norm"])
         self.global_step += 1
         return losses
+
+    # ------------------------------------------------------------ validation
+    @torch.no_grad()
+    def validate(self, batches: Iterable[Dict[str, Any]], max_batches: Optional[int] = None,
+                 plotter: Optional[Callable] = None,
+                 draws: Optional[Callable[[int, Dict[str, Any]], Tuple[torch.Tensor,
+                                                                        torch.Tensor]]] = None
+                 ) -> Dict[str, float]:
+        """Loss terms averaged over the batches, each weighted by its
+        ``nsamples``, with dropout off. The diffusion step and noise of every
+        batch come from a generator seeded 0 (the JAX package's
+        ``PRNGKey(0)`` for each batch), or from ``draws(batch_idx, batch)`` ->
+        (t, noise). ``plotter(trainer, batch, batch_idx)`` runs for the first
+        ``num_valid_plots`` batches."""
+        num_plots = int(self.hp.get("num_valid_plots", 0)) if plotter else 0
+        metrics = MetricsDict()
+        gen = torch.Generator(device=self.device)
+        for i, batch in enumerate(batches):
+            if max_batches is not None and i >= max_batches:
+                break
+            arrays = self.prepare_batch(batch)
+            n = int(batch.get("nsamples", len(next(iter(arrays.values())))))
+            t = noise = None
+            if draws is not None:
+                t, noise = draws(i, batch)
+            gen.manual_seed(0)
+            total, losses = self.task.train_loss(arrays, t=t, noise=noise, generator=gen,
+                                                 deterministic=True)
+            scalars = {k: float(v) for k, v in losses.items()}
+            scalars["total_loss"] = float(total)
+            metrics.update(scalars, n)
+            if i < num_plots:
+                try:
+                    plotter(self, batch, i)
+                except Exception as e:  # plotting must never fail validation
+                    print(f"| validation plot {i} failed: {e}")
+        return metrics.averages()
+
+    # ------------------------------------------------------------ checkpoints
+    def ckpt_path(self, step: int) -> str:
+        return os.path.join(self.work_dir, f"model_ckpt_steps_{step}.ckpt")
+
+    def save_checkpoint(self, val_loss: Optional[float] = None) -> str:
+        """Write ``model_ckpt_steps_{global_step}.ckpt`` (atomically: a
+        temporary file renamed), drop all but the newest ``num_ckpt_keep``
+        and, for a new best ``val_loss``, write ``best_valid.npy``."""
+        if not self.work_dir:
+            raise ValueError("the trainer has no work_dir to save checkpoints in")
+        os.makedirs(self.work_dir, exist_ok=True)
+        if val_loss is not None and val_loss < self.best_val_loss:
+            self.best_val_loss = val_loss
+            np.save(os.path.join(self.work_dir, "best_valid.npy"), np.asarray([val_loss]))
+        opt = self.optimizer
+        ckpt = {"state_dict": {"model": {k: v.detach().cpu()
+                                         for k, v in self.task.state_dict().items()}},
+                "optimizer_states": [opt.adamw.state_dict()] if opt is not None else [],
+                "num_updates": opt.num_updates if opt is not None else 0,
+                "global_step": self.global_step,
+                "generator_state": self.generator.get_state(),
+                "best_val_loss": self.best_val_loss}
+        path = self.ckpt_path(self.global_step)
+        torch.save(ckpt, path + ".tmp")
+        os.replace(path + ".tmp", path)
+        keep = int(self.hp.get("num_ckpt_keep", 3))
+        old = sorted((p for p in os.listdir(self.work_dir)
+                      if p.startswith("model_ckpt_steps_") and p.endswith(".ckpt")),
+                     key=ckpt_step, reverse=True)[keep:]
+        for p in old:
+            os.remove(os.path.join(self.work_dir, p))
+        return path
+
+    def restore(self) -> bool:
+        """Load the newest ``model_ckpt_steps_*.ckpt`` of ``work_dir``: params
+        and step, plus the AdamW moments and the generator when the file
+        has them (a full resume), else fresh moments. A checkpoint that gives
+        this task no parameter is refused and ``global_step`` stays; one
+        whose keys or shapes differ from the task's raises."""
+        path = find_latest_ckpt(self.work_dir) if self.work_dir and os.path.isdir(
+            self.work_dir) else None
+        if path is None:
+            return False
+        raw = torch_load(path)
+        sd = load_torch_state_dict(raw)
+        matched, mismatched, missing, unexpected = split_keys(self.task, sd)
+        if not matched:
+            print(f"| torch checkpoint {path} contributed no parameters for this task; "
+                  "ignoring")
+            return False
+        if mismatched or missing or unexpected:
+            raise RuntimeError(
+                f"checkpoint {path} does not match the model: missing={missing[:5]} "
+                f"unexpected={unexpected[:5]} shape mismatch={mismatched[:5]}")
+        merge_state_dict(self.task, sd)
+        step = raw.get("global_step")
+        self.global_step = int(ckpt_step(path) if step is None else step)
+        resumed = False
+        if self.optimizer is not None and raw.get("optimizer_states"):
+            try:
+                self.optimizer.adamw.load_state_dict(raw["optimizer_states"][0])
+                self.optimizer.num_updates = int(raw.get("num_updates", self.global_step))
+                resumed = True
+            except (ValueError, KeyError) as e:
+                print(f"| WARNING: the optimizer state in {path} does not fit this "
+                      f"optimizer ({e}); moments re-initialized")
+        if raw.get("generator_state") is not None:
+            self.generator.set_state(raw["generator_state"])
+        best = raw.get("best_val_loss")
+        best_fn = os.path.join(self.work_dir, "best_valid.npy")
+        if best is None and os.path.exists(best_fn):
+            best = float(np.load(best_fn)[0])
+        if best is not None:
+            self.best_val_loss = float(best)
+        if resumed:
+            print(f"| restored checkpoint at step {self.global_step} from {path}")
+        else:
+            print(f"| loaded torch checkpoint {path} (step {self.global_step}); "
+                  "optimizer moments re-initialized")
+        return True
+
+    # ------------------------------------------------------------ logging
+    @property
+    def writer(self):
+        """A TensorBoard writer under ``work_dir/tb_logs``, or None when
+        ``torch.utils.tensorboard`` does not import (scalars are then only
+        printed) or there is no work_dir."""
+        if not self._writer_tried and self.work_dir:
+            self._writer_tried = True
+            try:
+                from torch.utils.tensorboard import SummaryWriter
+
+                self._writer = SummaryWriter(os.path.join(self.work_dir, "tb_logs"))
+            except Exception as e:
+                print(f"| no TensorBoard writer ({type(e).__name__}); scalars are printed")
+        return self._writer
+
+    def log_scalars(self, scalars: Dict[str, float], prefix: str = "train") -> None:
+        w = self.writer
+        if w is None:
+            return
+        for k, v in scalars.items():
+            w.add_scalar(f"{prefix}/{k}", float(v), self.global_step)
+
+    def snapshot_code(self) -> None:
+        """Copy the package into ``work_dir/codes/<timestamp>/`` once."""
+        if not self.work_dir or os.path.exists(os.path.join(self.work_dir, "codes")):
+            return
+        src = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+        dst = os.path.join(self.work_dir, "codes", time.strftime("%Y%m%d%H%M%S"),
+                           os.path.basename(src))
+        shutil.copytree(src, dst, ignore=shutil.ignore_patterns("__pycache__", "*.pyc"))
+
+    # ------------------------------------------------------------ loop
+    def fit(self, train_dataset, valid_dataset=None) -> None:
+        """Epochs to ``max_updates``: sanity validation at step 0, a log line
+        every ``log_interval`` steps, validation and a checkpoint at every
+        ``val_check_interval`` crossing, a final checkpoint. Epoch ``e``
+        shuffles its batches with seed ``e``."""
+        hp = self.hp
+        max_updates = int(hp.get("max_updates", 160000))
+        val_interval = int(hp.get("val_check_interval", 2000))
+        log_interval = int(hp.get("log_interval", 100))
+        sanity_steps = int(hp.get("num_sanity_val_steps", 5))
+        if self.optimizer is None:
+            self.initialize()
+        self.snapshot_code()
+        ev_tokens = _threshold(hp.get("max_eval_tokens", -1))
+        ev_sents = _threshold(hp.get("max_eval_sentences", -1))
+
+        def valid_batches():
+            return valid_dataset.iter_batches(max_tokens=ev_tokens, max_sentences=ev_sents)
+
+        if valid_dataset is not None and sanity_steps > 0 and self.global_step == 0:
+            self.validate(valid_batches(), max_batches=sanity_steps)
+
+        prof = None
+        if hp.get("profile_dir"):  # a torch.profiler trace of the first 10 steps
+            from torch.profiler import ProfilerActivity, profile
+
+            acts = [ProfilerActivity.CPU] + (
+                [ProfilerActivity.CUDA] if self.device.type == "cuda" else [])
+            prof = profile(activities=acts)
+            prof.start()
+        schedule = build_lr_schedule(hp)
+        t0, last_log_step = time.time(), self.global_step
+
+        def crossed(prev: int, every: int) -> bool:
+            return self.global_step // every > prev // every
+
+        epoch = 0
+        while self.global_step < max_updates:
+            n_batches = 0
+            for batch in self.prefetch(train_dataset.iter_batches(shuffle_batches=True,
+                                                                  seed=epoch)):
+                n_batches += 1
+                prev = self.global_step
+                losses = self.train_step(batch)
+                if crossed(prev, log_interval):
+                    scalars = {k: float(v) for k, v in losses.items()}
+                    scalars["lr"] = float(schedule(self.global_step))
+                    scalars["steps_per_sec"] = (self.global_step - last_log_step) / max(
+                        time.time() - t0, 1e-9)
+                    t0, last_log_step = time.time(), self.global_step
+                    self.log_scalars(scalars)
+                    self.history.append((self.global_step, "train", scalars))
+                    print(f"| step {self.global_step} " + " ".join(
+                        f"{k}={v:.4f}" for k, v in scalars.items()), flush=True)
+                if crossed(prev, val_interval) and self.global_step > 0:
+                    val = None
+                    if valid_dataset is not None:
+                        val = self.validate(valid_batches(), plotter=self.plotter)
+                        self.log_scalars(val, prefix="val")
+                        self.history.append((self.global_step, "val", val))
+                        print(f"| validation at step {self.global_step} " + " ".join(
+                            f"{k}={v:.4f}" for k, v in val.items()), flush=True)
+                    self.save_checkpoint(None if val is None else val.get("total_loss"))
+                if prof is not None and self.global_step >= 10:
+                    prof.stop()
+                    prof.export_chrome_trace(self._trace_path())
+                    prof = None
+                if self.global_step >= max_updates:
+                    break
+            if n_batches == 0:
+                raise ValueError("empty training set")
+            epoch += 1
+        if prof is not None:
+            prof.stop()
+            prof.export_chrome_trace(self._trace_path())
+        self.save_checkpoint()
+
+    def _trace_path(self) -> str:
+        d = self.hp["profile_dir"]
+        os.makedirs(d, exist_ok=True)
+        return os.path.join(d, f"trace_step{self.global_step}.json")

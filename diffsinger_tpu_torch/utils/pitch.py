@@ -1,7 +1,9 @@
-"""F0 codecs for ``pitch_norm: log`` (counterpart of diffsinger_tpu/utils/pitch.py).
+"""F0 codecs (counterpart of diffsinger_tpu/utils/pitch.py).
 
 Same float32 arithmetic as the JAX functions: mel-scale coarse quantization
-into 256 bins, log2 normalization and its inverse with uv / padding zeroing.
+into 256 bins, log2 normalization and its inverse with uv / padding zeroing;
+and the numpy helpers of the data pipeline (coarse bins, normalized and
+interpolated F0).
 """
 
 from __future__ import annotations
@@ -53,3 +55,35 @@ def denorm_f0(f0: torch.Tensor, uv, *, pitch_norm: str = "log",
     if pitch_padding is not None:
         f0 = torch.where(pitch_padding, torch.zeros_like(f0), f0)
     return f0
+
+
+def f0_to_coarse_np(f0: np.ndarray) -> np.ndarray:
+    """NumPy twin of :func:`f0_to_coarse` for the data pipeline (``rint``
+    like the reference numpy path); ``f0`` is modified in place."""
+    f0_mel = 1127 * np.log(1 + f0 / 700)
+    pos = f0_mel > 0
+    f0_mel[pos] = (f0_mel[pos] - F0_MEL_MIN) * (F0_BIN - 2) / (F0_MEL_MAX - F0_MEL_MIN) + 1
+    f0_mel = np.clip(f0_mel, 1, F0_BIN - 1)
+    coarse = np.rint(f0_mel).astype(np.int64)
+    assert coarse.max() <= 255 and coarse.min() >= 1, (coarse.max(), coarse.min())
+    return coarse
+
+
+def norm_interp_f0_np(f0: np.ndarray, *, pitch_norm: str = "log", f0_mean: float = 0.0,
+                      f0_std: float = 1.0, use_uv: bool = True):
+    """Host-side: mark unvoiced frames, normalize, and linearly interpolate
+    across unvoiced gaps. Returns (f0_norm, uv), both float32."""
+    f0 = np.asarray(f0, dtype=np.float32).copy()
+    uv = f0 == 0
+    if pitch_norm == "standard":
+        f0 = (f0 - f0_mean) / f0_std
+    elif pitch_norm == "log":
+        with np.errstate(divide="ignore"):
+            f0 = np.log2(np.maximum(f0, 1e-8))
+    if use_uv:
+        f0[uv] = 0
+    if uv.all():
+        f0[uv] = 0
+    elif uv.any():
+        f0[uv] = np.interp(np.where(uv)[0], np.where(~uv)[0], f0[~uv])
+    return f0.astype(np.float32), uv.astype(np.float32)

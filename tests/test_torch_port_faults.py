@@ -1,16 +1,20 @@
-"""Three places where the port once differed from the JAX package without a
-word, each held to the JAX behaviour:
+"""Places where the port once differed from the JAX package, each held to the
+JAX behaviour:
 
   * hparams without ``pitch_type`` or ``use_pitch_embed``: JAX builds a
     phone-level pitch predictor (``pitch_type`` defaults to ``ph``) and, with
     ``use_pitch_embed`` absent, trains no pitch loss;
   * ``offline_boost``: the shallow boost starts from the batch's
     ``fs2_mels`` and the FS2 decoder is skipped;
-  * ``vocoder_ckpt`` naming an existing checkpoint: the port cannot load it
-    yet, so it raises instead of serving seeded weights.
+  * ``vocoder_ckpt`` naming an existing checkpoint: the port once raised; it
+    now loads it, and gives JAX's waveform on the same weights;
+  * ``spec2wav_batch`` with an NSF vocoder: the port once took no F0, so the
+    batch was vocoded without its source; it now takes ``f0s`` and gives
+    JAX's waveform on the same weights and source draws.
 """
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -18,8 +22,10 @@ import torch
 import __graft_entry__ as g
 from diffsinger_tpu.models import fs2 as jfs2
 from diffsinger_tpu.training.tasks import DiffSingerTask as JTask
-from diffsinger_tpu_torch.convert.from_jax import task_state_dict
+from diffsinger_tpu.inference.vocoder import HifiGAN as JHifiGAN
+from diffsinger_tpu_torch.convert.from_jax import hifigan_state_dict, task_state_dict
 from diffsinger_tpu_torch.inference.vocoder import HifiGAN
+from diffsinger_tpu_torch.tools.fixtures import write_hifigan_dir
 from diffsinger_tpu_torch.models import fs2 as tfs2
 from diffsinger_tpu_torch.training.tasks import DiffSingerTask
 
@@ -83,15 +89,76 @@ def test_offline_boost_starts_from_the_batch_mel():
     assert (own["mel_out"] - out["mel_out"]).abs().max() > 1e-3
 
 
+VOC_GEOM = {"resblock": "1", "upsample_rates": [4, 2, 2], "upsample_kernel_sizes": [8, 4, 4],
+            "upsample_initial_channel": 32, "resblock_kernel_sizes": [3, 7, 11],
+            "resblock_dilation_sizes": [[1, 3, 5], [1, 3, 5], [1, 3, 5]],
+            "audio_sample_rate": 24000, "audio_num_mel_bins": 16, "hop_size": 16}
+
+
+def _jax_vocoder(hp, key=0):
+    """The JAX wrapper with seeded random weights (its module backend, whose
+    key draws the NSF source as ``jax_source_draws`` does)."""
+    jvoc = JHifiGAN({**hp, "vocoder_backend": "module"})
+    rng = np.random.RandomState(key)
+    mel = np.zeros((1, 8, 16), np.float32)
+    args = (mel, np.full((1, 8), 200.0, np.float32), jax.random.PRNGKey(1)) \
+        if jvoc.cfg.use_pitch_embed else (mel,)
+    params = jvoc.model.init(jax.random.PRNGKey(0), *args)["params"]
+    jvoc.params = jax.tree_util.tree_map(
+        lambda a: jnp.asarray(rng.randn(*a.shape).astype(np.float32) * 0.05), params)
+    return jvoc
+
+
+def jax_source_draws(rng, b, t_wav):
+    rng_phase, rng_noise = jax.random.split(rng)
+    rand_ini = jax.random.uniform(rng_phase, (b, 1, 9)).at[:, :, 0].set(0.0)
+    return np.asarray(rand_ini), np.asarray(jax.random.normal(rng_noise, (b, t_wav, 9)))
+
+
 def test_existing_vocoder_checkpoint_raises(tmp_path):
-    hp = {"vocoder": "hifigan", "audio_num_mel_bins": 80}
-    ckpt = tmp_path / "model_ckpt_steps_1000.ckpt"
-    ckpt.write_bytes(b"not loaded")
-    with pytest.raises(NotImplementedError, match="vocoder_ckpt"):
-        HifiGAN({**hp, "vocoder_ckpt": str(ckpt)}, device="cpu")
-    with pytest.raises(NotImplementedError, match="vocoder_ckpt"):
-        HifiGAN({**hp, "vocoder_ckpt": str(tmp_path)}, device="cpu")  # non-empty directory
-    # an absent path, or an empty directory, still builds seeded weights
+    """An existing vocoder checkpoint is loaded, not ignored: a HiFiGAN
+    directory (config.yaml, weight-norm pairs under model_gen) gives JAX's
+    waveform on the same weights; a file that is no checkpoint raises; an
+    absent path or an empty directory leaves the Griffin-Lim fallback."""
+    hp = {**VOC_GEOM, "vocoder": "hifigan", "use_nsf": False, "use_pitch_embed": False}
+    jvoc = _jax_vocoder(hp)
+    write_hifigan_dir(str(tmp_path / "voc"), hifigan_state_dict(jvoc.params), hp)
+    want_voc = JHifiGAN({**hp, "vocoder_ckpt": str(tmp_path / "voc")})
+    got_voc = HifiGAN({**hp, "vocoder_ckpt": str(tmp_path / "voc")}, device="cpu")
+    mel = (np.random.RandomState(1).randn(20, 16) * 0.5 - 3).astype(np.float32)
+    want = want_voc.spec2wav(mel)
+    got = got_voc.spec2wav(mel)
+    assert got_voc.has_weights and got.shape == want.shape == (20 * 16,)
+    np.testing.assert_allclose(got, want, atol=5e-5)
+    bad = tmp_path / "bad" / "model_ckpt_steps_1000.ckpt"
+    bad.parent.mkdir()
+    bad.write_bytes(b"not loaded")
+    with pytest.raises(Exception):
+        HifiGAN({**hp, "vocoder_ckpt": str(bad.parent)}, device="cpu")
     (tmp_path / "empty").mkdir()
     for path in (str(tmp_path / "missing"), str(tmp_path / "empty"), ""):
-        assert HifiGAN({**hp, "vocoder_ckpt": path}, device="cpu").model is not None
+        voc = HifiGAN({**hp, "vocoder_ckpt": path}, device="cpu")
+        assert not voc.has_weights and voc.model is not None
+
+
+def test_nsf_spec2wav_batch_takes_f0():
+    """An NSF vocoder vocodes a batch from its F0: the same waveforms as JAX's
+    ``spec2wav_batch`` with ``f0s`` on the same weights and source draws, and
+    not the waveforms without a source."""
+    hp = {**VOC_GEOM, "vocoder": "hifigan", "use_nsf": True}
+    jvoc = _jax_vocoder(hp, key=2)
+    voc = HifiGAN(hp, device="cpu")
+    voc.load_state_dict(hifigan_state_dict(jvoc.params), strict=True)
+    rng = np.random.RandomState(3)
+    mels = (rng.randn(2, 24, 16) * 0.5 - 3).astype(np.float32)
+    f0s = rng.uniform(150, 500, size=(2, 24)).astype(np.float32)
+    f0s[0, 5:9] = 0.0
+    lengths = [24, 19]
+    key = jax.random.PRNGKey(7)
+    want = jvoc.spec2wav_batch(mels, lengths, f0s=f0s, rng=key)
+    got = voc.spec2wav_batch(mels, lengths, f0s=f0s, source=jax_source_draws(key, 2, 24 * 16))
+    no_source = voc.spec2wav_batch(mels, lengths)
+    for g, w, n, length in zip(got, want, no_source, lengths):
+        assert g.shape == w.shape == (length * 16,)
+        np.testing.assert_allclose(g, w, atol=5e-5)
+        assert np.abs(g - n).max() > 1e-3

@@ -8,7 +8,9 @@ import numpy as np
 import pytest
 import torch
 
+from diffsinger_tpu_torch import cli
 from diffsinger_tpu_torch.inference.serve import FusedSynthesizer
+from diffsinger_tpu_torch.inference.synthesize import _maybe_load_pe, synthesize_dataset
 from diffsinger_tpu_torch.inference.vocoder import HifiGAN
 from diffsinger_tpu_torch.ops import diffnet_stack as ds
 from diffsinger_tpu_torch.ops import hifigan_mrf as mrf
@@ -49,7 +51,16 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
             "diffsinger_tpu_torch/utils/text_encoder.py",
             "diffsinger_tpu_torch/data/binarize.py",
             "diffsinger_tpu_torch/data/text/pinyin.py",
-            "diffsinger_tpu_torch/data/text/hanzi_pinyin.py"} <= rel
+            "diffsinger_tpu_torch/data/text/hanzi_pinyin.py",
+            "diffsinger_tpu_torch/cli.py", "diffsinger_tpu_torch/config/hparams.py",
+            "diffsinger_tpu_torch/convert/checkpoint.py",
+            "diffsinger_tpu_torch/data/audio_norm.py", "diffsinger_tpu_torch/data/dataset.py",
+            "diffsinger_tpu_torch/data/indexed_dataset.py",
+            "diffsinger_tpu_torch/data/pitch_extract.py",
+            "diffsinger_tpu_torch/data/textgrid.py", "diffsinger_tpu_torch/ops/mel.py",
+            "diffsinger_tpu_torch/inference/synthesize.py",
+            "diffsinger_tpu_torch/tools/fixtures.py", "diffsinger_tpu_torch/utils/misc.py",
+            "diffsinger_tpu_torch/utils/pitch.py"} <= rel
     bad = []
     for path in files:
         for node in ast.walk(ast.parse(path.read_text(), str(path))):
@@ -82,6 +93,18 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
         HifiGAN(TINY_VOC)
     with pytest.raises(RuntimeError, match="CUDA"):
         Trainer(TINY_HP, task)
+    # the CLI path: train (and with it Trainer.fit), infer, the test-split
+    # synthesis and the PitchExtractor loader
+    with pytest.raises(RuntimeError, match="CUDA"):
+        cli.train(TINY_HP)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        cli.infer(TINY_HP)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        cli.run(["--config", "configs/lj/ds_beta6.yaml"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        synthesize_dataset(TINY_HP, task, dataset=None)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        _maybe_load_pe({**TINY_HP, "pe_enable": True})
     # the explicit CPU request works, and the modules stayed on the CPU
     syn = FusedSynthesizer(TINY_HP, task, voc, device="cpu")
     assert syn.device.type == "cpu"

@@ -242,10 +242,13 @@ def test_midi_training_and_checkpoints_raise(tmp_path):
     with pytest.raises(NotImplementedError, match="MIDI"):
         task.train_loss(batch, generator=torch.Generator().manual_seed(0))
     voc = HifiGAN(VOC_HP, device="cpu")
+    pe = PitchExtractor(PEConfig.from_hparams(HP))
     (tmp_path / "model_ckpt_steps_100.ckpt").write_bytes(b"")
+    # a checkpoint on disk beside an object passed for the same part: which
+    # one to use is not guessed
     for key in ("pe_ckpt", "vocoder_ckpt", "work_dir"):
-        with pytest.raises(NotImplementedError, match=key):
-            tsvs.DiffSingerE2EInfer(dict(HP, **{key: str(tmp_path)}), task, voc,
+        with pytest.raises(ValueError, match=key):
+            tsvs.DiffSingerE2EInfer(dict(HP, **{key: str(tmp_path)}), task, voc, pe=pe,
                                     device="cpu")
     # paths that hold no checkpoint (the released names, absent here) are fine
     tsvs.DiffSingerE2EInfer(dict(HP, pe_ckpt="checkpoints/0102_xiaoma_pe"), task, voc,
