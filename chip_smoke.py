@@ -7,11 +7,14 @@ Phases, each of which fails the run (non-zero exit) when it fails:
   1. prints the card's name and power limit, builds the CUDA kernels from
      diffsinger_tpu_torch/csrc/ with nvcc (sm_90a) into build/kernels/;
   2. diffnet_stack kernel at the serving shapes (B=8, T=1024, C=256, L=20),
-     bf16 and f32, dilation cycles 1 and 4, the other serving buckets
-     (4 x 512, 1 x 256), the singing lengths at cycle 4 (2 x 4096 and
-     1 x 7936), a T that is not a multiple of the tile and a T shorter than
-     the largest dilation, against its plain twin; two calls give the same
-     bits and x0 stays untouched;
+     dilation cycles 1 and 4, the other serving buckets (4 x 512, 1 x 256),
+     the singing lengths at cycle 4 (2 x 4096 and 1 x 7936), a T that is not
+     a multiple of the tile and a T shorter than the largest dilation, each in
+     bf16 and in f32, plus f32 at C=128 and f32 with d=32 (the SIMT body),
+     against its plain twin; two calls give the same bits and x0 stays
+     untouched; the body that ran and its device launches (one a layer on the
+     tensor cores) are held against the wrapper's rule and the library's
+     report; f32 rows carry the 3xTF32 bound and the FMA bound;
   3. mrf_stage kernel on the three C<=128 HiFiGAN scales at 8 x 1024 mel
      frames (C=128/64/32 at T=65536/131072/262144), f32 and bf16, plus B=1,
      a T that is not a multiple of the tile and a T shorter than one halo,
@@ -38,6 +41,13 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      sampler mel and its vocoder (same mel, F0 and source draws) are each held
      against the plain twins; one more batch of each size is profiled
      (build/chip_smoke/sing_profile.txt, sing_long_profile.txt);
+  5c. serve_shipped: the shipped configs with their own float32 stack (no
+     compute_dtype override; the tensor-core f32 body): ds_beta6.yaml (cwt
+     pitch, HiFiGAN v1) on one 8 x 1024 batch, 71 stack and 3 MRF launches;
+     ds1000.yaml (PLMS-25, PE, NSF-HiFiGAN 8/8/2) on an 8 x 1024 and a
+     2 x 4096 batch, 26 stack and 2 MRF launches each; batch seconds,
+     mel-frames/s, profiles (shipped_*_profile.txt), and each batch against
+     the plain twins by the serve_cwt and singing criteria;
   6. diffnet_train forward and backward kernels at the training shapes
      (B=24, T=1024, C=H=256, L=20), bf16 and f32, dilation cycles 1 and 4,
      plus 3 x 301 rows with H=200 and with H=256 (not a tile multiple; the
@@ -84,6 +94,7 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from typing import Optional
 from unittest import mock
 
 ROOT = Path(__file__).resolve().parent
@@ -129,25 +140,31 @@ def nbytes(*ts) -> int:
 
 
 # --------------------------------------------------------------------- phase 2
-def phase_stack(torch, ds):
-    c, num_layers = 256, 20
+# (dtype, dilation cycle, B, T, C): the serving shapes; T = 301: not a multiple
+# of the 64-row tile; the other serving buckets; T = 5: shorter than cycle 4's
+# largest dilation (8); the singing batches, cycle 4 at 2 x 4096 and at
+# max_frames; each in bf16 and in float32 (the shipped configs' type); one
+# float32 case at C = 128; and cycle 6 (d = 32, past the tensor-core bodies'
+# widest halo), which the float32 SIMT body takes
+STACK_CASES = ([(dt, cycle, 8, 1024, 256) for dt in ("bfloat16", "float32") for cycle in (1, 4)]
+               + [(dt, cycle, b, t, 256) for dt in ("bfloat16", "float32")
+                  for cycle, b, t in ((4, 3, 301), (1, 4, 512), (1, 1, 256), (4, 2, 5),
+                                      (4, 2, 4096), (4, 1, 7936))]
+               + [("float32", 4, 4, 512, 128), ("float32", 6, 2, 100, 256)])
+
+
+def phase_stack(torch, ds, cases=STACK_CASES):
+    num_layers = 20
     gen = torch.Generator(device="cuda").manual_seed(0)
 
     def rn(*shape, scale=1.0):
         return torch.randn(*shape, generator=gen, device="cuda") * scale
 
     rows = []
-    # the serving shapes; T = 301: not a multiple of the 64-row tile; the other
-    # serving buckets; T = 5: shorter than cycle 4's largest dilation (8)
-    cases = [(dt, cycle, 8, 1024) for dt in ("bfloat16", "float32") for cycle in (1, 4)]
-    cases += [("bfloat16", 4, 3, 301), ("float32", 4, 3, 301),
-              ("bfloat16", 1, 4, 512), ("bfloat16", 1, 1, 256),
-              ("bfloat16", 4, 2, 5), ("float32", 4, 2, 5),
-              # the singing batches: cycle 4 at 2 x 4096 and at max_frames
-              ("bfloat16", 4, 2, 4096), ("bfloat16", 4, 1, 7936)]
-    for dt_name, cycle, b, t in cases:
+    for dt_name, cycle, b, t, c in cases:
         dt = torch.bfloat16 if dt_name == "bfloat16" else None
         wdt = dt or torch.float32
+        what = f"diffnet_stack {dt_name} cycle {cycle} {b}x{t} C={c}"
         args = (torch.relu(rn(b, t, c)), rn(num_layers, b, c, scale=0.5),
                 rn(num_layers, b, t, 2 * c, scale=0.5).to(wdt),
                 rn(num_layers, 3, c, 2 * c, scale=(3 * c) ** -0.5).to(wdt),
@@ -157,16 +174,28 @@ def phase_stack(torch, ds):
         dil = tuple(2 ** (i % cycle) for i in range(num_layers))
         x0_before = args[0].clone()
         got = ds.diffnet_stack(*args, dilations=dil, compute_dtype=dt)
+        # counted by the library where it launches, and which body it ran
+        launched, ran_tc = ds.diffnet_stack.device_launches, ds.diffnet_stack.ran_tensor_cores
         again = ds.diffnet_stack(*args, dilations=dil, compute_dtype=dt)
         want = ds.diffnet_stack_plain(*args, dilations=dil, compute_dtype=dt)
         torch.cuda.synchronize()
         if not torch.equal(got, again):
-            raise AssertionError(f"diffnet_stack {dt_name} cycle {cycle} {b}x{t}: two calls "
-                                 "on the same inputs gave different bits")
+            raise AssertionError(f"{what}: two calls on the same inputs gave different bits")
         if not torch.equal(args[0], x0_before):
-            raise AssertionError(f"diffnet_stack {dt_name} cycle {cycle} {b}x{t}: x0 was "
-                                 "written")
+            raise AssertionError(f"{what}: x0 was written")
         del again, x0_before
+        # the library's own account of its tensor-core bodies for this shape,
+        # against the wrapper's rule and the body that ran
+        info = ds.tensor_core_info(c, dil, dt)
+        expect_tc = ds.takes_tensor_cores(c, dil, dt)
+        if (info is not None) != expect_tc or ran_tc != expect_tc:
+            raise AssertionError(f"{what}: the wrapper's rule says tensor cores={expect_tc}, "
+                                 f"the library {info}, the call ran {ran_tc}")
+        if info and info["smem"] > 227 * 1024:
+            raise AssertionError(f"{what}: shared memory {info['smem']} above 227 KB")
+        # tensor cores: one launch a layer; SIMT: two
+        if launched != (1 if expect_tc else 2) * num_layers:
+            raise AssertionError(f"{what}: {launched} device launches for {num_layers} layers")
         err = (got - want).abs().max().item()
         scale = want.abs().max().item()
         # f32: same products, sums of up to 3C=768 terms in another order over
@@ -180,16 +209,22 @@ def phase_stack(torch, ds):
         plain_ms = cuda_ms(lambda: ds.diffnet_stack_plain(*args, dilations=dil,
                                                           compute_dtype=dt), 3)
         flops = num_layers * 4 * 2 * (b * t) * c * (2 * c)
-        bnd, by = bound_ms(flops, nbytes(*args) + b * t * c * 4,
-                           H100_BF16_FLOPS if dt else H100_F32_FLOPS)
-        row = dict(dtype=dt_name, cycle=cycle, B=b, T=t, max_abs_err=err, tolerance=tol,
+        moved = nbytes(*args) + b * t * c * 4
+        # float32: the least time at float32 accuracy is three TF32 passes on
+        # the tensor cores; the FMA bound beside it is what the SIMT body faces
+        bnd, by = bound_ms(flops, moved, H100_BF16_FLOPS if dt else H100_3XTF32_FLOPS)
+        row = dict(dtype=dt_name, cycle=cycle, B=b, T=t, C=c,
+                   body="tensor-core" if ran_tc else "simt", device_launches=launched,
+                   tensor_core_info=info, max_abs_err=err, tolerance=tol,
                    out_scale=scale, ms=ms, tflops=flops / ms / 1e9, plain_ms=plain_ms,
                    bound_ms=bnd, bound_by=by)
+        if dt is None:
+            row["bound_fma_ms"], _ = bound_ms(flops, moved, H100_F32_FLOPS)
         print("diffnet_stack", json.dumps(row), flush=True)
         if not err <= tol:
-            raise AssertionError(f"diffnet_stack {dt_name} cycle {cycle} T={t}: "
-                                 f"max|err| {err} > {tol}")
+            raise AssertionError(f"{what}: max|err| {err} > {tol}")
         rows.append(row)
+        del got, want, args
     return rows
 
 
@@ -254,9 +289,11 @@ def phase_mrf(torch, mrf):
 FRAMES_PER_PHONE = 8
 
 
-def build_synth(torch, seed: int = 0, frame_pitch: bool = True):
+def build_synth(torch, seed: int = 0, frame_pitch: bool = True,
+                stack_dtype: Optional[str] = "bfloat16"):
     """DiffSpeech-LJSpeech for serving; ``frame_pitch`` keeps bench.py's
-    pitch_type override, else the config's own cwt pitch."""
+    pitch_type override, else the config's own cwt pitch; ``stack_dtype``
+    None keeps the config's own (float32) stack."""
     import numpy as np
     import torch.nn as nn
 
@@ -271,7 +308,9 @@ def build_synth(torch, seed: int = 0, frame_pitch: bool = True):
     # always runs through the kernel wrapper)
     hp.update(hidden_size=256, enc_layers=4, dec_layers=4, residual_layers=20,
               residual_channels=256, timesteps=100, K_step=71, max_beta=0.06,
-              schedule_type="linear", compute_dtype="bfloat16", seed=seed)
+              schedule_type="linear", seed=seed)
+    if stack_dtype is not None:
+        hp["compute_dtype"] = stack_dtype
     if frame_pitch:
         hp["pitch_type"] = "frame"
     with torch.random.fork_rng(devices=[]):
@@ -523,7 +562,7 @@ SING_WORD_INPUT = {
     "input_type": "word"}
 
 
-def build_singer(torch, seed: int = 0):
+def build_singer(torch, seed: int = 0, stack_dtype: Optional[str] = "bfloat16"):
     import numpy as np
     import torch.nn as nn
 
@@ -535,9 +574,12 @@ def build_singer(torch, seed: int = 0):
 
     hp = set_hparams(str(ROOT / "configs" / "opencpop" / "ds1000.yaml"))
     # the released DiffSinger-Opencpop model at its published width, the
-    # stack in bf16 (tools/bench_opencpop.py's setting); the vocoder's
-    # geometry is given explicitly (hop 8 * 8 * 2 = 128 = hop_size)
-    hp.update(compute_dtype="bfloat16", seed=seed, **SING_VOCODER)
+    # stack in bf16 (tools/bench_opencpop.py's setting) unless stack_dtype is
+    # None (the config's own float32); the vocoder's geometry is given
+    # explicitly (hop 8 * 8 * 2 = 128 = hop_size)
+    hp.update(seed=seed, **SING_VOCODER)
+    if stack_dtype is not None:
+        hp["compute_dtype"] = stack_dtype
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(seed)
         task = DiffSingerTask(hp, vocab_size=len(CPOP_PHONE_LIST) + 3, device="cpu")
@@ -566,11 +608,76 @@ def build_singer(torch, seed: int = 0):
     return hp, infer
 
 
+def sing_vs_plain(torch, ds, mrf, syn, requests, seed: int) -> dict:
+    """One singing batch, kernels against plain twins, in two parts: a mel a
+    hair apart can flip the PE's voicing of a frame, which moves the waveform
+    far more than any kernel error, so sampler and vocoder are held apart."""
+    from diffsinger_tpu_torch.models.hifigan import draw_source
+
+    (t_mel_b, group, b_pad), = syn.plan(requests)
+    stacked = syn._stack_group(group, requests[0][0]["txt_tokens"].shape[1], t_mel_b)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    noise = torch.randn((1, b_pad, t_mel_b, 80), device="cuda", generator=gen)
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = syn.task.inference(stacked, t_mel=t_mel_b, noise=noise)
+        torch.cuda.synchronize()
+        t_sampler = time.perf_counter() - t0
+        with mock.patch.object(ds, "diffnet_stack", ds.diffnet_stack_plain):
+            out_p = syn.task.inference(stacked, t_mel=t_mel_b, noise=noise)
+        mel_k, mel_p = out["mel_out"], out_p["mel_out"]
+        mel_scale = mel_p.abs().max().item()
+        mel_diff = (mel_k - mel_p).abs().max().item()
+        t0 = time.perf_counter()
+        f0 = syn.pe(mel_k)["f0_denorm_pred"]
+        torch.cuda.synchronize()
+        t_pe = time.perf_counter() - t0
+        mel_v = torch.where((out["mel2ph"] > 0)[..., None], mel_k, mel_k.min())
+        source = draw_source(b_pad, t_mel_b * SING_HOP, "cuda", gen)
+        t0 = time.perf_counter()
+        wav_k = syn.vocoder.apply(mel_v, f0=f0, source=source)
+        torch.cuda.synchronize()
+        t_vocoder = time.perf_counter() - t0
+        with mock.patch.object(mrf, "mrf_stage", mrf.mrf_stage_plain):
+            wav_p = syn.vocoder.apply(mel_v, f0=f0, source=source)
+    wav_scale = wav_p.abs().max().item()
+    wav_diff = (wav_k - wav_p).abs().max().item()
+    finite = all(bool(torch.isfinite(a).all()) for a in (mel_k, mel_p, wav_k, wav_p))
+    # sampler: both stacks round to bf16 at the same points and differ by
+    # float32 summation order, a value now and then one bf16 step apart: the
+    # stack's own tolerance, 1e-2 of the output's scale (26 calls of a PLMS
+    # with no clipping carry such a step on, scaled like the mel itself).
+    # Vocoder: the float32 MRF kernel (3xTF32) against float32 convolutions,
+    # 1e-4 of the waveform's scale, as on the serving path.
+    return {"parts_s": {"sampler_with_fs2": t_sampler, "pe": t_pe,
+                        "vocoder_with_nsf": t_vocoder},
+            "pe_voiced_share": float((f0[out["mel2ph"] > 0] > 0).float().mean()),
+            "sampler_mel_scale": mel_scale,
+            "kernel_vs_plain_mel_max_abs_diff": mel_diff,
+            "kernel_vs_plain_mel_tolerance": 1e-2 * max(mel_scale, 1.0),
+            "wav_max_abs": wav_scale,
+            "kernel_vs_plain_wav_max_abs_diff": wav_diff,
+            "kernel_vs_plain_wav_tolerance": 1e-4 * max(wav_scale, 1.0),
+            "finite": finite}
+
+
+def sing_check_or_raise(what: str, check: dict) -> None:
+    if not check["finite"]:
+        raise AssertionError(f"{what}: non-finite mel or waveform in the kernel/plain check")
+    mel_diff, mel_tol = (check["kernel_vs_plain_mel_max_abs_diff"],
+                         check["kernel_vs_plain_mel_tolerance"])
+    wav_diff, wav_tol = (check["kernel_vs_plain_wav_max_abs_diff"],
+                         check["kernel_vs_plain_wav_tolerance"])
+    if not (mel_diff <= mel_tol and wav_diff <= wav_tol):
+        raise AssertionError(f"{what}: kernel vs plain mel {mel_diff} (tolerance {mel_tol}), "
+                             f"waveform {wav_diff} (tolerance {wav_tol})")
+
+
 def phase_sing(torch, ds, mrf, card: str, out_dir: Path):
     import numpy as np
 
     from diffsinger_tpu_torch.inference.svs import EXAMPLE_INPUT
-    from diffsinger_tpu_torch.models.hifigan import draw_source
 
     hp, infer = build_singer(torch)
     syn = infer.fused
@@ -638,48 +745,8 @@ def phase_sing(torch, ds, mrf, card: str, out_dir: Path):
                 raise AssertionError(f"singing {name}: bad waveform {wav.shape} for "
                                      f"{per_row} frames")
 
-    # kernel against plain on the 8 x 1024 batch, in two parts: a mel a hair
-    # apart can flip the PE's voicing of a frame, which moves the waveform
-    # far more than any kernel error, so sampler and vocoder are held apart
-    (t_mel_b, group, _), = syn.plan(big)
-    stacked = syn._stack_group(group, big[0][0]["txt_tokens"].shape[1], t_mel_b)
-    gen = torch.Generator(device="cuda").manual_seed(5)
-    noise = torch.randn((1, 8, t_mel_b, 80), device="cuda", generator=gen)
-    with torch.no_grad():
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = syn.task.inference(stacked, t_mel=t_mel_b, noise=noise)
-        torch.cuda.synchronize()
-        t_sampler = time.perf_counter() - t0
-        with mock.patch.object(ds, "diffnet_stack", ds.diffnet_stack_plain):
-            out_p = syn.task.inference(stacked, t_mel=t_mel_b, noise=noise)
-        mel_k, mel_p = out["mel_out"], out_p["mel_out"]
-        mel_scale = mel_p.abs().max().item()
-        mel_diff = (mel_k - mel_p).abs().max().item()
-        t0 = time.perf_counter()
-        f0 = syn.pe(mel_k)["f0_denorm_pred"]
-        torch.cuda.synchronize()
-        t_pe = time.perf_counter() - t0
-        mel_v = torch.where((out["mel2ph"] > 0)[..., None], mel_k, mel_k.min())
-        source = draw_source(8, t_mel_b * SING_HOP, "cuda", gen)
-        t0 = time.perf_counter()
-        wav_k = syn.vocoder.apply(mel_v, f0=f0, source=source)
-        torch.cuda.synchronize()
-        t_vocoder = time.perf_counter() - t0
-        with mock.patch.object(mrf, "mrf_stage", mrf.mrf_stage_plain):
-            wav_p = syn.vocoder.apply(mel_v, f0=f0, source=source)
-    wav_scale = wav_p.abs().max().item()
-    wav_diff = (wav_k - wav_p).abs().max().item()
-    finite = all(bool(torch.isfinite(a).all()) for a in (mel_k, mel_p, wav_k, wav_p))
-    # sampler: both stacks round to bf16 at the same points and differ by
-    # float32 summation order, a value now and then one bf16 step apart: the
-    # stack's own tolerance, 1e-2 of the output's scale (26 calls of a PLMS
-    # with no clipping carry such a step on, scaled like the mel itself).
-    # Vocoder: the float32 MRF kernel (3xTF32) against float32 convolutions,
-    # 1e-4 of the waveform's scale, as on the serving path.
-    mel_tol = 1e-2 * max(mel_scale, 1.0)
-    wav_tol = 1e-4 * max(wav_scale, 1.0)
-    voiced = float((f0[out["mel2ph"] > 0] > 0).float().mean())
+    check = sing_vs_plain(torch, ds, mrf, syn, big, seed=5)
+    voiced = check.pop("pe_voiced_share")
     total_frames = sum(frames.values())
     result = {
         "card": card, "config": "configs/opencpop/ds1000.yaml (bf16 stack, NSF-HiFiGAN "
@@ -690,26 +757,147 @@ def phase_sing(torch, ds, mrf, card: str, out_dir: Path):
         "mel_frames_per_s": {k: frames[k] / times[k] for k in times},
         "audio_s_per_s": {k: frames[k] / SING_FRAMES_PER_S / times[k] for k in times},
         "all_mel_frames_per_s": total_frames / sum(times.values()),
-        "batch_8x1024_parts_s": {"sampler_with_fs2": t_sampler, "pe": t_pe,
-                                 "vocoder_with_nsf": t_vocoder},
+        "batch_8x1024_parts_s": check.pop("parts_s"),
         "pe_voiced_share": voiced,
-        "sampler_mel_scale": mel_scale,
-        "kernel_vs_plain_mel_max_abs_diff": mel_diff,
-        "kernel_vs_plain_mel_tolerance": mel_tol,
-        "wav_max_abs": wav_scale,
-        "kernel_vs_plain_wav_max_abs_diff": wav_diff,
-        "kernel_vs_plain_wav_tolerance": wav_tol,
+        **check,
     }
     print("singing", json.dumps(result), flush=True)
-    if not finite:
-        raise AssertionError("singing: non-finite mel or waveform in the kernel/plain check")
-    if not (mel_diff <= mel_tol and wav_diff <= wav_tol):
-        raise AssertionError(f"singing: kernel vs plain mel {mel_diff} (tolerance {mel_tol}), "
-                             f"waveform {wav_diff} (tolerance {wav_tol})")
+    sing_check_or_raise("singing", check)
     profile = phase_profile(torch, lambda: syn.synthesize_many(big), out_dir, "sing")
     profile_long = phase_profile(torch, lambda: syn.synthesize_many(long), out_dir,
                                  "sing_long")
     return result, {"batch_8x1024": profile, "batch_2x4096": profile_long}
+
+
+# -------------------------------------------------------------------- phase 5c
+def stack_ran(ds, what: str, num_layers: int = 20) -> None:
+    """The last stack call of a path ran the float32 tensor-core body."""
+    if not (ds.diffnet_stack.ran_tensor_cores and
+            ds.diffnet_stack.device_launches == num_layers):
+        raise AssertionError(f"{what}: the stack ran tensor cores="
+                             f"{ds.diffnet_stack.ran_tensor_cores} with "
+                             f"{ds.diffnet_stack.device_launches} device launches, "
+                             f"expected the tensor-core body, {num_layers}")
+
+
+def phase_serve_shipped(torch, ds, mrf, card: str, out_dir: Path):
+    """The shipped configs with their own float32 stack (no compute_dtype
+    override): configs/lj/ds_beta6.yaml (cwt pitch, HiFiGAN v1) on one warm
+    8 x 1024 batch, configs/opencpop/ds1000.yaml (PLMS-25, PE, NSF-HiFiGAN with
+    the 8/8/2 geometry) on an 8 x 1024 and a 2 x 4096 batch; launches, times,
+    profiles, and each batch against the plain twins by the serve_cwt and
+    singing phases' criteria."""
+    import numpy as np
+
+    # --- LJ, ds_beta6.yaml as shipped
+    hp, syn = build_synth(torch, frame_pitch=False, stack_dtype=None)
+    if syn.task.compute_dtype is not None or hp["pitch_type"] != "cwt":
+        raise AssertionError("serve_shipped: the LJ model is not ds_beta6.yaml's float32 "
+                             "cwt-pitch model")
+    rng = np.random.RandomState(3)
+    big = [({"txt_tokens": rng.randint(3, 80, size=(1, 128)).astype(np.int64)}, 1024)
+           for _ in range(8)]
+    syn.warmup([1024], batch_sizes=(8,))
+    ds.diffnet_stack.launches = 0
+    mrf.mrf_stage.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    wavs = syn.synthesize_many(big)
+    torch.cuda.synchronize()
+    t_lj = time.perf_counter() - t0
+    lj_launches = {"diffnet_stack": ds.diffnet_stack.launches,
+                   "mrf_stage": mrf.mrf_stage.launches}
+    k_step = int(hp["K_step"])
+    if lj_launches != {"diffnet_stack": k_step, "mrf_stage": 3}:
+        raise AssertionError(f"serve_shipped LJ: kernel launches {lj_launches}, expected "
+                             f"{k_step} stack and 3 MRF")
+    stack_ran(ds, "serve_shipped LJ")
+    for wav in wavs:
+        if wav.shape != (1024 * syn.hop,) or not np.isfinite(wav).all():
+            raise AssertionError(f"serve_shipped LJ: bad waveform {wav.shape}")
+    noise = torch.randn((k_step + 1, 8, 1024, 80), device="cuda",
+                        generator=torch.Generator(device="cuda").manual_seed(7))
+    wav_k = syn.synthesize_many(big, noises=[noise])
+    with mock.patch.object(ds, "diffnet_stack", ds.diffnet_stack_plain), \
+            mock.patch.object(mrf, "mrf_stage", mrf.mrf_stage_plain):
+        wav_p = syn.synthesize_many(big, noises=[noise])
+    a, b = np.concatenate(wav_k), np.concatenate(wav_p)
+    if not (np.isfinite(a).all() and np.isfinite(b).all()):
+        raise AssertionError("serve_shipped LJ: non-finite waveform in the kernel/plain check")
+    lj = {"config": "configs/lj/ds_beta6.yaml as shipped (cwt pitch, float32 stack, "
+                    "HiFiGAN v1 float32), seeded weights",
+          "launches": lj_launches, "latency_s": {"batch_8x1024": t_lj},
+          "mel_frames_per_s": {"batch_8x1024": 8 * 1024 / t_lj},
+          "wav_max_abs": float(np.abs(a).max()),
+          "kernel_vs_plain_wav_max_abs_diff": float(np.abs(a - b).max()),
+          # the serve_cwt phase's criterion
+          "kernel_vs_plain_wav_tolerance": 1e-4 * max(float(np.abs(b).max()), 1.0)}
+    print("serve_shipped_lj", json.dumps(lj), flush=True)
+    if not lj["kernel_vs_plain_wav_max_abs_diff"] <= lj["kernel_vs_plain_wav_tolerance"]:
+        raise AssertionError(f"serve_shipped LJ: kernel and plain waveforms differ by "
+                             f"{lj['kernel_vs_plain_wav_max_abs_diff']} > "
+                             f"{lj['kernel_vs_plain_wav_tolerance']}")
+    lj["profile"] = phase_profile(torch, lambda: syn.synthesize_many(big), out_dir,
+                                  "shipped_lj")
+    del syn, wav_k, wav_p, noise
+
+    # --- singing, ds1000.yaml as shipped (the vocoder geometry given)
+    hp, infer = build_singer(torch, stack_dtype=None)
+    syn = infer.fused
+    if syn.task.compute_dtype is not None:
+        raise AssertionError("serve_shipped: the singing model's stack is not float32")
+    n_calls = syn.task.gd.denoiser_calls()
+    rng = np.random.RandomState(4)
+    vocab = len(infer.ph_encoder)
+
+    def request(n_phones, t_mel):
+        return {"txt_tokens": rng.randint(3, vocab, size=(1, n_phones)).astype(np.int64),
+                "pitch_midi": rng.randint(48, 80, size=(1, n_phones)).astype(np.int64),
+                "midi_dur": rng.uniform(0.05, 0.6, size=(1, n_phones)).astype(np.float32),
+                "is_slur": (rng.rand(1, n_phones) < 0.1).astype(np.int64)}, t_mel
+
+    batches = {"batch_8x1024": [request(1024 // SING_FRAMES_PER_PHONE, 1024) for _ in range(8)],
+               "batch_2x4096": [request(4096 // SING_FRAMES_PER_PHONE, 4096) for _ in range(2)]}
+    syn.warmup([1024], batch_sizes=(8,))
+    syn.warmup([4096], batch_sizes=(2,))
+    ds.diffnet_stack.launches = 0
+    mrf.mrf_stage.launches = 0
+    times = {}
+    for name, reqs in batches.items():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        wavs = syn.synthesize_many(reqs)
+        torch.cuda.synchronize()
+        times[name] = time.perf_counter() - t0
+        for wav in wavs:
+            if wav.shape != (reqs[0][1] * SING_HOP,) or not np.isfinite(wav).all():
+                raise AssertionError(f"serve_shipped singing {name}: bad waveform {wav.shape}")
+    sing_launches = {"diffnet_stack": ds.diffnet_stack.launches,
+                     "mrf_stage": mrf.mrf_stage.launches}
+    if sing_launches != {"diffnet_stack": 2 * n_calls, "mrf_stage": 2 * 2}:
+        raise AssertionError(f"serve_shipped singing: kernel launches {sing_launches}, "
+                             f"expected {n_calls} stack and 2 MRF a batch")
+    stack_ran(ds, "serve_shipped singing")
+    frames = {"batch_8x1024": 8 * 1024, "batch_2x4096": 2 * 4096}
+    checks = {name: sing_vs_plain(torch, ds, mrf, syn, reqs, seed=8 + i)
+              for i, (name, reqs) in enumerate(batches.items())}
+    singing = {"config": "configs/opencpop/ds1000.yaml as shipped (float32 stack, PLMS-25), "
+                         "NSF-HiFiGAN 8/8/2, seeded weights",
+               "denoiser_calls_per_batch": n_calls, "launches": sing_launches,
+               "latency_s": times,
+               "mel_frames_per_s": {k: frames[k] / times[k] for k in times},
+               "audio_s_per_s": {k: frames[k] / SING_FRAMES_PER_S / times[k] for k in times},
+               "kernel_vs_plain": checks}
+    print("serve_shipped_singing", json.dumps(singing), flush=True)
+    for name, check in checks.items():
+        sing_check_or_raise(f"serve_shipped singing {name}", check)
+    singing["profile"] = {
+        name: phase_profile(torch, lambda reqs=reqs: syn.synthesize_many(reqs), out_dir,
+                            f"shipped_sing_{name.split('_')[1]}")
+        for name, reqs in batches.items()}
+    out = {"card": card, "lj": lj, "singing": singing,
+           "launches": {k: lj_launches[k] + sing_launches[k] for k in lj_launches}}
+    return out
 
 
 # --------------------------------------------------------------------- phase 6
@@ -1424,12 +1612,16 @@ def main() -> int:
     del syn
     serving_cwt, cwt_profile = phase_serve_cwt(torch, ds, mrf, card, out_dir)
     singing, sing_profile = phase_sing(torch, ds, mrf, card, out_dir)
+    shipped = phase_serve_shipped(torch, ds, mrf, card, out_dir)
     train_rows = phase_train_stack(torch, tr)
     training, train_profile = phase_train(torch, tr, card, out_dir)
     training_cwt, _ = phase_train(torch, tr, card, out_dir, steps=5, cwt=True)
     cli_run = phase_cli(torch, ds, mrf, tr, card, out_dir)
 
     main_stack = stack_rows[0]                        # bf16, cycle 1: serving config
+    # float32, cycle 1, 8 x 1024: the shipped configs' body (serve_shipped)
+    f32_stack = next(r for r in stack_rows if r["dtype"] == "float32" and r["B"] == 8
+                     and r["C"] == 256 and r["cycle"] == 1)
     main_mrf = [r for r in mrf_rows if r["dtype"] == "float32" and r["B"] == 8]
 
     def path_launches(name, paths):
@@ -1438,7 +1630,7 @@ def main() -> int:
         return {"launches": sum(by_path.values()), "launches_by_path": by_path}
 
     serve_paths = {"serving": serving, "serve_cwt": serving_cwt, "singing": singing,
-                   "cli": cli_run}
+                   "serve_shipped": shipped, "cli": cli_run}
     train_paths = {"train": training, "train_cwt": training_cwt, "cli": cli_run}
 
     kernels = [
@@ -1449,7 +1641,13 @@ def main() -> int:
          "max_abs_err": main_stack["max_abs_err"], "tolerance": main_stack["tolerance"],
          "ms": main_stack["ms"], "plain_ms": main_stack["plain_ms"],
          "bound_ms": main_stack["bound_ms"], "bound_by": main_stack["bound_by"],
-         "library_ms": None, "configs": stack_rows},
+         "library_ms": None,
+         "float32": {k: f32_stack[k] for k in ("max_abs_err", "tolerance", "ms", "plain_ms",
+                                               "bound_ms", "bound_by", "bound_fma_ms",
+                                               "body", "device_launches")}
+         | {"launches": shipped["launches"]["diffnet_stack"],
+            "launches_path": "serve_shipped"},
+         "configs": stack_rows},
         {"name": "mrf_stage", "route": "cuda",
          "source": "diffsinger_tpu_torch/csrc/mrf_stage.cu",
          "replaces": "diffsinger_tpu/ops/hifigan_mrf.py:197",
@@ -1482,7 +1680,8 @@ def main() -> int:
         json.dump({"card": card, "build_s": build_s, "kernels": kernels,
                    "serving": serving, "profile": profile, "serve_cwt": serving_cwt,
                    "serve_cwt_profile": cwt_profile, "singing": singing,
-                   "sing_profile": sing_profile, "train_stack": train_rows,
+                   "sing_profile": sing_profile, "serve_shipped": shipped,
+                   "train_stack": train_rows,
                    "training": training, "train_profile": train_profile,
                    "train_cwt": training_cwt, "cli": cli_run}, f, indent=1)
     print(card)

@@ -12,12 +12,13 @@
 //   out  = g @ w_out[l] + b_out[l]
 //   x    = (x + out[:, :C]) * sqrt(1/2);  skip += out[:, C:]
 //
-// Two instantiations:
+// Two instantiations, both on the tensor cores at the shapes the shipped
+// configs reach (C = 128 or 256, dilations up to MAX_DIL), one launch a layer:
 //
-// bfloat16 (the serving path) - the tensor-core kernel stack_layer_tc, one
-// launch a layer. The TPU kernel keeps the whole [T,C] activation resident in
-// VMEM across all layers; a block here has 227 KB, so a block owns 64 rows of
-// one batch row and all 2C columns for one layer:
+// bfloat16 (compute_dtype bfloat16) - stack_layer_tc. The TPU kernel keeps
+// the whole [T,C] activation resident in VMEM across all layers; a block here
+// has 227 KB, so a block owns 64 rows of one batch row and all 2C columns for
+// one layer:
 //   * y is staged once: the block's rows plus a d-row halo on each side are
 //     read from x, step is added, the sum is rounded to bf16 and kept in
 //     shared memory; each tap is a row offset into that tile. Blocks never
@@ -42,22 +43,59 @@
 //     x is double-buffered between layers (a neighbouring block still reads
 //     x_in[t +- d]), the caller's x0 is layer 0's input and is never written.
 //
-// float32 - the earlier shared-memory tiled SIMT pair of launches a layer
-// (gate_kernel, out_kernel: f32 FMA, x updated in place, g through device
-// memory). Not on the serving path; kept as it was.
+// float32 (no compute_dtype: every shipped config, so LJ serving and --infer
+// with 71 calls a request, singing with 26) - stack_layer_tc32, the same
+// block (64 rows of one batch row, all 2C columns, 8 warps with the same
+// column ownership, 128 accumulators a thread at C = 256), the same per-warp
+// weight rings, programmatic dependent launch and x double buffer; what the
+// float32 type changes:
+//   * products in 3xTF32: mma.sync.m16n8k8 TF32 with float32 accumulators,
+//     each operand split as a = a_hi + a_lo (the top 10 mantissa bits, then
+//     the remainder cut the same way) and acc += a_lo*b_hi + a_hi*b_lo +
+//     a_hi*b_hi: float32 accuracy (one TF32 pass keeps three digits and does
+//     not hold 1e-4 through 20 layers). y and g are split as a warp loads
+//     its A fragments (ldmatrix, one 16-row tile at a time), the weights as
+//     it loads its B fragments (once per 8-deep step for all four row tiles).
+//   * the tiles are twice as wide, so the bf16 layout (216-224 KB) would not
+//     fit: y with its halo is kept in float32 ((64 + 2d) x (C + 4) floats,
+//     99,840 B at C = 256, d = 16), g is written over y once every warp has
+//     passed the conv GEMM (two barriers instead of one), the weight rings
+//     are three stages of 16-row chunks (110,592 B for the 8 warps), and cond
+//     and x are read straight from device memory in the epilogues, in
+//     fragment order (a quad's four float2 are one 32-byte sector); the
+//     block's cond rows are prefetched into L2 when the block starts.
+//   * sigmoid and tanh as in the bf16 body (exp2-based, clamped): absolute
+//     errors near 1e-7, well inside the 1e-4 the stack is held to.
+//
+// float32 at any other shape (C % 32 == 0 but not 128 or 256, or a dilation
+// past MAX_DIL) - the earlier shared-memory tiled SIMT pair of launches a
+// layer (gate_kernel, out_kernel: f32 FMA, x updated in place, g through
+// device memory).
+//
+// The wrapper (ops/diffnet_stack.py:takes_tensor_cores) decides the body by
+// the same rule as diffnet_stack_tc_info below, passes it in, and reads back
+// in `report` what ran: the library refuses a body that does not take the
+// shape and never falls back to another one.
 //
 // Bound. At B=8, T=1024, C=256, L=20 one stack call does 171.8 GFLOP and
-// moves ~205 MB (168 MB of it the bf16 cond tensor): compute-bound on this
-// card. What limits stack_layer_tc (tools/stack_phases.py times the phases of
-// a block): the two GEMMs take about half of a layer and are fed by the L2,
-// not by the tensor cores - every 64-row block streams the layer's whole 1 MB
-// of weights, 128 MB a layer over 128 blocks, about 4.3 TB/s while the GEMMs
-// run, and the bare fragment-load + mma.sync loop is twice as fast as that;
-// blocks of 128 rows do not fit the register file, so sharing the weight
-// stream needs a cluster with multicast copies. The other half is staging y,
-// the two epilogues (sigmoid * tanh; skip read from device memory) and the
-// tail of the launch, none of which overlaps the products with one block of
-// 8 warps an SM (230 registers a thread).
+// moves ~205 MB in bf16 (168 MB of it the cond tensor), ~394 MB in float32:
+// compute-bound on this card either way: 0.174 ms at the bf16 tensor-core
+// peak, 1.041 ms at float32 accuracy (3 TF32 passes at 495 TFLOP/s), 2.564 ms
+// at the float32 FMA peak. What limits stack_layer_tc (tools/stack_phases.py
+// times the phases of a block): the two GEMMs take about half of a layer and
+// are fed by the L2, not by the tensor cores - every 64-row block streams the
+// layer's whole 1 MB of weights, 128 MB a layer over 128 blocks, about
+// 4.3 TB/s while the GEMMs run, and the bare fragment-load + mma.sync loop is
+// twice as fast as that; blocks of 128 rows do not fit the register file, so
+// sharing the weight stream needs a cluster with multicast copies. The other
+// half is staging y, the two epilogues (sigmoid * tanh; skip read from device
+// memory) and the tail of the launch, none of which overlaps the products with
+// one block of 8 warps an SM (230 registers a thread). stack_layer_tc32 has
+// the same shape with both costs larger: 2 MB of float32 weights a layer per
+// block (5.1 GB a call from the L2) and three mma.sync a product (the TF32
+// mma.sync rate measured on this card, 319.4 TFLOP/s in tools/mma_rate.py,
+// gives 1.6 ms a call for the products alone), so the two have to overlap;
+// the split adds integer and float work beside every mma.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -68,16 +106,18 @@ namespace {
 
 constexpr float SQRT_HALF = 0.70710678118654752f;
 
-// ------------------------------------------------------------------ bfloat16
+// ------------------------------------------------------------- tensor cores
 namespace tc {
 
 using namespace mma90;
 typedef __nv_bfloat16 bf16;
 
 constexpr int TM = 64;    // rows per block
+constexpr int NTHR = 256; // 8 warps, each 64 rows x (C/8 gate + C/8 filter) columns
+
+// bfloat16 body
 constexpr int KC = 16;    // contraction rows per staged weight chunk
 constexpr int NST = 4;    // stages of each warp's weight ring
-constexpr int NTHR = 256; // 8 warps, each 64 rows x (C/8 gate + C/8 filter) columns
 
 // Row strides carry 16 bytes of padding: ldmatrix's eight rows then fall on
 // eight different 16-byte bank groups.
@@ -87,6 +127,28 @@ template <int C> __host__ __device__ constexpr size_t smem_bytes(int d) {
   return ((size_t)(TM + 2 * d) * y_stride<C>() + (size_t)TM * y_stride<C>() +
           (size_t)8 * (NST * KC + TM) * w_stride<C>()) * sizeof(bf16);
 }
+
+// float32 body
+constexpr int KC32 = 16;  // contraction rows per staged weight chunk (two m16n8k8 steps)
+constexpr int NST32 = 3;  // stages of each warp's weight ring
+// y / g rows: C + 4 floats, so ldmatrix's eight 16-byte rows fall on eight
+// bank groups; ring rows: a warp's 2C/8 columns + 8 floats, so the four k rows
+// of a B fragment load (lanes 4k..4k+3 apart by one row) hit 32 banks.
+template <int C> __host__ __device__ constexpr int y_stride32() { return C + 4; }
+template <int C> __host__ __device__ constexpr int w_stride32() { return C / 4 + 8; }
+template <int C> __host__ __device__ constexpr size_t smem_bytes32(int d) {
+  return ((size_t)(TM + 2 * d) * y_stride32<C>() +
+          (size_t)8 * NST32 * KC32 * w_stride32<C>()) * sizeof(float);
+}
+
+// The widest dilation either body takes: the y tile with both halos still fits
+// beside the weight rings at C = 256. The wrapper's dispatch rule
+// (ops/diffnet_stack.py:TC_MAX_DILATION) names the same widths and dilation.
+constexpr int MAX_DIL = 16;
+constexpr size_t SMEM_LIMIT = 227 * 1024;
+static_assert(smem_bytes<256>(MAX_DIL) <= SMEM_LIMIT && smem_bytes32<256>(MAX_DIL) <= SMEM_LIMIT &&
+                  smem_bytes<128>(MAX_DIL) <= SMEM_LIMIT && smem_bytes32<128>(MAX_DIL) <= SMEM_LIMIT,
+              "a tensor-core body's tiles exceed the block's shared memory");
 
 __device__ __forceinline__ float sigmoid_f(float a) {
   a = fminf(fmaxf(a, -30.f), 30.f);
@@ -345,21 +407,297 @@ stack_layer_tc(const float* __restrict__ x_in, float* __restrict__ x_out,
   PHASE_CLOCK(5);
 }
 
-// x0 is read only; xbuf holds two [B,T,C] f32 buffers the layers alternate
-// between; skip needs no initial value (layer 0 writes it).
+// Diagnostic builds of the float32 body (tools/stack_ablate.py; the results
+// are wrong, only the times mean something): -DSTACK_ABLATE_NO_SPLIT feeds
+// the raw bits as both halves, -DSTACK_ABLATE_ONE_PASS runs one of the three
+// products, -DSTACK_ABLATE_NO_WEIGHTS copies no weight chunk after the first
+// two (the GEMMs read stale ring stages).
+__device__ __forceinline__ void split32(float x, uint32_t& hi, uint32_t& lo) {
+#ifdef STACK_ABLATE_NO_SPLIT
+  hi = lo = __float_as_uint(x);
+#else
+  split_tf32(x, hi, lo);
+#endif
+}
+
+// The float32 body: one layer of the stack on one 64-row tile of one batch
+// row, products in 3xTF32 (see the note at the top of the file).
 template <int C>
-int run(const float* x0, float* xbuf, float* skip, const float* step, const bf16* cond,
-        const bf16* w_dil, const float* b_dil, const bf16* w_out, const float* b_out,
-        int B, int T, int L, const int* dil, cudaStream_t stream) {
+__global__ void __launch_bounds__(NTHR, 1)
+stack_layer_tc32(const float* __restrict__ x_in, float* __restrict__ x_out,
+                 float* __restrict__ skip, const float* __restrict__ step,
+                 const float* __restrict__ cond, const float* __restrict__ w_dil,
+                 const float* __restrict__ b_dil, const float* __restrict__ w_out,
+                 const float* __restrict__ b_out, int B, int T, int l, int d) {
+  constexpr int C2 = 2 * C, YS = y_stride32<C>(), WS = w_stride32<C>();
+  constexpr int WC = C / 8;              // columns a warp owns in each half
+  constexpr int NTH = WC / 8;            // 8-column tiles per half per warp
+  constexpr int PPH = WC / 4;            // 16-byte pieces of a warp's row per half
+  constexpr int NG = 3 * C / KC32;       // weight chunks of the dilated conv
+  constexpr int NCH = NG + C / KC32;     // ... plus those of the out projection
+  constexpr int LPR = C2 * 4 / 128;      // 128-byte lines of a cond row
+  static_assert(C % 64 == 0 && KC32 % 8 == 0, "whole n-tiles and k-steps");
+
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  // [TM + 2d][YS] y (tile row q is sequence row t0 - d + q); once the conv
+  // GEMM is done its first TM rows hold g
+  float* ys = reinterpret_cast<float*>(smem_raw);
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  // private to the warp: its weight ring, [NST32][KC32][WS], columns [0, WC)
+  // gate (or residual), [WC, 2WC) filter (or skip)
+  float* wring = ys + (size_t)(TM + 2 * d) * YS + (size_t)warp * NST32 * KC32 * WS;
+
+  const int g8 = lane / 4, t4 = lane % 4;
+  const int b = blockIdx.y, t0 = blockIdx.x * TM;
+  const int wcol = warp * WC;             // this warp's first column in each half
+  const float* wd_l = w_dil + (size_t)l * 3 * C * C2;
+  const float* wo_l = w_out + (size_t)l * C * C2;
+  const float* cond_b = cond + ((size_t)l * B + b) * T * C2;
+  const float* xin_b = x_in + (size_t)b * T * C;
+
+  PHASE_CLOCK(0);
+  // up to griddep_wait() only inputs of the whole call are touched (cond,
+  // weights, step), never x, skip or anything else a layer writes
+  griddep_launch_dependents();
+  // the gate epilogue reads the block's cond rows from device memory: pull
+  // them into L2 now
+  for (int i = tid; i < TM * LPR; i += NTHR) {
+    const int t = t0 + i / LPR;
+    if (t < T) prefetch_l2(cond_b + (size_t)t * C2 + (i % LPR) * 32);
+  }
+  // chunk ch: rows [KC32 ch, KC32 ch + KC32) of [w_dil[l] (3C rows); w_out[l]
+  // (C rows)], the warp's two column groups only
+  auto fetch = [&](int ch) {
+    const float* src = (ch < NG ? wd_l + (size_t)ch * KC32 * C2
+                                : wo_l + (size_t)(ch - NG) * KC32 * C2) + wcol;
+    float* dst = wring + (size_t)(ch % NST32) * KC32 * WS;
+#pragma unroll
+    for (int p = lane; p < KC32 * 2 * PPH; p += 32) {
+      const int r = p / (2 * PPH), hp = p % (2 * PPH), h = hp / PPH, q = hp % PPH;
+      cp_async16(smem_u32(dst + r * WS + h * WC + q * 4), src + (size_t)r * C2 + h * C + q * 4);
+    }
+  };
+#pragma unroll
+  for (int s = 0; s < NST32 - 1; ++s) {
+    fetch(s);
+    cp_async_commit();
+  }
+  griddep_wait();   // the layer before has completed: x_in and skip are final
+  if (l > 0)
+    for (int i = tid; i < TM * (C * 4 / 128); i += NTHR) {
+      const int t = t0 + i / (C * 4 / 128);
+      if (t < T) prefetch_l2(skip + ((size_t)b * T + t) * C + (i % (C * 4 / 128)) * 32);
+    }
+  // y = x + step, rows t0 - d .. t0 + TM + d, zero outside [0, T)
+  {
+    constexpr int CP4 = C / 4, RPP = NTHR / CP4;   // float4 per row, rows per pass
+    const int c4 = tid % CP4, rq = tid / CP4;
+    const float4 sv = reinterpret_cast<const float4*>(step + ((size_t)l * B + b) * C)[c4];
+    const int nrows = TM + 2 * d;
+    constexpr int UN = 24;
+    for (int q0 = 0; q0 < nrows; q0 += UN * RPP) {
+      float4 v[UN];
+#pragma unroll
+      for (int u = 0; u < UN; ++u) {
+        const int q = q0 + u * RPP + rq, t = t0 - d + q;
+        v[u] = make_float4(0.f, 0.f, 0.f, 0.f);
+        if (q < nrows && t >= 0 && t < T) {
+          v[u] = reinterpret_cast<const float4*>(xin_b + (size_t)t * C)[c4];
+          v[u].x += sv.x;
+          v[u].y += sv.y;
+          v[u].z += sv.z;
+          v[u].w += sv.w;
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < UN; ++u) {
+        const int q = q0 + u * RPP + rq;
+        if (q < nrows) *reinterpret_cast<float4*>(ys + (size_t)q * YS + c4 * 4) = v[u];
+      }
+    }
+  }
+  __syncthreads();   // y is staged
+  PHASE_CLOCK(1);
+
+  float acc[4][2 * NTH][4];
+#pragma unroll
+  for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < 2 * NTH; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.f;
+
+  for (int ch = 0; ch < NCH; ++ch) {
+    if (ch == NG) {
+      PHASE_CLOCK(2);   // conv GEMM done
+      // gate epilogue: bias + cond, sigmoid * tanh, into the gate accumulators
+      const float* bd_l = b_dil + (size_t)l * C2;
+#pragma unroll
+      for (int nt = 0; nt < NTH; ++nt) {
+        const int col = wcol + nt * 8 + 2 * t4;
+        const float2 bg = *reinterpret_cast<const float2*>(bd_l + col);
+        const float2 bf = *reinterpret_cast<const float2*>(bd_l + C + col);
+        float2 cg[4][2], cf[4][2];
+#pragma unroll
+        for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+          for (int hr = 0; hr < 2; ++hr) {
+            const int t = t0 + mt * 16 + g8 + hr * 8;
+            cg[mt][hr] = cf[mt][hr] = make_float2(0.f, 0.f);
+            if (t < T) {
+              const float* cr = cond_b + (size_t)t * C2 + col;
+              cg[mt][hr] = *reinterpret_cast<const float2*>(cr);
+              cf[mt][hr] = *reinterpret_cast<const float2*>(cr + C);
+            }
+          }
+#pragma unroll
+        for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+          for (int hr = 0; hr < 2; ++hr) {
+            float* ga = &acc[mt][nt][hr * 2];
+            const float* fa = &acc[mt][NTH + nt][hr * 2];
+            const float g0 = ga[0] + bg.x + cg[mt][hr].x, g1 = ga[1] + bg.y + cg[mt][hr].y;
+            const float f0 = fa[0] + bf.x + cf[mt][hr].x, f1 = fa[1] + bf.y + cf[mt][hr].y;
+            ga[0] = sigmoid_f(g0) * tanh_f(f0);
+            ga[1] = sigmoid_f(g1) * tanh_f(f1);
+          }
+      }
+      __syncthreads();   // every warp has read its last y fragment: g may replace y
+#pragma unroll
+      for (int nt = 0; nt < NTH; ++nt)
+#pragma unroll
+        for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+          for (int hr = 0; hr < 2; ++hr) {
+            const int r = mt * 16 + g8 + hr * 8;
+            const float2 gv = t0 + r < T ? make_float2(acc[mt][nt][hr * 2], acc[mt][nt][hr * 2 + 1])
+                                         : make_float2(0.f, 0.f);
+            *reinterpret_cast<float2*>(ys + (size_t)r * YS + wcol + nt * 8 + 2 * t4) = gv;
+          }
+#pragma unroll
+      for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < 2 * NTH; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.f;
+      __syncthreads();   // every warp's g columns are written
+      PHASE_CLOCK(3);
+    }
+    cp_async_wait<NST32 - 2>();   // this lane's part of chunk ch has landed
+    __syncwarp();                 // ... and the other lanes'; chunk ch - 1's stage is free
+#ifndef STACK_ABLATE_NO_WEIGHTS
+    if (ch + NST32 - 1 < NCH) fetch(ch + NST32 - 1);
+#endif
+    cp_async_commit();
+
+    const float* wst = wring + (size_t)(ch % NST32) * KC32 * WS;
+    const float* abase;
+    if (ch < NG) {
+      const int tap = (ch * KC32) / C, c0 = (ch * KC32) % C;
+      abase = ys + (size_t)(tap * d) * YS + c0;   // tile row r + tap*d is t0 + r + (tap-1)d
+    } else {
+      abase = ys + (ch - NG) * KC32;              // g
+    }
+#pragma unroll
+    for (int k8 = 0; k8 < KC32 / 8; ++k8) {
+      // B fragments of all the warp's n-tiles (gate or residual tiles first,
+      // then filter or skip: tile nt is ring columns 8nt..8nt+7), split once
+      uint32_t bh[2 * NTH][2], bl[2 * NTH][2];
+#pragma unroll
+      for (int nt = 0; nt < 2 * NTH; ++nt) {
+        const float* wp = wst + (size_t)(k8 * 8 + t4) * WS + nt * 8 + g8;
+        split32(wp[0], bh[nt][0], bl[nt][0]);
+        split32(wp[4 * WS], bh[nt][1], bl[nt][1]);
+      }
+#pragma unroll
+      for (int mt = 0; mt < 4; ++mt) {
+        uint32_t a[4], ah[4], al[4];
+        ldmatrix_x4(a, smem_u32(abase + (size_t)(mt * 16 + lane % 16) * YS + k8 * 8 +
+                                (lane / 16) * 4));
+#pragma unroll
+        for (int e = 0; e < 4; ++e) split32(__uint_as_float(a[e]), ah[e], al[e]);
+        // the small products first; each pass runs over all n-tiles, so an
+        // accumulator's three mma are 2 NTH instructions apart
+#ifndef STACK_ABLATE_ONE_PASS
+#pragma unroll
+        for (int nt = 0; nt < 2 * NTH; ++nt) mma_tf32(acc[mt][nt], al, bh[nt][0], bh[nt][1]);
+#pragma unroll
+        for (int nt = 0; nt < 2 * NTH; ++nt) mma_tf32(acc[mt][nt], ah, bl[nt][0], bl[nt][1]);
+#endif
+#pragma unroll
+        for (int nt = 0; nt < 2 * NTH; ++nt) mma_tf32(acc[mt][nt], ah, bh[nt][0], bh[nt][1]);
+      }
+    }
+  }
+  PHASE_CLOCK(4);   // out GEMM done
+
+  // residual epilogue: x_out = (x_in + res) * sqrt(1/2), skip (+)= sk; x_in
+  // and skip in fragment order from device memory
+  const float* bo_l = b_out + (size_t)l * C2;
+#pragma unroll
+  for (int nt = 0; nt < NTH; ++nt) {
+    const int col = wcol + nt * 8 + 2 * t4;
+    const float2 br = *reinterpret_cast<const float2*>(bo_l + col);
+    const float2 bs = *reinterpret_cast<const float2*>(bo_l + C + col);
+    float2 xi[4][2], so[4][2];
+#pragma unroll
+    for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) {
+        const int t = t0 + mt * 16 + g8 + hr * 8;
+        xi[mt][hr] = so[mt][hr] = make_float2(0.f, 0.f);
+        if (t < T) {
+          const size_t o = ((size_t)b * T + t) * C + col;
+          xi[mt][hr] = *reinterpret_cast<const float2*>(x_in + o);
+          if (l > 0) so[mt][hr] = *reinterpret_cast<const float2*>(skip + o);
+        }
+      }
+#pragma unroll
+    for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) {
+        const int t = t0 + mt * 16 + g8 + hr * 8;
+        if (t >= T) continue;
+        const size_t o = ((size_t)b * T + t) * C + col;
+        float2 xo, sk;
+        xo.x = (xi[mt][hr].x + (acc[mt][nt][hr * 2] + br.x)) * SQRT_HALF;
+        xo.y = (xi[mt][hr].y + (acc[mt][nt][hr * 2 + 1] + br.y)) * SQRT_HALF;
+        sk.x = so[mt][hr].x + (acc[mt][NTH + nt][hr * 2] + bs.x);
+        sk.y = so[mt][hr].y + (acc[mt][NTH + nt][hr * 2 + 1] + bs.y);
+        *reinterpret_cast<float2*>(x_out + o) = xo;
+        *reinterpret_cast<float2*>(skip + o) = sk;
+      }
+  }
+  PHASE_CLOCK(5);
+}
+
+template <typename E, int C> struct Body;   // the kernel and shared memory of a body
+template <int C> struct Body<bf16, C> {
+  static auto kernel() { return stack_layer_tc<C>; }
+  static size_t smem(int d) { return smem_bytes<C>(d); }
+};
+template <int C> struct Body<float, C> {
+  static auto kernel() { return stack_layer_tc32<C>; }
+  static size_t smem(int d) { return smem_bytes32<C>(d); }
+};
+
+// x0 is read only; xbuf holds two [B,T,C] f32 buffers the layers alternate
+// between; skip needs no initial value (layer 0 writes it). cond and the
+// weights are E (bf16 or float). Every launch the card takes is counted in
+// *n_launched.
+template <typename E, int C>
+int run(const float* x0, float* xbuf, float* skip, const float* step, const E* cond,
+        const E* w_dil, const float* b_dil, const E* w_out, const float* b_out,
+        int B, int T, int L, const int* dil, cudaStream_t stream, int* n_launched) {
   int dmax = 0;
   for (int l = 0; l < L; ++l) {
     if (dil[l] < 1) return (int)cudaErrorInvalidValue;
     if (dil[l] > dmax) dmax = dil[l];
   }
-  if (smem_bytes<C>(dmax) > 227 * 1024) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(stack_layer_tc<C>,
+  if (dmax > MAX_DIL) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(Body<E, C>::kernel(),
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem_bytes<C>(dmax));
+                                         (int)Body<E, C>::smem(dmax));
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((T + TM - 1) / TM, B);
   const size_t n = (size_t)B * T * C;
@@ -371,23 +709,24 @@ int run(const float* x0, float* xbuf, float* skip, const float* step, const bf16
     cudaLaunchConfig_t cfg = {};
     cfg.gridDim = grid;
     cfg.blockDim = dim3(NTHR);
-    cfg.dynamicSmemBytes = smem_bytes<C>(dil[l]);
+    cfg.dynamicSmemBytes = Body<E, C>::smem(dil[l]);
     cfg.stream = stream;
     cudaLaunchAttribute attr;
     attr.id = cudaLaunchAttributeProgrammaticStreamSerialization;
     attr.val.programmaticStreamSerializationAllowed = 1;
     cfg.attrs = &attr;
     cfg.numAttrs = l > 0 ? 1 : 0;
-    err = cudaLaunchKernelEx(&cfg, stack_layer_tc<C>, xin, xout, skip, step, cond, w_dil,
+    err = cudaLaunchKernelEx(&cfg, Body<E, C>::kernel(), xin, xout, skip, step, cond, w_dil,
                              b_dil, w_out, b_out, B, T, l, dil[l]);
     if (err != cudaSuccess) return (int)err;
+    ++*n_launched;
   }
   return (int)cudaSuccess;
 }
 
 }  // namespace tc
 
-// ------------------------------------------------------------------- float32
+// ------------------------------------------------------- float32, SIMT body
 constexpr int BM = 64;    // rows per block
 constexpr int BNH = 32;   // columns per half (gate|filter, residual|skip)
 constexpr int BK = 16;    // contraction slice staged in shared memory
@@ -542,50 +881,88 @@ out_kernel(float* __restrict__ x, float* __restrict__ skip, const float* __restr
 int run_f32(float* x, float* skip, float* g, const float* step, const float* cond,
             const float* w_dil, const float* b_dil, const float* w_out,
             const float* b_out, int B, int T, int C, int L, const int* dil,
-            cudaStream_t stream) {
+            cudaStream_t stream, int* n_launched) {
   if (C % BNH != 0 || C % BK != 0) return (int)cudaErrorInvalidValue;
+  for (int l = 0; l < L; ++l)
+    if (dil[l] < 1) return (int)cudaErrorInvalidValue;
   const int BT = B * T;
   const dim3 grid((BT + BM - 1) / BM, C / BNH);
   for (int l = 0; l < L; ++l) {
     gate_kernel<<<grid, NT, 0, stream>>>(x, step, cond, w_dil, b_dil, g, B, T, C, l, dil[l]);
     cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
+    ++*n_launched;
     out_kernel<<<grid, NT, 0, stream>>>(x, skip, g, w_out, b_out, BT, C, l);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
+    ++*n_launched;
   }
   return (int)cudaSuccess;
 }
 
+// The tensor-core bodies' rule: float32 or bfloat16, C = 128 or 256, every
+// dilation in [1, MAX_DIL].
+bool tc_takes(int dtype, int C, int dmax) {
+  return (dtype == 0 || dtype == 1) && (C == 128 || C == 256) && dmax >= 1 &&
+         dmax <= tc::MAX_DIL;
+}
+
 }  // namespace
 
-// dtype 0, float32 inputs: x [B,T,C] f32 is updated in place, skip [B,T,C] f32
-// must start at zero, scratch is g [B*T, C] f32; C % 32 == 0.
-// dtype 1, bfloat16 inputs (cond, w_dil, w_out): x is read only, skip needs no
-// initial value, scratch is two [B,T,C] f32 buffers; C is 128 or 256.
+// What the tensor-core bodies take and how they would run it: returns 1 when
+// they serve this type (0 float32, 1 bfloat16), width and largest dilation,
+// and then fills out with the rows a block owns and the shared memory (bytes)
+// a block takes at dmax; 0 otherwise.
+extern "C" int diffnet_stack_tc_info(int dtype, int C, int dmax, int* out) {
+  if (!tc_takes(dtype, C, dmax)) return 0;
+  out[0] = tc::TM;
+  if (dtype == 0)
+    out[1] = (int)(C == 256 ? tc::smem_bytes32<256>(dmax) : tc::smem_bytes32<128>(dmax));
+  else
+    out[1] = (int)(C == 256 ? tc::smem_bytes<256>(dmax) : tc::smem_bytes<128>(dmax));
+  return 1;
+}
+
+// path 1, the tensor-core bodies (dtype 0 float32 or 1 bfloat16 cond, w_dil
+// and w_out; C = 128 or 256; dilations up to MAX_DIL): x is x0, read only;
+// skip needs no initial value; scratch is two [B,T,C] f32 buffers.
+// path 0, the SIMT body (dtype 0 only, C % 32 == 0): x [B,T,C] f32 is updated
+// in place, skip [B,T,C] f32 must start at zero, scratch is g [B*T, C] f32.
+// A path that does not take the shape is refused, never swapped for another.
+// report (two ints) is written by the code that ran: [0] the kernels it
+// launched in this call, [1] which body it was (0 SIMT, 1 tensor cores).
 // Returns a cudaError_t code.
-extern "C" int diffnet_stack_run(int dtype, void* x, void* skip, void* scratch,
+extern "C" int diffnet_stack_run(int path, int dtype, void* x, void* skip, void* scratch,
                                  const void* step, const void* cond,
                                  const void* w_dil, const void* b_dil,
                                  const void* w_out, const void* b_out,
                                  int B, int T, int C, int L, const int* dil,
-                                 void* stream) {
+                                 void* stream, int* report) {
+  typedef __nv_bfloat16 bf16;
   cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == 0)
-    return run_f32((float*)x, (float*)skip, (float*)scratch, (const float*)step,
-                   (const float*)cond, (const float*)w_dil, (const float*)b_dil,
-                   (const float*)w_out, (const float*)b_out, B, T, C, L, dil, s);
-  if (dtype == 1) {
-    typedef __nv_bfloat16 bf16;
-#define STACK_TC(CH)                                                                  \
-  return tc::run<CH>((const float*)x, (float*)scratch, (float*)skip, (const float*)step, \
-                     (const bf16*)cond, (const bf16*)w_dil, (const float*)b_dil,      \
-                     (const bf16*)w_out, (const float*)b_out, B, T, L, dil, s)
-    if (C == 256) STACK_TC(256);
-    if (C == 128) STACK_TC(128);
+  report[0] = 0;
+  report[1] = -1;
+  if (path == 1) {
+    int dmax = 0;
+    for (int l = 0; l < L; ++l) dmax = dil[l] > dmax ? dil[l] : dmax;
+    if (!tc_takes(dtype, C, dmax)) return (int)cudaErrorInvalidValue;
+    report[1] = 1;
+#define STACK_TC(E, CH)                                                                  \
+  return tc::run<E, CH>((const float*)x, (float*)scratch, (float*)skip, (const float*)step, \
+                        (const E*)cond, (const E*)w_dil, (const float*)b_dil,             \
+                        (const E*)w_out, (const float*)b_out, B, T, L, dil, s, report)
+    if (dtype == 0 && C == 256) STACK_TC(float, 256);
+    if (dtype == 0 && C == 128) STACK_TC(float, 128);
+    if (dtype == 1 && C == 256) STACK_TC(bf16, 256);
+    if (dtype == 1 && C == 128) STACK_TC(bf16, 128);
 #undef STACK_TC
+    return (int)cudaErrorInvalidValue;
   }
-  return (int)cudaErrorInvalidValue;
+  if (path != 0 || dtype != 0) return (int)cudaErrorInvalidValue;
+  report[1] = 0;
+  return run_f32((float*)x, (float*)skip, (float*)scratch, (const float*)step,
+                 (const float*)cond, (const float*)w_dil, (const float*)b_dil,
+                 (const float*)w_out, (const float*)b_out, B, T, C, L, dil, s, report);
 }
 
 #ifdef STACK_PHASE_CLOCKS

@@ -11,9 +11,19 @@ Output: the skip sum [B, T, C] f32 (before the 1/sqrt(L) scale).
 
 ``compute_dtype=torch.bfloat16`` gives bf16 GEMM inputs (cond, weights, the
 conv input y and the gate g) with f32 accumulation, the same cast points as
-the JAX kernel; ``None`` keeps everything float32. The bfloat16 kernel runs
-on the tensor cores, one launch a layer, and leaves ``x0`` untouched; the
-float32 kernel is the earlier SIMT pair of launches a layer.
+the JAX kernel; ``None`` keeps everything float32. No shipped config sets
+``compute_dtype``, so the shipped configs (LJ serving and ``--infer``: 71
+calls a request; singing: 26) run the float32 body.
+
+Which body a CUDA call runs is decided here, by shape
+(:func:`takes_tensor_cores`): float32 or bfloat16 at C = 128 or 256 with
+every dilation up to 16 takes the tensor-core bodies (one launch a layer,
+``x0`` untouched; float32 products as 3xTF32), float32 at any other shape
+(C % 32 == 0) takes the SIMT body (two launches a layer); bfloat16 outside
+the rule, and every other type, raises. Neither ever reaches the plain twin.
+The library reports what it launched: ``diffnet_stack.device_launches`` and
+``.ran_tensor_cores`` hold the last CUDA call's, and
+:func:`tensor_core_info` its tile rows and shared memory for a shape.
 """
 
 from __future__ import annotations
@@ -71,16 +81,64 @@ def diffnet_stack_plain(x0, step_proj, cond_proj, w_dil, b_dil, w_out, b_out, *,
     return skips
 
 
-TC_CHANNELS = (128, 256)   # widths the bfloat16 tensor-core kernel is built for
+TC_CHANNELS = (128, 256)   # widths the tensor-core bodies are built for
+TC_MAX_DILATION = 16       # the widest halo their tiles hold in a block's shared memory
+
+
+def takes_tensor_cores(c: int, dilations: Sequence[int],
+                       compute_dtype: Optional[torch.dtype]) -> bool:
+    """The dispatch rule: float32 (``None``) or bfloat16, C in
+    :data:`TC_CHANNELS` and every dilation in [1, 16] go to the tensor-core
+    bodies. The library holds the same rule and refuses a call outside it."""
+    return ((compute_dtype or torch.float32) in _DTYPE_CODE and c in TC_CHANNELS
+            and 1 <= min(int(d) for d in dilations)
+            and max(int(d) for d in dilations) <= TC_MAX_DILATION)
+
+
+def _body(c: int, dilations: Sequence[int], compute_dtype: Optional[torch.dtype]) -> int:
+    """The body a CUDA call runs (1: tensor cores, 0: SIMT), or raises for a
+    shape no body takes."""
+    dt = compute_dtype or torch.float32
+    if dt not in _DTYPE_CODE:
+        raise ValueError(f"diffnet_stack kernel takes float32 or bfloat16, got {dt}")
+    if min(int(d) for d in dilations) < 1:
+        raise ValueError(f"dilations must be positive, got {tuple(dilations)}")
+    if takes_tensor_cores(c, dilations, compute_dtype):
+        return 1
+    if dt == torch.bfloat16:
+        raise ValueError(f"diffnet_stack bfloat16 kernel takes C in {TC_CHANNELS} and "
+                         f"dilations up to {TC_MAX_DILATION}, got C={c}, "
+                         f"dilations {tuple(dilations)}")
+    if c % 32:
+        raise ValueError(f"diffnet_stack kernel needs C % 32 == 0, got C={c}")
+    return 0
 
 
 @functools.lru_cache(maxsize=None)
 def _entry():
     fn = load_library("diffnet_stack").diffnet_stack_run
     fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 9
-                   + [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int), ctypes.c_void_p])
+    fn.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 9
+                   + [ctypes.c_int] * 4
+                   + [ctypes.POINTER(ctypes.c_int), ctypes.c_void_p,
+                      ctypes.POINTER(ctypes.c_int)])
     return fn
+
+
+def tensor_core_info(c: int, dilations: Sequence[int],
+                     compute_dtype: Optional[torch.dtype]) -> Optional[dict]:
+    """What the built library says of these shapes: None when its tensor-core
+    bodies do not take them, else the rows a block owns and the shared memory
+    (bytes) a block takes at the largest dilation. Needs the built library,
+    so it runs on the card's machine."""
+    info = load_library("diffnet_stack").diffnet_stack_tc_info
+    info.restype = ctypes.c_int
+    info.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)]
+    out = (ctypes.c_int * 2)()
+    code = _DTYPE_CODE.get(compute_dtype or torch.float32, -1)
+    if not info(code, c, max(int(d) for d in dilations), out):
+        return None
+    return {"tile_rows": out[0], "smem": out[1]}
 
 
 @functools.lru_cache(maxsize=64)
@@ -93,12 +151,7 @@ def _launch(x0, step_proj, cond_proj, w_dil, b_dil, w_out, b_out, dilations,
     dt = compute_dtype or torch.float32
     b, t, c = x0.shape
     num_layers = w_dil.shape[0]
-    if dt not in _DTYPE_CODE:
-        raise ValueError(f"diffnet_stack kernel takes float32 or bfloat16, got {dt}")
-    if dt == torch.bfloat16 and c not in TC_CHANNELS:
-        raise ValueError(f"diffnet_stack bfloat16 kernel takes C in {TC_CHANNELS}, got C={c}")
-    if c % 32:
-        raise ValueError(f"diffnet_stack kernel needs C % 32 == 0, got C={c}")
+    path = _body(c, dilations, compute_dtype)
     expect = {"step_proj": (num_layers, b, c), "cond_proj": (num_layers, b, t, 2 * c),
               "w_dil": (num_layers, 3, c, 2 * c), "b_dil": (num_layers, 2 * c),
               "w_out": (num_layers, c, 2 * c), "b_out": (num_layers, 2 * c)}
@@ -110,7 +163,7 @@ def _launch(x0, step_proj, cond_proj, w_dil, b_dil, w_out, b_out, dilations,
         if args[k].device != x0.device:
             raise ValueError(f"{k} is on {args[k].device}, x0 on {x0.device}")
     x = x0.to(torch.float32).contiguous()
-    if dt == torch.bfloat16:
+    if path:
         # the kernel reads x0 and alternates between two buffers of its own;
         # layer 0 writes skip, so it needs no zeros
         skip = torch.empty_like(x)
@@ -125,10 +178,12 @@ def _launch(x0, step_proj, cond_proj, w_dil, b_dil, w_out, b_out, dilations,
     bd, bo = b_dil.to(torch.float32).contiguous(), b_out.to(torch.float32).contiguous()
     dil = _dilation_array(tuple(int(d) for d in dilations))
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    err = _entry()(_DTYPE_CODE[dt], x.data_ptr(), skip.data_ptr(), scratch.data_ptr(),
+    report = (ctypes.c_int * 2)()
+    err = _entry()(path, _DTYPE_CODE[dt], x.data_ptr(), skip.data_ptr(), scratch.data_ptr(),
                    step.data_ptr(), cond.data_ptr(), wd.data_ptr(), bd.data_ptr(),
-                   wo.data_ptr(), bo.data_ptr(), b, t, c, num_layers, dil, stream)
+                   wo.data_ptr(), bo.data_ptr(), b, t, c, num_layers, dil, stream, report)
     check(err, "diffnet_stack")
+    diffnet_stack.device_launches, diffnet_stack.ran_tensor_cores = report[0], bool(report[1])
     return skip
 
 
@@ -137,7 +192,8 @@ def diffnet_stack(x0, step_proj, cond_proj, w_dil, b_dil, w_out, b_out, *,
                   compute_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """Run the whole residual stack; returns the skip sum [B, T, C] f32.
 
-    CUDA tensors launch the hand-written kernel (and count the launch in
+    CUDA tensors launch the hand-written kernel of the body
+    :func:`takes_tensor_cores` names (and count the call in
     ``diffnet_stack.launches``); CPU tensors take the plain twin."""
     if len(dilations) != w_dil.shape[0]:
         raise ValueError("one dilation per layer is required")
@@ -153,7 +209,9 @@ def diffnet_stack(x0, step_proj, cond_proj, w_dil, b_dil, w_out, b_out, *,
     return out
 
 
-diffnet_stack.launches = 0
+diffnet_stack.launches = 0             # calls that launched kernels
+diffnet_stack.device_launches = None   # kernels the library launched in the last such call
+diffnet_stack.ran_tensor_cores = None  # which body that call ran
 
 
 # ---------------------------------------------------------------------------

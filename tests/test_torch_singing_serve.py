@@ -75,10 +75,10 @@ def _rand(rng, shape, scale):
     return jnp.asarray(rng.randn(*shape).astype(np.float32) * scale)
 
 
-@pytest.fixture(scope="module")
-def slice_pair():
+def _build_pair(hp):
+    """The JAX and the port's FusedSynthesizer for ``hp`` on shared weights."""
     rng = np.random.RandomState(0)
-    jtask = build_task(HP, vocab_size=VOCAB)
+    jtask = build_task(hp, vocab_size=VOCAB)
     init_batch = {"txt_tokens": np.ones((1, 8), np.int64),
                   "mel2ph": np.ones((1, 16), np.int64),
                   "mels": np.zeros((1, 16, MEL), np.float32),
@@ -95,7 +95,7 @@ def slice_pair():
     params["denoiser"]["output_projection"] = {  # zero at init
         "kernel": _rand(rng, (1, 32, MEL), 0.1), "bias": jnp.zeros((MEL,), jnp.float32)}
 
-    jpe_mod = jpe.PitchExtractor(jpe.PEConfig.from_hparams(HP))
+    jpe_mod = jpe.PitchExtractor(jpe.PEConfig.from_hparams(hp))
     pe_vars = jpe_mod.init(jax.random.PRNGKey(2), jnp.zeros((1, 16, MEL)))
     pe_params = dict(pe_vars["params"])
     pe_params["pitch_predictor"] = dict(pe_params["pitch_predictor"])
@@ -114,15 +114,31 @@ def slice_pair():
                               jax.random.PRNGKey(3))["params"]
     jvoc.params = jax.tree_util.tree_map(lambda a: _rand(rng, a.shape, 0.05), vparams)
 
-    ttask = DiffSingerTask(HP, VOCAB, device="cpu")
+    ttask = DiffSingerTask(hp, VOCAB, device="cpu")
     ttask.load_state_dict(task_state_dict(params), strict=True)
     tvoc = HifiGAN(VOC_HP, device="cpu")
     tvoc.load_state_dict(hifigan_state_dict(jvoc.params), strict=True)
-    tpe = PitchExtractor(PEConfig.from_hparams(HP))
+    tpe = PitchExtractor(PEConfig.from_hparams(hp))
     tpe.load_state_dict(pe_state_dict(pe_vars), strict=True)
-    jsyn = JSynth(HP, jtask, params, jvoc, pe=(jpe_mod, pe_vars))
-    tsyn = FusedSynthesizer(HP, ttask, tvoc, pe=tpe, device="cpu")
+    jsyn = JSynth(hp, jtask, params, jvoc, pe=(jpe_mod, pe_vars))
+    tsyn = FusedSynthesizer(hp, ttask, tvoc, pe=tpe, device="cpu")
     return jsyn, tsyn, (ttask, tvoc, tpe)
+
+
+@pytest.fixture(scope="module")
+def slice_pair():
+    return _build_pair(HP)
+
+
+# the shipped singing configs set no compute_dtype: a float32 stack; JAX runs
+# its shipped serving path, use_pallas_diffnet off (diffnet.apply on the
+# hoisted cond projections)
+HP_F32 = dict(HP, compute_dtype="float32", use_pallas_diffnet=False)
+
+
+@pytest.fixture(scope="module")
+def slice_pair_f32():
+    return _build_pair(HP_F32)
 
 
 def _request(rng, n_phones, t_mel):
@@ -253,3 +269,36 @@ def test_midi_training_and_checkpoints_raise(tmp_path):
     # paths that hold no checkpoint (the released names, absent here) are fine
     tsvs.DiffSingerE2EInfer(dict(HP, pe_ckpt="checkpoints/0102_xiaoma_pe"), task, voc,
                             device="cpu")
+
+
+def test_singing_float32_stack_matches_jax_shipped_path(slice_pair_f32):
+    """A float32 request as the shipped ds1000 config makes it: the port runs
+    its stack wrapper (the plain twin on the CPU, the float32 tensor-core body
+    on the card) against JAX's ``diffnet.apply``. The sampler mel within 5e-5
+    of its scale (module parity; PLMS carries float32 summation-order
+    differences through 5 steps without clipping), the waveform within
+    WAV_TOL, on the JAX draws."""
+    jsyn, tsyn, (ttask, _, _) = slice_pair_f32
+    assert ttask.compute_dtype is None and not jsyn.hp["use_pallas_diffnet"]
+    rng = np.random.RandomState(2)
+    requests = [_request(rng, 12, 50), _request(rng, 14, 60)]
+    key = jax.random.PRNGKey(11)
+    want = jsyn.synthesize_many(requests, rng=key)
+    (t_mel_b, items, b_pad), = tsyn.plan(requests)
+    _, rng_g = jax.random.split(key)
+    noise, source = jax_draws(rng_g, b_pad, t_mel_b)
+    got = tsyn.synthesize_many(requests, noises=[noise], sources=[source])
+    for (batch, _), g, w in zip(requests, got, want):
+        assert g.shape == w.shape == (batch["txt_tokens"].shape[1] * FRAMES_PER_PHONE * HOP,)
+        np.testing.assert_allclose(g, np.asarray(w), atol=WAV_TOL)
+    # the sampler mel of the same batch, on the same start noise
+    stacked = tsyn._stack_group(items, 16, t_mel_b)
+    rng_s, _ = jax.random.split(rng_g)
+    want_mel = np.asarray(jsyn.task.inference(jsyn.params, stacked, rng_s, t_mel=t_mel_b,
+                                              use_gt_dur=False)["mel_out"])
+    with torch.no_grad():
+        got_mel = ttask.inference(stacked, t_mel=t_mel_b, use_gt_dur=False,
+                                  noise=torch.from_numpy(np.array(noise)))["mel_out"].numpy()
+    scale = max(float(np.abs(want_mel).max()), 1.0)
+    np.testing.assert_allclose(got_mel, want_mel, atol=5e-5 * scale)
+    assert np.abs(want_mel).max() > 1.0
