@@ -53,12 +53,14 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      plus 3 x 301 rows with H=200 and with H=256 (not a tile multiple; the
      first on the SIMT kernels, the second on the tensor cores), 1 x 1024,
      2 x 5 (T below the largest dilation) and 2 x 100 with dilations up to
-     16 (the widest halo that fits), against their plain twins on the
-     same inputs: skips, xs and all nine cotangents; two calls give the same
-     bits, and the backward writes none of its inputs; the kernels a call
-     launched are counted inside the library, where it launches them, and
-     the library's own report of its tensor-core tiles is held against the
-     wrapper's dispatch rule;
+     16 (the widest halo that fits), in bf16 and in f32 (the shipped
+     configs' type, on the 3xTF32 tensor-core kernels at C = H = 256), against
+     their plain twins on the same inputs: skips, xs and all nine cotangents;
+     two calls give the same bits, and the backward writes none of its
+     inputs; the kernels a call launched are counted inside the library,
+     where it launches them, and the library's own report of its tensor-core
+     tiles and body is held against the wrapper's dispatch rule; f32 rows
+     carry the 3xTF32 bound and the FMA bound;
   7. training: the port's Trainer on DiffSpeech-LJSpeech at full width
      (configs/lj/ds_beta6.yaml with tools/bench_train.py's overrides, bf16
      stack, dropout on, FS2 frozen but for its predictors) first holds one
@@ -70,7 +72,15 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      get_f0cwt of voiced/unvoiced F0 contours): the first step's losses (mel,
      C, uv, f0_mean, f0_std, the duration terms) and gradients against the
      plain twins, then five steps;
-  7b. cli: the user path from a corpus on disk to waveforms on disk with
+  7b. train_shipped: the training step a user of configs/lj/ds_beta6.yaml
+     takes, as shipped: cwt pitch and no compute_dtype, so the stack trains
+     in float32 on the 3xTF32 tensor-core kernels; the synthetic cwt batch at
+     24 x 1024; the first step against the plain twins by a float32
+     criterion, then one warm and five timed steps (median ms, mel-frames/s,
+     peak memory, launches: one forward and one backward call a step, 20 and
+     at most 100 device launches, the library's 3xTF32 body), one profiled
+     step (build/chip_smoke/train_shipped_profile.txt);
+  7c. cli: the user path from a corpus on disk to waveforms on disk with
      configs/lj/ds_beta6.yaml at full width (cwt pitch, bf16 stack): writes
      an LJ-style corpus of 64 harmonic-tone utterances with TextGrids under
      build/chip_smoke/cli/, binarizes it with
@@ -922,7 +932,10 @@ TRAIN_STACK_CASES = (
        ("bfloat16", 4, 3, 301, 256), ("bfloat16", 1, 1, 1024, 256),
        ("bfloat16", 4, 2, 5, 256),
        # cycle 5: d = 16, the widest halo the tensor-core tiles hold in 227 KB
-       ("bfloat16", 5, 2, 100, 256)])
+       ("bfloat16", 5, 2, 100, 256),
+       # the same edges on the float32 tensor-core kernels
+       ("float32", 4, 3, 301, 256), ("float32", 4, 2, 5, 256),
+       ("float32", 5, 2, 100, 256)])
 
 
 def phase_train_stack(torch, tr, cases=TRAIN_STACK_CASES):
@@ -993,8 +1006,11 @@ def phase_train_stack(torch, tr, cases=TRAIN_STACK_CASES):
         w_bytes = sum(a.numel() for a in (args[2], args[3], args[5], args[7])) * esz
         f32_in = nbytes(args[0], args[1], args[4], args[6], args[8])
         xs_bytes = xs.numel() * esz
-        peak = H100_BF16_FLOPS if dt else H100_F32_FLOPS
-        bnd, by = bound_ms(f_fwd, w_bytes + f32_in + nbytes(skips) + xs_bytes, peak)
+        # float32: the least time at float32 accuracy is three TF32 passes on
+        # the tensor cores; the FMA bound beside it is what the SIMT kernels face
+        peak = H100_BF16_FLOPS if dt else H100_3XTF32_FLOPS
+        fwd_moved = w_bytes + f32_in + nbytes(skips) + xs_bytes
+        bnd, by = bound_ms(f_fwd, fwd_moved, peak)
         grad_bytes = nbytes(*got)
         in_bytes = xs_bytes + w_bytes + nbytes(args[1], args[4], args[6]) + ds.numel() * esz
         bwd_bnd, bwd_by = bound_ms(f_bwd, in_bytes + grad_bytes, peak)
@@ -1006,6 +1022,8 @@ def phase_train_stack(torch, tr, cases=TRAIN_STACK_CASES):
                                  f"the library {info}, forward ran {fwd_tc}, backward {bwd_tc}")
         if info and max(info["smem"].values()) > 227 * 1024:
             raise AssertionError(f"{what}: shared memory {info['smem']} above 227 KB")
+        if info and info["body"] != ("bf16" if dt else "3xtf32"):
+            raise AssertionError(f"{what}: the library's body {info['body']} for {dt_name}")
         # tensor cores: one launch a layer forward, at most five backward
         if expect_tc and not (fwd_launched == num_layers and bwd_launched <= 5 * num_layers):
             raise AssertionError(f"{what}: {fwd_launched} forward and {bwd_launched} backward "
@@ -1021,6 +1039,10 @@ def phase_train_stack(torch, tr, cases=TRAIN_STACK_CASES):
                    bwd_plain_ms=plain_bwd_ms, fwd_gflop=f_fwd / 1e9, bwd_gflop=f_bwd / 1e9,
                    fwd_bound_ms=bnd, fwd_bound_by=by, bwd_bound_ms=bwd_bnd,
                    bwd_bound_by=bwd_by)
+        if dt is None:
+            row["fwd_bound_fma_ms"], _ = bound_ms(f_fwd, fwd_moved, H100_F32_FLOPS)
+            row["bwd_bound_fma_ms"], _ = bound_ms(f_bwd, in_bytes + grad_bytes,
+                                                  H100_F32_FLOPS)
         print("diffnet_train", json.dumps({k: v for k, v in row.items() if k != "errors"}),
               flush=True)
         bad = {k: e for k, e in errs.items() if not e["max_abs_err"] <= e["tolerance"]}
@@ -1077,7 +1099,8 @@ def synthetic_cwt_batch(rng, b: int, t_txt: int, t_mel: int):
     return batch
 
 
-def build_trainer(torch, seed: int = 0, frame_pitch: bool = True):
+def build_trainer(torch, seed: int = 0, frame_pitch: bool = True,
+                  compute_dtype: Optional[str] = "bfloat16"):
     from diffsinger_tpu_torch.config.hparams import set_hparams
     from diffsinger_tpu_torch.training.tasks import DiffSingerTask
     from diffsinger_tpu_torch.training.trainer import Trainer
@@ -1086,12 +1109,15 @@ def build_trainer(torch, seed: int = 0, frame_pitch: bool = True):
     # tools/bench_train.py's workload: DiffSpeech LJSpeech at its published
     # width with its training rates (fs2_ckpt stays set: FS2 is frozen but
     # for its predictors, and the missing checkpoint means seeded weights);
-    # frame_pitch keeps its pitch_type override, else the config's cwt pitch
+    # frame_pitch keeps its pitch_type override, else the config's cwt pitch;
+    # compute_dtype None keeps the config's (none: the stack in float32). The
+    # other values are the config's own.
     hp.update(hidden_size=256, enc_layers=4, dec_layers=4, residual_layers=20,
               residual_channels=256, timesteps=100, K_step=71, max_beta=0.06,
               schedule_type="linear", lr=0.001, decay_steps=50000,
-              clip_grad_norm=1, dropout=0.1, predictor_dropout=0.5,
-              compute_dtype="bfloat16", seed=seed)
+              clip_grad_norm=1, dropout=0.1, predictor_dropout=0.5, seed=seed)
+    if compute_dtype is not None:
+        hp["compute_dtype"] = compute_dtype
     if frame_pitch:
         hp["pitch_type"] = "frame"
     with torch.random.fork_rng(devices=[]):
@@ -1109,24 +1135,28 @@ def build_trainer(torch, seed: int = 0, frame_pitch: bool = True):
 
 
 def _grad_agreement(got, want):
-    """Worst cosine and worst max-error relative to each tensor's scale."""
-    worst_cos, worst_rel = 1.0, 0.0
-    for g_, w_ in zip(got, want):
+    """Worst cosine, worst max-error relative to each tensor's scale, and the
+    index of the tensor with that error."""
+    worst_cos, worst_rel, worst_at = 1.0, 0.0, None
+    for i, (g_, w_) in enumerate(zip(got, want)):
         g_, w_ = g_.double().flatten(), w_.double().flatten()
         wn = w_.norm().item()
         if wn == 0.0:
-            worst_rel = max(worst_rel, g_.abs().max().item())
-            continue
-        worst_cos = min(worst_cos, (g_ @ w_).item() / (g_.norm().item() * wn))
-        worst_rel = max(worst_rel, ((g_ - w_).abs().max() / w_.abs().max()).item())
-    return worst_cos, worst_rel
+            rel = g_.abs().max().item()
+        else:
+            worst_cos = min(worst_cos, (g_ @ w_).item() / (g_.norm().item() * wn))
+            rel = ((g_ - w_).abs().max() / w_.abs().max()).item()
+        if rel >= worst_rel:
+            worst_rel, worst_at = rel, i
+    return worst_cos, worst_rel, worst_at
 
 
 def step_vs_plain(torch, tr, trainer, batch, k_step: int):
     """One step's losses and gradients, kernels vs plain twins (same weights,
     t and noise, dropout off); no update is applied. Returns the kernel
-    run's losses, the plain run's, each term's difference and the worst
-    gradient cosine and relative error."""
+    run's losses, the plain run's, each term's difference, the worst
+    gradient cosine and relative error, and the trainable parameter with
+    that error."""
     b, t_mel, n_mels = batch["mels"].shape
     gen = torch.Generator(device="cuda").manual_seed(7)
     t = torch.randint(0, k_step, (b,), generator=gen, device="cuda")
@@ -1137,8 +1167,9 @@ def step_vs_plain(torch, tr, trainer, batch, k_step: int):
         lp, gp = trainer.loss_and_grads(batch, t=t, noise=noise, deterministic=True)
     torch.cuda.synchronize()
     loss_diff = {k: abs(float(lk[k]) - float(lp[k])) for k in lk}
-    cos, rel = _grad_agreement(gk, gp)
-    return lk, lp, loss_diff, cos, rel
+    cos, rel, worst_at = _grad_agreement(gk, gp)
+    names = [n for n, p in trainer.task.named_parameters() if p.requires_grad]
+    return lk, lp, loss_diff, cos, rel, names[worst_at] if worst_at is not None else None
 
 
 def step_agrees(lp, loss_diff, cos: float, rel: float) -> bool:
@@ -1148,6 +1179,34 @@ def step_agrees(lp, loss_diff, cos: float, rel: float) -> bool:
     tensor's scale)."""
     bad = [k for k, d in loss_diff.items() if not d <= 1e-3 * max(abs(float(lp[k])), 1.0)]
     return not bad and cos > 0.999 and rel < 0.05
+
+
+def timed_steps(torch, tr, trainer, batch, steps: int):
+    """``steps`` optimizer steps (dropout on, draws from the trainer's
+    generator), each timed on the host clock to the device's end, the
+    training kernels' launches counted from zero and the peak memory from a
+    reset. Returns the numbers and each step's losses."""
+    tr.diffnet_train_fwd.launches = 0
+    tr.diffnet_train_bwd.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times, history = [], []
+    for _ in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses = trainer.train_step(batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        history.append({k: float(v) for k, v in losses.items()})
+    fns = (tr.diffnet_train_fwd, tr.diffnet_train_bwd)
+    return {
+        "launches": {fn.__name__: fn.launches for fn in fns},
+        # the last step's kernels, as the library counted them where it launched
+        "device_launches_last_step": {fn.__name__: fn.device_launches for fn in fns},
+        "ran_tensor_cores": all(fn.ran_tensor_cores for fn in fns),
+        "step_ms": [x * 1e3 for x in times],
+        "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+    }, history
 
 
 def phase_train(torch, tr, card: str, out_dir: Path, steps: int = 10, cwt: bool = False):
@@ -1160,42 +1219,24 @@ def phase_train(torch, tr, card: str, out_dir: Path, steps: int = 10, cwt: bool 
     make = synthetic_cwt_batch if cwt else synthetic_batch
     batch = trainer.prepare_batch(make(np.random.RandomState(0), b, t_txt, t_mel))
     # the first step, kernels vs plain twins
-    lk, lp, loss_diff, cos, rel = step_vs_plain(torch, tr, trainer, batch, int(hp["K_step"]))
+    lk, lp, loss_diff, cos, rel, _ = step_vs_plain(torch, tr, trainer, batch,
+                                                   int(hp["K_step"]))
     want_terms = {"mel", "pdur", "wdur", "sdur"} | (
         {"C", "uv", "f0_mean", "f0_std"} if cwt else {"uv", "f0"})
     if not want_terms <= set(lk):
         raise AssertionError(f"training loss terms {sorted(lk)}, expected {sorted(want_terms)}")
 
-    tr.diffnet_train_fwd.launches = 0
-    tr.diffnet_train_bwd.launches = 0
-    torch.cuda.reset_peak_memory_stats()
-    times, history = [], []
-    for _ in range(steps):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        losses = trainer.train_step(batch)  # dropout on, draws from the trainer's generator
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
-        history.append({k: float(v) for k, v in losses.items()})
-    launches = {"diffnet_train_fwd": tr.diffnet_train_fwd.launches,
-                "diffnet_train_bwd": tr.diffnet_train_bwd.launches}
-    # the last step's kernels, as the library counted them where it launched
-    device_launches = {"diffnet_train_fwd": tr.diffnet_train_fwd.device_launches,
-                       "diffnet_train_bwd": tr.diffnet_train_bwd.device_launches}
-    ran_tc = tr.diffnet_train_fwd.ran_tensor_cores and tr.diffnet_train_bwd.ran_tensor_cores
-    peak_mem = torch.cuda.max_memory_allocated()
+    timed, history = timed_steps(torch, tr, trainer, batch, steps)
     profile = (None if cwt else
                phase_profile(torch, lambda: trainer.train_step(batch), out_dir, "train"))
 
-    warm_ms = float(np.median(times[1:])) * 1e3
+    warm_ms = float(np.median(timed["step_ms"][1:]))
+    launches, ran_tc = timed["launches"], timed["ran_tensor_cores"]
     out = {
         "card": card, "pitch_type": hp["pitch_type"], "steps": steps, "B": b,
-        "T_mel": t_mel, "T_txt": t_txt,
-        "launches": launches, "device_launches_last_step": device_launches,
-        "ran_tensor_cores": ran_tc, "step_ms": [x * 1e3 for x in times],
+        "T_mel": t_mel, "T_txt": t_txt, **timed,
         "ms_per_step_median_warm": warm_ms,
         "mel_frames_per_s": b * t_mel / (warm_ms / 1e3),
-        "max_memory_allocated_bytes": peak_mem,
         "trainable_params": sum(p.numel() for p in trainer.params),
         "first_loss": history[0], "last_loss": history[-1],
         "kernel_vs_plain_loss_abs_diff": loss_diff,
@@ -1215,6 +1256,93 @@ def phase_train(torch, tr, card: str, out_dir: Path, steps: int = 10, cwt: bool 
 
 
 # -------------------------------------------------------------------- phase 7b
+def shipped_step(torch, tr, steps: int = 5):
+    """The training step of configs/lj/ds_beta6.yaml as shipped (cwt pitch, no
+    compute_dtype: the float32 stack) on the synthetic cwt batch at 24 x
+    1024: the first step against the plain twins, one warm step, then
+    ``steps`` timed ones. Returns the trainer, the batch and the numbers."""
+    import numpy as np
+
+    hp, trainer = build_trainer(torch, frame_pitch=False, compute_dtype=None)
+    if hp.get("compute_dtype") is not None or trainer.task.compute_dtype is not None:
+        raise AssertionError(f"ds_beta6.yaml as shipped has compute_dtype "
+                             f"{hp.get('compute_dtype')}; the task runs "
+                             f"{trainer.task.compute_dtype}")
+    b, t_txt, t_mel = 24, 128, 1024
+    batch = trainer.prepare_batch(synthetic_cwt_batch(np.random.RandomState(0), b, t_txt,
+                                                      t_mel))
+    lk, lp, loss_diff, cos, rel, worst = step_vs_plain(torch, tr, trainer, batch,
+                                                       int(hp["K_step"]))
+    trainer.train_step(batch)   # warm: the optimizer's state and the allocator
+    timed, history = timed_steps(torch, tr, trainer, batch, steps)
+    dil = tuple(trainer.task.denoise_fn.dilations)
+    med_ms = float(np.median(timed["step_ms"]))
+    out = {
+        "config": "configs/lj/ds_beta6.yaml", "pitch_type": hp["pitch_type"],
+        "compute_dtype": hp.get("compute_dtype"), "steps": steps, "B": b, "T_mel": t_mel,
+        "T_txt": t_txt, **timed,
+        "tensor_core_info": tr.tensor_core_info(b, 256, 256, dil, None),
+        "ms_per_step_median": med_ms, "mel_frames_per_s": b * t_mel / (med_ms / 1e3),
+        "first_loss": history[0], "last_loss": history[-1],
+        "kernel_vs_plain_loss_abs_diff": loss_diff,
+        "plain_loss": {k: float(v) for k, v in lp.items()},
+        "kernel_vs_plain_grad_worst_cos": cos, "kernel_vs_plain_grad_worst_rel": rel,
+        "kernel_vs_plain_grad_worst_rel_param": worst,
+    }
+    return trainer, batch, history, out
+
+
+def step_agrees_f32(lp, loss_diff, cos: float, rel: float) -> bool:
+    """Float32 on both sides: the stack kernels hold the twins to 1e-4 of each
+    tensor's scale (3xTF32 keeps a product to ~2^-21; sums in another order
+    over 20 layers), and everything around the stack is the same float32
+    code. So each loss term within 1e-4 of its scale, gradient cosine above
+    0.99999, and each gradient's max error below 1e-3 of its scale (a weight
+    gradient sums 24,576 rows in another order)."""
+    bad = [k for k, d in loss_diff.items() if not d <= 1e-4 * max(abs(float(lp[k])), 1.0)]
+    return not bad and cos > 0.99999 and rel < 1e-3
+
+
+def phase_train_shipped(torch, tr, card: str, out_dir: Path, steps: int = 5):
+    """The shipped LJ training step on the card (``shipped_step``), held to
+    its float32 criterion, with launches and the library's body checked and
+    one more step profiled (train_shipped_profile.txt)."""
+    import numpy as np
+
+    num_layers = 20
+    trainer, batch, history, out = shipped_step(torch, tr, steps)
+    out["card"] = card
+    out["profile"] = phase_profile(torch, lambda: trainer.train_step(batch), out_dir,
+                                   "train_shipped")
+    print("train_shipped", json.dumps(out), flush=True)
+    want_terms = {"mel", "pdur", "wdur", "sdur", "C", "uv", "f0_mean", "f0_std"}
+    if not want_terms <= set(out["first_loss"]):
+        raise AssertionError(f"shipped training loss terms {sorted(out['first_loss'])}, "
+                             f"expected {sorted(want_terms)}")
+    if out["launches"] != {"diffnet_train_fwd": steps, "diffnet_train_bwd": steps}:
+        raise AssertionError(f"shipped training launches {out['launches']}, "
+                             f"expected {steps} each")
+    dev = out["device_launches_last_step"]
+    if not (dev["diffnet_train_fwd"] == num_layers
+            and dev["diffnet_train_bwd"] <= 5 * num_layers and out["ran_tensor_cores"]):
+        raise AssertionError(f"shipped training step ran tensor cores "
+                             f"{out['ran_tensor_cores']} with device launches {dev}")
+    info = out["tensor_core_info"]
+    if not info or info["body"] != "3xtf32" or max(info["smem"].values()) > 227 * 1024:
+        raise AssertionError(f"the library's account of the shipped step: {info}")
+    if not all(np.isfinite(v) for h in history for v in h.values()):
+        raise AssertionError(f"non-finite shipped training losses: {history}")
+    if not step_agrees_f32(out["plain_loss"], out["kernel_vs_plain_loss_abs_diff"],
+                           out["kernel_vs_plain_grad_worst_cos"],
+                           out["kernel_vs_plain_grad_worst_rel"]):
+        raise AssertionError(f"shipped train step kernel vs plain: losses "
+                             f"{out['kernel_vs_plain_loss_abs_diff']}, grad cos "
+                             f"{out['kernel_vs_plain_grad_worst_cos']}, rel "
+                             f"{out['kernel_vs_plain_grad_worst_rel']}")
+    return out
+
+
+# -------------------------------------------------------------------- phase 7c
 CLI_ITEMS, CLI_TEST, CLI_VALID, CLI_STEPS, CLI_RESUME_STEPS = 64, 4, 4, 20, 30
 # HiFiGAN v1 (hop 256) as the vocoder directory's config.yaml gives it; not
 # an NSF vocoder, though the acoustic config embeds pitch
@@ -1462,7 +1590,8 @@ def phase_cli(torch, ds, mrf, tr, card: str, out_dir: Path):
         max_sentences=int(hp_resume["max_eval_sentences"]))))
     fit_vs_plain = {}
     for kind, b in (("train", batch), ("valid", valid_batch)):
-        _, lp, loss_diff, cos, rel = step_vs_plain(torch, tr, trainer, b, int(hp_resume["K_step"]))
+        _, lp, loss_diff, cos, rel, _ = step_vs_plain(torch, tr, trainer, b,
+                                                      int(hp_resume["K_step"]))
         fit_vs_plain[kind] = {"batch_shape": list(b["mels"].shape), "loss_abs_diff": loss_diff,
                               "grad_worst_cos": cos, "grad_worst_rel": rel,
                               "agrees": step_agrees(lp, loss_diff, cos, rel)}
@@ -1616,6 +1745,7 @@ def main() -> int:
     train_rows = phase_train_stack(torch, tr)
     training, train_profile = phase_train(torch, tr, card, out_dir)
     training_cwt, _ = phase_train(torch, tr, card, out_dir, steps=5, cwt=True)
+    training_shipped = phase_train_shipped(torch, tr, card, out_dir)
     cli_run = phase_cli(torch, ds, mrf, tr, card, out_dir)
 
     main_stack = stack_rows[0]                        # bf16, cycle 1: serving config
@@ -1631,7 +1761,8 @@ def main() -> int:
 
     serve_paths = {"serving": serving, "serve_cwt": serving_cwt, "singing": singing,
                    "serve_shipped": shipped, "cli": cli_run}
-    train_paths = {"train": training, "train_cwt": training_cwt, "cli": cli_run}
+    train_paths = {"train": training, "train_cwt": training_cwt,
+                   "train_shipped": training_shipped, "cli": cli_run}
 
     kernels = [
         {"name": "diffnet_stack", "route": "cuda",
@@ -1662,19 +1793,36 @@ def main() -> int:
          "library_ms": None, "configs": mrf_rows},
     ]
     main_train = train_rows[0]                        # bf16, cycle 1: the slice config
+    # float32, cycle 1, 24 x 1024: what the shipped configs train with
+    f32_train = next(r for r in train_rows if r["dtype"] == "float32" and r["B"] == 24
+                     and r["cycle"] == 1)
     for name, part in (("diffnet_train_fwd", "fwd"), ("diffnet_train_bwd", "bwd")):
         keys = ("skips", "xs") if part == "fwd" else tr.GRAD_NAMES
+
+        def worst_tol(row):
+            # the tolerance of the tensor with the largest error
+            return max((row["errors"][k] for k in keys),
+                       key=lambda e: e["max_abs_err"])["tolerance"]
+
         kernels.append(
             {"name": name, "route": "cuda", "source": "diffsinger_tpu_torch/csrc/diffnet_train.cu",
              "replaces": "diffsinger_tpu/ops/diffnet_train.py:" + ("315" if part == "fwd" else "389"),
              **path_launches(name, train_paths),
              "max_abs_err": main_train[f"{part}_max_abs_err"],
-             # the tolerance of the tensor with the largest error
-             "tolerance": max((main_train["errors"][k] for k in keys),
-                              key=lambda e: e["max_abs_err"])["tolerance"],
+             "tolerance": worst_tol(main_train),
              "ms": main_train[f"{part}_ms"], "plain_ms": main_train[f"{part}_plain_ms"],
              "bound_ms": main_train[f"{part}_bound_ms"],
              "bound_by": main_train[f"{part}_bound_by"], "library_ms": None,
+             "float32": {"max_abs_err": f32_train[f"{part}_max_abs_err"],
+                         "tolerance": worst_tol(f32_train), "ms": f32_train[f"{part}_ms"],
+                         "plain_ms": f32_train[f"{part}_plain_ms"],
+                         "bound_ms": f32_train[f"{part}_bound_ms"],
+                         "bound_by": f32_train[f"{part}_bound_by"],
+                         "bound_fma_ms": f32_train[f"{part}_bound_fma_ms"],
+                         "kernels": f32_train["kernels"],
+                         "device_launches": f32_train[f"{part}_device_launches"],
+                         "launches": training_shipped["launches"][name],
+                         "launches_path": "train_shipped"},
              "configs": [{k: v for k, v in r.items() if k != "errors"} for r in train_rows]})
     with open(out_dir / "chip_smoke.json", "w") as f:
         json.dump({"card": card, "build_s": build_s, "kernels": kernels,
@@ -1683,7 +1831,8 @@ def main() -> int:
                    "sing_profile": sing_profile, "serve_shipped": shipped,
                    "train_stack": train_rows,
                    "training": training, "train_profile": train_profile,
-                   "train_cwt": training_cwt, "cli": cli_run}, f, indent=1)
+                   "train_cwt": training_cwt, "train_shipped": training_shipped,
+                   "cli": cli_run}, f, indent=1)
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

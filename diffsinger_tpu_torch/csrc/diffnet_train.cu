@@ -33,11 +33,14 @@
 //
 // Bound. At B=24, T=1024, C=H=256, L=20 the forward does 644 GFLOP and the
 // backward 1.80 TFLOP over well under a GB of inputs and outputs: both are
-// operation-bound on this card, by the bf16 tensor cores.
+// operation-bound on this card, by the bf16 tensor cores in bfloat16 and, in
+// float32, by three TF32 passes a product (495 / 3 = 165 TFLOP/s: 3.90 ms
+// forward, 10.93 ms backward; the FMA units would take 9.62 and 26.92).
 //
-// Two sets of kernels (the wrapper picks by shape and type):
+// Three sets of kernels (the wrapper picks by shape and type, the library
+// refuses a set that does not take the shape and reports the set that ran):
 //
-// bfloat16 with C = H = 256 (namespace tc, the shipped training shape) - all
+// bfloat16 with C = H = 256 (namespace tc, the bf16 training shape) - all
 // products are mma.sync.m16n8k16 (bf16 in, f32 accumulate) fed by ldmatrix,
 // in the tile design of the serving stack (diffnet_stack.cu): a row block is
 // 64 frames of one batch row (grid = T tiles x B, so a dilation halo is zero
@@ -81,10 +84,47 @@
 //   forward and gate, 1 MB dx) through the L2, as the serving stack does, and
 //   mma.sync tops out near 640 TFLOP/s on this card.
 //
-// float32, and bfloat16 at any other width - the earlier shared-memory tiled
-// SIMT kernels (f32 FMA on values converted from the input type): two
-// launches a layer forward, twelve backward, f32 conv, dconv and dy through
-// device memory. No shipped configuration runs them; kept as they were.
+// float32 with C = H = 256 (namespace tc, the ...32 kernels) - what every
+// shipped config trains with, since none sets compute_dtype. The same grid,
+// blocks, warp column ownership, per-warp rings, dependent launches, x double
+// buffer, slabs, fixed-order sums and launch count (one forward, four
+// backward a layer); what the float32 type changes:
+//   * every product is 3xTF32: mma.sync.m16n8k8 TF32 with f32 accumulators,
+//     each operand split as a = a_hi + a_lo (split_tf32: the top 10 mantissa
+//     bits, then the remainder cut the same way) and acc += a_lo b_hi +
+//     a_hi b_lo + a_hi b_hi, as the serving stack's stack_layer_tc32: float32
+//     accuracy (one TF32 pass keeps three digits). A fragments come from
+//     ldmatrix of rows of four floats; B fragments are 32-bit shared loads,
+//     conflict-free by the ring strides.
+//   * tiles are twice as wide, so each row-block kernel keeps one float
+//     tile of (64 + 2d) x (C + 4) (99,840 B at d = 16) beside three-stage
+//     rings (110,592 B) and stages into it in turn, a barrier apiece:
+//     forward: cond (an input of the call, so staged and multiplied before
+//       griddep_wait, while the layer before drains), then y with its halo,
+//       then g; the residual reads x from device memory.
+//     gate: dout one half at a time (K = C each, column sums from the tile),
+//       then cond, then y; dg [64, C] fits neither beside the tile nor in
+//       registers beside the 128 conv accumulators, so each thread parks its
+//       own dg values in device memory (dgs, 64 KB a block, read back by the
+//       same thread in the epilogue; it stays in the L2).
+//     dx: dconv with its halo one half of its columns at a time (the whole
+//       tile, 198 KB at d = 16, does not fit); dy and dcond accumulate across
+//       the halves (64 + 64 registers).
+//   * the scratch is float32: y, g, dconv and dout's dx half as the weight
+//     gradients read them, the parked dg (~150 MB at 24 x 1024).
+//   * wgrad_tc32: ldmatrix.trans moves 16-bit elements only, so the two
+//     operands stored by row are read as 32-bit shared loads in fragment
+//     order from rows of 136 floats (t * 136 + g covers 32 banks); four
+//     stages of 32-row slices (139,264 B).
+//   What bounds them: the products at the mma.sync TF32 rate (319.4 TFLOP/s
+//   in tools/mma_rate.py, a third of it at float32 accuracy), with the split
+//   arithmetic beside every mma and 2 MB of float32 weights a layer streamed
+//   through the L2 by every row block.
+//
+// float32 and bfloat16 at any other width or dilation - the earlier
+// shared-memory tiled SIMT kernels (f32 FMA on values converted from the
+// input type): two launches a layer forward, twelve backward, f32 conv,
+// dconv and dy through device memory.
 // Neighbour rows of a dilation tap are read with zero fill only outside
 // [0,T) of the same batch row, so a shift never crosses into the next one.
 
@@ -651,11 +691,12 @@ constexpr int NKS = NKC + 8; // its row stride (bf16)
 constexpr int SMEM_LIMIT = 227 * 1024;
 
 // Built with -DTRAIN_PHASE_CLOCKS (tools/train_phases.py does), thread 0 of
-// every row block records clock64() at six points of the last launch of the
-// forward (k = 0), gate (1) and dx (2) kernels.
+// every row block records clock64() at up to eight points of the last launch
+// of the bfloat16 forward (k = 0), gate (1) and dx (2) kernels and of their
+// float32 counterparts (3, 4, 5).
 #ifdef TRAIN_PHASE_CLOCKS
-constexpr int CLK_POINTS = 6, CLK_BLOCKS = 1024;
-__device__ long long g_clk[3 * CLK_BLOCKS * CLK_POINTS];
+constexpr int CLK_POINTS = 8, CLK_BLOCKS = 1024;
+__device__ long long g_clk[6 * CLK_BLOCKS * CLK_POINTS];
 #define PHASE_CLOCK(k, i)                                                            \
   if (threadIdx.x == 0 && blockIdx.y * gridDim.x + blockIdx.x < CLK_BLOCKS)          \
   g_clk[((k) * CLK_BLOCKS + blockIdx.y * gridDim.x + blockIdx.x) * CLK_POINTS + (i)] = clock64()
@@ -707,27 +748,31 @@ __device__ __forceinline__ float2 unpack_bf16(uint32_t u) {
   return __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&u));
 }
 
-// Rows [k0, k0 + 16) of a [K][2C] weight matrix, the warp's gate and filter
-// columns only; src points at row k0, the warp's first gate column.
-template <int C>
-__device__ __forceinline__ void fetch_kn(bf16* dst, const bf16* src, int lane) {
-  constexpr int WC = C / 8, PPH = WC / 8, WS = kn_stride<C>();
+// Rows [k0, k0 + 16) of a [K][2C] weight matrix (bf16 or float), the warp's
+// gate and filter columns only, kn_stride<C>() elements a row; src points at
+// row k0, the warp's first gate column.
+template <int C, typename E>
+__device__ __forceinline__ void fetch_kn(E* dst, const E* src, int lane) {
+  constexpr int EP = 16 / sizeof(E);   // elements a 16-byte copy moves
+  constexpr int WC = C / 8, PPH = WC / EP, WS = kn_stride<C>();
 #pragma unroll
   for (int p = lane; p < KC * 2 * PPH; p += 32) {
     const int r = p / (2 * PPH), hp = p % (2 * PPH), h = hp / PPH, q = hp % PPH;
-    cp_async16(smem_u32(dst + r * WS + h * WC + q * 8), src + (size_t)r * (2 * C) + h * C + q * 8);
+    cp_async16(smem_u32(dst + r * WS + h * WC + q * EP),
+               src + (size_t)r * (2 * C) + h * C + q * EP);
   }
 }
 // Columns [k0, k0 + 32) of WN rows of an [N][ld] weight matrix (the operand of
-// a product with the matrix transposed; 64 bytes a row, so the L2 serves half
-// lines as it does for the [k][n] chunks); src points at the warp's first
-// row, column k0.
-template <int WN>
-__device__ __forceinline__ void fetch_nk(bf16* dst, const bf16* src, int ld, int lane) {
+// a product with the matrix transposed; 64 or 128 bytes a row, so the L2
+// serves half or whole lines), rows of NKC elements + 16 bytes; src points at
+// the warp's first row, column k0.
+template <int WN, typename E>
+__device__ __forceinline__ void fetch_nk(E* dst, const E* src, int ld, int lane) {
+  constexpr int EP = 16 / sizeof(E), S = NKC + EP;
 #pragma unroll
-  for (int p = lane; p < WN * (NKC / 8); p += 32) {
-    const int n = p / (NKC / 8), q = p % (NKC / 8);
-    cp_async16(smem_u32(dst + n * NKS + q * 8), src + (size_t)n * ld + q * 8);
+  for (int p = lane; p < WN * (NKC / EP); p += 32) {
+    const int n = p / (NKC / EP), q = p % (NKC / EP);
+    cp_async16(smem_u32(dst + n * S + q * EP), src + (size_t)n * ld + q * EP);
   }
 }
 
@@ -795,12 +840,12 @@ __device__ __forceinline__ void zero_acc(float (&acc)[4][N][4]) {
       for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.f;
 }
 
-// One step of a warp's weight ring: chunk ch has landed for every lane, the
-// stage of chunk ch - 1 is free and takes chunk ch + NST - 1.
-#define RING_STEP(ch, nch)                          \
-  cp_async_wait<NST - 2>();                         \
-  __syncwarp();                                     \
-  if ((ch) + NST - 1 < (nch)) fetch((ch) + NST - 1); \
+// One step of a warp's weight ring of `nst` stages: chunk ch has landed for
+// every lane, the stage of chunk ch - 1 is free and takes chunk ch + nst - 1.
+#define RING_STEP(ch, nch, nst)                      \
+  cp_async_wait<(nst) - 2>();                        \
+  __syncwarp();                                      \
+  if ((ch) + (nst) - 1 < (nch)) fetch((ch) + (nst) - 1); \
   cp_async_commit()
 
 // Sum over the eight row groups of a warp (lanes that share lane % 4), in a
@@ -810,6 +855,181 @@ __device__ __forceinline__ float sum_rows(float v) {
   v += __shfl_xor_sync(0xffffffffu, v, 8);
   v += __shfl_xor_sync(0xffffffffu, v, 16);
   return v;
+}
+
+// Two neighbouring values to device memory in the type of the buffer.
+__device__ __forceinline__ void store2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+__device__ __forceinline__ void store2(bf16* p, float a, float b) {
+  *reinterpret_cast<uint32_t*>(p) = pack_bf16(a, b);
+}
+
+// The epilogues the bfloat16 and float32 kernels share. A warp holds
+// accumulators [4 row tiles][NT column tiles][4] over the block's 64 rows
+// (frames t0 .. t0 + 63 of one batch row, starting at row_b) and its own
+// column tiles from col0; rows past T are neither read nor written.
+
+// The forward's residual epilogue: x_out = (x_in + res) * sqrt(1/2),
+// skip (+)= sk, xs[l+1] = x_out (in the saved type), from the
+// out-product accumulators (tiles [0, NTH) residual, [NTH, 2 NTH) skip).
+template <int C, typename XS>
+__device__ __forceinline__ void residual_epilogue(const float (&acc)[4][C / 32][4],
+                                                  const float* x_in, float* x_out,
+                                                  float* skip, XS* xs_next, const float* bo_l,
+                                                  bool first_layer, size_t row_b, int t0, int T,
+                                                  int col0, int lane) {
+  constexpr int NTH = C / 64;
+  const int g8 = lane / 4, t4 = lane % 4;
+#pragma unroll
+  for (int nt = 0; nt < NTH; ++nt) {
+    const int col = col0 + nt * 8 + 2 * t4;
+    const float2 br = *reinterpret_cast<const float2*>(bo_l + col);
+    const float2 bs = *reinterpret_cast<const float2*>(bo_l + C + col);
+    float2 xi[4][2], so[4][2];   // all loads of the column pair first, then the stores
+#pragma unroll
+    for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) {
+        const int t = t0 + mt * 16 + g8 + hr * 8;
+        xi[mt][hr] = so[mt][hr] = make_float2(0.f, 0.f);
+        if (t < T) {
+          const size_t o = (row_b + t) * C + col;
+          xi[mt][hr] = *reinterpret_cast<const float2*>(x_in + o);
+          if (!first_layer) so[mt][hr] = *reinterpret_cast<const float2*>(skip + o);
+        }
+      }
+#pragma unroll
+    for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) {
+        const int t = t0 + mt * 16 + g8 + hr * 8;
+        if (t >= T) continue;
+        const size_t o = (row_b + t) * C + col;
+        const float x0 = (xi[mt][hr].x + (acc[mt][nt][hr * 2] + br.x)) * SQRT_HALF;
+        const float x1 = (xi[mt][hr].y + (acc[mt][nt][hr * 2 + 1] + br.y)) * SQRT_HALF;
+        store2(x_out + o, x0, x1);
+        store2(skip + o, so[mt][hr].x + (acc[mt][NTH + nt][hr * 2] + bs.x),
+               so[mt][hr].y + (acc[mt][NTH + nt][hr * 2 + 1] + bs.y));
+        if (xs_next != nullptr) store2(xs_next + o, x0, x1);
+      }
+  }
+}
+
+// The gate kernel's epilogue: from the recomputed conv accumulators (gate
+// tiles [0, NTH), filter tiles [NTH, 2 NTH)) and dg (this lane's values of
+// the warp's [64 (mt, nt, e)][32 lanes] block, at dg_lane), sg, tf, g and
+// dconv at once; g and dconv to device memory in type S, the f32 column sums
+// of dconv to bsum_blk (the block's row of biaspart[0]).
+template <int C, typename S>
+__device__ __forceinline__ void gate_grad_epilogue(const float (&acc)[4][C / 32][4],
+                                                   const float* dg_lane, const float* bd_l,
+                                                   const float* bc_l, S* gbuf, S* dconv,
+                                                   float* bsum_blk, size_t row_b, int t0, int T,
+                                                   int col0, int lane) {
+  constexpr int C2 = 2 * C, NTH = C / 64;
+  const int g8 = lane / 4, t4 = lane % 4;
+#pragma unroll
+  for (int nt = 0; nt < NTH; ++nt) {
+    const int col = col0 + nt * 8 + 2 * t4;
+    const float2 bg1 = *reinterpret_cast<const float2*>(bd_l + col);
+    const float2 bg2 = *reinterpret_cast<const float2*>(bc_l + col);
+    const float2 bf1 = *reinterpret_cast<const float2*>(bd_l + C + col);
+    const float2 bf2 = *reinterpret_cast<const float2*>(bc_l + C + col);
+    float sg0 = 0.f, sg1 = 0.f, sf0 = 0.f, sf1 = 0.f;
+#pragma unroll
+    for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) {
+        const int t = t0 + mt * 16 + g8 + hr * 8;
+        if (t >= T) continue;
+        const float* dgp = dg_lane + ((mt * NTH + nt) * 4 + hr * 2) * 32;
+        const float dg0 = dgp[0], dg1 = dgp[32];
+        const float s0 = sigmoid_f(acc[mt][nt][hr * 2] + bg1.x + bg2.x);
+        const float s1 = sigmoid_f(acc[mt][nt][hr * 2 + 1] + bg1.y + bg2.y);
+        const float h0 = tanh_f(acc[mt][NTH + nt][hr * 2] + bf1.x + bf2.x);
+        const float h1 = tanh_f(acc[mt][NTH + nt][hr * 2 + 1] + bf1.y + bf2.y);
+        const float cg0 = dg0 * h0 * s0 * (1.f - s0), cg1 = dg1 * h1 * s1 * (1.f - s1);
+        const float cf0 = dg0 * s0 * (1.f - h0 * h0), cf1 = dg1 * s1 * (1.f - h1 * h1);
+        sg0 += cg0; sg1 += cg1; sf0 += cf0; sf1 += cf1;
+        const size_t o = row_b + t;
+        store2(gbuf + o * C + col, s0 * h0, s1 * h1);
+        store2(dconv + o * C2 + col, cg0, cg1);
+        store2(dconv + o * C2 + C + col, cf0, cf1);
+      }
+    sg0 = sum_rows(sg0); sg1 = sum_rows(sg1); sf0 = sum_rows(sf0); sf1 = sum_rows(sf1);
+    if (g8 == 0) {
+      store2(bsum_blk + col, sg0, sg1);
+      store2(bsum_blk + C + col, sf0, sf1);
+    }
+  }
+}
+
+// The dx kernel's epilogues. dx = dx sqrt(1/2) + dy in place (dy in the
+// accumulators, ld = C) and the block's column sums of dy to dsum_blk ...
+template <int NT>
+__device__ __forceinline__ void dx_epilogue(const float (&acc)[4][NT][4], float* dx,
+                                            float* dsum_blk, int C, size_t row_b, int t0, int T,
+                                            int col0, int lane) {
+  const int g8 = lane / 4, t4 = lane % 4;
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt) {
+    const int col = col0 + nt * 8 + 2 * t4;
+    float s0 = 0.f, s1 = 0.f;
+    float2 xv[4][2];
+#pragma unroll
+    for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) {
+        const int t = t0 + mt * 16 + g8 + hr * 8;
+        xv[mt][hr] = make_float2(0.f, 0.f);
+        if (t < T) xv[mt][hr] = *reinterpret_cast<const float2*>(dx + (row_b + t) * C + col);
+      }
+#pragma unroll
+    for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) {
+        const int t = t0 + mt * 16 + g8 + hr * 8;
+        if (t >= T) continue;
+        const float y0 = acc[mt][nt][hr * 2], y1 = acc[mt][nt][hr * 2 + 1];
+        s0 += y0;
+        s1 += y1;
+        store2(dx + (row_b + t) * C + col, xv[mt][hr].x * SQRT_HALF + y0,
+               xv[mt][hr].y * SQRT_HALF + y1);
+      }
+    s0 = sum_rows(s0);
+    s1 = sum_rows(s1);
+    if (g8 == 0) store2(dsum_blk + col, s0, s1);
+  }
+}
+// ... and dcond += the accumulators (ld = H).
+template <int NT>
+__device__ __forceinline__ void dcond_epilogue(const float (&acc)[4][NT][4], float* dcond,
+                                               int H, size_t row_b, int t0, int T, int col0,
+                                               int lane) {
+  const int g8 = lane / 4, t4 = lane % 4;
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt) {
+    const int col = col0 + nt * 8 + 2 * t4;
+    float2 cv[4][2];   // all loads of the column pair first, then the stores
+#pragma unroll
+    for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) {
+        const int t = t0 + mt * 16 + g8 + hr * 8;
+        cv[mt][hr] = make_float2(0.f, 0.f);
+        if (t < T) cv[mt][hr] = *reinterpret_cast<const float2*>(dcond + (row_b + t) * H + col);
+      }
+#pragma unroll
+    for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) {
+        const int t = t0 + mt * 16 + g8 + hr * 8;
+        if (t >= T) continue;
+        store2(dcond + (row_b + t) * H + col, cv[mt][hr].x + acc[mt][nt][hr * 2],
+               cv[mt][hr].y + acc[mt][nt][hr * 2 + 1]);
+      }
+  }
 }
 
 // ------------------------------------------------------------------- forward
@@ -904,7 +1124,7 @@ fwd_layer_tc(const float* __restrict__ x_in, float* __restrict__ x_out,
   float acc[4][2 * NTH][4];
   zero_acc(acc);
   for (int ch = 0; ch < NCV; ++ch) {
-    RING_STEP(ch, NCH);
+    RING_STEP(ch, NCH, NST);
     const bf16* wst = wring + (size_t)(ch % NST) * STG;
     if (ch < NG) {
       const int tap = (ch * KC) / C, c0 = (ch * KC) % C;
@@ -946,48 +1166,13 @@ fwd_layer_tc(const float* __restrict__ x_in, float* __restrict__ x_out,
   __syncthreads();   // every warp's g columns are written
   PHASE_CLOCK(0, 3);
   for (int ch = NCV; ch < NCH; ++ch) {
-    RING_STEP(ch, NCH);
+    RING_STEP(ch, NCH, NST);
     mma_kn<C>(acc, gs + (ch - NCV) * KC, YS, wring + (size_t)(ch % NST) * STG, lane);
   }
   PHASE_CLOCK(0, 4);
   // residual epilogue: x_out = (x_in + res) * sqrt(1/2), skip (+)= sk, xs[l+1]
-  const float* bo_l = b_out + (size_t)l * C2;
-#pragma unroll
-  for (int nt = 0; nt < NTH; ++nt) {
-    const int col = wcol + nt * 8 + 2 * t4;
-    const float2 br = *reinterpret_cast<const float2*>(bo_l + col);
-    const float2 bs = *reinterpret_cast<const float2*>(bo_l + C + col);
-    float2 so[4][2], xi[4][2];
-#pragma unroll
-    for (int mt = 0; mt < 4; ++mt)
-#pragma unroll
-      for (int hr = 0; hr < 2; ++hr) {
-        const int t = t0 + mt * 16 + g8 + hr * 8;
-        so[mt][hr] = make_float2(0.f, 0.f);
-        xi[mt][hr] = make_float2(0.f, 0.f);
-        if (t < T) {
-          const size_t o = ((size_t)b * T + t) * C + col;
-          xi[mt][hr] = *reinterpret_cast<const float2*>(x_in + o);
-          if (l > 0) so[mt][hr] = *reinterpret_cast<const float2*>(skip + o);
-        }
-      }
-#pragma unroll
-    for (int mt = 0; mt < 4; ++mt)
-#pragma unroll
-      for (int hr = 0; hr < 2; ++hr) {
-        const int t = t0 + mt * 16 + g8 + hr * 8;
-        if (t >= T) continue;
-        const size_t o = ((size_t)b * T + t) * C + col;
-        float2 xo, sk;
-        xo.x = (xi[mt][hr].x + (acc[mt][nt][hr * 2] + br.x)) * SQRT_HALF;
-        xo.y = (xi[mt][hr].y + (acc[mt][nt][hr * 2 + 1] + br.y)) * SQRT_HALF;
-        sk.x = so[mt][hr].x + (acc[mt][NTH + nt][hr * 2] + bs.x);
-        sk.y = so[mt][hr].y + (acc[mt][NTH + nt][hr * 2 + 1] + bs.y);
-        *reinterpret_cast<float2*>(x_out + o) = xo;
-        *reinterpret_cast<float2*>(skip + o) = sk;
-        if (xs_next != nullptr) *reinterpret_cast<uint32_t*>(xs_next + o) = pack_bf16(xo.x, xo.y);
-      }
-  }
+  residual_epilogue<C>(acc, x_in, x_out, skip, xs_next, b_out + (size_t)l * C2, l == 0,
+                       (size_t)b * T, t0, T, wcol, lane);
   PHASE_CLOCK(0, 5);
 }
 
@@ -1019,7 +1204,6 @@ bwd_gate_tc(const bf16* __restrict__ xs_l, const float* __restrict__ step,
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   bf16* wring = reinterpret_cast<bf16*>(dgs + (size_t)TM * C) + (size_t)warp * NST * STG;
 
-  const int g8 = lane / 4, t4 = lane % 4;
   const int b = blockIdx.y, t0 = blockIdx.x * TM;
   const int blk = b * gridDim.x + blockIdx.x, nblk = gridDim.x * gridDim.y;
   const int wcol = warp * WC;
@@ -1114,7 +1298,7 @@ bwd_gate_tc(const bf16* __restrict__ xs_l, const float* __restrict__ step,
     float accd[4][NTH][4];
     zero_acc(accd);
     for (int ch = 0; ch < NDG; ++ch) {
-      RING_STEP(ch, NCH);
+      RING_STEP(ch, NCH, NST);
       mma_nk<NTH>(accd, douts + ch * NKC, DS, wring + (size_t)(ch % NST) * STG, lane);
     }
     __syncthreads();   // every warp is done with the dout tile (and with red)
@@ -1177,7 +1361,7 @@ bwd_gate_tc(const bf16* __restrict__ xs_l, const float* __restrict__ step,
   float acc[4][2 * NTH][4];
   zero_acc(acc);
   for (int ch = NDG; ch < NCH; ++ch) {
-    RING_STEP(ch, NCH);
+    RING_STEP(ch, NCH, NST);
     const bf16* wst = wring + (size_t)(ch % NST) * STG;
     const int cv = ch - NDG;
     if (cv < NG) {
@@ -1190,42 +1374,9 @@ bwd_gate_tc(const bf16* __restrict__ xs_l, const float* __restrict__ step,
 
   PHASE_CLOCK(1, 4);
   // epilogue: sg, tf, g and dconv at once; column sums of the float32 dconv
-  const float* bd_l = b_dil + (size_t)l * C2;
-  const float* bc_l = b_cond + (size_t)l * C2;
-#pragma unroll
-  for (int nt = 0; nt < NTH; ++nt) {
-    const int col = wcol + nt * 8 + 2 * t4;
-    const float2 bg1 = *reinterpret_cast<const float2*>(bd_l + col);
-    const float2 bg2 = *reinterpret_cast<const float2*>(bc_l + col);
-    const float2 bf1 = *reinterpret_cast<const float2*>(bd_l + C + col);
-    const float2 bf2 = *reinterpret_cast<const float2*>(bc_l + C + col);
-    float sg0 = 0.f, sg1 = 0.f, sf0 = 0.f, sf1 = 0.f;
-#pragma unroll
-    for (int mt = 0; mt < 4; ++mt)
-#pragma unroll
-      for (int hr = 0; hr < 2; ++hr) {
-        const int t = t0 + mt * 16 + g8 + hr * 8;
-        if (t >= T) continue;
-        const float* dgp = dgs + ((size_t)warp * 64 + (mt * NTH + nt) * 4 + hr * 2) * 32 + lane;
-        const float dg0 = dgp[0], dg1 = dgp[32];
-        const float s0 = sigmoid_f(acc[mt][nt][hr * 2] + bg1.x + bg2.x);
-        const float s1 = sigmoid_f(acc[mt][nt][hr * 2 + 1] + bg1.y + bg2.y);
-        const float h0 = tanh_f(acc[mt][NTH + nt][hr * 2] + bf1.x + bf2.x);
-        const float h1 = tanh_f(acc[mt][NTH + nt][hr * 2 + 1] + bf1.y + bf2.y);
-        const float cg0 = dg0 * h0 * s0 * (1.f - s0), cg1 = dg1 * h1 * s1 * (1.f - s1);
-        const float cf0 = dg0 * s0 * (1.f - h0 * h0), cf1 = dg1 * s1 * (1.f - h1 * h1);
-        sg0 += cg0; sg1 += cg1; sf0 += cf0; sf1 += cf1;
-        const size_t o = row_b + t;
-        *reinterpret_cast<uint32_t*>(gbuf + o * C + col) = pack_bf16(s0 * h0, s1 * h1);
-        *reinterpret_cast<uint32_t*>(dconv + o * C2 + col) = pack_bf16(cg0, cg1);
-        *reinterpret_cast<uint32_t*>(dconv + o * C2 + C + col) = pack_bf16(cf0, cf1);
-      }
-    sg0 = sum_rows(sg0); sg1 = sum_rows(sg1); sf0 = sum_rows(sf0); sf1 = sum_rows(sf1);
-    if (g8 == 0) {
-      *reinterpret_cast<float2*>(biaspart + (size_t)blk * C2 + col) = make_float2(sg0, sg1);
-      *reinterpret_cast<float2*>(biaspart + (size_t)blk * C2 + C + col) = make_float2(sf0, sf1);
-    }
-  }
+  gate_grad_epilogue<C>(acc, dgs + (size_t)warp * 64 * 32 + lane, b_dil + (size_t)l * C2,
+                        b_cond + (size_t)l * C2, gbuf, dconv, biaspart + (size_t)blk * C2,
+                        row_b, t0, T, wcol, lane);
   PHASE_CLOCK(1, 5);
 }
 
@@ -1247,7 +1398,6 @@ bwd_dx_tc(const bf16* __restrict__ dconv, const bf16* __restrict__ w_dil,
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   bf16* wring = tile + (size_t)(TM + 2 * d) * DS + (size_t)warp * NST * STG;
 
-  const int g8 = lane / 4, t4 = lane % 4;
   const int b = blockIdx.y, t0 = blockIdx.x * TM;
   const int blk = b * gridDim.x + blockIdx.x;
   const bf16* wd_l = w_dil + (size_t)l * 3 * C * C2;
@@ -1285,41 +1435,13 @@ bwd_dx_tc(const bf16* __restrict__ dconv, const bf16* __restrict__ w_dil,
     float acc[4][NTH][4];
     zero_acc(acc);
     for (int ch = 0; ch < NDY; ++ch) {
-      RING_STEP(ch, NCH);
+      RING_STEP(ch, NCH, NST);
       const int seg = ch / NSEG, k0 = (ch % NSEG) * NKC;
       mma_nk<NTH>(acc, tile + (size_t)((2 - seg) * d) * DS + k0, DS,
                   wring + (size_t)(ch % NST) * STG, lane);
     }
     PHASE_CLOCK(2, 2);
-#pragma unroll
-    for (int nt = 0; nt < NTH; ++nt) {
-      const int col = warp * WC + nt * 8 + 2 * t4;
-      float s0 = 0.f, s1 = 0.f;
-      float2 xv[4][2];
-#pragma unroll
-      for (int mt = 0; mt < 4; ++mt)
-#pragma unroll
-        for (int hr = 0; hr < 2; ++hr) {
-          const int t = t0 + mt * 16 + g8 + hr * 8;
-          xv[mt][hr] = make_float2(0.f, 0.f);
-          if (t < T) xv[mt][hr] = *reinterpret_cast<const float2*>(dx + (row_b + t) * C + col);
-        }
-#pragma unroll
-      for (int mt = 0; mt < 4; ++mt)
-#pragma unroll
-        for (int hr = 0; hr < 2; ++hr) {
-          const int t = t0 + mt * 16 + g8 + hr * 8;
-          if (t >= T) continue;
-          const float y0 = acc[mt][nt][hr * 2], y1 = acc[mt][nt][hr * 2 + 1];
-          s0 += y0;
-          s1 += y1;
-          *reinterpret_cast<float2*>(dx + (row_b + t) * C + col) =
-              make_float2(xv[mt][hr].x * SQRT_HALF + y0, xv[mt][hr].y * SQRT_HALF + y1);
-        }
-      s0 = sum_rows(s0);
-      s1 = sum_rows(s1);
-      if (g8 == 0) *reinterpret_cast<float2*>(dsp + (size_t)blk * C + col) = make_float2(s0, s1);
-    }
+    dx_epilogue<NTH>(acc, dx, dsp + (size_t)blk * C, C, row_b, t0, T, warp * WC, lane);
   }
   PHASE_CLOCK(2, 3);
   // dcond += dconv[t] @ K^T
@@ -1327,34 +1449,12 @@ bwd_dx_tc(const bf16* __restrict__ dconv, const bf16* __restrict__ w_dil,
     float acc[4][NTHH][4];
     zero_acc(acc);
     for (int ch = NDY; ch < NCH; ++ch) {
-      RING_STEP(ch, NCH);
+      RING_STEP(ch, NCH, NST);
       mma_nk<NTHH>(acc, tile + (size_t)d * DS + (ch - NDY) * NKC, DS,
                    wring + (size_t)(ch % NST) * STG, lane);
     }
     PHASE_CLOCK(2, 4);
-#pragma unroll
-    for (int nt = 0; nt < NTHH; ++nt) {
-      const int col = warp * WH + nt * 8 + 2 * t4;
-      float2 cv[4][2];   // all loads of the column pair first, then the stores
-#pragma unroll
-      for (int mt = 0; mt < 4; ++mt)
-#pragma unroll
-        for (int hr = 0; hr < 2; ++hr) {
-          const int t = t0 + mt * 16 + g8 + hr * 8;
-          cv[mt][hr] = make_float2(0.f, 0.f);
-          if (t < T) cv[mt][hr] = *reinterpret_cast<const float2*>(dcond + (row_b + t) * H + col);
-        }
-#pragma unroll
-      for (int mt = 0; mt < 4; ++mt)
-#pragma unroll
-        for (int hr = 0; hr < 2; ++hr) {
-          const int t = t0 + mt * 16 + g8 + hr * 8;
-          if (t >= T) continue;
-          *reinterpret_cast<float2*>(dcond + (row_b + t) * H + col) =
-              make_float2(cv[mt][hr].x + acc[mt][nt][hr * 2],
-                          cv[mt][hr].y + acc[mt][nt][hr * 2 + 1]);
-        }
-    }
+    dcond_epilogue<NTHH>(acc, dcond, H, row_b, t0, T, warp * WH, lane);
   }
   PHASE_CLOCK(2, 5);
 }
@@ -1680,33 +1780,762 @@ int bwd_run(const bf16* xs, const float* step, const bf16* cond, const bf16* k_c
   return (int)cudaSuccess;
 }
 
+// ==================================================================== float32
+// The float32 tensor-core kernels (C = H = 256): the row-block design of the
+// bfloat16 kernels above with every product in 3xTF32 (see the note at the
+// top of the file). Tiles are twice as wide, so each row-block kernel keeps
+// one [TM + 2d][C + 4] float tile beside its rings and stages what it needs
+// into it in turn.
+
+// Weight chunks as in bfloat16: [KC = 16 k][a warp's 2 x C/8 columns] or
+// [a warp's C/8 n][NKC = 32 k], the same element counts and rows of 4-byte
+// elements.
+constexpr int NKS32 = NKC + 4;    // [n][k] row stride (floats)
+constexpr int NST32 = 3;          // stages of a warp's weight ring
+
+// Strides in floats. A staged tile row holds max(C, H) + 4 floats, so the
+// eight 16-byte rows of an ldmatrix fall on eight bank groups; a [k][n] ring
+// row (kn_stride<C>(): C/4 + 8 floats) puts the four k rows of a B fragment
+// (lanes 4 apart) on 32 banks; an [n][k] row of 36 floats does the same for
+// the eight n rows of one.
+template <int C, int H> __host__ __device__ constexpr int tile_stride32() {
+  return (C > H ? C : H) + 4;
+}
+template <int C, int H> __host__ __device__ constexpr int stage_elems32() {
+  return KC * kn_stride<C>() > ((C > H ? C : H) / 8) * NKS32 ? KC * kn_stride<C>()
+                                                             : ((C > H ? C : H) / 8) * NKS32;
+}
+template <int C, int H> __host__ __device__ constexpr size_t ring_bytes32() {
+  return (size_t)8 * NST32 * stage_elems32<C, H>() * sizeof(float);
+}
+// fwd_layer_tc32, bwd_gate_tc32 and bwd_dx_tc32 alike: the tile of TM + 2d
+// rows (a cond tile or a dout half takes its first TM rows) and the rings
+template <int C, int H> constexpr size_t smem_rows32(int d) {
+  return (size_t)(TM + 2 * d) * tile_stride32<C, H>() * sizeof(float) + ring_bytes32<C, H>();
+}
+// wgrad_tc32: 128 x 128 output tiles as in bfloat16, four stages of 32-row
+// slices of both operands
+constexpr int WK32 = 32;
+constexpr int WST32 = 4;
+constexpr int WLD32 = WT + 8;     // row stride (floats): t * WLD32 + g covers 32 banks
+constexpr size_t SMEM_WGRAD32 = (size_t)WST32 * 2 * WK32 * WLD32 * sizeof(float);
+static_assert(smem_rows32<256, 256>(MAX_DIL) <= SMEM_LIMIT && SMEM_WGRAD32 <= SMEM_LIMIT,
+              "a float32 tensor-core kernel's tiles exceed the block's shared memory");
+
+// The A fragments of a 16 x 8 tile at abase of a row-major staged tile
+// (stride `as` floats), split into hi and lo. A row of four floats is 16
+// bytes, so ldmatrix (b16) delivers tf32 fragments: matrix i's lane (g, t)
+// holds row g (+8 for i odd), column t (+4 for i >= 2).
+__device__ __forceinline__ void load_a_split(uint32_t (&ah)[4], uint32_t (&al)[4],
+                                             const float* abase, int as, int lane) {
+  uint32_t a[4];
+  ldmatrix_x4(a, smem_u32(abase + (size_t)(lane % 16) * as + (lane / 16) * 4));
+#pragma unroll
+  for (int e = 0; e < 4; ++e) split_tf32(__uint_as_float(a[e]), ah[e], al[e]);
+}
+
+// acc[nt] += a b over NT n-tiles in three TF32 passes, the small products
+// first; an accumulator's three mma are NT instructions apart.
+template <int NT>
+__device__ __forceinline__ void mma3(float (&acc)[NT][4], const uint32_t (&ah)[4],
+                                     const uint32_t (&al)[4], const uint32_t (&bh)[NT][2],
+                                     const uint32_t (&bl)[NT][2]) {
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt) mma_tf32(acc[nt], al, bh[nt][0], bh[nt][1]);
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt) mma_tf32(acc[nt], ah, bl[nt][0], bl[nt][1]);
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt) mma_tf32(acc[nt], ah, bh[nt][0], bh[nt][1]);
+}
+
+// acc += A[64 x 16] (abase, row stride as) * chunk[16 k][gate | filter],
+// n-tile nt < C/64 gate columns, the rest filter columns
+template <int C>
+__device__ __forceinline__ void mma32_kn(float (&acc)[4][C / 32][4], const float* abase, int as,
+                                         const float* wst, int lane) {
+  constexpr int NT = C / 32, WS = kn_stride<C>();
+  const int g8 = lane / 4, t4 = lane % 4;
+#pragma unroll
+  for (int k8 = 0; k8 < KC / 8; ++k8) {
+    uint32_t bh[NT][2], bl[NT][2];
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      const float* wp = wst + (k8 * 8 + t4) * WS + nt * 8 + g8;
+      split_tf32(wp[0], bh[nt][0], bl[nt][0]);
+      split_tf32(wp[4 * WS], bh[nt][1], bl[nt][1]);
+    }
+#pragma unroll
+    for (int mt = 0; mt < 4; ++mt) {
+      uint32_t ah[4], al[4];
+      load_a_split(ah, al, abase + (size_t)(mt * 16) * as + k8 * 8, as, lane);
+      mma3<NT>(acc[mt], ah, al, bh, bl);
+    }
+  }
+}
+
+// acc += A[64 x 32] (abase, row stride as) * chunk[8 NT n][32 k]^T
+template <int NT>
+__device__ __forceinline__ void mma32_nk(float (&acc)[4][NT][4], const float* abase, int as,
+                                         const float* wst, int lane) {
+  const int g8 = lane / 4, t4 = lane % 4;
+#pragma unroll
+  for (int k8 = 0; k8 < NKC / 8; ++k8) {
+    uint32_t bh[NT][2], bl[NT][2];
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      const float* wp = wst + (nt * 8 + g8) * NKS32 + k8 * 8 + t4;
+      split_tf32(wp[0], bh[nt][0], bl[nt][0]);
+      split_tf32(wp[4], bh[nt][1], bl[nt][1]);
+    }
+#pragma unroll
+    for (int mt = 0; mt < 4; ++mt) {
+      uint32_t ah[4], al[4];
+      load_a_split(ah, al, abase + (size_t)(mt * 16) * as + k8 * 8, as, lane);
+      mma3<NT>(acc[mt], ah, al, bh, bl);
+    }
+  }
+}
+
+
+// Copies frames t0 - d .. t0 + TM + d of one batch row of src ([T][C] f32)
+// into tile rows 0 .. TM + 2d (stride S), zero outside [0, T). The caller
+// commits, waits for its own copies and then calls add_step.
+template <int C, int S>
+__device__ __forceinline__ void stage_rows(float* tile, const float* src_b, int t0, int d, int T,
+                                           int tid) {
+  const int n = (TM + 2 * d) * (C / 4);
+  for (int p = tid; p < n; p += NTHR) {
+    const int q = p / (C / 4), c4 = p % (C / 4), t = t0 - d + q;
+    const bool in = t >= 0 && t < T;
+    cp_async16_zfill(smem_u32(tile + q * S + c4 * 4), src_b + (size_t)(in ? t : 0) * C + c4 * 4,
+                     in);
+  }
+}
+// y = staged + step on the rows inside [0, T) that this thread copied in
+// stage_rows (its own copies are visible to it after its wait); with ybuf_b,
+// the block's own TM rows also go to device memory.
+template <int C, int S>
+__device__ __forceinline__ void add_step(float* tile, const float* step_lb, int t0, int d, int T,
+                                         int tid, float* ybuf_b) {
+  const int n = (TM + 2 * d) * (C / 4);
+  for (int p = tid; p < n; p += NTHR) {
+    const int q = p / (C / 4), c4 = p % (C / 4), t = t0 - d + q;
+    if (t < 0 || t >= T) continue;
+    float4* v = reinterpret_cast<float4*>(tile + q * S + c4 * 4);
+    const float4 s = reinterpret_cast<const float4*>(step_lb)[c4];
+    float4 y = *v;
+    y.x += s.x;
+    y.y += s.y;
+    y.z += s.z;
+    y.w += s.w;
+    *v = y;
+    if (ybuf_b != nullptr && q >= d && q < d + TM)
+      reinterpret_cast<float4*>(ybuf_b + (size_t)t * C)[c4] = y;
+  }
+}
+
+// ------------------------------------------------------------ float32 forward
+// One layer. The cond tile is an input of the whole call, so it is staged and
+// its product (K = H) taken before griddep_wait, while the layer before
+// drains; then y with its halo takes the same space for the taps (K = 3C),
+// then g, for the out product.
+template <int C, int H>
+__global__ void __launch_bounds__(NTHR, 1)
+fwd_layer_tc32(const float* __restrict__ x_in, float* __restrict__ x_out,
+               float* __restrict__ skip, float* __restrict__ xs_next,
+               const float* __restrict__ step, const float* __restrict__ cond,
+               const float* __restrict__ k_cond, const float* __restrict__ b_cond,
+               const float* __restrict__ w_dil, const float* __restrict__ b_dil,
+               const float* __restrict__ w_out, const float* __restrict__ b_out, int B, int T,
+               int l, int d) {
+  constexpr int C2 = 2 * C, US = tile_stride32<C, H>(), WC = C / 8, NTH = C / 64;
+  constexpr int NCD = H / KC, NCV = NCD + 3 * C / KC, NCH = NCV + C / KC;
+  constexpr int STG = stage_elems32<C, H>();
+  static_assert(C % 64 == 0 && H % KC == 0, "whole n-tiles and k-steps");
+
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  // [TM][US] cond, then [TM + 2d][US] y (tile row q is frame t0 - d + q),
+  // then [TM][US] g
+  float* us = reinterpret_cast<float*>(smem_raw);
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  float* wring = us + (size_t)(TM + 2 * d) * US + (size_t)warp * NST32 * STG;
+
+  const int g8 = lane / 4, t4 = lane % 4;
+  const int b = blockIdx.y, t0 = blockIdx.x * TM;
+  const int wcol = warp * WC;
+  const float* wd_l = w_dil + (size_t)l * 3 * C * C2;
+  const float* kc_l = k_cond + (size_t)l * H * C2;
+  const float* wo_l = w_out + (size_t)l * C * C2;
+  const size_t row_b = (size_t)b * T;
+
+  PHASE_CLOCK(3, 0);
+  // up to griddep_wait() only inputs of the whole call are touched
+  griddep_launch_dependents();
+  for (int p = tid; p < TM * (H / 4); p += NTHR) {
+    const int r = p / (H / 4), q = p % (H / 4), t = t0 + r;
+    cp_async16_zfill(smem_u32(us + r * US + q * 4),
+                     cond + (row_b + (t < T ? t : T - 1)) * H + q * 4, t < T);
+  }
+  cp_async_commit();
+  // chunk ch: 16 rows of [k_cond[l] (H rows); w_dil[l] (3C rows); w_out[l]]
+  auto fetch = [&](int ch) {
+    const float* src = ch < NCD ? kc_l + (size_t)ch * KC * C2
+                       : ch < NCV ? wd_l + (size_t)(ch - NCD) * KC * C2
+                                  : wo_l + (size_t)(ch - NCV) * KC * C2;
+    fetch_kn<C>(wring + (size_t)(ch % NST32) * STG, src + wcol, lane);
+  };
+#pragma unroll
+  for (int s = 0; s < NST32 - 1; ++s) {
+    fetch(s);
+    cp_async_commit();
+  }
+  cp_async_wait<NST32 - 1>();   // this thread's part of the cond tile
+  __syncthreads();              // the cond tile is staged
+  PHASE_CLOCK(3, 1);
+
+  float acc[4][2 * NTH][4];
+  zero_acc(acc);
+  for (int ch = 0; ch < NCD; ++ch) {
+    RING_STEP(ch, NCH, NST32);
+    mma32_kn<C>(acc, us + ch * KC, US, wring + (size_t)(ch % NST32) * STG, lane);
+  }
+  PHASE_CLOCK(3, 2);
+  griddep_wait();   // the layer before has completed: x_in and skip are final
+  if (l > 0)
+    for (int i = tid; i < TM * (C * 4 / 128); i += NTHR) {
+      const int t = t0 + i / (C * 4 / 128);
+      if (t < T) prefetch_l2(skip + (row_b + t) * C + (i % (C * 4 / 128)) * 32);
+    }
+  __syncthreads();   // every warp is done with the cond tile
+  stage_rows<C, US>(us, x_in + row_b * C, t0, d, T, tid);
+  cp_async_commit();
+  cp_async_wait<0>();
+  add_step<C, US>(us, step + ((size_t)l * B + b) * C, t0, d, T, tid, nullptr);
+  __syncthreads();   // y is staged
+  PHASE_CLOCK(3, 3);
+  for (int ch = NCD; ch < NCV; ++ch) {
+    RING_STEP(ch, NCH, NST32);
+    const int k = (ch - NCD) * KC, tap = k / C, c0 = k % C;
+    // tile row r + tap d is frame t0 + r + (tap - 1) d
+    mma32_kn<C>(acc, us + (size_t)(tap * d) * US + c0, US, wring + (size_t)(ch % NST32) * STG,
+                lane);
+  }
+  PHASE_CLOCK(3, 4);
+  // gate epilogue: biases, sigmoid * tanh into the gate accumulators
+  {
+    const float* bd_l = b_dil + (size_t)l * C2;
+    const float* bc_l = b_cond + (size_t)l * C2;
+#pragma unroll
+    for (int nt = 0; nt < NTH; ++nt) {
+      const int col = wcol + nt * 8 + 2 * t4;
+      const float2 bg1 = *reinterpret_cast<const float2*>(bd_l + col);
+      const float2 bg2 = *reinterpret_cast<const float2*>(bc_l + col);
+      const float2 bf1 = *reinterpret_cast<const float2*>(bd_l + C + col);
+      const float2 bf2 = *reinterpret_cast<const float2*>(bc_l + C + col);
+#pragma unroll
+      for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+        for (int hr = 0; hr < 2; ++hr) {
+          float* ga = &acc[mt][nt][hr * 2];
+          const float* fa = &acc[mt][NTH + nt][hr * 2];
+          const float g0 = ga[0] + bg1.x + bg2.x, g1 = ga[1] + bg1.y + bg2.y;
+          const float f0 = fa[0] + bf1.x + bf2.x, f1 = fa[1] + bf1.y + bf2.y;
+          ga[0] = sigmoid_f(g0) * tanh_f(f0);
+          ga[1] = sigmoid_f(g1) * tanh_f(f1);
+        }
+    }
+  }
+  __syncthreads();   // every warp has read its last y fragment: g may replace y
+#pragma unroll
+  for (int nt = 0; nt < NTH; ++nt)
+#pragma unroll
+    for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) {
+        const int r = mt * 16 + g8 + hr * 8;
+        const float2 gv = t0 + r < T ? make_float2(acc[mt][nt][hr * 2], acc[mt][nt][hr * 2 + 1])
+                                     : make_float2(0.f, 0.f);
+        *reinterpret_cast<float2*>(us + (size_t)r * US + wcol + nt * 8 + 2 * t4) = gv;
+      }
+  zero_acc(acc);
+  __syncthreads();   // every warp's g columns are written
+  PHASE_CLOCK(3, 5);
+  for (int ch = NCV; ch < NCH; ++ch) {
+    RING_STEP(ch, NCH, NST32);
+    mma32_kn<C>(acc, us + (ch - NCV) * KC, US, wring + (size_t)(ch % NST32) * STG, lane);
+  }
+  PHASE_CLOCK(3, 6);
+  // residual epilogue: x_out = (x_in + res) * sqrt(1/2), skip (+)= sk,
+  // xs[l+1] = x_out; x_in and skip in fragment order from device memory
+  residual_epilogue<C>(acc, x_in, x_out, skip, xs_next, b_out + (size_t)l * C2, l == 0, row_b,
+                       t0, T, wcol, lane);
+  PHASE_CLOCK(3, 7);
+}
+
+// --------------------------------------------------------- float32 backward 1
+// Row block of layer l: dg, recompute, gate derivatives. dout = [dx sqrt(1/2),
+// ds] is staged one half at a time (K = C each) and summed by column; dg [64,
+// C] does not fit beside the tile and the rings, so each thread parks its own
+// dg accumulators in device memory (dgs, in the order it reads them back) and
+// the tile takes cond, then y. Writes y, g, dconv, dout's dx half (dxh) in
+// float32, and the block's column sums of dout (biaspart[1]) and of dconv
+// (biaspart[0]).
+template <int C, int H>
+__global__ void __launch_bounds__(NTHR, 1)
+bwd_gate_tc32(const float* __restrict__ xs_l, const float* __restrict__ step,
+              const float* __restrict__ cond, const float* __restrict__ k_cond,
+              const float* __restrict__ b_cond, const float* __restrict__ w_dil,
+              const float* __restrict__ b_dil, const float* __restrict__ w_out,
+              const float* __restrict__ ds, const float* __restrict__ dx,
+              float* __restrict__ ybuf, float* __restrict__ gbuf, float* __restrict__ dconv,
+              float* __restrict__ dxh, float* __restrict__ dgs, float* __restrict__ biaspart,
+              int B, int T, int l, int d) {
+  constexpr int C2 = 2 * C, US = tile_stride32<C, H>(), WC = C / 8, NTH = C / 64;
+  constexpr int NDG = C2 / NKC, NCD = NDG + H / KC, NCH = NCD + 3 * C / KC;
+  constexpr int STG = stage_elems32<C, H>();
+  constexpr int DG_WARP = TM * WC;   // dg floats a warp parks: [64 (mt, nt, e)][32 lanes]
+  static_assert(C % 64 == 0 && H % KC == 0 && C % NKC == 0, "whole n-tiles and k-steps");
+
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  // [TM][US] a dout half, then [TM][US] cond, then [TM + 2d][US] y
+  float* us = reinterpret_cast<float*>(smem_raw);
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  float* wring = us + (size_t)(TM + 2 * d) * US + (size_t)warp * NST32 * STG;
+
+  const int b = blockIdx.y, t0 = blockIdx.x * TM;
+  const int blk = b * gridDim.x + blockIdx.x, nblk = gridDim.x * gridDim.y;
+  const int wcol = warp * WC;
+  const float* wd_l = w_dil + (size_t)l * 3 * C * C2;
+  const float* kc_l = k_cond + (size_t)l * H * C2;
+  const float* wo_l = w_out + (size_t)l * C * C2;
+  const size_t row_b = (size_t)b * T;
+  float* dg_own = dgs + ((size_t)blk * 8 + warp) * DG_WARP + lane;
+
+  PHASE_CLOCK(4, 0);
+  griddep_launch_dependents();
+  // chunk ch: [n][k] chunks of w_out[l] (dg), then [k][n] chunks of k_cond[l]
+  // and w_dil[l] (the recompute)
+  auto fetch = [&](int ch) {
+    float* dst = wring + (size_t)(ch % NST32) * STG;
+    if (ch < NDG) fetch_nk<WC>(dst, wo_l + (size_t)wcol * C2 + ch * NKC, C2, lane);
+    else if (ch < NCD) fetch_kn<C>(dst, kc_l + (size_t)(ch - NDG) * KC * C2 + wcol, lane);
+    else fetch_kn<C>(dst, wd_l + (size_t)(ch - NCD) * KC * C2 + wcol, lane);
+  };
+#pragma unroll
+  for (int s = 0; s < NST32 - 1; ++s) {
+    fetch(s);
+    cp_async_commit();
+  }
+  griddep_wait();   // dx of the layer above is final
+
+  // dg = dout @ w_out^T, one half of dout's columns at a time
+  {
+    float accd[4][NTH][4];
+    zero_acc(accd);
+    for (int hf = 0; hf < 2; ++hf) {
+      if (hf) __syncthreads();   // every warp is done with the dx half and its sums
+      {
+        constexpr int CP4 = C / 4, RPP = NTHR / CP4, NR = TM / RPP;
+        const int c4 = tid % CP4, rq = tid / CP4;
+        const float* src = hf ? ds : dx;
+        float4 v[NR];
+#pragma unroll
+        for (int i = 0; i < NR; ++i) {
+          const int t = t0 + rq + i * RPP;
+          v[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+          if (t < T) v[i] = reinterpret_cast<const float4*>(src + (row_b + t) * C)[c4];
+        }
+#pragma unroll
+        for (int i = 0; i < NR; ++i) {
+          const int r = rq + i * RPP, t = t0 + r;
+          if (!hf) {
+            v[i].x *= SQRT_HALF;
+            v[i].y *= SQRT_HALF;
+            v[i].z *= SQRT_HALF;
+            v[i].w *= SQRT_HALF;
+            if (t < T) reinterpret_cast<float4*>(dxh + (row_b + t) * C)[c4] = v[i];
+          }
+          *reinterpret_cast<float4*>(us + (size_t)r * US + c4 * 4) = v[i];
+        }
+      }
+      __syncthreads();   // the half is staged
+      if (hf == 0) PHASE_CLOCK(4, 1);
+      // the block's column sums of the half, rows in order (zero past T)
+      for (int col = tid; col < C; col += NTHR) {
+        float s = 0.f;
+#pragma unroll 8
+        for (int r = 0; r < TM; ++r) s += us[(size_t)r * US + col];
+        biaspart[((size_t)nblk + blk) * C2 + hf * C + col] = s;
+      }
+      for (int ch = hf * (NDG / 2); ch < (hf + 1) * (NDG / 2); ++ch) {
+        RING_STEP(ch, NCH, NST32);
+        mma32_nk<NTH>(accd, us + (ch - hf * (NDG / 2)) * NKC, US,
+                      wring + (size_t)(ch % NST32) * STG, lane);
+      }
+    }
+#pragma unroll
+    for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < NTH; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) dg_own[((mt * NTH + nt) * 4 + e) * 32] = accd[mt][nt][e];
+  }
+  PHASE_CLOCK(4, 2);
+
+  // recompute: cond tile, its product; then y with its halo, the taps
+  __syncthreads();   // every warp is done with the ds half
+  for (int p = tid; p < TM * (H / 4); p += NTHR) {
+    const int r = p / (H / 4), q = p % (H / 4), t = t0 + r;
+    cp_async16_zfill(smem_u32(us + r * US + q * 4),
+                     cond + (row_b + (t < T ? t : T - 1)) * H + q * 4, t < T);
+  }
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();   // the cond tile is staged
+  PHASE_CLOCK(4, 3);
+  float acc[4][2 * NTH][4];
+  zero_acc(acc);
+  for (int ch = NDG; ch < NCD; ++ch) {
+    RING_STEP(ch, NCH, NST32);
+    mma32_kn<C>(acc, us + (ch - NDG) * KC, US, wring + (size_t)(ch % NST32) * STG, lane);
+  }
+  PHASE_CLOCK(4, 4);
+  __syncthreads();   // every warp is done with the cond tile
+  stage_rows<C, US>(us, xs_l + row_b * C, t0, d, T, tid);
+  cp_async_commit();
+  cp_async_wait<0>();
+  add_step<C, US>(us, step + ((size_t)l * B + b) * C, t0, d, T, tid, ybuf + row_b * C);
+  __syncthreads();   // y is staged
+  PHASE_CLOCK(4, 5);
+  for (int ch = NCD; ch < NCH; ++ch) {
+    RING_STEP(ch, NCH, NST32);
+    const int k = (ch - NCD) * KC, tap = k / C, c0 = k % C;
+    mma32_kn<C>(acc, us + (size_t)(tap * d) * US + c0, US, wring + (size_t)(ch % NST32) * STG,
+                lane);
+  }
+  PHASE_CLOCK(4, 6);
+
+  // epilogue: sg, tf, g and dconv at once; column sums of dconv
+  gate_grad_epilogue<C>(acc, dg_own, b_dil + (size_t)l * C2, b_cond + (size_t)l * C2, gbuf,
+                        dconv, biaspart + (size_t)blk * C2, row_b, t0, T, wcol, lane);
+  PHASE_CLOCK(4, 7);
+}
+
+// --------------------------------------------------------- float32 backward 2
+// Row block of layer l: dy (three taps, K = 3 x 2C) and dcond (K = 2C) from
+// the dconv tile with its halo, staged one half of its columns at a time (the
+// whole tile, 198 KB at d = 16, does not fit beside the rings); both products
+// stay in registers across the halves (64 + 64 accumulators). Epilogue:
+// dx = dx sqrt(1/2) + dy in place, dcond +=, the block's column sums of dy.
+template <int C, int H>
+__global__ void __launch_bounds__(NTHR, 1)
+bwd_dx_tc32(const float* __restrict__ dconv, const float* __restrict__ w_dil,
+            const float* __restrict__ k_cond, float* __restrict__ dx, float* __restrict__ dcond,
+            float* __restrict__ dsp, int B, int T, int l, int d) {
+  constexpr int C2 = 2 * C, US = tile_stride32<C, H>(), WC = C / 8, WH = H / 8;
+  constexpr int NTH = C / 64, NTHH = H / 64;
+  constexpr int NKH = C / NKC;              // [n][k] chunks over one half of dconv's columns
+  constexpr int NDY = 3 * NKH, NHF = NDY + NKH, NCH = 2 * NHF;
+  constexpr int STG = stage_elems32<C, H>();
+  static_assert(C % 64 == 0 && H % 64 == 0 && C % NKC == 0, "whole n-tiles and k-steps");
+
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  // [TM + 2d][US] one half of dconv's columns, tile row q is frame t0 - d + q
+  float* us = reinterpret_cast<float*>(smem_raw);
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  float* wring = us + (size_t)(TM + 2 * d) * US + (size_t)warp * NST32 * STG;
+
+  const int b = blockIdx.y, t0 = blockIdx.x * TM;
+  const int blk = b * gridDim.x + blockIdx.x;
+  const float* wd_l = w_dil + (size_t)l * 3 * C * C2;
+  const float* kc_l = k_cond + (size_t)l * H * C2;
+  const size_t row_b = (size_t)b * T;
+
+  PHASE_CLOCK(5, 0);
+  griddep_launch_dependents();
+  // chunk ch of half hf: the taps' W_tap rows (the warp's dy columns), then
+  // K's rows (the warp's dcond columns), k over the half's columns
+  auto fetch = [&](int ch) {
+    float* dst = wring + (size_t)(ch % NST32) * STG;
+    const int hf = ch / NHF, c = ch % NHF;
+    if (c < NDY) {
+      const int seg = c / NKH, k0 = hf * C + (c % NKH) * NKC;
+      fetch_nk<WC>(dst, wd_l + ((size_t)seg * C + warp * WC) * C2 + k0, C2, lane);
+    } else {
+      fetch_nk<WH>(dst, kc_l + (size_t)(warp * WH) * C2 + hf * C + (c - NDY) * NKC, C2, lane);
+    }
+  };
+#pragma unroll
+  for (int s = 0; s < NST32 - 1; ++s) {
+    fetch(s);
+    cp_async_commit();
+  }
+  griddep_wait();   // dconv of this layer is final
+
+  float accy[4][NTH][4], accc[4][NTHH][4];
+  zero_acc(accy);
+  zero_acc(accc);
+  for (int hf = 0; hf < 2; ++hf) {
+    if (hf) __syncthreads();   // every warp is done with the first half
+    for (int p = tid; p < (TM + 2 * d) * (C / 4); p += NTHR) {
+      const int q = p / (C / 4), pc = p % (C / 4), t = t0 - d + q;
+      const bool in = t >= 0 && t < T;
+      cp_async16_zfill(smem_u32(us + (size_t)q * US + pc * 4),
+                       dconv + (row_b + (in ? t : 0)) * C2 + hf * C + pc * 4, in);
+    }
+    cp_async_commit();
+    cp_async_wait<0>();
+    __syncthreads();   // the half is staged
+    PHASE_CLOCK(5, 1 + 2 * hf);
+    // dy[t] = dconv[t+d] @ W0^T + dconv[t] @ W1^T + dconv[t-d] @ W2^T: tap
+    // seg starts (2 - seg) d rows into the tile; dcond reads rows d ..
+    for (int c = 0; c < NHF; ++c) {
+      const int ch = hf * NHF + c;
+      RING_STEP(ch, NCH, NST32);
+      const float* wst = wring + (size_t)(ch % NST32) * STG;
+      if (c < NDY) {
+        const int seg = c / NKH, k0 = (c % NKH) * NKC;
+        mma32_nk<NTH>(accy, us + (size_t)((2 - seg) * d) * US + k0, US, wst, lane);
+      } else {
+        mma32_nk<NTHH>(accc, us + (size_t)d * US + (c - NDY) * NKC, US, wst, lane);
+      }
+    }
+    PHASE_CLOCK(5, 2 + 2 * hf);
+  }
+  dx_epilogue<NTH>(accy, dx, dsp + (size_t)blk * C, C, row_b, t0, T, warp * WC, lane);
+  PHASE_CLOCK(5, 5);
+  dcond_epilogue<NTHH>(accc, dcond, H, row_b, t0, T, warp * WH, lane);
+  PHASE_CLOCK(5, 6);
+}
+
+// --------------------------------------------------------- float32 backward 3
+// The weight gradients of layer l as in wgrad_tc, in 3xTF32. Both operands are
+// stored by row ([r][m], [r][n]) and the m16n8k8 A fragment wants (m, r):
+// ldmatrix.trans moves 16-bit elements only, so every fragment is four (A) or
+// two (B) 32-bit shared loads in fragment order, t * WLD32 + g apart: the 32
+// lanes hit 32 banks.
+template <int C, int H>
+__global__ void __launch_bounds__(NTHR, 1)
+wgrad_tc32(const float* __restrict__ ybuf, const float* __restrict__ cond,
+           const float* __restrict__ gbuf, const float* __restrict__ dconv,
+           const float* __restrict__ dxh, const float* __restrict__ ds, float* __restrict__ part,
+           int B, int T, int d, int bps) {
+  constexpr int C2 = 2 * C, M_ALL = 3 * C + H + C;
+  static_assert(C % WT == 0 && H % WT == 0, "whole tiles");
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* As = reinterpret_cast<float*>(smem_raw);        // [WST32][WK32][WLD32]
+  float* Bs = As + (size_t)WST32 * WK32 * WLD32;         // [WST32][WK32][WLD32]
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int m0 = blockIdx.x * WT, n0 = blockIdx.y * WT, slab = blockIdx.z;
+
+  const float *a_src, *b_src;
+  int a_ld, b_ld, off = 0;
+  if (m0 < 3 * C) {
+    a_src = ybuf + m0 % C; a_ld = C; off = (m0 / C - 1) * d;
+    b_src = dconv + n0; b_ld = C2;
+  } else if (m0 < 3 * C + H) {
+    a_src = cond + (m0 - 3 * C); a_ld = H;
+    b_src = dconv + n0; b_ld = C2;
+  } else {
+    a_src = gbuf + (m0 - 3 * C - H); a_ld = C;
+    b_src = n0 < C ? dxh + n0 : ds + (n0 - C); b_ld = C;
+  }
+  const int b_begin = slab * bps, b_end = min(B, b_begin + bps);
+  const int n_t = (T + WK32 - 1) / WK32, nit = (b_end - b_begin) * n_t;
+
+  griddep_launch_dependents();
+  griddep_wait();   // y, g, dconv and dxh of this layer are final
+  auto load = [&](int it) {
+    const size_t row_b = (size_t)(b_begin + it / n_t) * T;
+    const int tt0 = (it % n_t) * WK32;
+    float* as = As + (size_t)(it % WST32) * WK32 * WLD32;
+    float* bs = Bs + (size_t)(it % WST32) * WK32 * WLD32;
+#pragma unroll
+    for (int p = tid; p < WK32 * (WT / 4); p += NTHR) {
+      const int r = p / (WT / 4), q = p % (WT / 4), t = tt0 + r, ta = t + off;
+      const bool ok_b = t < T, ok_a = ok_b && ta >= 0 && ta < T;
+      cp_async16_zfill(smem_u32(as + r * WLD32 + q * 4),
+                       a_src + (row_b + (ok_a ? ta : 0)) * a_ld + q * 4, ok_a);
+      cp_async16_zfill(smem_u32(bs + r * WLD32 + q * 4),
+                       b_src + (row_b + (ok_b ? t : 0)) * b_ld + q * 4, ok_b);
+    }
+  };
+#pragma unroll
+  for (int s = 0; s < WST32 - 1; ++s) {
+    if (s < nit) load(s);
+    cp_async_commit();
+  }
+  // warp (wm, wn) owns rows [64 wm, +64) and columns [32 wn, +32) of the tile
+  const int wm = warp / 4, wn = warp % 4, g8 = lane / 4, t4 = lane % 4;
+  float acc[4][4][4];
+  zero_acc(acc);
+  for (int it = 0; it < nit; ++it) {
+    cp_async_wait<WST32 - 2>();
+    __syncthreads();   // stage `it` has landed; the stage of it - 1 is free
+    if (it + WST32 - 1 < nit) load(it + WST32 - 1);
+    cp_async_commit();
+    const float* as = As + (size_t)(it % WST32) * WK32 * WLD32 + wm * 64;
+    const float* bs = Bs + (size_t)(it % WST32) * WK32 * WLD32 + wn * 32;
+#pragma unroll
+    for (int k8 = 0; k8 < WK32 / 8; ++k8) {
+      uint32_t bh[4][2], bl[4][2];
+#pragma unroll
+      for (int ni = 0; ni < 4; ++ni) {
+        const float* bp = bs + (k8 * 8 + t4) * WLD32 + ni * 8 + g8;   // (k t, n g)
+        split_tf32(bp[0], bh[ni][0], bl[ni][0]);
+        split_tf32(bp[4 * WLD32], bh[ni][1], bl[ni][1]);
+      }
+#pragma unroll
+      for (int mi = 0; mi < 4; ++mi) {
+        const float* ap = as + (k8 * 8 + t4) * WLD32 + mi * 16 + g8;   // (m g, k t)
+        uint32_t ah[4], al[4];
+        split_tf32(ap[0], ah[0], al[0]);
+        split_tf32(ap[8], ah[1], al[1]);
+        split_tf32(ap[4 * WLD32], ah[2], al[2]);
+        split_tf32(ap[4 * WLD32 + 8], ah[3], al[3]);
+        mma3<4>(acc[mi], ah, al, bh, bl);
+      }
+    }
+  }
+  float* out = part + ((size_t)slab * M_ALL + m0 + wm * 64) * C2 + n0 + wn * 32;
+#pragma unroll
+  for (int mi = 0; mi < 4; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr)
+        *reinterpret_cast<float2*>(out + (size_t)(mi * 16 + g8 + hr * 8) * C2 + ni * 8 + 2 * t4) =
+            make_float2(acc[mi][ni][hr * 2], acc[mi][ni][hr * 2 + 1]);
+}
+
+template <int C, int H>
+int fwd_run32(const float* x0, float* xbuf, float* skip, float* xs, const float* step,
+              const float* cond, const float* k_cond, const float* b_cond, const float* w_dil,
+              const float* b_dil, const float* w_out, const float* b_out, int B, int T, int L,
+              const int* dil, cudaStream_t s, int* n_launched) {
+  n_launched[1] = 1;  // the report's second int: the tensor-core kernels ran
+  const int dmax = max_dilation(dil, L);
+  if (dmax < 1 || dmax > MAX_DIL) return (int)cudaErrorInvalidValue;
+  TC_TRY(cudaFuncSetAttribute(fwd_layer_tc32<C, H>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)smem_rows32<C, H>(dmax)));
+  const dim3 grid((T + TM - 1) / TM, B);
+  const size_t n = (size_t)B * T * C;
+  for (int l = 0; l < L; ++l) {
+    const float* xin = l == 0 ? x0 : xbuf + ((l - 1) % 2) * n;
+    float* xs_next = (xs != nullptr && l + 1 < L) ? xs + (size_t)(l + 1) * n : nullptr;
+    TC_TRY(launch(n_launched, fwd_layer_tc32<C, H>, grid, smem_rows32<C, H>(dil[l]), s, l > 0,
+                  xin, xbuf + (l % 2) * n, skip, xs_next, step, cond, k_cond, b_cond, w_dil,
+                  b_dil, w_out, b_out, B, T, l, dil[l]));
+  }
+  return (int)cudaSuccess;
+}
+
+// The float32 backward's scratch, carved from one allocation: y, g, dxh and
+// the parked dg [B*T, C], dconv [B*T, 2C], all float32, then the partial sums.
+struct BwdScratch32 {
+  float *ybuf, *gbuf, *dconv, *dxh, *dgs, *biaspart, *dsp, *part;
+  size_t bytes;
+};
+BwdScratch32 carve32(void* base, int B, int T, int C, int H) {
+  const size_t nblk = (size_t)B * ((T + TM - 1) / TM), R = nblk * TM;
+  char* p = (char*)base;
+  size_t o = 0;
+  auto take = [&](size_t n) { char* q = p + o; o += align256(n); return (float*)q; };
+  BwdScratch32 s;
+  s.ybuf = take((size_t)B * T * C * 4);
+  s.gbuf = take((size_t)B * T * C * 4);
+  s.dconv = take((size_t)B * T * 2 * C * 4);
+  s.dxh = take((size_t)B * T * C * 4);
+  s.dgs = take(R * C * 4);   // TM x C floats a row block, ragged blocks included
+  s.biaspart = take(2 * nblk * 2 * C * 4);
+  s.dsp = take(nblk * C * 4);
+  s.part = take((size_t)slabs_for(B, C, H).n * (4 * C + H) * 2 * C * 4);
+  s.bytes = o;
+  return s;
+}
+
+template <int C, int H>
+int bwd_run32(const float* xs, const float* step, const float* cond, const float* k_cond,
+              const float* b_cond, const float* w_dil, const float* b_dil, const float* w_out,
+              const float* ds, float* dx, float* dstep, float* dcond, float* dk_cond,
+              float* dw_dil, float* db_dil, float* dw_out, float* db_out, void* scratch, int B,
+              int T, int L, const int* dil, cudaStream_t s, int* n_launched) {
+  n_launched[1] = 1;
+  constexpr int C2 = 2 * C;
+  const int dmax = max_dilation(dil, L);
+  if (dmax < 1 || dmax > MAX_DIL) return (int)cudaErrorInvalidValue;
+  TC_TRY(cudaFuncSetAttribute(bwd_gate_tc32<C, H>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)smem_rows32<C, H>(dmax)));
+  TC_TRY(cudaFuncSetAttribute(bwd_dx_tc32<C, H>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)smem_rows32<C, H>(dmax)));
+  TC_TRY(cudaFuncSetAttribute(wgrad_tc32<C, H>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)SMEM_WGRAD32));
+  const Slabs sl = slabs_for(B, C, H);
+  const BwdScratch32 sc = carve32(scratch, B, T, C, H);
+  const int n_tile = (T + TM - 1) / TM, nblk = B * n_tile, bps = sl.batch_rows;
+  const dim3 rows(n_tile, B);
+  const dim3 wgrid((4 * C + H) / WT, C2 / WT, sl.n);
+  const int red_blocks = 2 * NUM_SMS, sum_blocks = 2 * (C2 / 32) + B * (C / 32);
+  const size_t n = (size_t)B * T * C;
+  for (int l = L - 1; l >= 0; --l) {
+    const int d = dil[l];
+    TC_TRY(launch(n_launched, bwd_gate_tc32<C, H>, rows, smem_rows32<C, H>(d), s, l < L - 1,
+                  xs + (size_t)l * n, step, cond, k_cond, b_cond, w_dil, b_dil, w_out, ds,
+                  (const float*)dx, sc.ybuf, sc.gbuf, sc.dconv, sc.dxh, sc.dgs, sc.biaspart, B,
+                  T, l, d));
+    TC_TRY(launch(n_launched, bwd_dx_tc32<C, H>, rows, smem_rows32<C, H>(d), s, true,
+                  (const float*)sc.dconv, w_dil, k_cond, dx, dcond, sc.dsp, B, T, l, d));
+    TC_TRY(launch(n_launched, wgrad_tc32<C, H>, wgrid, SMEM_WGRAD32, s, true,
+                  (const float*)sc.ybuf, cond, (const float*)sc.gbuf, (const float*)sc.dconv,
+                  (const float*)sc.dxh, ds, sc.part, B, T, d, bps));
+    TC_TRY(launch(n_launched, finish_kernel, dim3(red_blocks + sum_blocks), 0, s, true,
+                  (const float*)sc.part, (int)wgrid.z, C, H, dw_dil + (size_t)l * 3 * C * C2,
+                  dk_cond + (size_t)l * H * C2, dw_out + (size_t)l * C * C2,
+                  (const float*)sc.biaspart, nblk, db_dil + (size_t)l * C2,
+                  db_out + (size_t)l * C2, (const float*)sc.dsp, n_tile,
+                  dstep + (size_t)l * B * C, red_blocks));
+  }
+  return (int)cudaSuccess;
+}
+
 }  // namespace tc
 
 }  // namespace
 
 // path: 0 = the SIMT kernels (dtype 0 float32 or 1 bfloat16), 1 = the
-// tensor-core kernels (bfloat16, C = H = 256, dilations up to 16).
+// tensor-core kernels (C = H = 256, dilations up to 16; dtype 1 the bfloat16
+// kernels, dtype 0 the float32 ones in 3xTF32).
 // report (two ints) is written by the code that ran: [0] the kernels it
 // launched in this call, [1] which set they were (0 SIMT, 1 tensor cores).
 
 // What the tensor-core kernels take and how they would run it: returns 1 when
 // they serve this type, width and largest dilation, and then fills out with
-// the weight-gradient slab count for B batch rows and the shared memory
-// (bytes) of the forward, gate, dx and weight-gradient kernels at dmax.
+// the weight-gradient slab count for B batch rows, the shared memory (bytes)
+// of the forward, gate, dx and weight-gradient kernels at dmax, and the body
+// (the dtype code: 1 bfloat16 products, 0 float32 in 3xTF32).
 extern "C" int diffnet_train_tc_info(int dtype, int B, int C, int H, int dmax, int* out) {
-  if (dtype != 1 || C != 256 || H != 256 || dmax < 1 || dmax > tc::MAX_DIL) return 0;
+  if ((dtype != 0 && dtype != 1) || C != 256 || H != 256 || dmax < 1 || dmax > tc::MAX_DIL)
+    return 0;
   out[0] = tc::slabs_for(B, C, H).n;
-  out[1] = (int)tc::smem_fwd<256, 256>(dmax);
-  out[2] = (int)tc::smem_gate<256, 256>(dmax);
-  out[3] = (int)tc::smem_dx<256, 256>(dmax);
-  out[4] = (int)tc::SMEM_WGRAD;
+  if (dtype == 1) {
+    out[1] = (int)tc::smem_fwd<256, 256>(dmax);
+    out[2] = (int)tc::smem_gate<256, 256>(dmax);
+    out[3] = (int)tc::smem_dx<256, 256>(dmax);
+    out[4] = (int)tc::SMEM_WGRAD;
+  } else {
+    out[1] = out[2] = out[3] = (int)tc::smem_rows32<256, 256>(dmax);
+    out[4] = (int)tc::SMEM_WGRAD32;
+  }
+  out[5] = dtype;
   return 1;
 }
 
 // Bytes of scratch the backward needs for these shapes.
 extern "C" long long diffnet_train_bwd_scratch_bytes(int path, int dtype, int B, int T, int C,
                                                      int H) {
-  if (path == 1) return (long long)tc::carve(nullptr, B, T, C, H).bytes;
+  if (path == 1)
+    return (long long)(dtype == 1 ? tc::carve(nullptr, B, T, C, H).bytes
+                                  : tc::carve32(nullptr, B, T, C, H).bytes);
   const Dims g{B, T, C, H, B * T};
   return (long long)simt_carve(nullptr, g, dtype == 1 ? 2 : 4).bytes;
 }
@@ -1729,12 +2558,21 @@ extern "C" int diffnet_train_fwd(int path, int dtype, void* x, void* skip, void*
   report[0] = 0;
   report[1] = -1;
   if (path == 1) {
-    if (dtype != 1 || C != 256 || H != 256) return (int)cudaErrorInvalidValue;
-    return tc::fwd_run<256, 256>((const float*)x, (float*)scratch, (float*)skip, (bf16*)xs,
-                                 (const float*)step, (const bf16*)cond, (const bf16*)k_cond,
-                                 (const float*)b_cond, (const bf16*)w_dil, (const float*)b_dil,
-                                 (const bf16*)w_out, (const float*)b_out, B, T, L, dil, s,
-                                 report);
+    if (C != 256 || H != 256) return (int)cudaErrorInvalidValue;
+    if (dtype == 1)
+      return tc::fwd_run<256, 256>((const float*)x, (float*)scratch, (float*)skip, (bf16*)xs,
+                                   (const float*)step, (const bf16*)cond, (const bf16*)k_cond,
+                                   (const float*)b_cond, (const bf16*)w_dil,
+                                   (const float*)b_dil, (const bf16*)w_out,
+                                   (const float*)b_out, B, T, L, dil, s, report);
+    if (dtype == 0)
+      return tc::fwd_run32<256, 256>((const float*)x, (float*)scratch, (float*)skip, (float*)xs,
+                                     (const float*)step, (const float*)cond,
+                                     (const float*)k_cond, (const float*)b_cond,
+                                     (const float*)w_dil, (const float*)b_dil,
+                                     (const float*)w_out, (const float*)b_out, B, T, L, dil, s,
+                                     report);
+    return (int)cudaErrorInvalidValue;
   }
   if (path != 0 || C % HALF != 0) return (int)cudaErrorInvalidValue;
   const Dims gd{B, T, C, H, B * T};
@@ -1768,13 +2606,22 @@ extern "C" int diffnet_train_bwd(int path, int dtype, const void* xs, const void
   report[0] = 0;
   report[1] = -1;
   if (path == 1) {
-    if (dtype != 1 || C != 256 || H != 256) return (int)cudaErrorInvalidValue;
-    return tc::bwd_run<256, 256>(
-        (const bf16*)xs, (const float*)step, (const bf16*)cond, (const bf16*)k_cond,
-        (const float*)b_cond, (const bf16*)w_dil, (const float*)b_dil, (const bf16*)w_out,
-        (const bf16*)ds, (float*)dx, (float*)dstep, (float*)dcond, (float*)dk_cond,
-        (float*)dw_dil, (float*)db_dil, (float*)dw_out, (float*)db_out, scratch, B, T, L, dil,
-        s, report);
+    if (C != 256 || H != 256) return (int)cudaErrorInvalidValue;
+    if (dtype == 1)
+      return tc::bwd_run<256, 256>(
+          (const bf16*)xs, (const float*)step, (const bf16*)cond, (const bf16*)k_cond,
+          (const float*)b_cond, (const bf16*)w_dil, (const float*)b_dil, (const bf16*)w_out,
+          (const bf16*)ds, (float*)dx, (float*)dstep, (float*)dcond, (float*)dk_cond,
+          (float*)dw_dil, (float*)db_dil, (float*)dw_out, (float*)db_out, scratch, B, T, L,
+          dil, s, report);
+    if (dtype == 0)
+      return tc::bwd_run32<256, 256>(
+          (const float*)xs, (const float*)step, (const float*)cond, (const float*)k_cond,
+          (const float*)b_cond, (const float*)w_dil, (const float*)b_dil, (const float*)w_out,
+          (const float*)ds, (float*)dx, (float*)dstep, (float*)dcond, (float*)dk_cond,
+          (float*)dw_dil, (float*)db_dil, (float*)dw_out, (float*)db_out, scratch, B, T, L,
+          dil, s, report);
+    return (int)cudaErrorInvalidValue;
   }
   if (path != 0 || C % HALF != 0) return (int)cudaErrorInvalidValue;
   const Dims gd{B, T, C, H, B * T};
@@ -1796,7 +2643,7 @@ extern "C" int diffnet_train_bwd(int path, int dtype, const void* xs, const void
 }
 
 #ifdef TRAIN_PHASE_CLOCKS
-// Copies the recorded clocks ([3 kernels][1024 blocks][6] int64) to the host.
+// Copies the recorded clocks ([6 kernels][1024 blocks][8] int64) to the host.
 extern "C" int diffnet_train_read_clocks(long long* dst) {
   return (int)cudaMemcpyFromSymbol(dst, tc::g_clk, sizeof(tc::g_clk));
 }

@@ -28,11 +28,14 @@ gradient is needed (``torch.no_grad()`` or no input requires one) the forward
 saves no ``xs``.
 
 Which kernels a CUDA call runs is decided here, by shape (``takes_tensor_cores``):
-bfloat16 at C = H = 256 with dilations up to 16 takes the tensor-core kernels
-(one launch a layer forward, four backward); float32 and every other shape
-take the SIMT kernels (two and twelve). Neither ever reaches a plain twin.
-Tile sizes, shared memory and the weight gradients' slab count are the
-library's own (``diffnet_train_tc_info`` reports them).
+float32 (``compute_dtype`` None, what every shipped config trains with) and
+bfloat16 at C = H = 256 with dilations up to 16 take the tensor-core kernels
+(one launch a layer forward, four backward; float32 products in 3xTF32);
+every other shape takes the SIMT kernels (two and twelve). None ever reaches
+a plain twin, and a tensor-core call that fails to build or launch raises.
+Tile sizes, shared memory, the weight gradients' slab count and the body
+(bf16 or 3xTF32 products) are the library's own (``diffnet_train_tc_info``
+reports them).
 """
 
 from __future__ import annotations
@@ -147,17 +150,18 @@ def diffnet_train_stack_bwd_plain(xs, step_proj, cond, k_cond, b_cond, w_dil, b_
 # ---------------------------------------------------------------------------
 # kernel launches
 # ---------------------------------------------------------------------------
-TC_WIDTH = 256        # C = H the bfloat16 tensor-core kernels are built for
+TC_WIDTH = 256        # C = H the tensor-core kernels are built for
 TC_MAX_DILATION = 16  # the widest halo their tiles hold in a block's shared memory
 
 
 def takes_tensor_cores(c: int, h: int, dilations: Sequence[int],
                        compute_dtype: Optional[torch.dtype]) -> bool:
-    """The dispatch rule: bfloat16, C = H = 256 and every dilation <= 16 go
-    to the tensor-core kernels, everything else to the SIMT kernels. The
-    library holds the same rule and refuses a call outside it."""
-    return (compute_dtype == torch.bfloat16 and c == TC_WIDTH and h == TC_WIDTH
-            and max(int(d) for d in dilations) <= TC_MAX_DILATION)
+    """The dispatch rule: float32 (``None``) or bfloat16, C = H = 256 and
+    every dilation <= 16 go to the tensor-core kernels, everything else to
+    the SIMT kernels. The library holds the same rule and refuses a call
+    outside it."""
+    return ((compute_dtype or torch.float32) in _DTYPE_CODE and c == TC_WIDTH
+            and h == TC_WIDTH and max(int(d) for d in dilations) <= TC_MAX_DILATION)
 
 
 @functools.lru_cache(maxsize=None)
@@ -179,16 +183,18 @@ def tensor_core_info(b: int, c: int, h: int, dilations: Sequence[int],
                      compute_dtype: Optional[torch.dtype]) -> Optional[dict]:
     """What the built library says of these shapes: None when its tensor-core
     kernels do not take them, else their weight-gradient slab count for ``b``
-    batch rows and each kernel's shared memory (bytes) at the largest
-    dilation. Needs the built library, so it runs on the card's machine."""
+    batch rows, each kernel's shared memory (bytes) at the largest dilation
+    and the body that takes them ("bf16" products, or float32 as "3xtf32").
+    Needs the built library, so it runs on the card's machine."""
     info = load_library("diffnet_train").diffnet_train_tc_info
     info.restype = ctypes.c_int
     info.argtypes = [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_int)]
-    out = (ctypes.c_int * 5)()
+    out = (ctypes.c_int * 6)()
     code = _DTYPE_CODE.get(compute_dtype or torch.float32, -1)
     if not info(code, b, c, h, max(int(d) for d in dilations), out):
         return None
-    return {"nslab": out[0], "smem": dict(zip(("fwd", "gate", "dx", "wgrad"), out[1:]))}
+    return {"nslab": out[0], "smem": dict(zip(("fwd", "gate", "dx", "wgrad"), out[1:5])),
+            "body": "bf16" if out[5] == _DTYPE_CODE[torch.bfloat16] else "3xtf32"}
 
 
 def _checked(name: str, t: torch.Tensor, shape, device) -> None:

@@ -2,9 +2,11 @@
 
 The tensor-core kernels of ``csrc/diffnet_train.cu`` run only on the card, so
 nothing here executes them: the tests are a PyTorch model of their schedule,
-held against the plain twins of ``ops/diffnet_train.py``. They show that the
-schedule computes the twins' function; the CUDA code itself is held against
-the twins on the card by ``chip_smoke.py``. The schedule:
+held against the plain twins of ``ops/diffnet_train.py`` (and, for the
+float32 body, against the JAX package's Pallas kernels in interpret mode).
+They show that the schedule computes the twins' function; the CUDA code
+itself is held against the twins on the card by ``chip_smoke.py``. The
+bfloat16 schedule:
   * the forward walks each layer row block by row block (a block is ``tm``
     frames of one batch row, never two), builds ``y`` with its dilation halo
     from the read-only input buffer (zero outside ``[0, T)``), and writes the
@@ -14,22 +16,36 @@ the twins on the card by ``chip_smoke.py``. The schedule:
     float32 values, ``dy`` and ``dcond`` from one ``dconv`` tile with its halo,
     weight gradients by slabs of whole batch rows, and every cross-block sum
     from per-block or per-slab partials added in the kernels' fixed order.
+The float32 schedule (``emulate_fwd32`` / ``emulate_bwd32``) has the same
+blocks, launches and sums, with what the float32 kernels change: every
+product in 3xTF32 (each operand cut as ``split_tf32`` cuts it, ``& 0xffffe000``,
+then the remainder cut the same way; ``a_lo b_hi + a_hi b_lo + a_hi b_hi``);
+one shared tile a block, into which the forward stages cond (its product
+first), then y with its halo, then g, the gate kernel a dout half at a time,
+then cond, then y, and the dx kernel dconv one half of its columns at a time;
+dg parked in device memory and read back by the block that wrote it; the
+backward's scratch (y, g, dconv, dout's dx half) in float32; blocks in a
+shuffled order.
 Every buffer a kernel does not fully write is filled with NaN first (before
-every layer for the per-layer scratch), so a stale or unwritten row that
-reaches a kept value shows as NaN.
+every layer for the per-layer scratch, every block's shared tile before the
+block), so a stale or unwritten row that reaches a kept value shows as NaN.
 
 Tolerances. float32: the same products summed in another order (tile-sized
-matmuls, slab partials) -> 1e-4 of each tensor's scale. bfloat16: both sides
+matmuls, slab partials) -> 1e-4 of each tensor's scale; 3xTF32 keeps each
+product to ~2^-21. bfloat16: both sides
 round at the same points, but a float32 sum in another order can round y, g,
 dout or dconv one bf16 step (2^-8) apart and carry it through later layers, so
 no tensor is bit-equal by construction -> 1e-2 of each tensor's scale, the
 tolerance the card's check uses.
 """
 
+import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from diffsinger_tpu.ops import diffnet_train as jdt
 from diffsinger_tpu_torch.ops import diffnet_train as tdt
 from diffsinger_tpu_torch.ops.diffnet_stack import SQRT_HALF
 
@@ -189,6 +205,214 @@ def emulate_bwd(xs, step, cond, k_cond, b_cond, w_dil, b_dil, w_out, ds, *, dila
             st["dwo"], st["dbo"])
 
 
+# ------------------------------------------------------- the float32 schedule
+PAD = 4   # NaN rows past T in every device buffer of the float32 model
+
+
+def _cut_tf32(a):
+    """Sign, exponent and the top 10 mantissa bits (``split_tf32``'s mask)."""
+    return (a.contiguous().view(torch.int32) & -8192).view(F32)
+
+
+def _mm3(passes=3):
+    """The kernels' product: both operands split into tf32 hi and lo,
+    ``a_lo b_hi + a_hi b_lo + a_hi b_hi`` in float32 (``passes=1``: a_hi b_hi
+    alone, one TF32 pass)."""
+    def mm(a, w):
+        a_hi, w_hi = _cut_tf32(a), _cut_tf32(w)
+        if passes == 1:
+            return a_hi @ w_hi
+        a_lo, w_lo = _cut_tf32(a - a_hi), _cut_tf32(w - w_hi)
+        return (a_lo @ w_hi + a_hi @ w_lo) + a_hi @ w_hi
+    return mm
+
+
+def _device(a, t):
+    """A [.., T, W] tensor as a device buffer: NaN rows past T."""
+    out = torch.full(a.shape[:-2] + (t + PAD, a.shape[-1]), NAN)
+    out[..., :t, :] = a
+    return out
+
+
+def _stage(tile, src, t0, d, tm, width):
+    """Frames t0 - d .. t0 + tm + d of one batch row of a device buffer into
+    the first tm + 2d rows and ``width`` columns of the block's tile, zero
+    outside [0, T) (T = src rows - PAD): only rows below T are read."""
+    t_len = src.shape[0] - PAD
+    ts = torch.arange(t0 - d, t0 + tm + d)
+    inside = (ts >= 0) & (ts < t_len)
+    tile[:tm + 2 * d, :width] = 0.0
+    tile[:tm + 2 * d, :width][inside] = src[ts[inside], :width]
+
+
+def _blocks(b, t, tm, order):
+    blocks = [(bi, ti, t0) for bi in range(b) for ti, t0 in enumerate(range(0, t, tm))]
+    return [blocks[i] for i in order.permutation(len(blocks))]
+
+
+def _seq_sum(rows):
+    """Sum over rows in order, as a thread of the gate kernel sums a column."""
+    total = torch.zeros(rows.shape[1])
+    for r in rows:
+        total = total + r
+    return total
+
+
+def emulate_fwd32(x0, step, cond, k_cond, b_cond, w_dil, b_dil, w_out, b_out, *, dilations,
+                  tm, save_xs=True, passes=3, seed=0):
+    """``fwd_layer_tc32``'s schedule. Returns (skips, xs or None)."""
+    mm = _mm3(passes)
+    num_layers, (b, t, c), h = w_dil.shape[0], x0.shape, cond.shape[-1]
+    width = max(c, h)
+    cond_dev = _device(cond, t)
+    x_in = _device(x0, t)                  # layer 0 reads the caller's x0
+    bufs = [torch.full((b, t + PAD, c), NAN), torch.full((b, t + PAD, c), NAN)]
+    skip = torch.full((b, t + PAD, c), NAN)    # layer 0 writes it without reading
+    xs = torch.full((num_layers, b, t + PAD, c), NAN) if save_xs else None
+    if save_xs:
+        xs[0, :, :t] = x0                  # the wrapper's copy
+    order = np.random.RandomState(seed)
+    for l, d in enumerate(dilations):
+        x_out = bufs[l % 2]
+        for bi, _, t0 in _blocks(b, t, tm, order):
+            tile = torch.full((tm + 2 * d, width), NAN)   # the block's shared memory
+            rows = torch.arange(t0, t0 + tm)
+            live = rows < t
+            # cond first (an input of the call): its product before the wait
+            _stage(tile, cond_dev[bi], t0, 0, tm, h)
+            acc = mm(tile[:tm, :h], k_cond[l])
+            # then y with its halo over the same space
+            _stage(tile, x_in[bi], t0, d, tm, c)
+            ts = torch.arange(t0 - d, t0 + tm + d)
+            inside = (ts >= 0) & (ts < t)
+            tile[:tm + 2 * d, :c][inside] += step[l, bi]
+            for k in range(3):
+                acc = acc + mm(tile[k * d:k * d + tm, :c], w_dil[l, k])
+            pre = acc + b_dil[l] + b_cond[l]
+            g = torch.sigmoid(pre[:, :c]) * torch.tanh(pre[:, c:])
+            tile[:tm, :c] = torch.where(live[:, None], g, torch.zeros(()))   # g over y
+            out = mm(tile[:tm, :c], w_out[l])
+            keep = rows[live]
+            xn = (x_in[bi, keep] + (out[live, :c] + b_out[l, :c])) * tdt.SQRT_HALF
+            x_out[bi, keep] = xn
+            sk = out[live, c:] + b_out[l, c:]
+            skip[bi, keep] = sk if l == 0 else skip[bi, keep] + sk
+            if save_xs and l + 1 < num_layers:
+                xs[l + 1, bi, keep] = xn
+        x_in = x_out
+    return skip[:, :t], (xs[:, :, :t] if save_xs else None)
+
+
+def emulate_bwd32(xs, step, cond, k_cond, b_cond, w_dil, b_dil, w_out, ds, *, dilations,
+                  tm, nslab, passes=3, store=F32, seed=0):
+    """The four float32 backward kernels a layer. ``store`` is the type of
+    the per-layer scratch (float32 as built; bf16 only to show the
+    tolerance needs float32 scratch)."""
+    mm = _mm3(passes)
+    num_layers, b, t, c = xs.shape
+    h = cond.shape[-1]
+    width = max(c, h)
+    n_tile = -(-t // tm)
+    nblk = b * n_tile
+    rows_per_slab = -(-b // nslab)
+    xs_dev, cond_dev, ds_dev = _device(xs, t), _device(cond, t), _device(ds, t)
+    dx, dcond = torch.zeros(b, t + PAD, c), torch.zeros(b, t + PAD, h)
+    out = {k: [None] * num_layers for k in ("dstep", "dk", "db", "dwd", "dwo", "dbo")}
+    order = np.random.RandomState(seed)
+
+    def kept(v):
+        return v.to(store).to(F32)
+
+    for l in reversed(range(num_layers)):
+        d = dilations[l]
+        # per-layer scratch: nothing of the layer above may be read
+        ybuf, gbuf = torch.full((b, t + PAD, c), NAN), torch.full((b, t + PAD, c), NAN)
+        dconv = torch.full((b, t + PAD, 2 * c), NAN)
+        dxh = torch.full((b, t + PAD, c), NAN)
+        dgs = torch.full((nblk, tm, c), NAN)
+        bias_part = torch.full((2, nblk, 2 * c), NAN)
+        dstep_part = torch.full((b, n_tile, c), NAN)
+        # kernel 1: dout a half at a time, dg parked; cond, then y; epilogue
+        for bi, ti, t0 in _blocks(b, t, tm, order):
+            blk = bi * n_tile + ti
+            rows = torch.arange(t0, t0 + tm)
+            live = rows < t
+            keep = rows[live]
+            tile = torch.full((tm + 2 * d, width), NAN)
+            dg = torch.zeros(tm, c)
+            for hf, src in enumerate((dx[bi] * tdt.SQRT_HALF, ds_dev[bi])):
+                _stage(tile, src, t0, 0, tm, c)
+                if hf == 0:
+                    dxh[bi, keep] = kept(tile[:tm, :c][live])
+                bias_part[1, blk, hf * c:(hf + 1) * c] = _seq_sum(tile[:tm, :c])
+                dg = dg + mm(tile[:tm, :c], w_out[l][:, hf * c:(hf + 1) * c].t())
+            dgs[blk] = dg
+            _stage(tile, cond_dev[bi], t0, 0, tm, h)
+            acc = mm(tile[:tm, :h], k_cond[l])
+            _stage(tile, xs_dev[l, bi], t0, d, tm, c)
+            ts = torch.arange(t0 - d, t0 + tm + d)
+            inside = (ts >= 0) & (ts < t)
+            tile[:tm + 2 * d, :c][inside] += step[l, bi]
+            ybuf[bi, keep] = kept(tile[d:d + tm, :c][live])
+            for k in range(3):
+                acc = acc + mm(tile[k * d:k * d + tm, :c], w_dil[l, k])
+            pre = acc + b_dil[l] + b_cond[l]
+            sg, tf = torch.sigmoid(pre[:, :c]), torch.tanh(pre[:, c:])
+            dgv = dgs[blk]                    # read back by the block that parked it
+            dc = torch.cat([dgv * tf * sg * (1.0 - sg), dgv * sg * (1.0 - tf * tf)], dim=-1)
+            gbuf[bi, keep] = kept((sg * tf)[live])
+            dconv[bi, keep] = kept(dc[live])
+            bias_part[0, blk] = dc[live].sum(0)
+        # kernel 2: dy and dcond from the dconv tile, one column half at a time
+        for bi, ti, t0 in _blocks(b, t, tm, order):
+            rows = torch.arange(t0, t0 + tm)
+            live = rows < t
+            keep = rows[live]
+            tile = torch.full((tm + 2 * d, width), NAN)
+            accy, accc = torch.zeros(tm, c), torch.zeros(tm, h)
+            for hf in range(2):
+                cols = slice(hf * c, (hf + 1) * c)
+                _stage(tile, dconv[bi, :, cols], t0, d, tm, c)
+                # tap k reads dconv[t - (k - 1) d]: it starts (2 - k) d rows in
+                for k in range(3):
+                    accy = accy + mm(tile[(2 - k) * d:(2 - k) * d + tm, :c], w_dil[l, k][:, cols].t())
+                accc = accc + mm(tile[d:d + tm, :c], k_cond[l][:, cols].t())
+            dstep_part[bi, ti] = accy[live].sum(0)
+            dx[bi, keep] = dx[bi, keep] * tdt.SQRT_HALF + accy[live]
+            dcond[bi, keep] = dcond[bi, keep] + accc[live]
+        # kernel 3: weight gradients by slabs of whole batch rows; a tap is a
+        # row offset of the copy, zero outside [0, T) of the same batch row
+        m_all = 4 * c + h
+        part = torch.full((nslab, m_all, 2 * c), NAN)
+        n_slabs = -(-b // rows_per_slab)
+        for s in order.permutation(n_slabs):
+            acc = torch.zeros(m_all, 2 * c)
+            for bi in range(s * rows_per_slab, min(b, (s + 1) * rows_per_slab)):
+                shifted = []
+                for k in range(3):
+                    tile = torch.zeros(t + 2 * d, c)
+                    _stage(tile, ybuf[bi], 0, d, t, c)
+                    shifted.append(tile[k * d:k * d + t])
+                a = torch.cat(shifted + [cond_dev[bi, :t]], dim=-1)    # [T, 3C + H]
+                acc[:3 * c + h] += mm(a.t().contiguous(), dconv[bi, :t])
+                acc[3 * c + h:] += mm(gbuf[bi, :t].t().contiguous(),
+                                      torch.cat([dxh[bi, :t], ds_dev[bi, :t]], dim=-1))
+            part[s] = acc
+        # kernel 4: every cross-block sum in a fixed order
+        total = part[0].clone()
+        for s in range(1, n_slabs):
+            total = total + part[s]
+        out["dwd"][l] = total[:3 * c].reshape(3, c, 2 * c)
+        out["dk"][l] = total[3 * c:3 * c + h]
+        out["dwo"][l] = total[3 * c + h:]
+        out["db"][l] = _lane_sum(bias_part[0])
+        out["dbo"][l] = _lane_sum(bias_part[1])
+        out["dstep"][l] = torch.stack([_lane_sum(dstep_part[bi]) for bi in range(b)])
+    st = {k: torch.stack(v) for k, v in out.items()}
+    return (dx[:, :t], st["dstep"], dcond[:, :t], st["dk"], st["db"], st["dwd"],
+            st["db"].clone(), st["dwo"], st["dbo"])
+
+
 def _assert_close(got, want, rel, name):
     assert got.shape == want.shape, name
     got, want = got.to(F32), want.to(F32)
@@ -225,6 +449,80 @@ def test_block_schedule_equals_the_plain_twins(b, t, c, h, num_layers, cycle, tm
     got = emulate_bwd(want_xs, *args[1:8], ds, tm=tm, nslab=nslab, **kw)
     for name, g, w in zip(tdt.GRAD_NAMES, got, want):
         _assert_close(g, w, rel, name)
+
+
+@pytest.mark.parametrize("b,t,c,h,num_layers,cycle,tm,nslab", CASES)
+def test_float32_schedule_equals_the_plain_twins(b, t, c, h, num_layers, cycle, tm, nslab):
+    args, ds = _inputs(b * 1000 + t, b, t, c, h, num_layers)
+    kw = dict(dilations=tuple(2 ** (i % cycle) for i in range(num_layers)), compute_dtype=None)
+    want_skips, want_xs = tdt.diffnet_train_stack_fwd_plain(*args, **kw)
+    skips, xs = emulate_fwd32(*args, dilations=kw["dilations"], tm=tm)
+    _assert_close(skips, want_skips, 1e-4, "skips")
+    _assert_close(xs, want_xs, 1e-4, "xs")
+    # both backwards read the same saved inputs, so this holds the backward alone
+    want = tdt.diffnet_train_stack_bwd_plain(want_xs, *args[1:8], ds, **kw)
+    got = emulate_bwd32(want_xs, *args[1:8], ds, dilations=kw["dilations"], tm=tm,
+                        nslab=nslab)
+    for name, g, w in zip(tdt.GRAD_NAMES, got, want):
+        _assert_close(g, w, 1e-4, name)
+
+
+def test_float32_schedule_matches_jax_in_interpret_mode():
+    """The float32 model, forward and backward, against JAX's own float32
+    training kernels (``_fwd_call`` and ``make_stack_vjp`` with
+    ``compute_dtype=None``, Pallas in interpret mode): skips, xs and the nine
+    cotangents, at a cycle-4 case with ragged blocks and slabs."""
+    b, t, c, h, num_layers, cycle, tm, nslab = 3, 40, 16, 16, 5, 4, 8, 2
+    args, ds = _inputs(29, b, t, c, h, num_layers)
+    dil = tuple(2 ** (i % cycle) for i in range(num_layers))
+    jargs = tuple(jnp.asarray(a.numpy()) for a in args)
+    want_skips, want_xs = jdt._fwd_call(*jargs, dil, 1, True, None, jnp.float32)
+    _, vjp = jax.vjp(jdt.make_stack_vjp(dil, 1, True, None, jnp.float32), *jargs)
+    want = vjp(jnp.asarray(ds.numpy()))
+    skips, xs = emulate_fwd32(*args, dilations=dil, tm=tm)
+    _assert_close(skips, torch.from_numpy(np.array(want_skips)), 1e-4, "skips")
+    _assert_close(xs, torch.from_numpy(np.array(want_xs)), 1e-4, "xs")
+    got = emulate_bwd32(xs, *args[1:8], ds, dilations=dil, tm=tm, nslab=nslab)
+    for name, g, w in zip(tdt.GRAD_NAMES, got, want):
+        _assert_close(g, torch.from_numpy(np.array(w, np.float32)), 1e-4, name)
+
+
+def test_float32_needs_three_tf32_passes_and_float32_scratch():
+    """One TF32 pass, or scratch rounded to bf16, misses the float32
+    tolerance the three passes and float32 scratch hold; the split itself
+    keeps a value to 2^-20 of it."""
+    b, t, c, h, num_layers = 2, 64, 64, 64, 4
+    args, ds = _inputs(5, b, t, c, h, num_layers)
+    dil = (1, 2, 4, 8)
+    kw = dict(dilations=dil, compute_dtype=None)
+    want_skips, want_xs = tdt.diffnet_train_stack_fwd_plain(*args, **kw)
+    tol = 1e-4 * max(float(want_skips.abs().max()), 1.0)
+    three, _ = emulate_fwd32(*args, dilations=dil, tm=16)
+    one, _ = emulate_fwd32(*args, dilations=dil, tm=16, save_xs=False, passes=1)
+    assert float((three - want_skips).abs().max()) <= tol
+    assert float((one - want_skips).abs().max()) > tol
+    want = tdt.diffnet_train_stack_bwd_plain(want_xs, *args[1:8], ds, **kw)
+    dw = tdt.GRAD_NAMES.index("w_dil")
+    wtol = 1e-4 * max(float(want[dw].abs().max()), 1.0)
+    for store, holds in ((F32, True), (torch.bfloat16, False)):
+        got = emulate_bwd32(want_xs, *args[1:8], ds, dilations=dil, tm=16, nslab=2,
+                            store=store)
+        assert (float((got[dw] - want[dw]).abs().max()) <= wtol) == holds, store
+    a = args[5]
+    hi = _cut_tf32(a)
+    assert float(((hi + _cut_tf32(a - hi)) - a).abs().max()) <= 2.0 ** -20 * float(a.abs().max())
+
+
+def test_float32_model_reads_nothing_unwritten():
+    """The NaN fill guards the float32 model too: a forward that read the
+    buffer it writes (in place would be the kernel's fault) shows NaN."""
+    args, _ = _inputs(13, 2, 24, 16, 16, 3)
+    skips, _ = emulate_fwd32(*args, dilations=(1, 2, 4), tm=8)
+    assert torch.isfinite(skips).all()
+    buf = torch.full((24 + PAD, 16), NAN)
+    tile = torch.full((8 + 2, 16), NAN)
+    _stage(tile, buf, 0, 1, 8, 16)   # rows of an unwritten buffer stay NaN
+    assert not torch.isfinite(tile[1:]).any() and torch.equal(tile[0], torch.zeros(16))
 
 
 def test_forward_without_saves_is_the_same_skip_sum():
@@ -275,14 +573,25 @@ def test_shipped_training_shape_takes_the_tensor_cores():
                                   torch.bfloat16)
 
 
+@pytest.mark.parametrize("dt", [None, torch.float32], ids=["none", "float32"])
+@pytest.mark.parametrize("dil", [(1,) * 20, tuple(2 ** (i % 4) for i in range(20)),
+                                 (1, 16)], ids=["lj", "cycle4", "d16"])
+def test_float32_at_the_shipped_width_takes_the_tensor_cores(dil, dt):
+    """ds_beta6.yaml and popcs/ds_beta6.yaml set no compute_dtype: their
+    training stack (C = H = 256) is float32 and goes to the 3xTF32 kernels."""
+    assert tdt.takes_tensor_cores(256, 256, dil, dt)
+
+
 @pytest.mark.parametrize("c,h,dil,dt", [
-    (256, 256, (1,) * 20, None),                 # float32
     (256, 256, (1,) * 20, torch.float16),
     (256, 200, (1, 2, 4, 8), torch.bfloat16),    # a width not built for
     (128, 128, (1, 2), torch.bfloat16),
     (256, 256, (1, 17), torch.bfloat16),         # the halo does not fit
     (256, 256, (32, 1), torch.bfloat16),
-], ids=["f32", "f16", "H200", "C128", "d17", "d32"])
+    (256, 200, (1, 2, 4, 8), None),              # float32 off the built width
+    (128, 128, (1, 2), None),
+    (256, 256, (1, 17), None),                   # float32 past the halo
+], ids=["f16", "H200", "C128", "d17", "d32", "f32-H200", "f32-C128", "f32-d17"])
 def test_other_shapes_go_to_the_simt_kernels(c, h, dil, dt):
     assert not tdt.takes_tensor_cores(c, h, dil, dt)
 
