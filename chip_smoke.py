@@ -64,8 +64,10 @@ Phases, each of which fails the run (non-zero exit) when it fails:
   7. training: the port's Trainer on DiffSpeech-LJSpeech at full width
      (configs/lj/ds_beta6.yaml with tools/bench_train.py's overrides, bf16
      stack, dropout on, FS2 frozen but for its predictors) first holds one
-     step's losses and gradients against the same step through the plain
-     twins, then takes ten optimizer steps on one synthetic 24 x 1024-frame
+     step's kernels against their plain twins (``step_vs_plain``: the
+     forward on the inputs the step gave it, the backward by a step that
+     swaps only the backward, the losses against a step through both
+     twins), then takes ten optimizer steps on one synthetic 24 x 1024-frame
      batch (launch counts, ms/step, peak memory), and profiles one more step
      (table in build/chip_smoke/train_profile.txt);
   7a. train_cwt: the same with the config's own cwt pitch (targets from
@@ -94,6 +96,41 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      first test utterance's mel and waveform against the plain twins; one
      step on a dataset batch and one test utterance are profiled
      (cli_fit_profile.txt, cli_infer_profile.txt);
+  7d. train_fs2: FastSpeech2Task as the shipped FS2 configs train it,
+     configs/lj/fs2.yaml (cwt pitch, mel_loss l1) at 24 x 1024 and
+     configs/opencpop/aux_rel.yaml (MIDI, rel_pos, mel_loss ssim:0.5|l1:0.5)
+     at 24 x 1500: one deterministic step on the card against the same step
+     on the CPU in float64 (first 4 rows; losses within 1e-4 relative, each
+     gradient within 1e-3 of its scale plus the CPU's own float32 step's
+     distance from float64 for that parameter), JAX's loss names, one warm
+     and five timed steps; the aux_rel run is saved for train_midi;
+  7e. train_midi: configs/opencpop/ds1000.yaml as shipped (float32 stack on
+     the 3xTF32 training kernels, cycle 4, MIDI + rel_pos, no pitch
+     embedding) on a synthetic Opencpop batch of 24 x 1500 (150 phones of 10
+     frames, notes 48-72, ~20% slurs, a word every 2-3 phones): the first
+     step against the plain twins by the float32 criterion, one warm, five
+     timed and one profiled step (train_midi_profile.txt), 20 / 80 device
+     launches a call and the library's 3xtf32 body; then
+     configs/opencpop/ds60_rel.yaml on the same batch for four steps with two
+     overrides, fs2_ckpt = train_fs2's aux_rel checkpoint (every FS2 tensor
+     loaded, FS2 frozen) and switch_midi2f0_step 2 (the trainer's record:
+     ground-truth F0 at global steps 0-2, predicted from step 3);
+  7f. train_pe: configs/opencpop/pe.yaml as shipped (PitchExtractionTask) at
+     16 x 2000 frames with padded tails: the first step's BatchNorm running
+     statistics against a float64 host recomputation of flax's rule (every
+     frame, biased variance, momentum 0.99) within 1e-7 of their scale, a
+     limit that the same recomputation with torch's unbiased variance must
+     exceed; five timed steps;
+  7h. cli_cascade (after cli): the published DiffSpeech recipe on the cli
+     phase's binarized corpus: cli.train on configs/lj/fs2.yaml for 20 steps,
+     cli.train on configs/lj/ds_beta6.yaml as shipped (float32) for 10 steps
+     with fs2_ckpt = that run's directory (every FS2 tensor warm-started, the
+     predictors trainable, the rest frozen), cli --infer of both runs on the
+     4 test items (wavs on disk; 71 stack launches an utterance for
+     DiffSpeech, 3 MRF a vocoder call); the float32 training kernels held
+     against the plain twins on the run's largest training batch and a
+     validation batch, and each --infer's first test utterance (B = 1) with
+     its kernels against the plain twins;
   8. prints the kernels line and, last, the device line.
 The plain twins run with TF32 off (cuBLAS and cuDNN), so they are float32
 references. Long output goes to build/chip_smoke/chip_smoke.json.
@@ -935,7 +972,10 @@ TRAIN_STACK_CASES = (
        ("bfloat16", 5, 2, 100, 256),
        # the same edges on the float32 tensor-core kernels
        ("float32", 4, 3, 301, 256), ("float32", 4, 2, 5, 256),
-       ("float32", 5, 2, 100, 256)])
+       ("float32", 5, 2, 100, 256),
+       # the Opencpop training batch of ds1000.yaml (max_tokens 36,000) as
+       # train_midi runs it: float32, cycle 4, 24 x 1500
+       ("float32", 4, 24, 1500, 256)])
 
 
 def phase_train_stack(torch, tr, cases=TRAIN_STACK_CASES):
@@ -1151,43 +1191,82 @@ def _grad_agreement(got, want):
     return worst_cos, worst_rel, worst_at
 
 
-def step_vs_plain(torch, tr, trainer, batch, k_step: int):
-    """One step's losses and gradients, kernels vs plain twins (same weights,
-    t and noise, dropout off); no update is applied. Returns the kernel
-    run's losses, the plain run's, each term's difference, the worst
-    gradient cosine and relative error, and the trainable parameter with
-    that error."""
+def step_vs_plain(torch, tr, trainer, batch, k_step: int) -> dict:
+    """One step's losses and gradients (same weights, t and noise, dropout
+    off; no update is applied) with the kernels, and each kernel against its
+    plain twin on the inputs the step gave it:
+      * forward: the stack's inputs as the step passed them, the kernel's
+        skips and xs against the forward twin's (``fwd_rel_err``: max error
+        over max(scale, 1), the train_stack rule);
+      * backward: the same step with the backward twin in place of the
+        kernel and the kernel forward kept, so both backwards take the same
+        xs and ds (``grad_*``: worst cosine, worst max error over each
+        trainable parameter's scale, and that parameter);
+      * losses: the step with both twins (``plain_losses``, ``loss_abs_diff``).
+    That step's gradients are reported too (``all_plain_grad_*``), not
+    judged: the forward twin's skips differ in the last bits, which flips
+    the ReLU after the skip projection wherever its input is near 0, and a
+    flipped row changes ds outright."""
     b, t_mel, n_mels = batch["mels"].shape
     gen = torch.Generator(device="cuda").manual_seed(7)
     t = torch.randint(0, k_step, (b,), generator=gen, device="cuda")
     noise = torch.randn((b, t_mel, n_mels), generator=gen, device="cuda")
-    lk, gk = trainer.loss_and_grads(batch, t=t, noise=noise, deterministic=True)
+    fwd, seen = tr.diffnet_train_fwd, []
+
+    def record(*args, **kw):
+        seen.append((args, kw))
+        return fwd(*args, **kw)
+
+    record.launches = 0  # the wrapper counts its launches on the module's name
+    with mock.patch.object(tr, "diffnet_train_fwd", record):
+        lk, gk = trainer.loss_and_grads(batch, t=t, noise=noise, deterministic=True)
+    with mock.patch.object(tr, "diffnet_train_bwd", tr.diffnet_train_stack_bwd_plain):
+        _, gb = trainer.loss_and_grads(batch, t=t, noise=noise, deterministic=True)
     with mock.patch.object(tr, "diffnet_train_fwd", tr.diffnet_train_stack_fwd_plain), \
             mock.patch.object(tr, "diffnet_train_bwd", tr.diffnet_train_stack_bwd_plain):
         lp, gp = trainer.loss_and_grads(batch, t=t, noise=noise, deterministic=True)
+    args, kw = seen[0]
+    fwd_rel = {}
+    for name, k_, p_ in zip(("skips", "xs"), fwd(*args, **kw),
+                            tr.diffnet_train_stack_fwd_plain(*args, **kw)):
+        fwd_rel[name] = ((k_.float() - p_.float()).abs().max()
+                         / max(p_.float().abs().max().item(), 1.0)).item()
     torch.cuda.synchronize()
-    loss_diff = {k: abs(float(lk[k]) - float(lp[k])) for k in lk}
-    cos, rel, worst_at = _grad_agreement(gk, gp)
     names = [n for n, p in trainer.task.named_parameters() if p.requires_grad]
-    return lk, lp, loss_diff, cos, rel, names[worst_at] if worst_at is not None else None
+    cos, rel, at = _grad_agreement(gk, gb)
+    cos_all, rel_all, at_all = _grad_agreement(gk, gp)
+    return {"bf16": kw.get("compute_dtype") is not None,
+            "losses": {k: float(v) for k, v in lk.items()},
+            "plain_losses": {k: float(v) for k, v in lp.items()},
+            "loss_abs_diff": {k: abs(float(lk[k]) - float(lp[k])) for k in lk},
+            "fwd_rel_err": fwd_rel,
+            "grad_worst_cos": cos, "grad_worst_rel": rel,
+            "grad_worst_rel_param": names[at] if at is not None else None,
+            "all_plain_grad_worst_cos": cos_all, "all_plain_grad_worst_rel": rel_all,
+            "all_plain_grad_worst_rel_param": names[at_all] if at_all is not None else None}
 
 
-def step_agrees(lp, loss_diff, cos: float, rel: float) -> bool:
-    """The FS2 terms run the same code on both sides; the mel loss differs
-    only by bf16 roundings one step apart (1e-3 of its scale). Gradients: the
-    JAX package's bf16 criterion (cosine > 0.999, max error < 5% of each
-    tensor's scale)."""
-    bad = [k for k, d in loss_diff.items() if not d <= 1e-3 * max(abs(float(lp[k])), 1.0)]
-    return not bad and cos > 0.999 and rel < 0.05
+def step_agrees(r: dict) -> bool:
+    """bf16 stack: the FS2 terms run the same code on both sides; the mel
+    loss differs only by bf16 roundings one step apart (1e-3 of its scale);
+    the forward within 1e-2 of max(scale, 1) (the train_stack rule);
+    gradients by the JAX package's bf16 criterion (cosine > 0.999, max error
+    < 5% of each tensor's scale)."""
+    bad = [k for k, d in r["loss_abs_diff"].items()
+           if not d <= 1e-3 * max(abs(r["plain_losses"][k]), 1.0)]
+    return (not bad and max(r["fwd_rel_err"].values()) <= 1e-2
+            and r["grad_worst_cos"] > 0.999 and r["grad_worst_rel"] < 0.05)
 
 
 def timed_steps(torch, tr, trainer, batch, steps: int):
     """``steps`` optimizer steps (dropout on, draws from the trainer's
     generator), each timed on the host clock to the device's end, the
-    training kernels' launches counted from zero and the peak memory from a
-    reset. Returns the numbers and each step's losses."""
-    tr.diffnet_train_fwd.launches = 0
-    tr.diffnet_train_bwd.launches = 0
+    training kernels' launches counted from zero (``tr`` None: a task that
+    runs none) and the peak memory from a reset. Returns the numbers and
+    each step's losses."""
+    fns = () if tr is None else (tr.diffnet_train_fwd, tr.diffnet_train_bwd)
+    for fn in fns:
+        fn.launches = 0
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     times, history = [], []
@@ -1198,15 +1277,15 @@ def timed_steps(torch, tr, trainer, batch, steps: int):
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
         history.append({k: float(v) for k, v in losses.items()})
-    fns = (tr.diffnet_train_fwd, tr.diffnet_train_bwd)
-    return {
-        "launches": {fn.__name__: fn.launches for fn in fns},
-        # the last step's kernels, as the library counted them where it launched
-        "device_launches_last_step": {fn.__name__: fn.device_launches for fn in fns},
-        "ran_tensor_cores": all(fn.ran_tensor_cores for fn in fns),
-        "step_ms": [x * 1e3 for x in times],
-        "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
-    }, history
+    out = {"step_ms": [x * 1e3 for x in times],
+           "max_memory_allocated_bytes": torch.cuda.max_memory_allocated()}
+    if fns:
+        out.update({
+            "launches": {fn.__name__: fn.launches for fn in fns},
+            # the last step's kernels, as the library counted them where it launched
+            "device_launches_last_step": {fn.__name__: fn.device_launches for fn in fns},
+            "ran_tensor_cores": all(fn.ran_tensor_cores for fn in fns)})
+    return out, history
 
 
 def phase_train(torch, tr, card: str, out_dir: Path, steps: int = 10, cwt: bool = False):
@@ -1219,12 +1298,12 @@ def phase_train(torch, tr, card: str, out_dir: Path, steps: int = 10, cwt: bool 
     make = synthetic_cwt_batch if cwt else synthetic_batch
     batch = trainer.prepare_batch(make(np.random.RandomState(0), b, t_txt, t_mel))
     # the first step, kernels vs plain twins
-    lk, lp, loss_diff, cos, rel, _ = step_vs_plain(torch, tr, trainer, batch,
-                                                   int(hp["K_step"]))
+    vs_plain = step_vs_plain(torch, tr, trainer, batch, int(hp["K_step"]))
     want_terms = {"mel", "pdur", "wdur", "sdur"} | (
         {"C", "uv", "f0_mean", "f0_std"} if cwt else {"uv", "f0"})
-    if not want_terms <= set(lk):
-        raise AssertionError(f"training loss terms {sorted(lk)}, expected {sorted(want_terms)}")
+    if not want_terms <= set(vs_plain["losses"]):
+        raise AssertionError(f"training loss terms {sorted(vs_plain['losses'])}, expected "
+                             f"{sorted(want_terms)}")
 
     timed, history = timed_steps(torch, tr, trainer, batch, steps)
     profile = (None if cwt else
@@ -1238,9 +1317,7 @@ def phase_train(torch, tr, card: str, out_dir: Path, steps: int = 10, cwt: bool 
         "ms_per_step_median_warm": warm_ms,
         "mel_frames_per_s": b * t_mel / (warm_ms / 1e3),
         "trainable_params": sum(p.numel() for p in trainer.params),
-        "first_loss": history[0], "last_loss": history[-1],
-        "kernel_vs_plain_loss_abs_diff": loss_diff,
-        "kernel_vs_plain_grad_worst_cos": cos, "kernel_vs_plain_grad_worst_rel": rel,
+        "first_loss": history[0], "last_loss": history[-1], "kernel_vs_plain": vs_plain,
     }
     print("train_cwt" if cwt else "train", json.dumps(out), flush=True)
     if launches != {"diffnet_train_fwd": steps, "diffnet_train_bwd": steps}:
@@ -1249,9 +1326,8 @@ def phase_train(torch, tr, card: str, out_dir: Path, steps: int = 10, cwt: bool 
         raise AssertionError("the training step did not run the tensor-core kernels")
     if not all(np.isfinite(v) for h in history for v in h.values()):
         raise AssertionError(f"non-finite training losses: {history}")
-    if not step_agrees(lp, loss_diff, cos, rel):
-        raise AssertionError(f"train step kernel vs plain: losses {loss_diff}, grad cos {cos}, "
-                             f"rel {rel}")
+    if not step_agrees(vs_plain):
+        raise AssertionError(f"train step kernel vs plain: {vs_plain}")
     return out, profile
 
 
@@ -1271,8 +1347,7 @@ def shipped_step(torch, tr, steps: int = 5):
     b, t_txt, t_mel = 24, 128, 1024
     batch = trainer.prepare_batch(synthetic_cwt_batch(np.random.RandomState(0), b, t_txt,
                                                       t_mel))
-    lk, lp, loss_diff, cos, rel, worst = step_vs_plain(torch, tr, trainer, batch,
-                                                       int(hp["K_step"]))
+    vs_plain = step_vs_plain(torch, tr, trainer, batch, int(hp["K_step"]))
     trainer.train_step(batch)   # warm: the optimizer's state and the allocator
     timed, history = timed_steps(torch, tr, trainer, batch, steps)
     dil = tuple(trainer.task.denoise_fn.dilations)
@@ -1283,24 +1358,23 @@ def shipped_step(torch, tr, steps: int = 5):
         "T_txt": t_txt, **timed,
         "tensor_core_info": tr.tensor_core_info(b, 256, 256, dil, None),
         "ms_per_step_median": med_ms, "mel_frames_per_s": b * t_mel / (med_ms / 1e3),
-        "first_loss": history[0], "last_loss": history[-1],
-        "kernel_vs_plain_loss_abs_diff": loss_diff,
-        "plain_loss": {k: float(v) for k, v in lp.items()},
-        "kernel_vs_plain_grad_worst_cos": cos, "kernel_vs_plain_grad_worst_rel": rel,
-        "kernel_vs_plain_grad_worst_rel_param": worst,
+        "first_loss": history[0], "last_loss": history[-1], "kernel_vs_plain": vs_plain,
     }
     return trainer, batch, history, out
 
 
-def step_agrees_f32(lp, loss_diff, cos: float, rel: float) -> bool:
+def step_agrees_f32(r: dict) -> bool:
     """Float32 on both sides: the stack kernels hold the twins to 1e-4 of each
     tensor's scale (3xTF32 keeps a product to ~2^-21; sums in another order
     over 20 layers), and everything around the stack is the same float32
-    code. So each loss term within 1e-4 of its scale, gradient cosine above
+    code. So each loss term within 1e-4 of its scale, the forward within
+    1e-4 of max(scale, 1) (the train_stack rule), gradient cosine above
     0.99999, and each gradient's max error below 1e-3 of its scale (a weight
     gradient sums 24,576 rows in another order)."""
-    bad = [k for k, d in loss_diff.items() if not d <= 1e-4 * max(abs(float(lp[k])), 1.0)]
-    return not bad and cos > 0.99999 and rel < 1e-3
+    bad = [k for k, d in r["loss_abs_diff"].items()
+           if not d <= 1e-4 * max(abs(r["plain_losses"][k]), 1.0)]
+    return (not bad and max(r["fwd_rel_err"].values()) <= 1e-4
+            and r["grad_worst_cos"] > 0.99999 and r["grad_worst_rel"] < 1e-3)
 
 
 def phase_train_shipped(torch, tr, card: str, out_dir: Path, steps: int = 5):
@@ -1332,14 +1406,374 @@ def phase_train_shipped(torch, tr, card: str, out_dir: Path, steps: int = 5):
         raise AssertionError(f"the library's account of the shipped step: {info}")
     if not all(np.isfinite(v) for h in history for v in h.values()):
         raise AssertionError(f"non-finite shipped training losses: {history}")
-    if not step_agrees_f32(out["plain_loss"], out["kernel_vs_plain_loss_abs_diff"],
-                           out["kernel_vs_plain_grad_worst_cos"],
-                           out["kernel_vs_plain_grad_worst_rel"]):
-        raise AssertionError(f"shipped train step kernel vs plain: losses "
-                             f"{out['kernel_vs_plain_loss_abs_diff']}, grad cos "
-                             f"{out['kernel_vs_plain_grad_worst_cos']}, rel "
-                             f"{out['kernel_vs_plain_grad_worst_rel']}")
+    if not step_agrees_f32(out["kernel_vs_plain"]):
+        raise AssertionError(f"shipped train step kernel vs plain: {out['kernel_vs_plain']}")
     return out
+
+
+# -------------------------------------------------------------------- phase 7d
+def cpop_vocab() -> int:
+    """The Opencpop phone set plus the encoder's specials (build_singer's)."""
+    from diffsinger_tpu_torch.inference.svs import CPOP_PHONE_LIST
+
+    return len(CPOP_PHONE_LIST) + 3
+
+
+def synthetic_midi_batch(rng, b: int, t_txt: int, t_mel: int, vocab: int):
+    """One Opencpop training batch: ``t_txt`` phones of ``t_mel // t_txt``
+    frames each, a word boundary every 2-3 phones, one MIDI note (48-72) a
+    word with its length in seconds at hop 128 / 24 kHz, ~20% slurs, log2-F0
+    around each note with a vibrato and ~10% unvoiced frames (F0 0 there)."""
+    import numpy as np
+
+    per = t_mel // t_txt
+    mel2ph = np.repeat(np.arange(1, t_txt + 1), per)[None].repeat(b, 0).astype(np.int64)
+    wb = np.zeros((b, t_txt), np.int64)
+    note = np.zeros((b, t_txt), np.int64)
+    note_s = np.zeros((b, t_txt), np.float32)
+    for i in range(b):
+        start = 0
+        while start < t_txt:
+            end = min(start + int(rng.randint(2, 4)), t_txt)
+            wb[i, end - 1] = 1
+            note[i, start:end] = rng.randint(48, 73)
+            note_s[i, start:end] = (end - start) * per * 128 / 24000
+            start = end
+    hz = 440.0 * 2 ** ((np.repeat(note, per, axis=1) - 69) / 12)
+    hz = hz * 2 ** (0.02 * np.sin(np.arange(t_mel) / 5.0))[None]
+    uv = rng.rand(b, t_mel) < 0.1
+    return {
+        "txt_tokens": rng.randint(3, vocab, size=(b, t_txt)).astype(np.int64),
+        "mels": (rng.randn(b, t_mel, 80) * 0.5 - 2.0).astype(np.float32),
+        "mel2ph": mel2ph,
+        "f0": np.where(uv, 0.0, np.log2(hz)).astype(np.float32),
+        "uv": uv.astype(np.float32),
+        "energy": rng.uniform(0.1, 2.0, size=(b, t_mel)).astype(np.float32),
+        "pitch_midi": note, "midi_dur": note_s,
+        "is_slur": (rng.rand(b, t_txt) < 0.2).astype(np.int64),
+        "word_boundary": wb,
+    }
+
+
+def build_task_trainer(torch, config: str, vocab: int, seed: int = 0,
+                       work_dir: Optional[str] = None, **over):
+    """A shipped config through ``build_task`` (its own ``task_cls``) and a
+    Trainer on the card, seeded; ``over`` overrides hparams. A diffusion
+    task's DiffNet output projection gets weights (it is zero at init)."""
+    from diffsinger_tpu_torch.config.hparams import set_hparams
+    from diffsinger_tpu_torch.training.tasks import build_task
+    from diffsinger_tpu_torch.training.trainer import Trainer
+
+    hp = set_hparams(str(ROOT / config))
+    hp.update(seed=seed, **over)
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(seed)
+        task = build_task(hp, vocab_size=vocab)  # default device: the card
+    if getattr(task, "denoise_fn", None) is not None:
+        with torch.no_grad():
+            w = task.denoise_fn.output_projection.weight
+            w.copy_(torch.randn(w.shape, generator=torch.Generator().manual_seed(seed)) * 0.05)
+    trainer = Trainer(hp, task, work_dir=work_dir)
+    trainer.initialize()
+    return hp, trainer
+
+
+def _grad_rel(gk, gw, names):
+    """{parameter: max error relative to the reference tensor's scale}."""
+    out = {}
+    for n, a, w in zip(names, gk, gw):
+        a, w = a.double().cpu(), w.double().cpu()
+        scale = float(w.abs().max())
+        out[n] = float((a - w).abs().max()) / scale if scale else float(a.abs().max())
+    return out
+
+
+def _worst(rel):
+    n = max(rel, key=rel.get)
+    return rel[n], n
+
+
+def card_vs_cpu_step(torch, hp, trainer, batch, vocab: int, rows: int = 4):
+    """One deterministic step's losses and gradients (no update) on the card
+    against the same step on the CPU in float64, same weights, on the
+    batch's first ``rows`` rows. The CPU also evaluates the step in float32:
+    ``d32[n]`` is how far that faithful float32 evaluation sits from float64
+    for parameter n (up to ~1e-2 of the scale at some predictors' layer
+    norms). A card gradient within 1e-3 of its scale of a float32
+    evaluation on the CPU lies within ``1e-3 + d32[n]`` of float64 (triangle
+    inequality); that is parameter n's limit, so ``excess[n]`` = card vs
+    float64 minus ``d32[n]`` is held to 1e-3. Returns the losses' relative
+    difference from float64 and the gradient readings."""
+    from diffsinger_tpu_torch.training import tasks
+    from diffsinger_tpu_torch.training.trainer import Trainer
+
+    sub = {k: v[:rows] for k, v in batch.items()}
+    lk, gk = trainer.loss_and_grads(sub, deterministic=True)
+    names = [n for n, p in trainer.task.named_parameters() if p.requires_grad]
+    state = {k: v.cpu() for k, v in trainer.task.state_dict().items()}
+    host = {k: v.cpu() for k, v in sub.items()}
+    as_tensor = tasks._as_tensor
+
+    def cpu_step(dtype):
+        task = tasks.build_task(hp, vocab_size=vocab, device="cpu",
+                                sil_ids=trainer.task.sil_ids)
+        task.load_state_dict(state)
+        task.to(dtype)
+        cpu = Trainer(hp, task, device="cpu")
+        cpu.initialize()
+        # the task casts float inputs to float32: to ``dtype`` here
+        with mock.patch.object(tasks, "_as_tensor", lambda v, dt, dev: as_tensor(
+                v, dtype if dt == torch.float32 else dt, dev)):
+            return cpu.loss_and_grads(host, deterministic=True)
+
+    l64, g64 = cpu_step(torch.float64)
+    _, g32 = cpu_step(torch.float32)
+    loss_rel = {k: abs(float(lk[k]) - float(l64[k])) / max(abs(float(l64[k])), 1e-12)
+                for k in l64}
+    vs64, d32 = _grad_rel(gk, g64, names), _grad_rel(g32, g64, names)
+    excess = {n: vs64[n] - d32[n] for n in names}
+    at = max(excess, key=excess.get)
+    return {"loss_rel": loss_rel, "grad_excess_worst": [excess[at], at],
+            "grad_vs_cpu64_there": vs64[at], "cpu32_vs_cpu64_there": d32[at],
+            "grad_worst_vs_cpu64": _worst(vs64), "cpu32_vs_cpu64_grad_worst": _worst(d32)}
+
+
+FS2_TRAIN_CASES = (  # config, B, phones, frames, batch kind
+    ("configs/lj/fs2.yaml", 24, 128, 1024, "cwt"),
+    ("configs/opencpop/aux_rel.yaml", 24, 150, 1500, "midi"),
+)
+FS2_LOSS_TERMS = {"cwt": {"l1", "pdur", "wdur", "sdur", "C", "uv", "f0_mean", "f0_std"},
+                  "midi": {"ssim", "l1", "pdur", "wdur", "sdur", "uv", "f0"}}
+
+
+def phase_train_fs2(torch, card: str, out_dir: Path, steps: int = 5):
+    """FastSpeech2 training as the shipped FS2 configs run it: lj/fs2.yaml
+    (cwt pitch, mel_loss l1) at 24 x 1024 and opencpop/aux_rel.yaml (MIDI,
+    rel_pos, mel_loss ssim:0.5|l1:0.5) at 24 x 1500; one deterministic step
+    against the same step on the CPU in float64 (``card_vs_cpu_step``), one warm and
+    ``steps`` timed steps; the aux_rel run is saved for train_midi's warm
+    start."""
+    import numpy as np
+
+    out = {}
+    for config, b, t_txt, t_mel, kind in FS2_TRAIN_CASES:
+        name = Path(config).parent.name + "_" + Path(config).stem
+        vocab = 80 if kind == "cwt" else cpop_vocab()
+        hp, trainer = build_task_trainer(torch, config, vocab,
+                                         work_dir=str(out_dir / "train_fs2" / name))
+        if type(trainer.task).__name__ != "FastSpeech2Task":
+            raise AssertionError(f"train_fs2: {config} built {type(trainer.task).__name__}")
+        rng = np.random.RandomState(0)
+        host = (synthetic_cwt_batch(rng, b, t_txt, t_mel) if kind == "cwt"
+                else synthetic_midi_batch(rng, b, t_txt, t_mel, vocab))
+        batch = trainer.prepare_batch(host)
+        vs_cpu = card_vs_cpu_step(torch, hp, trainer, batch, vocab)
+        loss_rel, (grad_excess, _) = vs_cpu["loss_rel"], vs_cpu["grad_excess_worst"]
+        trainer.train_step(batch)  # warm
+        timed, history = timed_steps(torch, None, trainer, batch, steps)
+        row = {"card": card, "config": config, "task": type(trainer.task).__name__,
+               "mel_loss": hp.get("mel_loss"), "pitch_type": hp.get("pitch_type"),
+               "B": b, "T_txt": t_txt, "T_mel": t_mel, "steps": steps, **timed,
+               "ms_per_step_median": float(np.median(timed["step_ms"])),
+               "mel_frames_per_s": b * t_mel / (np.median(timed["step_ms"]) / 1e3),
+               "trainable_params": sum(p.numel() for p in trainer.params),
+               "first_loss": history[0], "last_loss": history[-1],
+               "card_vs_cpu_rows": 4, "card_vs_cpu": vs_cpu}
+        if kind == "midi":
+            row["checkpoint"] = trainer.save_checkpoint()
+        print("train_fs2", json.dumps(row), flush=True)
+        if set(history[0]) != FS2_LOSS_TERMS[kind] | {"total_loss", "grad_norm"}:
+            raise AssertionError(f"train_fs2 {config}: loss terms {sorted(history[0])}, "
+                                 f"expected JAX's {sorted(FS2_LOSS_TERMS[kind])}")
+        if not all(np.isfinite(v) for h in history for v in h.values()):
+            raise AssertionError(f"train_fs2 {config}: non-finite losses {history}")
+        if not (max(loss_rel.values()) <= 1e-4 and grad_excess <= 1e-3):
+            raise AssertionError(f"train_fs2 {config}: card vs CPU: {vs_cpu}")
+        out[name] = row
+        del trainer, batch
+    return out
+
+
+# -------------------------------------------------------------------- phase 7e
+def phase_train_midi(torch, tr, card: str, out_dir: Path, fs2_ckpt: str, steps: int = 5):
+    """The Opencpop diffusion configs' training. ds1000.yaml as shipped (the
+    float32 stack on the 3xTF32 training kernels, cycle 4, MIDI + rel_pos,
+    no pitch embedding) at 24 x 1500: the first step against the plain twins
+    by the float32 criterion, one warm, ``steps`` timed and one profiled
+    step, launches and the library's report. Then ds60_rel.yaml (the MIDI
+    cascade, pitch embedding and F0 losses) on the same batch for four
+    steps, warm-started from train_fs2's aux_rel FS2, with
+    switch_midi2f0_step 2: ground-truth F0 while global_step <= 2."""
+    import numpy as np
+
+    num_layers, b, t_txt, t_mel = 20, 24, 150, 1500
+    vocab = cpop_vocab()
+    hp, trainer = build_task_trainer(torch, "configs/opencpop/ds1000.yaml", vocab)
+    task = trainer.task
+    if not (hp.get("compute_dtype") is None and task.compute_dtype is None and task.use_midi
+            and task.fs2.cfg.rel_pos and tuple(task.denoise_fn.dilations)[:4] == (1, 2, 4, 8)):
+        raise AssertionError("train_midi: ds1000.yaml did not build its float32 cycle-4 "
+                             "MIDI task")
+    batch = trainer.prepare_batch(synthetic_midi_batch(np.random.RandomState(0), b, t_txt,
+                                                       t_mel, vocab))
+    vs_plain = step_vs_plain(torch, tr, trainer, batch, int(hp["K_step"]))
+    trainer.train_step(batch)  # warm
+    timed, history = timed_steps(torch, tr, trainer, batch, steps)
+    profile = phase_profile(torch, lambda: trainer.train_step(batch), out_dir, "train_midi")
+    dil = tuple(task.denoise_fn.dilations)
+    med_ms = float(np.median(timed["step_ms"]))
+    ds1000 = {
+        "card": card, "config": "configs/opencpop/ds1000.yaml", "compute_dtype": None,
+        "cycle": 4, "B": b, "T_txt": t_txt, "T_mel": t_mel, "steps": steps, **timed,
+        "tensor_core_info": tr.tensor_core_info(b, 256, 256, dil, None),
+        "ms_per_step_median": med_ms, "mel_frames_per_s": b * t_mel / (med_ms / 1e3),
+        "first_loss": history[0], "last_loss": history[-1], "kernel_vs_plain": vs_plain,
+        "profile": profile,
+    }
+    print("train_midi", json.dumps(ds1000), flush=True)
+    if set(history[0]) != {"mel", "pdur", "wdur", "sdur", "total_loss", "grad_norm"}:
+        raise AssertionError(f"train_midi: ds1000 loss terms {sorted(history[0])}")
+    if ds1000["launches"] != {"diffnet_train_fwd": steps, "diffnet_train_bwd": steps}:
+        raise AssertionError(f"train_midi: launches {ds1000['launches']}, expected {steps} each")
+    dev = ds1000["device_launches_last_step"]
+    info = ds1000["tensor_core_info"]
+    if not (dev == {"diffnet_train_fwd": num_layers, "diffnet_train_bwd": 4 * num_layers}
+            and ds1000["ran_tensor_cores"] and info and info["body"] == "3xtf32"):
+        raise AssertionError(f"train_midi: device launches {dev}, tensor cores "
+                             f"{ds1000['ran_tensor_cores']}, library {info}")
+    if not all(np.isfinite(v) for h in history for v in h.values()):
+        raise AssertionError(f"train_midi: non-finite losses {history}")
+    if not step_agrees_f32(vs_plain):
+        raise AssertionError(f"train_midi: kernel vs plain {vs_plain}")
+    del trainer, task
+
+    # ds60_rel.yaml: the cascade, warm-started and with the F0 switch
+    switch, n2 = 2, 4
+    with _Tee() as tee:
+        hp2, trainer2 = build_task_trainer(torch, "configs/opencpop/ds60_rel.yaml", vocab,
+                                           fs2_ckpt=fs2_ckpt, switch_midi2f0_step=switch)
+    n_fs2 = len(trainer2.task.fs2.state_dict())
+    warm = [ln for ln in tee.text.splitlines() if "warm-started fs2" in ln]
+    frozen = not any(n.startswith("fs2.") for n, p in trainer2.task.named_parameters()
+                     if p.requires_grad)
+    timed2, history2 = timed_steps(torch, tr, trainer2, batch, n2)
+    ds60 = {"card": card, "config": "configs/opencpop/ds60_rel.yaml",
+            "overrides": {"fs2_ckpt": fs2_ckpt, "switch_midi2f0_step": switch},
+            "warm_start_line": warm, "fs2_tensors": n_fs2, "fs2_frozen": frozen,
+            "gt_f0_log": trainer2.gt_f0_log, "steps": n2, **timed2,
+            "losses": history2}
+    print("train_midi_cascade", json.dumps(ds60), flush=True)
+    if not (warm and warm[-1].endswith(f"({n_fs2} tensors)") and frozen):
+        raise AssertionError(f"train_midi: ds60_rel warm start {warm} of {n_fs2} FS2 tensors, "
+                             f"FS2 frozen {frozen}")
+    want_log = [(0, True), (switch + 1, False)]
+    if [tuple(x) for x in trainer2.gt_f0_log] != want_log:
+        raise AssertionError(f"train_midi: F0 record {trainer2.gt_f0_log}, expected {want_log}")
+    if set(history2[0]) != {"mel", "pdur", "wdur", "sdur", "uv", "f0", "total_loss",
+                            "grad_norm"} or not all(np.isfinite(v) for h in history2
+                                                    for v in h.values()):
+        raise AssertionError(f"train_midi: ds60_rel losses {history2}")
+    if timed2["launches"] != {"diffnet_train_fwd": n2, "diffnet_train_bwd": n2}:
+        raise AssertionError(f"train_midi: ds60_rel launches {timed2['launches']}")
+    return {"ds1000": ds1000, "ds60_rel": ds60,
+            "launches": {k: ds1000["launches"][k] + timed2["launches"][k]
+                         for k in ds1000["launches"]}}
+
+
+# -------------------------------------------------------------------- phase 7f
+def pe_stats_host(torch, pe_state, mels, unbiased: bool = False):
+    """Flax's BatchNorm rule recomputed on the host in float64 from the
+    weights before the step: each prenet layer's conv and ReLU, statistics
+    over every frame (padding included), the biased variance (``unbiased``:
+    torch's, the control), momentum 0.99; the next layer reads the
+    batch-normalized, masked output."""
+    import torch.nn.functional as F
+
+    x = mels.double().cpu()
+    nonpad = (x.abs().sum(-1) != 0).double()[:, :, None]
+    out = {}
+    for i in range(3):
+        key = f"mel_prenet.layers.{i}."
+        w, bias = pe_state[key + "0.weight"].double(), pe_state[key + "0.bias"].double()
+        h = torch.relu(F.conv1d(x.transpose(1, 2), w, bias, padding=w.shape[-1] // 2))
+        h = h.transpose(1, 2)
+        mean = h.mean((0, 1))
+        var = h.var((0, 1), unbiased=unbiased)
+        out[key + "2.running_mean"] = 0.99 * pe_state[key + "2.running_mean"].double() \
+            + 0.01 * mean
+        out[key + "2.running_var"] = 0.99 * pe_state[key + "2.running_var"].double() \
+            + 0.01 * var
+        h = (h - mean) / torch.sqrt(var + 1e-5) * pe_state[key + "2.weight"].double() \
+            + pe_state[key + "2.bias"].double()
+        x = h * nonpad
+    return out
+
+
+def phase_train_pe(torch, card: str, out_dir: Path, steps: int = 5):
+    """configs/opencpop/pe.yaml as shipped (PitchExtractionTask) at 16 x 2000
+    frames (its max_tokens 32000), rows padded at their tails: the first
+    step's new running statistics against the host recomputation of flax's
+    rule, with the unbiased-variance recomputation as the control the check
+    must reject, then ``steps`` timed steps."""
+    import numpy as np
+
+    b, t = 16, 2000
+    hp, trainer = build_task_trainer(torch, "configs/opencpop/pe.yaml", 0)
+    if type(trainer.task).__name__ != "PitchExtractionTask":
+        raise AssertionError(f"train_pe: pe.yaml built {type(trainer.task).__name__}")
+    rng = np.random.RandomState(0)
+    lengths = rng.randint(1500, t + 1, size=b)
+    lengths[0] = t
+    mels = (rng.randn(b, t, 80) * 0.5 - 2.0).astype(np.float32)
+    mel2ph = np.zeros((b, t), np.int64)
+    for i, n in enumerate(lengths):
+        mels[i, n:] = 0.0
+        mel2ph[i, :n] = np.arange(n) // 10 + 1
+    uv = rng.rand(b, t) < 0.1
+    f0 = np.where(uv, 0.0, rng.uniform(7.0, 9.0, size=(b, 1)) + 0.05 * np.sin(
+        np.arange(t) / 7.0)[None]).astype(np.float32)
+    batch = trainer.prepare_batch({"mels": mels, "mel2ph": mel2ph, "f0": f0,
+                                   "uv": uv.astype(np.float32)})
+    pe = trainer.task.pe
+    before = {k: v.detach().cpu().clone() for k, v in pe.state_dict().items()}
+    want = pe_stats_host(torch, before, batch["mels"])
+    control = pe_stats_host(torch, before, batch["mels"], unbiased=True)
+    trainer.train_step(batch)  # the first step, also the warm one
+    torch.cuda.synchronize()
+
+    def rel_err(got):
+        return {k: float((got[k] - w).abs().max()) / max(float(w.abs().max()), 1.0)
+                for k, w in want.items()}
+
+    stats_err = rel_err({k: pe.get_buffer(k).double().cpu() for k in want})
+    control_err = rel_err(control)
+    # float32 statistics (E[x^2] - E[x]^2 over 32,000 frames) stored near 1,
+    # where half a float32 step is 3e-8 to 6e-8 (read 4.0e-8 on an H100);
+    # torch's unbiased variance moves running_var by 0.01 * var / (N - 1),
+    # ~5e-7 at the first layer (var ~2), which the limit must catch
+    limit = 1e-7
+    moved = all(not torch.equal(pe.get_buffer(k).cpu(), before[k]) for k in want)
+    timed, history = timed_steps(torch, None, trainer, batch, steps)
+    out = {"card": card, "config": "configs/opencpop/pe.yaml", "B": b, "T_mel": t,
+           "frames_real": int(lengths.sum()), "steps": steps, **timed,
+           "ms_per_step_median": float(np.median(timed["step_ms"])),
+           "mel_frames_per_s": b * t / (np.median(timed["step_ms"]) / 1e3),
+           "trainable_params": sum(p.numel() for p in trainer.params),
+           "first_step_stats_rel_err": stats_err, "stats_limit": limit,
+           "unbiased_control_rel_err": control_err, "first_loss": history[0],
+           "last_loss": history[-1]}
+    print("train_pe", json.dumps(out), flush=True)
+    if not max(control_err.values()) > limit:
+        raise AssertionError(f"train_pe: the unbiased-variance control {control_err} passes "
+                             f"the limit {limit}; the check cannot tell the two rules apart")
+    if not (moved and max(stats_err.values()) <= limit):
+        raise AssertionError(f"train_pe: running statistics vs flax's rule {stats_err}, "
+                             f"moved {moved}")
+    if set(history[0]) != {"f0", "uv", "total_loss", "grad_norm"} or not all(
+            np.isfinite(v) for h in history for v in h.values()):
+        raise AssertionError(f"train_pe: losses {history}")
+    return out
+
 
 
 # -------------------------------------------------------------------- phase 7c
@@ -1445,6 +1879,76 @@ class _Clock:
         return out
 
 
+def fit_batches_vs_plain(torch, tr, trainer, hp, agrees):
+    """The training kernels at a CLI run's own shapes against their plain
+    twins (``step_vs_plain``): the dataset's largest training batch and a
+    validation batch (fit's eval batching: max_eval_sentences utterances),
+    each judged by ``agrees``. Returns the prepared largest batch and the
+    readings."""
+    import numpy as np
+
+    from diffsinger_tpu_torch.data.dataset import FastSpeechDataset
+
+    np.random.seed(0)
+    batch = trainer.prepare_batch(max(FastSpeechDataset(hp, "train", shuffle=True).iter_batches(),
+                                      key=lambda b: b["mels"].size))
+    valid_batch = trainer.prepare_batch(next(FastSpeechDataset(hp, "valid").iter_batches(
+        max_sentences=int(hp["max_eval_sentences"]))))
+    readings = {}
+    for kind, b in (("train", batch), ("valid", valid_batch)):
+        r = step_vs_plain(torch, tr, trainer, b, int(hp["K_step"]))
+        readings[kind] = {"batch_shape": list(b["mels"].shape), **r, "agrees": agrees(r)}
+    return batch, readings
+
+
+def utterance_vs_plain(torch, ds, mrf, hp_inf, gen_dir: Path, out_dir: Optional[Path] = None,
+                       profile_name: Optional[str] = None):
+    """The first test utterance of a CLI run's --infer again (B = 1, its own
+    length), with the kernels and with the plain twins, same seed and
+    weights; the kernel run must also repeat the mel --infer saved. The
+    serving phases' rule: the waveform within 1e-4 of its scale, the log10
+    mel (values around -5..1) within 1e-3 of its scale. Returns the readings
+    and, with ``profile_name``, the kernel run's profile."""
+    import numpy as np
+
+    from diffsinger_tpu_torch import cli
+    from diffsinger_tpu_torch.data.dataset import FastSpeechDataset
+    from diffsinger_tpu_torch.inference.vocoder import HifiGAN
+    from diffsinger_tpu_torch.training.trainer import Trainer
+
+    device = "cuda"
+    _, task = cli._build(hp_inf, device)
+    Trainer(hp_inf, task, device=device).initialize()
+    voc = HifiGAN(hp_inf, device=device)
+    batch = next(FastSpeechDataset(hp_inf, "test").iter_batches(max_sentences=1))
+
+    def utterance():
+        gen = torch.Generator(device=device).manual_seed(int(hp_inf["seed"]))
+        out = task.inference(batch, use_gt_dur=True, use_gt_f0=True, generator=gen)
+        n = int((out["mel2ph"][0] > 0).sum())
+        mel = out["mel_out"][0, :n].float().cpu().numpy()
+        f0 = out["f0_denorm"][0, :n].float().cpu().numpy() if "f0_denorm" in out else None
+        return mel, voc.spec2wav(mel, f0=f0)
+
+    mel_k, wav_k = utterance()
+    profile = (phase_profile(torch, utterance, out_dir, profile_name)
+               if profile_name else None)
+    with mock.patch.object(ds, "diffnet_stack", ds.diffnet_stack_plain), \
+            mock.patch.object(mrf, "mrf_stage", mrf.mrf_stage_plain):
+        mel_p, wav_p = utterance()
+    saved = np.load(gen_dir / "P_mels_npy" / f"{batch['item_name'][0]}.npy")
+    out = {"frames": int(mel_k.shape[0]),
+           "mel_max_abs_diff": float(np.abs(mel_k - mel_p).max()),
+           "mel_tolerance": 1e-3 * max(float(np.abs(mel_p).max()), 1.0),
+           "wav_max_abs_diff": float(np.abs(wav_k - wav_p).max()),
+           "wav_tolerance": 1e-4 * max(float(np.abs(wav_p).max()), 1.0),
+           "infer_vs_rerun_mel_max_abs_diff": float(np.abs(saved - mel_k).max())}
+    out["agrees"] = bool(out["mel_max_abs_diff"] <= out["mel_tolerance"]
+                         and out["wav_max_abs_diff"] <= out["wav_tolerance"]
+                         and out["infer_vs_rerun_mel_max_abs_diff"] <= out["mel_tolerance"])
+    return out, profile
+
+
 def phase_cli(torch, ds, mrf, tr, card: str, out_dir: Path):
     """The user path: corpus on disk -> binarizer -> cli.train (validation,
     checkpoints) -> resume -> cli.infer -> waveforms on disk, with
@@ -1457,9 +1961,7 @@ def phase_cli(torch, ds, mrf, tr, card: str, out_dir: Path):
 
     from diffsinger_tpu_torch import cli
     from diffsinger_tpu_torch.config.hparams import set_hparams
-    from diffsinger_tpu_torch.data.dataset import FastSpeechDataset
     from diffsinger_tpu_torch.data.indexed_dataset import IndexedDataset
-    from diffsinger_tpu_torch.inference.vocoder import HifiGAN
     from diffsinger_tpu_torch.training.trainer import Trainer
 
     device = "cuda"
@@ -1579,28 +2081,14 @@ def phase_cli(torch, ds, mrf, tr, card: str, out_dir: Path):
     for k in launches:
         launches[k] += resume_launches[k]
 
-    # the training kernels at this path's own shapes, against their plain
-    # twins: the dataset's largest training batch and a validation batch
-    # (fit's eval batching: max_eval_sentences utterances)
-    np.random.seed(0)
-    batch = trainer.prepare_batch(max(
-        FastSpeechDataset(hp_resume, "train", shuffle=True).iter_batches(),
-        key=lambda b: b["mels"].size))
-    valid_batch = trainer.prepare_batch(next(FastSpeechDataset(hp_resume, "valid").iter_batches(
-        max_sentences=int(hp_resume["max_eval_sentences"]))))
-    fit_vs_plain = {}
-    for kind, b in (("train", batch), ("valid", valid_batch)):
-        _, lp, loss_diff, cos, rel, _ = step_vs_plain(torch, tr, trainer, b,
-                                                      int(hp_resume["K_step"]))
-        fit_vs_plain[kind] = {"batch_shape": list(b["mels"].shape), "loss_abs_diff": loss_diff,
-                              "grad_worst_cos": cos, "grad_worst_rel": rel,
-                              "agrees": step_agrees(lp, loss_diff, cos, rel)}
+    # the training kernels at this path's own shapes, against their plain twins
+    batch, fit_vs_plain = fit_batches_vs_plain(torch, tr, trainer, hp_resume, step_agrees)
     # one more step on the largest batch, profiled, to set beside the train
     # phase's synthetic 24 x 1024 step
     trainer.train_step(batch)
     fit_profile = phase_profile(torch, lambda: trainer.train_step(batch), out_dir, "cli_fit")
     fit_profile["batch_shape"] = list(batch["mels"].shape)
-    del trainer, batch, valid_batch
+    del trainer, batch
 
     # 6. --infer on the test split
     hp_inf = set_hparams(str(cfg_path), "chip_cli", infer=True, ckpt_root=ckpt_root)
@@ -1640,34 +2128,9 @@ def phase_cli(torch, ds, mrf, tr, card: str, out_dir: Path):
         raise AssertionError(f"cli: --infer launches {launches}, expected {k_step} stack a "
                              "test utterance and 3 MRF a vocoder call (P and G)")
 
-    # 7. the first test utterance again, kernels and plain twins, same seed
-    # and weights; the kernel run must also repeat what --infer saved
-    _, task = cli._build(hp_inf, device)
-    Trainer(hp_inf, task, device=device).initialize()
-    voc = HifiGAN(hp_inf, device=device)
-    batch = next(FastSpeechDataset(hp_inf, "test").iter_batches(max_sentences=1))
-
-    def utterance():
-        gen = torch.Generator(device=device).manual_seed(int(hp_inf["seed"]))
-        out = task.inference(batch, use_gt_dur=True, use_gt_f0=True, generator=gen)
-        n = int((out["mel2ph"][0] > 0).sum())
-        mel = out["mel_out"][0, :n].float().cpu().numpy()
-        return mel, voc.spec2wav(mel, f0=out["f0_denorm"][0, :n].float().cpu().numpy())
-
-    mel_k, wav_k = utterance()
-    infer_profile = phase_profile(torch, utterance, out_dir, "cli_infer")
-    with mock.patch.object(ds, "diffnet_stack", ds.diffnet_stack_plain), \
-            mock.patch.object(mrf, "mrf_stage", mrf.mrf_stage_plain):
-        mel_p, wav_p = utterance()
-    saved = np.load(gen_dir / "P_mels_npy" / f"{batch['item_name'][0]}.npy")
-    mel_diff = float(np.abs(mel_k - mel_p).max())
-    wav_diff = float(np.abs(wav_k - wav_p).max())
-    saved_diff = float(np.abs(saved - mel_k).max())
-    # the serving phases' rule: both paths round to bf16 at the same points
-    # and differ by summation order only; the waveform at 1e-4 of its scale,
-    # the log10 mel (values around -5..1) at 1e-3 of its scale after 71 steps
-    mel_tol = 1e-3 * max(float(np.abs(mel_p).max()), 1.0)
-    wav_tol = 1e-4 * max(float(np.abs(wav_p).max()), 1.0)
+    # 7. the first test utterance again, kernels and plain twins
+    infer_vs_plain, infer_profile = utterance_vs_plain(torch, ds, mrf, hp_inf, gen_dir,
+                                                       out_dir, "cli_infer")
 
     out = {
         "card": card, "config": "configs/lj/ds_beta6.yaml as shipped (cwt pitch, full width) "
@@ -1685,18 +2148,166 @@ def phase_cli(torch, ds, mrf, tr, card: str, out_dir: Path):
         "last_val_loss": [sc for _, k, sc in history if k == "val"][-1],
         "infer_s": infer_s, "audio_s": audio_s, "rtf": audio_s / infer_s,
         "infer_rtf_line": rtf_line[-1],
-        "test_items": names, "launches": launches,
-        "kernel_vs_plain_mel_max_abs_diff": mel_diff, "mel_tolerance": mel_tol,
-        "kernel_vs_plain_wav_max_abs_diff": wav_diff, "wav_tolerance": wav_tol,
-        "infer_vs_rerun_mel_max_abs_diff": saved_diff,
+        "test_items": names, "launches": launches, "infer_kernel_vs_plain": infer_vs_plain,
         "fit_step_profile": fit_profile, "infer_utterance_profile": infer_profile,
     }
     print("cli", json.dumps(out), flush=True)
     if not all(c["agrees"] for c in fit_vs_plain.values()):
         raise AssertionError(f"cli: training kernels vs plain twins {fit_vs_plain}")
-    if not (mel_diff <= mel_tol and wav_diff <= wav_tol and saved_diff <= mel_tol):
-        raise AssertionError(f"cli: kernel vs plain mel {mel_diff} (tol {mel_tol}), wav "
-                             f"{wav_diff} (tol {wav_tol}); --infer vs rerun {saved_diff}")
+    if not infer_vs_plain["agrees"]:
+        raise AssertionError(f"cli: --infer kernels vs plain twins {infer_vs_plain}")
+    return out
+
+
+# -------------------------------------------------------------------- phase 7h
+CASCADE_FS2_STEPS, CASCADE_DS_STEPS = 20, 10
+
+
+def phase_cli_cascade(torch, ds, mrf, tr, card: str, out_dir: Path):
+    """The published DiffSpeech recipe through the CLI, on the cli phase's
+    binarized corpus: cli.train on configs/lj/fs2.yaml (20 steps), cli.train
+    on configs/lj/ds_beta6.yaml as shipped (float32) for 10 steps with
+    fs2_ckpt set to that run's directory (every FS2 tensor warm-started, the
+    predictors trainable, the rest of the FS2 frozen), then cli --infer of
+    both runs on the 4 test items. The training kernels are held against
+    their plain twins at the run's largest training batch and a validation
+    batch, and each --infer's first test utterance with its kernels against
+    the plain twins."""
+    import numpy as np
+    import yaml
+    from scipy.io import wavfile
+
+    from diffsinger_tpu_torch import cli
+    from diffsinger_tpu_torch.config.hparams import set_hparams
+    from diffsinger_tpu_torch.convert.checkpoint import load_torch_state_dict
+    from diffsinger_tpu_torch.data.indexed_dataset import IndexedDataset
+
+    root = out_dir / "cli"
+    if not (root / "binary" / "phone_set.json").exists():
+        raise AssertionError("cli_cascade: the cli phase's binarized corpus is missing")
+    ckpt_root = str(root / "cascade_checkpoints")
+    common = {"raw_data_dir": str(root / "raw"), "processed_data_dir": str(root / "processed"),
+              "binary_data_dir": str(root / "binary"), "test_num": CLI_TEST,
+              "valid_num": CLI_VALID, "num_test_samples": 0, "test_ids": [],
+              "val_check_interval": 10, "num_sanity_val_steps": 1, "log_interval": 5,
+              # a 20-step duration predictor is no product: ground-truth
+              # durations and F0 at --infer, as in the cli phase
+              "use_gt_dur": True, "use_gt_f0": True, "save_gt": False,
+              "profile_infer": True, "vocoder_ckpt": str(root / "hifigan")}
+    fs2_cfg, ds_cfg = root / "cascade_fs2.yaml", root / "cascade_ds.yaml"
+    fs2_cfg.write_text(yaml.safe_dump({"base_config": [str(ROOT / "configs/lj/fs2.yaml")],
+                                       **common, "max_updates": CASCADE_FS2_STEPS}))
+    fs2_dir = str(Path(ckpt_root) / "cascade_fs2")
+    ds_cfg.write_text(yaml.safe_dump({"base_config": [str(ROOT / "configs/lj/ds_beta6.yaml")],
+                                      **common, "max_updates": CASCADE_DS_STEPS,
+                                      "fs2_ckpt": fs2_dir}))
+    for fn in (tr.diffnet_train_fwd, tr.diffnet_train_bwd, ds.diffnet_stack, mrf.mrf_stage):
+        fn.launches = 0
+    t0 = time.perf_counter()
+    hp_fs2 = set_hparams(str(fs2_cfg), "cascade_fs2", ckpt_root=ckpt_root)
+    fs2_trainer = cli.train(hp_fs2, device="cuda")
+    fs2_s = time.perf_counter() - t0
+    fs2_launches = {"diffnet_train_fwd": tr.diffnet_train_fwd.launches,
+                    "diffnet_train_bwd": tr.diffnet_train_bwd.launches}
+    fs2_hist = fs2_trainer.history
+    fs2_ok = (type(fs2_trainer.task).__name__ == "FastSpeech2Task"
+              and fs2_trainer.global_step == CASCADE_FS2_STEPS
+              and all(np.isfinite(v) for _, _, sc in fs2_hist for v in sc.values()))
+    fs2_ckpt_path = fs2_trainer.ckpt_path(CASCADE_FS2_STEPS)
+    fs2_saved = load_torch_state_dict(fs2_ckpt_path)
+    del fs2_trainer
+
+    t0 = time.perf_counter()
+    hp_ds = set_hparams(str(ds_cfg), "cascade_ds", ckpt_root=ckpt_root)
+    with _Tee() as tee:
+        ds_trainer = cli.train(hp_ds, device="cuda")
+    ds_s = time.perf_counter() - t0
+    task = ds_trainer.task
+    n_fs2 = len(task.fs2.state_dict())
+    warm = [ln for ln in tee.text.splitlines() if "warm-started fs2" in ln]
+    trainable = [n for n, p in task.fs2.named_parameters() if p.requires_grad]
+    frozen = [n for n, p in task.fs2.named_parameters() if not p.requires_grad]
+    frozen_kept = all(torch.equal(p.detach().cpu(), fs2_saved[n])
+                      for n, p in task.fs2.named_parameters() if not p.requires_grad)
+    preds_moved = any(not torch.equal(p.detach().cpu(), fs2_saved[n])
+                      for n, p in task.fs2.named_parameters() if p.requires_grad)
+    ds_launches = {"diffnet_train_fwd": tr.diffnet_train_fwd.launches,
+                   "diffnet_train_bwd": tr.diffnet_train_bwd.launches}
+    ds_hist = ds_trainer.history
+    # the float32 training kernels at this run's own shapes, against their
+    # plain twins by the float32 criterion
+    _, fit_vs_plain = fit_batches_vs_plain(torch, tr, ds_trainer, hp_ds, step_agrees_f32)
+    del ds_trainer, task
+
+    # --infer of both runs on the test split
+    infer = {}
+    for name, cfg in (("cascade_fs2", fs2_cfg), ("cascade_ds", ds_cfg)):
+        ds.diffnet_stack.launches = mrf.mrf_stage.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        gen_dir = Path(cli.infer(set_hparams(str(cfg), name, infer=True, ckpt_root=ckpt_root),
+                                 device="cuda"))
+        torch.cuda.synchronize()
+        infer[name] = {"gen_dir": str(gen_dir), "s": time.perf_counter() - t0,
+                       "launches": {"diffnet_stack": ds.diffnet_stack.launches,
+                                    "mrf_stage": mrf.mrf_stage.launches}}
+    # the first test utterance of each --infer at its B = 1 shape, kernels
+    # (the float32 stack, the MRF) against the plain twins
+    for name, cfg in (("cascade_fs2", fs2_cfg), ("cascade_ds", ds_cfg)):
+        infer[name]["kernel_vs_plain"], _ = utterance_vs_plain(
+            torch, ds, mrf, set_hparams(str(cfg), name, infer=True, ckpt_root=ckpt_root),
+            Path(infer[name]["gen_dir"]))
+    test_items = IndexedDataset(str(root / "binary" / "test"))
+    frames = [int(test_items[i]["len"]) for i in range(len(test_items))]
+    names = [test_items[i]["item_name"] for i in range(len(test_items))]
+    test_items.close()
+    wav_ok = {}
+    for name, rec in infer.items():
+        ok = True
+        for item, t_mel in zip(names, frames):
+            sr, wav = wavfile.read(Path(rec["gen_dir"]) / "wavs" / f"P_{item}.wav")
+            mel = np.load(Path(rec["gen_dir"]) / "P_mels_npy" / f"{item}.npy")
+            ok &= (sr == 22050 and wav.shape == (t_mel * 256,) and mel.shape == (t_mel, 80)
+                   and bool(np.isfinite(mel).all()) and float(np.abs(wav).max()) > 0)
+        wav_ok[name] = ok
+    launches = {**{k: fs2_launches[k] + ds_launches[k] for k in ds_launches},
+                "diffnet_stack": sum(r["launches"]["diffnet_stack"] for r in infer.values()),
+                "mrf_stage": sum(r["launches"]["mrf_stage"] for r in infer.values())}
+    out = {"card": card, "fs2_config": "configs/lj/fs2.yaml",
+           "ds_config": "configs/lj/ds_beta6.yaml (float32, fs2_ckpt = the FS2 run)",
+           "fs2_train_s": fs2_s, "ds_train_s": ds_s, "fs2_steps": CASCADE_FS2_STEPS,
+           "ds_steps": CASCADE_DS_STEPS, "warm_start_line": warm, "fs2_tensors": n_fs2,
+           "fs2_trainable": trainable, "fs2_frozen_count": len(frozen),
+           "frozen_kept": frozen_kept, "predictors_moved": preds_moved,
+           "last_fs2_loss": [sc for _, k, sc in fs2_hist if k == "train"][-1],
+           "last_ds_loss": [sc for _, k, sc in ds_hist if k == "train"][-1],
+           "fit_kernel_vs_plain": fit_vs_plain, "infer": infer, "test_items": names, "wavs_ok": wav_ok, "launches": launches}
+    print("cli_cascade", json.dumps(out), flush=True)
+    if not fs2_ok or fs2_launches != {"diffnet_train_fwd": 0, "diffnet_train_bwd": 0}:
+        raise AssertionError(f"cli_cascade: the FS2 run {fs2_hist[-1:]}, launches {fs2_launches}")
+    if not (warm and warm[-1].endswith(f"({n_fs2} tensors)")):
+        raise AssertionError(f"cli_cascade: warm start {warm}, the FS2 has {n_fs2} tensors")
+    if not (trainable and all("predictor" in n for n in trainable) and frozen and frozen_kept
+            and preds_moved):
+        raise AssertionError(f"cli_cascade: trainable FS2 {trainable}, frozen kept "
+                             f"{frozen_kept}, predictors moved {preds_moved}")
+    if not (ds_launches["diffnet_train_bwd"] == CASCADE_DS_STEPS
+            and ds_launches["diffnet_train_fwd"] >= CASCADE_DS_STEPS):
+        raise AssertionError(f"cli_cascade: training kernel launches {ds_launches}")
+    if not all(np.isfinite(v) for _, _, sc in ds_hist for v in sc.values()):
+        raise AssertionError(f"cli_cascade: DiffSpeech losses {ds_hist}")
+    if not all(c["agrees"] for c in fit_vs_plain.values()):
+        raise AssertionError(f"cli_cascade: training kernels vs plain twins {fit_vs_plain}")
+    if not all(r["kernel_vs_plain"]["agrees"] for r in infer.values()):
+        raise AssertionError(f"cli_cascade: --infer kernels vs plain twins "
+                             f"{ {k: r['kernel_vs_plain'] for k, r in infer.items()} }")
+    k_step = int(hp_ds["K_step"])
+    want_infer = {"cascade_fs2": {"diffnet_stack": 0, "mrf_stage": 3 * CLI_TEST},
+                  "cascade_ds": {"diffnet_stack": k_step * CLI_TEST, "mrf_stage": 3 * CLI_TEST}}
+    if {k: r["launches"] for k, r in infer.items()} != want_infer or not all(wav_ok.values()):
+        raise AssertionError(f"cli_cascade: --infer launches "
+                             f"{ {k: r['launches'] for k, r in infer.items()} }, expected "
+                             f"{want_infer}; wavs {wav_ok}")
     return out
 
 
@@ -1746,7 +2357,12 @@ def main() -> int:
     training, train_profile = phase_train(torch, tr, card, out_dir)
     training_cwt, _ = phase_train(torch, tr, card, out_dir, steps=5, cwt=True)
     training_shipped = phase_train_shipped(torch, tr, card, out_dir)
+    training_fs2 = phase_train_fs2(torch, card, out_dir)
+    training_midi = phase_train_midi(torch, tr, card, out_dir,
+                                     training_fs2["opencpop_aux_rel"]["checkpoint"])
+    training_pe = phase_train_pe(torch, card, out_dir)
     cli_run = phase_cli(torch, ds, mrf, tr, card, out_dir)
+    cascade = phase_cli_cascade(torch, ds, mrf, tr, card, out_dir)
 
     main_stack = stack_rows[0]                        # bf16, cycle 1: serving config
     # float32, cycle 1, 8 x 1024: the shipped configs' body (serve_shipped)
@@ -1760,9 +2376,10 @@ def main() -> int:
         return {"launches": sum(by_path.values()), "launches_by_path": by_path}
 
     serve_paths = {"serving": serving, "serve_cwt": serving_cwt, "singing": singing,
-                   "serve_shipped": shipped, "cli": cli_run}
+                   "serve_shipped": shipped, "cli": cli_run, "cli_cascade": cascade}
     train_paths = {"train": training, "train_cwt": training_cwt,
-                   "train_shipped": training_shipped, "cli": cli_run}
+                   "train_shipped": training_shipped, "train_midi": training_midi,
+                   "cli": cli_run, "cli_cascade": cascade}
 
     kernels = [
         {"name": "diffnet_stack", "route": "cuda",
@@ -1796,6 +2413,8 @@ def main() -> int:
     # float32, cycle 1, 24 x 1024: what the shipped configs train with
     f32_train = next(r for r in train_rows if r["dtype"] == "float32" and r["B"] == 24
                      and r["cycle"] == 1)
+    # float32, cycle 4, 24 x 1500: the Opencpop training batch (train_midi)
+    midi_train = next(r for r in train_rows if r["dtype"] == "float32" and r["T"] == 1500)
     for name, part in (("diffnet_train_fwd", "fwd"), ("diffnet_train_bwd", "bwd")):
         keys = ("skips", "xs") if part == "fwd" else tr.GRAD_NAMES
 
@@ -1823,6 +2442,18 @@ def main() -> int:
                          "device_launches": f32_train[f"{part}_device_launches"],
                          "launches": training_shipped["launches"][name],
                          "launches_path": "train_shipped"},
+             "float32_midi": {"B": 24, "T": 1500, "cycle": 4,
+                              "max_abs_err": midi_train[f"{part}_max_abs_err"],
+                              "tolerance": worst_tol(midi_train),
+                              "ms": midi_train[f"{part}_ms"],
+                              "plain_ms": midi_train[f"{part}_plain_ms"],
+                              "bound_ms": midi_train[f"{part}_bound_ms"],
+                              "bound_by": midi_train[f"{part}_bound_by"],
+                              "bound_share": midi_train[f"{part}_bound_ms"]
+                              / midi_train[f"{part}_ms"],
+                              "device_launches": midi_train[f"{part}_device_launches"],
+                              "launches": training_midi["launches"][name],
+                              "launches_path": "train_midi"},
              "configs": [{k: v for k, v in r.items() if k != "errors"} for r in train_rows]})
     with open(out_dir / "chip_smoke.json", "w") as f:
         json.dump({"card": card, "build_s": build_s, "kernels": kernels,
@@ -1832,7 +2463,9 @@ def main() -> int:
                    "train_stack": train_rows,
                    "training": training, "train_profile": train_profile,
                    "train_cwt": training_cwt, "train_shipped": training_shipped,
-                   "cli": cli_run}, f, indent=1)
+                   "train_fs2": training_fs2, "train_midi": training_midi,
+                   "train_pe": training_pe, "cli": cli_run, "cli_cascade": cascade}, f,
+                  indent=1)
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -3,8 +3,10 @@
     python -m diffsinger_tpu_torch.cli --config <yaml> --exp_name <name> \\
         [--infer] [--reset] [--hparams k=v,...]
 
-The run's directory is ``checkpoints/<exp_name>``: ``--config`` is resolved
-with its saved ``config.yaml``; training (``Trainer.fit``) validates and
+The config's ``task_cls`` picks the task (``training/tasks.py:build_task``:
+diffusion, FastSpeech2 or PitchExtractor). The run's directory is
+``checkpoints/<exp_name>``: ``--config`` is resolved with its saved
+``config.yaml``; training (``Trainer.fit``) validates and
 writes ``model_ckpt_steps_*.ckpt`` there and resumes from the newest one;
 ``--infer`` synthesizes the test split from it into ``generated_*``. It runs
 on the card: ``run``, ``train`` and ``infer`` take a ``device`` (default
@@ -35,13 +37,14 @@ def run(argv: Optional[Sequence[str]] = None, device="cuda") -> None:
 
 
 def _build(hp: Dict[str, Any], device):
-    """(phone encoder, task) for the binarized data of ``binary_data_dir``."""
-    from diffsinger_tpu_torch.training.tasks import DiffSingerTask
+    """(phone encoder, task) for the binarized data of ``binary_data_dir``:
+    the task ``task_cls`` names (``build_task``)."""
+    from diffsinger_tpu_torch.training.tasks import build_task
     from diffsinger_tpu_torch.utils.text_encoder import build_phone_encoder
 
     encoder = build_phone_encoder(hp["binary_data_dir"])
     sil_ids = [encoder.encode(p)[0] for p in encoder.sil_phonemes() if encoder.encode(p)]
-    task = DiffSingerTask(hp, vocab_size=len(encoder), device=device, sil_ids=tuple(sil_ids))
+    task = build_task(hp, vocab_size=len(encoder), device=device, sil_ids=tuple(sil_ids))
     return encoder, task
 
 

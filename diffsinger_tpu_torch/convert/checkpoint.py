@@ -134,10 +134,10 @@ def merge_state_dict(module: nn.Module, sd: Dict[str, torch.Tensor], path: str =
 def load_warm_start(hp: Dict[str, Any], task) -> bool:
     """``fs2_ckpt``: the FS2 of a finished run (a file or the newest
     checkpoint of a directory) merged into ``task.fs2`` non-strictly; a
-    missing path warns and trains from scratch. Returns whether any tensor
-    was loaded."""
+    missing path warns and trains from scratch; a task without an FS2 (the
+    PitchExtractor's) takes nothing. Returns whether any tensor was loaded."""
     fs2_ckpt = hp.get("fs2_ckpt") or ""
-    if not fs2_ckpt:
+    if not fs2_ckpt or getattr(task, "fs2", None) is None:
         return False
     path = find_latest_ckpt(fs2_ckpt)
     if path is None:

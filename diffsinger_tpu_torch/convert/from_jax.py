@@ -200,12 +200,21 @@ def pe_state_dict(variables: Dict[str, Any]) -> Dict[str, torch.Tensor]:
 
 
 def task_state_dict(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
-    """JAX task params {'fs2', 'denoiser'} -> ``DiffSingerTask`` state_dict,
-    for the WaveNet or the FFT denoiser (told apart by the tree).
+    """JAX task params -> the port's task state_dict: {'fs2', 'denoiser'} of a
+    ``DiffSingerTask`` (the WaveNet or the FFT denoiser, told apart by the
+    tree), {'fs2'} of a ``FastSpeech2Task``, {'pe', 'batch_stats'} of a
+    ``PitchExtractionTask``.
 
     Gradient trees have the parameters' structure, so this maps them too. A
-    partial tree (the trainable subset of a frozen FS2) maps what it holds."""
+    partial tree (the trainable subset of a frozen FS2, a PE's gradients
+    without statistics) maps what it holds."""
     denoiser = params.get("denoiser", {})
     rules = FFT_DENOISER_RULES if "get_mel_out" in denoiser else DIFFNET_RULES
-    return {**apply_rules(params.get("fs2", {}), FS2_RULES, "fs2."),
-            **apply_rules(denoiser, rules, "denoise_fn.")}
+    sd = {**apply_rules(params.get("fs2", {}), FS2_RULES, "fs2."),
+          **apply_rules(denoiser, rules, "denoise_fn.")}
+    if "pe" in params:
+        stats = params.get("batch_stats") or {}
+        sd.update({"pe." + k: v for k, v in (
+            pe_state_dict({"params": params["pe"], "batch_stats": stats}) if stats
+            else apply_rules(params["pe"], PE_RULES)).items()})
+    return sd

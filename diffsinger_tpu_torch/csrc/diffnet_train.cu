@@ -115,7 +115,9 @@
 //   * wgrad_tc32: ldmatrix.trans moves 16-bit elements only, so the two
 //     operands stored by row are read as 32-bit shared loads in fragment
 //     order from rows of 136 floats (t * 136 + g covers 32 banks); four
-//     stages of 32-row slices (139,264 B).
+//     stages of 32-row slices (139,264 B); each slice's products are added
+//     to a float32 sum in registers (a slab's rows in one tensor-core
+//     accumulator drift ~1e-4 of the scale at 36,000 rows).
 //   What bounds them: the products at the mma.sync TF32 rate (319.4 TFLOP/s
 //   in tools/mma_rate.py, a third of it at float32 accuracy), with the split
 //   arithmetic beside every mma and 2 MB of float32 weights a layer streamed
@@ -2365,11 +2367,16 @@ wgrad_tc32(const float* __restrict__ ybuf, const float* __restrict__ cond,
     if (s < nit) load(s);
     cp_async_commit();
   }
-  // warp (wm, wn) owns rows [64 wm, +64) and columns [32 wn, +32) of the tile
+  // warp (wm, wn) owns rows [64 wm, +64) and columns [32 wn, +32) of the tile.
+  // acc holds one 32-row slice's products; sum takes each slice with a
+  // rounded float add: left in the tensor cores' accumulator for a whole
+  // slab (12,000 rows at 24 x 1500), the sums drift from float32 by ~1e-4
+  // of the gradients' scale, growing with the rows
   const int wm = warp / 4, wn = warp % 4, g8 = lane / 4, t4 = lane % 4;
-  float acc[4][4][4];
-  zero_acc(acc);
+  float acc[4][4][4], sum[4][4][4];
+  zero_acc(sum);
   for (int it = 0; it < nit; ++it) {
+    zero_acc(acc);
     cp_async_wait<WST32 - 2>();
     __syncthreads();   // stage `it` has landed; the stage of it - 1 is free
     if (it + WST32 - 1 < nit) load(it + WST32 - 1);
@@ -2396,6 +2403,12 @@ wgrad_tc32(const float* __restrict__ ybuf, const float* __restrict__ cond,
         mma3<4>(acc[mi], ah, al, bh, bl);
       }
     }
+#pragma unroll
+    for (int mi = 0; mi < 4; ++mi)
+#pragma unroll
+      for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sum[mi][ni][e] += acc[mi][ni][e];
   }
   float* out = part + ((size_t)slab * M_ALL + m0 + wm * 64) * C2 + n0 + wn * 32;
 #pragma unroll
@@ -2405,7 +2418,7 @@ wgrad_tc32(const float* __restrict__ ybuf, const float* __restrict__ cond,
 #pragma unroll
       for (int hr = 0; hr < 2; ++hr)
         *reinterpret_cast<float2*>(out + (size_t)(mi * 16 + g8 + hr * 8) * C2 + ni * 8 + 2 * t4) =
-            make_float2(acc[mi][ni][hr * 2], acc[mi][ni][hr * 2 + 1]);
+            make_float2(sum[mi][ni][hr * 2], sum[mi][ni][hr * 2 + 1]);
 }
 
 template <int C, int H>

@@ -3,7 +3,8 @@ diffsinger_tpu/inference/synthesize.py): mel generation, vocoding and the
 files a run leaves.
 
 Every test utterance is one batch: the task's reverse diffusion on the device
-(noise from a ``torch.Generator`` seeded with ``hp["seed"]``), its mel cut to
+(noise from a ``torch.Generator`` seeded with ``hp["seed"]``; an FS2 task's
+decoder mel for ``task_cls: fs2``), its mel cut to
 the aligned frames, F0 from the PitchExtractor (``pe_enable`` + ``pe_ckpt``)
 or the model's ``f0_denorm``, then the vocoder. Under
 ``work_dir/generated_{step}_{gen_dir_name}/`` it writes ``wavs/P_<item>.wav``,

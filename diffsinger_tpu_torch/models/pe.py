@@ -4,16 +4,23 @@
 A 3-conv prenet (k = 5, ReLU, BatchNorm with its running statistics) with
 padding-mask zeroing, a residual GroupNorm conv stack, the 5-layer
 ``PitchPredictor(odim=2)`` and the denormalized F0 with uv gating, zero at
-padded (all-zero mel) frames. Inference only: BatchNorm always reads its
-running statistics. Parameter names follow the upstream torch keys
-(``mel_prenet.layers.<i>.0`` conv, ``.2`` BatchNorm, ``mel_encoder.conv.<i>
-.conv.conv`` / ``.norm``, ``pitch_predictor.*``).
+padded (all-zero mel) frames. Parameter names follow the upstream torch
+keys (``mel_prenet.layers.<i>.0`` conv, ``.2`` BatchNorm,
+``mel_encoder.conv.<i>.conv.conv`` / ``.norm``, ``pitch_predictor.*``).
+
+Inference reads the BatchNorm running statistics. Training mode (``train=
+True``) is flax's ``BatchNorm(use_running_average=False)``, which
+``torch.nn.BatchNorm1d`` is not: the statistics are computed explicitly over
+every frame of the batch, padding included (the mask comes after the norm),
+the variance is the biased E[x^2] - E[x]^2, and the new running statistics
+(momentum 0.99: 0.99 * old + 0.01 * batch) are returned, not written; the
+pitch predictor's dropout (0.1) draws from ``drop_gen``.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import torch
 import torch.nn as nn
@@ -37,18 +44,40 @@ class Prenet(nn.Module):
             for i in range(n_layers)])
         self.out_proj = nn.Linear(out_dim, out_dim)
 
-    def forward(self, mel: torch.Tensor) -> torch.Tensor:
+    def forward(self, mel: torch.Tensor,
+                new_stats: Optional[Dict[str, torch.Tensor]] = None) -> torch.Tensor:
+        """With ``new_stats`` (a dict to fill): training mode, batch
+        statistics, the updated running statistics put in ``new_stats`` under
+        their buffer names relative to this module."""
         nonpad = (mel.abs().sum(-1) != 0).to(mel.dtype)[:, :, None]
         x = mel
         pad = self.kernel // 2
-        for layer in self.layers:
+        for i, layer in enumerate(self.layers):
             conv, bn = layer[0], layer[2]
             x = torch.relu(conv1d_btc(x, conv.weight, conv.bias, pad, pad))
-            x = F.batch_norm(x.transpose(1, 2), bn.running_mean, bn.running_var,
-                             bn.weight, bn.bias, training=False,
-                             eps=bn.eps).transpose(1, 2)
+            if new_stats is None:
+                x = F.batch_norm(x.transpose(1, 2), bn.running_mean, bn.running_var,
+                                 bn.weight, bn.bias, training=False,
+                                 eps=bn.eps).transpose(1, 2)
+            else:
+                x = self._batch_norm_train(x, bn, new_stats, f"layers.{i}.2.")
             x = x * nonpad
         return self.out_proj(x) * nonpad
+
+    @staticmethod
+    def _batch_norm_train(x: torch.Tensor, bn: nn.BatchNorm1d,
+                          new_stats: Dict[str, torch.Tensor], key: str) -> torch.Tensor:
+        """flax ``BatchNorm`` in training mode on [B, T, C]: statistics over B
+        and T, biased fast variance clipped at 0, momentum 0.99."""
+        mean = x.mean((0, 1))
+        var = torch.clamp((x * x).mean((0, 1)) - mean * mean, min=0.0)
+        momentum = 0.99
+        with torch.no_grad():
+            new_stats[key + "running_mean"] = (momentum * bn.running_mean
+                                               + (1 - momentum) * mean.detach())
+            new_stats[key + "running_var"] = (momentum * bn.running_var
+                                              + (1 - momentum) * var.detach())
+        return (x - mean) * (torch.rsqrt(var + bn.eps) * bn.weight) + bn.bias
 
 
 class _ConvNorm(nn.Module):
@@ -126,17 +155,31 @@ class PitchExtractor(nn.Module):
         if c.conv_layers > 0:
             self.mel_encoder = ConvStacks(c.hidden_size, c.hidden_size, c.conv_layers)
         self.pitch_predictor = PitchPredictor(c.hidden_size, pred_hidden, 5, odim=2,
-                                              kernel_size=c.predictor_kernel)
+                                              kernel_size=c.predictor_kernel, dropout=0.1)
 
-    @torch.no_grad()
-    def forward(self, mel: torch.Tensor) -> Dict[str, torch.Tensor]:
+    def forward(self, mel: torch.Tensor, train: bool = False,
+                drop_gen: Optional[torch.Generator] = None) -> Dict[str, Any]:
+        """Inference (no autograd) or, with ``train``, the training forward:
+        batch statistics, dropout from ``drop_gen`` (None: none), and the
+        updated running statistics under ``ret["new_stats"]`` keyed by their
+        buffer names in this module."""
+        if train:
+            return self._forward(mel, {}, drop_gen)
+        with torch.no_grad():
+            return self._forward(mel, None, None)
+
+    def _forward(self, mel: torch.Tensor, new_stats: Optional[Dict[str, torch.Tensor]],
+                 drop_gen: Optional[torch.Generator]) -> Dict[str, Any]:
         c = self.cfg
-        h = self.mel_prenet(mel)
+        h = self.mel_prenet(mel, new_stats)
         if c.conv_layers > 0:
             h = self.mel_encoder(h)
-        pitch_pred = self.pitch_predictor(h)
+        pitch_pred = self.pitch_predictor(h, drop_gen)
         use_uv = c.pitch_type == "frame" and c.use_uv
         f0 = denorm_f0(pitch_pred[:, :, 0], (pitch_pred[:, :, 1] > 0) if use_uv else None,
                        pitch_norm=c.pitch_norm, f0_mean=c.f0_mean, f0_std=c.f0_std,
                        use_uv=c.use_uv, pitch_padding=mel.abs().sum(-1) == 0)
-        return {"pitch_pred": pitch_pred, "f0_denorm_pred": f0}
+        ret = {"pitch_pred": pitch_pred, "f0_denorm_pred": f0}
+        if new_stats is not None:
+            ret["new_stats"] = {"mel_prenet." + k: v for k, v in new_stats.items()}
+        return ret

@@ -55,11 +55,10 @@ GRAD_NAMES = ("x0", "step_proj", "cond", "k_cond", "b_cond", "w_dil", "b_dil", "
               "b_out")
 
 
-def _rounder(compute_dtype: Optional[torch.dtype]):
-    f32 = torch.float32
+def _rounder(compute_dtype: Optional[torch.dtype], acc_dtype: torch.dtype = torch.float32):
     if compute_dtype is None:
-        return lambda a: a.to(f32)
-    return lambda a: a.to(compute_dtype).to(f32)
+        return lambda a: a.to(acc_dtype)
+    return lambda a: a.to(compute_dtype).to(acc_dtype)
 
 
 def _conv_pre(y, condc, w, kc, b_dil_l, b_cond_l, d):
@@ -101,24 +100,26 @@ def diffnet_train_stack_fwd_plain(x0, step_proj, cond, k_cond, b_cond, w_dil, b_
 
 def diffnet_train_stack_bwd_plain(xs, step_proj, cond, k_cond, b_cond, w_dil, b_dil,
                                   w_out, ds, *, dilations: Sequence[int],
-                                  compute_dtype: Optional[torch.dtype] = None):
+                                  compute_dtype: Optional[torch.dtype] = None,
+                                  acc_dtype: torch.dtype = torch.float32):
     """The backward kernel's math in plain PyTorch, step by step as
     ``_make_bwd_kernel`` (not autograd). Returns the nine cotangents in
-    :data:`GRAD_NAMES` order, all float32."""
-    f32 = torch.float32
-    rnd = _rounder(compute_dtype)
+    :data:`GRAD_NAMES` order, all in ``acc_dtype``: float32 as the kernels
+    accumulate, or float64 for the same steps as a yardstick of both."""
+    acc = acc_dtype
+    rnd = _rounder(compute_dtype, acc_dtype)
     num_layers = xs.shape[0]
     condc = rnd(cond)
     dskip = rnd(ds)  # the JAX wrapper casts ds to the compute dtype
-    dx = torch.zeros(xs.shape[1:], dtype=f32, device=xs.device)
-    dcond = torch.zeros(cond.shape, dtype=f32, device=xs.device)
+    dx = torch.zeros(xs.shape[1:], dtype=acc, device=xs.device)
+    dcond = torch.zeros(cond.shape, dtype=acc, device=xs.device)
     per_layer = {k: [None] * num_layers for k in ("dstep", "dk", "db", "dwd", "dwo", "dbo")}
     for i in reversed(range(num_layers)):
         d = dilations[i]
         # recompute from the saved (possibly bf16) layer input
-        y = rnd(xs[i].to(f32) + step_proj[i][:, None, :].to(f32))
+        y = rnd(xs[i].to(acc) + step_proj[i][:, None, :].to(acc))
         w, kc, wo = rnd(w_dil[i]), rnd(k_cond[i]), rnd(w_out[i])
-        conv = _conv_pre(y, condc, w, kc, b_dil[i].to(f32), b_cond[i].to(f32), d)
+        conv = _conv_pre(y, condc, w, kc, b_dil[i].to(acc), b_cond[i].to(acc), d)
         gate, filt = conv.chunk(2, dim=-1)
         sg, tf = torch.sigmoid(gate), torch.tanh(filt)
         g = sg * tf

@@ -1,11 +1,13 @@
-"""Losses of the DiffSpeech task (counterpart of
-diffsinger_tpu/training/losses.py, the subset this task calls): phone, word
-and sentence duration losses with ``dur_loss: mse``, the frame-level f0/uv
-loss, the phone-level and CWT pitch losses, the energy loss, and
-``binary_cross_entropy_with_logits``.
+"""Losses of the FS2, diffusion and MIDI tasks (counterpart of
+diffsinger_tpu/training/losses.py): the mel l1 and ssim losses and their
+``mel_loss`` spec, phone, word and sentence duration losses with ``dur_loss:
+mse`` (words from silences, or from ``word_boundary`` for MIDI), the
+frame-level f0/uv loss, the phone-level and CWT pitch losses, the energy
+loss, and ``binary_cross_entropy_with_logits``. ``dur_loss: crf`` is not
+ported.
 
-Word durations are a fixed-size ``[B, T_txt + 1]`` segment sum (the word
-count is at most the phone count), as in the JAX package.
+Word durations are a fixed-size segment sum (the word count is at most the
+phone count), as in the JAX package.
 """
 
 from __future__ import annotations
@@ -15,6 +17,7 @@ from typing import Dict, Optional
 import torch
 
 from diffsinger_tpu_torch.models.predictors import mel2ph_to_dur
+from diffsinger_tpu_torch.ops.ssim import ssim
 
 
 def l1(x: torch.Tensor) -> torch.Tensor:
@@ -25,10 +28,75 @@ def l1(x: torch.Tensor) -> torch.Tensor:
     return torch.where(x >= 0, x, -x)
 
 
+def clamp0(x: torch.Tensor) -> torch.Tensor:
+    """max(x, 0) with the JAX package's derivative: 1/2 at x == 0, where
+    ``torch.clamp`` gives 1. It matters at padded phones, whose predicted
+    log-duration is exactly 0 (the head's output is masked there)."""
+    return 0.5 * (x + x.abs())
+
+
 def binary_cross_entropy_with_logits(logits: torch.Tensor,
                                      labels: torch.Tensor) -> torch.Tensor:
     return (torch.clamp(logits, min=0) - logits * labels
             + torch.log1p(torch.exp(-logits.abs())))
+
+
+def weights_nonzero_speech(target: torch.Tensor) -> torch.Tensor:
+    """[B, T, M] -> same-shape mask, 1 at frames that are not all zero."""
+    return (target.abs().sum(-1, keepdim=True) > 0).to(target.dtype).expand_as(target)
+
+
+def mel_l1_loss(mel_out: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+    w = weights_nonzero_speech(target)
+    return (l1(mel_out - target) * w).sum() / torch.clamp(w.sum(), min=1.0)
+
+
+def mel_ssim_loss(mel_out: torch.Tensor, target: torch.Tensor,
+                  bias: float = 6.0) -> torch.Tensor:
+    """1 - SSIM per element of the mels shifted by ``bias``, over non-zero
+    target frames."""
+    w = weights_nonzero_speech(target)
+    ssim_map = 1 - ssim(mel_out + bias, target + bias, reduce_mean=False)
+    return (ssim_map * w).sum() / torch.clamp(w.sum(), min=1.0)
+
+
+def parse_mel_loss(spec: str) -> Dict[str, float]:
+    """'ssim:0.5|l1:0.5' -> {'ssim': 0.5, 'l1': 0.5}; a bare name weighs 1."""
+    out = {}
+    for part in spec.split("|"):
+        if ":" in part:
+            name, lbd = part.split(":")
+            out[name] = float(lbd)
+        else:
+            out[part] = 1.0
+    return out
+
+
+def add_mel_losses(losses: Dict[str, torch.Tensor], mel_out: torch.Tensor,
+                   target: torch.Tensor, mel_loss_spec: str = "l1",
+                   postfix: str = "") -> None:
+    """The ``mel_loss`` terms, each under its own name; an unknown name raises."""
+    fns = {"l1": mel_l1_loss, "ssim": mel_ssim_loss}
+    for name, lbd in parse_mel_loss(mel_loss_spec).items():
+        if name not in fns:
+            raise NotImplementedError(name)
+        losses[f"{name}{postfix}"] = fns[name](mel_out, target) * lbd
+
+
+def _word_dur_loss(dur_pred: torch.Tensor, dur_gt: torch.Tensor, word_id: torch.Tensor,
+                   n_slots: int) -> torch.Tensor:
+    """Squared log word-duration error over the words of the target: phone
+    durations summed by ``word_id`` (slot 0 is dropped)."""
+    b = dur_pred.shape[0]
+
+    def seg(vals):
+        zeros = torch.zeros((b, n_slots), dtype=vals.dtype, device=vals.device)
+        return zeros.scatter_add(1, word_id, vals)[:, 1:]
+
+    word_dur_p, word_dur_g = seg(dur_pred), seg(dur_gt)
+    wdur = (torch.log(word_dur_p + 1) - torch.log(word_dur_g + 1)) ** 2
+    word_nonpadding = (word_dur_g > 0).to(torch.float32)
+    return (wdur * word_nonpadding).sum() / torch.clamp(word_nonpadding.sum(), min=1.0)
 
 
 def duration_losses(losses: Dict[str, torch.Tensor], dur_pred_log: torch.Tensor,
@@ -40,25 +108,40 @@ def duration_losses(losses: Dict[str, torch.Tensor], dur_pred_log: torch.Tensor,
     losses. is_sil: [B, T_txt] 1.0 at silence phones."""
     if dur_loss != "mse":
         raise NotImplementedError(f"dur_loss={dur_loss} is not ported yet")
-    b, t_txt = txt_tokens.shape
+    t_txt = txt_tokens.shape[1]
     nonpadding = (txt_tokens != 0).to(torch.float32)
     dur_gt = mel2ph_to_dur(mel2ph, t_txt).to(torch.float32) * nonpadding
     pdur = (dur_pred_log - torch.log(dur_gt + 1)) ** 2
     losses["pdur"] = (pdur * nonpadding).sum() / nonpadding.sum() * lambda_ph_dur
-    dur_pred = torch.clamp(torch.exp(dur_pred_log) - 1, min=0)
+    dur_pred = clamp0(torch.exp(dur_pred_log) - 1)
 
     if lambda_word_dur > 0:
         word_id = (torch.cumsum(is_sil, -1) * (1 - is_sil)).to(torch.long)
+        losses["wdur"] = _word_dur_loss(dur_pred, dur_gt, word_id, t_txt + 1) * lambda_word_dur
+    if lambda_sent_dur > 0:
+        sdur = (torch.log(dur_pred.sum(-1) + 1) - torch.log(dur_gt.sum(-1) + 1)) ** 2
+        losses["sdur"] = sdur.mean() * lambda_sent_dur
 
-        def seg(vals):
-            zeros = torch.zeros((b, t_txt + 1), dtype=torch.float32, device=vals.device)
-            return zeros.scatter_add(1, word_id, vals)[:, 1:]
 
-        word_dur_p, word_dur_g = seg(dur_pred), seg(dur_gt)
-        wdur = (torch.log(word_dur_p + 1) - torch.log(word_dur_g + 1)) ** 2
-        word_nonpadding = (word_dur_g > 0).to(torch.float32)
-        losses["wdur"] = ((wdur * word_nonpadding).sum()
-                          / torch.clamp(word_nonpadding.sum(), min=1.0) * lambda_word_dur)
+def midi_duration_loss(losses: Dict[str, torch.Tensor], dur_pred_log: torch.Tensor,
+                       mel2ph: torch.Tensor, txt_tokens: torch.Tensor,
+                       word_boundary: torch.Tensor, *, lambda_ph_dur: float = 1.0,
+                       lambda_word_dur: float = 1.0, lambda_sent_dur: float = 0.0) -> None:
+    """The MIDI task's duration losses: as :func:`duration_losses`, but a word
+    ends at each phone whose ``word_boundary`` is 1 (word ids from the
+    shifted cumsum, padding phones in slot 0, which is dropped)."""
+    nonpadding = (txt_tokens != 0).to(torch.float32)
+    dur_gt = mel2ph_to_dur(mel2ph, txt_tokens.shape[1]).to(torch.float32) * nonpadding
+    pdur = (dur_pred_log - torch.log(dur_gt + 1)) ** 2
+    losses["pdur"] = (pdur * nonpadding).sum() / nonpadding.sum() * lambda_ph_dur
+    dur_pred = clamp0(torch.exp(dur_pred_log) - 1)
+
+    if lambda_word_dur > 0:
+        shifted = torch.nn.functional.pad(word_boundary, (1, 0))[:, :-1]
+        word_id = torch.cumsum(shifted, -1).to(torch.long) + 1
+        word_id = torch.where(txt_tokens == 0, torch.zeros_like(word_id), word_id)
+        losses["wdur"] = (_word_dur_loss(dur_pred, dur_gt, word_id, txt_tokens.shape[1] + 2)
+                          * lambda_word_dur)
     if lambda_sent_dur > 0:
         sdur = (torch.log(dur_pred.sum(-1) + 1) - torch.log(dur_gt.sum(-1) + 1)) ** 2
         losses["sdur"] = sdur.mean() * lambda_sent_dur

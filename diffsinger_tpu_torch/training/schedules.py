@@ -1,10 +1,13 @@
-"""Learning-rate schedules as plain functions of the update count
-(counterpart of diffsinger_tpu/training/schedules.py)."""
+"""Learning-rate and gradient-accumulation schedules as plain functions of
+the update count (counterpart of diffsinger_tpu/training/schedules.py)."""
 
 from __future__ import annotations
 
 import math
+import bisect
 from typing import Any, Callable, Dict
+
+import numpy as np
 
 Schedule = Callable[[int], float]
 
@@ -27,6 +30,35 @@ def step_lr_schedule(lr: float, decay_steps: int = 50000, gamma: float = 0.5) ->
         return lr * gamma ** math.floor(step / decay_steps)
 
     return schedule
+
+
+def grad_accum_schedule(scheduling: Dict[int, int],
+                        batches_per_epoch: int) -> Callable[[int], int]:
+    """A per-epoch ``accumulate_grad_batches`` dict as a function of the
+    optimizer-update count: ``{epoch: factor}``, epochs indexed from 1, the
+    factor of the largest key <= the epoch, ``{1: 1}`` implied. An epoch span
+    of E epochs at factor f covers ``E * batches_per_epoch / f`` updates."""
+    if not scheduling:
+        raise TypeError("Empty dict cannot be interpreted correct")
+    sched = {int(k): int(v) for k, v in scheduling.items()}
+    if min(sched) < 1:
+        raise IndexError(f"Epochs indexing from 1, epoch {min(sched)} "
+                         "cannot be interpreted correct")
+    sched.setdefault(1, 1)
+    keys = sorted(sched)
+    starts, u = [], 0.0
+    for i, k in enumerate(keys):
+        starts.append(u)
+        if i + 1 < len(keys):
+            u += (keys[i + 1] - k) * batches_per_epoch / sched[k]
+    # the update counts where a factor starts, compared in float32 as JAX does
+    starts = [float(np.float32(x)) for x in starts]
+    factors = [sched[k] for k in keys]
+
+    def every_k(num_updates: int) -> int:
+        return factors[max(bisect.bisect_right(starts, float(num_updates)) - 1, 0)]
+
+    return every_k
 
 
 def build_lr_schedule(hp: Dict[str, Any]) -> Schedule:

@@ -6,24 +6,29 @@ One step: the task's loss, gradients of the trainable parameters only
 (frozen ones have ``requires_grad=False``, as ``partition_params`` keeps them
 out of the JAX optimizer), then the optax chain the JAX package builds:
 ``MultiSteps(chain(clip_by_global_norm, adamw))``. Gradients are averaged
-over ``accumulate_grad_batches`` mini-steps, clipped by
-``g * min(1, max_norm / norm)`` and applied by ``torch.optim.AdamW`` at the
-schedule's rate for the number of updates made so far.
+over ``accumulate_grad_batches`` mini-steps (an int, or a per-epoch dict
+through ``grad_accum_schedule``), clipped by ``g * min(1, max_norm / norm)``
+and applied by ``torch.optim.AdamW`` at the schedule's rate for the number
+of updates made so far. A task's BatchNorm statistics (``_new_state`` of its
+loss) are written after every mini-step's gradient. ``switch_midi2f0_step``
+picks the F0 the conditioner embeds at each step: ground truth while
+``global_step <= switch``, then the predicted one.
 
 Checkpoints use upstream DiffSinger's own layout (the JAX package saves its
 runs with Orbax; this is the torch counterpart):
 ``work_dir/model_ckpt_steps_{step}.ckpt`` holds ``state_dict: {"model":
-<the task's state_dict>}``, ``optimizer_states``, ``global_step`` and here
-also ``num_updates``, the trainer generator's state and ``best_val_loss``.
-The newest ``num_ckpt_keep`` are kept. One loader reads the port's own runs
-(a full resume) and released checkpoints (params and step, fresh moments).
+<the state_dict of the task's checkpoint_module: the diffusion task, the FS2
+of an FS2 task or the PitchExtractor with its statistics>}``,
+``optimizer_states``, ``global_step`` and here also ``num_updates``, the
+trainer generator's state and ``best_val_loss``. The newest
+``num_ckpt_keep`` are kept. One loader reads the port's own runs (a full
+resume) and released checkpoints (params and step, fresh moments).
 
 ``fit`` runs one optimizer step per call. The JAX package's
 ``train_steps_per_call`` (a ``lax.scan`` over steps), ``cond_precompute``
 and ``use_pallas_*`` switches work around TPU dispatch and are not read
-here: the updates are the same. Not ported: a per-epoch
-``accumulate_grad_batches`` dict, the flat-vector optimizer and the device
-mesh.
+here: the updates are the same. Not ported: the flat-vector optimizer and
+the device mesh.
 """
 
 from __future__ import annotations
@@ -31,7 +36,8 @@ from __future__ import annotations
 import os
 import shutil
 import time
-from typing import Any, Callable, Dict, Iterable, Iterator, List, Optional, Sequence, Tuple
+from typing import (Any, Callable, Dict, Iterable, Iterator, List, Optional, Sequence, Tuple,
+                    Union)
 
 import numpy as np
 import torch
@@ -40,7 +46,8 @@ from diffsinger_tpu_torch.convert.checkpoint import (ckpt_step, find_latest_ckpt
                                                      load_torch_state_dict, load_warm_start,
                                                      merge_state_dict, split_keys,
                                                      torch_load)
-from diffsinger_tpu_torch.training.schedules import Schedule, build_lr_schedule
+from diffsinger_tpu_torch.training.schedules import (Schedule, build_lr_schedule,
+                                                     grad_accum_schedule)
 from diffsinger_tpu_torch.utils.device import resolve_device
 from diffsinger_tpu_torch.utils.misc import MetricsDict
 
@@ -54,10 +61,13 @@ def global_norm(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
 
 
 class Optimizer:
-    """AdamW behind gradient averaging and global-norm clipping."""
+    """AdamW behind gradient averaging and global-norm clipping.
+    ``accumulate`` is the number of mini-steps an update averages, or a
+    function of the updates made so far that gives it."""
 
     def __init__(self, params: List[torch.nn.Parameter], adamw: torch.optim.AdamW,
-                 schedule: Schedule, clip: float, accumulate: int):
+                 schedule: Schedule, clip: float,
+                 accumulate: Union[int, Callable[[int], int]]):
         self.params, self.adamw, self.schedule = params, adamw, schedule
         self.clip, self.accumulate = clip, accumulate
         self.num_updates = 0
@@ -67,6 +77,8 @@ class Optimizer:
         """Add one mini-step's gradients (``grad_norm`` is their global norm);
         every ``accumulate`` of them, clip their mean and update."""
         k = self.accumulate
+        if callable(k):
+            k = k(self.num_updates)
         for p, g in zip(self.params, grads):
             g = g if k == 1 else g / k
             p.grad = g if p.grad is None else p.grad + g
@@ -86,22 +98,29 @@ class Optimizer:
         self.num_updates += 1
 
 
-def build_optimizer(hp: Dict[str, Any], params: List[torch.nn.Parameter]) -> Optimizer:
-    """Optimizer over the TRAINABLE parameters only."""
+def build_optimizer(hp: Dict[str, Any], params: List[torch.nn.Parameter],
+                    batches_per_epoch: Optional[int] = None) -> Optimizer:
+    """Optimizer over the TRAINABLE parameters only. A per-epoch
+    ``accumulate_grad_batches`` dict needs ``batches_per_epoch``."""
     if str(hp.get("optimizer", "adamw")).lower() != "adamw":
         raise NotImplementedError(f"optimizer={hp.get('optimizer')} is not ported yet")
     accum = hp.get("accumulate_grad_batches", 1)
     if isinstance(accum, dict):
-        raise NotImplementedError("a per-epoch accumulate_grad_batches schedule is not "
-                                  "ported yet")
+        if batches_per_epoch is None:
+            raise ValueError(
+                "accumulate_grad_batches as a per-epoch dict needs batches_per_epoch "
+                "(Trainer.fit derives it; set trainer.batches_per_epoch when calling "
+                "initialize directly)")
+        accum = grad_accum_schedule(accum, batches_per_epoch)
+    else:
+        accum = int(accum)
     schedule = build_lr_schedule(hp)
     adamw = torch.optim.AdamW(
         params, lr=schedule(0),
         betas=(float(hp.get("optimizer_adam_beta1", 0.9)),
                float(hp.get("optimizer_adam_beta2", 0.98))),
         eps=1e-8, weight_decay=float(hp.get("weight_decay", 0.0)))
-    return Optimizer(params, adamw, schedule, float(hp.get("clip_grad_norm", 0) or 0),
-                     int(accum))
+    return Optimizer(params, adamw, schedule, float(hp.get("clip_grad_norm", 0) or 0), accum)
 
 
 def _threshold(v) -> Optional[int]:
@@ -126,6 +145,10 @@ class Trainer:
         self.global_step = 0
         self.params: List[torch.nn.Parameter] = []
         self.optimizer: Optional[Optimizer] = None
+        self.batches_per_epoch: Optional[int] = None  # for a per-epoch accumulation dict
+        # (global_step, use_gt_f0) where the F0 the conditioner embeds began:
+        # one entry, or two once switch_midi2f0_step is crossed
+        self.gt_f0_log: List[Tuple[int, bool]] = []
         self.generator = torch.Generator(device=self.device).manual_seed(
             int(self.hp.get("seed", 1234)))
         self.best_val_loss = float("inf")
@@ -140,10 +163,10 @@ class Trainer:
         newest checkpoint in ``work_dir``."""
         self.load_warm_start()
         self.params = [p for _, p in self.task.set_trainable()]
-        self.optimizer = build_optimizer(self.hp, self.params)
+        self.optimizer = build_optimizer(self.hp, self.params, self.batches_per_epoch)
         self.restore()
-        for top in ("fs2", "denoise_fn"):
-            n = sum(p.numel() for p in getattr(self.task, top).parameters())
+        for top, module in self.task.named_children():
+            n = sum(p.numel() for p in module.parameters())
             print(f"| {top} params: {n / 1e6:.3f}M")
 
     def load_warm_start(self) -> None:
@@ -180,17 +203,30 @@ class Trainer:
             return batch
         return self.prepare_batch(batch)
 
+    def _task_loss(self, batch: Dict[str, Any], t=None, noise=None, generator=None,
+                   deterministic: bool = False, use_gt_f0: bool = True):
+        """The task's ``train_loss`` (every task takes the same arguments and
+        ignores those it has no use for) and the state it returns."""
+        total, losses = self.task.train_loss(batch, t=t, noise=noise, generator=generator,
+                                             deterministic=deterministic, use_gt_f0=use_gt_f0)
+        new_state = losses.pop("_new_state", None)
+        return total, losses, new_state
+
     def loss_and_grads(self, batch: Dict[str, Any], t: Optional[torch.Tensor] = None,
                        noise: Optional[torch.Tensor] = None,
                        generator: Optional[torch.Generator] = None,
-                       deterministic: bool = False
+                       deterministic: bool = False, use_gt_f0: bool = True
                        ) -> Tuple[Dict[str, torch.Tensor], List[torch.Tensor]]:
         """The loss terms (plus ``total_loss`` and ``grad_norm``) and the
-        gradients of the trainable parameters, which are left unchanged. A
-        trainable parameter the loss does not reach gets a zero gradient."""
-        total, losses = self.task.train_loss(batch, t=t, noise=noise,
-                                             generator=generator or self.generator,
-                                             deterministic=deterministic)
+        gradients of the trainable parameters, which are left unchanged (and
+        so are the task's statistics). A trainable parameter the loss does
+        not reach gets a zero gradient."""
+        return self._loss_and_grads(batch, t, noise, generator, deterministic, use_gt_f0)[:2]
+
+    def _loss_and_grads(self, batch, t, noise, generator, deterministic, use_gt_f0):
+        total, losses, new_state = self._task_loss(
+            batch, t=t, noise=noise, generator=generator or self.generator,
+            deterministic=deterministic, use_gt_f0=use_gt_f0)
         grads = torch.autograd.grad(total, self.params, allow_unused=True)
         # contiguous, as the parameters are: the DiffNet's per-layer weight
         # gradients arrive as strided views of its stacked gradients, and one
@@ -201,20 +237,31 @@ class Trainer:
         out = {k: v.detach() for k, v in losses.items()}
         out["total_loss"] = total.detach()
         out["grad_norm"] = global_norm(grads)
-        return out, grads
+        return out, grads, new_state
+
+    def use_gt_f0(self) -> bool:
+        """Ground-truth F0 for the next step: no ``switch_midi2f0_step``, or
+        ``global_step <= switch``."""
+        switch = self.hp.get("switch_midi2f0_step")
+        return switch is None or self.global_step <= int(switch)
 
     def train_step(self, batch: Dict[str, Any], t: Optional[torch.Tensor] = None,
                    noise: Optional[torch.Tensor] = None,
                    generator: Optional[torch.Generator] = None,
                    deterministic: bool = False) -> Dict[str, torch.Tensor]:
-        """One mini-step: loss, gradients and (every ``accumulate_grad_batches``
-        mini-steps) an update. Returns the losses as device scalars."""
+        """One mini-step: loss, gradients, the task's new statistics and
+        (every ``accumulate_grad_batches`` mini-steps) an update. Returns the
+        losses as device scalars."""
         if self.optimizer is None:
             raise RuntimeError("call Trainer.initialize() first")
-        losses, grads = self.loss_and_grads(self._on_device(batch), t=t, noise=noise,
-                                            generator=generator,
-                                            deterministic=deterministic)
+        gt_f0 = self.use_gt_f0()
+        if not self.gt_f0_log or self.gt_f0_log[-1][1] != gt_f0:
+            self.gt_f0_log.append((self.global_step, gt_f0))
+        losses, grads, new_state = self._loss_and_grads(self._on_device(batch), t, noise,
+                                                        generator, deterministic, gt_f0)
         self.optimizer.step(grads, losses["grad_norm"])
+        if new_state is not None:
+            self.task.update_state(new_state)
         self.global_step += 1
         return losses
 
@@ -226,7 +273,10 @@ class Trainer:
                                                                         torch.Tensor]]] = None
                  ) -> Dict[str, float]:
         """Loss terms averaged over the batches, each weighted by its
-        ``nsamples``, with dropout off. The diffusion step and noise of every
+        ``nsamples``, with dropout off (a task that ignores ``deterministic``,
+        as the PitchExtractor's does, draws its dropout from the same
+        generator; the statistics it returns are dropped), ground-truth F0.
+        The diffusion step and noise of every
         batch come from a generator seeded 0 (the JAX package's
         ``PRNGKey(0)`` for each batch), or from ``draws(batch_idx, batch)`` ->
         (t, noise). ``plotter(trainer, batch, batch_idx)`` runs for the first
@@ -243,8 +293,8 @@ class Trainer:
             if draws is not None:
                 t, noise = draws(i, batch)
             gen.manual_seed(0)
-            total, losses = self.task.train_loss(arrays, t=t, noise=noise, generator=gen,
-                                                 deterministic=True)
+            total, losses, _ = self._task_loss(arrays, t=t, noise=noise, generator=gen,
+                                               deterministic=True)
             scalars = {k: float(v) for k, v in losses.items()}
             scalars["total_loss"] = float(total)
             metrics.update(scalars, n)
@@ -270,8 +320,9 @@ class Trainer:
             self.best_val_loss = val_loss
             np.save(os.path.join(self.work_dir, "best_valid.npy"), np.asarray([val_loss]))
         opt = self.optimizer
+        model = self.task.checkpoint_module()
         ckpt = {"state_dict": {"model": {k: v.detach().cpu()
-                                         for k, v in self.task.state_dict().items()}},
+                                         for k, v in model.state_dict().items()}},
                 "optimizer_states": [opt.adamw.state_dict()] if opt is not None else [],
                 "num_updates": opt.num_updates if opt is not None else 0,
                 "global_step": self.global_step,
@@ -300,7 +351,8 @@ class Trainer:
             return False
         raw = torch_load(path)
         sd = load_torch_state_dict(raw)
-        matched, mismatched, missing, unexpected = split_keys(self.task, sd)
+        model = self.task.checkpoint_module()
+        matched, mismatched, missing, unexpected = split_keys(model, sd)
         if not matched:
             print(f"| torch checkpoint {path} contributed no parameters for this task; "
                   "ignoring")
@@ -309,7 +361,7 @@ class Trainer:
             raise RuntimeError(
                 f"checkpoint {path} does not match the model: missing={missing[:5]} "
                 f"unexpected={unexpected[:5]} shape mismatch={mismatched[:5]}")
-        merge_state_dict(self.task, sd)
+        merge_state_dict(model, sd)
         step = raw.get("global_step")
         self.global_step = int(ckpt_step(path) if step is None else step)
         resumed = False
@@ -379,6 +431,8 @@ class Trainer:
         val_interval = int(hp.get("val_check_interval", 2000))
         log_interval = int(hp.get("log_interval", 100))
         sanity_steps = int(hp.get("num_sanity_val_steps", 5))
+        if self.batches_per_epoch is None:
+            self.batches_per_epoch = len(train_dataset.batches())
         if self.optimizer is None:
             self.initialize()
         self.snapshot_code()

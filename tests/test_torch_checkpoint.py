@@ -16,7 +16,11 @@ package on the same weights:
   * a PE checkpoint with BatchNorm statistics through both ``_maybe_load_pe``:
     the same voicing and F0 within rtol 1e-4;
   * the ``fs2_ckpt`` warm start equal to JAX ``load_warm_start_params``;
-  * Griffin-Lim equal to JAX's.
+  * Griffin-Lim equal to JAX's;
+  * an FS2 run's checkpoint (the FS2 under ``model.``) warm-starts a
+    diffusion task with every FS2 tensor and reads in JAX's ``convert_fs2``;
+    a PE run's (PE keys and statistics) reads back through ``load_pe`` and
+    JAX's ``convert_pe``; both resume bit for bit.
 """
 
 import json
@@ -333,3 +337,96 @@ def test_svs_builds_its_parts_from_the_run_files(tmp_path):
                                    atol=1e-6)
     assert torch.equal(fused.pe.mel_prenet.layers[0][2].running_mean,
                        torch.full((32,), 0.3))
+
+
+# ------------------------------------------------------------------ FS2 and PE runs
+def _fs2_task_and_trainer(hp, work_dir):
+    from diffsinger_tpu_torch.training.tasks import FastSpeech2Task
+
+    torch.manual_seed(0)
+    task = FastSpeech2Task(hp, VOCAB, device="cpu", sil_ids=(3,))
+    return task, Trainer(hp, task, device="cpu", work_dir=work_dir)
+
+
+def test_fs2_run_checkpoint_warm_starts_diffusion_and_reads_in_jax(tmp_path, capsys):
+    """An FS2 run saves its FS2 under ``model.`` as upstream's FastSpeech2Task:
+    the diffusion task's ``fs2_ckpt`` warm start takes every FS2 tensor,
+    JAX's ``convert_fs2`` reads the same file, and a fresh trainer resumes
+    it bit for bit (params and AdamW moments)."""
+    hp = {**_hp(), "task_cls": "fs2", "mel_loss": "ssim:0.5|l1:0.5"}
+    task, trainer = _fs2_task_and_trainer(hp, str(tmp_path / "fs2"))
+    trainer.initialize()
+    trainer.train_step(_batch())
+    path = trainer.save_checkpoint()
+    saved = tck.load_torch_state_dict(path)
+    assert set(saved) == set(task.fs2.state_dict())  # FS2 keys, no "fs2." prefix
+
+    diff = DiffSingerTask(_hp(fs2_ckpt=str(tmp_path / "fs2")), VOCAB, device="cpu")
+    assert tck.load_warm_start(diff.hp, diff)
+    n = int(capsys.readouterr().out.split("(")[-1].split(" tensors")[0])
+    assert n == len(task.fs2.state_dict())
+    for k, v in task.fs2.state_dict().items():
+        assert torch.equal(diff.fs2.state_dict()[k], v), k
+
+    jtree = jck.convert_fs2(jck.load_torch_state_dict(path))
+    back = fs2_state_dict(jtree)
+    params = dict(task.fs2.named_parameters())
+    assert set(back) == set(params)
+    for k, v in back.items():
+        assert torch.equal(v, params[k].detach()), k
+
+    fresh, resumed = _fs2_task_and_trainer(hp, str(tmp_path / "fs2"))
+    torch.manual_seed(1)
+    resumed.initialize()
+    assert resumed.global_step == 1
+    for (k, v), (_, w) in zip(task.state_dict().items(), fresh.state_dict().items()):
+        assert torch.equal(v, w), k
+    a, b = trainer.optimizer.adamw.state_dict()["state"], \
+        resumed.optimizer.adamw.state_dict()["state"]
+    assert a.keys() == b.keys() and all(
+        torch.equal(a[i][m], b[i][m]) for i in a for m in ("exp_avg", "exp_avg_sq"))
+
+
+def test_pe_run_checkpoint_round_trips_through_load_pe(tmp_path):
+    """A PE run saves its PE keys and BatchNorm statistics under ``model.``:
+    ``synthesize.load_pe`` and JAX's ``convert_pe`` read them back, and a
+    fresh trainer resumes the run bit for bit."""
+    from diffsinger_tpu_torch.training.tasks import PitchExtractionTask
+
+    hp = {**PE_HP, "task_cls": "pe", "lr": 1e-3, "decay_steps": 100, "seed": 3}
+    rng = np.random.RandomState(4)
+    batch = {"mels": (rng.randn(2, 24, 16) * 0.5 - 2).astype(np.float32),
+             "mel2ph": np.ones((2, 24), np.int64),
+             "f0": rng.uniform(6.5, 8.5, size=(2, 24)).astype(np.float32),
+             "uv": (rng.rand(2, 24) < 0.2).astype(np.float32)}
+    torch.manual_seed(0)
+    task = PitchExtractionTask(hp, device="cpu")
+    trainer = Trainer(hp, task, device="cpu", work_dir=str(tmp_path / "pe"))
+    trainer.initialize()
+    trainer.train_step(batch)
+    trainer.train_step(batch)
+    path = trainer.save_checkpoint()
+    stats = {k: v for k, v in task.pe.state_dict().items() if "running" in k}
+    assert len(stats) == 6 and float(stats["mel_prenet.layers.0.2.running_var"].min()) != 1.0
+
+    loaded = tsyn.load_pe(path, hp)
+    for k, v in task.pe.state_dict().items():
+        assert torch.equal(loaded.state_dict()[k], v), k
+    jstats = pe_state_dict({"params": {}, "batch_stats": jck.convert_pe(
+        jck.load_torch_state_dict(path))["batch_stats"]})
+    for k, v in stats.items():
+        assert torch.equal(jstats[k], v), k
+
+    torch.manual_seed(1)
+    fresh = PitchExtractionTask(hp, device="cpu")
+    resumed = Trainer(hp, fresh, device="cpu", work_dir=str(tmp_path / "pe"))
+    resumed.initialize()
+    assert resumed.global_step == 2
+    for k, v in task.state_dict().items():
+        assert torch.equal(fresh.state_dict()[k], v), k
+    # the two runs take the same next step
+    assert torch.equal(trainer.generator.get_state(), resumed.generator.get_state())
+    la, lb = trainer.train_step(batch), resumed.train_step(batch)
+    assert all(torch.equal(la[k], lb[k]) for k in la)
+    for k, v in task.state_dict().items():
+        assert torch.equal(fresh.state_dict()[k], v), k

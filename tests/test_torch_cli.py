@@ -1,7 +1,7 @@
 """The port's command line as a user runs it, on the CPU: the mirror of
 ``tests/test_cli.py`` (config -> train a few steps with validation and
-checkpoints -> --infer to the files on disk), once vocoding by Griffin-Lim
-and once from a HiFiGAN ``vocoder_ckpt``; ``synthesize_dataset`` against the
+checkpoints -> --infer to the files on disk), once vocoding by Griffin-Lim,
+once from a HiFiGAN ``vocoder_ckpt`` and once for an FS2 task; ``synthesize_dataset`` against the
 JAX package's on the same test split, weights and draws; and
 ``set_hparams`` resolving the same dict as the JAX package's for the same
 config, exp_name, overrides, ``--reset`` and saved ``config.yaml``."""
@@ -197,6 +197,22 @@ def test_synthesize_dataset_matches_jax(tmp_path, monkeypatch):
             np.testing.assert_allclose(wav_got, wav_want, atol=1e-4 if kind == "P" else 5e-5,
                                        err_msg=f"{kind} {name}")
             assert np.abs(wav_want).max() > 1e-3
+
+
+def test_cli_trains_and_infers_an_fs2_task(tmp_path, capsys):
+    """``task_cls: fs2`` through the CLI: a FastSpeech2 with the ssim and l1
+    mel losses trains, and ``--infer`` vocodes its decoder's mel to wavs."""
+    cfg = _config(tmp_path, task_cls="fs2", num_valid_plots=0)
+    root = str(tmp_path / "checkpoints")
+    hp = set_hparams(cfg, "fs2_exp", ckpt_root=root)
+    trainer = cli.train(hp, device="cpu")
+    assert type(trainer.task).__name__ == "FastSpeech2Task"
+    assert {"l1", "ssim", "pdur"} <= set(trainer.history[-1][2])
+    _check_run(hp["work_dir"], [2, 4])
+    gen_dir = cli.infer(set_hparams(cfg, "fs2_exp", infer=True, ckpt_root=root), device="cpu")
+    assert os.path.basename(gen_dir).startswith("generated_4_")
+    assert "restored checkpoint at step 4" in capsys.readouterr().out
+    _check_infer(gen_dir, str(tmp_path / "ds"))
 
 
 def test_cli_refusals(tmp_path):

@@ -112,6 +112,28 @@ def test_stack_explicit_backward_equals_autograd_f32(cycle):
         _close_scaled(f.numpy(), w.numpy(), name)
 
 
+def test_stack_backward_twin_in_float64():
+    """``acc_dtype=float64`` runs the backward twin's steps in float64: its
+    cotangents are float64, agree with the float32 twin at the f32 gradient
+    tolerance, and move with a perturbation of ds (1e-10 relative) that
+    float32 cannot resolve."""
+    rng = np.random.RandomState(31)
+    args = [torch.from_numpy(a).double() for a in _stack_args(rng)]
+    ds = torch.from_numpy(rng.randn(B, T, C))
+    dil = tuple(2 ** (i % 2) for i in range(L))
+    _, xs = tdt.diffnet_train_stack_fwd_plain(*[a.float() for a in args], dilations=dil)
+    g32 = tdt.diffnet_train_stack_bwd_plain(xs, *[a.float() for a in args[1:8]], ds.float(),
+                                            dilations=dil)
+    g64 = tdt.diffnet_train_stack_bwd_plain(xs.double(), *args[1:8], ds, dilations=dil,
+                                            acc_dtype=torch.float64)
+    moved = tdt.diffnet_train_stack_bwd_plain(xs.double(), *args[1:8], ds * (1 + 1e-10),
+                                              dilations=dil, acc_dtype=torch.float64)
+    for name, a, w, m in zip(tdt.GRAD_NAMES, g32, g64, moved):
+        assert w.dtype == torch.float64, name
+        _close_scaled(a.numpy(), w.numpy(), name)
+        assert not torch.equal(m, w), name
+
+
 def _nets(rng, cycle=2, num_layers=L, c=C, m=8, h=H, b=B, t=40):
     jnet = JDiffNet(in_dims=m, encoder_hidden=h, residual_layers=num_layers,
                     residual_channels=c, dilation_cycle_length=cycle)

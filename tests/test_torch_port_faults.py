@@ -10,7 +10,11 @@ JAX behaviour:
     now loads it, and gives JAX's waveform on the same weights;
   * ``spec2wav_batch`` with an NSF vocoder: the port once took no F0, so the
     batch was vocoded without its source; it now takes ``f0s`` and gives
-    JAX's waveform on the same weights and source draws.
+    JAX's waveform on the same weights and source draws;
+  * ``task_cls``: the port's CLI once built a diffusion task whatever the
+    config named, so ``configs/lj/fs2.yaml`` trained a DiffNet and
+    ``configs/opencpop/pe.yaml`` a diffusion model; it now builds the task
+    JAX's ``build_task`` builds.
 """
 
 import jax
@@ -162,3 +166,33 @@ def test_nsf_spec2wav_batch_takes_f0():
         assert g.shape == w.shape == (length * 16,)
         np.testing.assert_allclose(g, w, atol=5e-5)
         assert np.abs(g - n).max() > 1e-3
+
+
+@pytest.mark.parametrize("config,want", [("configs/lj/fs2.yaml", "FastSpeech2Task"),
+                                         ("configs/opencpop/aux_rel.yaml", "FastSpeech2Task"),
+                                         ("configs/popcs/fs2.yaml", "FastSpeech2Task"),
+                                         ("configs/opencpop/pe.yaml", "PitchExtractionTask"),
+                                         ("configs/opencpop/ds1000.yaml", "DiffSingerTask")])
+def test_cli_builds_the_task_that_task_cls_names(tmp_path, config, want):
+    """``cli._build`` reads ``task_cls`` as JAX's ``cli._build`` does: an FS2
+    config trains a FastSpeech2 with its mel decoder and no denoiser, the PE
+    config a PitchExtractor; an unknown name raises ``KeyError``."""
+    import json
+    from pathlib import Path
+
+    from diffsinger_tpu import cli as jcli
+    from diffsinger_tpu.config.hparams import set_hparams as jset_hparams
+    from diffsinger_tpu_torch import cli
+    from diffsinger_tpu_torch.config.hparams import set_hparams
+
+    root = Path(__file__).resolve().parents[1]
+    (tmp_path / "phone_set.json").write_text(json.dumps(["a", "b", "c", "SP", "AP"]))
+    over = {"binary_data_dir": str(tmp_path)}
+    hp = {**set_hparams(str(root / config)), **over}
+    _, task = cli._build(hp, "cpu")
+    assert type(task).__name__ == want
+    assert type(jcli._build({**jset_hparams(str(root / config)), **over})[1]).__name__ == want
+    if want == "FastSpeech2Task":
+        assert getattr(task, "denoise_fn", None) is None and task.fs2.mel_out is not None
+    with pytest.raises(KeyError, match="unknown task_cls"):
+        cli._build({**hp, "task_cls": "usr.nope.Task"}, "cpu")

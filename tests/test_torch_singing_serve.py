@@ -251,12 +251,21 @@ def test_svs_preprocessing_matches_jax_exactly(kind):
 
 
 def test_midi_training_and_checkpoints_raise(tmp_path):
+    """The MIDI task trains with its word-boundary duration losses (held
+    against JAX in tests/test_torch_midi_train.py); a checkpoint on disk
+    beside an object passed for the same part raises."""
     task = DiffSingerTask(dict(HP, residual_layers=2), VOCAB, device="cpu")
     assert task.hp["task_type"] == "midi"
-    batch = {"txt_tokens": np.ones((1, 4), np.int64), "mels": np.zeros((1, 8, MEL)),
-             "mel2ph": np.ones((1, 8), np.int64)}
-    with pytest.raises(NotImplementedError, match="MIDI"):
-        task.train_loss(batch, generator=torch.Generator().manual_seed(0))
+    batch = {"txt_tokens": np.ones((1, 4), np.int64), "mels": np.ones((1, 8, MEL)),
+             "mel2ph": np.repeat(np.arange(1, 5), 2)[None], "f0": np.ones((1, 8)),
+             "uv": np.zeros((1, 8)), "energy": np.zeros((1, 8)),
+             "pitch_midi": np.full((1, 4), 60), "word_boundary": np.array([[0, 1, 0, 1]])}
+    _, losses = task.train_loss(batch, generator=torch.Generator().manual_seed(0))
+    assert {"mel", "pdur", "wdur", "sdur"} <= set(losses)
+    assert all(torch.isfinite(v) for v in losses.values())
+    with pytest.raises(KeyError, match="word_boundary"):
+        task.train_loss({k: v for k, v in batch.items() if k != "word_boundary"},
+                        generator=torch.Generator().manual_seed(0))
     voc = HifiGAN(VOC_HP, device="cpu")
     pe = PitchExtractor(PEConfig.from_hparams(HP))
     (tmp_path / "model_ckpt_steps_100.ckpt").write_bytes(b"")
