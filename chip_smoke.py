@@ -131,6 +131,32 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      against the plain twins on the run's largest training batch and a
      validation batch, and each --infer's first test utterance (B = 1) with
      its kernels against the plain twins;
+  7i. serve_web: the port's web server on the card over
+     DiffSinger-Opencpop (configs/opencpop/ds1000.yaml as shipped: float32
+     stack, PLMS-25, PE, NSF-HiFiGAN 8/8/2) built from seeded checkpoints
+     written to disk: SVSWebApp over GradioInfer(DiffSingerE2EInfer) on
+     127.0.0.1:0 answers the four gradio demo sentences (RIFF/WAVE PCM16 at
+     24 kHz, each body equal to a direct greet, exactly or within 2 LSB), the
+     first sentence twice at once, 400 for Content-Length -1, 413 past
+     MAX_REQUEST_BYTES, 400 for misaligned notes; per-request wall ms, audio
+     seconds, RTF and launches; the unfused path (fused_infer: false) on
+     EXAMPLE_INPUT against the fused one with the same draws;
+  7j. vocoders: vocoder_compute_dtype bfloat16 for HiFiGAN v1 on an
+     LJ 8 x 1024 mel batch and NSF-HiFiGAN on a singing 8 x 1024 batch (the
+     MRF kernel's bf16 body: 3 + 2 launches), each against the same module
+     on its plain twins (1e-2 of the waveform's scale) and timed beside its float32
+     twin; a resblock '2' generator at HiFiGAN v3's widths from a written
+     checkpoint, card against CPU; ParallelWaveGAN at PWGConfig's defaults
+     from a written official release (.pkl + stats.npy), spec2wav of one
+     1024-frame mel with z from a generator, card against CPU, timed;
+  7k. crf: configs/lj/ds_beta6.yaml with dur_loss: crf: the first
+     training step on 2 rows against the CPU in float64 (fixed diffusion
+     draws) by train_fs2's criterion for the FS2 side (the CRF head and the
+     predictors) and the losses, the training kernels against their plain
+     twins on that step (step_vs_plain), five float32 steps at 24 x 1024; one 8 x 1024 FusedSynthesizer batch on the CRF's
+     Viterbi durations (71 stack, 3 MRF launches), dur_choice against the
+     CPU's, the smallest gap between the best and the second-best path, and
+     log Z within 1e-5 of a float64 host evaluation;
   8. prints the kernels line and, last, the device line.
 The plain twins run with TF32 off (cuBLAS and cuDNN), so they are float32
 references. Long output goes to build/chip_smoke/chip_smoke.json.
@@ -1493,7 +1519,8 @@ def _worst(rel):
     return rel[n], n
 
 
-def card_vs_cpu_step(torch, hp, trainer, batch, vocab: int, rows: int = 4):
+def card_vs_cpu_step(torch, hp, trainer, batch, vocab: int, rows: int = 4, draws=None,
+                     judged=None):
     """One deterministic step's losses and gradients (no update) on the card
     against the same step on the CPU in float64, same weights, on the
     batch's first ``rows`` rows. The CPU also evaluates the step in float32:
@@ -1502,13 +1529,22 @@ def card_vs_cpu_step(torch, hp, trainer, batch, vocab: int, rows: int = 4):
     norms). A card gradient within 1e-3 of its scale of a float32
     evaluation on the CPU lies within ``1e-3 + d32[n]`` of float64 (triangle
     inequality); that is parameter n's limit, so ``excess[n]`` = card vs
-    float64 minus ``d32[n]`` is held to 1e-3. Returns the losses' relative
-    difference from float64 and the gradient readings."""
+    float64 minus ``d32[n]`` is held to 1e-3. ``draws`` = (t, noise) fixes a
+    diffusion task's draws on both sides; ``judged(name)`` picks the
+    parameters whose excess is judged (the others' worst is reported).
+    Returns the losses' relative difference from float64 and the gradient
+    readings."""
     from diffsinger_tpu_torch.training import tasks
     from diffsinger_tpu_torch.training.trainer import Trainer
 
+    def fixed(device, dtype):
+        if draws is None:
+            return {}
+        return {"t": draws[0].to(device), "noise": draws[1].to(device, dtype)}
+
     sub = {k: v[:rows] for k, v in batch.items()}
-    lk, gk = trainer.loss_and_grads(sub, deterministic=True)
+    lk, gk = trainer.loss_and_grads(sub, deterministic=True,
+                                    **fixed(trainer.device, torch.float32))
     names = [n for n, p in trainer.task.named_parameters() if p.requires_grad]
     state = {k: v.cpu() for k, v in trainer.task.state_dict().items()}
     host = {k: v.cpu() for k, v in sub.items()}
@@ -1524,7 +1560,7 @@ def card_vs_cpu_step(torch, hp, trainer, batch, vocab: int, rows: int = 4):
         # the task casts float inputs to float32: to ``dtype`` here
         with mock.patch.object(tasks, "_as_tensor", lambda v, dt, dev: as_tensor(
                 v, dtype if dt == torch.float32 else dt, dev)):
-            return cpu.loss_and_grads(host, deterministic=True)
+            return cpu.loss_and_grads(host, deterministic=True, **fixed("cpu", dtype))
 
     l64, g64 = cpu_step(torch.float64)
     _, g32 = cpu_step(torch.float32)
@@ -1532,10 +1568,14 @@ def card_vs_cpu_step(torch, hp, trainer, batch, vocab: int, rows: int = 4):
                 for k in l64}
     vs64, d32 = _grad_rel(gk, g64, names), _grad_rel(g32, g64, names)
     excess = {n: vs64[n] - d32[n] for n in names}
-    at = max(excess, key=excess.get)
-    return {"loss_rel": loss_rel, "grad_excess_worst": [excess[at], at],
-            "grad_vs_cpu64_there": vs64[at], "cpu32_vs_cpu64_there": d32[at],
-            "grad_worst_vs_cpu64": _worst(vs64), "cpu32_vs_cpu64_grad_worst": _worst(d32)}
+    at = max((n for n in names if judged is None or judged(n)), key=excess.get)
+    out = {"loss_rel": loss_rel, "grad_excess_worst": [excess[at], at],
+           "grad_vs_cpu64_there": vs64[at], "cpu32_vs_cpu64_there": d32[at],
+           "grad_worst_vs_cpu64": _worst(vs64), "cpu32_vs_cpu64_grad_worst": _worst(d32)}
+    if judged is not None:
+        out["grad_excess_worst_not_judged"] = _worst({n: excess[n] for n in names
+                                                      if not judged(n)})
+    return out
 
 
 FS2_TRAIN_CASES = (  # config, B, phones, frames, batch kind
@@ -2311,6 +2351,590 @@ def phase_cli_cascade(torch, ds, mrf, tr, card: str, out_dir: Path):
     return out
 
 
+# -------------------------------------------------------------------- phase 7i
+# the reference gradio demo sentences (text, notes, note durations)
+WEB_DEMO = [
+    ("你 说 你 不 SP 懂 为 何 在 这 时 牵 手 AP",
+     "D#4/Eb4 | D#4/Eb4 | D#4/Eb4 | D#4/Eb4 | rest | D#4/Eb4 | D4 | D4 | D4 "
+     "| D#4/Eb4 | F4 | D#4/Eb4 | D4 | rest",
+     "0.113740 | 0.329060 | 0.287950 | 0.133480 | 0.150900 | 0.484730 | "
+     "0.242010 | 0.180820 | 0.343570 | 0.152050 | 0.266720 | 0.280310 | "
+     "0.633300 | 0.444590"),
+    ("小酒窝长睫毛AP是你最美的记号",
+     "C#4/Db4 | F#4/Gb4 | G#4/Ab4 | A#4/Bb4 F#4/Gb4 | F#4/Gb4 C#4/Db4 | "
+     "C#4/Db4 | rest | C#4/Db4 | A#4/Bb4 | G#4/Ab4 | A#4/Bb4 | G#4/Ab4 | F4 "
+     "| C#4/Db4",
+     "0.407140 | 0.376190 | 0.242180 | 0.509550 0.183420 | 0.315400 0.235020"
+     " | 0.361660 | 0.223070 | 0.377270 | 0.340550 | 0.299620 | 0.344510 | "
+     "0.283770 | 0.323390 | 0.360340"),
+    ("我真的SP爱你SP句句不轻易",
+     "D4 | A4 | F#4 |  rest | A4 | D4 | rest | B4 | A4 F#4 | F#4 | A4 | A4",
+     "0.8 | 0.4 | 0.967 | 0.3 | 0.4 | 0.967 | 0.4 | 0.8 | 0.4 0.4 | 0.25 | "
+     "0.967 | 0.9"),
+    ("好冷啊 AP 我在东北玩泥巴",
+     "F4 | F4 | D4 | rest | D4 | D4 | C4 | C4 | B3 | C4 | D4",
+     "0.5 | 0.3 | 0.3 | 0.3 | 0.2 | 0.2 | 0.2 | 0.2 | 0.25 | 0.25 | 0.4"),
+]
+WEB_LSB = 2   # int16 steps two greet calls may differ by where cuDNN is not bit-reproducible
+
+
+def _post(port: int, body: bytes, headers=None, timeout: float = 120):
+    """(status, content type, body) of one POST to /api/synthesize."""
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=timeout)
+    try:
+        conn.putrequest("POST", "/api/synthesize")
+        for k, v in {"Content-Length": str(len(body)), **(headers or {})}.items():
+            conn.putheader(k, v)
+        conn.endheaders()
+        if body:
+            conn.send(body)
+        resp = conn.getresponse()
+        return resp.status, resp.getheader("Content-Type"), resp.read()
+    finally:
+        conn.close()
+
+
+def _lsb(body: bytes, wav) -> int:
+    """Largest int16 step between a wav body and a greet waveform."""
+    import numpy as np
+
+    got = np.frombuffer(body[44:], "<i2").astype(np.int32)
+    if got.shape != wav.shape:
+        return 1 << 16
+    return int(np.abs(got - wav.astype(np.int32)).max()) if got.size else 0
+
+
+def write_singer_ckpts(torch, root: Path) -> dict:
+    """``build_singer``'s seeded DiffSinger-Opencpop (ds1000.yaml as shipped:
+    the float32 stack), its NSF-HiFiGAN and its PitchExtractor written in
+    upstream's layout under ``root``; returns the hparams that point at them."""
+    from diffsinger_tpu_torch.tools import fixtures
+
+    hp, infer = build_singer(torch, stack_dtype=None)
+    syn = infer.fused
+    fixtures.write_task_ckpt(str(root / "exp"), syn.task.checkpoint_module().state_dict(),
+                             step=1000)
+    geometry = dict(SING_VOCODER, audio_sample_rate=int(hp["audio_sample_rate"]),
+                    audio_num_mel_bins=80, hop_size=SING_HOP)
+    fixtures.write_hifigan_dir(str(root / "hifigan"), syn.vocoder.model.state_dict(), geometry)
+    fixtures.write_task_ckpt(str(root / "pe"), syn.pe.state_dict(), step=1000)
+    return {"work_dir": str(root / "exp"), "vocoder_ckpt": str(root / "hifigan"),
+            "pe_enable": True, "pe_ckpt": str(root / "pe"), "seed": 0}
+
+
+def phase_serve_web(torch, ds, mrf, card: str, out_dir: Path):
+    """The port's web server over DiffSinger-Opencpop (configs/opencpop/ds1000.yaml
+    as shipped, seeded checkpoints on disk): SVSWebApp over
+    GradioInfer(DiffSingerE2EInfer) on 127.0.0.1:0 answers the four gradio
+    demo sentences, each body equal to a direct ``greet``, one sentence twice
+    at once; the status rules; and the unfused path against the fused one."""
+    import threading
+
+    import numpy as np
+
+    from diffsinger_tpu_torch.config.hparams import set_hparams
+    from diffsinger_tpu_torch.inference.gradio_app import GradioInfer
+    from diffsinger_tpu_torch.inference.svs import EXAMPLE_INPUT, DiffSingerE2EInfer
+    from diffsinger_tpu_torch.inference.vocoder import pad_frames
+    from diffsinger_tpu_torch.inference.web_app import MAX_REQUEST_BYTES, SVSWebApp, wav_bytes
+
+    hp = set_hparams(str(ROOT / "configs" / "opencpop" / "ds1000.yaml"))
+    hp.update(write_singer_ckpts(torch, out_dir / "serve_web"))
+    core = GradioInfer(hp, DiffSingerE2EInfer, title="DiffSinger",
+                       description="lyrics + MIDI notes -> singing voice")  # the card
+    infer = core.infer_ins
+    if infer.fused is None or infer.task.compute_dtype is not None or infer.pe is None:
+        raise AssertionError("serve_web: not ds1000.yaml's fused float32 path with its PE")
+    sr = int(hp["audio_sample_rate"])
+    app = SVSWebApp(core)
+    port = app.start("127.0.0.1", 0)
+    try:
+        t0 = time.perf_counter()
+        direct = [core.greet(*s) for s in WEB_DEMO]   # warm-up, and the reference bodies
+        torch.cuda.synchronize()
+        warm_s = time.perf_counter() - t0
+        payloads = [json.dumps(dict(zip(("text", "notes", "notes_duration"), s))).encode()
+                    for s in WEB_DEMO]
+        ds.diffnet_stack.launches = 0
+        mrf.mrf_stage.launches = 0
+        requests = []
+        for payload in payloads:
+            t0 = time.perf_counter()
+            status, ctype, body = _post(port, payload)
+            requests.append({"status": status, "ctype": ctype, "body": body,
+                             "wall_ms": (time.perf_counter() - t0) * 1e3})
+        launches = {"diffnet_stack": ds.diffnet_stack.launches,
+                    "mrf_stage": mrf.mrf_stage.launches}
+        results = [None, None]
+
+        def worker(i):
+            results[i] = _post(port, payloads[0])
+
+        threads = [threading.Thread(target=worker, args=(i,)) for i in range(2)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(300)
+        status_rules = {
+            "negative_length": _post(port, b"", {"Content-Length": "-1"}, timeout=5)[0],
+            "too_large": _post(port, b"", {"Content-Length": str(MAX_REQUEST_BYTES + 1)},
+                               timeout=5)[0]}
+        bad = {"text": WEB_DEMO[3][0], "notes": "F4 | F4", "notes_duration": "0.5 | 0.3"}
+        status, _, msg = _post(port, json.dumps(bad).encode(), timeout=30)
+        status_rules["misaligned_notes"] = status
+        status_rules["misaligned_message"] = msg.decode(errors="replace")
+    finally:
+        app.stop()
+
+    rows, lsb = [], []
+    for (s, _, _), (dsr, wav), r in zip(WEB_DEMO, direct, requests):
+        body = r.pop("body")
+        ok = (r["status"] == 200 and r["ctype"] == "audio/wav" and body[:4] == b"RIFF"
+              and body[8:16] == b"WAVEfmt " and int.from_bytes(body[24:28], "little") == sr
+              and int.from_bytes(body[34:36], "little") == 16 and dsr == sr
+              and (len(body) - 44) // 2 == len(wav))
+        lsb.append(_lsb(body, wav) if ok else 1 << 16)
+        audio_s = len(wav) / sr
+        rows.append({**r, "format_ok": ok, "samples": len(wav), "audio_s": audio_s,
+                     "rtf": r["wall_ms"] / 1e3 / audio_s, "max_lsb_vs_greet": lsb[-1],
+                     "bit_equal": body == wav_bytes(wav, sr)})
+    concurrent_lsb = [_lsb(r[2], direct[0][1]) if r and r[0] == 200 else 1 << 16
+                      for r in results]
+
+    # the unfused path (fused_infer: false) on the same parts, against the fused
+    # one on EXAMPLE_INPUT with the same draws. They differ by design in the
+    # padding: the fused sampler runs the 128-frame bucket, its PE and vocoder
+    # the padded mel; the unfused PE and vocoder the cut mel padded to 64
+    # frames. The PE's F0 moves a little with it, and the NSF source
+    # integrates F0 into its phase over the utterance (and the seeded PE
+    # voices frames near a uv logit of 0), so the waveforms agree as a whole
+    # (correlation, relative RMS), not sample by sample
+    unfused = DiffSingerE2EInfer(dict(hp, fused_infer=False, work_dir="", vocoder_ckpt="",
+                                      pe_ckpt=""),
+                                 task=infer.task, vocoder=infer.vocoder, pe=infer.pe.module)
+    item = infer.preprocess_input(EXAMPLE_INPUT, "phoneme")
+    t_mel = infer.estimate_t_mel(item)
+    t_b = -(-t_mel // int(hp.get("mel_pad_multiple", 128))) * int(hp.get("mel_pad_multiple", 128))
+    n = len(item["ph_token"]) * SING_FRAMES_PER_PHONE
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    noise = torch.randn((1, 1, t_b, 80), device="cuda", generator=gen)
+    rand_ini = torch.rand((1, 1, 9), device="cuda", generator=gen)
+    rand_ini[:, :, 0] = 0.0
+    src = torch.randn((1, t_b * SING_HOP, 9), device="cuda", generator=gen)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    wav_f = infer.forward_model(item, noise=noise, source=(rand_ini, src))
+    t_fused = time.perf_counter() - t0
+    t_pad = pad_frames(n, hp)
+    t0 = time.perf_counter()
+    wav_u = unfused.forward_model(item, noise=noise[:, :, :t_mel],
+                                  source=(rand_ini, src[:, : t_pad * SING_HOP]))
+    t_unfused = time.perf_counter() - t0
+    edge = 16 * SING_HOP   # the vocoder's reach into the padding, in samples
+    inner = slice(0, max(len(wav_f) - edge, 0))
+    scale = float(np.abs(wav_f).max())
+    unfused_row = {
+        "frames": n, "t_mel": t_mel, "t_bucket": t_b, "samples": [len(wav_f), len(wav_u)],
+        "finite": bool(np.isfinite(wav_f).all() and np.isfinite(wav_u).all()),
+        "wav_scale": scale, "max_abs_diff": float(np.abs(wav_f - wav_u).max())
+        if len(wav_f) == len(wav_u) else None,
+        "max_abs_diff_but_last_16_frames": float(np.abs(wav_f[inner] - wav_u[inner]).max())
+        if len(wav_f) == len(wav_u) else None,
+        "corr_but_last_16_frames": float(np.corrcoef(wav_f[inner], wav_u[inner])[0, 1])
+        if len(wav_f) == len(wav_u) else None,
+        "rel_rms_but_last_16_frames": float(np.linalg.norm(wav_f[inner] - wav_u[inner])
+                                            / np.linalg.norm(wav_f[inner]))
+        if len(wav_f) == len(wav_u) else None,
+        "diff_by_frame": np.abs(wav_f - wav_u).reshape(-1, SING_HOP).max(1).round(5).tolist()
+        if len(wav_f) == len(wav_u) else None,
+        "fused_s": t_fused, "unfused_s": t_unfused}
+
+    per_req = {k: v / len(WEB_DEMO) for k, v in launches.items()}
+    out = {"card": card, "config": "configs/opencpop/ds1000.yaml as shipped (float32 stack, "
+                                   "PLMS-25, PE, NSF-HiFiGAN 8/8/2), seeded checkpoints on disk",
+           "warmup_s": warm_s, "requests": rows, "launches": launches,
+           "launches_per_request": per_req,
+           "bodies_vs_greet": "bit-equal" if all(r["bit_equal"] for r in rows)
+           else f"within {max(lsb)} LSB",
+           "concurrent_max_lsb": concurrent_lsb, "status": status_rules,
+           "unfused_vs_fused": unfused_row}
+    print("serve_web", json.dumps(out), flush=True)
+    n_calls = infer.fused.task.gd.denoiser_calls()
+    if not all(r["format_ok"] for r in rows) or max(lsb) > WEB_LSB:
+        raise AssertionError(f"serve_web: bodies {rows}")
+    if max(concurrent_lsb) > WEB_LSB:
+        raise AssertionError(f"serve_web: concurrent bodies off by {concurrent_lsb} LSB")
+    if launches != {"diffnet_stack": n_calls * len(WEB_DEMO), "mrf_stage": 2 * len(WEB_DEMO)}:
+        raise AssertionError(f"serve_web: launches {launches}, expected {n_calls} stack and "
+                             f"2 MRF a request")
+    if (status_rules["negative_length"], status_rules["too_large"],
+            status_rules["misaligned_notes"]) != (400, 413, 400):
+        raise AssertionError(f"serve_web: status rules {status_rules}")
+    u = unfused_row
+    if not (u["finite"] and u["samples"] == [n * SING_HOP] * 2
+            and u["rel_rms_but_last_16_frames"] <= 5e-2 and u["corr_but_last_16_frames"] > 0.99):
+        raise AssertionError(f"serve_web: unfused vs fused {u}")
+    return out
+
+
+# -------------------------------------------------------------------- phase 7j
+# HiFiGAN v3's published generator (resblock '2'), hop 8 * 8 * 4 = 256
+V3_VOCODER = dict(resblock="2", upsample_rates=[8, 8, 4], upsample_kernel_sizes=[16, 16, 8],
+                  upsample_initial_channel=256, resblock_kernel_sizes=[3, 5, 7],
+                  resblock_dilation_sizes=[[1, 2], [2, 6], [3, 12]], audio_sample_rate=22050,
+                  audio_num_mel_bins=80, hop_size=256, use_pitch_embed=False, use_nsf=False)
+
+
+def _seeded_vocoder(torch, hp, seed: int):
+    """A HifiGAN wrapper on the CPU whose convolutions have torch's default
+    scale (as build_synth gives them), moved to the card."""
+    import torch.nn as nn
+
+    from diffsinger_tpu_torch.inference.vocoder import HifiGAN
+
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(seed)
+        voc = HifiGAN(hp, device="cpu")
+        with torch.no_grad():
+            for m in voc.model.modules():
+                if isinstance(m, (nn.Conv1d, nn.ConvTranspose1d)):
+                    m.reset_parameters()
+    return voc.to("cuda")
+
+
+def _voc_mel(torch, b: int, t: int, seed: int):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return torch.randn((b, t, 80), device="cuda", generator=g) * 0.7 - 2.5
+
+
+def phase_vocoders(torch, mrf, card: str, out_dir: Path):
+    """(a) ``vocoder_compute_dtype: bfloat16``: HiFiGAN v1 on the LJ 8 x 1024
+    mel batch and NSF-HiFiGAN (8/8/2) on the singing 8 x 1024 batch, the MRF
+    scales on the kernel's bf16 body, each against the same module on its
+    plain twins and timed beside its float32 twin; (b) a ``resblock: '2'``
+    generator at HiFiGAN v3's widths from a written checkpoint, card against
+    CPU; (c) ParallelWaveGAN at its default widths from a written official
+    release (.pkl + stats.npy), ``spec2wav`` of one 1024-frame mel, card
+    against CPU."""
+    import numpy as np
+    import torch.nn as nn
+
+    from diffsinger_tpu_torch.config.hparams import set_hparams
+    from diffsinger_tpu_torch.inference.vocoder import PWG, HifiGAN, get_vocoder_cls
+    from diffsinger_tpu_torch.models.hifigan import HifiGanConfig, HifiGanGenerator, draw_source
+    from diffsinger_tpu_torch.models.pwg import ParallelWaveGANGenerator, PWGConfig
+    from diffsinger_tpu_torch.tools import fixtures
+
+    root = out_dir / "vocoders"
+    lj = set_hparams(str(ROOT / "configs" / "lj" / "ds_beta6.yaml"))
+    sing = dict(set_hparams(str(ROOT / "configs" / "opencpop" / "ds1000.yaml")), **SING_VOCODER)
+    vocs = {}
+    for name, hp, seed in (("lj_v1", lj, 0), ("singing_nsf", sing, 1)):
+        bf = _seeded_vocoder(torch, dict(hp, vocoder_compute_dtype="bfloat16"), seed)
+        f32 = HifiGAN(hp)  # the card
+        f32.load_state_dict(bf.model.state_dict())
+        if bf.cfg.dtype != torch.bfloat16 or f32.cfg.dtype is not None:
+            raise AssertionError(f"vocoders {name}: dtypes {bf.cfg.dtype}, {f32.cfg.dtype}")
+        vocs[name] = (bf, f32)
+    mels = {"lj_v1": _voc_mel(torch, 8, 1024, 3), "singing_nsf": _voc_mel(torch, 8, 1024, 4)}
+    g = torch.Generator(device="cuda").manual_seed(5)
+    f0 = torch.rand((8, 1024), device="cuda", generator=g) * 180 + 120
+    f0 = f0 * (torch.rand((8, 1024), device="cuda", generator=g) > 0.1)
+    source = draw_source(8, 1024 * SING_HOP, "cuda", g)
+    kw = {"lj_v1": {}, "singing_nsf": {"f0": f0, "source": source}}
+
+    # (b) HiFiGAN v3 from a written checkpoint
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(2)
+        gen = HifiGanGenerator(HifiGanConfig.from_hparams(V3_VOCODER))
+        with torch.no_grad():
+            for m in gen.modules():
+                if isinstance(m, (nn.Conv1d, nn.ConvTranspose1d)):
+                    m.reset_parameters()
+    fixtures.write_hifigan_dir(str(root / "v3"), gen.state_dict(), V3_VOCODER)
+    hp_v3 = dict(lj, vocoder_ckpt=str(root / "v3"))
+    v3, v3_cpu = HifiGAN(hp_v3), HifiGAN(hp_v3, device="cpu")
+    mel_v3 = _voc_mel(torch, 2, 1024, 6)
+
+    # (c) PWG at its defaults, an official release with its statistics
+    pwg_cfg = PWGConfig()
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(3)
+        pwg_gen = ParallelWaveGANGenerator(pwg_cfg)
+    stats = np.stack([np.linspace(-4.0, -1.0, 80), np.linspace(0.6, 1.2, 80)])
+    fixtures.write_pwg_dir(str(root / "pwg"), pwg_gen.state_dict(),
+                           {"layers": 30, "stacks": 3, "residual_channels": 64,
+                            "gate_channels": 128, "skip_channels": 64, "aux_channels": 80,
+                            "aux_context_window": 2,
+                            "upsample_params": {"upsample_scales": [4, 4, 4, 4]}},
+                           official=True, stats=stats)
+    hp_pwg = dict(lj, vocoder="pwg", vocoder_ckpt=str(root / "pwg"))
+    pwg = get_vocoder_cls(hp_pwg)(hp_pwg)  # the card
+    pwg_cpu = PWG(hp_pwg, device="cpu")
+    if not (isinstance(pwg, PWG) and pwg.scaler is not None and pwg.has_weights):
+        raise AssertionError("vocoders: the PWG release did not load with its statistics")
+    mel_pwg = _voc_mel(torch, 1, 1024, 7)[0].cpu().numpy()
+    z = torch.randn((1, 1024 * 256), generator=torch.Generator().manual_seed(8))
+
+    # the main path: every vocoder once, the MRF kernel's launches counted
+    mrf.mrf_stage.launches = 0
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        main = {name: vocs[name][0].apply(mels[name], **kw[name]) for name in vocs}
+        wav_v3 = v3.apply(mel_v3)
+        wav_pwg = pwg.spec2wav(mel_pwg, z=z)
+        torch.cuda.synchronize()
+    launches = {"mrf_stage": mrf.mrf_stage.launches}
+
+    out = {"card": card, "launches": launches, "bf16": {}}
+    for name, (bf, f32) in vocs.items():
+        with torch.no_grad(), mock.patch.object(mrf, "mrf_stage", mrf.mrf_stage_plain):
+            plain = bf.apply(mels[name], **kw[name])
+        got = main[name]
+        scale = plain.abs().max().item()
+        ms = cuda_ms(lambda: bf.apply(mels[name], **kw[name]), 3)
+        ms32 = cuda_ms(lambda: f32.apply(mels[name], **kw[name]), 3)
+        with torch.no_grad():
+            wav32 = f32.apply(mels[name], **kw[name])
+        out["bf16"][name] = {
+            "B": 8, "T_mel": 1024, "samples": int(got.shape[1]),
+            "finite": bool(torch.isfinite(got).all()), "wav_scale": scale,
+            "kernel_vs_plain_max_abs_diff": (got - plain).abs().max().item(),
+            # bf16 rounding, phase_mrf's rule, on the waveform's own scale (a
+            # tanh output, below 1)
+            "kernel_vs_plain_tolerance": 1e-2 * scale,
+            "vs_float32_max_abs_diff": (got - wav32).abs().max().item(),
+            "ms": ms, "float32_ms": ms32}
+    with torch.no_grad():
+        wav_v3_cpu = v3_cpu.apply(mel_v3.cpu())
+    v3_scale = wav_v3_cpu.abs().max().item()
+    out["v3"] = {"geometry": "upsample 8/8/4, kernels 16/16/8, 256 channels, resblock '2' "
+                             "3/5/7 [[1,2],[2,6],[3,12]]",
+                 "B": 2, "T_mel": 1024, "finite": bool(torch.isfinite(wav_v3).all()),
+                 "wav_scale": v3_scale,
+                 "card_vs_cpu_max_abs_diff": (wav_v3.cpu() - wav_v3_cpu).abs().max().item(),
+                 "tolerance": 1e-4 * max(v3_scale, 1.0),
+                 "ms": cuda_ms(lambda: v3.apply(mel_v3), 5)}
+    wav_pwg_cpu = pwg_cpu.spec2wav(mel_pwg, z=z)
+    pwg_scale = float(np.abs(wav_pwg_cpu).max())
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        pwg.spec2wav(mel_pwg, z=z)
+    torch.cuda.synchronize()
+    out["pwg"] = {"config": "PWGConfig defaults: 30 layers, 3 stacks, 64/128/64 channels, "
+                            "upsample 4^4", "T_mel": 1024, "samples": len(wav_pwg),
+                  "finite": bool(np.isfinite(wav_pwg).all()), "wav_scale": pwg_scale,
+                  "card_vs_cpu_max_abs_diff": float(np.abs(wav_pwg - wav_pwg_cpu).max()),
+                  "tolerance": 1e-4 * max(pwg_scale, 1.0),
+                  "spec2wav_ms": (time.perf_counter() - t0) / 3 * 1e3}
+    print("vocoders", json.dumps(out), flush=True)
+    if launches != {"mrf_stage": 3 + 2}:
+        raise AssertionError(f"vocoders: bf16 MRF launches {launches}, expected 3 (LJ) + 2 "
+                             "(singing)")
+    for name, r in out["bf16"].items():
+        if not (r["finite"] and r["samples"] == 1024 * vocs[name][0].cfg.total_upsample
+                and r["kernel_vs_plain_max_abs_diff"] <= r["kernel_vs_plain_tolerance"]):
+            raise AssertionError(f"vocoders bf16 {name}: {r}")
+    for name in ("v3", "pwg"):
+        r = out[name]
+        if not (r["finite"] and r["card_vs_cpu_max_abs_diff"] <= r["tolerance"]):
+            raise AssertionError(f"vocoders {name}: {r}")
+    if out["pwg"]["samples"] != 1024 * 256 or wav_v3.shape != (2, 1024 * 256):
+        raise AssertionError(f"vocoders: PWG {out['pwg']['samples']}, v3 {tuple(wav_v3.shape)} "
+                             "samples")
+    return out
+
+
+# -------------------------------------------------------------------- phase 7k
+def _stack_autograd(x0, step_proj, cond, k_cond, b_cond, w_dil, b_dil, w_out, b_out, *,
+                    dilations, compute_dtype=None):
+    """The training stack's forward in its inputs' dtype, differentiated by
+    autograd: the float64 reference of a training step on the CPU (the plain
+    twin computes in float32)."""
+    from diffsinger_tpu_torch.ops import diffnet_train as tr
+
+    x, skips = x0, 0
+    for i, d in enumerate(dilations):
+        conv = tr._conv_pre(x + step_proj[i][:, None, :], cond, w_dil[i], k_cond[i], b_dil[i],
+                            b_cond[i], d)
+        gate, filt = conv.chunk(2, dim=-1)
+        residual, skip = ((gate.sigmoid() * filt.tanh()) @ w_out[i] + b_out[i]).chunk(2, dim=-1)
+        x = (x + residual) * tr.SQRT_HALF
+        skips = skips + skip
+    return skips
+
+
+def _train_forward_f64_on_cpu(tasks):
+    """``diffnet_train_forward`` whose float64 CPU calls run the DiffNet in
+    float64 (the step embedding computed as ever, then widened; the stack by
+    ``_stack_autograd``) and whose other calls run as before (the card: the
+    kernels)."""
+    import torch
+
+    from diffsinger_tpu_torch.models.diffnet import pointwise, timestep_embedding
+    from diffsinger_tpu_torch.ops.diffnet_train import pack_train_params
+
+    kernel = tasks.diffnet_train_forward
+
+    def forward(denoiser, spec, t, cond, *, compute_dtype=None):
+        if not (spec.device.type == "cpu" and spec.dtype == torch.float64):
+            return kernel(denoiser, spec, t, cond, compute_dtype=compute_dtype)
+        n = denoiser.num_layers
+        w_step, b_step, k_cond, b_cond, w_dil, b_dil, w_out, b_out = pack_train_params(denoiser)
+        x0 = torch.relu(pointwise(spec, denoiser.input_projection))
+        step = denoiser.mlp(timestep_embedding(t, denoiser.residual_channels).to(spec.dtype))
+        step_proj = (step @ w_step + b_step).reshape(step.shape[0], n, -1).transpose(0, 1)
+        skips = _stack_autograd(x0, step_proj, cond, k_cond, b_cond, w_dil, b_dil, w_out,
+                                b_out, dilations=denoiser.dilations)
+        x = torch.relu(pointwise(skips * (n ** -0.5), denoiser.skip_projection))
+        return pointwise(x, denoiser.output_projection)
+
+    return forward
+
+
+def build_crf_synth(torch, seed: int = 0):
+    """``build_synth`` with configs/lj/ds_beta6.yaml as shipped (cwt pitch,
+    float32 stack) and ``dur_loss: crf``: the duration head's emissions favour
+    6-10 frames a phone, and its Viterbi path picks each duration."""
+    import torch.nn as nn
+
+    from diffsinger_tpu_torch.config.hparams import set_hparams
+    from diffsinger_tpu_torch.inference.serve import FusedSynthesizer
+    from diffsinger_tpu_torch.inference.vocoder import HifiGAN
+    from diffsinger_tpu_torch.training.tasks import DiffSingerTask
+
+    hp = set_hparams(str(ROOT / "configs" / "lj" / "ds_beta6.yaml"))
+    hp.update(dur_loss="crf", seed=seed)
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(seed)
+        task = DiffSingerTask(hp, vocab_size=80, device="cpu")
+        voc = HifiGAN(hp, device="cpu")
+        with torch.no_grad():
+            nn.init.normal_(task.denoise_fn.output_projection.weight, 0.0, 0.05)
+            for m in voc.model.modules():
+                if isinstance(m, (nn.Conv1d, nn.ConvTranspose1d)):
+                    m.reset_parameters()
+            lin = task.fs2.dur_predictor.linear
+            lin.weight.mul_(2.0)
+            lin.bias.fill_(-2.0)
+            lin.bias[6:11] = torch.tensor([1.0, 1.4, 1.6, 1.4, 1.0])
+            stats = task.fs2.cwt_stats_layers[4]   # log-F0 around 5.2, as build_synth
+            stats.weight.mul_(0.1)
+            stats.bias.copy_(torch.tensor([5.2, 0.35]))
+    return hp, FusedSynthesizer(hp, task, voc)  # the card
+
+
+def phase_crf(torch, ds, mrf, tr, card: str, out_dir: Path, steps: int = 5):
+    """``dur_loss: crf`` with configs/lj/ds_beta6.yaml: five float32 training
+    steps on the cwt batch at 24 x 1024 (the training kernels). The first
+    step: on 2 rows against the same step on the CPU in float64 by
+    ``train_fs2``'s criterion for the FS2 side (the CRF head and the other
+    predictors, which the denoiser does not reach; the losses all), and the
+    training kernels against their plain twins by ``step_vs_plain`` and
+    ``step_agrees_f32`` (the denoiser's gradients: a card step and a CPU
+    step flip the ReLU after the skip projection at other near-zero inputs,
+    so their denoiser gradients are printed, not judged). Then one 8 x 1024
+    FusedSynthesizer batch on the CRF's Viterbi durations, the decode
+    against the CPU's, the smallest best-to-second-best path gap, and log Z
+    against a float64 host evaluation."""
+    import copy
+
+    import numpy as np
+
+    from diffsinger_tpu_torch.ops import crf as crf_ops
+
+    hp, trainer = build_task_trainer(torch, "configs/lj/ds_beta6.yaml", 80, dur_loss="crf")
+    crf_mod = getattr(trainer.task.fs2.dur_predictor, "crf", None)
+    if crf_mod is None or not crf_mod.transitions.requires_grad:
+        raise AssertionError("crf: the duration head holds no trainable CRF")
+    host = synthetic_cwt_batch(np.random.RandomState(0), 24, 128, 1024)
+    batch = trainer.prepare_batch(host)
+    rows = 2
+    g = torch.Generator().manual_seed(9)
+    t = torch.randint(0, int(hp["K_step"]), (rows,), generator=g)
+    noise = torch.randn((rows, 1024, 80), generator=g)
+    from diffsinger_tpu_torch.training import tasks
+
+    with mock.patch.object(tasks, "diffnet_train_forward", _train_forward_f64_on_cpu(tasks)):
+        vs_cpu = card_vs_cpu_step(torch, hp, trainer, batch, 80, rows=rows, draws=(t, noise),
+                                  judged=lambda n: n.startswith("fs2."))
+    vs_plain = step_vs_plain(torch, tr, trainer, batch, int(hp["K_step"]))
+    trainer.train_step(batch)  # warm
+    timed, history = timed_steps(torch, tr, trainer, batch, steps)
+    med_ms = float(np.median(timed["step_ms"]))
+    train = {"config": "configs/lj/ds_beta6.yaml, dur_loss: crf (cwt pitch, float32 stack)",
+             "B": 24, "T_mel": 1024, "steps": steps, **timed, "ms_per_step_median": med_ms,
+             "mel_frames_per_s": 24 * 1024 / (med_ms / 1e3), "first_loss": history[0],
+             "last_loss": history[-1], "card_vs_cpu_rows": rows, "card_vs_cpu": vs_cpu,
+             "kernel_vs_plain": vs_plain}
+    del trainer, batch
+
+    hp_s, syn = build_crf_synth(torch)
+    rng = np.random.RandomState(5)
+    big = [({"txt_tokens": rng.randint(3, 80, size=(1, 128)).astype(np.int64)}, 1024)
+           for _ in range(8)]
+    syn.warmup([1024], batch_sizes=(8,))
+    ds.diffnet_stack.launches = 0
+    mrf.mrf_stage.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    wavs = syn.synthesize_many(big)
+    torch.cuda.synchronize()
+    t_batch = time.perf_counter() - t0
+    launches = {"diffnet_stack": ds.diffnet_stack.launches, "mrf_stage": mrf.mrf_stage.launches,
+                "diffnet_train_fwd": timed["launches"]["diffnet_train_fwd"],
+                "diffnet_train_bwd": timed["launches"]["diffnet_train_bwd"]}
+    # the decode the batch ran, on the card and on the CPU
+    tokens = torch.from_numpy(np.concatenate([b["txt_tokens"] for b, _ in big]))
+    (t_b, _, _), = syn.plan(big)
+    fs2_cpu = copy.deepcopy(syn.task.fs2).cpu().eval()
+    valid = tokens != 0
+    valid[:, 0] = True
+    with torch.no_grad():
+        ret = syn.task.fs2(tokens.cuda(), t_mel=t_b, skip_decoder=True)
+        ret_cpu = fs2_cpu(tokens, t_mel=t_b, skip_decoder=True)
+        tables = [p.cpu().double() for p in fs2_cpu.dur_predictor.crf.tables()]
+        gap = crf_ops.crf_viterbi_gap(ret_cpu["dur"].double(), valid, *tables)
+        log_z = crf_ops.crf_log_partition(ret["dur"], valid.cuda(),
+                                          *syn.task.fs2.dur_predictor.crf.tables())
+        log_z64 = crf_ops.crf_log_partition(ret["dur"].cpu().double(), valid, *tables)
+    dur, dur_cpu = ret["dur_choice"].cpu(), ret_cpu["dur_choice"]
+    log_z = log_z.cpu().double()
+    frames = [int(m) for m in (ret["mel2ph"] > 0).sum(1).cpu()]
+    serve = {"B": 8, "T_txt": 128, "T_mel": 1024, "latency_s": t_batch,
+             "mel_frames_per_s": sum(frames) / t_batch, "frames": frames,
+             "dur_choice_equal_cpu": bool(torch.equal(dur, dur_cpu)),
+             "dur_choice_differs_at": int((dur != dur_cpu).sum()),
+             "dur_mean": float(dur.float().mean()), "dur_range": [int(dur.min()), int(dur.max())],
+             "viterbi_min_gap": float(gap.min()),
+             "log_z_max_rel_vs_float64": float(((log_z - log_z64).abs() / log_z64.abs()).max()),
+             "wav_samples": [len(w) for w in wavs],
+             "finite": all(bool(np.isfinite(w).all()) for w in wavs)}
+    out = {"card": card, "train": train, "serve": serve, "launches": launches}
+    print("crf", json.dumps(out), flush=True)
+    k_step = int(hp_s["K_step"])
+    if {k: launches[k] for k in ("diffnet_stack", "mrf_stage")} != {"diffnet_stack": k_step,
+                                                                     "mrf_stage": 3}:
+        raise AssertionError(f"crf: serving launches {launches}, expected {k_step} / 3")
+    if timed["launches"] != {"diffnet_train_fwd": steps, "diffnet_train_bwd": steps}:
+        raise AssertionError(f"crf: training launches {timed['launches']}")
+    if not ({"pdur", "mel"} <= set(history[0]) and not {"wdur", "sdur"} & set(history[0])):
+        raise AssertionError(f"crf: loss terms {sorted(history[0])}")
+    if not all(np.isfinite(v) for h in history for v in h.values()):
+        raise AssertionError(f"crf: non-finite losses {history}")
+    if not (max(vs_cpu["loss_rel"].values()) <= 1e-4 and vs_cpu["grad_excess_worst"][0] <= 1e-3):
+        raise AssertionError(f"crf: card vs CPU {vs_cpu}")
+    if not step_agrees_f32(vs_plain):
+        raise AssertionError(f"crf: train step kernel vs plain {vs_plain}")
+    if not (serve["dur_choice_equal_cpu"] and serve["log_z_max_rel_vs_float64"] <= 1e-5
+            and serve["finite"] and serve["wav_samples"] == [f * 256 for f in frames]):
+        raise AssertionError(f"crf: serving {serve}")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -2363,23 +2987,30 @@ def main() -> int:
     training_pe = phase_train_pe(torch, card, out_dir)
     cli_run = phase_cli(torch, ds, mrf, tr, card, out_dir)
     cascade = phase_cli_cascade(torch, ds, mrf, tr, card, out_dir)
+    web = phase_serve_web(torch, ds, mrf, card, out_dir)
+    vocoders = phase_vocoders(torch, mrf, card, out_dir)
+    crf = phase_crf(torch, ds, mrf, tr, card, out_dir)
 
     main_stack = stack_rows[0]                        # bf16, cycle 1: serving config
     # float32, cycle 1, 8 x 1024: the shipped configs' body (serve_shipped)
     f32_stack = next(r for r in stack_rows if r["dtype"] == "float32" and r["B"] == 8
                      and r["C"] == 256 and r["cycle"] == 1)
     main_mrf = [r for r in mrf_rows if r["dtype"] == "float32" and r["B"] == 8]
+    # bfloat16 at C = 128 / 64 / 32 (8 x 1024 mel frames): the bf16 vocoder's scales
+    bf16_mrf = [r for r in mrf_rows if r["dtype"] == "bfloat16" and r["B"] == 8]
 
     def path_launches(name, paths):
-        """A kernel's launches on each main path it runs, and their sum."""
-        by_path = {path: out["launches"][name] for path, out in paths.items()}
+        """A kernel's launches on each main path that runs it, and their sum."""
+        by_path = {path: out["launches"][name] for path, out in paths.items()
+                   if name in out["launches"]}
         return {"launches": sum(by_path.values()), "launches_by_path": by_path}
 
     serve_paths = {"serving": serving, "serve_cwt": serving_cwt, "singing": singing,
-                   "serve_shipped": shipped, "cli": cli_run, "cli_cascade": cascade}
+                   "serve_shipped": shipped, "cli": cli_run, "cli_cascade": cascade,
+                   "serve_web": web, "vocoders": vocoders, "crf": crf}
     train_paths = {"train": training, "train_cwt": training_cwt,
                    "train_shipped": training_shipped, "train_midi": training_midi,
-                   "cli": cli_run, "cli_cascade": cascade}
+                   "cli": cli_run, "cli_cascade": cascade, "crf": crf}
 
     kernels = [
         {"name": "diffnet_stack", "route": "cuda",
@@ -2407,7 +3038,19 @@ def main() -> int:
          "plain_ms": sum(r["plain_ms"] for r in main_mrf),
          "bound_ms": sum(r["bound_ms"] for r in main_mrf),
          "bound_by": main_mrf[0]["bound_by"],
-         "library_ms": None, "configs": mrf_rows},
+         "library_ms": None,
+         "bfloat16": {"max_abs_err": max(r["max_abs_err"] for r in bf16_mrf),
+                      "tolerance": min(r["tolerance"] for r in bf16_mrf),
+                      "ms": sum(r["ms"] for r in bf16_mrf),
+                      "plain_ms": sum(r["plain_ms"] for r in bf16_mrf),
+                      "bound_ms": sum(r["bound_ms"] for r in bf16_mrf),
+                      "bound_by": bf16_mrf[0]["bound_by"], "body": "simt",
+                      "by_C": [{k: r[k] for k in ("C", "T", "ms", "plain_ms", "bound_ms",
+                                                  "bound_by")}
+                               | {"bound_share": r["bound_ms"] / r["ms"]} for r in bf16_mrf],
+                      "launches": vocoders["launches"]["mrf_stage"],
+                      "launches_path": "vocoders"},
+         "configs": mrf_rows},
     ]
     main_train = train_rows[0]                        # bf16, cycle 1: the slice config
     # float32, cycle 1, 24 x 1024: what the shipped configs train with
@@ -2464,7 +3107,8 @@ def main() -> int:
                    "training": training, "train_profile": train_profile,
                    "train_cwt": training_cwt, "train_shipped": training_shipped,
                    "train_fs2": training_fs2, "train_midi": training_midi,
-                   "train_pe": training_pe, "cli": cli_run, "cli_cascade": cascade}, f,
+                   "train_pe": training_pe, "cli": cli_run, "cli_cascade": cascade,
+                   "serve_web": web, "vocoders": vocoders, "crf": crf}, f,
                   indent=1)
     print(card)
     print(json.dumps({"kernels": kernels}))

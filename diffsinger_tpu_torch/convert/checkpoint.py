@@ -95,6 +95,31 @@ def fold_weight_norm(sd: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
     return out
 
 
+def generator_state_dict(raw: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """A vocoder checkpoint, already loaded -> the generator's flat state
+    dict with weight norm folded: the generator sits under ``model_gen``
+    (upstream's ``state_dict``), ``generator`` (the official HiFi-GAN and
+    ParallelWaveGAN releases, whose ``model`` dict holds it) or ``model``."""
+    sd = load_torch_state_dict(raw, prefix="")
+    for key in ("model_gen", "generator", "model"):
+        inner = sub_dict(sd, key)
+        if inner:
+            sd = inner
+            break
+    return fold_weight_norm(sd)
+
+
+def convert_pwg(raw: Dict[str, Any]) -> Tuple[Dict[str, torch.Tensor], bool]:
+    """A loaded ParallelWaveGAN checkpoint -> (the port's ``ParallelWaveGANGenerator``
+    state dict, whether it is an official release). Upstream's layout keeps
+    the generator under ``state_dict.model_gen``; the official
+    ``checkpoint-*steps.pkl`` under ``model.generator``, with no
+    ``state_dict``, and its mels must be standardized by the release's
+    statistics. The port's PWG carries upstream's key names, so only the
+    weight-norm pairs change."""
+    return generator_state_dict(raw), "state_dict" not in raw
+
+
 def sub_dict(sd: Dict[str, torch.Tensor], prefix: str) -> Dict[str, torch.Tensor]:
     """The entries under ``prefix + '.'``, with that prefix removed."""
     p = prefix + "."

@@ -114,6 +114,9 @@ FS2_RULES: List[Rule] = [
     *_dense("(mel_out|midi_dur_layer|spk_embed_proj)", r"\1"),
     *_dense("cwt_in_proj", "cwt_predictor.0"), *_dense("cwt_stats_0", "cwt_stats_layers.0"),
     *_dense("cwt_stats_1", "cwt_stats_layers.2"), *_dense("cwt_stats_2", "cwt_stats_layers.4"),
+    # the dur_loss: crf head's CRF, torchcrf's names
+    (r"dur_predictor/crf/(start_transitions|end_transitions|transitions)",
+     r"dur_predictor.crf.\1", None),
 ] + _fft_rules() + _predictor_rules() + _predictor_rules("cwt_predictor", "cwt_predictor.1")
 
 DIFFNET_RULES: List[Rule] = [
@@ -141,10 +144,32 @@ HIFIGAN_RULES: List[Rule] = [
     (r"ups_(\d+)/bias", r"ups.\1.bias", None),
     (r"resblocks_(\d+)/convs(1|2)_(\d+)/kernel", r"resblocks.\1.convs\2.\3.weight", _conv),
     (r"resblocks_(\d+)/convs(1|2)_(\d+)/bias", r"resblocks.\1.convs\2.\3.bias", None),
+    # resblock '2': one conv per dilation
+    (r"resblocks_(\d+)/convs_(\d+)/kernel", r"resblocks.\1.convs.\2.weight", _conv),
+    (r"resblocks_(\d+)/convs_(\d+)/bias", r"resblocks.\1.convs.\2.bias", None),
     (r"noise_convs_(\d+)/kernel", r"noise_convs.\1.weight", _conv),
     (r"noise_convs_(\d+)/bias", r"noise_convs.\1.bias", None),
     (r"m_source/l_linear/kernel", "m_source.l_linear.weight", _linear),
     (r"m_source/l_linear/bias", "m_source.l_linear.bias", None),
+]
+
+# ParallelWaveGAN: the per-scale 2D smoothing convs (HWIO [kf, kt, 1, 1]) sit
+# at the odd indices of upstream's up_layers, after each stretch
+PWG_RULES: List[Rule] = [
+    (r"(first_conv|upsample_net/conv_in)/kernel",
+     lambda m: m.group(1).replace("/", ".") + ".weight", _conv),
+    (r"first_conv/bias", "first_conv.bias", None),
+    (r"conv_layers_(\d+)/(conv|conv1x1_aux|conv1x1_skip|conv1x1_out)/kernel",
+     r"conv_layers.\1.\2.weight", _conv),
+    (r"conv_layers_(\d+)/(conv|conv1x1_skip|conv1x1_out)/bias", r"conv_layers.\1.\2.bias",
+     None),
+    (r"last_conv_(1|3)/kernel", r"last_conv_layers.\1.weight", _conv),
+    (r"last_conv_(1|3)/bias", r"last_conv_layers.\1.bias", None),
+    (r"upsample_net/up_conv_(\d+)",
+     lambda m: f"upsample_net.upsample.up_layers.{2 * int(m.group(1)) + 1}.weight",
+     lambda w: w.transpose(3, 2, 0, 1)),
+    (r"pitch_embed/embedding", "pitch_embed.weight", None),
+    *_dense("c_proj", "c_proj"),
 ]
 
 # the FFT denoiser (diff_decoder_type: fft), upstream FFT of
@@ -187,6 +212,11 @@ def denoiser_state_dict(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
 def hifigan_state_dict(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
     """JAX ``HifiGanGenerator`` params -> the port's generator state_dict."""
     return apply_rules(params, HIFIGAN_RULES)
+
+
+def pwg_state_dict(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """JAX ``ParallelWaveGANGenerator`` params -> the port's generator state_dict."""
+    return apply_rules(params, PWG_RULES)
 
 
 def pe_state_dict(variables: Dict[str, Any]) -> Dict[str, torch.Tensor]:

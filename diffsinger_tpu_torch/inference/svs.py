@@ -5,16 +5,22 @@ diffsinger_tpu/inference/svs.py).
 level (the ``transcriptions.txt`` format: phonemes, notes, note durations,
 slur flags) or word level (Chinese lyrics through pinyin, one note group per
 word, the extra notes of a word sung as slurs on its last phone). The batch
-runs through the port's ``FusedSynthesizer``: conditioner, reverse diffusion,
+runs through the port's ``FusedSynthesizer`` (``fused_infer``, on unless set
+false, with a HiFiGAN vocoder): conditioner, reverse diffusion,
 PitchExtractor (``DiffSingerE2EInfer``) or the model's own F0
-(``DiffSingerCascadeInfer``), and the NSF vocoder, all on the device.
+(``DiffSingerCascadeInfer``), and the NSF vocoder, all on the device. With
+``fused_infer: false`` (or a vocoder the synthesizer does not take, such as
+PWG) it runs the JAX package's unfused path: ``task.inference``, the mel cut
+to its frames, the class's ``extract_f0`` and ``vocoder.spec2wav``. Every
+request draws from a generator seeded with ``hp['seed']`` afresh, so one
+input gives one waveform whatever the thread or the request before it.
 
 What the caller does not pass is built from the run's files, as the JAX
 ``build_model`` / ``_build_pe`` do: the task from the newest checkpoint of
-``work_dir`` (through ``Trainer.initialize``), the vocoder through
-``HifiGAN(hp)`` (``vocoder_ckpt``) and the PitchExtractor from ``pe_ckpt``
-(``pe_enable``). An object passed for a part whose checkpoint is also on disk
-raises rather than silently leave one of the two unused.
+``work_dir`` (through ``Trainer.initialize``), the vocoder of ``hp['vocoder']``
+(``vocoder_ckpt``) and the PitchExtractor from ``pe_ckpt`` (``pe_enable``).
+An object passed for a part whose checkpoint is also on disk raises rather
+than silently leave one of the two unused.
 """
 
 from __future__ import annotations
@@ -23,13 +29,15 @@ import os
 from typing import Any, Dict, Optional
 
 import numpy as np
+import torch
 
 from diffsinger_tpu_torch.data.binarize import note_to_midi
 from diffsinger_tpu_torch.data.text.pinyin import build_pinyin2ph_map
-from diffsinger_tpu_torch.inference.serve import FusedSynthesizer
-from diffsinger_tpu_torch.inference.synthesize import _maybe_load_pe
-from diffsinger_tpu_torch.inference.vocoder import HifiGAN
+from diffsinger_tpu_torch.inference.serve import FusedSynthesizer, _as_noise
+from diffsinger_tpu_torch.inference.synthesize import _maybe_load_pe, _PEWrapper
+from diffsinger_tpu_torch.inference.vocoder import HifiGAN, get_vocoder_cls
 from diffsinger_tpu_torch.utils.device import resolve_device
+from diffsinger_tpu_torch.utils.misc import save_wav
 from diffsinger_tpu_torch.utils.text_encoder import TokenTextEncoder
 
 # the opencpop models' 60-phone Chinese vocabulary (ids 3-62 after the reserved ones)
@@ -71,18 +79,29 @@ class BaseSVSInfer:
                 raise ValueError(f"{key}={hp[key]} holds a checkpoint and an object for it "
                                  "was passed as well: pass one of the two")
         self.hp = hp
+        self.device = dev
         self.ph_encoder = TokenTextEncoder(CPOP_PHONE_LIST, replace_oov=",")
         self.pinyin2phs = build_pinyin2ph_map()
         self.spk_map = {"opencpop": 0}
         if task is None:
             task = self.build_model(dev)
         if vocoder is None:
-            vocoder = HifiGAN(hp, device=dev)
-        if pe is None and self.uses_pe:
-            loaded = _maybe_load_pe(hp, device=dev)
-            pe = loaded.module if loaded is not None else None
-        self.fused = FusedSynthesizer(hp, task, vocoder, pe=pe if self.uses_pe else None,
-                                      device=dev)
+            vocoder = get_vocoder_cls(hp)(hp, device=dev)
+        self.pe = None
+        if self.uses_pe:
+            self.pe = (_maybe_load_pe(hp, device=dev) if pe is None
+                       else _PEWrapper(pe, hp, dev))
+        self.task, self.vocoder = task, vocoder
+        self.fused = None
+        if hp.get("fused_infer", True) and isinstance(vocoder, HifiGAN):
+            self.fused = FusedSynthesizer(
+                hp, task, vocoder, pe=self.pe.module if self.pe is not None else None,
+                device=dev)
+        else:
+            for part in (task, vocoder):
+                if part.device != dev:
+                    part.to(dev)
+            task.device = dev
 
     def build_model(self, device):
         """The task with the newest checkpoint of ``work_dir`` restored."""
@@ -177,10 +196,30 @@ class BaseSVSInfer:
 
     def forward_model(self, item, noise=None, source=None,
                       seed: Optional[int] = None) -> np.ndarray:
-        """One item through the synthesizer; ``noise`` and ``source`` fix the
-        draws as in ``FusedSynthesizer.__call__``."""
-        return self.fused(self.input_to_batch(item), self.estimate_t_mel(item),
-                          noise=noise, seed=seed, source=source)
+        """One item to a waveform; ``noise`` and ``source`` fix the draws as
+        in ``FusedSynthesizer.__call__`` (unfused: the sampler's noise at the
+        item's own ``t_mel``, and the NSF source draws of the trimmed mel);
+        a generator seeded with ``seed`` (default ``hp['seed']``) draws the
+        rest."""
+        batch, t_mel = self.input_to_batch(item), self.estimate_t_mel(item)
+        if self.fused is not None:
+            return self.fused(batch, t_mel, noise=noise, seed=seed, source=source)
+        gen = torch.Generator(device=self.device)
+        gen.manual_seed(int(self.hp.get("seed", 1234) if seed is None else seed))
+        with torch.no_grad():
+            out = self.task.inference(batch, t_mel=t_mel, use_gt_dur=False, use_gt_f0=False,
+                                      noise=None if noise is None else _as_noise(noise),
+                                      generator=gen)
+        mel = out["mel_out"][0].float().cpu().numpy()
+        n = int((out["mel2ph"][0] > 0).sum()) or mel.shape[0]
+        mel = mel[:n]
+        f0 = self.extract_f0(out, mel)
+        kw = {"source": source} if isinstance(self.vocoder, HifiGAN) else {}
+        return self.vocoder.spec2wav(mel, f0=f0, generator=gen, **kw)
+
+    def extract_f0(self, out: Dict[str, Any], mel: np.ndarray) -> Optional[np.ndarray]:
+        """The F0 [T] (Hz) that drives an NSF vocoder on the unfused path."""
+        raise NotImplementedError
 
     def infer_once(self, inp: Dict[str, str], **kw) -> np.ndarray:
         item = self.preprocess_input(inp, inp.get("input_type", "word"))
@@ -188,10 +227,31 @@ class BaseSVSInfer:
             raise ValueError("the input's phonemes, notes and durations do not line up")
         return self.forward_model(item, **kw)
 
+    @classmethod
+    def example_run(cls, hp: Dict[str, Any], inp: Dict[str, str],
+                    out_fn: str = "infer_out/example_out.wav", device="cuda") -> str:
+        """Build the model from the run's files, sing ``inp`` and write the
+        waveform to ``out_fn``."""
+        wav = cls(hp, device=device).infer_once(inp)
+        os.makedirs(os.path.dirname(out_fn) or ".", exist_ok=True)
+        save_wav(wav, out_fn, hp["audio_sample_rate"])
+        return out_fn
+
+
+def _f0_denorm(out: Dict[str, Any], mel: np.ndarray) -> Optional[np.ndarray]:
+    if out.get("f0_denorm") is None:
+        return None
+    return out["f0_denorm"][0, : mel.shape[0]].float().cpu().numpy()
+
 
 class DiffSingerE2EInfer(BaseSVSInfer):
     """e2e: F0 re-extracted from the generated mel by the PitchExtractor (the
     model's own ``f0_denorm`` when no PitchExtractor is given)."""
+
+    def extract_f0(self, out, mel):
+        if self.pe is not None:
+            return self.pe.predict(mel)
+        return _f0_denorm(out, mel)
 
 
 class DiffSingerCascadeInfer(BaseSVSInfer):
@@ -199,6 +259,9 @@ class DiffSingerCascadeInfer(BaseSVSInfer):
     PitchExtractor is given."""
 
     uses_pe = False
+
+    def extract_f0(self, out, mel):
+        return _f0_denorm(out, mel)
 
 
 # phoneme-level example in the opencpop transcription format (a slur on the

@@ -1,9 +1,15 @@
 """Vocoders (counterpart of diffsinger_tpu/inference/vocoder.py): the
-registry, HiFiGAN (with NSF) and the Griffin-Lim fallback.
+registry, HiFiGAN (with NSF), ParallelWaveGAN and the Griffin-Lim fallback,
+``BaseVocoder.wav2spec`` and the spectral-subtraction ``denoise``.
 
 ``HifiGAN.apply`` runs the serving forward, ``ops/hifigan_mrf.py:
 hifigan_mrf_apply``: the MRF scales of at most 128 channels go through the
-hand-written kernel. NSF is on with ``use_nsf`` (or ``use_pitch_embed``
+hand-written kernel, in float32 or, with ``vocoder_compute_dtype:
+bfloat16``, in bf16. The JAX package's ``vocoder_backend`` values
+(``module``, ``mrf``, ``packed``, ``fast``) name layouts of one function on
+the TPU; here all four take that one path, and ``mrf`` / ``packed`` keep
+their refusal of ``resblock: '2'`` (whose generator runs its convolutions
+outside the kernel). NSF is on with ``use_nsf`` (or ``use_pitch_embed``
 beside an explicit geometry), as the JAX wrapper keys it; an NSF call given
 F0 draws its source from ``source`` (rand_ini, noise) or a
 ``torch.Generator``. The MRF weights are packed into the kernel layout at the
@@ -13,13 +19,17 @@ first ``apply`` and kept; ``load_state_dict`` and ``to`` repack.
 of that directory with the geometry of its ``config.yaml``, or the official
 release layout (``config.json`` + ``generator_v1``); the generator sits under
 ``model_gen``, ``generator`` or ``model``, and weight-norm pairs are folded.
-``spec2wav`` / ``spec2wav_batch`` vocode by Griffin-Lim (numpy + scipy on the
-host) when neither a checkpoint nor the caller's ``load_state_dict`` gave the
+``PWG(hp)`` loads the newest ``model_ckpt_steps_*.ckpt`` or, failing that,
+the official ``checkpoint-*steps.pkl`` with its mel statistics
+(``stats.h5`` when ``h5py`` imports, else ``stats.npy``). ``spec2wav`` /
+``spec2wav_batch`` vocode by Griffin-Lim (numpy + scipy on the host) when
+neither a checkpoint nor the caller's ``load_state_dict`` gave the
 generator its weights, as the JAX wrapper does when it has no params.
 """
 
 from __future__ import annotations
 
+import glob
 import json
 import os
 from typing import Any, Dict, List, Optional, Sequence, Tuple, Type
@@ -27,16 +37,18 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple, Type
 import numpy as np
 import torch
 
-from diffsinger_tpu_torch.convert.checkpoint import (find_latest_ckpt, fold_weight_norm,
-                                                     load_torch_state_dict, sub_dict)
+from diffsinger_tpu_torch.convert.checkpoint import (convert_pwg, find_latest_ckpt,
+                                                     generator_state_dict, torch_load)
 from diffsinger_tpu_torch.models.hifigan import HifiGanConfig, HifiGanGenerator, draw_source
+from diffsinger_tpu_torch.models.pwg import ParallelWaveGANGenerator, PWGConfig
 from diffsinger_tpu_torch.ops.hifigan_mrf import hifigan_mrf_apply, pack_mrf_scales
-from diffsinger_tpu_torch.ops.mel import MelConfig, mel_filterbank
+from diffsinger_tpu_torch.ops.mel import MelConfig, mel_filterbank, wav2spec
 from diffsinger_tpu_torch.utils.device import resolve_device
+from diffsinger_tpu_torch.utils.pitch import f0_to_coarse_np
 
 VOCODERS: Dict[str, Type] = {}
-# vocoders of the JAX package the port does not have yet
-_NOT_PORTED = ("pwg", "melgan")
+# the JAX package's vocoder_backend values: layouts of one generator function
+BACKENDS = ("module", "mrf", "packed", "fast")
 
 
 def register_vocoder(cls):
@@ -50,9 +62,6 @@ def get_vocoder_cls(hp) -> Type:
     name = str(hp.get("vocoder", "hifigan")).split(".")[-1].lower()
     if name in VOCODERS:
         return VOCODERS[name]
-    if name in _NOT_PORTED:
-        raise NotImplementedError(f"vocoder {hp.get('vocoder')} is not ported yet "
-                                  "(ROADMAP.md Queue 1 item 7)")
     raise KeyError(f"unknown vocoder {hp.get('vocoder')}")
 
 
@@ -92,24 +101,46 @@ def _vocoder_hparams(hp: Dict[str, Any]) -> Tuple[Dict[str, Any], Optional[str]]
     return gen_hp, ckpt
 
 
+def _host(a) -> Optional[np.ndarray]:
+    if a is None:
+        return None
+    return np.asarray(a.detach().cpu() if isinstance(a, torch.Tensor) else a, np.float32)
+
+
+class BaseVocoder:
+    def spec2wav(self, mel, **kwargs) -> np.ndarray:
+        raise NotImplementedError
+
+    @staticmethod
+    def wav2spec(wav_fn: str, hp) -> Tuple[np.ndarray, np.ndarray]:
+        """A wav file -> (waveform, log10 mel [T, M]), conditioned as the
+        binarizer conditions it (``trim_long_sil``, ``loud_norm``)."""
+        from diffsinger_tpu_torch.data.binarize import condition_wav
+        from diffsinger_tpu_torch.utils.misc import load_wav
+
+        cfg = MelConfig.from_hparams(hp)
+        wav = condition_wav(load_wav(wav_fn, cfg.sample_rate), hp, cfg.sample_rate)
+        return wav2spec(wav, cfg)
+
+
 @register_vocoder
-class HifiGAN:
+class HifiGAN(BaseVocoder):
     def __init__(self, hp: Dict[str, Any], device="cuda"):
         self.device = resolve_device(device)
         self.hp = hp
         gen_hp, ckpt = _vocoder_hparams(hp)
         self.cfg = HifiGanConfig.from_hparams(gen_hp)
+        backend = str(hp.get("vocoder_backend", "module"))
+        if backend not in BACKENDS:
+            raise ValueError(f"vocoder_backend={backend}: one of {BACKENDS}")
+        if backend in ("mrf", "packed") and self.cfg.resblock != "1":
+            raise ValueError(f"vocoder_backend '{backend}' supports resblock '1' "
+                             "(the released HiFiGAN v1 configs)")
         self.model = HifiGanGenerator(self.cfg).eval()
         self._packed = None
         self.has_weights = False
         if ckpt is not None:
-            sd = load_torch_state_dict(ckpt, prefix="")
-            for key in ("model_gen", "generator", "model"):
-                inner = sub_dict(sd, key)
-                if inner:
-                    sd = inner
-                    break
-            self.load_state_dict(fold_weight_norm(sd))
+            self.load_state_dict(generator_state_dict(torch_load(ckpt)))
             print(f"| loaded hifigan vocoder from {ckpt}")
         self.model.to(self.device)
 
@@ -152,7 +183,7 @@ class HifiGAN:
         """mel [T, M], f0 [T] -> wav [T * hop]. The mel is padded to
         ``vocoder_pad_multiple`` frames with its minimum and F0 with zeros
         (unvoiced); NSF ``source`` draws then cover the padded length."""
-        mel = np.asarray(mel.cpu() if isinstance(mel, torch.Tensor) else mel, np.float32)
+        mel = _host(mel)
         if not self.has_weights:
             return GriffinLim(self.hp).spec2wav(mel)
         t = int(mel.shape[0])
@@ -160,8 +191,7 @@ class HifiGAN:
         if t_pad != t:
             mel = np.pad(mel, ((0, t_pad - t), (0, 0)), constant_values=float(mel.min()))
             if f0 is not None:
-                f0 = np.pad(np.asarray(f0.cpu() if isinstance(f0, torch.Tensor) else f0,
-                                       np.float32), (0, t_pad - t))
+                f0 = np.pad(_host(f0), (0, t_pad - t))
         f0_b = None if f0 is None else _to_tensor(f0, self.device)[None]
         wav = self.apply(mel[None], f0_b, generator=generator, source=source)
         return wav[0, : t * self.cfg.total_upsample].cpu().numpy()
@@ -180,8 +210,123 @@ class HifiGAN:
         return [wav[i, : int(n) * hop] for i, n in enumerate(lengths)]
 
 
+def _load_pwg_stats(base_dir: str, fmt: str) -> Tuple[np.ndarray, np.ndarray]:
+    """An official PWG release's mel statistics -> (mean, scale), each [M]:
+    ``stats.h5`` (datasets ``mean`` and ``scale``) when the config's
+    ``format`` is ``hdf5`` and ``h5py`` imports, else ``stats.npy`` (rows
+    mean and scale), else ``stats.h5`` through ``h5py`` after all. Raises
+    when neither file is there: a mel that is not standardized would give a
+    wrong waveform without a word."""
+    h5 = os.path.join(base_dir, "stats.h5")
+    npy = os.path.join(base_dir, "stats.npy")
+
+    def read_h5():
+        import h5py
+
+        with h5py.File(h5, "r") as f:
+            return np.asarray(f["mean"], np.float32), np.asarray(f["scale"], np.float32)
+
+    if fmt == "hdf5" and os.path.exists(h5):
+        try:
+            return read_h5()
+        except ImportError:
+            if not os.path.exists(npy):
+                raise
+    if os.path.exists(npy):
+        stats = np.load(npy).astype(np.float32)
+        return stats[0], stats[1]
+    if os.path.exists(h5):
+        return read_h5()
+    raise FileNotFoundError(
+        f"official PWG checkpoint in {base_dir} needs stats.h5/stats.npy "
+        "(training-set mel mean/scale) — refusing to synthesize from "
+        "un-standardized mels")
+
+
 @register_vocoder
-class GriffinLim:
+class PWG(BaseVocoder):
+    """ParallelWaveGAN: the generator from ``vocoder_ckpt`` (its
+    ``config.yaml`` gives the geometry; upstream's checkpoint or the official
+    ``.pkl`` with its statistics). ``spec2wav`` standardizes the mel per bin
+    for an official release, pads it to ``vocoder_pad_multiple`` frames and
+    by ``aux_context_window`` frames at each edge (edge values), and feeds
+    noise ``z`` at the audio rate (given, or drawn from a generator, seeded
+    0 when none is given) and, for a pitch-embedding PWG, the coarse pitch of
+    F0. Griffin-Lim without a checkpoint."""
+
+    def __init__(self, hp: Dict[str, Any], device="cuda"):
+        self.device = resolve_device(device)
+        self.hp = hp
+        base_dir = hp.get("vocoder_ckpt") or ""
+        cfg_dict: Dict[str, Any] = {}
+        if base_dir and os.path.exists(os.path.join(base_dir, "config.yaml")):
+            import yaml
+
+            with open(os.path.join(base_dir, "config.yaml")) as f:
+                cfg_dict = yaml.safe_load(f) or {}
+        self.cfg = PWGConfig.from_config_dict(cfg_dict)
+        self.model = ParallelWaveGANGenerator(self.cfg).eval()
+        self.has_weights = False
+        self.scaler: Optional[Tuple[np.ndarray, np.ndarray]] = None  # (mean, scale)
+        ckpt = find_latest_ckpt(base_dir) if base_dir else None
+        if ckpt is None and base_dir:
+            pkls = sorted(glob.glob(os.path.join(base_dir, "checkpoint-*steps.pkl")))
+            ckpt = pkls[-1] if pkls else None
+        if ckpt is not None:
+            sd, official = convert_pwg(torch_load(ckpt))
+            if official:
+                self.scaler = _load_pwg_stats(base_dir, str(cfg_dict.get("format", "hdf5")))
+            self.load_state_dict(sd)
+            print(f"| loaded PWG vocoder from {ckpt}")
+        self.model.to(self.device)
+
+    def load_state_dict(self, state_dict, strict: bool = True):
+        out = self.model.load_state_dict(state_dict, strict=strict)
+        self.has_weights = True
+        return out
+
+    def to(self, device) -> "PWG":
+        self.device = torch.device(device)
+        self.model.to(self.device)
+        return self
+
+    @torch.no_grad()
+    def spec2wav(self, mel, f0=None, z=None,
+                 generator: Optional[torch.Generator] = None) -> np.ndarray:
+        """mel [T, M] (log10 domain), f0 [T] (Hz) -> wav [T * hop]. ``z``
+        [T_pad * hop] covers the padded length."""
+        mel = _host(mel)
+        if not self.has_weights:
+            return GriffinLim(self.hp).spec2wav(mel)
+        w = self.cfg.aux_context_window
+        hop = int(self.hp["hop_size"])
+        t = int(mel.shape[0])
+        if self.scaler is not None:
+            mean, scale = self.scaler
+            mel = (mel - mean) / scale
+        t_pad = pad_frames(t, self.hp)
+        f0 = _host(f0)
+        if t_pad != t:
+            mel = np.pad(mel, ((0, t_pad - t), (0, 0)), "edge")
+            if f0 is not None:
+                f0 = np.pad(f0, (0, t_pad - t))
+        c = np.pad(mel, ((w, w), (0, 0)), "edge")[None]
+        if z is None:
+            if generator is None:
+                generator = torch.Generator(device=self.device).manual_seed(0)
+            z = torch.randn((1, t_pad * hop), generator=generator, device=self.device)
+        else:
+            z = _to_tensor(z, self.device).reshape(1, -1)
+        pitch = None
+        if self.cfg.use_pitch_embed and f0 is not None:
+            pitch = torch.from_numpy(np.pad(f0_to_coarse_np(f0.copy()), (w, w), "edge")[None])
+            pitch = pitch.to(self.device, torch.long)
+        wav = self.model(z, _to_tensor(c, self.device), pitch)
+        return wav[0, : t * hop].cpu().numpy()
+
+
+@register_vocoder
+class GriffinLim(BaseVocoder):
     """Phase-retrieval vocoder that needs no checkpoint (numpy + scipy on the
     host; ``device`` is accepted for the registry's call and not used)."""
 
@@ -213,3 +358,16 @@ class GriffinLim:
         _, wav = istft(mag * angles, nperseg=nper, noverlap=nov, window="hann",
                        input_onesided=True)
         return wav.astype(np.float32)
+
+
+def denoise(wav: np.ndarray, hp, v: float = 0.1) -> np.ndarray:
+    """Spectral subtraction: every STFT magnitude lowered by ``v`` (floored
+    at 0), the phase kept."""
+    from scipy.signal import istft, stft
+
+    cfg = MelConfig.from_hparams(hp)
+    nper, nov = cfg.win_length, cfg.win_length - cfg.hop_size
+    _, _, spec = stft(wav, nperseg=nper, noverlap=nov, nfft=cfg.n_fft)
+    mag = np.maximum(np.abs(spec) - v, 0.0)
+    _, out = istft(mag * np.exp(1j * np.angle(spec)), nperseg=nper, noverlap=nov)
+    return out.astype(np.float32)

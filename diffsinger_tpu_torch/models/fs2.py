@@ -10,8 +10,8 @@ the e2e singing configs). Energy (``use_energy_embed``), speakers
 MIDI encoder inputs (``use_midi``, with ESPnet's relative positions under
 ``rel_pos``) as in the JAX model; ``fs2_compute_dtype: bfloat16`` runs the
 encoder's and decoder's projections in bf16 from float32 parameters.
-``dur_loss: crf`` raises (its CRF is not ported). Inference uses a static
-``t_mel`` bucket for length regulation, as the JAX model does.
+``dur_loss: crf`` decodes durations by the CRF's Viterbi path (``dur_choice``).
+Inference uses a static ``t_mel`` bucket for length regulation, as the JAX model does.
 Training mode is the forward with ``drop_gen`` (a ``torch.Generator`` for the
 dropout masks), given ``mel2ph``, ``f0``, ``uv`` and ``energy``, and usually
 ``skip_decoder=True`` (the diffusion conditioner). The predictors read their
@@ -77,9 +77,6 @@ class FS2Config:
 
     @classmethod
     def from_hparams(cls, hp: Dict[str, Any], vocab_size: int) -> "FS2Config":
-        if hp.get("dur_loss", "mse") == "crf":
-            raise NotImplementedError("dur_loss=crf: the CRF duration head is not "
-                                      "ported yet")
         fields = {f.name for f in dataclasses.fields(cls)}
         kw = {k: v for k, v in hp.items() if k in fields}
         kw["vocab_size"] = vocab_size
@@ -279,7 +276,7 @@ class FastSpeech2(nn.Module):
         if mel2ph is None:
             if t_mel is None:
                 raise ValueError("inference without mel2ph needs a static t_mel")
-            ret["dur_choice"] = dur = self.dur_predictor.out2dur(log_dur)
+            ret["dur_choice"] = dur = self.dur_predictor.decode(log_dur, src_padding)
             mel2ph = length_regulator(dur, t_mel, dur_padding=src_padding)
         ret["mel2ph"] = mel2ph
 

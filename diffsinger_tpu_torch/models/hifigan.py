@@ -1,13 +1,19 @@
-"""HiFi-GAN v1 generator with optional NSF harmonic excitation (counterpart
+"""HiFi-GAN generator with optional NSF harmonic excitation (counterpart
 of diffsinger_tpu/models/hifigan.py).
 
 Layout [B, T, C] at the boundary; parameters carry the upstream keys
-(``conv_pre``, ``ups.<i>``, ``resblocks.<j>.convs1.<i>``, ``conv_post``, and
-for NSF ``m_source.l_linear``, ``noise_convs.<i>``) with weight norm already
-folded. Upsampling follows torch ``ConvTranspose1d`` semantics with padding
-(k - u) // 2. ``forward`` is the plain module path;
+(``conv_pre``, ``ups.<i>``, ``resblocks.<j>.convs1.<i>`` (``resblock: '1'``,
+HiFiGAN v1/v2) or ``resblocks.<j>.convs.<i>`` (``resblock: '2'``, v3),
+``conv_post``, and for NSF ``m_source.l_linear``, ``noise_convs.<i>``) with
+weight norm already folded. Upsampling follows torch ``ConvTranspose1d``
+semantics with padding (k - u) // 2. ``forward`` is the plain module path;
 ``ops/hifigan_mrf.py:hifigan_mrf_apply`` is the serving path that runs the
 MRF scales in the hand-written kernel.
+
+``vocoder_compute_dtype: bfloat16`` runs the convolutions in bf16 from
+float32 parameters, as the JAX generator does: each conv's input, weight and
+bias are cast to bf16 (the conv's output and the bias sum are bf16), the
+activations between them stay bf16, and ``conv_post`` runs in float32.
 
 NSF (``use_pitch_embed``): the frame F0 is repeated to the sample rate, a
 bank of 9 harmonic sines is built from it (``sine_source``; its phase cumsum
@@ -118,6 +124,24 @@ class SourceModuleHnNSF(nn.Module):
         return torch.tanh(self.l_linear(sines))
 
 
+def leaky_relu(x: torch.Tensor, slope: float = LRELU_SLOPE) -> torch.Tensor:
+    """Leaky ReLU whose slope is rounded to x's dtype first, as a JAX scalar
+    is (bf16: 0.1 -> 0.10009765625)."""
+    if x.dtype == torch.float32:
+        return F.leaky_relu(x, slope)
+    return torch.where(x >= 0, x, x * torch.tensor(slope, dtype=x.dtype, device=x.device))
+
+
+def conv1d(x: torch.Tensor, conv: nn.Module, dtype: Optional[torch.dtype] = None,
+           **kw) -> torch.Tensor:
+    """``conv`` on x [B, C, T]; with ``dtype`` the input, weight and bias are
+    cast to it and the bias is added to the conv's rounded output, as the JAX
+    package's bf16 convs do."""
+    if dtype is None:
+        return F.conv1d(x, conv.weight, conv.bias, **kw)
+    return F.conv1d(x.to(dtype), conv.weight.to(dtype), **kw) + conv.bias.to(dtype)[:, None]
+
+
 @dataclasses.dataclass(frozen=True)
 class HifiGanConfig:
     resblock: str = "1"
@@ -131,6 +155,7 @@ class HifiGanConfig:
     num_mels: int = 80
     use_pitch_embed: bool = False  # NSF excitation
     source_mode: str = "exact"     # NSF phase: "exact" or "framewise"
+    compute_dtype: str = "float32"  # the convolutions' (vocoder_compute_dtype)
 
     @classmethod
     def from_hparams(cls, hp: Dict[str, Any]) -> "HifiGanConfig":
@@ -141,14 +166,15 @@ class HifiGanConfig:
         assumed; hparams that name a ``hop_size`` must then agree with the
         product of the rates, else this raises (a hop-256 vocoder under a
         hop-128 mel would make every waveform twice as long)."""
-        if str(hp.get("vocoder_compute_dtype", "float32")) != "float32":
-            raise NotImplementedError("the torch port's vocoder runs in float32")
+        compute_dtype = str(hp.get("vocoder_compute_dtype", "float32"))
+        if compute_dtype not in ("float32", "bfloat16"):
+            raise ValueError(f"vocoder_compute_dtype={compute_dtype}")
         source_mode = str(hp.get("nsf_source_mode", "exact"))
         if source_mode not in ("exact", "framewise"):
             raise ValueError(f"nsf_source_mode={source_mode}")
         common = dict(audio_sample_rate=int(hp.get("audio_sample_rate", 22050)),
                       num_mels=int(hp.get("audio_num_mel_bins", 80)),
-                      source_mode=source_mode)
+                      source_mode=source_mode, compute_dtype=compute_dtype)
         if "upsample_rates" not in hp:
             cfg = cls(use_pitch_embed=bool(hp.get("use_nsf", False)), **common)
         else:
@@ -174,6 +200,11 @@ class HifiGanConfig:
     def total_upsample(self) -> int:
         return int(np.prod(self.upsample_rates))
 
+    @property
+    def dtype(self) -> Optional[torch.dtype]:
+        """The convolutions' dtype; None: float32."""
+        return torch.bfloat16 if self.compute_dtype == "bfloat16" else None
+
 
 def _normal_conv(conv: nn.Module, std: float = 0.01) -> nn.Module:
     nn.init.normal_(conv.weight, 0.0, std)
@@ -196,16 +227,38 @@ class ResBlock1(nn.Module):
             _normal_conv(nn.Conv1d(channels, channels, kernel_size))
             for _ in dilations])
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, dtype: Optional[torch.dtype] = None) -> torch.Tensor:
         """x [B, C, T] (channels-first inside the generator)."""
         k = self.kernel_size
         for c1, c2, d in zip(self.convs1, self.convs2, self.dilations):
-            xt = F.conv1d(F.leaky_relu(x, LRELU_SLOPE), c1.weight, c1.bias,
-                          padding=(k * d - d) // 2, dilation=d)
-            xt = F.conv1d(F.leaky_relu(xt, LRELU_SLOPE), c2.weight, c2.bias,
-                          padding=(k - 1) // 2)
+            xt = conv1d(leaky_relu(x), c1, dtype, padding=(k * d - d) // 2, dilation=d)
+            xt = conv1d(leaky_relu(xt), c2, dtype, padding=(k - 1) // 2)
             x = x + xt
         return x
+
+
+class ResBlock2(nn.Module):
+    """The lighter MRF block of HiFiGAN v3: per dilation one dilated conv."""
+
+    def __init__(self, channels: int, kernel_size: int = 3,
+                 dilations: Tuple[int, ...] = (1, 3)):
+        super().__init__()
+        self.kernel_size = kernel_size
+        self.dilations = tuple(dilations)
+        self.convs = nn.ModuleList([
+            _normal_conv(nn.Conv1d(channels, channels, kernel_size, dilation=d))
+            for d in dilations])
+
+    def forward(self, x: torch.Tensor, dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+        """x [B, C, T]."""
+        k = self.kernel_size
+        for conv, d in zip(self.convs, self.dilations):
+            x = x + conv1d(leaky_relu(x), conv, dtype, padding=(k * d - d) // 2,
+                           dilation=d)
+        return x
+
+
+RESBLOCKS = {"1": ResBlock1, "2": ResBlock2}
 
 
 class HifiGanGenerator(nn.Module):
@@ -213,8 +266,8 @@ class HifiGanGenerator(nn.Module):
 
     def __init__(self, cfg: HifiGanConfig):
         super().__init__()
-        if cfg.resblock != "1":
-            raise NotImplementedError("the torch port covers resblock '1' (HiFiGAN v1)")
+        if cfg.resblock not in RESBLOCKS:
+            raise ValueError(f"resblock={cfg.resblock!r}: '1' or '2'")
         self.cfg = cfg
         c0 = cfg.upsample_initial_channel
         self.conv_pre = _normal_conv(nn.Conv1d(cfg.num_mels, c0, 7, padding=3))
@@ -225,7 +278,7 @@ class HifiGanGenerator(nn.Module):
             self.ups.append(_normal_conv(nn.ConvTranspose1d(
                 c0 // (2 ** i), ch, k, stride=u, padding=(k - u) // 2)))
             for rk, rd in zip(cfg.resblock_kernel_sizes, cfg.resblock_dilation_sizes):
-                self.resblocks.append(ResBlock1(ch, rk, tuple(rd)))
+                self.resblocks.append(RESBLOCKS[cfg.resblock](ch, rk, tuple(rd)))
         self.conv_post = _normal_conv(nn.Conv1d(c0 // (2 ** len(cfg.upsample_rates)),
                                                 1, 7, padding=3))
         if cfg.use_pitch_embed:
@@ -241,11 +294,11 @@ class HifiGanGenerator(nn.Module):
                 else:
                     self.noise_convs.append(nn.Conv1d(1, ch, 1))
 
-    # The forward in pieces, shared with ops/hifigan_mrf.py (all [B, T, C]).
+    # The forward in pieces, shared with ops/hifigan_mrf.py (all [B, T, C];
+    # in the compute dtype between the convolutions).
     def pre(self, mel: torch.Tensor) -> torch.Tensor:
-        x = F.conv1d(mel.transpose(1, 2), self.conv_pre.weight, self.conv_pre.bias,
-                     padding=3)
-        return x.transpose(1, 2)
+        return conv1d(mel.transpose(1, 2), self.conv_pre, self.cfg.dtype,
+                      padding=3).transpose(1, 2)
 
     def source(self, f0: torch.Tensor, rand_ini: torch.Tensor,
                noise: torch.Tensor) -> torch.Tensor:
@@ -260,15 +313,19 @@ class HifiGanGenerator(nn.Module):
         """x [B, T_i, C_i] after upsample i, plus the source brought to its
         rate by ``noise_convs[i]``."""
         conv = self.noise_convs[i]
-        y = F.conv1d(har_source.transpose(1, 2), conv.weight, conv.bias,
-                     stride=conv.stride, padding=conv.padding)
+        y = conv1d(har_source.transpose(1, 2), conv, self.cfg.dtype,
+                   stride=conv.stride, padding=conv.padding)
         return x + y.transpose(1, 2)
 
     def upsample(self, x: torch.Tensor, i: int) -> torch.Tensor:
-        up = self.ups[i]
+        up, dt = self.ups[i], self.cfg.dtype
         u, k = self.cfg.upsample_rates[i], self.cfg.upsample_kernel_sizes[i]
-        x = F.leaky_relu(x, LRELU_SLOPE).transpose(1, 2)
-        x = F.conv_transpose1d(x, up.weight, up.bias, stride=u, padding=(k - u) // 2)
+        x = leaky_relu(x).transpose(1, 2)
+        if dt is None:
+            x = F.conv_transpose1d(x, up.weight, up.bias, stride=u, padding=(k - u) // 2)
+        else:
+            x = (F.conv_transpose1d(x.to(dt), up.weight.to(dt), stride=u,
+                                    padding=(k - u) // 2) + up.bias.to(dt)[:, None])
         return x.transpose(1, 2)
 
     def mrf(self, x: torch.Tensor, i: int) -> torch.Tensor:
@@ -276,12 +333,12 @@ class HifiGanGenerator(nn.Module):
         xt = x.transpose(1, 2)
         xs = None
         for j in range(nb):
-            y = self.resblocks[i * nb + j](xt)
+            y = self.resblocks[i * nb + j](xt, self.cfg.dtype)
             xs = y if xs is None else xs + y
         return (xs / nb).transpose(1, 2)
 
     def post(self, x: torch.Tensor) -> torch.Tensor:
-        x = F.leaky_relu(x).transpose(1, 2)
+        x = leaky_relu(x, 0.01).to(torch.float32).transpose(1, 2)
         x = F.conv1d(x, self.conv_post.weight, self.conv_post.bias, padding=3)
         return torch.tanh(x)[:, 0]
 

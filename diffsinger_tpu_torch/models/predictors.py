@@ -5,7 +5,9 @@ diffsinger_tpu/models/predictors.py: the duration and pitch heads,
 Predictor layers keep the upstream ``conv.<i>.1`` (conv) / ``conv.<i>.3``
 (LayerNorm) key layout of a torch ``Sequential(pad, conv, relu, norm,
 dropout)``; the dropout draws its masks from ``drop_gen`` (None: eval). The
-length regulator takes a static output length ``t_mel``.
+length regulator takes a static output length ``t_mel``. The ``crf``
+duration head holds a linear-chain CRF (``dur_predictor.crf.*``, torchcrf's
+names) and decodes its 32 emissions a phone by Viterbi.
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ import torch.nn as nn
 
 from diffsinger_tpu_torch.models.common import (SinusoidalPositionalEmbedding,
                                                 conv1d_btc, dropout)
+from diffsinger_tpu_torch.ops.crf import LinearChainCRF
 
 
 class _ConvReluLN(nn.Sequential):
@@ -42,16 +45,17 @@ class _ConvReluLN(nn.Sequential):
 class DurationPredictor(nn.Module):
     """Duration head. ``dur_loss`` picks the output: ``mse`` and ``huber``
     regress log-durations (odim 1), ``mog`` has 15 outputs and no duration
-    decoding (as in the JAX package and upstream); ``crf`` is not ported."""
+    decoding (as in the JAX package and upstream), ``crf`` has 32 emissions
+    (durations 0-31 frames) and a CRF whose Viterbi path is the duration."""
 
-    ODIM = {"mse": 1, "huber": 1, "mog": 15}
+    ODIM = {"mse": 1, "huber": 1, "mog": 15, "crf": 32}
 
     def __init__(self, in_dims: int, channels: int, num_layers: int = 2,
                  kernel_size: int = 3, offset: float = 1.0, dropout: float = 0.0,
                  padding: str = "SAME", dur_loss: str = "mse"):
         super().__init__()
         if dur_loss not in self.ODIM:
-            raise NotImplementedError(f"dur_loss={dur_loss} is not ported yet")
+            raise ValueError(f"dur_loss={dur_loss} is not one of {sorted(self.ODIM)}")
         self.offset = offset
         self.dur_loss = dur_loss
         self.conv = nn.ModuleList([
@@ -59,10 +63,13 @@ class DurationPredictor(nn.Module):
                         padding)
             for i in range(num_layers)])
         self.linear = nn.Linear(channels, self.ODIM[dur_loss])
+        if dur_loss == "crf":
+            self.crf = LinearChainCRF(self.ODIM[dur_loss])
 
     def forward(self, x: torch.Tensor, padding_mask: Optional[torch.Tensor] = None,
                 drop_gen: Optional[torch.Generator] = None) -> torch.Tensor:
-        """x [B, T, C] -> log-duration [B, T] (``mog``: [B, T, 15])."""
+        """x [B, T, C] -> log-duration [B, T] (``mog``: [B, T, 15]; ``crf``:
+        emissions [B, T, 32])."""
         nonpad = (None if padding_mask is None
                   else (~padding_mask).to(x.dtype)[:, :, None])
         for layer in self.conv:
@@ -74,10 +81,23 @@ class DurationPredictor(nn.Module):
             x = x * nonpad
         return x[..., 0] if self.dur_loss in ("mse", "huber") else x
 
+    def decode(self, out: torch.Tensor,
+               padding_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """The head's output -> phone durations [B, T] (long). ``crf``: the
+        Viterbi path over the valid phones (the first phone of every row
+        counts as valid, so padded batch rows decode too), zero on padding."""
+        if self.dur_loss != "crf":
+            return self.out2dur(out)
+        valid = (torch.ones(out.shape[:2], dtype=torch.bool, device=out.device)
+                 if padding_mask is None else ~padding_mask)
+        valid[:, 0] = True
+        return self.crf.decode(out, valid) * valid.to(torch.long)
+
     def out2dur(self, log_dur: torch.Tensor) -> torch.Tensor:
         """round(exp(x) - offset), clamped >= 0."""
-        if self.dur_loss == "mog":
-            raise NotImplementedError("dur_loss=mog has no duration decoding")
+        if self.dur_loss not in ("mse", "huber"):
+            raise NotImplementedError(f"dur_loss={self.dur_loss} has no log-duration "
+                                      "decoding")
         return torch.clamp(torch.round(torch.exp(log_dur) - self.offset),
                            min=0).to(torch.long)
 

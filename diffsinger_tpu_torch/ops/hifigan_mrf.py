@@ -258,11 +258,15 @@ def pack_mrf_params(generator, stage_idx: int):
 
 def pack_mrf_scales(generator) -> list:
     """``pack_mrf_params`` for every scale the kernel runs (at most 128
-    channels), ``None`` for the wider ones; detached, for reuse across calls."""
-    c0 = generator.cfg.upsample_initial_channel
+    channels of ResBlock1 chains), ``None`` for the others (the wider scales,
+    and every scale of a ``resblock: '2'`` generator, whose single-conv
+    blocks the kernel does not compute); detached, for reuse across calls."""
+    cfg = generator.cfg
+    c0 = cfg.upsample_initial_channel
     with torch.no_grad():
-        return [pack_mrf_params(generator, i) if c0 // 2 ** (i + 1) <= 128 else None
-                for i in range(len(generator.cfg.upsample_rates))]
+        return [pack_mrf_params(generator, i)
+                if cfg.resblock == "1" and c0 // 2 ** (i + 1) <= 128 else None
+                for i in range(len(cfg.upsample_rates))]
 
 
 def hifigan_mrf_apply(generator, mel: torch.Tensor, packed: Optional[list] = None,
@@ -272,7 +276,11 @@ def hifigan_mrf_apply(generator, mel: torch.Tensor, packed: Optional[list] = Non
     """HiFiGAN forward with the fused MRF kernel on every scale of at most 128
     channels (counterpart of ``hifigan_mrf_apply``). conv_pre, the upsamples,
     the NSF source and its noise convs, conv_post and the wider scales run as
-    plain convolutions, as the JAX package leaves them to XLA. ``packed`` is
+    plain convolutions, as the JAX package leaves them to XLA. A bf16
+    generator (``vocoder_compute_dtype: bfloat16``) rounds as the JAX path
+    does: its convs run in bf16 and the kernel takes each scale's input back
+    in float32, computes in bf16 with float32 accumulation and returns
+    float32. ``packed`` is
     :func:`pack_mrf_scales` of the generator, packed now when not given.
     mel [B, T, M] -> wav [B, T * hop]. An NSF generator given ``f0`` [B, T]
     also takes the source draws ``rand_ini`` [B, 1, 9] and ``noise``
@@ -292,7 +300,8 @@ def hifigan_mrf_apply(generator, mel: torch.Tensor, packed: Optional[list] = Non
         if har_source is not None:
             x = generator.add_source(x, har_source, i)
         if packed[i] is not None:
-            x = mrf_stage(x, *packed[i], kernel_sizes=ks, dilation_sets=ds)
+            x = mrf_stage(x.to(torch.float32), *packed[i], kernel_sizes=ks, dilation_sets=ds,
+                          compute_dtype=cfg.dtype)
         else:
             x = generator.mrf(x, i)
     return generator.post(x)

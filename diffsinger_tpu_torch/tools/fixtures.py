@@ -11,6 +11,8 @@ and tests where the released data and weights are not at hand.
   * ``write_hifigan_dir``: a vocoder directory (``config.yaml`` with the
     generator's geometry, ``model_ckpt_steps_<step>.ckpt`` with the generator
     under ``model_gen`` and its convolutions in weight-norm form);
+  * ``write_pwg_dir``: a ParallelWaveGAN directory in upstream's layout or
+    the official releases' (``checkpoint-<step>steps.pkl`` + ``stats.npy``);
   * ``weight_norm_split``: the inverse of ``fold_weight_norm``.
 """
 
@@ -165,4 +167,30 @@ def write_hifigan_dir(path_dir: str, generator_sd: Dict[str, torch.Tensor],
     sd = weight_norm_split({k: v.detach().cpu() for k, v in generator_sd.items()})
     path = os.path.join(path_dir, f"model_ckpt_steps_{step}.ckpt")
     torch.save({"state_dict": {"model_gen": sd}, "global_step": step}, path)
+    return path
+
+
+def write_pwg_dir(path_dir: str, generator_sd: Dict[str, torch.Tensor],
+                  generator_params: Dict[str, Any], official: bool = False, step: int = 1000,
+                  stats: Optional[np.ndarray] = None) -> str:
+    """A ParallelWaveGAN directory: ``config.yaml`` (``generator_params``)
+    and the generator in weight-norm form, under ``state_dict.model_gen`` of
+    ``model_ckpt_steps_<step>.ckpt`` (upstream's layout) or, ``official``,
+    under ``model.generator`` of ``checkpoint-<step>steps.pkl`` (the
+    ParallelWaveGAN releases'), with ``stats`` [2, M] (mel mean and scale)
+    as ``stats.npy`` when given."""
+    import yaml
+
+    os.makedirs(path_dir, exist_ok=True)
+    with open(os.path.join(path_dir, "config.yaml"), "w") as f:
+        yaml.safe_dump({"generator_params": generator_params, "format": "npy"}, f)
+    sd = weight_norm_split({k: v.detach().cpu() for k, v in generator_sd.items()}, skip=())
+    if official:
+        path = os.path.join(path_dir, f"checkpoint-{step}steps.pkl")
+        torch.save({"model": {"generator": sd}, "steps": step}, path)
+    else:
+        path = os.path.join(path_dir, f"model_ckpt_steps_{step}.ckpt")
+        torch.save({"state_dict": {"model_gen": sd}, "global_step": step}, path)
+    if stats is not None:
+        np.save(os.path.join(path_dir, "stats.npy"), np.asarray(stats, np.float32))
     return path

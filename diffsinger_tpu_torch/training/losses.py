@@ -103,14 +103,27 @@ def duration_losses(losses: Dict[str, torch.Tensor], dur_pred_log: torch.Tensor,
                     mel2ph: torch.Tensor, txt_tokens: torch.Tensor,
                     is_sil: torch.Tensor, *, lambda_ph_dur: float = 1.0,
                     lambda_word_dur: float = 1.0, lambda_sent_dur: float = 1.0,
-                    dur_loss: str = "mse") -> None:
+                    dur_loss: str = "mse", crf=None) -> None:
     """Phone (``pdur``), word (``wdur``) and sentence (``sdur``) duration
-    losses. is_sil: [B, T_txt] 1.0 at silence phones."""
-    if dur_loss != "mse":
-        raise NotImplementedError(f"dur_loss={dur_loss} is not ported yet")
+    losses. is_sil: [B, T_txt] 1.0 at silence phones.
+
+    ``dur_loss='crf'``: ``dur_pred_log`` holds the emissions [B, T_txt, 32]
+    and ``pdur`` is the mean CRF negative log likelihood of the durations
+    clamped to 0-31 under ``crf`` (the head's ``LinearChainCRF``), with the
+    first phone of every row counted as valid. The word and sentence terms
+    need linear-scale predicted durations, which the CRF head has no
+    differentiable form of: they are skipped."""
     t_txt = txt_tokens.shape[1]
     nonpadding = (txt_tokens != 0).to(torch.float32)
     dur_gt = mel2ph_to_dur(mel2ph, t_txt).to(torch.float32) * nonpadding
+    if dur_loss == "crf":
+        tags = torch.clamp(dur_gt.to(torch.long), 0, 31)
+        mask = txt_tokens != 0
+        mask[:, 0] = True
+        losses["pdur"] = -crf.log_likelihood(dur_pred_log, tags, mask).mean() * lambda_ph_dur
+        return
+    if dur_loss != "mse":
+        raise NotImplementedError(dur_loss)
     pdur = (dur_pred_log - torch.log(dur_gt + 1)) ** 2
     losses["pdur"] = (pdur * nonpadding).sum() / nonpadding.sum() * lambda_ph_dur
     dur_pred = clamp0(torch.exp(dur_pred_log) - 1)

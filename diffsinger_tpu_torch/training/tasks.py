@@ -182,7 +182,8 @@ class _FS2Task(_Task):
         else:
             L.duration_losses(losses, ret["dur"], mel2ph, txt_tokens,
                               make_is_sil(txt_tokens, self.sil_ids),
-                              dur_loss=hp.get("dur_loss", "mse"), **lambdas)
+                              dur_loss=hp.get("dur_loss", "mse"),
+                              crf=getattr(self.fs2.dur_predictor, "crf", None), **lambdas)
         if hp.get("use_pitch_embed"):
             f0 = _as_tensor(batch["f0"], torch.float32, dev)
             uv = _as_tensor(batch["uv"], torch.float32, dev)

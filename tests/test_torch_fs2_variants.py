@@ -271,7 +271,8 @@ def test_every_jax_parameter_maps(variant):
 
 def test_dur_loss_heads():
     """``dur_loss``: huber is mse's head; mog has 15 outputs and, as in JAX,
-    no duration decoding; crf is not ported and raises."""
+    no duration decoding; crf has 32 emissions and decodes by Viterbi
+    (tests/test_torch_crf.py holds it against JAX)."""
     x = _inputs(np.random.RandomState(0))
     tokens = torch.from_numpy(x["txt_tokens"])
     for dur_loss, shape in (("huber", (B, T_TXT)), ("mog", (B, T_TXT, 15))):
@@ -282,8 +283,12 @@ def test_dur_loss_heads():
     with pytest.raises(NotImplementedError):
         with torch.no_grad():
             tm(tokens, t_mel=T_MEL)
-    with pytest.raises(NotImplementedError):
-        tfs2.FS2Config.from_hparams({**HP, "dur_loss": "crf"}, VOCAB)
+    tm = tfs2.FastSpeech2(tfs2.FS2Config.from_hparams({**HP, "dur_loss": "crf"}, VOCAB))
+    with torch.no_grad():
+        out = tm(tokens, t_mel=T_MEL)
+    assert tuple(out["dur"].shape) == (B, T_TXT, 32) and out["dur_choice"].dtype == torch.long
+    with pytest.raises(ValueError):
+        tfs2.FastSpeech2(tfs2.FS2Config.from_hparams({**HP, "dur_loss": "ctc"}, VOCAB))
 
 
 @pytest.mark.parametrize("config,pitch_type", [("configs/lj/ds_beta6.yaml", "cwt"),
