@@ -16,9 +16,11 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      tensor cores) are held against the wrapper's rule and the library's
      report; f32 rows carry the 3xTF32 bound and the FMA bound;
   3. mrf_stage kernel on the three C<=128 HiFiGAN scales at 8 x 1024 mel
-     frames (C=128/64/32 at T=65536/131072/262144), f32 and bf16, plus B=1,
-     a T that is not a multiple of the tile and a T shorter than one halo,
-     against its plain twin; two calls give the same bits;
+     frames (C=128/64/32 at T=65536/131072/262144), f32 and bf16 (both on
+     the tensor cores), plus, in both types, B=1, a T that is not a multiple
+     of the tile and a T shorter than one halo, and C=16 in bf16, against its
+     plain twin; two calls give the same bits; bf16 rows carry the bound at
+     the measured mma.sync rate beside the 989 TFLOP/s one;
   4. serving: the port's FusedSynthesizer with DiffSpeech-LJSpeech at full
      width (configs/lj/ds_beta6.yaml with bench.py's overrides, HiFiGAN v1)
      and seeded random weights answers 12 requests in three mel buckets,
@@ -179,6 +181,9 @@ H100_TF32_FLOPS = 495e12   # dense TF32 tensor-core peak
 # float32 MRF kernel at the accuracy its tolerance needs
 H100_3XTF32_FLOPS = H100_TF32_FLOPS / 3
 H100_BYTES = 3.35e12       # HBM3 bandwidth
+# the bf16 mma.sync rate measured on an H100 80GB HBM3 at 700 W
+# (tools/mma_rate.py): the most the bf16 MRF body's warp-level products can give
+H100_MMA_SYNC_BF16_FLOPS = 637.8e12
 
 
 def card_line() -> str:
@@ -302,15 +307,21 @@ def phase_stack(torch, ds, cases=STACK_CASES):
 
 
 # --------------------------------------------------------------------- phase 3
-def phase_mrf(torch, mrf):
+# (dtype, C, B, T): the three C <= 128 scales at 8 x 1024 mel frames in both
+# types; then, in both, T not a multiple of the tile, B = 1 (a 256-frame
+# request's first scale) and T shorter than one halo (60 rows); and C = 16 in
+# bf16, the smallest width the body takes
+MRF_CASES = ([(dt, c, 8, t) for dt in ("float32", "bfloat16")
+              for c, t in ((128, 65536), (64, 131072), (32, 262144))]
+             + [(dt, c, b, t) for dt in ("float32", "bfloat16")
+                for c, b, t in ((64, 2, 1037), (128, 1, 16384), (32, 2, 37))]
+             + [("bfloat16", 16, 2, 4096)])
+
+
+def phase_mrf(torch, mrf, cases=MRF_CASES):
     ks, ds_ = (3, 7, 11), ((1, 3, 5),) * 3
     gen = torch.Generator(device="cuda").manual_seed(1)
     rows = []
-    cases = [(dt, c, 8, t) for dt in ("float32", "bfloat16")
-             for c, t in ((128, 65536), (64, 131072), (32, 262144))]
-    # T not a multiple of the tile; B = 1 (a 256-frame request's first scale);
-    # T shorter than one halo (60 rows)
-    cases += [("float32", 64, 2, 1037), ("float32", 128, 1, 16384), ("float32", 32, 2, 37)]
     for dt_name, c, b, t in cases:
         dt = torch.bfloat16 if dt_name == "bfloat16" else None
         x = torch.randn(b, t, c, generator=gen, device="cuda") * 0.3
@@ -351,6 +362,8 @@ def phase_mrf(torch, mrf):
         row = dict(dtype=dt_name, C=c, B=b, T=t, max_abs_err=err, tolerance=tol,
                    out_scale=scale, ms=ms, tflops=flops / ms / 1e9, plain_ms=plain_ms,
                    bound_ms=bnd, bound_by=by)
+        if dt is not None:
+            row["bound_mma_sync_ms"] = flops / H100_MMA_SYNC_BF16_FLOPS * 1e3
         print("mrf_stage", json.dumps(row), flush=True)
         if not err <= tol:
             raise AssertionError(f"mrf_stage {dt_name} C={c} T={t}: max|err| {err} > {tol}")
@@ -3044,10 +3057,12 @@ def main() -> int:
                       "ms": sum(r["ms"] for r in bf16_mrf),
                       "plain_ms": sum(r["plain_ms"] for r in bf16_mrf),
                       "bound_ms": sum(r["bound_ms"] for r in bf16_mrf),
-                      "bound_by": bf16_mrf[0]["bound_by"], "body": "simt",
+                      "bound_by": bf16_mrf[0]["bound_by"], "body": "tc",
                       "by_C": [{k: r[k] for k in ("C", "T", "ms", "plain_ms", "bound_ms",
-                                                  "bound_by")}
-                               | {"bound_share": r["bound_ms"] / r["ms"]} for r in bf16_mrf],
+                                                  "bound_by", "bound_mma_sync_ms")}
+                               | {"bound_share": r["bound_ms"] / r["ms"],
+                                  "mma_sync_share": r["bound_mma_sync_ms"] / r["ms"]}
+                               for r in bf16_mrf],
                       "launches": vocoders["launches"]["mrf_stage"],
                       "launches_path": "vocoders"},
          "configs": mrf_rows},

@@ -15,20 +15,11 @@
 // outside [0,T): the bias and lrelu make them nonzero otherwise). f32
 // accumulation; cast() rounds to the input type (identity for float32).
 //
-// Two instantiations:
-//
-// float32 (the serving path) - the tensor-core kernel mrf_tc_kernel, one
-// launch a branch. One block owns one T tile of one batch row and keeps a
-// window of it in shared memory across the convolutions of the branch (chain
-// state xc and intermediate y, float32); only x is read from and the branch
-// result written to device memory.
-//   * Products are mma.sync.m16n8k8 TF32 with float32 accumulators at float32
-//     accuracy by the 3xTF32 split: a = a_hi + a_lo (a_hi the top 10 mantissa
-//     bits), acc += a_lo*b_hi + a_hi*b_lo + a_hi*b_hi. One TF32 pass keeps
-//     three digits and does not hold 1e-4 through 18 chained convolutions.
-//     Activations are split when they are loaded into fragments (after the
-//     lrelu of a stage's first conv), weights when a warp loads its B
-//     fragments (once per 8-deep step, reused for all its row tiles).
+// Two bodies of one design, one per input type, each one launch a branch.
+// One block owns one T tile of one batch row and keeps a window of it in
+// shared memory across the 2 * ns convolutions of the branch (chain state xc
+// and the conv input); only x is read from and the branch result written to
+// device memory.
 //   * The rows each conv computes come from a plan made on the host
 //     (ops/hifigan_mrf.py:mrf_window_plan): every branch has its own halo
 //     (12, 36, 60 rows for k = 3, 7, 11 with d = 1, 3, 5) and, being a launch
@@ -38,32 +29,63 @@
 //     reads.
 //   * A warp owns 8*NT columns and up to MT 16-row tiles, interleaved over
 //     the warps that share its columns, so a range of any length balances to
-//     within one row tile (C = 128: 32 columns, two warps a column group).
-//     The host picks each branch's tile (ops/hifigan_mrf.py:choose_mrf_tiles)
-//     from the shared memory a block may take and the waves the grid makes.
-//     C <= 32 runs two blocks an SM; at C = 64 two blocks would cut the
-//     window to 160 rows (a 40-row tile under the 60-row halo, 2.3x
-//     recompute), so C >= 64 runs one block an SM with the longest window.
+//     within one row tile. A conv's whole range is one pass: its accumulators
+//     stay in registers until the epilogue. The host picks each branch's tile
+//     (ops/hifigan_mrf.py:choose_mrf_tiles) from the shared memory a block
+//     may take, the rows one pass of the warps covers and the waves the grid
+//     makes.
 //   * Weights stream through a 3-stage cp.async ring of KS-row slices, one
 //     __syncthreads a slice; each slice is staged once per conv and used for
 //     every row of the window, and the ring runs on across conv boundaries,
 //     so the next conv's first slices load during the epilogue.
 //   * The branch sum is kept in `out` (device memory): branch 0 writes, later
-//     branches add in stream order (no atomics), the last scales by 1/nb.
-//     Holding it in shared memory would tie all branches to one tile and cost
-//     a fifth of the tile rows at C = 128: more recompute than the 2 reads +
-//     2 writes of out save.
+//     branches add in stream order (no atomics, so two calls give the same
+//     bits), the last scales by 1/nb. Holding it in shared memory would tie
+//     all branches to one tile and cost a fifth of the tile rows at C = 128:
+//     more recompute than the 2 reads + 2 writes of out save.
 //
-// bfloat16 - the earlier SIMT FMA kernel (mrf_kernel: one window with the
-// widest branch's halo for every branch, every conv over the whole window).
-// Not on the serving path (the vocoder runs float32); kept as it was.
+// float32 (the shipped vocoder's type) - mrf_tc_kernel. Products are
+// mma.sync.m16n8k8 TF32 with float32 accumulators at float32 accuracy by the
+// 3xTF32 split: a = a_hi + a_lo (a_hi the top 10 mantissa bits), acc +=
+// a_lo*b_hi + a_hi*b_lo + a_hi*b_hi. One TF32 pass keeps three digits and does
+// not hold 1e-4 through 18 chained convolutions. Activations are split when
+// they are loaded into fragments (after the lrelu of a stage's first conv),
+// weights when a warp loads its B fragments (once per 8-deep step, reused for
+// all its row tiles). The window (xc and y, float32) limits it: C <= 32 runs
+// two blocks an SM; at C = 64 two blocks would cut the window to 160 rows (a
+// 40-row tile under the 60-row halo, 2.3x recompute), so C >= 64 runs one
+// block an SM with the longest window.
+//
+// bfloat16 (vocoder_compute_dtype: bfloat16) - mrf_bf16_kernel. Every value
+// a conv reads (lrelu(xc), y) and the chain state xc are bf16 at the rounding
+// points, so the window holds them as bf16 and the products are one
+// mma.sync.m16n8k16 bf16 pass with float32 accumulators: A fragments by
+// ldmatrix from rows of stride C + 8, B fragments by ldmatrix.trans from the
+// [K, N] weight slice, once per 16-deep step for all the warp's row tiles.
+// Two window buffers: xc, and `ya`, every conv's input. A stage's input
+// lrelu is applied once per element (f32 lrelu of the bf16 value, rounded to
+// nearest, as the twin's rnd(leaky_relu(xc))) where xc is written, and the
+// conv writes its output y over its own input after a barrier (its
+// accumulators hold the whole range). A row costs (C + 8) * 4 bytes, half the
+// float32 body's, so the register file, not shared memory, bounds the window:
+// one pass covers 16 * MT * WM rows (256 at C = 128, 512 below). The rows'
+// accumulators are spread over 16 warps an SM (one block of 16 at C >= 64,
+// two of 8 below), with 64 x 64 warp tiles at C >= 64: more warps hide more
+// of the work beside the products than 8 with 4 row tiles each.
 //
 // Bound. 252 * C^2 FLOP per frame and batch row, i.e. 2.16, 1.08 and 0.54
 // TFLOP for the C = 128, 64, 32 scales at 8 x 1024 mel frames: compute-bound.
-// With 3xTF32 every product costs three tensor-core passes, so the float32
+// float32: with 3xTF32 every product costs three tensor-core passes, so the
 // rate the card can give at this accuracy is 495 / 3 = 165 TFLOP/s. What
 // limits mrf_tc_kernel: the halo recompute (about 1.2-1.7x by scale), the
 // split's integer and float arithmetic beside the products, and mma.sync.
+// bfloat16: 989 TFLOP/s, 637.8 by mma.sync as measured on an H100 80GB HBM3
+// at 700 W (tools/mma_rate.py). What limits mrf_bf16_kernel
+// (tools/mrf_ablate.py bfloat16, same card): the halo recompute (1.32 /
+// 1.12 / 1.12 at C = 128 / 64 / 32) and the work beside the products,
+// which 16 warps an SM do not hide (the accumulators of a pass fill the
+// register file): the epilogues (12-37% of the time) and the fragment loads
+// and barriers.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -74,18 +96,26 @@ namespace {
 
 constexpr float SLOPE = 0.1f;
 constexpr int MAXB = 4;   // branches / stages a plan may hold
+constexpr int NST = 3;    // stages of the weight ring
 
-__device__ __forceinline__ float lrelu(float v) { return v >= 0.f ? v : SLOPE * v; }
-// the same value in two operations: SLOPE < 1, so the larger of v and
-// SLOPE * v is v for v >= 0 and SLOPE * v below
+// lrelu in two operations: SLOPE < 1, so the larger of v and SLOPE * v is v
+// for v >= 0 and SLOPE * v below
 __device__ __forceinline__ float lrelu_max(float v) { return fmaxf(v, SLOPE * v); }
+
+// One branch's window plan, built by ops/hifigan_mrf.py:mrf_window_plan. Rows
+// are window rows: row q of the window is sequence row t0 - halo + q.
+struct WPlan {
+  int k, ns;                    // kernel size, stages
+  int tile, rows, halo;         // output rows per block, window rows, the branch's halo
+  int dil[MAXB];
+  int lo[2 * MAXB];             // rows [lo, hi) conv j computes
+  int hi[2 * MAXB];
+};
 
 // ------------------------------------------------------------------- float32
 namespace tc {
 
 using namespace mma90;
-
-constexpr int NST = 3;     // stages of the weight ring
 
 // Diagnostic builds (tools/mrf_ablate.py; the results are wrong, only the
 // times mean something): -DMRF_ABLATE_NO_SPLIT feeds the raw bits as both
@@ -97,16 +127,6 @@ __device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
   split_tf32(x, hi, lo);
 #endif
 }
-
-// One branch's window plan, built by ops/hifigan_mrf.py:mrf_window_plan. Rows
-// are window rows: row q of the window is sequence row t0 - halo + q.
-struct WPlan {
-  int k, ns;                    // kernel size, stages
-  int tile, rows, halo;         // output rows per block, window rows, the branch's halo
-  int dil[MAXB];
-  int lo[2 * MAXB];             // rows [lo, hi) conv j computes
-  int hi[2 * MAXB];
-};
 
 // One branch of the scale: w1, w2 [ns, kmax*C, C] and b1, b2 [ns, C] are the
 // branch's. The branch result is written to out (accumulate == 0) or added to
@@ -299,34 +319,232 @@ mrf_tc_kernel(const float* __restrict__ x, const float* __restrict__ w1,
   }
 }
 
-// One launch per branch, each with its own tile: branch 0 writes out, the
-// others add to it, the last one scales the sum to the mean.
+}  // namespace tc
+
+// ------------------------------------------------------------------ bfloat16
+namespace tc16 {
+
+using namespace mma90;
+typedef __nv_bfloat16 bf16;
+
+// lrelu of two bf16 values in float32, rounded to nearest back to bf16
+__device__ __forceinline__ uint32_t lrelu_bf16x2(uint32_t v) {
+  const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v));
+  const __nv_bfloat162 r = __floats2bfloat162_rn(lrelu_max(f.x), lrelu_max(f.y));
+  return *reinterpret_cast<const uint32_t*>(&r);
+}
+
+// One branch of the scale, as mrf_tc_kernel, on bf16 x, w1, w2 (b1, b2 and
+// out float32). The same template parameters; KS is a multiple of 16.
+// Diagnostic builds (tools/mrf_ablate.py bfloat16; wrong values, only the
+// times mean something): -DMRF_ABLATE_BF16_NO_MMA drops the products,
+// -DMRF_ABLATE_BF16_NO_EPILOGUE every epilogue but the last conv's.
 template <int C, int NT, int MT, int KS, int NW, int MINB>
-int launch(const float* x, const float* w1, const float* b1, const float* w2,
-           const float* b2, float* out, int B, int T, int nb, int kmax, const WPlan* plans,
-           cudaStream_t stream) {
-  constexpr int WM = NW / (C / (8 * NT));
-  auto smem_of = [](const WPlan& p) {
-    return ((size_t)2 * p.rows * (C + 4) + (size_t)NST * KS * (C + 8)) * sizeof(float);
+__global__ void __launch_bounds__(NW * 32, MINB)
+mrf_bf16_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w1,
+                const float* __restrict__ b1, const bf16* __restrict__ w2,
+                const float* __restrict__ b2, float* __restrict__ out, int T, int kmax,
+                int accumulate, float scale, const WPlan p) {
+  constexpr int S = C + 8;             // row stride of every buffer: 16-byte rows, conflict-free ldmatrix
+  constexpr int WN = C / (8 * NT);     // warps along the columns
+  constexpr int WM = NW / WN;          // warps along the rows
+  constexpr int NTHR = NW * 32;
+  constexpr int SPT = C / KS;          // slices per tap
+  constexpr int C8 = C / 8;            // 16-byte chunks a row
+  static_assert(C % (8 * NT) == 0 && NT % 2 == 0 && NW % WN == 0 && C % KS == 0 &&
+                KS % 16 == 0, "tiling");
+
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* xc = reinterpret_cast<bf16*>(smem_raw);   // [rows][S] chain state
+  bf16* ya = xc + (size_t)p.rows * S;             // [rows][S] every conv's input: lrelu(xc), then y
+  bf16* ring = ya + (size_t)p.rows * S;           // [NST][KS][S] weight slices
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g8 = lane / 4, t4 = lane % 4;
+  const int wn = warp % WN, wm = warp / WN;
+  const int b = blockIdx.y;
+  const int t0 = blockIdx.x * p.tile;
+  const int win0 = t0 - p.halo;
+  const bf16* xb = x + (size_t)b * T * C;
+  float* ob = out + (size_t)b * T * C;
+  const size_t wstride = (size_t)kmax * C * C;
+  const int ncv = 2 * p.ns;
+  const int k = p.k, half = (k - 1) / 2, nsl = k * SPT;
+
+  // producer side of the ring: walks every slice of every conv in order
+  int p_cv = 0, p_s = 0, p_stage = 0;
+  auto fetch_next = [&]() {
+    if (p_cv < ncv) {
+      const bf16* src = ((p_cv & 1) ? w2 : w1) + (size_t)(p_cv / 2) * wstride +
+                        (size_t)p_s * KS * C;
+      bf16* dst = ring + (size_t)p_stage * KS * S;
+      for (int i = tid; i < KS * C8; i += NTHR) {
+        const int r = i / C8, c = i % C8;
+        cp_async16(smem_u32(dst + r * S + c * 8), src + (size_t)r * C + c * 8);
+      }
+      p_stage = p_stage + 1 == NST ? 0 : p_stage + 1;
+      if (++p_s == nsl) {
+        p_s = 0;
+        ++p_cv;
+      }
+    }
+    cp_async_commit();
   };
+#pragma unroll
+  for (int s = 0; s < NST - 1; ++s) fetch_next();
+  int c_stage = 0;
+
+  // the window of x (zero outside [0, T)) and its lrelu; the first slice's
+  // barrier publishes both
+  for (int i = tid; i < p.rows * C8; i += NTHR) {
+    const int q = i / C8, c8 = i % C8;
+    const int gr = win0 + q;
+    uint4 v = make_uint4(0u, 0u, 0u, 0u);
+    if (gr >= 0 && gr < T) v = reinterpret_cast<const uint4*>(xb + (size_t)gr * C)[c8];
+    *reinterpret_cast<uint4*>(xc + (size_t)q * S + c8 * 8) = v;
+    v = make_uint4(lrelu_bf16x2(v.x), lrelu_bf16x2(v.y), lrelu_bf16x2(v.z), lrelu_bf16x2(v.w));
+    *reinterpret_cast<uint4*>(ya + (size_t)q * S + c8 * 8) = v;
+  }
+  for (int cv = 0; cv < ncv; ++cv) {
+    const bool first = (cv & 1) == 0;
+    const int d = first ? p.dil[cv / 2] : 1;
+    const int lo = p.lo[cv], hi = p.hi[cv];
+    const int n_mt = (hi - lo + 15) / 16;   // 16-row tiles; warp row wm owns wm, wm + WM, ...
+    float acc[MT][NT][4];
+#pragma unroll
+    for (int i = 0; i < MT; ++i)
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[i][nt][e] = 0.f;
+
+    for (int s = 0; s < nsl; ++s) {
+      cp_async_wait<NST - 2>();
+      __syncthreads();
+      fetch_next();
+      const bf16* wst = ring + (size_t)c_stage * KS * S;
+      c_stage = c_stage + 1 == NST ? 0 : c_stage + 1;
+      const int off = (s / SPT - half) * d, kc = (s % SPT) * KS;
+#pragma unroll
+      for (int k16 = 0; k16 < KS / 16; ++k16) {
+        // B fragments of the warp's NT column tiles, two tiles an ldmatrix
+        uint32_t bfr[NT][2];
+#pragma unroll
+        for (int j = 0; j < NT / 2; ++j) {
+          uint32_t r[4];
+          ldmatrix_x4_trans(r, smem_u32(wst + (size_t)(k16 * 16 + lane % 16) * S +
+                                        (wn * NT + 2 * j) * 8 + (lane / 16) * 8));
+          bfr[2 * j][0] = r[0];
+          bfr[2 * j][1] = r[1];
+          bfr[2 * j + 1][0] = r[2];
+          bfr[2 * j + 1][1] = r[3];
+        }
+        // A fragments of all MT row tiles first, so their loads are in flight
+        // together (a row tile past the range loads a clamped row it never
+        // uses); rows past the window only feed output rows past hi: clamp them
+        uint32_t af[MT][4];
+#pragma unroll
+        for (int i = 0; i < MT; ++i) {
+          int row = lo + (wm + i * WM) * 16 + off + lane % 16;
+          row = min(max(row, 0), p.rows - 1);
+          ldmatrix_x4(af[i], smem_u32(ya + (size_t)row * S + kc + k16 * 16 + (lane / 16) * 8));
+        }
+#pragma unroll
+        for (int i = 0; i < MT; ++i) {
+          if (wm + i * WM >= n_mt) continue;
+#ifndef MRF_ABLATE_BF16_NO_MMA
+#pragma unroll
+          for (int nt = 0; nt < NT; ++nt) mma_bf16(acc[i][nt], af[i], bfr[nt][0], bfr[nt][1]);
+#endif
+        }
+      }
+    }
+    // every warp is done reading ya: the epilogue may write over it
+    __syncthreads();
+#ifdef MRF_ABLATE_BF16_NO_EPILOGUE
+    if (cv != ncv - 1) continue;
+#endif
+
+    // epilogue: first conv -> ya = bf16(mask(lrelu(conv + b1))); second conv
+    // -> xc = mask(bf16(xc + (conv + b2))) and ya = bf16(lrelu(xc)), or the
+    // branch result for the last one
+    const float* bias = (first ? b1 : b2) + (size_t)(cv / 2) * C;
+    const bool last = cv == ncv - 1;
+#pragma unroll
+    for (int i = 0; i < MT; ++i) {
+      const int mt = wm + i * WM;
+      if (mt >= n_mt) continue;
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        const int col = (wn * NT + nt) * 8 + 2 * t4;
+        const float2 bv = *reinterpret_cast<const float2*>(bias + col);
+#pragma unroll
+        for (int hr = 0; hr < 2; ++hr) {
+          const int row = lo + mt * 16 + g8 + hr * 8;
+          if (row >= hi) continue;
+          const int gr = win0 + row;
+          const bool valid = gr >= 0 && gr < T;
+          const float vx = acc[i][nt][hr * 2] + bv.x;
+          const float vy = acc[i][nt][hr * 2 + 1] + bv.y;
+          __nv_bfloat162* yp = reinterpret_cast<__nv_bfloat162*>(ya + (size_t)row * S + col);
+          if (first) {
+            *yp = __floats2bfloat162_rn(valid ? lrelu_max(vx) : 0.f, valid ? lrelu_max(vy) : 0.f);
+            continue;
+          }
+          __nv_bfloat162* xp = reinterpret_cast<__nv_bfloat162*>(xc + (size_t)row * S + col);
+          const float2 xo = __bfloat1622float2(*xp);
+          const __nv_bfloat162 nv = __floats2bfloat162_rn(valid ? xo.x + vx : 0.f,
+                                                          valid ? xo.y + vy : 0.f);
+          if (!last) {
+            *xp = nv;
+            const uint32_t lr = lrelu_bf16x2(*reinterpret_cast<const uint32_t*>(&nv));
+            *reinterpret_cast<uint32_t*>(yp) = lr;
+          } else if (valid) {   // the plan's last range is the tile itself
+            float2 v = __bfloat1622float2(nv);
+            float2* o = reinterpret_cast<float2*>(ob + (size_t)gr * C + col);
+            if (accumulate) {
+              const float2 prev = *o;
+              v.x = prev.x + v.x;
+              v.y = prev.y + v.y;
+            }
+            v.x *= scale;
+            v.y *= scale;
+            *o = v;
+          }
+        }
+      }
+    }
+  }
+}
+
+}  // namespace tc16
+
+// One launch per branch, each with its own tile: branch 0 writes out, the
+// others add to it, the last one scales the sum to the mean. A block takes
+// rows * row_bytes + ring_bytes of shared memory; a range longer than
+// range_max rows would not fit one pass of the warps.
+template <typename E, typename K>
+int launch_branches(K kernel, int nthr, int range_max, size_t row_bytes, size_t ring_bytes,
+                    const E* x, const E* w1, const float* b1, const E* w2, const float* b2,
+                    float* out, int B, int T, int C, int nb, int kmax, const WPlan* plans,
+                    cudaStream_t stream) {
   size_t smem_max = 0;
   for (int bj = 0; bj < nb; ++bj) {
     const WPlan& p = plans[bj];
-    // one pass per conv: every range fits the warps' MT tiles
     for (int cv = 0; cv < 2 * p.ns; ++cv)
-      if (p.hi[cv] - p.lo[cv] > 16 * MT * WM) return (int)cudaErrorInvalidValue;
-    if (smem_of(p) > smem_max) smem_max = smem_of(p);
+      if (p.hi[cv] - p.lo[cv] > range_max) return (int)cudaErrorInvalidValue;
+    const size_t smem = p.rows * row_bytes + ring_bytes;
+    if (smem > smem_max) smem_max = smem;
   }
   if (smem_max > 227 * 1024) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(mrf_tc_kernel<C, NT, MT, KS, NW, MINB>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)smem_max);
   if (err != cudaSuccess) return (int)err;
   for (int bj = 0; bj < nb; ++bj) {
     const WPlan& p = plans[bj];
     const size_t wofs = (size_t)bj * p.ns * kmax * C * C, bofs = (size_t)bj * p.ns * C;
     const dim3 grid((T + p.tile - 1) / p.tile, B);
-    mrf_tc_kernel<C, NT, MT, KS, NW, MINB><<<grid, NW * 32, smem_of(p), stream>>>(
+    kernel<<<grid, nthr, p.rows * row_bytes + ring_bytes, stream>>>(
         x, w1 + wofs, b1 + bofs, w2 + wofs, b2 + bofs, out, T, kmax, bj > 0,
         bj == nb - 1 ? 1.f / nb : 1.f, p);
     err = cudaGetLastError();
@@ -335,154 +553,29 @@ int launch(const float* x, const float* w1, const float* b1, const float* w2,
   return (int)cudaSuccess;
 }
 
-}  // namespace tc
-
-// ------------------------------------------------------------------ bfloat16
-typedef __nv_bfloat16 In;
-
-__device__ __forceinline__ float round_bf16(float v) {
-  return __bfloat162float(__float2bfloat16(v));
+template <int C, int NT, int MT, int KS, int NW, int MINB>
+int launch_f32(const void* x, const void* w1, const void* b1, const void* w2, const void* b2,
+               void* out, int B, int T, int nb, int kmax, const WPlan* plans,
+               cudaStream_t stream) {
+  constexpr int WM = NW / (C / (8 * NT));
+  return launch_branches(tc::mrf_tc_kernel<C, NT, MT, KS, NW, MINB>, NW * 32, 16 * MT * WM,
+                         (size_t)2 * (C + 4) * sizeof(float),
+                         (size_t)NST * KS * (C + 8) * sizeof(float), (const float*)x,
+                         (const float*)w1, (const float*)b1, (const float*)w2,
+                         (const float*)b2, (float*)out, B, T, C, nb, kmax, plans, stream);
 }
 
-constexpr int NT = 256;   // 16 row groups x 16 column groups
-constexpr int BK = 16;    // input channels per staged weight slice
-constexpr int RC = 64;    // rows per output chunk
-
-struct Plan {
-  int nb, ns, kmax;
-  int ks[MAXB];
-  int dil[MAXB][MAXB];
-};
-
-// One convolution over the whole window. FIRST: src = xc, input lrelu+cast,
-// output y = cast(mask(lrelu(conv + bias))) into dst. Otherwise: src = y,
-// output xc = mask(cast(xc + conv + bias)) updated in place in dst.
-template <int C, bool FIRST>
-__device__ __forceinline__ void conv(const float* __restrict__ src, float* __restrict__ dst,
-                                     float* __restrict__ ws, const In* __restrict__ w,
-                                     const float* __restrict__ bias, int k, int d,
-                                     int R, int win0, int T) {
-  constexpr int NC = C / 16;
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-  const int half = (k - 1) / 2;
-  for (int rc = 0; rc < R; rc += RC) {
-    float acc[4][NC];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < NC; ++j) acc[i][j] = 0.f;
-    for (int tap = 0; tap < k; ++tap) {
-      const int off = (tap - half) * d;
-      for (int kc = 0; kc < C; kc += BK) {
-        __syncthreads();
-        for (int e = tid; e < BK * C; e += NT)
-          ws[e] = __bfloat162float(w[(size_t)(tap * C + kc) * C + e]);
-        __syncthreads();
-#pragma unroll 4
-        for (int kk = 0; kk < BK; ++kk) {
-          float a[4], bv[NC];
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            const int sr = rc + ty + 16 * i + off;
-            float v = (sr >= 0 && sr < R) ? src[sr * C + kc + kk] : 0.f;
-            if (FIRST) v = round_bf16(lrelu(v));
-            a[i] = v;
-          }
-#pragma unroll
-          for (int j = 0; j < NC; ++j) bv[j] = ws[kk * C + tx + 16 * j];
-#pragma unroll
-          for (int i = 0; i < 4; ++i)
-#pragma unroll
-            for (int j = 0; j < NC; ++j) acc[i][j] = fmaf(a[i], bv[j], acc[i][j]);
-        }
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = rc + ty + 16 * i;
-      const int gr = win0 + row;
-      const bool valid = gr >= 0 && gr < T;
-#pragma unroll
-      for (int j = 0; j < NC; ++j) {
-        const int col = tx + 16 * j;
-        const float v = acc[i][j] + bias[col];
-        if (FIRST) {
-          dst[row * C + col] = valid ? round_bf16(lrelu(v)) : 0.f;
-        } else {
-          const float nv = round_bf16(dst[row * C + col] + v);
-          dst[row * C + col] = valid ? nv : 0.f;
-        }
-      }
-    }
-  }
-}
-
-template <int C>
-__global__ void __launch_bounds__(NT)
-mrf_kernel(const In* __restrict__ x, const In* __restrict__ w1,
-           const float* __restrict__ b1, const In* __restrict__ w2,
-           const float* __restrict__ b2, float* __restrict__ out,
-           int T, int TT, int R, int H, Plan plan) {
-  extern __shared__ float smem[];
-  float* xc = smem;
-  float* yb = smem + R * C;
-  float* ws = yb + R * C;
-  const int tid = threadIdx.x;
-  const int b = blockIdx.y;
-  const int t0 = blockIdx.x * TT;
-  const int win0 = t0 - H;
-  const In* xb = x + (size_t)b * T * C;
-  float* ob = out + (size_t)b * T * C;
-  const size_t wstride = (size_t)plan.kmax * C * C;
-  const float inv_nb = 1.f / plan.nb;
-
-  for (int bj = 0; bj < plan.nb; ++bj) {
-    __syncthreads();
-    for (int e = tid; e < R * C; e += NT) {
-      const int gr = win0 + e / C;
-      xc[e] = (gr >= 0 && gr < T) ? __bfloat162float(xb[(size_t)gr * C + e % C]) : 0.f;
-    }
-    __syncthreads();
-    const int k = plan.ks[bj];
-    for (int s = 0; s < plan.ns; ++s) {
-      const int cs = bj * plan.ns + s;
-      conv<C, true>(xc, yb, ws, w1 + cs * wstride, b1 + cs * C, k, plan.dil[bj][s], R, win0, T);
-      __syncthreads();
-      conv<C, false>(yb, xc, ws, w2 + cs * wstride, b2 + cs * C, k, 1, R, win0, T);
-      __syncthreads();
-    }
-    for (int e = tid; e < TT * C; e += NT) {
-      const int gr = t0 + e / C;
-      if (gr >= T) continue;
-      const float v = xc[(H + e / C) * C + e % C];
-      float* o = ob + (size_t)gr * C + e % C;
-      float acc = bj == 0 ? v : *o + v;
-      if (bj == plan.nb - 1) acc = acc * inv_nb;
-      *o = acc;
-    }
-  }
-}
-
-template <int C>
-int launch_bf16(const void* x, const void* w1, const void* b1, const void* w2,
-                const void* b2, void* out, int B, int T, int H, const Plan& plan,
+template <int C, int NT, int MT, int KS, int NW, int MINB>
+int launch_bf16(const void* x, const void* w1, const void* b1, const void* w2, const void* b2,
+                void* out, int B, int T, int nb, int kmax, const WPlan* plans,
                 cudaStream_t stream) {
-  const int budget = 220 * 1024 / 4;  // floats of dynamic shared memory
-  int R = ((budget - BK * C) / (2 * C)) / RC * RC;
-  const int need = ((T + 2 * H + RC - 1) / RC) * RC;
-  if (need < R) R = need;
-  const int TT = R - 2 * H;
-  if (TT <= 0) return (int)cudaErrorInvalidValue;
-  const size_t smem = (size_t)(2 * R * C + BK * C) * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(mrf_kernel<C>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((T + TT - 1) / TT, B);
-  mrf_kernel<C><<<grid, NT, smem, stream>>>(
-      (const In*)x, (const In*)w1, (const float*)b1, (const In*)w2,
-      (const float*)b2, (float*)out, T, TT, R, H, plan);
-  return (int)cudaGetLastError();
+  typedef __nv_bfloat16 bf16;
+  constexpr int WM = NW / (C / (8 * NT));
+  return launch_branches(tc16::mrf_bf16_kernel<C, NT, MT, KS, NW, MINB>, NW * 32, 16 * MT * WM,
+                         (size_t)2 * (C + 8) * sizeof(bf16),
+                         (size_t)NST * KS * (C + 8) * sizeof(bf16), (const bf16*)x,
+                         (const bf16*)w1, (const float*)b1, (const bf16*)w2,
+                         (const float*)b2, (float*)out, B, T, C, nb, kmax, plans, stream);
 }
 
 }  // namespace
@@ -490,7 +583,7 @@ int launch_bf16(const void* x, const void* w1, const void* b1, const void* w2,
 // dtype: 0 = float32, 1 = bfloat16 for x, w1, w2. x [B,T,C];
 // w1, w2 [nb, ns, kmax*C, C] (tap-major rows); b1, b2 [nb, ns, C] f32;
 // out [B,T,C] f32. ks [nb] kernel sizes, dils [nb*ns] stage dilations.
-// C must be 16, 32, 64 or 128. win is the float32 kernel's window plan as
+// C must be 16, 32, 64 or 128. win is the window plan as
 // ops/hifigan_mrf.py:_launch_plan lays it out: per branch tile, rows, halo and
 // 2*ns pairs (lo, hi). Returns a cudaError_t code.
 extern "C" int mrf_stage_run(int dtype, const void* x, const void* w1, const void* b1,
@@ -499,63 +592,46 @@ extern "C" int mrf_stage_run(int dtype, const void* x, const void* w1, const voi
                              const int* dils, const int* win, void* stream) {
   if (nb < 1 || nb > MAXB || ns < 1 || ns > MAXB) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == 0) {
-    tc::WPlan plans[MAXB];
-    const int* q = win;
-    for (int b = 0; b < nb; ++b) {
-      tc::WPlan& p = plans[b];
-      p.k = ks[b];
-      p.ns = ns;
-      for (int i = 0; i < ns; ++i) p.dil[i] = dils[b * ns + i];
-      p.tile = *q++;
-      p.rows = *q++;
-      p.halo = *q++;
-      if (p.k < 1 || p.k % 2 == 0 || p.tile < 1 || p.rows < p.tile)
+  WPlan plans[MAXB];
+  const int* q = win;
+  for (int b = 0; b < nb; ++b) {
+    WPlan& p = plans[b];
+    p.k = ks[b];
+    p.ns = ns;
+    for (int i = 0; i < ns; ++i) p.dil[i] = dils[b * ns + i];
+    p.tile = *q++;
+    p.rows = *q++;
+    p.halo = *q++;
+    if (p.k < 1 || p.k % 2 == 0 || p.tile < 1 || p.rows < p.tile)
+      return (int)cudaErrorInvalidValue;
+    for (int cv = 0; cv < 2 * ns; ++cv) {
+      p.lo[cv] = *q++;
+      p.hi[cv] = *q++;
+      if (p.lo[cv] < 0 || p.hi[cv] > p.rows || p.lo[cv] >= p.hi[cv])
         return (int)cudaErrorInvalidValue;
-      for (int cv = 0; cv < 2 * ns; ++cv) {
-        p.lo[cv] = *q++;
-        p.hi[cv] = *q++;
-        if (p.lo[cv] < 0 || p.hi[cv] > p.rows || p.lo[cv] >= p.hi[cv])
-          return (int)cudaErrorInvalidValue;
-      }
     }
-#define MRF_TC(CH, NTL, MTL, KSL, NWL, MINB)                                          \
-  return tc::launch<CH, NTL, MTL, KSL, NWL, MINB>((const float*)x, (const float*)w1,  \
-                                                  (const float*)b1, (const float*)w2, \
-                                                  (const float*)b2, (float*)out, B,   \
-                                                  T, nb, kmax, plans, s)
+  }
+  // geometry (C, NT, MT, KS, NW, MINB): ops/hifigan_mrf.py:_TC_GEOMETRY
+#define MRF_LAUNCH(FN, CH, NTL, MTL, KSL, NWL, MINB) \
+  return FN<CH, NTL, MTL, KSL, NWL, MINB>(x, w1, b1, w2, b2, out, B, T, nb, kmax, plans, s)
+  if (dtype == 0) {
     switch (C) {
-      case 16: MRF_TC(16, 2, 4, 16, 8, 2);
-      case 32: MRF_TC(32, 4, 4, 32, 8, 2);
-      case 64: MRF_TC(64, 4, 8, 32, 8, 1);
-      case 128: MRF_TC(128, 4, 8, 16, 8, 1);
+      case 16: MRF_LAUNCH(launch_f32, 16, 2, 4, 16, 8, 2);
+      case 32: MRF_LAUNCH(launch_f32, 32, 4, 4, 32, 8, 2);
+      case 64: MRF_LAUNCH(launch_f32, 64, 4, 8, 32, 8, 1);
+      case 128: MRF_LAUNCH(launch_f32, 128, 4, 8, 16, 8, 1);
       default: return (int)cudaErrorInvalidValue;
     }
-#undef MRF_TC
   }
   if (dtype == 1) {
-    Plan plan;
-    plan.nb = nb;
-    plan.ns = ns;
-    plan.kmax = kmax;
-    int H = 0;
-    for (int b = 0; b < nb; ++b) {
-      plan.ks[b] = ks[b];
-      const int half = (ks[b] - 1) / 2;
-      int h = 0;
-      for (int i = 0; i < ns; ++i) {
-        plan.dil[b][i] = dils[b * ns + i];
-        h += half * dils[b * ns + i] + half;
-      }
-      if (h > H) H = h;
-    }
     switch (C) {
-      case 16: return launch_bf16<16>(x, w1, b1, w2, b2, out, B, T, H, plan, s);
-      case 32: return launch_bf16<32>(x, w1, b1, w2, b2, out, B, T, H, plan, s);
-      case 64: return launch_bf16<64>(x, w1, b1, w2, b2, out, B, T, H, plan, s);
-      case 128: return launch_bf16<128>(x, w1, b1, w2, b2, out, B, T, H, plan, s);
+      case 16: MRF_LAUNCH(launch_bf16, 16, 2, 4, 16, 8, 2);
+      case 32: MRF_LAUNCH(launch_bf16, 32, 4, 4, 32, 8, 2);
+      case 64: MRF_LAUNCH(launch_bf16, 64, 8, 2, 64, 16, 1);
+      case 128: MRF_LAUNCH(launch_bf16, 128, 8, 2, 64, 16, 1);
       default: return (int)cudaErrorInvalidValue;
     }
   }
+#undef MRF_LAUNCH
   return (int)cudaErrorInvalidValue;
 }

@@ -15,10 +15,10 @@ axis, zero rows for the shorter kernels); biases b1/b2 [n_branch, n_stage, C].
 ``compute_dtype=torch.bfloat16`` rounds the conv inputs, weights and the chain
 state to bf16 at the JAX kernel's cast points; accumulation stays float32.
 
-The float32 kernel (the vocoder's path) runs on the tensor cores with the
-3xTF32 split and computes, per T tile, only the rows :func:`mrf_window_plan`
-lists, a branch at a time; :func:`choose_mrf_tiles` picks each branch's tile. The bfloat16 kernel is the
-earlier SIMT one.
+Both kernel bodies run on the tensor cores, float32 with the 3xTF32 split,
+bfloat16 with one bf16 product pass, and compute, per T tile, only the rows
+:func:`mrf_window_plan` lists, a branch at a time; :func:`choose_mrf_tiles`
+picks each branch's tile from the body's geometry.
 """
 
 from __future__ import annotations
@@ -103,16 +103,44 @@ def mrf_window_plan(kernel_sizes: Tuple[int, ...],
     return plan
 
 
-# float32 kernel geometry per channel count (csrc/mrf_stage.cu, MRF_TC):
+# kernel geometry per type and channel count (csrc/mrf_stage.cu, MRF_LAUNCH):
 # 8-column tiles per warp, 16-row tiles a warp may own in one conv, rows of a
 # weight slice, blocks per SM, warps per block.
-_TC_GEOMETRY = {16: (2, 4, 16, 2, 8), 32: (4, 4, 32, 2, 8), 64: (4, 8, 32, 1, 8),
-                128: (4, 8, 16, 1, 8)}
+_TC_GEOMETRY = {
+    torch.float32: {16: (2, 4, 16, 2, 8), 32: (4, 4, 32, 2, 8), 64: (4, 8, 32, 1, 8),
+                    128: (4, 8, 16, 1, 8)},
+    torch.bfloat16: {16: (2, 4, 16, 2, 8), 32: (4, 4, 32, 2, 8), 64: (8, 2, 64, 1, 16),
+                     128: (8, 2, 64, 1, 16)},
+}
 _SMEM_PER_SM = 228 * 1024       # H100; a block may use 227 KB, 1 KB is reserved per block
+_RING_STAGES = 3
 
 
 def _ceil_div(a: int, b: int) -> int:
     return -(-a // b)
+
+
+def _smem_layout(c: int, dtype: torch.dtype) -> Tuple[int, int]:
+    """Shared memory of one block: bytes a window row takes in its two
+    buffers (float32: xc and y, rows of C + 4; bfloat16: xc and the conv
+    input, rows of C + 8), and bytes of the weight ring."""
+    slice_rows = _TC_GEOMETRY[dtype][c][2]
+    if dtype == torch.bfloat16:
+        return 2 * (c + 8) * 2, _RING_STAGES * slice_rows * (c + 8) * 2
+    return 2 * (c + 4) * 4, _RING_STAGES * slice_rows * (c + 8) * 4
+
+
+def block_smem(c: int, dtype: torch.dtype, rows: int) -> int:
+    """Shared memory bytes of one block with a window of ``rows`` rows."""
+    row_bytes, ring_bytes = _smem_layout(c, dtype)
+    return rows * row_bytes + ring_bytes
+
+
+def pass_rows(c: int, dtype: torch.dtype) -> int:
+    """The longest range one conv may compute: one pass of the warps'
+    16-row tiles, its accumulators in registers."""
+    n_tiles, row_tiles, _, _, n_warps = _TC_GEOMETRY[dtype][c]
+    return 16 * row_tiles * (n_warps // (c // (8 * n_tiles)))
 
 
 def _branch_cost(branch: dict, warps_m: int) -> int:
@@ -124,18 +152,21 @@ def _branch_cost(branch: dict, warps_m: int) -> int:
 
 @functools.lru_cache(maxsize=256)
 def choose_mrf_tiles(c: int, b: int, t: int, kernel_sizes, dilation_sets,
-                     n_sm: int) -> Tuple[int, ...]:
-    """The T tile of each branch of the float32 kernel for x [b, t, c] on a
-    card of ``n_sm`` SMs: among the tiles whose window fits shared memory (two
-    blocks an SM for C <= 32) and one pass of the warps, the one with the
-    least modelled time ``waves * cost of a block``."""
-    n_tiles, row_tiles, slice_rows, blocks_per_sm, n_warps = _TC_GEOMETRY[c]
+                     n_sm: int, dtype: torch.dtype = torch.float32) -> Tuple[int, ...]:
+    """The T tile of each branch of the ``dtype`` kernel for x [b, t, c] on a
+    card of ``n_sm`` SMs: among the tiles whose window fits shared memory
+    (:func:`block_smem`, ``blocks per SM`` blocks an SM) and whose first,
+    longest range fits one pass of the warps (:func:`pass_rows`), the one with
+    the least modelled time ``waves * cost of a block``."""
+    n_tiles, _, _, blocks_per_sm, n_warps = _TC_GEOMETRY[dtype][c]
     warps_m = n_warps // (c // (8 * n_tiles))
-    budget = _SMEM_PER_SM // blocks_per_sm - 1024 - 3 * slice_rows * (c + 8) * 4
-    max_rows = min(budget // (2 * (c + 4) * 4), 16 * row_tiles * warps_m)
+    row_bytes, ring_bytes = _smem_layout(c, dtype)
+    smem_rows = (_SMEM_PER_SM // blocks_per_sm - 1024 - ring_bytes) // row_bytes
     tiles = []
     for k, ds in zip(kernel_sizes, dilation_sets):
         halo = mrf_window_plan((k,), (ds,), 1)[0]["halo"]
+        # the first conv computes rows - 2 * its reach
+        max_rows = min(smem_rows, pass_rows(c, dtype) + 2 * (k // 2) * ds[0])
         if max_rows - 2 * halo < 1:
             raise ValueError(f"mrf_stage: a halo of {halo} rows leaves no tile at C={c}")
         best, best_time = None, None
@@ -160,6 +191,15 @@ def _launch_plan(kernel_sizes, dilation_sets, tiles):
     return ((ctypes.c_int * nb)(*kernel_sizes),
             (ctypes.c_int * (nb * ns))(*[d for ds in dilation_sets for d in ds]),
             (ctypes.c_int * len(flat))(*flat))
+
+
+def _launch_args(shape, kernel_sizes, dilation_sets, dtype: torch.dtype, n_sm: int):
+    """The plan arguments of ``mrf_stage_run`` for x of ``shape`` [B, T, C]
+    in ``dtype`` on a card of ``n_sm`` SMs: (ks, dils, win) of the tiles
+    :func:`choose_mrf_tiles` picks for that body."""
+    b, t, c = shape
+    tiles = choose_mrf_tiles(c, b, t, kernel_sizes, dilation_sets, n_sm, dtype)
+    return _launch_plan(kernel_sizes, dilation_sets, tiles)
 
 
 @functools.lru_cache(maxsize=None)
@@ -198,12 +238,14 @@ def _launch(x, w1, b1, w2, b2, kernel_sizes, dilation_sets, compute_dtype):
     xin = x.to(dt).contiguous()
     w1c, w2c = w1.to(dt).contiguous(), w2.to(dt).contiguous()
     b1c, b2c = b1.to(torch.float32).contiguous(), b2.to(torch.float32).contiguous()
+    # the kernel reads x, w1, w2 in 16-byte pieces and the biases in 8
+    for name, a, align in (("x", xin, 16), ("w1", w1c, 16), ("w2", w2c, 16), ("b1", b1c, 8),
+                           ("b2", b2c, 8)):
+        if a.data_ptr() % align:
+            raise ValueError(f"mrf_stage kernel needs {name} aligned to {align} bytes")
     out = torch.empty((b, t, c), dtype=torch.float32, device=x.device)
-    # the window plan is the float32 kernel's; the bfloat16 kernel ignores it
-    tiles = (choose_mrf_tiles(c, b, t, kernel_sizes, dilation_sets,
-                              _sm_count(x.device.index or 0))
-             if dt == torch.float32 else (1,) * nb)
-    ks, dils, win = _launch_plan(kernel_sizes, dilation_sets, tiles)
+    ks, dils, win = _launch_args((b, t, c), kernel_sizes, dilation_sets, dt,
+                                 _sm_count(x.device.index or 0))
     stream = torch.cuda.current_stream(x.device).cuda_stream
     err = _entry()(_DTYPE_CODE[dt], xin.data_ptr(), w1c.data_ptr(), b1c.data_ptr(),
                    w2c.data_ptr(), b2c.data_ptr(), out.data_ptr(), b, t, c, nb, ns, k_max,

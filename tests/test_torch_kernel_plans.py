@@ -126,7 +126,7 @@ def test_plan_ranges_shrink_by_each_convs_reach_down_to_the_tile():
                                    (128, 1, 16384), (32, 2, 37), (16, 1, 500)])
 def test_chosen_tiles_fit_shared_memory_and_one_pass_of_the_warps(c, b, t):
     tiles = mrf.choose_mrf_tiles(c, b, t, KS, DS, 132)
-    n_tiles, row_tiles, slice_rows, blocks_per_sm, n_warps = mrf._TC_GEOMETRY[c]
+    n_tiles, row_tiles, slice_rows, blocks_per_sm, n_warps = mrf._TC_GEOMETRY[torch.float32][c]
     warps_m = n_warps // (c // (8 * n_tiles))
     for br in mrf.mrf_window_plan(KS, DS, tiles):
         smem = (2 * br["rows"] * (c + 4) + 3 * slice_rows * (c + 8)) * 4
