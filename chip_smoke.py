@@ -159,6 +159,20 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      Viterbi durations (71 stack, 3 MRF launches), dur_choice against the
      CPU's, the smallest gap between the best and the second-best path, and
      log Z within 1e-5 of a float64 host evaluation;
+  7l. vocoder_train: HiFi-GAN training (HifiGanTask) at HiFiGAN v1's widths
+     (512 ch, 8/8/2/2, resblock 1), MPD 2/3/5/7/11 and the 3-scale MSD,
+     configs/base.yaml's audio settings and seeded weights, on 16 crops of 32
+     frames (8192 samples) from a harmonic-tone LJ-style corpus: the first
+     step's D and G losses and gradients on 4 rows against the CPU in float64
+     (losses within 1e-4; each gradient's relative L2 distance within 1e-3
+     beyond the CPU float32 evaluation's own), one warm, five timed steps (ms,
+     audio seconds trained per second, peak memory), one counted step
+     (torch's FLOP count: TFLOP/s and the FMA bound) and a profiled one
+     (vocoder_train_profile.txt); the trained generator loaded into HifiGAN
+     and served on an 8 x 1024 mel batch through the float32 MRF kernel (3
+     launches) against the plain twins within 1e-4 x max(|wav|, 1); MelGAN at
+     its defaults on a 2 x 1024 mel batch, card against CPU; a PQMF
+     analysis -> synthesis round trip of the batch's waveforms;
   8. prints the kernels line and, last, the device line.
 The plain twins run with TF32 off (cuBLAS and cuDNN), so they are float32
 references. Long output goes to build/chip_smoke/chip_smoke.json.
@@ -2948,6 +2962,228 @@ def phase_crf(torch, ds, mrf, tr, card: str, out_dir: Path, steps: int = 5):
     return out
 
 
+# -------------------------------------------------------------------- phase 7l
+# configs/base.yaml's audio settings; the rest of the task's hparams are its
+# defaults (HiFiGAN v1's lr 2e-4 and betas 0.8 / 0.99; base.yaml's lr 2.0 and
+# betas belong to the acoustic models' schedule)
+VOC_AUDIO_KEYS = ("audio_sample_rate", "fft_size", "hop_size", "win_size",
+                  "audio_num_mel_bins", "fmin", "fmax")
+VOC_BATCH, VOC_FRAMES = 16, 32         # HiFiGAN v1's batch_size and segment_size / hop
+VOC_SERVE = (8, 1024)                  # the trained generator's serving batch (B, frames)
+VOC_MELGAN = (2, 1024)                 # MelGAN's mel batch
+
+
+def voc_train_batch(torch, hp, root: Path, device, seed: int = 0):
+    """16 aligned (mel, wav) crops of 32 frames from an LJ-style corpus of
+    harmonic tones written under ``root``, the mels by ``ops/mel.py:wav2spec``
+    and the crops by ``sample_segments``."""
+    import numpy as np
+
+    from diffsinger_tpu_torch.ops.mel import MelConfig, wav2spec
+    from diffsinger_tpu_torch.tools import fixtures
+    from diffsinger_tpu_torch.training.vocoder_task import sample_segments
+    from diffsinger_tpu_torch.utils.misc import load_wav
+
+    names = fixtures.write_lj_corpus(str(root / "raw"), str(root / "processed"), VOC_BATCH,
+                                     seed=seed)
+    cfg = MelConfig.from_hparams(hp)
+    rng = np.random.RandomState(seed)
+    mels, wavs = [], []
+    for name in names:
+        wav, mel = wav2spec(load_wav(str(root / "raw" / "wavs" / f"{name}.wav"),
+                                     cfg.sample_rate), cfg)
+        m, w = sample_segments(mel, wav, cfg.hop_size, VOC_FRAMES, rng)
+        mels.append(m)
+        wavs.append(w)
+    return (torch.from_numpy(np.stack(mels)).to(device),
+            torch.from_numpy(np.stack(wavs).astype(np.float32)).to(device))
+
+
+def _grad_rel_l2(gk, gw, names):
+    """{parameter: |error|_2 / |reference|_2}."""
+    out = {}
+    for n, a, w in zip(names, gk, gw):
+        a, w = a.double().cpu(), w.double().cpu()
+        scale = float(w.norm())
+        out[n] = float((a - w).norm()) / scale if scale else float(a.norm())
+    return out
+
+
+def voc_card_vs_cpu(torch, task, hp, mel, wav, rows: int = 4) -> dict:
+    """The D and G losses and gradients of one step (no update) on the card
+    against the same on the CPU in float64, same weights, first ``rows``
+    rows, with the CPU's float32 evaluation's distance from float64 as each
+    parameter's allowance (``card_vs_cpu_step``'s rule). The distance is
+    relative in the L2 norm: a leaky ReLU input within float32 rounding of 0
+    takes the other slope in one evaluation, which moves the gradients of
+    every layer below it by up to 5e-3 of their largest element (the CPU's
+    float32 step on 4 rows: 4.9e-3 in the worst tensor, 6.5e-4 in L2), and
+    the card and the CPU meet such inputs at different places. The max-norm
+    readings are printed beside it."""
+    from diffsinger_tpu_torch.training.vocoder_task import HifiGanTask
+
+    names = [n for n, _ in task.named_parameters()]
+    lk, dg, gg = task.losses_and_grads(mel[:rows], wav[:rows])
+    cpu = HifiGanTask(hp, device="cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in task.state_dict().items()})
+    host = mel[:rows].cpu(), wav[:rows].cpu()
+    t0 = time.perf_counter()
+    _, dg32, gg32 = cpu.losses_and_grads(*host)
+    l64, dg64, gg64 = cpu.to(torch.float64).losses_and_grads(*host)
+    cpu_s = time.perf_counter() - t0
+    loss_rel = {k: abs(float(lk[k]) - float(l64[k])) / max(abs(float(l64[k])), 1e-12)
+                for k in l64}
+    card, f32, f64 = dg + gg, dg32 + gg32, dg64 + gg64
+    vs64, d32 = _grad_rel_l2(card, f64, names), _grad_rel_l2(f32, f64, names)
+    excess = {n: vs64[n] - d32[n] for n in names}
+    at = max(names, key=excess.get)
+    return {"rows": rows, "loss_rel": loss_rel, "grad_l2_excess_worst": [excess[at], at],
+            "grad_l2_vs_cpu64_there": vs64[at], "cpu32_l2_vs_cpu64_there": d32[at],
+            "grad_l2_worst_vs_cpu64": _worst(vs64), "cpu32_l2_vs_cpu64_worst": _worst(d32),
+            "grad_max_worst_vs_cpu64": _worst(_grad_rel(card, f64, names)),
+            "cpu32_max_vs_cpu64_worst": _worst(_grad_rel(f32, f64, names)), "cpu_s": cpu_s}
+
+
+def phase_vocoder_train(torch, mrf, card: str, out_dir: Path, steps: int = 5):
+    """HiFi-GAN training (``training/vocoder_task.py:HifiGanTask``) at
+    HiFiGAN v1's widths with configs/base.yaml's audio settings, seeded
+    weights, MPD periods 2-11 and the 3-scale MSD, on 16 x 32-frame crops of
+    a harmonic-tone corpus: the first step's losses and gradients on 4 rows
+    against the CPU in float64, one warm, five timed and one profiled step;
+    the trained generator served through ``HifiGAN`` on an 8 x 1024 mel batch
+    (the float32 MRF kernel: 3 launches) against the plain twins; MelGAN at
+    its defaults on a 2 x 1024 mel batch, card against CPU; a PQMF
+    analysis -> synthesis round trip of the batch's waveforms."""
+    import copy
+
+    import numpy as np
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from diffsinger_tpu_torch.config.hparams import set_hparams
+    from diffsinger_tpu_torch.inference.vocoder import HifiGAN
+    from diffsinger_tpu_torch.models.melgan import MelGANGenerator
+    from diffsinger_tpu_torch.ops.pqmf import PQMF
+    from diffsinger_tpu_torch.training.vocoder_task import HifiGanTask
+
+    base = set_hparams(str(ROOT / "configs" / "base.yaml"))
+    hp = {k: base[k] for k in VOC_AUDIO_KEYS}
+    t0 = time.perf_counter()
+    task = HifiGanTask(hp, generator=torch.Generator().manual_seed(0))
+    init_s = time.perf_counter() - t0
+    cfg = task.gen_cfg
+    if (cfg.upsample_initial_channel, cfg.upsample_rates, cfg.resblock,
+            len(task.mpd.discriminators), len(task.msd.discriminators)) != (
+                512, (8, 8, 2, 2), "1", 5, 3):
+        raise AssertionError(f"vocoder_train: not HiFiGAN v1 with MPD 2-11 and MSD x3: {cfg}")
+    mel, wav = voc_train_batch(torch, hp, out_dir / "vocoder_train", task.device)
+    vs_cpu = voc_card_vs_cpu(torch, task, hp, mel, wav)
+
+    task.train_step(mel, wav)   # warm
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    step_ms, history = [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        logs = task.train_step(mel, wav)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        history.append({k: float(v) for k, v in logs.items()})
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    # the step's operations from its shapes (torch's count of every
+    # convolution and product, forward and backward)
+    with FlopCounterMode(display=False) as flops:
+        task.train_step(mel, wav)
+    step_flop = flops.get_total_flops()
+    profile = phase_profile(torch, lambda: task.train_step(mel, wav), out_dir, "vocoder_train")
+    med_ms = float(np.median(step_ms))
+    audio_s = VOC_BATCH * VOC_FRAMES * cfg.total_upsample / cfg.audio_sample_rate
+    train = {"config": "HiFiGAN v1 (512 ch, 8/8/2/2, k 16/16/4/4, resblock 1: 3/7/11 x "
+                       "1/3/5), MPD 2/3/5/7/11, MSD x3, configs/base.yaml audio, lr 2e-4, "
+                       "betas 0.8/0.99, float32 (TF32 off)",
+             "B": VOC_BATCH, "segment_samples": VOC_FRAMES * cfg.total_upsample,
+             "init_s": init_s, "steps": steps, "step_ms": step_ms,
+             "ms_per_step_median": med_ms, "ms_per_step_range": [min(step_ms), max(step_ms)],
+             "audio_s_per_s": audio_s / (med_ms / 1e3), "peak_mem_gb": peak_gb,
+             "step_tflop": step_flop / 1e12, "tflops": step_flop / (med_ms / 1e3) / 1e12,
+             "bound_fma_ms": step_flop / H100_F32_FLOPS * 1e3,
+             "device_idle_share": 1 - profile["device_busy_share"],
+             "first_logs": history[0], "last_logs": history[-1], "card_vs_cpu": vs_cpu}
+
+    # the trained generator serves through the MRF kernel
+    voc = HifiGAN(hp)
+    voc.load_state_dict(task.gen.state_dict())
+    del task
+    serve_mel = _voc_mel(torch, *VOC_SERVE, 13)
+    mrf.mrf_stage.launches = 0
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        got = voc.apply(serve_mel)
+        torch.cuda.synchronize()
+    launches = {"mrf_stage": mrf.mrf_stage.launches}
+    with torch.no_grad(), mock.patch.object(mrf, "mrf_stage", mrf.mrf_stage_plain):
+        plain = voc.apply(serve_mel)
+    wav_scale = plain.abs().max().item()
+    serve = {"B": VOC_SERVE[0], "T_mel": VOC_SERVE[1], "samples": int(got.shape[1]),
+             "finite": bool(torch.isfinite(got).all()), "wav_scale": wav_scale,
+             "kernel_vs_plain_max_abs_diff": (got - plain).abs().max().item(),
+             "tolerance": 1e-4 * max(wav_scale, 1.0),
+             "ms": cuda_ms(lambda: voc.apply(serve_mel), 3)}
+    del voc
+
+    # MelGAN at its defaults, card against CPU
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(4)
+        mg_cpu = MelGANGenerator().eval()
+    mg_mel = _voc_mel(torch, *VOC_MELGAN, 14)
+    mg = copy.deepcopy(mg_cpu).to(mg_mel.device)
+    with torch.no_grad():
+        mg_wav = mg(mg_mel)
+        mg_wav_cpu = mg_cpu(mg_mel.cpu())
+    mg_scale = mg_wav_cpu.abs().max().item()
+    melgan = {"config": "MelGANGenerator defaults: 512 ch, upsample 8/8/2/2, 3 stacks",
+              "B": VOC_MELGAN[0], "T_mel": VOC_MELGAN[1], "samples": int(mg_wav.shape[1]),
+              "finite": bool(torch.isfinite(mg_wav).all()), "wav_scale": mg_scale,
+              "card_vs_cpu_max_abs_diff": (mg_wav.cpu() - mg_wav_cpu).abs().max().item(),
+              "tolerance": 1e-4 * max(mg_scale, 1.0)}
+    with torch.no_grad():
+        melgan["ms"] = cuda_ms(lambda: mg(mg_mel), 3)
+    del mg, mg_cpu
+
+    # PQMF: analysis -> synthesis of the batch's waveforms, aligned by the
+    # bank's delay
+    pq = PQMF(4, device=wav.device)
+    rec = pq.synthesis(pq.analysis(wav))
+    n = wav.shape[1]
+    errs = torch.stack([(wav[:, : n - d] - rec[:, d:]).abs().mean() for d in range(80)])
+    delay = int(errs.argmin())
+    pqmf = {"subbands": 4, "taps": 62, "B": VOC_BATCH, "samples": n,
+            "bands_shape": list(pq.analysis(wav).shape), "delay": delay,
+            "mean_abs_err": float(errs[delay]), "mean_abs_level": float(wav.abs().mean()),
+            "ms": cuda_ms(lambda: pq.synthesis(pq.analysis(wav)), 10)}
+
+    out = {"card": card, "train": train, "train_profile": profile, "serve": serve,
+           "melgan": melgan, "pqmf": pqmf, "launches": launches}
+    print("vocoder_train", json.dumps(out), flush=True)
+    if set(history[0]) != {"d_loss", "g_loss", "mel", "fm", "adv"} or not all(
+            np.isfinite(v) for h in history for v in h.values()):
+        raise AssertionError(f"vocoder_train: logs {history}")
+    if not (max(vs_cpu["loss_rel"].values()) <= 1e-4
+            and vs_cpu["grad_l2_excess_worst"][0] <= 1e-3):
+        raise AssertionError(f"vocoder_train: card vs CPU {vs_cpu}")
+    if launches != {"mrf_stage": 3}:
+        raise AssertionError(f"vocoder_train: serving launches {launches}, expected 3")
+    if not (serve["finite"] and serve["samples"] == VOC_SERVE[1] * 256
+            and serve["kernel_vs_plain_max_abs_diff"] <= serve["tolerance"]):
+        raise AssertionError(f"vocoder_train: serving {serve}")
+    if not (melgan["finite"] and melgan["samples"] == VOC_MELGAN[1] * 256
+            and melgan["card_vs_cpu_max_abs_diff"] <= melgan["tolerance"]):
+        raise AssertionError(f"vocoder_train: MelGAN {melgan}")
+    if not (pqmf["bands_shape"] == [VOC_BATCH, n // 4, 4]
+            and pqmf["mean_abs_err"] < 0.15 * pqmf["mean_abs_level"]):
+        raise AssertionError(f"vocoder_train: PQMF {pqmf}")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -3003,6 +3239,7 @@ def main() -> int:
     web = phase_serve_web(torch, ds, mrf, card, out_dir)
     vocoders = phase_vocoders(torch, mrf, card, out_dir)
     crf = phase_crf(torch, ds, mrf, tr, card, out_dir)
+    vocoder_train = phase_vocoder_train(torch, mrf, card, out_dir)
 
     main_stack = stack_rows[0]                        # bf16, cycle 1: serving config
     # float32, cycle 1, 8 x 1024: the shipped configs' body (serve_shipped)
@@ -3020,7 +3257,8 @@ def main() -> int:
 
     serve_paths = {"serving": serving, "serve_cwt": serving_cwt, "singing": singing,
                    "serve_shipped": shipped, "cli": cli_run, "cli_cascade": cascade,
-                   "serve_web": web, "vocoders": vocoders, "crf": crf}
+                   "serve_web": web, "vocoders": vocoders, "crf": crf,
+                   "vocoder_train": vocoder_train}
     train_paths = {"train": training, "train_cwt": training_cwt,
                    "train_shipped": training_shipped, "train_midi": training_midi,
                    "cli": cli_run, "cli_cascade": cascade, "crf": crf}
@@ -3123,8 +3361,8 @@ def main() -> int:
                    "train_cwt": training_cwt, "train_shipped": training_shipped,
                    "train_fs2": training_fs2, "train_midi": training_midi,
                    "train_pe": training_pe, "cli": cli_run, "cli_cascade": cascade,
-                   "serve_web": web, "vocoders": vocoders, "crf": crf}, f,
-                  indent=1)
+                   "serve_web": web, "vocoders": vocoders, "crf": crf,
+                   "vocoder_train": vocoder_train}, f, indent=1)
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

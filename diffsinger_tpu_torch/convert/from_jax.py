@@ -7,6 +7,8 @@ the upstream torch keys the port's modules use. Layouts:
   * Conv           [k, in, out]    -> Conv1d weight [out, in, k]
   * ConvTranspose  [k, C_out, C_in] -> ConvTranspose1d weight [C_in, C_out, k]
     (the JAX module applies torch semantics, so no kernel flip)
+  * grouped Conv   [k, in / g, out] -> Conv1d weight [out, in / g, k]
+  * 2-D Conv       [kh, kw, in, out] -> Conv2d weight [out, in, kh, kw]
   * LayerNorm / GroupNorm / BatchNorm scale -> weight; embeddings and biases
     unchanged; BatchNorm ``batch_stats`` mean / var -> running_mean /
     running_var.
@@ -34,6 +36,11 @@ def _conv(w: np.ndarray) -> np.ndarray:
 
 
 _conv_transpose = _conv  # [k, C_out, C_in] -> [C_in, C_out, k]
+
+
+def _conv_nd(w: np.ndarray) -> np.ndarray:
+    """A 1-D or a 2-D conv kernel."""
+    return w.transpose(3, 2, 0, 1) if w.ndim == 4 else _conv(w)
 
 
 def flatten(tree: Dict[str, Any], prefix: str = "") -> Dict[str, np.ndarray]:
@@ -198,6 +205,36 @@ PE_STATS_RULES: List[Rule] = [
     (r"mel_prenet/bn_(\d+)/var", r"mel_prenet.layers.\1.2.running_var", None),
 ]
 
+# the MPD's and the MSD's discriminators (Conv2d and grouped Conv1d kernels)
+HIFIGAN_DISC_RULES: List[Rule] = [
+    (r"discriminators_(\d+)/convs_(\d+)/kernel", r"discriminators.\1.convs.\2.weight", _conv_nd),
+    (r"discriminators_(\d+)/convs_(\d+)/bias", r"discriminators.\1.convs.\2.bias", None),
+    (r"discriminators_(\d+)/conv_post/kernel", r"discriminators.\1.conv_post.weight", _conv_nd),
+    (r"discriminators_(\d+)/conv_post/bias", r"discriminators.\1.conv_post.bias", None),
+]
+
+
+def _melgan_disc_rules(prefix: str = "", to: str = "") -> List[Rule]:
+    """One MelGAN discriminator's convs; ``prefix`` matches its JAX path."""
+    n = prefix.count("(") + 1  # the group of the layer's name or index
+    return [
+        (prefix + r"(conv_in|conv_mid|conv_out)/kernel", to + rf"\{n}.weight", _conv),
+        (prefix + r"(conv_in|conv_mid|conv_out)/bias", to + rf"\{n}.bias", None),
+        (prefix + r"down_(\d+)/kernel", to + rf"down.\{n}.weight", _conv),
+        (prefix + r"down_(\d+)/bias", to + rf"down.\{n}.bias", None),
+    ]
+
+
+MELGAN_RULES: List[Rule] = [
+    (r"up_(\d+)_kernel", r"ups.\1.weight", _conv_transpose),
+    (r"up_(\d+)_bias", r"ups.\1.bias", None),
+    (r"stack_(\d+)_(\d+)/(conv_dilated|conv_1x1|skip_1x1)/kernel", r"stacks.\1.\2.\3.weight",
+     _conv),
+    (r"stack_(\d+)_(\d+)/(conv_dilated|conv_1x1|skip_1x1)/bias", r"stacks.\1.\2.\3.bias",
+     None),
+    # the generator's conv_in / conv_out carry a single discriminator's names
+] + _melgan_disc_rules() + _melgan_disc_rules(r"discriminators_(\d+)/", r"discriminators.\1.")
+
 
 def fs2_state_dict(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
     """JAX ``FastSpeech2`` params -> the port's ``FastSpeech2`` state_dict."""
@@ -217,6 +254,18 @@ def hifigan_state_dict(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
 def pwg_state_dict(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
     """JAX ``ParallelWaveGANGenerator`` params -> the port's generator state_dict."""
     return apply_rules(params, PWG_RULES)
+
+
+def hifigan_disc_state_dict(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """JAX ``MultiPeriodDiscriminator`` or ``MultiScaleDiscriminator`` params
+    -> the port's module's state_dict."""
+    return apply_rules(params, HIFIGAN_DISC_RULES)
+
+
+def melgan_state_dict(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """JAX ``MelGANGenerator``, ``MelGANDiscriminator`` or
+    ``MelGANMultiScaleDiscriminator`` params -> the port's state_dict."""
+    return apply_rules(params, MELGAN_RULES)
 
 
 def pe_state_dict(variables: Dict[str, Any]) -> Dict[str, torch.Tensor]:

@@ -338,7 +338,8 @@ class HifiGanGenerator(nn.Module):
         return (xs / nb).transpose(1, 2)
 
     def post(self, x: torch.Tensor) -> torch.Tensor:
-        x = leaky_relu(x, 0.01).to(torch.float32).transpose(1, 2)
+        # the waveform conv in the parameters' type (float32 after bf16 convs)
+        x = leaky_relu(x, 0.01).to(self.conv_post.weight.dtype).transpose(1, 2)
         x = F.conv1d(x, self.conv_post.weight, self.conv_post.bias, padding=3)
         return torch.tanh(x)[:, 0]
 

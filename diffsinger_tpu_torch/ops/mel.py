@@ -9,10 +9,17 @@ a periodic Hann window shorter than ``n_fft`` sits in the middle of the FFT
 buffer; the Slaney mel filterbank (librosa ``filters.mel`` with
 ``norm='slaney'``) maps the magnitude, and the result is
 ``log10(max(eps, mel))``.
+
+``frame_signal_torch``, ``stft_magnitude_torch`` and ``mel_spectrogram_torch``
+compute the same on torch tensors [..., n_samples] and are differentiable:
+the vocoder-training mel loss and the STFT losses run them on the generator's
+output. They import torch when called, so the binarizer's workers never load
+it; the window and the filterbank are built once per (config, device).
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Tuple
 
 import numpy as np
@@ -74,10 +81,7 @@ def frame_signal(y: np.ndarray, n_fft: int, hop_size: int) -> np.ndarray:
 def stft_magnitude(y: np.ndarray, *, n_fft: int, hop_size: int,
                    win_length: int) -> np.ndarray:
     """|STFT| [T, n_fft // 2 + 1] with the centred Hann window."""
-    win = hann_window(win_length)
-    if win_length < n_fft:
-        lpad = (n_fft - win_length) // 2
-        win = np.pad(win, (lpad, n_fft - win_length - lpad))
+    win = _centred_window(win_length, n_fft)
     frames = frame_signal(np.asarray(y, np.float32), n_fft, hop_size) * win
     # scipy's pocketfft in float32: the arithmetic of the JAX package's CPU
     # FFT, so the near-silent bins (float32 rounding noise) agree too
@@ -112,6 +116,55 @@ def mel_spectrogram(y: np.ndarray, cfg: MelConfig) -> np.ndarray:
     basis = mel_filterbank(cfg.sample_rate, cfg.n_fft, cfg.n_mels, cfg.fmin, cfg.fmax)
     mel = spc @ basis.T
     return np.log10(np.maximum(np.float32(cfg.eps), mel)).astype(np.float32)
+
+
+def _centred_window(win_length: int, n_fft: int) -> np.ndarray:
+    """The Hann window in the middle of an ``n_fft`` buffer."""
+    win = hann_window(win_length)
+    if win_length < n_fft:
+        lpad = (n_fft - win_length) // 2
+        win = np.pad(win, (lpad, n_fft - win_length - lpad))
+    return win
+
+
+@functools.lru_cache(maxsize=32)
+def _device_array(kind: str, args: tuple, device):
+    """The window (``kind`` 'window', args (win, n_fft)) or the filterbank
+    ('basis', args (sr, n_fft, n_mels, fmin, fmax)) as a float32 tensor on
+    ``device``."""
+    import torch
+
+    arr = _centred_window(*args) if kind == "window" else mel_filterbank(*args)
+    return torch.from_numpy(arr).to(device)
+
+
+def frame_signal_torch(y, n_fft: int, hop_size: int):
+    """torch [..., n_samples] -> [..., n_samples // hop + 1, n_fft], the
+    framing of :func:`frame_signal`."""
+    import torch.nn.functional as F
+
+    n_frames = y.shape[-1] // hop_size + 1
+    y = F.pad(y, (n_fft // 2, n_fft // 2 + hop_size))
+    return y.unfold(-1, n_fft, hop_size)[..., :n_frames, :]
+
+
+def stft_magnitude_torch(y, *, n_fft: int, hop_size: int, win_length: int):
+    """|STFT| [..., T, n_fft // 2 + 1] of torch [..., n_samples]."""
+    import torch
+
+    win = _device_array("window", (win_length, n_fft), y.device).to(y.dtype)
+    return torch.fft.rfft(frame_signal_torch(y, n_fft, hop_size) * win, dim=-1).abs()
+
+
+def mel_spectrogram_torch(y, cfg: MelConfig):
+    """log10-mel spectrogram [..., T, n_mels] of torch [..., n_samples]."""
+    import torch
+
+    spc = stft_magnitude_torch(y, n_fft=cfg.n_fft, hop_size=cfg.hop_size,
+                               win_length=cfg.win_length)
+    basis = _device_array("basis", (cfg.sample_rate, cfg.n_fft, cfg.n_mels, cfg.fmin,
+                                    cfg.fmax), y.device).to(spc.dtype)
+    return torch.log10(torch.clamp(spc @ basis.T, min=cfg.eps))
 
 
 def wav2spec(wav: np.ndarray, cfg: MelConfig) -> Tuple[np.ndarray, np.ndarray]:
