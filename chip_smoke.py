@@ -173,6 +173,23 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      launches) against the plain twins within 1e-4 x max(|wav|, 1); MelGAN at
      its defaults on a 2 x 1024 mel batch, card against CPU; a PQMF
      analysis -> synthesis round trip of the batch's waveforms;
+  7m. parallel: data and tensor parallelism on one card with
+     configs/lj/ds_beta6.yaml as shipped (cwt, float32, the 3xTF32 training
+     kernels) on the train_shipped batch (24 x 1024) from seeded weights,
+     dropout on: (a) NCCL with one rank, three steps of the mesh trainer
+     against the plain trainer (every loss within 1e-5, the first step's
+     gradients within 1e-6 relative L2, the weight updates within 1e-3),
+     the step's ms and the all-reduces' share of it; (b) NCCL's refusal of
+     two ranks on one card, then two spawned processes with gloo (card
+     tensors staged through the host): dp=2 on 2 x 12 rows and on a 23-row
+     batch (padded to 24) and tp=2, each against one process on the same
+     global batch (the first step's loss within 1e-5, later ones 1e-4, its
+     gradients 1e-3, the updates 1e-2; summation order only), tp=2's
+     resident bytes against tp=1 and peak memory; (c) DP serving of the
+     shipped LJ 8 x 1024 batch, 4 rows a rank, against one process (1e-4 of
+     the waveform's scale), 71 stack and 3 MRF launches a rank; (d) the MFU
+     of the serve_shipped batch and the train_shipped step by ops/flops.py.
+     It measures correctness and the collectives' cost, not scaling;
   8. prints the kernels line and, last, the device line.
 The plain twins run with TF32 off (cuBLAS and cuDNN), so they are float32
 references. Long output goes to build/chip_smoke/chip_smoke.json.
@@ -205,6 +222,16 @@ def card_line() -> str:
                           "--format=csv,noheader"], capture_output=True, text=True,
                          timeout=60, check=True)
     return out.stdout.strip().splitlines()[0]
+
+
+def host_ms(fn, reps: int) -> float:
+    """Mean milliseconds per call on the host clock, after one warm-up call
+    (a CPU rehearsal's stand-in for ``cuda_ms``)."""
+    fn()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    return (time.perf_counter() - t0) * 1e3 / reps
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -3184,6 +3211,262 @@ def phase_vocoder_train(torch, mrf, card: str, out_dir: Path, steps: int = 5):
     return out
 
 
+# -------------------------------------------------------------------- phase 7m
+PAR_STEPS = 3
+PAR_BATCH = (24, 128, 1024)   # the train_shipped batch: rows, phones, frames
+PAR_SERVE = (8, 128, 1024)    # the serve_shipped LJ batch
+# the limits of the parallel phase, set before its first run: summation order
+# only. Step 1 is the semantic check; each later step follows an AdamW update,
+# whose g / (|g| + eps) turns rounding noise in a near-zero gradient into a
+# visible weight difference, and float32 rounding flips a ReLU whose input is
+# within rounding of 0 (the train_shipped notes)
+PAR_LOSS_STEP1_RTOL = 1e-5
+PAR_LOSS_LATER_RTOL = 1e-4
+PAR_GRAD_REL_L2 = 1e-3
+PAR_UPDATE_REL_L2 = 1e-2
+# NCCL with one rank against the plain trainer: every loss within 1e-5, the
+# first step's gradients within 1e-6 (relative L2), the three steps' weight
+# updates within 1e-3 (relative L2 of the weights' difference over the plain
+# run's update). The weights are not held element by element: atomics in
+# cuDNN's weight gradients, the embedding backward and scatter_add make the
+# plain step itself nondeterministic, and where a gradient is near AdamW's
+# eps its update g / (|g| + eps) turns that noise into a visible difference
+# (two plain runs on the card: 7.5e-7 apart in one call, 3.8e-5 in another)
+PAR_ONE_RANK_RTOL = 1e-5
+PAR_ONE_RANK_GRAD_REL_L2 = 1e-6
+PAR_ONE_RANK_UPDATE_REL_L2 = 1e-3
+
+
+def _par_compare(ref: dict, run: dict, init: dict) -> dict:
+    """Losses of every step, the first step's summed gradients (relative L2
+    of each trainable tensor) and the weights' updates (the relative L2 of
+    the final weights' difference over the one-process run's update from
+    ``init``) of a mesh run against a one-process run."""
+    import numpy as np
+
+    def rel(a, b):
+        return float(abs(a - b) / max(abs(b), 1e-12))
+
+    loss = [rel(r["total_loss"], w["total_loss"]) for r, w in zip(run["losses"], ref["losses"])]
+    grads = {n: float(np.linalg.norm(run["grads"][n] - g) / max(np.linalg.norm(g), 1e-12))
+             for n, g in ref["grads"].items()}
+    worst = max(grads, key=grads.get)
+    params = max(float(np.abs(run["state_dict"][k] - v).max())
+                 for k, v in ref["state_dict"].items())
+    diff = np.sqrt(sum(float(np.square(run["state_dict"][k] - v).sum())
+                       for k, v in ref["state_dict"].items()))
+    update = np.sqrt(sum(float(np.square(v - init[k]).sum())
+                         for k, v in ref["state_dict"].items()))
+    upd = float(diff / max(update, 1e-30))
+    return {"loss_rel": loss, "grad_rel_l2_worst": grads[worst], "grad_worst_param": worst,
+            "param_max_abs_diff": params, "update_rel_l2": upd,
+            "ok": (loss[0] <= PAR_LOSS_STEP1_RTOL
+                   and max(loss[1:], default=0.0) <= PAR_LOSS_LATER_RTOL
+                   and grads[worst] <= PAR_GRAD_REL_L2 and upd <= PAR_UPDATE_REL_L2)}
+
+
+def phase_parallel(torch, card: str, out_dir: Path, shipped: dict, trained: dict,
+                   device: str = "cuda:0", one_rank_backend: str = "nccl"):
+    """Data and tensor parallelism on one card, configs/lj/ds_beta6.yaml as
+    shipped (float32, cwt, the 3xTF32 training kernels) on the train_shipped
+    batch (24 x 1024), seeded weights and draws (dropout on):
+      (a) NCCL with one rank on cuda:0: three steps of the mesh trainer
+          against the plain trainer from the same weights and generator; the
+          step's ms and the all-reduces' share of it;
+      (b) two processes sharing the card: NCCL's refusal of two ranks on one
+          device, then gloo (tensors staged through the host): dp=2 on 2 x 12
+          rows and on a 23-row batch (padded to 24), and tp=2, each against
+          the one-process run on the same global batch (first step's summed
+          gradients, every step's loss); tp=2's resident bytes for the
+          sharded parameters and their moments against tp=1, peak memory;
+      (c) DP serving on two processes: the shipped LJ 8 x 1024 batch
+          (float32 stack) as 4 rows a rank against one process, waveforms
+          within 1e-4 of their scale, 71 stack and 3 MRF launches a rank;
+      (d) MFU of the serve_shipped LJ batch and the train_shipped step by
+          ops/flops.py.
+    These runs hold the semantics and measure the collectives' cost on one
+    card; they do not measure scaling. ``device`` and ``one_rank_backend``
+    let a rehearsal run the phase on the CPU with gloo."""
+    import datetime
+
+    import numpy as np
+    import torch.distributed as dist
+
+    from diffsinger_tpu_torch.ops import flops as F
+    from diffsinger_tpu_torch.parallel import mesh as pm
+    from diffsinger_tpu_torch.parallel.mesh import pad_batch_for_sharding, param_shardings
+    from diffsinger_tpu_torch.tools import mesh_check as mc
+
+    work = out_dir / "parallel"
+    work.mkdir(parents=True, exist_ok=True)
+    hp, trainer = build_trainer(torch, frame_pitch=False, compute_dtype=None)
+    sd_path = work / "task.pt"
+    init = {k: v.detach().cpu() for k, v in trainer.task.state_dict().items()}
+    torch.save(init, sd_path)
+    init = {k: v.float().numpy() for k, v in init.items()}
+    names = sorted(param_shardings(trainer.task, 2, int(hp.get("tp_min_param_size", 1 << 16))))
+    del trainer
+    b, t_txt, t_mel = PAR_BATCH
+    batch = synthetic_cwt_batch(np.random.RandomState(0), b, t_txt, t_mel)
+    batch23 = {k: v[:b - 1] for k, v in batch.items()}   # a batch the data axis pads
+    padded23 = {k: v for k, v in pad_batch_for_sharding(batch23, 2).items()
+                if isinstance(v, np.ndarray)}
+    base = {"hp": hp, "vocab": 80, "sil_ids": (3,), "state_dict": str(sd_path),
+            "steps": PAR_STEPS, "device": device, "threads": 4}
+    out = {"card": card, "config": "configs/lj/ds_beta6.yaml as shipped (cwt, float32)",
+           "batch": [b, t_mel], "steps": PAR_STEPS, "sharded_names": len(names),
+           "limits": {"loss_step1_rtol": PAR_LOSS_STEP1_RTOL,
+                      "loss_later_rtol": PAR_LOSS_LATER_RTOL,
+                      "grad_rel_l2": PAR_GRAD_REL_L2, "update_rel_l2": PAR_UPDATE_REL_L2,
+                      "serving": "1e-4 x max(|wav|, 1)"}}
+
+    # (a) the plain trainer, then the mesh trainer under NCCL with one rank
+    ref = mc.train(0, 1, dict(base, batch=batch, sharded_names=names))
+    repeat = _par_compare(ref, mc.train(0, 1, dict(base, batch=batch)), init)  # the card's spread
+    ref23 = mc.train(0, 1, dict(base, batch=padded23))
+    dist.init_process_group(one_rank_backend,
+                            init_method=f"tcp://localhost:{mc.free_port()}",
+                            world_size=1, rank=0, timeout=datetime.timedelta(seconds=300))
+    try:
+        calls = []
+        reduce = pm.Mesh._reduce
+
+        def counted(self, t, group, op):
+            calls.append(t.numel())
+            return reduce(self, t, group, op)
+
+        with mock.patch.object(pm.Mesh, "_reduce", counted):
+            one = mc.train(0, 1, dict(base, batch=batch))
+        per_step = len(calls) // (PAR_STEPS + 1)  # the steps and the first gradient
+        mesh = pm.make_mesh()
+        flat = torch.zeros(max(calls), device=device)
+        scalar = torch.zeros(1, device=device)
+        timer = cuda_ms if device.startswith("cuda") else host_ms
+        flat_ms = timer(lambda: mesh.data_sum(flat), 20)
+        scalar_ms = timer(lambda: mesh.data_sum(scalar), 50)
+    finally:
+        dist.destroy_process_group()
+    step_ms = float(np.median(one["step_ms"][1:]))
+    allreduce_ms = flat_ms + (per_step - 1) * scalar_ms
+    vs = _par_compare(ref, one, init)
+    keys = ("loss_rel", "grad_rel_l2_worst", "param_max_abs_diff", "update_rel_l2")
+    out["nccl_one_rank"] = {
+        "backend": one_rank_backend, "mesh": one["mesh"], **{k: vs[k] for k in keys},
+        "grad_worst_param": vs["grad_worst_param"],
+        "plain_repeat": {k: repeat[k] for k in keys},
+        "loss_rtol": PAR_ONE_RANK_RTOL, "grad_limit": PAR_ONE_RANK_GRAD_REL_L2,
+        "update_limit": PAR_ONE_RANK_UPDATE_REL_L2,
+        "step_ms": one["step_ms"],
+        "plain_step_ms": ref["step_ms"], "step_ms_median": step_ms,
+        "all_reduces_per_step": per_step, "flat_all_reduce_elements": max(calls),
+        "flat_all_reduce_ms": flat_ms, "scalar_all_reduce_ms": scalar_ms,
+        "all_reduce_share": allreduce_ms / step_ms, "launches": one["launches"]}
+    print("parallel_nccl", json.dumps(out["nccl_one_rank"]), flush=True)
+    if not (max(vs["loss_rel"]) <= PAR_ONE_RANK_RTOL
+            and vs["grad_rel_l2_worst"] <= PAR_ONE_RANK_GRAD_REL_L2
+            and vs["update_rel_l2"] <= PAR_ONE_RANK_UPDATE_REL_L2):
+        raise AssertionError(f"parallel (a): the one-rank NCCL mesh trainer differs from "
+                             f"the plain one: {out['nccl_one_rank']}")
+
+    # (b) two processes on the one card: NCCL first, which must refuse
+    try:
+        probe = mc.spawn_ranks(mc.probe_all_reduce, 2, {"device": device,
+                                                         "collective_timeout": 60},
+                               backend=one_rank_backend, timeout=150)
+        nccl = {"accepted": all(r["ok"] for r in probe), "ranks": probe}
+    except (RuntimeError, TimeoutError) as e:
+        nccl = {"accepted": False, "error": str(e)[-600:]}
+    out["nccl_two_ranks_one_card"] = nccl
+    print("parallel_nccl_probe", json.dumps(nccl), flush=True)
+
+    rng = np.random.RandomState(3)
+    sb, s_txt, s_mel = PAR_SERVE
+    requests = [({"txt_tokens": rng.randint(3, 80, size=(1, s_txt)).astype(np.int64)}, s_mel)
+                for _ in range(sb)]
+    hp_s, syn = build_synth(torch, frame_pitch=False, stack_dtype=None)
+    torch.save({k: v.detach().cpu() for k, v in syn.task.state_dict().items()},
+               work / "serve_task.pt")
+    torch.save({k: v.detach().cpu() for k, v in syn.vocoder.model.state_dict().items()},
+               work / "serve_voc.pt")
+    del syn
+    serve = {"hp": hp_s, "vocab": 80, "state_dict": str(work / "serve_task.pt"),
+             "voc_hp": hp_s, "voc_sd": str(work / "serve_voc.pt"), "requests": requests,
+             "device": device, "warmup": True, "threads": 4}
+    serve_one = mc.serve(0, 1, serve)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = mc.spawn_ranks(mc.jobs, 2, {"threads": 4, "jobs": [
+        ("dp24", "train", dict(base, batch=batch, num_data=2)),
+        ("dp23", "train", dict(base, batch=batch23, num_data=2)),
+        ("tp2", "train", dict(base, batch=batch, num_data=1, num_model=2,
+                              hp=dict(hp, num_model_shards=2), sharded_names=names)),
+        ("serve", "serve", serve)]}, backend="gloo", timeout=1200)
+    out["gloo_wall_s"] = time.perf_counter() - t0
+    checks = {}
+    for key, want in (("dp24", ref), ("dp23", ref23), ("tp2", ref)):
+        checks[key] = [dict(_par_compare(want, r[key], init), mesh=r[key]["mesh"],
+                            step_ms=r[key]["step_ms"], launches=r[key]["launches"],
+                            peak_bytes=r[key].get("peak_bytes")) for r in ranks]
+    for i, r in enumerate(ranks):
+        checks["tp2"][i]["resident_bytes"] = r["tp2"]["resident_bytes"]
+    checks["tp1_resident_bytes"] = ref["resident_bytes"]
+    checks["tp1_peak_bytes"] = ref.get("peak_bytes")
+    out["gloo"] = {"backend": "gloo (card tensors staged through the host)", **checks}
+    print("parallel_gloo", json.dumps(out["gloo"]), flush=True)
+
+    # (c) DP serving
+    scale = max(float(np.abs(np.concatenate(serve_one["wavs"])).max()), 1.0)
+    diffs = [max(float(np.abs(a - b).max()) for a, b in zip(r["serve"]["wavs"],
+                                                           serve_one["wavs"])) for r in ranks]
+    out["dp_serving"] = {"backend": "gloo", "rows_per_rank": sb // 2,
+                         "wav_max_abs_diff": diffs, "tolerance": 1e-4 * scale,
+                         "launches": [r["serve"]["launches"] for r in ranks],
+                         "ms": [r["serve"]["ms"] for r in ranks],
+                         "one_process_ms": serve_one["ms"],
+                         "one_process_launches": serve_one["launches"]}
+    print("parallel_serving", json.dumps(out["dp_serving"]), flush=True)
+
+    # (d) MFU of the shipped serving batch and training step (ops/flops.py)
+    voc_hp = dict(hp_s, use_nsf=False, use_pitch_embed=False)  # HiFiGAN v1, no NSF
+    serve_flops = F.sampler_flops(hp_s, 8, 128, 1024) + F.hifigan_flops(voc_hp, 8, 1024)
+    train_flops = F.train_step_flops(hp, 24, 128, 1024)  # the train_shipped step
+    serve_s = shipped["lj"]["latency_s"]["batch_8x1024"]
+    train_s = trained["ms_per_step_median"] / 1e3
+    out["mfu"] = {
+        "serving_lj_8x1024": {"flops": serve_flops, "seconds": serve_s,
+                              **{k: F.mfu(serve_flops, serve_s, k) for k in F.PEAK_FLOPS}},
+        "train_shipped_24x1024": {"flops": train_flops, "seconds": train_s,
+                                  **{k: F.mfu(train_flops, train_s, k) for k in F.PEAK_FLOPS}},
+        "card": card}
+    print("parallel_mfu", json.dumps(out["mfu"]), flush=True)
+
+    out["launches"] = {k: one["launches"][k] + serve_one["launches"][k] + sum(
+        r[j]["launches"][k] for r in ranks for j in ("dp24", "dp23", "tp2", "serve"))
+        for k in one["launches"]}
+    bad = [f"{k} rank {i}: {c}" for k in ("dp24", "dp23", "tp2")
+           for i, c in enumerate(checks[k]) if not c["ok"]]
+    if nccl["accepted"]:
+        bad.append("NCCL accepted two ranks on one card")
+    if not all(d <= out["dp_serving"]["tolerance"] for d in diffs):
+        bad.append(f"DP serving waveforms differ by {diffs}")
+    k_step = int(hp_s["K_step"])
+    for r in ranks:
+        if r["serve"]["launches"]["diffnet_stack"] != k_step or \
+                r["serve"]["launches"]["mrf_stage"] != 3:
+            bad.append(f"DP serving launches on rank {r['serve']['rank']}: "
+                       f"{r['serve']['launches']}")
+        for key in ("dp24", "dp23", "tp2"):
+            ln = r[key]["launches"]
+            if not ln["diffnet_train_fwd"] == ln["diffnet_train_bwd"] == PAR_STEPS + 1:
+                bad.append(f"{key} training launches {ln}")
+    if not all(c["resident_bytes"] * 2 <= checks["tp1_resident_bytes"] * 1.001
+               for c in checks["tp2"]):
+        bad.append("tp=2 holds more than half of tp=1's sharded bytes")
+    if bad:
+        raise AssertionError("parallel: " + "; ".join(bad))
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -3240,6 +3523,7 @@ def main() -> int:
     vocoders = phase_vocoders(torch, mrf, card, out_dir)
     crf = phase_crf(torch, ds, mrf, tr, card, out_dir)
     vocoder_train = phase_vocoder_train(torch, mrf, card, out_dir)
+    parallel = phase_parallel(torch, card, out_dir, shipped, training_shipped)
 
     main_stack = stack_rows[0]                        # bf16, cycle 1: serving config
     # float32, cycle 1, 8 x 1024: the shipped configs' body (serve_shipped)
@@ -3258,10 +3542,10 @@ def main() -> int:
     serve_paths = {"serving": serving, "serve_cwt": serving_cwt, "singing": singing,
                    "serve_shipped": shipped, "cli": cli_run, "cli_cascade": cascade,
                    "serve_web": web, "vocoders": vocoders, "crf": crf,
-                   "vocoder_train": vocoder_train}
+                   "vocoder_train": vocoder_train, "parallel": parallel}
     train_paths = {"train": training, "train_cwt": training_cwt,
                    "train_shipped": training_shipped, "train_midi": training_midi,
-                   "cli": cli_run, "cli_cascade": cascade, "crf": crf}
+                   "cli": cli_run, "cli_cascade": cascade, "crf": crf, "parallel": parallel}
 
     kernels = [
         {"name": "diffnet_stack", "route": "cuda",
@@ -3362,7 +3646,7 @@ def main() -> int:
                    "train_fs2": training_fs2, "train_midi": training_midi,
                    "train_pe": training_pe, "cli": cli_run, "cli_cascade": cascade,
                    "serve_web": web, "vocoders": vocoders, "crf": crf,
-                   "vocoder_train": vocoder_train}, f, indent=1)
+                   "vocoder_train": vocoder_train, "parallel": parallel}, f, indent=1)
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

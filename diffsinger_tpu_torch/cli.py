@@ -11,6 +11,11 @@ writes ``model_ckpt_steps_*.ckpt`` there and resumes from the newest one;
 ``--infer`` synthesizes the test split from it into ``generated_*``. It runs
 on the card: ``run``, ``train`` and ``infer`` take a ``device`` (default
 CUDA; raises without one).
+
+Data and tensor parallel training: ``torchrun --nproc_per_node N -m
+diffsinger_tpu_torch.cli --config <yaml> --exp_name <name>`` (one process
+per card; ``num_model_shards`` splits the ranks into data x model, and
+``tp_min_param_size`` is the smallest parameter the model axis shards).
 """
 
 from __future__ import annotations
@@ -22,14 +27,45 @@ import numpy as np
 from diffsinger_tpu_torch.utils.device import resolve_device
 
 
+def maybe_init_distributed(hp: Dict[str, Any], device="cuda") -> bool:
+    """Start the default process group when the process was launched for one
+    (torchrun's ``WORLD_SIZE`` > 1, or ``multi_host: true`` with torchrun's
+    ``RANK``, ``WORLD_SIZE``, ``MASTER_ADDR`` and ``MASTER_PORT``): NCCL for
+    the card, gloo for ``device="cpu"``; a card rank then runs on
+    ``cuda:{LOCAL_RANK}``. Returns whether a group is up (the counterpart of
+    the JAX CLI's ``jax.distributed.initialize``)."""
+    import os
+
+    import torch
+    import torch.distributed as dist
+
+    if dist.is_initialized():
+        return True
+    if not (hp.get("multi_host") or int(os.environ.get("WORLD_SIZE", "1")) > 1):
+        return False
+    missing = [k for k in ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT")
+               if k not in os.environ]
+    if missing:
+        raise RuntimeError(f"a distributed run needs torchrun's environment; {missing} "
+                           "unset (launch with torchrun --nproc_per_node N -m "
+                           "diffsinger_tpu_torch.cli ...)")
+    cpu = torch.device(device).type == "cpu"
+    if not cpu:
+        if not torch.cuda.is_available():
+            resolve_device(device)  # raises: no CUDA device
+        torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", "0")))
+    dist.init_process_group("gloo" if cpu else "nccl")
+    print(f"| rank {dist.get_rank()}/{dist.get_world_size()} up "
+          f"({dist.get_backend()})", flush=True)
+    return True
+
+
 def run(argv: Optional[Sequence[str]] = None, device="cuda") -> None:
     from diffsinger_tpu_torch.config.hparams import set_hparams
 
-    dev = resolve_device(device)
     hp = set_hparams(argv=argv, print_hparams=True)
-    if hp.get("multi_host"):
-        raise NotImplementedError("multi_host: training across processes is not ported yet "
-                                  "(ROADMAP.md Queue 1 item 6, parallelism)")
+    maybe_init_distributed(hp, device)
+    dev = resolve_device(device)
     if hp.get("infer"):
         infer(hp, device=dev)
     else:
@@ -76,12 +112,10 @@ def make_valid_plotter(hp: Dict[str, Any], task):
         n = int(batch["mel_lengths"][0])
         cat = np.concatenate([mel_gt[:n], mel_pred[:n]], axis=1)
         try:
-            from matplotlib.figure import Figure
+            from diffsinger_tpu_torch.utils.plot import spec_to_figure
 
-            fig = Figure(figsize=(12, 6))
-            ax = fig.add_subplot(111)
-            ax.pcolor(cat.T, vmin=hp.get("mel_vmin", -6), vmax=hp.get("mel_vmax", 1.5))
-            w.add_figure(f"mel_{batch_idx}", fig, trainer.global_step)
+            w.add_figure(f"mel_{batch_idx}", spec_to_figure(
+                cat, hp.get("mel_vmin", -6), hp.get("mel_vmax", 1.5)), trainer.global_step)
         except ImportError:
             print("| matplotlib not available: no validation mel figure")
         if "vocoder" not in state:

@@ -92,6 +92,34 @@ def _fft_rules(blocks: str = r"(encoder|decoder)/blocks/", to: str = r"\1.") -> 
     ]
 
 
+def _fft_stats_rules(blocks: str = "", to: str = "") -> List[Rule]:
+    """The ``batch_stats`` of an FFT stack built with ``norm='bn'``: each
+    ``BatchNorm1dTBC``'s mean and var -> running_mean / running_var."""
+    n = blocks.count("(") + 1
+    blk = blocks + r"layers_(\d+)/"
+    op = to + rf"layers.\{n}.op."
+    return [
+        (blk + r"layer_norm(1|2)/mean", op + rf"layer_norm\{n + 1}.running_mean", None),
+        (blk + r"layer_norm(1|2)/var", op + rf"layer_norm\{n + 1}.running_var", None),
+        (blocks + r"layer_norm/mean", to + "layer_norm.running_mean", None),
+        (blocks + r"layer_norm/var", to + "layer_norm.running_var", None),
+    ]
+
+
+# the decoder layer (JAX ``DecSALayer``): self-attention, cross-attention
+# (``q_proj`` / ``kv_proj`` / ``out_proj``) and the causal conv FFN
+DEC_SA_RULES: List[Rule] = [
+    (r"layer_norm(1|2|3)/scale", r"layer_norm\1.weight", None),
+    (r"layer_norm(1|2|3)/bias", r"layer_norm\1.bias", None),
+    (r"self_attn/in_proj/kernel", "self_attn.in_proj_weight", _linear),
+    (r"self_attn/out_proj/kernel", "self_attn.out_proj.weight", _linear),
+    (r"encoder_attn/(q_proj|kv_proj|out_proj)/kernel", r"encoder_attn.\1.weight", _linear),
+    (r"ffn/(ffn_1)/kernel", r"ffn.\1.weight", _conv),
+    (r"ffn/(ffn_2)/kernel", r"ffn.\1.weight", _linear),
+    (r"ffn/(ffn_1|ffn_2)/bias", r"ffn.\1.bias", None),
+]
+
+
 def _predictor_rules(names: str = "dur_predictor|pitch_predictor|energy_predictor",
                      to: str = r"\1") -> List[Rule]:
     pr = rf"({names})/"
@@ -239,6 +267,19 @@ MELGAN_RULES: List[Rule] = [
 def fs2_state_dict(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
     """JAX ``FastSpeech2`` params -> the port's ``FastSpeech2`` state_dict."""
     return apply_rules(params, FS2_RULES)
+
+
+def fft_blocks_state_dict(variables: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """JAX ``FFTBlocks`` variables {'params'[, 'batch_stats']} -> the port's
+    ``FFTBlocks`` state_dict (a ``norm='bn'`` stack's running statistics
+    included)."""
+    return {**apply_rules(variables["params"], _fft_rules("", "")),
+            **apply_rules(variables.get("batch_stats") or {}, _fft_stats_rules())}
+
+
+def dec_sa_layer_state_dict(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """JAX ``DecSALayer`` params -> the port's ``DecSALayer`` state_dict."""
+    return apply_rules(params, DEC_SA_RULES)
 
 
 def denoiser_state_dict(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:

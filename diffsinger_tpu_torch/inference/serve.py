@@ -14,6 +14,13 @@ The F0 that drives an NSF vocoder comes from the PitchExtractor when one is
 given (it reads the raw sampler mel, whose zero-masked padding frames it
 turns to 0 Hz), else from the model's own ``f0_denorm`` when it has a pitch
 predictor.
+
+Under a data mesh (``mesh=``, every rank handed the same requests) each
+data rank runs its contiguous rows of every device batch (the batch's rows
+padded to a multiple of the data axis by repeating the first), the
+sampler's noise and the NSF source draws are drawn (or given) for the
+global batch and sliced, the silence floor is the global batch's minimum,
+and the waveforms are all-gathered, so every rank returns the whole result.
 """
 
 from __future__ import annotations
@@ -24,6 +31,7 @@ import numpy as np
 import torch
 
 from diffsinger_tpu_torch.models.fs2 import SPK_EMBED_DIM
+from diffsinger_tpu_torch.parallel.mesh import Mesh
 from diffsinger_tpu_torch.utils.device import resolve_device
 
 
@@ -47,7 +55,8 @@ class FusedSynthesizer:
     ``DiffSingerTask``;
     vocoder: a ``HifiGAN`` wrapper; pe: an optional ``PitchExtractor`` whose
     F0 drives an NSF vocoder. All are moved to ``device`` (default CUDA;
-    raises when no CUDA device is present)."""
+    raises when no CUDA device is present). ``mesh``: serve each batch's
+    rows over its data axis (see the module docstring)."""
 
     # per-token keys padded to the text bucket; per-frame keys to the mel
     # bucket; speaker ids [B] and speaker embeddings [B, 256] stacked as given
@@ -56,8 +65,10 @@ class FusedSynthesizer:
     _FLAT_KEYS = ("spk_ids", "spk_embed")
 
     def __init__(self, hp: Dict[str, Any], task, vocoder, pe=None,
-                 use_gt_dur: bool = False, use_gt_f0: bool = False, device="cuda"):
+                 use_gt_dur: bool = False, use_gt_f0: bool = False, device="cuda",
+                 mesh: Optional[Mesh] = None):
         self.device = resolve_device(device)
+        self.mesh = mesh if mesh is not None else Mesh(1, 1)
         self.hp = hp
         self.task = task
         self.vocoder = vocoder
@@ -83,26 +94,58 @@ class FusedSynthesizer:
              generator=None):
         """One device batch. ``noise`` fixes the sampler's draws and
         ``source`` (rand_ini, noise) the NSF source's; ``generator`` draws
-        whatever is not fixed."""
-        out = self.task.inference(batch, t_mel=t_mel, use_gt_dur=self.use_gt_dur,
-                                  use_gt_f0=self.use_gt_f0, noise=noise,
-                                  generator=generator)
-        mel = out["mel_out"]
-        if self.pe is not None:
-            # the raw sampler mel: its zeroed padding frames are the PE's
-            # padding mask, so their F0 comes out 0 Hz
-            f0 = self.pe(mel)["f0_denorm_pred"]
-        else:
-            f0 = out.get("f0_denorm")
-        # the sampler zero-masks mel2ph==0 frames, and 0 in the log10-mel
-        # domain is loud: set bucket padding to the batch's silence floor
-        # (one minimum over the whole padded batch) before vocoding
-        pad_mask = (out["mel2ph"] > 0)[..., None]
-        mel = torch.where(pad_mask, mel, mel.min())
-        wav = self.vocoder.apply(mel, f0=f0, generator=generator, source=source)
+        whatever is not fixed. On a data mesh ``batch``, ``noise`` and
+        ``source`` are the global batch's and so is what returns."""
+        mesh, rows = self.mesh, None
+        if mesh.distributed:
+            batch, noise, source, rows = self._local_rows(mesh, batch, noise, source)
+        with mesh.active():
+            out = self.task.inference(batch, t_mel=t_mel, use_gt_dur=self.use_gt_dur,
+                                      use_gt_f0=self.use_gt_f0, noise=noise,
+                                      generator=generator)
+            mel = out["mel_out"]
+            if self.pe is not None:
+                # the raw sampler mel: its zeroed padding frames are the PE's
+                # padding mask, so their F0 comes out 0 Hz
+                f0 = self.pe(mel)["f0_denorm_pred"]
+            else:
+                f0 = out.get("f0_denorm")
+            # the sampler zero-masks mel2ph==0 frames, and 0 in the log10-mel
+            # domain is loud: set bucket padding to the batch's silence floor
+            # (one minimum over the whole padded batch) before vocoding
+            pad_mask = (out["mel2ph"] > 0)[..., None]
+            mel = torch.where(pad_mask, mel, mesh.data_min(mel.min()))
+            wav = self.vocoder.apply(mel, f0=f0, generator=generator, source=source)
+        wav, mel2ph = mesh.data_gather(wav)[:rows], mesh.data_gather(out["mel2ph"])[:rows]
         if self.wav_int16:
             wav = (torch.clamp(wav, -1.0, 1.0) * 32767.0).to(torch.int16)
-        return wav.cpu().numpy(), out["mel2ph"].cpu().numpy()
+        return wav.cpu().numpy(), mel2ph.cpu().numpy()
+
+    @staticmethod
+    def _local_rows(mesh: Mesh, batch: Dict[str, Any], noise, source):
+        """This data rank's rows of a global batch, of its given noise
+        ([K, B, T, M]) and source draws ([B, ...] each), the batch padded to
+        a multiple of the data axis by repeating its first row; and the
+        global row count."""
+        rows = int(batch["txt_tokens"].shape[0])
+        target = -(-rows // mesh.num_data) * mesh.num_data
+        start, stop = mesh.row_span(target)
+
+        # global row of each local row: the batch's own, then copies of row 0
+        take = torch.cat([torch.arange(rows), torch.zeros(target - rows, dtype=torch.long)])
+        take = take[start:stop]
+
+        def local(a, dim=0):
+            if a.shape[dim] != rows:
+                return a
+            a = torch.as_tensor(a)
+            return a.index_select(dim, take.to(a.device))
+
+        batch = {k: local(v) if hasattr(v, "shape") and v.ndim >= 1 else v
+                 for k, v in batch.items()}
+        noise = None if noise is None else local(noise, 1)
+        source = None if source is None else tuple(local(a) for a in source)
+        return batch, noise, source, rows
 
     def _generator(self, seed: Optional[int]) -> torch.Generator:
         gen = torch.Generator(device=self.device)

@@ -22,6 +22,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from diffsinger_tpu_torch.parallel.mesh import active_mesh, batch_means, draw
+
 # big-negative mask value (the reference's -1e9 masked_fill)
 NEG_INF = -1e9
 LN_EPS = 1e-6
@@ -36,11 +38,12 @@ def dropout(x: torch.Tensor, rate: float,
             generator: Optional[torch.Generator]) -> torch.Tensor:
     """Inverted dropout as flax's ``nn.Dropout``: keep with probability
     1 - rate and scale by 1 / (1 - rate). Identity when ``generator`` is None
-    (eval) or ``rate`` is 0."""
+    (eval) or ``rate`` is 0. Under a data mesh the mask is drawn for the
+    global batch and this rank's rows kept."""
     if generator is None or rate <= 0.0:
         return x
     keep = 1.0 - rate
-    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    mask = draw(torch.rand, x.shape, generator=generator, device=x.device) < keep
     return torch.where(mask, x / keep, torch.zeros_like(x))
 
 
@@ -214,21 +217,72 @@ class ConvFFN(nn.Module):
         return F.linear(x, _cast(self.ffn_2.weight, dt), _cast(self.ffn_2.bias, dt)).float()
 
 
+class BatchNorm1dTBC(nn.Module):
+    """Per-channel batch norm over (batch, time) on [B, T, C] (the JAX
+    package's ``BatchNorm1dTBC``, the ``norm: 'bn'`` knob of the FFT blocks).
+    Training mode normalises by the batch's mean and biased variance (two
+    passes, padding frames included) and writes the running statistics in
+    place, torch's way: momentum 0.1 (new = 0.9 old + 0.1 batch) and the
+    unbiased variance, by n / (n - 1). Under a data mesh the batch
+    statistics are those of the global batch. Eval mode reads the running
+    statistics. Its parameters and buffers are named as ``nn.BatchNorm1d``'s,
+    so the keys are those of the layer norm it replaces plus the buffers."""
+
+    def __init__(self, channels: int, momentum: float = 0.1, eps: float = 1e-5):
+        super().__init__()
+        self.momentum, self.eps = momentum, eps
+        self.weight = nn.Parameter(torch.ones(channels))
+        self.bias = nn.Parameter(torch.zeros(channels))
+        self.register_buffer("running_mean", torch.zeros(channels))
+        self.register_buffer("running_var", torch.ones(channels))
+
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        if not train:
+            mean, var = self.running_mean, self.running_var
+        else:
+            (mean,) = batch_means([x], (0, 1))
+            (var,) = batch_means([(x - mean) ** 2], (0, 1))
+            n = x.shape[0] * x.shape[1]
+            mesh = active_mesh()
+            n = n if mesh is None else mesh.data_count(n)
+            m = self.momentum
+            with torch.no_grad():
+                self.running_mean.mul_(1 - m).add_(m * mean.detach())
+                self.running_var.mul_(1 - m).add_(m * var.detach() * n / max(n - 1, 1))
+        return (x - mean) * torch.rsqrt(var + self.eps) * self.weight + self.bias
+
+
+def make_norm(norm: str, hidden_size: int) -> nn.Module:
+    if norm == "bn":
+        return BatchNorm1dTBC(hidden_size)
+    if norm != "ln":
+        raise ValueError(f"norm={norm}")
+    return nn.LayerNorm(hidden_size, eps=LN_EPS)
+
+
+def apply_norm(norm: nn.Module, x: torch.Tensor, train: bool) -> torch.Tensor:
+    """A layer norm, or a batch norm in training mode when ``train``."""
+    return norm(x, train) if isinstance(norm, BatchNorm1dTBC) else norm(x)
+
+
 class EncSALayer(nn.Module):
-    """Pre-LN transformer encoder layer with conv-FFN and hard padding zeroing."""
+    """Pre-LN transformer encoder layer with conv-FFN and hard padding zeroing.
+    ``norm='bn'`` puts :class:`BatchNorm1dTBC` in place of both layer norms,
+    in training mode when the forward draws dropout (``drop_gen`` given),
+    as JAX's ``use_running_average=deterministic``."""
 
     def __init__(self, hidden_size: int, num_heads: int, kernel_size: int = 9,
                  act: str = "gelu", dropout: float = 0.0, padding: str = "SAME",
-                 dtype: Optional[torch.dtype] = None):
+                 dtype: Optional[torch.dtype] = None, norm: str = "ln"):
         super().__init__()
         self.num_heads = num_heads
         self.dropout = dropout
         if num_heads > 0:
-            self.layer_norm1 = nn.LayerNorm(hidden_size, eps=LN_EPS)
+            self.layer_norm1 = make_norm(norm, hidden_size)
             # no dropout on the attention probabilities: the JAX layer builds
             # its attention with rate 0
             self.self_attn = MultiHeadSelfAttention(hidden_size, num_heads, dtype)
-        self.layer_norm2 = nn.LayerNorm(hidden_size, eps=LN_EPS)
+        self.layer_norm2 = make_norm(norm, hidden_size)
         self.ffn = ConvFFN(hidden_size, 4 * hidden_size, kernel_size, act, dropout,
                            padding, dtype)
 
@@ -236,12 +290,14 @@ class EncSALayer(nn.Module):
                 drop_gen: Optional[torch.Generator] = None) -> torch.Tensor:
         """x [B, T, C]; padding_mask [B, T] True where PAD."""
         nonpad = (~padding_mask).to(x.dtype)[:, :, None]
+        train = drop_gen is not None
         if self.num_heads > 0:
             residual = x
-            x = self.self_attn(self.layer_norm1(x), key_padding_mask=padding_mask)
+            x = self.self_attn(apply_norm(self.layer_norm1, x, train),
+                               key_padding_mask=padding_mask)
             x = (residual + dropout(x, self.dropout, drop_gen)) * nonpad
         residual = x
-        x = self.ffn(self.layer_norm2(x), drop_gen)
+        x = self.ffn(apply_norm(self.layer_norm2, x, train), drop_gen)
         return (residual + dropout(x, self.dropout, drop_gen)) * nonpad
 
 
@@ -250,14 +306,91 @@ class TransformerEncoderLayer(nn.Module):
 
     def __init__(self, hidden_size: int, num_heads: int, kernel_size: int = 9,
                  act: str = "gelu", dropout: float = 0.0, padding: str = "SAME",
-                 dtype: Optional[torch.dtype] = None):
+                 dtype: Optional[torch.dtype] = None, norm: str = "ln"):
         super().__init__()
         self.op = EncSALayer(hidden_size, num_heads, kernel_size, act, dropout, padding,
-                             dtype)
+                             dtype, norm)
 
     def forward(self, x: torch.Tensor, padding_mask: torch.Tensor,
                 drop_gen: Optional[torch.Generator] = None) -> torch.Tensor:
         return self.op(x, padding_mask, drop_gen)
+
+
+class MultiHeadCrossAttention(nn.Module):
+    """Encoder-decoder attention without biases: queries from ``x`` [B, Tq,
+    C], keys and values from ``encoder_out`` [B, Tk, C] (JAX's
+    ``MultiHeadCrossAttention``: ``q_proj`` C -> C, ``kv_proj`` C -> 2C,
+    ``out_proj``; dropout on the probabilities)."""
+
+    def __init__(self, dim: int, num_heads: int, dropout: float = 0.0,
+                 dtype: Optional[torch.dtype] = None):
+        super().__init__()
+        self.num_heads, self.dropout, self.dtype = num_heads, dropout, dtype
+        self.q_proj = xavier_linear(dim, dim, bias=False)
+        self.kv_proj = xavier_linear(dim, 2 * dim, bias=False)
+        self.out_proj = xavier_linear(dim, dim, bias=False)
+
+    def forward(self, x: torch.Tensor, encoder_out: torch.Tensor,
+                key_padding_mask: Optional[torch.Tensor] = None,
+                drop_gen: Optional[torch.Generator] = None) -> torch.Tensor:
+        b, tq, c = x.shape
+        tk = encoder_out.shape[1]
+        h, dt = self.num_heads, self.dtype
+        hd = c // h
+        q = F.linear(_cast(x, dt), _cast(self.q_proj.weight, dt))
+        k, v = F.linear(_cast(encoder_out, dt), _cast(self.kv_proj.weight, dt)).split(c, -1)
+        q = q.reshape(b, tq, h, hd).transpose(1, 2) * (hd ** -0.5)
+        k = k.reshape(b, tk, h, hd).transpose(1, 2)
+        v = v.reshape(b, tk, h, hd).transpose(1, 2)
+        scores = q.float() @ k.float().transpose(-1, -2)
+        if key_padding_mask is not None:  # [B, Tk] True where PAD
+            scores = scores.masked_fill(key_padding_mask[:, None, None, :], NEG_INF)
+        probs = dropout(torch.softmax(scores, dim=-1), self.dropout, drop_gen)
+        out = (probs.to(v.dtype) @ v).transpose(1, 2).reshape(b, tq, c)
+        return F.linear(out, _cast(self.out_proj.weight, dt)).float()
+
+
+class DecSALayer(nn.Module):
+    """Pre-LN transformer decoder layer: self-attention, cross-attention over
+    ``encoder_out`` (skipped when it is None), then a causal (LEFT-padded)
+    conv FFN, each with a residual (JAX's ``DecSALayer``; the reference
+    pipelines define it and run none)."""
+
+    def __init__(self, hidden_size: int, num_heads: int, dropout: float = 0.0,
+                 kernel_size: int = 9, act: str = "gelu"):
+        super().__init__()
+        self.dropout = dropout
+        self.layer_norm1 = nn.LayerNorm(hidden_size, eps=LN_EPS)
+        self.self_attn = MultiHeadSelfAttention(hidden_size, num_heads)
+        self.layer_norm2 = nn.LayerNorm(hidden_size, eps=LN_EPS)
+        self.encoder_attn = MultiHeadCrossAttention(hidden_size, num_heads)
+        self.layer_norm3 = nn.LayerNorm(hidden_size, eps=LN_EPS)
+        self.ffn = ConvFFN(hidden_size, 4 * hidden_size, kernel_size, act, dropout, "LEFT")
+
+    def forward(self, x: torch.Tensor, encoder_out: Optional[torch.Tensor] = None,
+                encoder_padding_mask: Optional[torch.Tensor] = None,
+                self_attn_padding_mask: Optional[torch.Tensor] = None,
+                drop_gen: Optional[torch.Generator] = None) -> torch.Tensor:
+        residual = x
+        x = self.self_attn(self.layer_norm1(x), key_padding_mask=self_attn_padding_mask)
+        x = residual + dropout(x, self.dropout, drop_gen)
+        if encoder_out is not None:
+            residual = x
+            x = self.encoder_attn(self.layer_norm2(x), encoder_out,
+                                  key_padding_mask=encoder_padding_mask, drop_gen=drop_gen)
+            x = residual + dropout(x, self.dropout, drop_gen)
+        residual = x
+        x = self.ffn(self.layer_norm3(x), drop_gen)
+        return residual + dropout(x, self.dropout, drop_gen)
+
+
+def conv_tbc(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+             pad: int = 0) -> torch.Tensor:
+    """Time-batch-channel 1-D convolution (torch's ``conv_tbc`` semantics):
+    x [T, B, C_in], weight [K, C_in, C_out], bias [C_out] -> [T', B, C_out],
+    as one plain ``conv1d``."""
+    y = F.conv1d(x.permute(1, 2, 0), weight.permute(2, 1, 0), bias, padding=pad)
+    return y.permute(2, 0, 1)
 
 
 class Embedding(nn.Module):

@@ -25,6 +25,8 @@ from typing import Any, Callable, Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from diffsinger_tpu_torch.parallel.mesh import draw as draw_rows, global_mean
+
 DenoiseFn = Callable[[torch.Tensor, torch.Tensor, Any], torch.Tensor]
 
 
@@ -152,7 +154,8 @@ class GaussianDiffusion:
             raise NotImplementedError(self.cfg.loss_type)
         if nonpadding is not None:
             err = err * nonpadding[:, :, None]
-        return err.mean()
+        # over the global batch's elements under a data mesh
+        return global_mean(err)
 
     def training_loss(self, denoise_fn: DenoiseFn, ref_mels: torch.Tensor,
                       t: torch.Tensor, cond, noise: torch.Tensor,
@@ -246,7 +249,8 @@ class GaussianDiffusion:
         def draw(i: int) -> torch.Tensor:
             if noise is not None:
                 return noise[i].to(cond.device, torch.float32)
-            return torch.randn(shape, generator=generator, device=cond.device)
+            # drawn for the global batch under a data mesh
+            return draw_rows(torch.randn, shape, generator=generator, device=cond.device)
 
         if cfg.gaussian_start or fs2_mel is None:
             x = draw(0)

@@ -6,7 +6,9 @@ the encoder embedding is sqrt(d) * token_embed (plus the MIDI extras), then
 (unless ``use_pos_embed`` is off) sinusoidal positions added or, with
 ``rel_pos``, ESPnet's relative encoding. The decoder always adds its
 positions. ``ffn_padding`` (SAME or LEFT) and ``dtype`` (bfloat16 for
-``fs2_compute_dtype``) reach every layer's attention and conv FFN.
+``fs2_compute_dtype``) reach every layer's attention and conv FFN;
+``norm='bn'`` puts ``BatchNorm1dTBC`` in place of every layer norm and the
+last one (in training mode when ``drop_gen`` is given).
 Dropout (training mode, masks from ``drop_gen``) follows the JAX places: the
 encoder's embedding, the decoder's positional embedding, and inside every
 layer.
@@ -22,16 +24,17 @@ from typing import Optional
 import torch
 import torch.nn as nn
 
-from diffsinger_tpu_torch.models.common import (LN_EPS, Embedding, RelPositionalEncoding,
+from diffsinger_tpu_torch.models.common import (Embedding, RelPositionalEncoding,
                                                 SinusoidalPositionalEmbedding,
-                                                TransformerEncoderLayer, dropout)
+                                                TransformerEncoderLayer, make_norm,
+                                                apply_norm, dropout)
 
 
 class FFTBlocks(nn.Module):
     def __init__(self, hidden_size: int, num_layers: int, ffn_kernel_size: int = 9,
                  num_heads: int = 2, use_pos_embed: bool = True,
                  ffn_act: str = "gelu", dropout: float = 0.0, ffn_padding: str = "SAME",
-                 dtype: Optional[torch.dtype] = None):
+                 dtype: Optional[torch.dtype] = None, norm: str = "ln"):
         super().__init__()
         self.use_pos_embed = use_pos_embed
         self.dropout = dropout
@@ -40,9 +43,9 @@ class FFTBlocks(nn.Module):
             self.embed_positions = SinusoidalPositionalEmbedding(hidden_size)
         self.layers = nn.ModuleList([
             TransformerEncoderLayer(hidden_size, num_heads, ffn_kernel_size, ffn_act,
-                                    dropout, ffn_padding, dtype)
+                                    dropout, ffn_padding, dtype, norm)
             for _ in range(num_layers)])
-        self.layer_norm = nn.LayerNorm(hidden_size, eps=LN_EPS)
+        self.layer_norm = make_norm(norm, hidden_size)
 
     def forward(self, x: torch.Tensor, padding_mask: Optional[torch.Tensor] = None,
                 drop_gen: Optional[torch.Generator] = None) -> torch.Tensor:
@@ -58,7 +61,7 @@ class FFTBlocks(nn.Module):
         x = x * nonpad
         for layer in self.layers:
             x = layer(x, padding_mask, drop_gen) * nonpad
-        return self.layer_norm(x) * nonpad
+        return apply_norm(self.layer_norm, x, drop_gen is not None) * nonpad
 
 
 class FastSpeechEncoder(FFTBlocks):

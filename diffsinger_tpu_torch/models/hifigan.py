@@ -35,6 +35,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from diffsinger_tpu_torch.parallel.mesh import draw
+
 LRELU_SLOPE = 0.1
 # the NSF source: the fundamental and 8 overtones, sines of amplitude 0.1,
 # noise of std 0.003 on voiced samples (F0 > 0 Hz)
@@ -97,10 +99,11 @@ def sine_source_framewise(f0_frame: torch.Tensor, upsample: int, sample_rate: in
 
 def draw_source(b: int, t_wav: int, device, generator: torch.Generator):
     """The source's random draws: ``rand_ini`` [B, 1, 9] uniform phases (the
-    fundamental's set to 0) and ``noise`` [B, T_wav, 9] normal."""
-    rand_ini = torch.rand((b, 1, N_SINES), generator=generator, device=device)
+    fundamental's set to 0) and ``noise`` [B, T_wav, 9] normal; under a data
+    mesh drawn for the global batch and this rank's rows kept."""
+    rand_ini = draw(torch.rand, (b, 1, N_SINES), generator=generator, device=device)
     rand_ini[:, :, 0] = 0.0
-    noise = torch.randn((b, t_wav, N_SINES), generator=generator, device=device)
+    noise = draw(torch.randn, (b, t_wav, N_SINES), generator=generator, device=device)
     return rand_ini, noise
 
 

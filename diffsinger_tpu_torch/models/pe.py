@@ -28,6 +28,7 @@ import torch.nn.functional as F
 
 from diffsinger_tpu_torch.models.common import conv1d_btc, xavier_linear
 from diffsinger_tpu_torch.models.predictors import PitchPredictor
+from diffsinger_tpu_torch.parallel.mesh import batch_means
 from diffsinger_tpu_torch.utils.pitch import denorm_f0
 
 
@@ -68,9 +69,12 @@ class Prenet(nn.Module):
     def _batch_norm_train(x: torch.Tensor, bn: nn.BatchNorm1d,
                           new_stats: Dict[str, torch.Tensor], key: str) -> torch.Tensor:
         """flax ``BatchNorm`` in training mode on [B, T, C]: statistics over B
-        and T, biased fast variance clipped at 0, momentum 0.99."""
-        mean = x.mean((0, 1))
-        var = torch.clamp((x * x).mean((0, 1)) - mean * mean, min=0.0)
+        and T, biased fast variance clipped at 0, momentum 0.99. Under a data
+        mesh the sum, the sum of squares and the count are those of the
+        global batch (one all-reduce), so every rank normalises alike and
+        holds the same running statistics."""
+        mean, sq = batch_means([x, x * x], (0, 1))
+        var = torch.clamp(sq - mean * mean, min=0.0)
         momentum = 0.99
         with torch.no_grad():
             new_stats[key + "running_mean"] = (momentum * bn.running_mean

@@ -8,6 +8,12 @@ ported.
 
 Word durations are a fixed-size segment sum (the word count is at most the
 phone count), as in the JAX package.
+
+Every mean is over the global batch: a masked mean divides by the data
+group's summed mask and an unmasked one by the global element count
+(``parallel/mesh.py``), so under data parallelism the ranks' losses add up
+to the one-process loss on the (padded) global batch. Outside a data mesh
+they are the plain means.
 """
 
 from __future__ import annotations
@@ -18,6 +24,7 @@ import torch
 
 from diffsinger_tpu_torch.models.predictors import mel2ph_to_dur
 from diffsinger_tpu_torch.ops.ssim import ssim
+from diffsinger_tpu_torch.parallel.mesh import global_mean, masked_mean
 
 
 def l1(x: torch.Tensor) -> torch.Tensor:
@@ -47,17 +54,15 @@ def weights_nonzero_speech(target: torch.Tensor) -> torch.Tensor:
 
 
 def mel_l1_loss(mel_out: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
-    w = weights_nonzero_speech(target)
-    return (l1(mel_out - target) * w).sum() / torch.clamp(w.sum(), min=1.0)
+    return masked_mean(l1(mel_out - target), weights_nonzero_speech(target))
 
 
 def mel_ssim_loss(mel_out: torch.Tensor, target: torch.Tensor,
                   bias: float = 6.0) -> torch.Tensor:
     """1 - SSIM per element of the mels shifted by ``bias``, over non-zero
     target frames."""
-    w = weights_nonzero_speech(target)
     ssim_map = 1 - ssim(mel_out + bias, target + bias, reduce_mean=False)
-    return (ssim_map * w).sum() / torch.clamp(w.sum(), min=1.0)
+    return masked_mean(ssim_map, weights_nonzero_speech(target))
 
 
 def parse_mel_loss(spec: str) -> Dict[str, float]:
@@ -95,8 +100,7 @@ def _word_dur_loss(dur_pred: torch.Tensor, dur_gt: torch.Tensor, word_id: torch.
 
     word_dur_p, word_dur_g = seg(dur_pred), seg(dur_gt)
     wdur = (torch.log(word_dur_p + 1) - torch.log(word_dur_g + 1)) ** 2
-    word_nonpadding = (word_dur_g > 0).to(torch.float32)
-    return (wdur * word_nonpadding).sum() / torch.clamp(word_nonpadding.sum(), min=1.0)
+    return masked_mean(wdur, (word_dur_g > 0).to(torch.float32))
 
 
 def duration_losses(losses: Dict[str, torch.Tensor], dur_pred_log: torch.Tensor,
@@ -120,12 +124,12 @@ def duration_losses(losses: Dict[str, torch.Tensor], dur_pred_log: torch.Tensor,
         tags = torch.clamp(dur_gt.to(torch.long), 0, 31)
         mask = txt_tokens != 0
         mask[:, 0] = True
-        losses["pdur"] = -crf.log_likelihood(dur_pred_log, tags, mask).mean() * lambda_ph_dur
+        losses["pdur"] = -global_mean(crf.log_likelihood(dur_pred_log, tags, mask)) * lambda_ph_dur
         return
     if dur_loss != "mse":
         raise NotImplementedError(dur_loss)
     pdur = (dur_pred_log - torch.log(dur_gt + 1)) ** 2
-    losses["pdur"] = (pdur * nonpadding).sum() / nonpadding.sum() * lambda_ph_dur
+    losses["pdur"] = masked_mean(pdur, nonpadding, clamp=False) * lambda_ph_dur
     dur_pred = clamp0(torch.exp(dur_pred_log) - 1)
 
     if lambda_word_dur > 0:
@@ -133,7 +137,7 @@ def duration_losses(losses: Dict[str, torch.Tensor], dur_pred_log: torch.Tensor,
         losses["wdur"] = _word_dur_loss(dur_pred, dur_gt, word_id, t_txt + 1) * lambda_word_dur
     if lambda_sent_dur > 0:
         sdur = (torch.log(dur_pred.sum(-1) + 1) - torch.log(dur_gt.sum(-1) + 1)) ** 2
-        losses["sdur"] = sdur.mean() * lambda_sent_dur
+        losses["sdur"] = global_mean(sdur) * lambda_sent_dur
 
 
 def midi_duration_loss(losses: Dict[str, torch.Tensor], dur_pred_log: torch.Tensor,
@@ -146,7 +150,7 @@ def midi_duration_loss(losses: Dict[str, torch.Tensor], dur_pred_log: torch.Tens
     nonpadding = (txt_tokens != 0).to(torch.float32)
     dur_gt = mel2ph_to_dur(mel2ph, txt_tokens.shape[1]).to(torch.float32) * nonpadding
     pdur = (dur_pred_log - torch.log(dur_gt + 1)) ** 2
-    losses["pdur"] = (pdur * nonpadding).sum() / nonpadding.sum() * lambda_ph_dur
+    losses["pdur"] = masked_mean(pdur, nonpadding, clamp=False) * lambda_ph_dur
     dur_pred = clamp0(torch.exp(dur_pred_log) - 1)
 
     if lambda_word_dur > 0:
@@ -157,7 +161,7 @@ def midi_duration_loss(losses: Dict[str, torch.Tensor], dur_pred_log: torch.Tens
                           * lambda_word_dur)
     if lambda_sent_dur > 0:
         sdur = (torch.log(dur_pred.sum(-1) + 1) - torch.log(dur_gt.sum(-1) + 1)) ** 2
-        losses["sdur"] = sdur.mean() * lambda_sent_dur
+        losses["sdur"] = global_mean(sdur) * lambda_sent_dur
 
 
 def f0_loss(losses: Dict[str, torch.Tensor], pitch_pred: torch.Tensor, f0: torch.Tensor,
@@ -167,12 +171,11 @@ def f0_loss(losses: Dict[str, torch.Tensor], pitch_pred: torch.Tensor, f0: torch
     """Frame-level f0 (``f0``) and voicing (``uv``) losses."""
     if use_uv and uv is not None:
         bce = binary_cross_entropy_with_logits(pitch_pred[:, :, 1], uv)
-        losses["uv"] = ((bce * nonpadding).sum()
-                        / torch.clamp(nonpadding.sum(), min=1.0) * lambda_uv)
+        losses["uv"] = masked_mean(bce, nonpadding) * lambda_uv
         nonpadding = nonpadding * (uv == 0).to(torch.float32)
     f0_pred = pitch_pred[:, :, 0]
     err = l1(f0_pred - f0) if pitch_loss == "l1" else (f0_pred - f0) ** 2
-    losses["f0"] = (err * nonpadding).sum() / torch.clamp(nonpadding.sum(), min=1.0) * lambda_f0
+    losses["f0"] = masked_mean(err, nonpadding) * lambda_f0
 
 
 def ph_pitch_loss(losses: Dict[str, torch.Tensor], pitch_pred: torch.Tensor,
@@ -182,7 +185,7 @@ def ph_pitch_loss(losses: Dict[str, torch.Tensor], pitch_pred: torch.Tensor,
     nonpadding = (txt_tokens != 0).to(torch.float32)
     diff = pitch_pred[:, :, 0] - f0_ph
     err = l1(diff) if pitch_loss == "l1" else diff ** 2
-    losses["f0"] = (err * nonpadding).sum() / nonpadding.sum() * lambda_f0
+    losses["f0"] = masked_mean(err, nonpadding, clamp=False) * lambda_f0
 
 
 def cwt_pitch_loss(losses: Dict[str, torch.Tensor], output: Dict[str, torch.Tensor],
@@ -195,23 +198,20 @@ def cwt_pitch_loss(losses: Dict[str, torch.Tensor], output: Dict[str, torch.Tens
     utterance log-F0 statistics (``f0_mean``, ``f0_std``)."""
     diff = output["cwt"][:, :, :10] - cwt_spec
     if cwt_loss == "l1":
-        losses["C"] = l1(diff).mean() * lambda_f0
+        losses["C"] = global_mean(l1(diff)) * lambda_f0
     elif cwt_loss == "l2":
-        losses["C"] = (diff ** 2).mean() * lambda_f0
+        losses["C"] = global_mean(diff ** 2) * lambda_f0
     else:
         raise NotImplementedError(cwt_loss)
     if use_uv:
         bce = binary_cross_entropy_with_logits(output["cwt"][:, :, -1], uv)
-        losses["uv"] = ((bce * nonpadding).sum()
-                        / torch.clamp(nonpadding.sum(), min=1.0) * lambda_uv)
-    losses["f0_mean"] = l1(output["f0_mean"] - f0_mean).mean() * lambda_f0
-    losses["f0_std"] = l1(output["f0_std"] - f0_std).mean() * lambda_f0
+        losses["uv"] = masked_mean(bce, nonpadding) * lambda_uv
+    losses["f0_mean"] = global_mean(l1(output["f0_mean"] - f0_mean)) * lambda_f0
+    losses["f0_std"] = global_mean(l1(output["f0_std"] - f0_std)) * lambda_f0
 
 
 def energy_loss(losses: Dict[str, torch.Tensor], energy_pred: torch.Tensor,
                 energy: torch.Tensor, *, lambda_energy: float = 0.1) -> None:
     """Frame energy loss (``e``), squared error over frames of nonzero energy."""
-    nonpadding = (energy != 0).to(torch.float32)
-    err = ((energy_pred - energy) ** 2 * nonpadding).sum() / torch.clamp(
-        nonpadding.sum(), min=1.0)
+    err = masked_mean((energy_pred - energy) ** 2, (energy != 0).to(torch.float32))
     losses["e"] = err * lambda_energy

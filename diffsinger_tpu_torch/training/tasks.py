@@ -35,6 +35,7 @@ from diffsinger_tpu_torch.models.pe import PEConfig, PitchExtractor
 from diffsinger_tpu_torch.ops.diffnet_stack import (diffnet_forward, pack_sampling_ctx,
                                                     precompute_cond_packed)
 from diffsinger_tpu_torch.ops.diffnet_train import diffnet_train_forward
+from diffsinger_tpu_torch.parallel.mesh import draw
 from diffsinger_tpu_torch.training import losses as L
 from diffsinger_tpu_torch.utils.device import resolve_device
 
@@ -308,10 +309,12 @@ class DiffSingerTask(_FS2Task):
                              "(or t, noise and deterministic=True)")
         ret = self._fs2_train(batch, None if deterministic else generator, use_gt_f0)
         b = target.shape[0]
+        # under a data mesh both are drawn for the global batch and sliced
         if t is None:
-            t = torch.randint(0, self.gd.cfg.k_step, (b,), generator=generator, device=dev)
+            t = draw(torch.randint, (b,), 0, self.gd.cfg.k_step, generator=generator,
+                     device=dev)
         if noise is None:
-            noise = torch.randn(target.shape, generator=generator, device=dev)
+            noise = draw(torch.randn, target.shape, generator=generator, device=dev)
         losses: Dict[str, torch.Tensor] = {
             "mel": self.gd.training_loss(self._denoise_train, target,
                                          _as_tensor(t, torch.long, dev),

@@ -25,14 +25,31 @@ trainer generator's state and ``best_val_loss``. The newest
 resume) and released checkpoints (params and step, fresh moments).
 
 ``fit`` runs one optimizer step per call. The JAX package's
-``train_steps_per_call`` (a ``lax.scan`` over steps), ``cond_precompute``
-and ``use_pallas_*`` switches work around TPU dispatch and are not read
-here: the updates are the same. Not ported: the flat-vector optimizer and
-the device mesh.
+``train_steps_per_call`` (a ``lax.scan`` over steps), ``cond_precompute``,
+``flat_optimizer`` and ``use_pallas_*`` switches work around TPU dispatch and
+are not read here: the updates are the same.
+
+Parallelism (``parallel/``): under a process group the trainer runs on a
+``data`` x ``model`` mesh (``num_model_shards`` model ranks). Every rank is
+handed the same global batch, pads it to a multiple of the data axis and
+keeps its rows; the losses are means over the global batch (each rank's
+terms add up to them), the gradients are summed over the data group in one
+all-reduce of a flat buffer before clipping, and the diffusion step, noise
+and dropout masks are drawn at the global batch's shape from the one
+seeded generator and sliced, so a step equals the one-process step on the
+padded global batch. Rank 0's weights are broadcast at ``initialize``.
+With model ranks the parameters ``param_shardings`` picks are held as
+shards, with shard-sized AdamW moments, and gathered whole for each step
+(``TensorParallel``). Rank 0 alone writes TensorBoard, checkpoints (the
+whole parameters and moments, as a one-process run writes them) and the
+code snapshot. Unlike the JAX package, which seeds ``fit`` with ``seed +
+process_index()``, every rank is seeded alike: the global draws are sliced,
+not drawn per rank.
 """
 
 from __future__ import annotations
 
+import contextlib
 import os
 import shutil
 import time
@@ -41,11 +58,15 @@ from typing import (Any, Callable, Dict, Iterable, Iterator, List, Optional, Seq
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from diffsinger_tpu_torch.convert.checkpoint import (ckpt_step, find_latest_ckpt,
                                                      load_torch_state_dict, load_warm_start,
                                                      merge_state_dict, split_keys,
                                                      torch_load)
+from diffsinger_tpu_torch.parallel.mesh import (Mesh, make_mesh, pad_batch_for_sharding,
+                                                shard_batch)
+from diffsinger_tpu_torch.parallel.tensor_parallel import TensorParallel
 from diffsinger_tpu_torch.training.schedules import (Schedule, build_lr_schedule,
                                                      grad_accum_schedule)
 from diffsinger_tpu_torch.utils.device import resolve_device
@@ -67,9 +88,10 @@ class Optimizer:
 
     def __init__(self, params: List[torch.nn.Parameter], adamw: torch.optim.AdamW,
                  schedule: Schedule, clip: float,
-                 accumulate: Union[int, Callable[[int], int]]):
+                 accumulate: Union[int, Callable[[int], int]],
+                 norm: Callable[[Sequence[torch.Tensor]], torch.Tensor] = global_norm):
         self.params, self.adamw, self.schedule = params, adamw, schedule
-        self.clip, self.accumulate = clip, accumulate
+        self.clip, self.accumulate, self.norm = clip, accumulate, norm
         self.num_updates = 0
         self.mini_step = 0
 
@@ -89,7 +111,7 @@ class Optimizer:
         if self.clip > 0:
             grads = [p.grad for p in self.params]
             # with one mini-step the mean is these gradients: reuse their norm
-            norm = grad_norm if k == 1 else global_norm(grads)
+            norm = grad_norm if k == 1 else self.norm(grads)
             torch._foreach_mul_(grads, torch.clamp(self.clip / norm, max=1.0))
         for group in self.adamw.param_groups:
             group["lr"] = self.schedule(self.num_updates)
@@ -99,9 +121,13 @@ class Optimizer:
 
 
 def build_optimizer(hp: Dict[str, Any], params: List[torch.nn.Parameter],
-                    batches_per_epoch: Optional[int] = None) -> Optimizer:
-    """Optimizer over the TRAINABLE parameters only. A per-epoch
-    ``accumulate_grad_batches`` dict needs ``batches_per_epoch``."""
+                    batches_per_epoch: Optional[int] = None,
+                    norm: Callable[[Sequence[torch.Tensor]], torch.Tensor] = global_norm
+                    ) -> Optimizer:
+    """Optimizer over the TRAINABLE parameters only (their shards under
+    tensor parallelism, with ``norm`` the global norm of the whole
+    gradients). A per-epoch ``accumulate_grad_batches`` dict needs
+    ``batches_per_epoch``."""
     if str(hp.get("optimizer", "adamw")).lower() != "adamw":
         raise NotImplementedError(f"optimizer={hp.get('optimizer')} is not ported yet")
     accum = hp.get("accumulate_grad_batches", 1)
@@ -120,7 +146,8 @@ def build_optimizer(hp: Dict[str, Any], params: List[torch.nn.Parameter],
         betas=(float(hp.get("optimizer_adam_beta1", 0.9)),
                float(hp.get("optimizer_adam_beta2", 0.98))),
         eps=1e-8, weight_decay=float(hp.get("weight_decay", 0.0)))
-    return Optimizer(params, adamw, schedule, float(hp.get("clip_grad_norm", 0) or 0), accum)
+    return Optimizer(params, adamw, schedule, float(hp.get("clip_grad_norm", 0) or 0), accum,
+                     norm)
 
 
 def _threshold(v) -> Optional[int]:
@@ -130,20 +157,25 @@ def _threshold(v) -> Optional[int]:
 
 class Trainer:
     """Optimizer steps, validation and checkpoints of a task on one device
-    (the card unless the caller names another). ``work_dir`` (default
-    ``hp["work_dir"]``) holds the checkpoints; without one nothing is
-    restored or saved."""
+    (the card unless the caller names another), on ``mesh`` (default: the
+    default process group's ranks split into data x ``num_model_shards``; a
+    1 x 1 mesh without a group). ``work_dir`` (default ``hp["work_dir"]``)
+    holds the checkpoints; without one nothing is restored or saved."""
 
     def __init__(self, hp: Dict[str, Any], task, device="cuda",
-                 work_dir: Optional[str] = None):
+                 work_dir: Optional[str] = None, mesh: Optional[Mesh] = None):
         self.device = resolve_device(device)
         if task.device != self.device:
             raise ValueError(f"the task is on {task.device}, the trainer on {self.device}")
         self.hp = dict(hp)
         self.task = task
+        self.mesh = mesh if mesh is not None else make_mesh(
+            num_model=int(self.hp.get("num_model_shards", 1) or 1))
+        self.tp: Optional[TensorParallel] = None
         self.work_dir = work_dir or self.hp.get("work_dir") or None
         self.global_step = 0
         self.params: List[torch.nn.Parameter] = []
+        self.param_names: List[str] = []
         self.optimizer: Optional[Optimizer] = None
         self.batches_per_epoch: Optional[int] = None  # for a per-epoch accumulation dict
         # (global_step, use_gt_f0) where the F0 the conditioner embeds began:
@@ -158,16 +190,49 @@ class Trainer:
         # (step, "train" or "val", scalars) of every log line and validation of fit
         self.history: List[Tuple[int, str, Dict[str, float]]] = []
 
+    @property
+    def is_main(self) -> bool:
+        """Rank 0 (or no process group): the rank that writes files and logs."""
+        return self.mesh.rank == 0
+
     def initialize(self) -> None:
-        """Warm start, optimizer over the trainable parameters, then the
-        newest checkpoint in ``work_dir``."""
+        """Warm start, rank 0's weights on every rank, the model axis's
+        shards, the optimizer over the trainable parameters (or their
+        shards), then the newest checkpoint in ``work_dir``."""
         self.load_warm_start()
-        self.params = [p for _, p in self.task.set_trainable()]
-        self.optimizer = build_optimizer(self.hp, self.params, self.batches_per_epoch)
+        if self.mesh.distributed:  # every rank starts from rank 0's weights, as DDP
+            for t in self.task.state_dict().values():
+                dist.broadcast(t, src=0)
+        if self.is_main:
+            for top, module in self.task.named_children():
+                n = sum(p.numel() for p in module.parameters())
+                print(f"| {top} params: {n / 1e6:.3f}M")
+        named = self.task.set_trainable()
+        self.param_names = [n for n, _ in named]
+        self.params = [p for _, p in named]
+        opt_params, norm = self.params, global_norm
+        if self.mesh.num_model > 1:
+            self.tp = TensorParallel(self.task, self.mesh, int(self.hp.get(
+                "tp_min_param_size", 1 << 16)))
+            opt_params = self.tp.optimizer_params(named)
+            names = self.param_names
+            norm = lambda grads: self.tp.global_norm(names, grads)  # noqa: E731
+        self.optimizer = build_optimizer(self.hp, opt_params, self.batches_per_epoch, norm)
         self.restore()
-        for top, module in self.task.named_children():
-            n = sum(p.numel() for p in module.parameters())
-            print(f"| {top} params: {n / 1e6:.3f}M")
+
+    @contextlib.contextmanager
+    def gathered(self) -> Iterator[None]:
+        """The task's whole parameters inside the block: under tensor
+        parallelism the sharded ones are gathered from the model group on
+        entry and released on exit (every model rank must enter)."""
+        if self.tp is None or self.tp.gathered:
+            yield
+            return
+        self.tp.gather()
+        try:
+            yield
+        finally:
+            self.tp.release()
 
     def load_warm_start(self) -> None:
         """``fs2_ckpt`` into the task's FS2 (``convert/checkpoint.py``); a
@@ -175,8 +240,13 @@ class Trainer:
         load_warm_start(self.hp, self.task)
 
     def prepare_batch(self, batch: Dict[str, Any]) -> Dict[str, torch.Tensor]:
-        """Array entries to the device: pinned host memory and a non-blocking
-        copy when the device is the card."""
+        """This rank's rows of a global batch (padded with zero rows to a
+        multiple of the data axis) to the device: pinned host memory and a
+        non-blocking copy when the device is the card."""
+        if self.mesh.num_data > 1:
+            arrays = {k: v.cpu().numpy() if isinstance(v, torch.Tensor) else v
+                      for k, v in batch.items() if isinstance(v, (np.ndarray, torch.Tensor))}
+            batch = shard_batch(self.mesh, pad_batch_for_sharding(arrays, self.mesh.num_data))
         out = {}
         for k, v in batch.items():
             if k in ARRAY_KEYS_EXCLUDE or not isinstance(v, (np.ndarray, torch.Tensor)):
@@ -218,15 +288,33 @@ class Trainer:
                        deterministic: bool = False, use_gt_f0: bool = True
                        ) -> Tuple[Dict[str, torch.Tensor], List[torch.Tensor]]:
         """The loss terms (plus ``total_loss`` and ``grad_norm``) and the
-        gradients of the trainable parameters, which are left unchanged (and
-        so are the task's statistics). A trainable parameter the loss does
-        not reach gets a zero gradient."""
-        return self._loss_and_grads(batch, t, noise, generator, deterministic, use_gt_f0)[:2]
+        whole gradients of the trainable parameters, which are left
+        unchanged (and so are the task's statistics). A trainable parameter
+        the loss does not reach gets a zero gradient. On a data mesh the
+        batch is the global one (as ``train_step`` takes it), ``t`` and
+        ``noise`` are given for the padded global batch, and the losses and
+        gradients are the global batch's."""
+        with self.gathered():
+            return self._loss_and_grads(self._on_device(batch), t, noise, generator,
+                                        deterministic, use_gt_f0)[:2]
+
+    def _local_rows(self, x: Optional[torch.Tensor], rows: int) -> Optional[torch.Tensor]:
+        """This rank's rows of a draw given for the padded global batch."""
+        if x is None or self.mesh.num_data == 1:
+            return x
+        if x.shape[0] != rows * self.mesh.num_data:
+            raise ValueError(f"t and noise are given for the padded global batch of "
+                             f"{rows * self.mesh.num_data} rows, got {x.shape[0]}")
+        start, stop = self.mesh.row_span(x.shape[0])
+        return x[start:stop]
 
     def _loss_and_grads(self, batch, t, noise, generator, deterministic, use_gt_f0):
-        total, losses, new_state = self._task_loss(
-            batch, t=t, noise=noise, generator=generator or self.generator,
-            deterministic=deterministic, use_gt_f0=use_gt_f0)
+        rows = len(next(v for v in batch.values() if isinstance(v, torch.Tensor)))
+        with self.mesh.active():
+            total, losses, new_state = self._task_loss(
+                batch, t=self._local_rows(t, rows), noise=self._local_rows(noise, rows),
+                generator=generator or self.generator, deterministic=deterministic,
+                use_gt_f0=use_gt_f0)
         grads = torch.autograd.grad(total, self.params, allow_unused=True)
         # contiguous, as the parameters are: the DiffNet's per-layer weight
         # gradients arrive as strided views of its stacked gradients, and one
@@ -236,8 +324,23 @@ class Trainer:
                  for p, g in zip(self.params, grads)]
         out = {k: v.detach() for k, v in losses.items()}
         out["total_loss"] = total.detach()
+        if self.mesh.distributed:
+            grads, out = self._sum_over_data(grads, out)
         out["grad_norm"] = global_norm(grads)
         return out, grads, new_state
+
+    def _sum_over_data(self, grads: List[torch.Tensor], losses: Dict[str, torch.Tensor]):
+        """The gradients and the loss terms summed over the data group, in one
+        all-reduce of a flat buffer."""
+        names = list(losses)
+        flat = torch.cat([g.reshape(-1) for g in grads]
+                         + [torch.stack([losses[k].float() for k in names])])
+        flat = self.mesh.data_sum(flat)
+        out, at = [], 0
+        for g in grads:
+            out.append(flat[at:at + g.numel()].view_as(g))
+            at += g.numel()
+        return out, dict(zip(names, flat[at:]))
 
     def use_gt_f0(self) -> bool:
         """Ground-truth F0 for the next step: no ``switch_midi2f0_step``, or
@@ -251,14 +354,19 @@ class Trainer:
                    deterministic: bool = False) -> Dict[str, torch.Tensor]:
         """One mini-step: loss, gradients, the task's new statistics and
         (every ``accumulate_grad_batches`` mini-steps) an update. Returns the
-        losses as device scalars."""
+        losses as device scalars (on a data mesh the global batch's: the
+        ranks' terms summed). ``batch`` is the global batch, ``t`` and
+        ``noise`` (optional) are given for the padded global batch."""
         if self.optimizer is None:
             raise RuntimeError("call Trainer.initialize() first")
         gt_f0 = self.use_gt_f0()
         if not self.gt_f0_log or self.gt_f0_log[-1][1] != gt_f0:
             self.gt_f0_log.append((self.global_step, gt_f0))
-        losses, grads, new_state = self._loss_and_grads(self._on_device(batch), t, noise,
-                                                        generator, deterministic, gt_f0)
+        with self.gathered():
+            losses, grads, new_state = self._loss_and_grads(self._on_device(batch), t, noise,
+                                                            generator, deterministic, gt_f0)
+        if self.tp is not None:
+            grads = self.tp.shard_grads(self.param_names, grads)
         self.optimizer.step(grads, losses["grad_norm"])
         if new_state is not None:
             self.task.update_state(new_state)
@@ -280,50 +388,73 @@ class Trainer:
         batch come from a generator seeded 0 (the JAX package's
         ``PRNGKey(0)`` for each batch), or from ``draws(batch_idx, batch)`` ->
         (t, noise). ``plotter(trainer, batch, batch_idx)`` runs for the first
-        ``num_valid_plots`` batches."""
+        ``num_valid_plots`` batches (rank 0's writer only: the plotter runs
+        on the global batch with no mesh active). On a data mesh the losses
+        are the global batch's, as in ``train_step``, and ``draws`` gives
+        them for the padded global batch."""
         num_plots = int(self.hp.get("num_valid_plots", 0)) if plotter else 0
         metrics = MetricsDict()
         gen = torch.Generator(device=self.device)
-        for i, batch in enumerate(batches):
-            if max_batches is not None and i >= max_batches:
-                break
-            arrays = self.prepare_batch(batch)
-            n = int(batch.get("nsamples", len(next(iter(arrays.values())))))
-            t = noise = None
-            if draws is not None:
-                t, noise = draws(i, batch)
-            gen.manual_seed(0)
-            total, losses, _ = self._task_loss(arrays, t=t, noise=noise, generator=gen,
-                                               deterministic=True)
-            scalars = {k: float(v) for k, v in losses.items()}
-            scalars["total_loss"] = float(total)
-            metrics.update(scalars, n)
-            if i < num_plots:
-                try:
-                    plotter(self, batch, i)
-                except Exception as e:  # plotting must never fail validation
-                    print(f"| validation plot {i} failed: {e}")
+        with self.gathered():
+            for i, batch in enumerate(batches):
+                if max_batches is not None and i >= max_batches:
+                    break
+                arrays = self.prepare_batch(batch)
+                n = int(batch.get("nsamples", len(next(
+                    v for v in batch.values() if isinstance(v, (np.ndarray, torch.Tensor))))))
+                rows = len(next(iter(arrays.values())))
+                t = noise = None
+                if draws is not None:
+                    t, noise = draws(i, batch)
+                gen.manual_seed(0)
+                with self.mesh.active():
+                    total, losses, _ = self._task_loss(
+                        arrays, t=self._local_rows(t, rows),
+                        noise=self._local_rows(noise, rows), generator=gen,
+                        deterministic=True)
+                losses["total_loss"] = total
+                names = list(losses)
+                values = torch.stack([losses[k].detach().float() for k in names])
+                if self.mesh.distributed:
+                    values = self.mesh.data_sum(values)
+                metrics.update(dict(zip(names, values.tolist())), n)
+                if i < num_plots:
+                    try:
+                        plotter(self, batch, i)
+                    except Exception as e:  # plotting must never fail validation
+                        print(f"| validation plot {i} failed: {e}")
         return metrics.averages()
 
     # ------------------------------------------------------------ checkpoints
     def ckpt_path(self, step: int) -> str:
         return os.path.join(self.work_dir, f"model_ckpt_steps_{step}.ckpt")
 
-    def save_checkpoint(self, val_loss: Optional[float] = None) -> str:
+    def save_checkpoint(self, val_loss: Optional[float] = None) -> Optional[str]:
         """Write ``model_ckpt_steps_{global_step}.ckpt`` (atomically: a
         temporary file renamed), drop all but the newest ``num_ckpt_keep``
-        and, for a new best ``val_loss``, write ``best_valid.npy``."""
+        and, for a new best ``val_loss``, write ``best_valid.npy``. Every
+        rank calls it; under tensor parallelism the whole parameters and
+        moments are gathered first, and rank 0 alone writes (the layout a
+        one-process run writes). Returns the path (None on other ranks)."""
         if not self.work_dir:
             raise ValueError("the trainer has no work_dir to save checkpoints in")
-        os.makedirs(self.work_dir, exist_ok=True)
-        if val_loss is not None and val_loss < self.best_val_loss:
+        new_best = val_loss is not None and val_loss < self.best_val_loss
+        if new_best:
             self.best_val_loss = val_loss
-            np.save(os.path.join(self.work_dir, "best_valid.npy"), np.asarray([val_loss]))
         opt = self.optimizer
         model = self.task.checkpoint_module()
-        ckpt = {"state_dict": {"model": {k: v.detach().cpu()
-                                         for k, v in model.state_dict().items()}},
-                "optimizer_states": [opt.adamw.state_dict()] if opt is not None else [],
+        with self.gathered():
+            weights = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+        opt_state = [] if opt is None else [opt.adamw.state_dict()]
+        if opt is not None and self.tp is not None:
+            opt_state = [self.tp.gather_moments(self.param_names, opt_state[0])]
+        if not self.is_main:
+            return None
+        os.makedirs(self.work_dir, exist_ok=True)
+        if new_best:
+            np.save(os.path.join(self.work_dir, "best_valid.npy"), np.asarray([val_loss]))
+        ckpt = {"state_dict": {"model": weights},
+                "optimizer_states": opt_state,
                 "num_updates": opt.num_updates if opt is not None else 0,
                 "global_step": self.global_step,
                 "generator_state": self.generator.get_state(),
@@ -344,7 +475,9 @@ class Trainer:
         and step, plus the AdamW moments and the generator when the file
         has them (a full resume), else fresh moments. A checkpoint that gives
         this task no parameter is refused and ``global_step`` stays; one
-        whose keys or shapes differ from the task's raises."""
+        whose keys or shapes differ from the task's raises. Any mesh reads
+        any run's checkpoint: the model axis re-shards the whole parameters
+        and moments."""
         path = find_latest_ckpt(self.work_dir) if self.work_dir and os.path.isdir(
             self.work_dir) else None
         if path is None:
@@ -352,22 +485,31 @@ class Trainer:
         raw = torch_load(path)
         sd = load_torch_state_dict(raw)
         model = self.task.checkpoint_module()
-        matched, mismatched, missing, unexpected = split_keys(model, sd)
-        if not matched:
-            print(f"| torch checkpoint {path} contributed no parameters for this task; "
-                  "ignoring")
-            return False
-        if mismatched or missing or unexpected:
-            raise RuntimeError(
-                f"checkpoint {path} does not match the model: missing={missing[:5]} "
-                f"unexpected={unexpected[:5]} shape mismatch={mismatched[:5]}")
-        merge_state_dict(model, sd)
+        if self.tp is not None:
+            self.tp.gather()
+        try:
+            matched, mismatched, missing, unexpected = split_keys(model, sd)
+            if not matched:
+                print(f"| torch checkpoint {path} contributed no parameters for this task; "
+                      "ignoring")
+                return False
+            if mismatched or missing or unexpected:
+                raise RuntimeError(
+                    f"checkpoint {path} does not match the model: missing={missing[:5]} "
+                    f"unexpected={unexpected[:5]} shape mismatch={mismatched[:5]}")
+            merge_state_dict(model, sd)
+        finally:
+            if self.tp is not None:  # this rank's shards of what is loaded
+                self.tp.reshard()
         step = raw.get("global_step")
         self.global_step = int(ckpt_step(path) if step is None else step)
         resumed = False
         if self.optimizer is not None and raw.get("optimizer_states"):
             try:
-                self.optimizer.adamw.load_state_dict(raw["optimizer_states"][0])
+                state = raw["optimizer_states"][0]
+                if self.tp is not None:
+                    state = self.tp.shard_moments(self.param_names, state)
+                self.optimizer.adamw.load_state_dict(state)
                 self.optimizer.num_updates = int(raw.get("num_updates", self.global_step))
                 resumed = True
             except (ValueError, KeyError) as e:
@@ -391,10 +533,10 @@ class Trainer:
     # ------------------------------------------------------------ logging
     @property
     def writer(self):
-        """A TensorBoard writer under ``work_dir/tb_logs``, or None when
-        ``torch.utils.tensorboard`` does not import (scalars are then only
-        printed) or there is no work_dir."""
-        if not self._writer_tried and self.work_dir:
+        """A TensorBoard writer under ``work_dir/tb_logs`` on rank 0, or None
+        on other ranks, when ``torch.utils.tensorboard`` does not import
+        (scalars are then only printed) or there is no work_dir."""
+        if not self._writer_tried and self.work_dir and self.is_main:
             self._writer_tried = True
             try:
                 from torch.utils.tensorboard import SummaryWriter
@@ -412,8 +554,9 @@ class Trainer:
             w.add_scalar(f"{prefix}/{k}", float(v), self.global_step)
 
     def snapshot_code(self) -> None:
-        """Copy the package into ``work_dir/codes/<timestamp>/`` once."""
-        if not self.work_dir or os.path.exists(os.path.join(self.work_dir, "codes")):
+        """Copy the package into ``work_dir/codes/<timestamp>/`` once (rank 0)."""
+        if (not self.work_dir or not self.is_main
+                or os.path.exists(os.path.join(self.work_dir, "codes"))):
             return
         src = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
         dst = os.path.join(self.work_dir, "codes", time.strftime("%Y%m%d%H%M%S"),
@@ -475,16 +618,18 @@ class Trainer:
                     t0, last_log_step = time.time(), self.global_step
                     self.log_scalars(scalars)
                     self.history.append((self.global_step, "train", scalars))
-                    print(f"| step {self.global_step} " + " ".join(
-                        f"{k}={v:.4f}" for k, v in scalars.items()), flush=True)
+                    if self.is_main:
+                        print(f"| step {self.global_step} " + " ".join(
+                            f"{k}={v:.4f}" for k, v in scalars.items()), flush=True)
                 if crossed(prev, val_interval) and self.global_step > 0:
                     val = None
                     if valid_dataset is not None:
                         val = self.validate(valid_batches(), plotter=self.plotter)
                         self.log_scalars(val, prefix="val")
                         self.history.append((self.global_step, "val", val))
-                        print(f"| validation at step {self.global_step} " + " ".join(
-                            f"{k}={v:.4f}" for k, v in val.items()), flush=True)
+                        if self.is_main:
+                            print(f"| validation at step {self.global_step} " + " ".join(
+                                f"{k}={v:.4f}" for k, v in val.items()), flush=True)
                     self.save_checkpoint(None if val is None else val.get("total_loss"))
                 if prof is not None and self.global_step >= 10:
                     prof.stop()
@@ -503,4 +648,5 @@ class Trainer:
     def _trace_path(self) -> str:
         d = self.hp["profile_dir"]
         os.makedirs(d, exist_ok=True)
-        return os.path.join(d, f"trace_step{self.global_step}.json")
+        rank = f"_rank{self.mesh.rank}" if self.mesh.distributed else ""
+        return os.path.join(d, f"trace_step{self.global_step}{rank}.json")

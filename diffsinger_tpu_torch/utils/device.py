@@ -2,19 +2,30 @@
 
 from __future__ import annotations
 
+import os
 from typing import Union
 
 import torch
+import torch.distributed as dist
 
 
 def resolve_device(device: Union[str, torch.device, None] = "cuda") -> torch.device:
     """Entry points run on the card unless the caller names another device.
 
-    ``None`` means the default, CUDA. A CUDA request without a CUDA device
-    raises: the port never moves to the CPU on its own."""
+    ``None`` means the default, CUDA. Under a process group a bare ``cuda``
+    is this rank's card, ``cuda:{LOCAL_RANK}`` (torchrun's variable). A CUDA
+    request without that CUDA device raises: the port never moves to the CPU
+    or to another rank's card on its own."""
     dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
+    if dev.type != "cuda":
+        return dev
+    if not torch.cuda.is_available():
         raise RuntimeError(
             "no CUDA device is available; the port runs on the GPU by default. "
             "Pass device='cpu' explicitly to run the plain PyTorch path.")
+    if dev.index is None and dist.is_initialized():
+        dev = torch.device("cuda", int(os.environ.get("LOCAL_RANK", "0")))
+    if dev.index is not None and dev.index >= torch.cuda.device_count():
+        raise RuntimeError(f"{dev} is absent: this machine has "
+                           f"{torch.cuda.device_count()} CUDA device(s)")
     return dev
