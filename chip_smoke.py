@@ -50,6 +50,18 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      2 x 4096 batch, 26 stack and 2 MRF launches each; batch seconds,
      mel-frames/s, profiles (shipped_*_profile.txt), and each batch against
      the plain twins by the serve_cwt and singing criteria;
+  5d. shipped_matrix: the two longest reverse loops of the shipped configs,
+     as shipped, at full width from seeded weights: configs/lj/ds_pndm.yaml
+     (DiffSpeech + PNDM, K 1000 at speedup 10 from a Gaussian start: 101
+     float32 stack calls a batch; HiFiGAN v1) and
+     configs/opencpop/ds100_adj_rel.yaml (OpenCpop e2e, DDPM K 100 on the
+     linear schedule: 100 calls; PE, NSF-HiFiGAN 8/8/2), both built through
+     the entry points with TF32 switched on, which must leave it off; one
+     warm 8 x 1024 batch each (exactly 101 / 100 stack and 3 / 2 MRF
+     launches, latency, mel-frames/s, profiles shipped_pndm_profile.txt and
+     shipped_adj_rel_profile.txt) held against the plain twins by
+     serve_shipped's criteria; then the float32 LJ vocoder batch and a
+     HifiGanTask step at 16 x 8192 timed with cuDNN's TF32 off and on;
   6. diffnet_train forward and backward kernels at the training shapes
      (B=24, T=1024, C=H=256, L=20), bf16 and f32, dilation cycles 1 and 4,
      plus 3 x 301 rows with H=200 and with H=256 (not a tile multiple; the
@@ -192,7 +204,8 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      It measures correctness and the collectives' cost, not scaling;
   8. prints the kernels line and, last, the device line.
 The plain twins run with TF32 off (cuBLAS and cuDNN), so they are float32
-references. Long output goes to build/chip_smoke/chip_smoke.json.
+references; the port's entry points turn it off too when they resolve the
+card. Long output goes to build/chip_smoke/chip_smoke.json.
 """
 
 import json
@@ -417,10 +430,12 @@ FRAMES_PER_PHONE = 8
 
 
 def build_synth(torch, seed: int = 0, frame_pitch: bool = True,
-                stack_dtype: Optional[str] = "bfloat16"):
+                stack_dtype: Optional[str] = "bfloat16", config: Optional[str] = None):
     """DiffSpeech-LJSpeech for serving; ``frame_pitch`` keeps bench.py's
     pitch_type override, else the config's own cwt pitch; ``stack_dtype``
-    None keeps the config's own (float32) stack."""
+    None keeps the config's own (float32) stack. ``config`` (a path under
+    configs/) serves that config as shipped instead: its own widths, sampler,
+    pitch and stack type."""
     import numpy as np
     import torch.nn as nn
 
@@ -429,17 +444,21 @@ def build_synth(torch, seed: int = 0, frame_pitch: bool = True,
     from diffsinger_tpu_torch.inference.vocoder import HifiGAN
     from diffsinger_tpu_torch.training.tasks import DiffSingerTask
 
-    hp = set_hparams(str(ROOT / "configs" / "lj" / "ds_beta6.yaml"))
-    # bench.py's serving workload: DiffSpeech LJSpeech at its published width
-    # (its use_pallas_diffnet switch has no counterpart: the port's stack
-    # always runs through the kernel wrapper)
-    hp.update(hidden_size=256, enc_layers=4, dec_layers=4, residual_layers=20,
-              residual_channels=256, timesteps=100, K_step=71, max_beta=0.06,
-              schedule_type="linear", seed=seed)
-    if stack_dtype is not None:
-        hp["compute_dtype"] = stack_dtype
-    if frame_pitch:
-        hp["pitch_type"] = "frame"
+    if config is not None:
+        hp = set_hparams(str(ROOT / "configs" / config))
+        hp["seed"] = seed
+    else:
+        hp = set_hparams(str(ROOT / "configs" / "lj" / "ds_beta6.yaml"))
+        # bench.py's serving workload: DiffSpeech LJSpeech at its published
+        # width (its use_pallas_diffnet switch has no counterpart: the port's
+        # stack always runs through the kernel wrapper)
+        hp.update(hidden_size=256, enc_layers=4, dec_layers=4, residual_layers=20,
+                  residual_channels=256, timesteps=100, K_step=71, max_beta=0.06,
+                  schedule_type="linear", seed=seed)
+        if stack_dtype is not None:
+            hp["compute_dtype"] = stack_dtype
+        if frame_pitch:
+            hp["pitch_type"] = "frame"
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(seed)
         task = DiffSingerTask(hp, vocab_size=80, device="cpu")
@@ -456,7 +475,7 @@ def build_synth(torch, seed: int = 0, frame_pitch: bool = True,
             lin = task.fs2.dur_predictor.linear
             lin.weight.zero_()
             lin.bias.fill_(float(np.log(FRAMES_PER_PHONE + 1.0)))
-            if not frame_pitch:
+            if hp["pitch_type"] == "cwt":
                 # the CWT statistics: log-F0 around 5.2 (181 Hz), std 0.35
                 stats = task.fs2.cwt_stats_layers[4]
                 stats.weight.mul_(0.1)
@@ -689,7 +708,8 @@ SING_WORD_INPUT = {
     "input_type": "word"}
 
 
-def build_singer(torch, seed: int = 0, stack_dtype: Optional[str] = "bfloat16"):
+def build_singer(torch, seed: int = 0, stack_dtype: Optional[str] = "bfloat16",
+                 config: str = "ds1000.yaml"):
     import numpy as np
     import torch.nn as nn
 
@@ -699,11 +719,12 @@ def build_singer(torch, seed: int = 0, stack_dtype: Optional[str] = "bfloat16"):
     from diffsinger_tpu_torch.models.pe import PEConfig, PitchExtractor
     from diffsinger_tpu_torch.training.tasks import DiffSingerTask
 
-    hp = set_hparams(str(ROOT / "configs" / "opencpop" / "ds1000.yaml"))
-    # the released DiffSinger-Opencpop model at its published width, the
-    # stack in bf16 (tools/bench_opencpop.py's setting) unless stack_dtype is
-    # None (the config's own float32); the vocoder's geometry is given
-    # explicitly (hop 8 * 8 * 2 = 128 = hop_size)
+    hp = set_hparams(str(ROOT / "configs" / "opencpop" / config))
+    # the released DiffSinger-Opencpop model (or ``config``, another OpenCpop
+    # config) at its published width, the stack in bf16
+    # (tools/bench_opencpop.py's setting) unless stack_dtype is None (the
+    # config's own float32); the vocoder's geometry is given explicitly (hop
+    # 8 * 8 * 2 = 128 = hop_size)
     hp.update(seed=seed, **SING_VOCODER)
     if stack_dtype is not None:
         hp["compute_dtype"] = stack_dtype
@@ -744,7 +765,9 @@ def sing_vs_plain(torch, ds, mrf, syn, requests, seed: int) -> dict:
     (t_mel_b, group, b_pad), = syn.plan(requests)
     stacked = syn._stack_group(group, requests[0][0]["txt_tokens"].shape[1], t_mel_b)
     gen = torch.Generator(device="cuda").manual_seed(seed)
-    noise = torch.randn((1, b_pad, t_mel_b, 80), device="cuda", generator=gen)
+    cfg = syn.task.gd.cfg  # PLMS draws its start, DDPM also one noise a step
+    n_draws = 1 if cfg.pndm_speedup else cfg.k_step + 1
+    noise = torch.randn((n_draws, b_pad, t_mel_b, 80), device="cuda", generator=gen)
     with torch.no_grad():
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -1025,6 +1048,194 @@ def phase_serve_shipped(torch, ds, mrf, card: str, out_dir: Path):
     out = {"card": card, "lj": lj, "singing": singing,
            "launches": {k: lj_launches[k] + sing_launches[k] for k in lj_launches}}
     return out
+
+
+# -------------------------------------------------------------------- phase 5d
+def tf32_switches(torch):
+    return torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+
+
+def tf32_cost(torch, voc, card: str) -> dict:
+    """What torch's default (cuDNN TF32 on) cost or saved: the float32 LJ
+    vocoder (HiFiGAN v1, the MRF scales on the kernel, the rest cuDNN) on an
+    8 x 1024 mel batch and one HifiGanTask step (HiFiGAN v1 against MPD and
+    MSD, all cuDNN) on 16 x 8192 samples, each timed with
+    ``cudnn.allow_tf32`` off, on, on, off; the waveform's distance between
+    the two modes. Leaves TF32 off."""
+    import numpy as np
+
+    from diffsinger_tpu_torch.config.hparams import set_hparams
+    from diffsinger_tpu_torch.training.vocoder_task import HifiGanTask
+
+    mel = _voc_mel(torch, 8, 1024, 21)
+    base = set_hparams(str(ROOT / "configs" / "base.yaml"))
+    task = HifiGanTask({k: base[k] for k in VOC_AUDIO_KEYS},
+                       generator=torch.Generator().manual_seed(0))
+    hop = task.gen_cfg.total_upsample
+    g = torch.Generator(device="cuda").manual_seed(22)
+    t_wav = torch.arange(VOC_FRAMES * hop, device="cuda") / task.gen_cfg.audio_sample_rate
+    f = torch.rand((VOC_BATCH, 1), device="cuda", generator=g) * 300 + 100
+    wav = 0.5 * torch.sin(2 * np.pi * f * t_wav) + 0.01 * torch.randn(
+        (VOC_BATCH, t_wav.numel()), device="cuda", generator=g)
+    seg_mel = _voc_mel(torch, VOC_BATCH, VOC_FRAMES, 23)
+    task.train_step(seg_mel, wav)  # warm, TF32 off
+    modes = {False: {"vocoder_ms": [], "step_ms": []}, True: {"vocoder_ms": [], "step_ms": []}}
+    wavs = {}
+    for on in (False, True, True, False):
+        torch.backends.cudnn.allow_tf32 = on
+        with torch.no_grad():
+            wavs[on] = voc.apply(mel)
+            modes[on]["vocoder_ms"].append(cuda_ms(lambda: voc.apply(mel), 3))
+        task.train_step(seg_mel, wav)  # a first step in the mode picks its algorithms
+        torch.cuda.synchronize()
+        steps = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            task.train_step(seg_mel, wav)
+            torch.cuda.synchronize()
+            steps.append((time.perf_counter() - t0) * 1e3)
+        modes[on]["step_ms"].append(float(np.median(steps)))
+    torch.backends.cudnn.allow_tf32 = False
+    del task
+    scale = wavs[False].abs().max().item()
+    return {"card": card, "vocoder": "HiFiGAN v1 float32, 8 x 1024 mel frames",
+            "step": f"HifiGanTask, HiFiGAN v1 + MPD + MSD, {VOC_BATCH} x "
+                    f"{VOC_FRAMES * hop} samples",
+            "order": "off, on, on, off",
+            "cudnn_tf32_off": modes[False], "cudnn_tf32_on": modes[True],
+            "vocoder_wav_max_abs": scale,
+            "vocoder_wav_tf32_vs_f32_max_abs_diff": (wavs[True] - wavs[False]).abs()
+            .max().item()}
+
+
+def phase_shipped_matrix(torch, ds, mrf, card: str, out_dir: Path):
+    """The two longest reverse loops of the shipped configs, as shipped, at
+    full width from seeded weights: configs/lj/ds_pndm.yaml (DiffSpeech +
+    PNDM: K = 1000 at speedup 10 from a Gaussian start, 101 float32 stack
+    calls a batch; frame pitch, no pitch embedding; HiFiGAN v1 float32) and
+    configs/opencpop/ds100_adj_rel.yaml (OpenCpop e2e: DDPM K = 100 on the
+    linear schedule from a Gaussian start, 100 calls; MIDI + rel_pos, the PE's
+    F0 into NSF-HiFiGAN 8/8/2). Both are built with TF32 switched on, and the
+    entry points must leave it off. One warm 8 x 1024 batch each: latency,
+    mel-frames/s, launches (exactly 101 / 100 stack, 3 / 2 MRF), profiles
+    (shipped_pndm_profile.txt, shipped_adj_rel_profile.txt), and each batch
+    against the plain twins by serve_shipped's criteria; then the TF32 line
+    (``tf32_cost``)."""
+    import numpy as np
+
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = True
+    hp, syn = build_synth(torch, config="lj/ds_pndm.yaml")
+    hp_s, infer = build_singer(torch, stack_dtype=None, config="ds100_adj_rel.yaml")
+    if tf32_switches(torch) != (False, False):
+        raise AssertionError(f"shipped_matrix: TF32 (matmul, cuDNN) = "
+                             f"{tf32_switches(torch)} after the entry points, expected off")
+    sing = infer.fused
+    if not (syn.task.compute_dtype is None and hp["pitch_type"] == "frame"
+            and not hp["use_pitch_embed"] and syn.task.gd.denoiser_calls() == 101
+            and hp["hidden_size"] == hp["residual_channels"] == 256
+            and hp["residual_layers"] == 20):
+        raise AssertionError("shipped_matrix: the LJ model is not ds_pndm.yaml as shipped")
+    if not (sing.task.compute_dtype is None and sing.pe is not None and hp_s["pe_enable"]
+            and sing.task.gd.denoiser_calls() == 100 and not sing.task.gd.cfg.pndm_speedup
+            and sing.task.gd.cfg.schedule_type == "linear" and sing.hop == SING_HOP):
+        raise AssertionError("shipped_matrix: the singing model is not ds100_adj_rel.yaml "
+                             "as shipped")
+
+    # --- LJ, ds_pndm.yaml
+    rng = np.random.RandomState(5)
+    big = [({"txt_tokens": rng.randint(3, 80, size=(1, 128)).astype(np.int64)}, 1024)
+           for _ in range(8)]
+    syn.warmup([1024], batch_sizes=(8,))
+    ds.diffnet_stack.launches = 0
+    mrf.mrf_stage.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    wavs = syn.synthesize_many(big)
+    torch.cuda.synchronize()
+    t_lj = time.perf_counter() - t0
+    lj_launches = {"diffnet_stack": ds.diffnet_stack.launches,
+                   "mrf_stage": mrf.mrf_stage.launches}
+    if lj_launches != {"diffnet_stack": 101, "mrf_stage": 3}:
+        raise AssertionError(f"shipped_matrix ds_pndm: kernel launches {lj_launches}, "
+                             f"expected 101 stack and 3 MRF")
+    stack_ran(ds, "shipped_matrix ds_pndm")
+    for wav in wavs:
+        if wav.shape != (1024 * syn.hop,) or not np.isfinite(wav).all():
+            raise AssertionError(f"shipped_matrix ds_pndm: bad waveform {wav.shape}")
+    noise = torch.randn((1, 8, 1024, 80), device="cuda",
+                        generator=torch.Generator(device="cuda").manual_seed(9))
+    wav_k = syn.synthesize_many(big, noises=[noise])
+    with mock.patch.object(ds, "diffnet_stack", ds.diffnet_stack_plain), \
+            mock.patch.object(mrf, "mrf_stage", mrf.mrf_stage_plain):
+        wav_p = syn.synthesize_many(big, noises=[noise])
+    a, b = np.concatenate(wav_k), np.concatenate(wav_p)
+    if not (np.isfinite(a).all() and np.isfinite(b).all()):
+        raise AssertionError("shipped_matrix ds_pndm: non-finite waveform in the "
+                             "kernel/plain check")
+    lj = {"config": "configs/lj/ds_pndm.yaml as shipped (PLMS, K 1000, speedup 10, "
+                    "gaussian start, frame pitch, no pitch embedding, float32 stack, "
+                    "HiFiGAN v1 float32), seeded weights",
+          "denoiser_calls_per_batch": 101, "launches": lj_launches,
+          "latency_s": {"batch_8x1024": t_lj},
+          "mel_frames_per_s": {"batch_8x1024": 8 * 1024 / t_lj},
+          "wav_max_abs": float(np.abs(a).max()),
+          "kernel_vs_plain_wav_max_abs_diff": float(np.abs(a - b).max()),
+          # serve_shipped's LJ criterion
+          "kernel_vs_plain_wav_tolerance": 1e-4 * max(float(np.abs(b).max()), 1.0)}
+    print("shipped_matrix_pndm", json.dumps(lj), flush=True)
+    if not lj["kernel_vs_plain_wav_max_abs_diff"] <= lj["kernel_vs_plain_wav_tolerance"]:
+        raise AssertionError(f"shipped_matrix ds_pndm: kernel and plain waveforms differ by "
+                             f"{lj['kernel_vs_plain_wav_max_abs_diff']} > "
+                             f"{lj['kernel_vs_plain_wav_tolerance']}")
+    lj["profile"] = phase_profile(torch, lambda: syn.synthesize_many(big), out_dir,
+                                  "shipped_pndm")
+    del wav_k, wav_p, noise
+
+    # --- singing, ds100_adj_rel.yaml (the vocoder geometry given)
+    rng = np.random.RandomState(6)
+    vocab = len(infer.ph_encoder)
+    reqs = [({"txt_tokens": rng.randint(3, vocab, size=(1, 128)).astype(np.int64),
+              "pitch_midi": rng.randint(48, 80, size=(1, 128)).astype(np.int64),
+              "midi_dur": rng.uniform(0.05, 0.6, size=(1, 128)).astype(np.float32),
+              "is_slur": (rng.rand(1, 128) < 0.1).astype(np.int64)}, 1024) for _ in range(8)]
+    sing.warmup([1024], batch_sizes=(8,))
+    ds.diffnet_stack.launches = 0
+    mrf.mrf_stage.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    wavs = sing.synthesize_many(reqs)
+    torch.cuda.synchronize()
+    t_sing = time.perf_counter() - t0
+    sing_launches = {"diffnet_stack": ds.diffnet_stack.launches,
+                     "mrf_stage": mrf.mrf_stage.launches}
+    if sing_launches != {"diffnet_stack": 100, "mrf_stage": 2}:
+        raise AssertionError(f"shipped_matrix ds100_adj_rel: kernel launches "
+                             f"{sing_launches}, expected 100 stack and 2 MRF")
+    stack_ran(ds, "shipped_matrix ds100_adj_rel")
+    for wav in wavs:
+        if wav.shape != (1024 * SING_HOP,) or not np.isfinite(wav).all():
+            raise AssertionError(f"shipped_matrix ds100_adj_rel: bad waveform {wav.shape}")
+    check = sing_vs_plain(torch, ds, mrf, sing, reqs, seed=10)
+    singing = {"config": "configs/opencpop/ds100_adj_rel.yaml as shipped (DDPM K 100, "
+                         "linear schedule, max_beta 0.06, gaussian start, cycle 4, float32 "
+                         "stack, PE), NSF-HiFiGAN 8/8/2, seeded weights",
+               "denoiser_calls_per_batch": 100, "launches": sing_launches,
+               "latency_s": {"batch_8x1024": t_sing},
+               "mel_frames_per_s": {"batch_8x1024": 8 * 1024 / t_sing},
+               "audio_s_per_s": {"batch_8x1024": 8 * 1024 / SING_FRAMES_PER_S / t_sing},
+               "kernel_vs_plain": check}
+    print("shipped_matrix_adj_rel", json.dumps(singing), flush=True)
+    sing_check_or_raise("shipped_matrix ds100_adj_rel", check)
+    singing["profile"] = phase_profile(torch, lambda: sing.synthesize_many(reqs), out_dir,
+                                       "shipped_adj_rel")
+    del infer, sing
+
+    tf32 = tf32_cost(torch, syn.vocoder, card)
+    print("shipped_matrix_tf32", json.dumps(tf32), flush=True)
+    if tf32_switches(torch) != (False, False):
+        raise AssertionError("shipped_matrix: TF32 left on")
+    return {"card": card, "ds_pndm": lj, "ds100_adj_rel": singing, "tf32": tf32,
+            "launches": {k: lj_launches[k] + sing_launches[k] for k in lj_launches}}
 
 
 # --------------------------------------------------------------------- phase 6
@@ -3509,6 +3720,7 @@ def main() -> int:
     serving_cwt, cwt_profile = phase_serve_cwt(torch, ds, mrf, card, out_dir)
     singing, sing_profile = phase_sing(torch, ds, mrf, card, out_dir)
     shipped = phase_serve_shipped(torch, ds, mrf, card, out_dir)
+    matrix = phase_shipped_matrix(torch, ds, mrf, card, out_dir)
     train_rows = phase_train_stack(torch, tr)
     training, train_profile = phase_train(torch, tr, card, out_dir)
     training_cwt, _ = phase_train(torch, tr, card, out_dir, steps=5, cwt=True)
@@ -3540,7 +3752,8 @@ def main() -> int:
         return {"launches": sum(by_path.values()), "launches_by_path": by_path}
 
     serve_paths = {"serving": serving, "serve_cwt": serving_cwt, "singing": singing,
-                   "serve_shipped": shipped, "cli": cli_run, "cli_cascade": cascade,
+                   "serve_shipped": shipped, "shipped_matrix": matrix, "cli": cli_run,
+                   "cli_cascade": cascade,
                    "serve_web": web, "vocoders": vocoders, "crf": crf,
                    "vocoder_train": vocoder_train, "parallel": parallel}
     train_paths = {"train": training, "train_cwt": training_cwt,
@@ -3640,7 +3853,7 @@ def main() -> int:
                    "serving": serving, "profile": profile, "serve_cwt": serving_cwt,
                    "serve_cwt_profile": cwt_profile, "singing": singing,
                    "sing_profile": sing_profile, "serve_shipped": shipped,
-                   "train_stack": train_rows,
+                   "shipped_matrix": matrix, "train_stack": train_rows,
                    "training": training, "train_profile": train_profile,
                    "train_cwt": training_cwt, "train_shipped": training_shipped,
                    "train_fs2": training_fs2, "train_midi": training_midi,

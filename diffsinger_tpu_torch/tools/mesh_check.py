@@ -6,7 +6,9 @@ the card; both hold the results against one process.
 
 :func:`spawn_ranks` starts ``world`` processes (the ``spawn`` start method),
 gives each the parent's TF32 switches (a spawned process starts from
-torch's defaults, where cuDNN convolutions round to TF32), joins the default
+torch's defaults, where cuDNN convolutions round to TF32; a rank on the card
+turns both off again when an entry point resolves its device, as the parent
+did), joins the default
 process group in each at ``tcp://localhost:<free port>``, calls ``fn(rank,
 world, spec)`` and returns each rank's result (numpy arrays and Python
 values). Everything here is module level, so a spawned process can import

@@ -115,6 +115,60 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
     assert all(p.device.type == "cpu" for p in task.parameters())
 
 
+def test_entry_points_on_the_card_turn_tf32_off(monkeypatch):
+    """Every entry point that resolves a CUDA device leaves float32 matmuls and
+    cuDNN convolutions in float32 (torch's default rounds cuDNN's inputs to
+    TF32); the CPU leaves both switches as they were. CUDA is faked, so each
+    entry point stops at its first use of the card, after its device
+    resolved."""
+    from diffsinger_tpu_torch.inference.svs import DiffSingerE2EInfer
+    from diffsinger_tpu_torch.training.vocoder_task import HifiGanTask
+    from diffsinger_tpu_torch.utils.device import resolve_device
+
+    backends = torch.backends
+    monkeypatch.setattr(backends.cuda.matmul, "allow_tf32", True)
+    monkeypatch.setattr(backends.cudnn, "allow_tf32", True)
+
+    def switches():
+        return backends.cuda.matmul.allow_tf32, backends.cudnn.allow_tf32
+
+    task = DiffSingerTask(TINY_HP, vocab_size=10, device="cpu")
+    voc = HifiGAN(TINY_VOC, device="cpu")
+    FusedSynthesizer(TINY_HP, task, voc, device="cpu")
+    Trainer(TINY_HP, task, device="cpu")
+    assert resolve_device("cpu").type == "cpu" and switches() == (True, True)
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    no_card = (AssertionError, "not compiled with CUDA")  # moving a module to the card
+    on_cpu = (ValueError, "task is on cpu")
+    entry_points = {
+        "FusedSynthesizer": (lambda: FusedSynthesizer(TINY_HP, task, voc), no_card),
+        "DiffSingerTask": (lambda: DiffSingerTask(TINY_HP, vocab_size=10), no_card),
+        "HifiGAN": (lambda: HifiGAN(TINY_VOC), no_card),
+        "DiffSingerE2EInfer": (lambda: DiffSingerE2EInfer(TINY_HP, task, voc), no_card),
+        "Trainer": (lambda: Trainer(TINY_HP, task), on_cpu),
+        "synthesize_dataset": (lambda: synthesize_dataset(TINY_HP, task, dataset=None),
+                               on_cpu),
+        "cli.train": (lambda: cli.train(TINY_HP), (KeyError, "binary_data_dir")),
+        "cli.infer": (lambda: cli.infer(TINY_HP), (KeyError, "binary_data_dir")),
+        "cli.run": (lambda: cli.run(["--config", "configs/lj/ds_beta6.yaml"]),
+                    (FileNotFoundError, "phone_set")),
+        "HifiGanTask": (lambda: HifiGanTask({}), (KeyError, "audio_sample_rate")),
+    }
+    for name, (call, (exc, match)) in entry_points.items():
+        backends.cuda.matmul.allow_tf32 = backends.cudnn.allow_tf32 = True
+        with pytest.raises(exc, match=match):
+            call()
+        assert switches() == (False, False), name
+    backends.cuda.matmul.allow_tf32 = backends.cudnn.allow_tf32 = True
+    assert _maybe_load_pe({**TINY_HP, "pe_enable": True, "pe_ckpt": ""}) is None
+    assert switches() == (False, False)
+    backends.cuda.matmul.allow_tf32 = backends.cudnn.allow_tf32 = True
+    assert resolve_device(None) == torch.device("cuda")
+    assert switches() == (False, False)
+
+
 def test_wrappers_take_the_plain_twin_on_cpu_and_count_nothing():
     rng = np.random.RandomState(0)
     f = lambda *s: torch.from_numpy(rng.randn(*s).astype(np.float32) * 0.3)
