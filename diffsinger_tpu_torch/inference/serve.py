@@ -32,6 +32,7 @@ import torch
 
 from diffsinger_tpu_torch.models.fs2 import SPK_EMBED_DIM
 from diffsinger_tpu_torch.parallel.mesh import Mesh
+from diffsinger_tpu_torch.utils import trace
 from diffsinger_tpu_torch.utils.device import resolve_device
 
 
@@ -107,19 +108,23 @@ class FusedSynthesizer:
             if self.pe is not None:
                 # the raw sampler mel: its zeroed padding frames are the PE's
                 # padding mask, so their F0 comes out 0 Hz
-                f0 = self.pe(mel)["f0_denorm_pred"]
+                with trace.span("ds.pe"):
+                    f0 = self.pe(mel)["f0_denorm_pred"]
             else:
                 f0 = out.get("f0_denorm")
-            # the sampler zero-masks mel2ph==0 frames, and 0 in the log10-mel
-            # domain is loud: set bucket padding to the batch's silence floor
-            # (one minimum over the whole padded batch) before vocoding
-            pad_mask = (out["mel2ph"] > 0)[..., None]
-            mel = torch.where(pad_mask, mel, mesh.data_min(mel.min()))
-            wav = self.vocoder.apply(mel, f0=f0, generator=generator, source=source)
-        wav, mel2ph = mesh.data_gather(wav)[:rows], mesh.data_gather(out["mel2ph"])[:rows]
-        if self.wav_int16:
-            wav = (torch.clamp(wav, -1.0, 1.0) * 32767.0).to(torch.int16)
-        return wav.cpu().numpy(), mel2ph.cpu().numpy()
+            with trace.span("ds.vocoder"):
+                # the sampler zero-masks mel2ph==0 frames, and 0 in the log10-mel
+                # domain is loud: set bucket padding to the batch's silence floor
+                # (one minimum over the whole padded batch) before vocoding
+                pad_mask = (out["mel2ph"] > 0)[..., None]
+                mel = torch.where(pad_mask, mel, mesh.data_min(mel.min()))
+                wav = self.vocoder.apply(mel, f0=f0, generator=generator, source=source)
+        # the host waits here for the batch's device work
+        with trace.span("ds.serve.fetch"):
+            wav, mel2ph = mesh.data_gather(wav)[:rows], mesh.data_gather(out["mel2ph"])[:rows]
+            if self.wav_int16:
+                wav = (torch.clamp(wav, -1.0, 1.0) * 32767.0).to(torch.int16)
+            return wav.cpu().numpy(), mel2ph.cpu().numpy()
 
     @staticmethod
     def _local_rows(mesh: Mesh, batch: Dict[str, Any], noise, source):
@@ -219,16 +224,18 @@ class FusedSynthesizer:
         gen = self._generator(seed)
         wavs: Dict[int, np.ndarray] = {}
         for g, (t_mel_b, items, _) in enumerate(plan):
-            t_txt_b = _round_up(max(int(b["txt_tokens"].shape[1]) for _, b in items),
-                                self.txt_mult)
-            stacked = self._stack_group(items, t_txt_b, t_mel_b)
-            noise = None if noises is None else _as_noise(noises[g])
-            source = None if sources is None else _as_source(sources[g])
-            wav, mel2ph = self._run(stacked, t_mel_b, noise=noise, source=source,
-                                    generator=gen)
-            for j, (i, _) in enumerate(items):
-                n = int((mel2ph[j] > 0).sum()) or t_mel_b
-                wavs[i] = wav[j][: n * self.hop]
+            with trace.span("ds.serve.batch"):
+                with trace.span("ds.serve.stack"):
+                    t_txt_b = _round_up(max(int(b["txt_tokens"].shape[1]) for _, b in items),
+                                        self.txt_mult)
+                    stacked = self._stack_group(items, t_txt_b, t_mel_b)
+                noise = None if noises is None else _as_noise(noises[g])
+                source = None if sources is None else _as_source(sources[g])
+                wav, mel2ph = self._run(stacked, t_mel_b, noise=noise, source=source,
+                                        generator=gen)
+                for j, (i, _) in enumerate(items):
+                    n = int((mel2ph[j] > 0).sum()) or t_mel_b
+                    wavs[i] = wav[j][: n * self.hop]
         return [wavs[i] for i in range(len(requests))]
 
     def warmup(self, t_mel_buckets, batch_sizes=(1,), t_txt: Optional[int] = None):
@@ -259,16 +266,19 @@ class FusedSynthesizer:
         """One request as given (batch rows are not padded); returns the
         trimmed waveform of its first item. ``noise`` and ``source`` fix the
         draws as in :meth:`synthesize_many`."""
-        t_txt = int(batch["txt_tokens"].shape[1])
-        t_txt_pad = _round_up(t_txt, self.txt_mult)
-        if t_txt_pad != t_txt:
-            batch = dict(batch)
-            for k in self._TOKEN_KEYS:
-                if hasattr(batch.get(k), "shape"):
-                    batch[k] = np.pad(np.asarray(batch[k]), ((0, 0), (0, t_txt_pad - t_txt)))
         t_mel_b = _round_up(t_mel, self.mel_mult)
-        noise = None if noise is None else _as_noise(noise)
-        wav, mel2ph = self._run(batch, t_mel_b, noise=noise, source=_as_source(source),
-                                generator=self._generator(seed))
-        n = int((mel2ph[0] > 0).sum()) or t_mel_b
-        return wav[0][: n * self.hop]
+        with trace.span("ds.serve.batch"):
+            with trace.span("ds.serve.stack"):
+                t_txt = int(batch["txt_tokens"].shape[1])
+                t_txt_pad = _round_up(t_txt, self.txt_mult)
+                if t_txt_pad != t_txt:
+                    batch = dict(batch)
+                    for k in self._TOKEN_KEYS:
+                        if hasattr(batch.get(k), "shape"):
+                            batch[k] = np.pad(np.asarray(batch[k]),
+                                              ((0, 0), (0, t_txt_pad - t_txt)))
+            noise = None if noise is None else _as_noise(noise)
+            wav, mel2ph = self._run(batch, t_mel_b, noise=noise, source=_as_source(source),
+                                    generator=self._generator(seed))
+            n = int((mel2ph[0] > 0).sum()) or t_mel_b
+            return wav[0][: n * self.hop]

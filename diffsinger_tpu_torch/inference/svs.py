@@ -36,6 +36,7 @@ from diffsinger_tpu_torch.data.text.pinyin import build_pinyin2ph_map
 from diffsinger_tpu_torch.inference.serve import FusedSynthesizer, _as_noise
 from diffsinger_tpu_torch.inference.synthesize import _maybe_load_pe, _PEWrapper
 from diffsinger_tpu_torch.inference.vocoder import HifiGAN, get_vocoder_cls
+from diffsinger_tpu_torch.utils import trace
 from diffsinger_tpu_torch.utils.device import resolve_device
 from diffsinger_tpu_torch.utils.misc import save_wav
 from diffsinger_tpu_torch.utils.text_encoder import TokenTextEncoder
@@ -201,7 +202,8 @@ class BaseSVSInfer:
         item's own ``t_mel``, and the NSF source draws of the trimmed mel);
         a generator seeded with ``seed`` (default ``hp['seed']``) draws the
         rest."""
-        batch, t_mel = self.input_to_batch(item), self.estimate_t_mel(item)
+        with trace.span("ds.svs.frontend"):
+            batch, t_mel = self.input_to_batch(item), self.estimate_t_mel(item)
         if self.fused is not None:
             return self.fused(batch, t_mel, noise=noise, seed=seed, source=source)
         gen = torch.Generator(device=self.device)
@@ -222,10 +224,12 @@ class BaseSVSInfer:
         raise NotImplementedError
 
     def infer_once(self, inp: Dict[str, str], **kw) -> np.ndarray:
-        item = self.preprocess_input(inp, inp.get("input_type", "word"))
-        if item is None:
-            raise ValueError("the input's phonemes, notes and durations do not line up")
-        return self.forward_model(item, **kw)
+        with trace.span("ds.svs.request"):
+            with trace.span("ds.svs.frontend"):
+                item = self.preprocess_input(inp, inp.get("input_type", "word"))
+            if item is None:
+                raise ValueError("the input's phonemes, notes and durations do not line up")
+            return self.forward_model(item, **kw)
 
     @classmethod
     def example_run(cls, hp: Dict[str, Any], inp: Dict[str, str],

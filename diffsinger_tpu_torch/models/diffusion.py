@@ -26,6 +26,7 @@ import numpy as np
 import torch
 
 from diffsinger_tpu_torch.parallel.mesh import draw as draw_rows, global_mean
+from diffsinger_tpu_torch.utils import trace
 
 DenoiseFn = Callable[[torch.Tensor, torch.Tensor, Any], torch.Tensor]
 
@@ -202,22 +203,24 @@ class GaussianDiffusion:
             return torch.full((b,), int(t), dtype=torch.long, device=x.device)
 
         # warm-up (order 1): the one step that calls the denoiser twice
-        t0 = t_vec(ts[0])
-        eps0 = self.denoise_fn(x, t0, cond_ctx)
-        x_pred = self._plms_x_pred(x, eps0, t0, interval)
-        eps_prev = self.denoise_fn(x_pred, torch.clamp(t0 - interval, min=0), cond_ctx)
-        x = self._plms_x_pred(x, (eps0 + eps_prev) / 2, t0, interval)
+        with trace.span("ds.sampler.step", id=0):
+            t0 = t_vec(ts[0])
+            eps0 = self.denoise_fn(x, t0, cond_ctx)
+            x_pred = self._plms_x_pred(x, eps0, t0, interval)
+            eps_prev = self.denoise_fn(x_pred, torch.clamp(t0 - interval, min=0), cond_ctx)
+            x = self._plms_x_pred(x, (eps0 + eps_prev) / 2, t0, interval)
         ring = [eps0]  # earlier epsilon estimates, newest first, at most three
-        for t in ts[1:]:
-            tv = t_vec(t)
-            eps = self.denoise_fn(x, tv, cond_ctx)
-            if len(ring) == 1:
-                eps_prime = (3 * eps - ring[0]) / 2
-            elif len(ring) == 2:
-                eps_prime = (23 * eps - 16 * ring[0] + 5 * ring[1]) / 12
-            else:
-                eps_prime = (55 * eps - 59 * ring[0] + 37 * ring[1] - 9 * ring[2]) / 24
-            x = self._plms_x_pred(x, eps_prime, tv, interval)
+        for i, t in enumerate(ts[1:], 1):
+            with trace.span("ds.sampler.step", id=i):
+                tv = t_vec(t)
+                eps = self.denoise_fn(x, tv, cond_ctx)
+                if len(ring) == 1:
+                    eps_prime = (3 * eps - ring[0]) / 2
+                elif len(ring) == 2:
+                    eps_prime = (23 * eps - 16 * ring[0] + 5 * ring[1]) / 12
+                else:
+                    eps_prime = (55 * eps - 59 * ring[0] + 37 * ring[1] - 9 * ring[2]) / 24
+                x = self._plms_x_pred(x, eps_prime, tv, interval)
             ring = [eps] + ring[:2]
         return x
 
@@ -262,8 +265,9 @@ class GaussianDiffusion:
             x = self._plms_loop(x, cond_ctx)
         else:
             for i, t_step in enumerate(range(k - 1, -1, -1)):
-                t_vec = torch.full((b,), t_step, dtype=torch.long, device=cond.device)
-                x = self.p_sample_step(x, t_vec, cond_ctx, draw(i + 1))
+                with trace.span("ds.sampler.step", id=i):
+                    t_vec = torch.full((b,), t_step, dtype=torch.long, device=cond.device)
+                    x = self.p_sample_step(x, t_vec, cond_ctx, draw(i + 1))
         x = self.denorm_spec(x)
         if tgt_nonpadding is not None:
             x = x * tgt_nonpadding[:, :, None]

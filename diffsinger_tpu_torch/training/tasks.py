@@ -37,6 +37,7 @@ from diffsinger_tpu_torch.ops.diffnet_stack import (diffnet_forward, pack_sampli
 from diffsinger_tpu_torch.ops.diffnet_train import diffnet_train_forward
 from diffsinger_tpu_torch.parallel.mesh import draw
 from diffsinger_tpu_torch.training import losses as L
+from diffsinger_tpu_torch.utils import trace
 from diffsinger_tpu_torch.utils.device import resolve_device
 
 
@@ -257,38 +258,40 @@ class DiffSingerTask(_FS2Task):
         for DDPM, [1, B, T, M] for PLMS) fixes the draws; otherwise
         ``generator`` supplies them."""
         hp, dev = self.hp, self.device
-        txt_tokens = _as_tensor(batch["txt_tokens"], torch.long, dev)
-        mel2ph = (_as_tensor(batch["mel2ph"], torch.long, dev)
-                  if use_gt_dur and batch.get("mel2ph") is not None else None)
-        f0 = _as_tensor(batch["f0"], torch.float32, dev) if use_gt_f0 else None
-        uv = _as_tensor(batch["uv"], torch.float32, dev) if use_gt_f0 else None
-        if t_mel is None:
-            t_mel = int(batch["mels"].shape[1]) if batch.get("mels") is not None \
-                else int(hp["max_frames"])
-        offline = bool(hp.get("offline_boost")) and batch.get("fs2_mels") is not None
-        ret = self.fs2(txt_tokens, mel2ph=mel2ph, f0=f0, uv=uv, t_mel=t_mel,
-                       skip_decoder=offline, **self._fs2_kwargs(batch))
-        cond = ret["decoder_inp"]
-        # offline boost: the mel of a separately trained FS2 (upstream's
-        # OfflineGaussianDiffusion)
-        fs2_mel = (_as_tensor(batch["fs2_mels"], torch.float32, dev) if offline
-                   else ret["mel_out"])
-        ret["fs2_mel"] = fs2_mel
-        tgt_nonpadding = (ret["mel2ph"] > 0).to(torch.float32)
-        cond_ctx = None
-        if self.wavenet:
-            # the stack always runs through the kernel wrapper, so the cond
-            # cast follows compute_dtype (JAX's rule for its use_pallas_diffnet
-            # path)
-            cdt = self.compute_dtype
-            cond_ctx = pack_sampling_ctx(
-                self.denoise_fn,
-                precompute_cond_packed(self.denoise_fn, cond, compute_dtype=cdt),
-                compute_dtype=cdt)
-        ret["mel_out"] = self.gd.sample(cond, fs2_mel=fs2_mel,
-                                        tgt_nonpadding=tgt_nonpadding,
-                                        cond_ctx=cond_ctx, noise=noise,
-                                        generator=generator)
+        with trace.span("ds.fs2"):
+            txt_tokens = _as_tensor(batch["txt_tokens"], torch.long, dev)
+            mel2ph = (_as_tensor(batch["mel2ph"], torch.long, dev)
+                      if use_gt_dur and batch.get("mel2ph") is not None else None)
+            f0 = _as_tensor(batch["f0"], torch.float32, dev) if use_gt_f0 else None
+            uv = _as_tensor(batch["uv"], torch.float32, dev) if use_gt_f0 else None
+            if t_mel is None:
+                t_mel = int(batch["mels"].shape[1]) if batch.get("mels") is not None \
+                    else int(hp["max_frames"])
+            offline = bool(hp.get("offline_boost")) and batch.get("fs2_mels") is not None
+            ret = self.fs2(txt_tokens, mel2ph=mel2ph, f0=f0, uv=uv, t_mel=t_mel,
+                           skip_decoder=offline, **self._fs2_kwargs(batch))
+            cond = ret["decoder_inp"]
+            # offline boost: the mel of a separately trained FS2 (upstream's
+            # OfflineGaussianDiffusion)
+            fs2_mel = (_as_tensor(batch["fs2_mels"], torch.float32, dev) if offline
+                       else ret["mel_out"])
+            ret["fs2_mel"] = fs2_mel
+            tgt_nonpadding = (ret["mel2ph"] > 0).to(torch.float32)
+            cond_ctx = None
+            if self.wavenet:
+                # the stack always runs through the kernel wrapper, so the cond
+                # cast follows compute_dtype (JAX's rule for its
+                # use_pallas_diffnet path)
+                cdt = self.compute_dtype
+                cond_ctx = pack_sampling_ctx(
+                    self.denoise_fn,
+                    precompute_cond_packed(self.denoise_fn, cond, compute_dtype=cdt),
+                    compute_dtype=cdt)
+        with trace.span("ds.sampler"):
+            ret["mel_out"] = self.gd.sample(cond, fs2_mel=fs2_mel,
+                                            tgt_nonpadding=tgt_nonpadding,
+                                            cond_ctx=cond_ctx, noise=noise,
+                                            generator=generator)
         return ret
 
     # ------------------------------------------------------------------ train

@@ -69,6 +69,7 @@ from diffsinger_tpu_torch.parallel.mesh import (Mesh, make_mesh, pad_batch_for_s
 from diffsinger_tpu_torch.parallel.tensor_parallel import TensorParallel
 from diffsinger_tpu_torch.training.schedules import (Schedule, build_lr_schedule,
                                                      grad_accum_schedule)
+from diffsinger_tpu_torch.utils import trace
 from diffsinger_tpu_torch.utils.device import resolve_device
 from diffsinger_tpu_torch.utils.misc import MetricsDict
 
@@ -248,13 +249,14 @@ class Trainer:
                       for k, v in batch.items() if isinstance(v, (np.ndarray, torch.Tensor))}
             batch = shard_batch(self.mesh, pad_batch_for_sharding(arrays, self.mesh.num_data))
         out = {}
-        for k, v in batch.items():
-            if k in ARRAY_KEYS_EXCLUDE or not isinstance(v, (np.ndarray, torch.Tensor)):
-                continue
-            t = torch.as_tensor(v)
-            if self.device.type == "cuda" and t.device.type == "cpu":
-                t = t.pin_memory()
-            out[k] = t.to(self.device, non_blocking=True)
+        with trace.span("ds.train.h2d"):
+            for k, v in batch.items():
+                if k in ARRAY_KEYS_EXCLUDE or not isinstance(v, (np.ndarray, torch.Tensor)):
+                    continue
+                t = torch.as_tensor(v)
+                if self.device.type == "cuda" and t.device.type == "cpu":
+                    t = t.pin_memory()
+                out[k] = t.to(self.device, non_blocking=True)
         return out
 
     def prefetch(self, batches: Iterable[Dict[str, Any]], size: int = 2
@@ -310,23 +312,24 @@ class Trainer:
 
     def _loss_and_grads(self, batch, t, noise, generator, deterministic, use_gt_f0):
         rows = len(next(v for v in batch.values() if isinstance(v, torch.Tensor)))
-        with self.mesh.active():
+        with self.mesh.active(), trace.span("ds.train.forward"):
             total, losses, new_state = self._task_loss(
                 batch, t=self._local_rows(t, rows), noise=self._local_rows(noise, rows),
                 generator=generator or self.generator, deterministic=deterministic,
                 use_gt_f0=use_gt_f0)
-        grads = torch.autograd.grad(total, self.params, allow_unused=True)
-        # contiguous, as the parameters are: the DiffNet's per-layer weight
-        # gradients arrive as strided views of its stacked gradients, and one
-        # such view sends the multi-tensor norm, clip and AdamW down their
-        # per-tensor paths (~190 launches each instead of a few)
-        grads = [torch.zeros_like(p) if g is None else g.contiguous()
-                 for p, g in zip(self.params, grads)]
-        out = {k: v.detach() for k, v in losses.items()}
-        out["total_loss"] = total.detach()
-        if self.mesh.distributed:
-            grads, out = self._sum_over_data(grads, out)
-        out["grad_norm"] = global_norm(grads)
+        with trace.span("ds.train.backward"):
+            grads = torch.autograd.grad(total, self.params, allow_unused=True)
+            # contiguous, as the parameters are: the DiffNet's per-layer weight
+            # gradients arrive as strided views of its stacked gradients, and one
+            # such view sends the multi-tensor norm, clip and AdamW down their
+            # per-tensor paths (~190 launches each instead of a few)
+            grads = [torch.zeros_like(p) if g is None else g.contiguous()
+                     for p, g in zip(self.params, grads)]
+            out = {k: v.detach() for k, v in losses.items()}
+            out["total_loss"] = total.detach()
+            if self.mesh.distributed:
+                grads, out = self._sum_over_data(grads, out)
+            out["grad_norm"] = global_norm(grads)
         return out, grads, new_state
 
     def _sum_over_data(self, grads: List[torch.Tensor], losses: Dict[str, torch.Tensor]):
@@ -359,19 +362,21 @@ class Trainer:
         ``noise`` (optional) are given for the padded global batch."""
         if self.optimizer is None:
             raise RuntimeError("call Trainer.initialize() first")
-        gt_f0 = self.use_gt_f0()
-        if not self.gt_f0_log or self.gt_f0_log[-1][1] != gt_f0:
-            self.gt_f0_log.append((self.global_step, gt_f0))
-        with self.gathered():
-            losses, grads, new_state = self._loss_and_grads(self._on_device(batch), t, noise,
-                                                            generator, deterministic, gt_f0)
-        if self.tp is not None:
-            grads = self.tp.shard_grads(self.param_names, grads)
-        self.optimizer.step(grads, losses["grad_norm"])
-        if new_state is not None:
-            self.task.update_state(new_state)
-        self.global_step += 1
-        return losses
+        with trace.span("ds.train.step", id=self.global_step):
+            gt_f0 = self.use_gt_f0()
+            if not self.gt_f0_log or self.gt_f0_log[-1][1] != gt_f0:
+                self.gt_f0_log.append((self.global_step, gt_f0))
+            with self.gathered():
+                losses, grads, new_state = self._loss_and_grads(
+                    self._on_device(batch), t, noise, generator, deterministic, gt_f0)
+            with trace.span("ds.train.optimizer"):
+                if self.tp is not None:
+                    grads = self.tp.shard_grads(self.param_names, grads)
+                self.optimizer.step(grads, losses["grad_norm"])
+                if new_state is not None:
+                    self.task.update_state(new_state)
+            self.global_step += 1
+            return losses
 
     # ------------------------------------------------------------ validation
     @torch.no_grad()

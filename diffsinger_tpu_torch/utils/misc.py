@@ -1,14 +1,13 @@
-"""Small host-side helpers: padded collation, meters, timers, wav IO (the
-port's own numpy copy of diffsinger_tpu/utils/misc.py).
+"""Small host-side helpers: padded collation, meters, wav IO (the port's own
+numpy copy of diffsinger_tpu/utils/misc.py).
 
 Capability parity with reference utils/__init__.py (collate_1d:44, collate_2d:62,
-AvgrageMeter:28, Timer:222) re-expressed in numpy for the input pipeline; device
-code never sees ragged shapes.
+AvgrageMeter:28) re-expressed in numpy for the input pipeline; device code
+never sees ragged shapes. Spans are ``utils/trace.py``'s.
 """
 
 from __future__ import annotations
 
-import time
 from collections import defaultdict
 from typing import Dict, List, Optional, Sequence
 
@@ -73,25 +72,6 @@ class MetricsDict:
 
     def averages(self) -> Dict[str, float]:
         return {k: m.avg for k, m in self.meters.items()}
-
-
-class Timer:
-    """Named cumulative wall-clock timer context (reference utils/__init__.py:222-237)."""
-
-    totals: Dict[str, float] = defaultdict(float)
-
-    def __init__(self, name: str, print_time: bool = False):
-        self.name = name
-        self.print_time = print_time
-
-    def __enter__(self):
-        self.t0 = time.perf_counter()
-        return self
-
-    def __exit__(self, *exc):
-        Timer.totals[self.name] += time.perf_counter() - self.t0
-        if self.print_time:
-            print(self.name, round(Timer.totals[self.name], 4))
 
 
 def save_wav(wav: np.ndarray, path: str, sample_rate: int, norm: bool = False):
