@@ -276,13 +276,17 @@ def nbytes(*ts) -> int:
 # of the 64-row tile; the other serving buckets; T = 5: shorter than cycle 4's
 # largest dilation (8); the singing batches, cycle 4 at 2 x 4096 and at
 # max_frames; each in bf16 and in float32 (the shipped configs' type); one
-# float32 case at C = 128; and cycle 6 (d = 32, past the tensor-core bodies'
-# widest halo), which the float32 SIMT body takes
+# float32 case at C = 128; cycle 6 (d = 32, past the tensor-core bodies'
+# widest halo), which the float32 SIMT body takes; and the shapes the float32
+# body's column split serves: singing phrases at B = 1 (the median and the
+# p95 length of the benchmark's phrases) and small batches of the batcher
 STACK_CASES = ([(dt, cycle, 8, 1024, 256) for dt in ("bfloat16", "float32") for cycle in (1, 4)]
                + [(dt, cycle, b, t, 256) for dt in ("bfloat16", "float32")
                   for cycle, b, t in ((4, 3, 301), (1, 4, 512), (1, 1, 256), (4, 2, 5),
                                       (4, 2, 4096), (4, 1, 7936))]
-               + [("float32", 4, 4, 512, 128), ("float32", 6, 2, 100, 256)])
+               + [("float32", 4, 4, 512, 128), ("float32", 6, 2, 100, 256)]
+               + [("float32", cycle, b, t, 256)
+                  for cycle, b, t in ((4, 1, 1152), (4, 1, 2432), (1, 4, 384), (1, 16, 640))])
 
 
 def phase_stack(torch, ds, cases=STACK_CASES):
@@ -308,6 +312,7 @@ def phase_stack(torch, ds, cases=STACK_CASES):
         got = ds.diffnet_stack(*args, dilations=dil, compute_dtype=dt)
         # counted by the library where it launches, and which body it ran
         launched, ran_tc = ds.diffnet_stack.device_launches, ds.diffnet_stack.ran_tensor_cores
+        split = ds.diffnet_stack.column_split
         again = ds.diffnet_stack(*args, dilations=dil, compute_dtype=dt)
         want = ds.diffnet_stack_plain(*args, dilations=dil, compute_dtype=dt)
         torch.cuda.synchronize()
@@ -328,6 +333,15 @@ def phase_stack(torch, ds, cases=STACK_CASES):
         # tensor cores: one launch a layer; SIMT: two
         if launched != (1 if expect_tc else 2) * num_layers:
             raise AssertionError(f"{what}: {launched} device launches for {num_layers} layers")
+        # the column split the library ran is the wrapper's rule on the card's
+        # resident counts (the float32 tensor-core body; 1 elsewhere), and a
+        # shape that fills a wave keeps the unsplit body
+        resident = ds._resident(c, max(dil), torch.cuda.current_device()) \
+            if expect_tc and dt is None else None
+        want_k = ds.column_split(b, t, c, resident) if resident else 1
+        if split != want_k or ((b, t) == (8, 1024) and split != 1):
+            raise AssertionError(f"{what}: the library ran column split {split}, the rule "
+                                 f"says {want_k} (resident {resident})")
         err = (got - want).abs().max().item()
         scale = want.abs().max().item()
         # f32: same products, sums of up to 3C=768 terms in another order over
@@ -347,6 +361,7 @@ def phase_stack(torch, ds, cases=STACK_CASES):
         bnd, by = bound_ms(flops, moved, H100_BF16_FLOPS if dt else H100_3XTF32_FLOPS)
         row = dict(dtype=dt_name, cycle=cycle, B=b, T=t, C=c,
                    body="tensor-core" if ran_tc else "simt", device_launches=launched,
+                   column_split=split, resident=resident,
                    tensor_core_info=info, max_abs_err=err, tolerance=tol,
                    out_scale=scale, ms=ms, tflops=flops / ms / 1e9, plain_ms=plain_ms,
                    bound_ms=bnd, bound_by=by)

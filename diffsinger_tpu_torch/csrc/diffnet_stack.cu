@@ -66,6 +66,18 @@
 //     block's cond rows are prefetched into L2 when the block starts.
 //   * sigmoid and tanh as in the bf16 body (exp2-based, clamped): absolute
 //     errors near 1e-7, well inside the 1e-4 the stack is held to.
+//   * a column split S in {1, 2, 4} (stack_layer_tc32<C, S>; see "Grid"
+//     below): S blocks of a thread-block cluster share one 64-row tile, block
+//     rank j owning gate and filter columns [jC/S, (j+1)C/S) (+ C) and the
+//     same residual and skip columns, each warp 1/8 of them. Each block
+//     stages the whole y tile, streams only its columns of the weights (1/S
+//     of 2 MB a layer), writes its g slice over y, and after a cluster
+//     barrier copies the other blocks' slices from their shared memory
+//     (distributed shared memory, ld.shared::cluster) into its own tile: the
+//     out GEMM contracts over all C columns of g. A second barrier, arrived
+//     at after the copy and waited at the block's end, keeps every block
+//     alive while a peer still reads it. S = 1 has no cluster, barrier or
+//     copy.
 //
 // float32 at any other shape (C % 32 == 0 but not 128 or 256, or a dilation
 // past MAX_DIL) - the earlier shared-memory tiled SIMT pair of launches a
@@ -73,9 +85,10 @@
 // device memory).
 //
 // The wrapper (ops/diffnet_stack.py:takes_tensor_cores) decides the body by
-// the same rule as diffnet_stack_tc_info below, passes it in, and reads back
-// in `report` what ran: the library refuses a body that does not take the
-// shape and never falls back to another one.
+// the same rule as diffnet_stack_tc_info below, and the column split by
+// column_split, passes both in, and reads back in `report` what ran: the
+// library refuses a body or split that does not take the shape and never
+// falls back to another one.
 //
 // Bound. At B=8, T=1024, C=256, L=20 one stack call does 171.8 GFLOP and
 // moves ~205 MB in bf16 (168 MB of it the cond tensor), ~394 MB in float32:
@@ -90,12 +103,33 @@
 // sharing the weight stream needs a cluster with multicast copies. The other
 // half is staging y, the two epilogues (sigmoid * tanh; skip read from device
 // memory) and the tail of the launch, none of which overlaps the products with
-// one block of 8 warps an SM (230 registers a thread). stack_layer_tc32 has
-// the same shape with both costs larger: 2 MB of float32 weights a layer per
-// block (5.1 GB a call from the L2) and three mma.sync a product (the TF32
-// mma.sync rate measured on this card, 319.4 TFLOP/s in tools/mma_rate.py,
-// gives 1.6 ms a call for the products alone), so the two have to overlap;
-// the split adds integer and float work beside every mma.
+// one block of 8 warps an SM (234 registers a thread). stack_layer_tc32
+// has the same shape with both costs larger (255 registers, 48 bytes spilled):
+// 2 MB of float32 weights a layer per block (5.1 GB a call from the L2) and
+// three mma.sync a product (the TF32 mma.sync rate measured on this card,
+// 319.4 TFLOP/s in tools/mma_rate.py, gives 1.6 ms a call for the products
+// alone), so the two have to overlap; the split adds integer and float work
+// beside every mma.
+//
+// Grid. A block owns a 64-row tile and runs alone on its SM, so a layer of
+// the unsplit body launches ceil(T/64)*B blocks and lasts as long as one
+// block (~127 us of the float32 body at C = 256) however few there are: a
+// B = 1 singing phrase of 1,152 frames filled 18 of the H100's 132 SMs and
+// took 2.55 ms a call, the same as a full wave of 8 x 1024 (2.70 ms). The
+// column split runs such a tile on S SMs at once: the grid is
+// (ceil(T/64)*S, B) in clusters of (S, 1, 1), still never across two batch
+// rows, so the halo rule is unchanged. A split block runs alone on its SM as
+// an unsplit one does: it takes more than the 128 registers a thread that two
+// blocks of 256 threads could share (ptxas -v). The
+// wrapper (ops/diffnet_stack.py:column_split) picks S from the shape: the
+// fewest ceil(tiles / resident(S)) * (1 + cost(S)) / S wave-units, with
+// resident(S) from cudaOccupancyMaxActiveClusters (diffnet_stack_resident
+// below; 132, 66 and 30 tiles at S = 1, 2, 4 on an H100 80GB HBM3) and
+// cost(S) the fixed part of a block that does not shrink with its columns
+// (staging the whole y tile, the launch's latency, the g exchange): measured
+// 0.07-0.11 at S = 2 and 0.37-0.39 at S = 4 of 1/S of an unsplit block
+// (tools/stack_split.py). A B = 1 phrase of 1,152 frames runs S = 4 in
+// 0.89 ms, one of 2,432 frames S = 2 in 1.41 ms; full waves keep S = 1.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -132,13 +166,46 @@ template <int C> __host__ __device__ constexpr size_t smem_bytes(int d) {
 constexpr int KC32 = 16;  // contraction rows per staged weight chunk (two m16n8k8 steps)
 constexpr int NST32 = 3;  // stages of each warp's weight ring
 // y / g rows: C + 4 floats, so ldmatrix's eight 16-byte rows fall on eight
-// bank groups; ring rows: a warp's 2C/8 columns + 8 floats, so the four k rows
-// of a B fragment load (lanes 4k..4k+3 apart by one row) hit 32 banks.
+// bank groups; ring rows: a warp's 2C/(8S) columns + 8 floats (S the column
+// split), so the four k rows of a B fragment load (lanes 4k..4k+3 apart by
+// one row) hit 32 banks.
 template <int C> __host__ __device__ constexpr int y_stride32() { return C + 4; }
-template <int C> __host__ __device__ constexpr int w_stride32() { return C / 4 + 8; }
-template <int C> __host__ __device__ constexpr size_t smem_bytes32(int d) {
+template <int C, int S> __host__ __device__ constexpr int w_stride32() { return C / (4 * S) + 8; }
+template <int C, int S = 1> __host__ __device__ constexpr size_t smem_bytes32(int d) {
   return ((size_t)(TM + 2 * d) * y_stride32<C>() +
-          (size_t)8 * NST32 * KC32 * w_stride32<C>()) * sizeof(float);
+          (size_t)8 * NST32 * KC32 * w_stride32<C, S>()) * sizeof(float);
+}
+
+// The column splits the float32 body is built for: S blocks of a thread-block
+// cluster share a 64-row tile, at C = 256 only (the width the shipped configs
+// run and the split's cost was measured at; a warp keeps whole 8-column mma
+// tiles of each half up to S = 4). The wrapper's rule
+// (ops/diffnet_stack.py:splits_for) names the same splits.
+__host__ __device__ constexpr bool split_takes(int C, int split) {
+  return split == 1 || (C == 256 && (split == 2 || split == 4));
+}
+
+// Thread-block clusters (sm_90): the shared::cluster address of the same
+// variable in block `rank` of the cluster, a 16-byte load from there, and the
+// cluster-wide barrier split in its two halves (arrive releases this thread's
+// writes, wait acquires every other thread's; each thread alternates them).
+__device__ __forceinline__ uint32_t cluster_map(uint32_t addr, int rank) {
+  uint32_t out;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(out) : "r"(addr), "r"(rank));
+  return out;
+}
+__device__ __forceinline__ float4 ld_cluster_f4(uint32_t addr) {
+  float4 v;
+  asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "r"(addr));
+  return v;
+}
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
 }
 
 // The widest dilation either body takes: the y tile with both halos still fits
@@ -421,22 +488,25 @@ __device__ __forceinline__ void split32(float x, uint32_t& hi, uint32_t& lo) {
 }
 
 // The float32 body: one layer of the stack on one 64-row tile of one batch
-// row, products in 3xTF32 (see the note at the top of the file).
-template <int C>
+// row, products in 3xTF32 (see the note at the top of the file). S blocks
+// (a cluster, S > 1) share the tile: block rank j of the cluster owns columns
+// [jC/S, (j+1)C/S) of each half.
+template <int C, int S>
 __global__ void __launch_bounds__(NTHR, 1)
 stack_layer_tc32(const float* __restrict__ x_in, float* __restrict__ x_out,
                  float* __restrict__ skip, const float* __restrict__ step,
                  const float* __restrict__ cond, const float* __restrict__ w_dil,
                  const float* __restrict__ b_dil, const float* __restrict__ w_out,
                  const float* __restrict__ b_out, int B, int T, int l, int d) {
-  constexpr int C2 = 2 * C, YS = y_stride32<C>(), WS = w_stride32<C>();
-  constexpr int WC = C / 8;              // columns a warp owns in each half
+  constexpr int C2 = 2 * C, YS = y_stride32<C>(), WS = w_stride32<C, S>();
+  constexpr int CC = C / S;              // columns the block owns in each half
+  constexpr int WC = CC / 8;             // columns a warp owns in each half
   constexpr int NTH = WC / 8;            // 8-column tiles per half per warp
   constexpr int PPH = WC / 4;            // 16-byte pieces of a warp's row per half
   constexpr int NG = 3 * C / KC32;       // weight chunks of the dilated conv
   constexpr int NCH = NG + C / KC32;     // ... plus those of the out projection
-  constexpr int LPR = C2 * 4 / 128;      // 128-byte lines of a cond row
-  static_assert(C % 64 == 0 && KC32 % 8 == 0, "whole n-tiles and k-steps");
+  constexpr int LPH = CC * 4 / 128;      // 128-byte lines of the block's columns of a half
+  static_assert(split_takes(C, S) && C % 64 == 0 && KC32 % 8 == 0, "whole n-tiles and k-steps");
 
   extern __shared__ __align__(16) unsigned char smem_raw[];
   // [TM + 2d][YS] y (tile row q is sequence row t0 - d + q); once the conv
@@ -448,8 +518,10 @@ stack_layer_tc32(const float* __restrict__ x_in, float* __restrict__ x_out,
   float* wring = ys + (size_t)(TM + 2 * d) * YS + (size_t)warp * NST32 * KC32 * WS;
 
   const int g8 = lane / 4, t4 = lane % 4;
-  const int b = blockIdx.y, t0 = blockIdx.x * TM;
-  const int wcol = warp * WC;             // this warp's first column in each half
+  // a cluster is S consecutive blocks along x, so its rank is blockIdx.x % S
+  const int rank = blockIdx.x % S;
+  const int b = blockIdx.y, t0 = blockIdx.x / S * TM;
+  const int wcol = rank * CC + warp * WC; // this warp's first column in each half
   const float* wd_l = w_dil + (size_t)l * 3 * C * C2;
   const float* wo_l = w_out + (size_t)l * C * C2;
   const float* cond_b = cond + ((size_t)l * B + b) * T * C2;
@@ -461,9 +533,9 @@ stack_layer_tc32(const float* __restrict__ x_in, float* __restrict__ x_out,
   griddep_launch_dependents();
   // the gate epilogue reads the block's cond rows from device memory: pull
   // them into L2 now
-  for (int i = tid; i < TM * LPR; i += NTHR) {
-    const int t = t0 + i / LPR;
-    if (t < T) prefetch_l2(cond_b + (size_t)t * C2 + (i % LPR) * 32);
+  for (int i = tid; i < TM * 2 * LPH; i += NTHR) {
+    const int t = t0 + i / (2 * LPH), h = i % (2 * LPH) / LPH;
+    if (t < T) prefetch_l2(cond_b + (size_t)t * C2 + h * C + rank * CC + (i % LPH) * 32);
   }
   // chunk ch: rows [KC32 ch, KC32 ch + KC32) of [w_dil[l] (3C rows); w_out[l]
   // (C rows)], the warp's two column groups only
@@ -484,11 +556,12 @@ stack_layer_tc32(const float* __restrict__ x_in, float* __restrict__ x_out,
   }
   griddep_wait();   // the layer before has completed: x_in and skip are final
   if (l > 0)
-    for (int i = tid; i < TM * (C * 4 / 128); i += NTHR) {
-      const int t = t0 + i / (C * 4 / 128);
-      if (t < T) prefetch_l2(skip + ((size_t)b * T + t) * C + (i % (C * 4 / 128)) * 32);
+    for (int i = tid; i < TM * LPH; i += NTHR) {
+      const int t = t0 + i / LPH;
+      if (t < T) prefetch_l2(skip + ((size_t)b * T + t) * C + rank * CC + (i % LPH) * 32);
     }
-  // y = x + step, rows t0 - d .. t0 + TM + d, zero outside [0, T)
+  // y = x + step, rows t0 - d .. t0 + TM + d, zero outside [0, T): all C
+  // columns, whatever the split (each output column reads every channel)
   {
     constexpr int CP4 = C / 4, RPP = NTHR / CP4;   // float4 per row, rows per pass
     const int c4 = tid % CP4, rq = tid / CP4;
@@ -580,7 +653,34 @@ stack_layer_tc32(const float* __restrict__ x_in, float* __restrict__ x_out,
         for (int nt = 0; nt < 2 * NTH; ++nt)
 #pragma unroll
           for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.f;
-      __syncthreads();   // every warp's g columns are written
+      if constexpr (S == 1) {
+        __syncthreads();   // every warp's g columns are written
+      } else {
+        cluster_arrive();  // every block of the cluster has written its g columns
+        cluster_wait();
+        // the out GEMM contracts over all C columns of g: copy the other
+        // blocks' columns from their shared memory into the same place here
+        // (nobody writes a block's own columns again in this layer)
+        constexpr int P4 = CC / 4, NPULL = (S - 1) * TM * P4 / NTHR;
+        static_assert((S - 1) * TM * P4 % NTHR == 0, "whole pulls a thread");
+        float4 v[NPULL];
+#pragma unroll
+        for (int u = 0; u < NPULL; ++u) {
+          const int i = u * NTHR + tid, peer = (rank + 1 + i / (TM * P4)) % S;
+          const int r = i / P4 % TM, col = peer * CC + i % P4 * 4;
+          v[u] = ld_cluster_f4(cluster_map(smem_u32(ys + (size_t)r * YS + col), peer));
+        }
+#pragma unroll
+        for (int u = 0; u < NPULL; ++u) {
+          const int i = u * NTHR + tid, peer = (rank + 1 + i / (TM * P4)) % S;
+          const int r = i / P4 % TM, col = peer * CC + i % P4 * 4;
+          *reinterpret_cast<float4*>(ys + (size_t)r * YS + col) = v[u];
+        }
+        // this block has read the others' columns; it waits at its end for
+        // every block to have read its own, so none exits while a peer reads
+        cluster_arrive();
+        __syncthreads();   // the whole g tile is here
+      }
       PHASE_CLOCK(3);
     }
     cp_async_wait<NST32 - 2>();   // this lane's part of chunk ch has landed
@@ -669,23 +769,49 @@ stack_layer_tc32(const float* __restrict__ x_in, float* __restrict__ x_out,
       }
   }
   PHASE_CLOCK(5);
+  if constexpr (S > 1) cluster_wait();   // every peer has read this block's g columns
 }
 
-template <typename E, int C> struct Body;   // the kernel and shared memory of a body
-template <int C> struct Body<bf16, C> {
+template <typename E, int C, int S> struct Body;   // the kernel and shared memory of a body
+template <int C> struct Body<bf16, C, 1> {
   static auto kernel() { return stack_layer_tc<C>; }
   static size_t smem(int d) { return smem_bytes<C>(d); }
 };
-template <int C> struct Body<float, C> {
-  static auto kernel() { return stack_layer_tc32<C>; }
-  static size_t smem(int d) { return smem_bytes32<C>(d); }
+template <int C, int S> struct Body<float, C, S> {
+  static auto kernel() { return stack_layer_tc32<C, S>; }
+  static size_t smem(int d) { return smem_bytes32<C, S>(d); }
+};
+
+// The launch of one layer: grid, block, shared memory, and the attributes:
+// programmatic dependent launch after the first layer, the cluster for S > 1.
+template <int S> struct LayerLaunch {
+  cudaLaunchConfig_t cfg = {};
+  cudaLaunchAttribute attr[2];
+  LayerLaunch(int T, int B, size_t smem, cudaStream_t stream, bool after_a_layer) {
+    cfg.gridDim = dim3((T + TM - 1) / TM * S, B);
+    cfg.blockDim = dim3(NTHR);
+    cfg.dynamicSmemBytes = smem;
+    cfg.stream = stream;
+    cfg.attrs = attr;
+    cfg.numAttrs = 0;
+    if (after_a_layer) {
+      attr[cfg.numAttrs].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+      attr[cfg.numAttrs++].val.programmaticStreamSerializationAllowed = 1;
+    }
+    if (S > 1) {
+      attr[cfg.numAttrs].id = cudaLaunchAttributeClusterDimension;
+      attr[cfg.numAttrs].val.clusterDim.x = S;
+      attr[cfg.numAttrs].val.clusterDim.y = 1;
+      attr[cfg.numAttrs++].val.clusterDim.z = 1;
+    }
+  }
 };
 
 // x0 is read only; xbuf holds two [B,T,C] f32 buffers the layers alternate
 // between; skip needs no initial value (layer 0 writes it). cond and the
-// weights are E (bf16 or float). Every launch the card takes is counted in
-// *n_launched.
-template <typename E, int C>
+// weights are E (bf16 or float). S > 1 splits each tile's columns over a
+// cluster of S blocks. Every launch the card takes is counted in *n_launched.
+template <typename E, int C, int S>
 int run(const float* x0, float* xbuf, float* skip, const float* step, const E* cond,
         const E* w_dil, const float* b_dil, const E* w_out, const float* b_out,
         int B, int T, int L, const int* dil, cudaStream_t stream, int* n_launched) {
@@ -695,33 +821,45 @@ int run(const float* x0, float* xbuf, float* skip, const float* step, const E* c
     if (dil[l] > dmax) dmax = dil[l];
   }
   if (dmax > MAX_DIL) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(Body<E, C>::kernel(),
+  cudaError_t err = cudaFuncSetAttribute(Body<E, C, S>::kernel(),
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)Body<E, C>::smem(dmax));
+                                         (int)Body<E, C, S>::smem(dmax));
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((T + TM - 1) / TM, B);
   const size_t n = (size_t)B * T * C;
   for (int l = 0; l < L; ++l) {
     const float* xin = l == 0 ? x0 : xbuf + ((l - 1) % 2) * n;
     float* xout = xbuf + (l % 2) * n;
     // layers after the first may start (their cond and weight copies) while
     // the layer before them drains; layer 0 waits for the caller's kernels
-    cudaLaunchConfig_t cfg = {};
-    cfg.gridDim = grid;
-    cfg.blockDim = dim3(NTHR);
-    cfg.dynamicSmemBytes = Body<E, C>::smem(dil[l]);
-    cfg.stream = stream;
-    cudaLaunchAttribute attr;
-    attr.id = cudaLaunchAttributeProgrammaticStreamSerialization;
-    attr.val.programmaticStreamSerializationAllowed = 1;
-    cfg.attrs = &attr;
-    cfg.numAttrs = l > 0 ? 1 : 0;
-    err = cudaLaunchKernelEx(&cfg, Body<E, C>::kernel(), xin, xout, skip, step, cond, w_dil,
-                             b_dil, w_out, b_out, B, T, l, dil[l]);
+    LayerLaunch<S> launch(T, B, Body<E, C, S>::smem(dil[l]), stream, l > 0);
+    err = cudaLaunchKernelEx(&launch.cfg, Body<E, C, S>::kernel(), xin, xout, skip, step, cond,
+                             w_dil, b_dil, w_out, b_out, B, T, l, dil[l]);
     if (err != cudaSuccess) return (int)err;
     ++*n_launched;
   }
   return (int)cudaSuccess;
+}
+
+// How many tiles of the float32 body at width C, split S ways, the card holds
+// at once with dmax its largest dilation: clusters of S blocks
+// (cudaOccupancyMaxActiveClusters), or blocks for S = 1.
+template <int C, int S> int resident(int dmax, int* out) {
+  const size_t smem = smem_bytes32<C, S>(dmax);
+  cudaError_t err = cudaFuncSetAttribute(stack_layer_tc32<C, S>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  if (S == 1) {
+    int dev = 0, sms = 0, per_sm = 0;
+    err = cudaGetDevice(&dev);
+    if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, stack_layer_tc32<C, S>, NTHR,
+                                                          smem);
+    *out = per_sm * sms;
+    return (int)err;
+  }
+  LayerLaunch<S> launch(S, 1, smem, 0, false);
+  return (int)cudaOccupancyMaxActiveClusters(out, stack_layer_tc32<C, S>, &launch.cfg);
 }
 
 }  // namespace tc
@@ -923,17 +1061,35 @@ extern "C" int diffnet_stack_tc_info(int dtype, int C, int dmax, int* out) {
   return 1;
 }
 
+// How many tiles the float32 tensor-core body holds at once at width C,
+// largest dilation dmax and column split `split` (out[0]: clusters of
+// `split` blocks, blocks for split 1): the wrapper's split rule reads it.
+// Returns a cudaError_t code; cudaErrorInvalidValue for a shape or split the
+// body does not take.
+extern "C" int diffnet_stack_resident(int C, int dmax, int split, int* out) {
+  out[0] = 0;
+  if (!tc_takes(0, C, dmax) || !tc::split_takes(C, split)) return (int)cudaErrorInvalidValue;
+  if (C == 256 && split == 1) return tc::resident<256, 1>(dmax, out);
+  if (C == 256 && split == 2) return tc::resident<256, 2>(dmax, out);
+  if (C == 256 && split == 4) return tc::resident<256, 4>(dmax, out);
+  if (C == 128 && split == 1) return tc::resident<128, 1>(dmax, out);
+  return (int)cudaErrorInvalidValue;
+}
+
 // path 1, the tensor-core bodies (dtype 0 float32 or 1 bfloat16 cond, w_dil
 // and w_out; C = 128 or 256; dilations up to MAX_DIL): x is x0, read only;
-// skip needs no initial value; scratch is two [B,T,C] f32 buffers.
-// path 0, the SIMT body (dtype 0 only, C % 32 == 0): x [B,T,C] f32 is updated
-// in place, skip [B,T,C] f32 must start at zero, scratch is g [B*T, C] f32.
-// A path that does not take the shape is refused, never swapped for another.
-// report (two ints) is written by the code that ran: [0] the kernels it
-// launched in this call, [1] which body it was (0 SIMT, 1 tensor cores).
-// Returns a cudaError_t code.
-extern "C" int diffnet_stack_run(int path, int dtype, void* x, void* skip, void* scratch,
-                                 const void* step, const void* cond,
+// skip needs no initial value; scratch is two [B,T,C] f32 buffers. split > 1
+// (float32 only, split_takes) runs each 64-row tile on a cluster of that
+// many blocks, each with C/split columns of each half.
+// path 0, the SIMT body (dtype 0 only, C % 32 == 0, split 1): x [B,T,C] f32
+// is updated in place, skip [B,T,C] f32 must start at zero, scratch is g
+// [B*T, C] f32.
+// A path or split that does not take the shape is refused, never swapped for
+// another. report (three ints) is written by the code that ran: [0] the
+// kernels it launched in this call, [1] which body it was (0 SIMT, 1 tensor
+// cores), [2] the column split it ran. Returns a cudaError_t code.
+extern "C" int diffnet_stack_run(int path, int dtype, int split, void* x, void* skip,
+                                 void* scratch, const void* step, const void* cond,
                                  const void* w_dil, const void* b_dil,
                                  const void* w_out, const void* b_out,
                                  int B, int T, int C, int L, const int* dil,
@@ -942,24 +1098,31 @@ extern "C" int diffnet_stack_run(int path, int dtype, void* x, void* skip, void*
   cudaStream_t s = (cudaStream_t)stream;
   report[0] = 0;
   report[1] = -1;
+  report[2] = 0;
   if (path == 1) {
     int dmax = 0;
     for (int l = 0; l < L; ++l) dmax = dil[l] > dmax ? dil[l] : dmax;
-    if (!tc_takes(dtype, C, dmax)) return (int)cudaErrorInvalidValue;
+    if (!tc_takes(dtype, C, dmax) || !tc::split_takes(C, split) || (split > 1 && dtype != 0))
+      return (int)cudaErrorInvalidValue;
     report[1] = 1;
-#define STACK_TC(E, CH)                                                                  \
-  return tc::run<E, CH>((const float*)x, (float*)scratch, (float*)skip, (const float*)step, \
-                        (const E*)cond, (const E*)w_dil, (const float*)b_dil,             \
-                        (const E*)w_out, (const float*)b_out, B, T, L, dil, s, report)
-    if (dtype == 0 && C == 256) STACK_TC(float, 256);
-    if (dtype == 0 && C == 128) STACK_TC(float, 128);
-    if (dtype == 1 && C == 256) STACK_TC(bf16, 256);
-    if (dtype == 1 && C == 128) STACK_TC(bf16, 128);
+    report[2] = split;
+#define STACK_TC(E, CH, S)                                                                  \
+  return tc::run<E, CH, S>((const float*)x, (float*)scratch, (float*)skip,                  \
+                           (const float*)step, (const E*)cond, (const E*)w_dil,             \
+                           (const float*)b_dil, (const E*)w_out, (const float*)b_out, B, T, \
+                           L, dil, s, report)
+    if (dtype == 0 && C == 256 && split == 1) STACK_TC(float, 256, 1);
+    if (dtype == 0 && C == 256 && split == 2) STACK_TC(float, 256, 2);
+    if (dtype == 0 && C == 256 && split == 4) STACK_TC(float, 256, 4);
+    if (dtype == 0 && C == 128 && split == 1) STACK_TC(float, 128, 1);
+    if (dtype == 1 && C == 256) STACK_TC(bf16, 256, 1);
+    if (dtype == 1 && C == 128) STACK_TC(bf16, 128, 1);
 #undef STACK_TC
     return (int)cudaErrorInvalidValue;
   }
-  if (path != 0 || dtype != 0) return (int)cudaErrorInvalidValue;
+  if (path != 0 || dtype != 0 || split != 1) return (int)cudaErrorInvalidValue;
   report[1] = 0;
+  report[2] = 1;
   return run_f32((float*)x, (float*)skip, (float*)scratch, (const float*)step,
                  (const float*)cond, (const float*)w_dil, (const float*)b_dil,
                  (const float*)w_out, (const float*)b_out, B, T, C, L, dil, s, report);

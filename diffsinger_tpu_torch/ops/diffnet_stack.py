@@ -21,16 +21,31 @@ every dilation up to 16 takes the tensor-core bodies (one launch a layer,
 ``x0`` untouched; float32 products as 3xTF32), float32 at any other shape
 (C % 32 == 0) takes the SIMT body (two launches a layer); bfloat16 outside
 the rule, and every other type, raises. Neither ever reaches the plain twin.
-The library reports what it launched: ``diffnet_stack.device_launches`` and
-``.ran_tensor_cores`` hold the last CUDA call's, and
+The library reports what it launched: ``diffnet_stack.device_launches``,
+``.ran_tensor_cores`` and ``.column_split`` hold the last CUDA call's, and
 :func:`tensor_core_info` its tile rows and shared memory for a shape.
+
+The grid of the float32 tensor-core body. A block owns 64 rows of one batch
+row and runs alone on its SM (255 registers a thread), so a
+layer launches ``ceil(T/64)·B`` blocks and takes as long as one block: on the
+H100's 132 SMs a B = 1 singing phrase of 1,152 frames fills 18, and a batch of
+160 tiles runs a second wave 28 blocks full. So each 64-row tile's output
+columns are split over a thread-block cluster of k blocks: block j computes
+gate and filter columns ``[jC/k, (j+1)C/k)`` (streaming 1/k of the layer's
+weights), hands its slice of g to the others through distributed shared
+memory, and computes the same 1/k of the residual and skip columns. k = 1 is
+the unsplit body. :func:`column_split` picks k from the shape and what the
+card holds at once (``cudaOccupancyMaxActiveClusters`` of each instance, read
+once per width and largest dilation): the k in :data:`SPLITS` with the fewest
+``ceil(tiles / resident(k)) · (1 + SPLIT_COST[k]) / k`` wave-units, the
+smaller k on a tie. No argument, hparam or environment variable sets k.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional, Sequence, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -83,6 +98,16 @@ def diffnet_stack_plain(x0, step_proj, cond_proj, w_dil, b_dil, w_out, b_out, *,
 
 TC_CHANNELS = (128, 256)   # widths the tensor-core bodies are built for
 TC_MAX_DILATION = 16       # the widest halo their tiles hold in a block's shared memory
+TILE_ROWS = 64             # rows of one batch row a block (or a cluster) owns
+SPLITS = (1, 2, 4)         # column splits of the float32 body: blocks of a cluster
+# What a split tile costs beyond 1/k of an unsplit one, as a share of that
+# 1/k: every block of a cluster stages the whole y tile, runs the launch's
+# fixed latency, and exchanges g. Measured where every k runs one wave
+# (tools/stack_split.py; H100 80GB HBM3, 700 W: B x T = 1 x 1152, 1 x 256,
+# 4 x 384 read 0.07-0.11 at k = 2 and 0.37-0.39 at k = 4). Without it the
+# rule would take k = 4 for 67-90 tiles (3 waves of 30 clusters), which read
+# 0.4-2.2% slower than one unsplit wave (1 x 4800, 3 x 1600, 5 x 1088).
+SPLIT_COST = {1: 0.0, 2: 0.09, 4: 0.38}
 
 
 def takes_tensor_cores(c: int, dilations: Sequence[int],
@@ -93,6 +118,32 @@ def takes_tensor_cores(c: int, dilations: Sequence[int],
     return ((compute_dtype or torch.float32) in _DTYPE_CODE and c in TC_CHANNELS
             and 1 <= min(int(d) for d in dilations)
             and max(int(d) for d in dilations) <= TC_MAX_DILATION)
+
+
+def splits_for(c: int) -> Tuple[int, ...]:
+    """The column splits the float32 body is built for at width ``c``: all of
+    :data:`SPLITS` at C = 256, the width the shipped configs run and
+    :data:`SPLIT_COST` was measured at (a warp keeps whole 8-column ``mma``
+    tiles of each half up to k = 4); other widths stay unsplit. The
+    library's ``split_takes`` names the same."""
+    return SPLITS if c == 256 else (1,)
+
+
+def column_split(b: int, t: int, c: int, resident: Dict[int, int]) -> int:
+    """The split rule: the k of :func:`splits_for` that runs the call's
+    ``ceil(t / 64) · b`` tiles in the fewest wave-units, where a wave is
+    ``resident[k]`` tiles at once (clusters of k blocks, one block an SM)
+    and lasts ``(1 + SPLIT_COST[k]) / k`` of an unsplit block; the smaller k
+    on a tie. A k the card holds no cluster of is never taken."""
+    tiles = -(-t // TILE_ROWS) * b
+    best, best_units = 1, None
+    for k in splits_for(c):
+        if resident.get(k, 0) < 1:
+            continue
+        units = -(-tiles // resident[k]) * (1.0 + SPLIT_COST[k]) / k
+        if best_units is None or units < best_units:
+            best, best_units = k, units
+    return best
 
 
 def _body(c: int, dilations: Sequence[int], compute_dtype: Optional[torch.dtype]) -> int:
@@ -118,11 +169,28 @@ def _body(c: int, dilations: Sequence[int], compute_dtype: Optional[torch.dtype]
 def _entry():
     fn = load_library("diffnet_stack").diffnet_stack_run
     fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 9
+    fn.argtypes = ([ctypes.c_int] * 3 + [ctypes.c_void_p] * 9
                    + [ctypes.c_int] * 4
                    + [ctypes.POINTER(ctypes.c_int), ctypes.c_void_p,
                       ctypes.POINTER(ctypes.c_int)])
     return fn
+
+
+@functools.lru_cache(maxsize=None)
+def _resident(c: int, dmax: int, device: int) -> Dict[int, int]:
+    """Tiles the float32 body holds at once on the card, by split (the
+    library's ``diffnet_stack_resident``); read once per width, largest
+    dilation and device."""
+    fn = load_library("diffnet_stack").diffnet_stack_resident
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)]
+    out = (ctypes.c_int * 1)()
+    counts = {}
+    with torch.cuda.device(device):
+        for k in splits_for(c):
+            check(fn(c, dmax, k, out), f"diffnet_stack_resident (split {k})")
+            counts[k] = out[0]
+    return counts
 
 
 def tensor_core_info(c: int, dilations: Sequence[int],
@@ -177,13 +245,19 @@ def _launch(x0, step_proj, cond_proj, w_dil, b_dil, w_out, b_out, dilations,
     wd, wo = w_dil.to(dt).contiguous(), w_out.to(dt).contiguous()
     bd, bo = b_dil.to(torch.float32).contiguous(), b_out.to(torch.float32).contiguous()
     dil = _dilation_array(tuple(int(d) for d in dilations))
+    split = 1
+    if path and dt == torch.float32:
+        dmax = max(int(d) for d in dilations)
+        split = column_split(b, t, c, _resident(c, dmax, x.device.index))
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    report = (ctypes.c_int * 2)()
-    err = _entry()(path, _DTYPE_CODE[dt], x.data_ptr(), skip.data_ptr(), scratch.data_ptr(),
-                   step.data_ptr(), cond.data_ptr(), wd.data_ptr(), bd.data_ptr(),
-                   wo.data_ptr(), bo.data_ptr(), b, t, c, num_layers, dil, stream, report)
+    report = (ctypes.c_int * 3)()
+    err = _entry()(path, _DTYPE_CODE[dt], split, x.data_ptr(), skip.data_ptr(),
+                   scratch.data_ptr(), step.data_ptr(), cond.data_ptr(), wd.data_ptr(),
+                   bd.data_ptr(), wo.data_ptr(), bo.data_ptr(), b, t, c, num_layers, dil,
+                   stream, report)
     check(err, "diffnet_stack")
     diffnet_stack.device_launches, diffnet_stack.ran_tensor_cores = report[0], bool(report[1])
+    diffnet_stack.column_split = report[2]
     return skip
 
 
@@ -212,6 +286,7 @@ def diffnet_stack(x0, step_proj, cond_proj, w_dil, b_dil, w_out, b_out, *,
 diffnet_stack.launches = 0             # calls that launched kernels
 diffnet_stack.device_launches = None   # kernels the library launched in the last such call
 diffnet_stack.ran_tensor_cores = None  # which body that call ran
+diffnet_stack.column_split = None      # the column split k that call ran (1: unsplit)
 
 
 # ---------------------------------------------------------------------------

@@ -59,7 +59,8 @@ def main(argv) -> int:
     if not ds.diffnet_stack.ran_tensor_cores:
         print(f"stack_phases: {dt_name} did not run a tensor-core body", file=sys.stderr)
         return 2
-    n_blocks = min(b * ((t + 63) // 64), 4096)
+    # the float32 body's split runs each tile on column_split blocks
+    n_blocks = min(b * ((t + 63) // 64) * (ds.diffnet_stack.column_split or 1), 4096)
     clocks = np.zeros((n_blocks, 6), np.int64)
     lib.diffnet_stack_read_clocks.argtypes = [ctypes.c_void_p, ctypes.c_int]
     err = lib.diffnet_stack_read_clocks(clocks.ctypes.data, n_blocks)

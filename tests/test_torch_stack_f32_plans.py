@@ -81,13 +81,20 @@ def _device(a, t):
 
 
 def emulate_stack_tc32(x0, step, cond, w_dil, b_dil, w_out, b_out, *, dilations,
-                       tm=TM, passes=3, seed=0, buffers="double"):
+                       tm=TM, passes=3, seed=0, buffers="double", split=1, barrier=True):
     """The block schedule of ``stack_layer_tc32``; returns (skip, x0 buffer).
-    ``buffers`` other than "double" are faults, for the tests of the NaN
-    guard: "in_place" writes x where it reads it, "same" reads the buffer the
-    layer writes."""
+    ``split`` k > 1 runs each tile on a cluster of k blocks, rank j owning
+    columns [jC/k, (j+1)C/k) of each half, in a shuffled rank order: each
+    stages the whole y tile, computes its g slice and writes it to its own
+    shared memory (NaN until written); after the cluster barrier the out GEMM
+    of every rank reads all k slices. ``barrier=False`` is a fault: each rank
+    runs to its end before the next starts, so the first reads unwritten
+    slices. ``buffers`` other than "double" are faults, for the tests of the
+    NaN guard: "in_place" writes x where it reads it, "same" reads the buffer
+    the layer writes."""
     mm = _mm_tf32(passes)
     b, t, c = x0.shape
+    cc = c // split
     x0_dev = _device(x0, t)
     cond_dev = _device(cond, t)
     bufs = [torch.full((b, t + PAD, c), NAN), torch.full((b, t + PAD, c), NAN)]
@@ -103,25 +110,46 @@ def emulate_stack_tc32(x0, step, cond, w_dil, b_dil, w_out, b_out, *, dilations,
         blocks = [(bi, t0) for bi in range(b) for t0 in range(0, t, tm)]
         for i in order.permutation(len(blocks)):
             bi, t0 = blocks[i]
-            # y with its halo: tile row q is sequence row t0 - d + q
-            ts = torch.arange(t0 - d, t0 + tm + d)
-            inside = (ts >= 0) & (ts < t)
-            ytile = torch.zeros(tm + 2 * d, c)
-            ytile[inside] = x_in[bi, ts[inside]] + step[l, bi]
-            conv = (mm(ytile[0:tm], w_dil[l, 0]) + mm(ytile[d:d + tm], w_dil[l, 1])
-                    + mm(ytile[2 * d:2 * d + tm], w_dil[l, 2]))
             rows = torch.arange(t0, t0 + tm)
             live = rows < t
-            cond_rows = torch.zeros(tm, 2 * c)
-            cond_rows[live] = cond_dev[l, bi, rows[live]]
-            pre = conv + b_dil[l] + cond_rows
-            g = torch.sigmoid(pre[:, :c]) * torch.tanh(pre[:, c:])
-            g[~live] = 0.0                     # written over y, zero past T
-            out = mm(g, w_out[l])
             keep = rows[live]
-            res, sk = out[live, :c] + b_out[l, :c], out[live, c:] + b_out[l, c:]
-            x_out[bi, keep] = (x_in[bi, keep] + res) * tds.SQRT_HALF
-            skip[bi, keep] = sk if l == 0 else skip[bi, keep] + sk
+            g_smem = [torch.full((tm, cc), NAN) for _ in range(split)]   # each rank's g slice
+
+            def conv_gate(j):
+                # y with its halo, every column: tile row q is sequence row t0 - d + q
+                ts = torch.arange(t0 - d, t0 + tm + d)
+                inside = (ts >= 0) & (ts < t)
+                ytile = torch.zeros(tm + 2 * d, c)
+                ytile[inside] = x_in[bi, ts[inside]] + step[l, bi]
+                cols = torch.cat([torch.arange(j * cc, (j + 1) * cc),
+                                  c + torch.arange(j * cc, (j + 1) * cc)])
+                conv = sum(mm(ytile[tap * d:tap * d + tm], w_dil[l, tap][:, cols])
+                           for tap in range(3))
+                cond_rows = torch.zeros(tm, 2 * cc)
+                cond_rows[live] = cond_dev[l, bi][rows[live]][:, cols]
+                pre = conv + b_dil[l, cols] + cond_rows
+                g = torch.sigmoid(pre[:, :cc]) * torch.tanh(pre[:, cc:])
+                g[~live] = 0.0                     # written over y, zero past T
+                g_smem[j] = g
+
+            def out_epilogue(j):
+                g = torch.cat(g_smem, dim=1)      # the peers' slices, pulled
+                own = torch.arange(j * cc, (j + 1) * cc)
+                out = mm(g, w_out[l][:, torch.cat([own, c + own])])
+                res, sk = out[live, :cc] + b_out[l, own], out[live, cc:] + b_out[l, c + own]
+                x_out[bi, keep[:, None], own] = (x_in[bi, keep[:, None], own] + res) * tds.SQRT_HALF
+                skip[bi, keep[:, None], own] = sk if l == 0 else skip[bi, keep[:, None], own] + sk
+
+            ranks = order.permutation(split)
+            if barrier:
+                for j in ranks:
+                    conv_gate(j)
+                for j in ranks:
+                    out_epilogue(j)
+            else:
+                for j in ranks:
+                    conv_gate(j)
+                    out_epilogue(j)
         x_in = x_out
     return skip[:, :t], x0_dev
 
@@ -240,6 +268,7 @@ def test_cpu_call_takes_the_twin_whatever_the_rule_says():
     assert torch.equal(got, want)
     assert tds.diffnet_stack.launches == before
     assert tds.diffnet_stack.device_launches is None   # nothing ran on a card
+    assert tds.diffnet_stack.column_split is None
 
 
 def _cu_constant(name):
@@ -269,3 +298,153 @@ def test_library_limits_match_the_wrapper_rule():
         assert smem_f32(c, tds.TC_MAX_DILATION) <= 227 * 1024
     # the bf16 body at C = 256 would not fit one more halo row pair past 16
     assert smem_bf16(256, tds.TC_MAX_DILATION + 1) > 227 * 1024
+
+
+# --------------------------------------------------------------- column split
+@pytest.mark.parametrize("t", [5, 301, 1152])
+@pytest.mark.parametrize("cycle", [1, 4])
+@pytest.mark.parametrize("split", tds.SPLITS)
+def test_cluster_split_equals_the_plain_twin_and_jax(split, cycle, t):
+    """k blocks of a cluster share each tile's columns; the result is the
+    unsplit function's, every column written once (no NaN left)."""
+    num_layers, b = 4, 1 + (split + cycle + t) % 3
+    args = _inputs(10 * split + cycle + t, b, t, 256, num_layers)
+    dil = tuple(2 ** (i % cycle) for i in range(num_layers))
+    got, x0_after = emulate_stack_tc32(*args, dilations=dil, split=split, seed=split)
+    want = tds.diffnet_stack_plain(*args, dilations=dil)
+    tol = 1e-4 * max(float(want.abs().max()), 1.0)
+    assert torch.isfinite(got).all()
+    assert float((got - want).abs().max()) <= tol
+    if t > max(dil):   # JAX takes no T shorter than a dilation (see above)
+        assert float((got - _jax_stack(args, dil)).abs().max()) <= tol
+    assert torch.equal(x0_after[:, :t], args[0])
+
+
+@pytest.mark.parametrize("split", [2, 4])
+def test_a_missing_cluster_barrier_shows_as_nan(split):
+    """Without the barrier between the ranks' g slices and the out GEMM, a
+    rank reads a peer's slice before it is written: the NaN guard sees it."""
+    dil = (1, 2)
+    args = _inputs(11, 2, 301, 256, len(dil))
+    with_barrier, _ = emulate_stack_tc32(*args, dilations=dil, split=split)
+    assert torch.isfinite(with_barrier).all()
+    without, _ = emulate_stack_tc32(*args, dilations=dil, split=split, barrier=False)
+    assert torch.isnan(without).any()
+
+
+# resident tiles a wave on the H100's 132 SMs: a block an SM unsplit; clusters
+# of 2 and 4 as the card's GPCs hold them (the first as read on an H100 80GB
+# HBM3; the others what another part of the GPCs' SMs could give)
+RESIDENT = [{1: 132, 2: 66, 4: 30}, {1: 132, 2: 64, 4: 32}, {1: 132, 2: 66, 4: 33}]
+
+
+def _units(b, t, k, resident):
+    return -(-(-(-t // TM) * b) // resident[k]) * (1.0 + tds.SPLIT_COST[k]) / k
+
+
+@pytest.mark.parametrize("resident", RESIDENT)
+def test_full_waves_keep_the_unsplit_body(resident):
+    """8 x 1024 and 16 x 512 (128 tiles) already fill a wave: k = 1."""
+    for b, t in ((8, 1024), (16, 512), (2, 4096), (1, 7936)):
+        assert tds.column_split(b, t, 256, resident) == 1, (b, t)
+
+
+@pytest.mark.parametrize("resident", RESIDENT)
+def test_a_singing_phrase_at_b1_takes_the_widest_split(resident):
+    """B = 1 at the median phrase (1,152 frames, 18 tiles) fills 18 SMs
+    unsplit, 72 split four ways."""
+    assert tds.column_split(1, 1152, 256, resident) == 4
+    assert tds.column_split(1, 256, 256, resident) == 4
+
+
+def test_the_split_is_capped_by_the_width():
+    """A warp keeps whole 8-column tiles: k <= 4 at C = 256; C = 128, whose
+    split cost was never measured, stays unsplit whatever the card would
+    hold."""
+    assert tds.splits_for(256) == (1, 2, 4)
+    assert tds.splits_for(128) == (1,)
+    many = {1: 132, 2: 66, 4: 33, 8: 16}
+    for b in range(1, 17):
+        for t in (5, 64, 301, 640, 1152, 2432, 4096):
+            assert tds.column_split(b, t, 128, many) == 1
+            assert tds.column_split(b, t, 256, many) <= 4
+
+
+@pytest.mark.parametrize("resident", RESIDENT)
+def test_the_chosen_split_never_takes_more_waves_than_unsplit(resident):
+    for b in range(1, 17):
+        for t in range(64, 4097, 64):
+            for c in tds.TC_CHANNELS:
+                k = tds.column_split(b, t, c, resident)
+                assert k in tds.splits_for(c)
+                assert _units(b, t, k, resident) <= _units(b, t, 1, resident), (b, t, c, k)
+                # the fewest wave-units of the splits the width allows, smaller k on a tie
+                best = min(tds.splits_for(c), key=lambda j: (_units(b, t, j, resident), j))
+                assert k == best
+
+
+def test_the_measured_split_cost_keeps_one_unsplit_wave(monkeypatch):
+    """At 67-90 tiles k = 4 needs three waves of 30 clusters: cheaper than one
+    unsplit wave without its fixed cost, dearer with it."""
+    card = RESIDENT[0]
+    assert tds.column_split(1, 75 * TM, 256, card) == 1
+    assert tds.column_split(16, 640, 256, card) == 2      # 160 tiles: 3 waves of 66
+    monkeypatch.setattr(tds, "SPLIT_COST", {k: 0.0 for k in tds.SPLITS})
+    assert tds.column_split(1, 75 * TM, 256, card) == 4
+
+
+def test_a_split_the_card_cannot_hold_is_never_taken():
+    assert tds.column_split(1, 1152, 256, {1: 132, 2: 66, 4: 0}) == 2
+    assert tds.column_split(1, 1152, 256, {1: 132}) == 1
+
+
+def test_the_wrapper_passes_the_rules_split_and_reads_back_the_librarys(monkeypatch):
+    """The CUDA call asks the library for the rule's k on the card's resident
+    counts, and ``column_split`` holds what the library reports it ran."""
+    seen = {}
+
+    def entry(path, dtype, split, *rest):
+        seen.update(path=path, dtype=dtype, split=split)
+        report = rest[-1]
+        report[0], report[1], report[2] = 2, 1, split
+        return 0
+
+    class Stream:
+        cuda_stream = 0
+
+    for name in ("device_launches", "ran_tensor_cores", "column_split"):
+        monkeypatch.setattr(tds.diffnet_stack, name, None)   # put back after the test
+    monkeypatch.setattr(tds, "_entry", lambda: entry)
+    monkeypatch.setattr(tds, "_resident", lambda c, dmax, dev: dict(RESIDENT[0]))
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda device=None: Stream())
+    for (b, t), k in (((1, 1152), 4), ((1, 2432), 2), ((8, 1024), 1)):
+        args = _inputs(1, b, t, 256, 2)
+        tds._launch(*args, (1, 2), None)
+        assert seen == {"path": 1, "dtype": 0, "split": k}, (b, t, seen)
+        assert tds.diffnet_stack.column_split == k
+    # bfloat16 has no split: k = 1 whatever the shape
+    args = _inputs(1, 1, 1152, 256, 2)
+    tds._launch(*args, (1, 2), torch.bfloat16)
+    assert seen["split"] == 1 and seen["dtype"] == 1
+
+
+def test_library_splits_match_the_wrapper_rule():
+    """The library's splits, tile rows and instances are the wrapper's: its
+    split_takes names the splits of splits_for, it builds and dispatches an
+    instance for each (width, split) pair, and every split instance's tiles
+    fit a block's 227 KB at the widest dilation (its smem formula, copied)."""
+    src = CU.read_text()
+    assert _cu_constant("TM") == tds.TILE_ROWS
+    assert "split == 1 || (C == 256 && (split == 2 || split == 4))" in src
+    assert tds.SPLITS == (1, 2, 4)
+    pairs = {(c, k) for c in tds.TC_CHANNELS for k in tds.splits_for(c)}
+    run = {(int(c), int(k)) for c, k in re.findall(r"STACK_TC\(float, (\d+), (\d+)\)", src)}
+    resident = {(int(c), int(k)) for c, k in re.findall(r"tc::resident<(\d+), (\d+)>", src)}
+    assert run == pairs and resident == pairs
+    assert "return C / (4 * S) + 8;" in src
+    kc32, nst32 = _cu_constant("KC32"), _cu_constant("NST32")
+    for c, k in pairs:
+        smem = ((TM + 2 * tds.TC_MAX_DILATION) * (c + 4) + 8 * nst32 * kc32 * (c // (4 * k) + 8)) * 4
+        assert smem <= 227 * 1024
+        # a warp's columns of each half are whole 8-column mma tiles
+        assert (c // k // 8) % 8 == 0
