@@ -62,6 +62,16 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      shipped_adj_rel_profile.txt) held against the plain twins by
      serve_shipped's criteria; then the float32 LJ vocoder batch and a
      HifiGanTask step at 16 x 8192 timed with cuDNN's TF32 off and on;
+  5e. wide: the openvpi release's acoustic widths
+     (benchmark/configs/ds512_44k_cpop.json): the float32 stack at C = 512,
+     cycle 4, at 1 x 432, 8 x 640 and 16 x 1152, at each column split the
+     card holds (2 and 4), against its plain twin (1e-4 of the output's
+     scale; the library's report of the body, launches and split; two calls
+     give the same bits, x0 untouched); the float32 MRF at C = 16, the 44.1
+     kHz vocoder's fifth scale, against its twin; the configuration served
+     once (seeded weights, one 8 x 640 batch: 101 stack calls on the
+     tensor-core body, 4 MRF launches) and held against the plain twins by
+     the singing phases' criteria;
   6. diffnet_train forward and backward kernels at the training shapes
      (B=24, T=1024, C=H=256, L=20), bf16 and f32, dilation cycles 1 and 4,
      plus 3 x 301 rows with H=200 and with H=256 (not a tile multiple; the
@@ -725,14 +735,8 @@ SING_WORD_INPUT = {
 
 def build_singer(torch, seed: int = 0, stack_dtype: Optional[str] = "bfloat16",
                  config: str = "ds1000.yaml"):
-    import numpy as np
-    import torch.nn as nn
-
     from diffsinger_tpu_torch.config.hparams import set_hparams
-    from diffsinger_tpu_torch.inference.svs import CPOP_PHONE_LIST, DiffSingerE2EInfer
-    from diffsinger_tpu_torch.inference.vocoder import HifiGAN
-    from diffsinger_tpu_torch.models.pe import PEConfig, PitchExtractor
-    from diffsinger_tpu_torch.training.tasks import DiffSingerTask
+    from diffsinger_tpu_torch.inference.svs import DiffSingerE2EInfer
 
     hp = set_hparams(str(ROOT / "configs" / "opencpop" / config))
     # the released DiffSinger-Opencpop model (or ``config``, another OpenCpop
@@ -743,6 +747,22 @@ def build_singer(torch, seed: int = 0, stack_dtype: Optional[str] = "bfloat16",
     hp.update(seed=seed, **SING_VOCODER)
     if stack_dtype is not None:
         hp["compute_dtype"] = stack_dtype
+    task, voc, pe = seeded_singer(torch, hp, seed, SING_FRAMES_PER_PHONE)
+    infer = DiffSingerE2EInfer(hp, task, voc, pe=pe)  # default device: the card
+    return hp, infer
+
+
+def seeded_singer(torch, hp, seed: int, frames_per_phone: int):
+    """The singing task, vocoder and PE of ``hp`` on the CPU with seeded
+    weights, the phone durations fixed at ``frames_per_phone``."""
+    import numpy as np
+    import torch.nn as nn
+
+    from diffsinger_tpu_torch.inference.svs import CPOP_PHONE_LIST
+    from diffsinger_tpu_torch.inference.vocoder import HifiGAN
+    from diffsinger_tpu_torch.models.pe import PEConfig, PitchExtractor
+    from diffsinger_tpu_torch.training.tasks import DiffSingerTask
+
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(seed)
         task = DiffSingerTask(hp, vocab_size=len(CPOP_PHONE_LIST) + 3, device="cpu")
@@ -757,7 +777,7 @@ def build_singer(torch, seed: int = 0, stack_dtype: Optional[str] = "bfloat16",
                     m.reset_parameters()
             lin = task.fs2.dur_predictor.linear
             lin.weight.zero_()
-            lin.bias.fill_(float(np.log(SING_FRAMES_PER_PHONE + 1.0)))
+            lin.bias.fill_(float(np.log(frames_per_phone + 1.0)))
             # a seeded PE with running statistics, its F0 head centred on
             # 2^7.5 = 181 Hz with a uv logit around 0 (voiced and unvoiced
             # frames both occur)
@@ -767,8 +787,7 @@ def build_singer(torch, seed: int = 0, stack_dtype: Optional[str] = "bfloat16",
             head = pe.pitch_predictor.linear
             head.weight.mul_(0.01)
             head.bias.copy_(torch.tensor([7.5, 0.0]))
-    infer = DiffSingerE2EInfer(hp, task, voc, pe=pe)  # default device: the card
-    return hp, infer
+    return task, voc, pe
 
 
 def sing_vs_plain(torch, ds, mrf, syn, requests, seed: int) -> dict:
@@ -782,7 +801,8 @@ def sing_vs_plain(torch, ds, mrf, syn, requests, seed: int) -> dict:
     gen = torch.Generator(device="cuda").manual_seed(seed)
     cfg = syn.task.gd.cfg  # PLMS draws its start, DDPM also one noise a step
     n_draws = 1 if cfg.pndm_speedup else cfg.k_step + 1
-    noise = torch.randn((n_draws, b_pad, t_mel_b, 80), device="cuda", generator=gen)
+    bins = int(syn.hp.get("audio_num_mel_bins", 80))
+    noise = torch.randn((n_draws, b_pad, t_mel_b, bins), device="cuda", generator=gen)
     with torch.no_grad():
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -799,7 +819,7 @@ def sing_vs_plain(torch, ds, mrf, syn, requests, seed: int) -> dict:
         torch.cuda.synchronize()
         t_pe = time.perf_counter() - t0
         mel_v = torch.where((out["mel2ph"] > 0)[..., None], mel_k, mel_k.min())
-        source = draw_source(b_pad, t_mel_b * SING_HOP, "cuda", gen)
+        source = draw_source(b_pad, t_mel_b * syn.hop, "cuda", gen)
         t0 = time.perf_counter()
         wav_k = syn.vocoder.apply(mel_v, f0=f0, source=source)
         torch.cuda.synchronize()
@@ -1063,6 +1083,120 @@ def phase_serve_shipped(torch, ds, mrf, card: str, out_dir: Path):
     out = {"card": card, "lj": lj, "singing": singing,
            "launches": {k: lj_launches[k] + sing_launches[k] for k in lj_launches}}
     return out
+
+
+# -------------------------------------------------------------------- phase 5e
+# the openvpi release's acoustic widths (benchmark/configs/ds512_44k_cpop.json):
+# the float32 stack at C = 512, cycle 4, at a phrase, a mid batch and the
+# longest full batch of the benchmark's cpop512_batch, each split the rule can
+# take; the float32 MRF at C = 16, the 44.1 kHz vocoder's fifth scale, at a
+# short batch and at the cell's longest (2 x 1152 frames x hop 512)
+WIDE_CONFIG = ROOT / "benchmark" / "configs" / "ds512_44k_cpop.json"
+WIDE_STACK_SHAPES = ((1, 432), (8, 640), (16, 1152))
+WIDE_MRF_CASES = [("float32", 16, 2, 4096), ("float32", 16, 2, 1152 * 512)]
+WIDE_FRAMES_PER_PHONE = 17
+
+
+def build_wide(torch, seed: int = 0):
+    """``ds512_44k_cpop``'s hparams as the benchmark runs them, with seeded
+    weights set as ``build_singer`` sets them (17 frames a phone)."""
+    from diffsinger_tpu_torch.inference.serve import FusedSynthesizer
+
+    hp = dict(json.loads(WIDE_CONFIG.read_text())["hparams"], seed=seed)
+    task, voc, pe = seeded_singer(torch, hp, seed, WIDE_FRAMES_PER_PHONE)
+    return hp, FusedSynthesizer(hp, task, voc, pe=pe)
+
+
+def phase_wide(torch, ds, mrf, card: str):
+    """The C = 512 stack against its plain twin at each split, the float32
+    MRF at C = 16, and ds512_44k_cpop served once: one 8 x 640 batch, its
+    launches (101 stack calls on the tensor-core body, one MRF call a scale
+    of at most 128 channels), and the batch against the plain twins by the
+    singing phases' criteria."""
+    import numpy as np
+
+    num_layers, c, dil = 20, 512, tuple(2 ** (i % 4) for i in range(20))
+    gen = torch.Generator(device="cuda").manual_seed(512)
+
+    def rn(*shape, scale=1.0):
+        return torch.randn(*shape, generator=gen, device="cuda") * scale
+
+    resident = ds._resident(c, max(dil), torch.cuda.current_device())
+    stack_rows = []
+    for b, t in WIDE_STACK_SHAPES:
+        args = (torch.relu(rn(b, t, c)), rn(num_layers, b, c, scale=0.5),
+                rn(num_layers, b, t, 2 * c, scale=0.5),
+                rn(num_layers, 3, c, 2 * c, scale=(3 * c) ** -0.5),
+                rn(num_layers, 2 * c, scale=0.1), rn(num_layers, c, 2 * c, scale=c ** -0.5),
+                rn(num_layers, 2 * c, scale=0.1))
+        x0_before = args[0].clone()
+        want = ds.diffnet_stack_plain(*args, dilations=dil)
+        scale = want.abs().max().item()
+        tol = 1e-4 * max(scale, 1.0)   # the f32 stack's tolerance (phase 2)
+        rule_k = ds.column_split(b, t, c, resident)
+        for k in [j for j in ds.splits_for(c) if resident.get(j, 0) > 0]:
+            what = f"wide stack 1 x {b} x {t} C=512 k={k}"
+            with mock.patch.object(ds, "column_split", lambda *_, k=k: k):
+                got = ds.diffnet_stack(*args, dilations=dil)
+                ran = (ds.diffnet_stack.ran_tensor_cores, ds.diffnet_stack.device_launches,
+                       ds.diffnet_stack.column_split)
+                again = ds.diffnet_stack(*args, dilations=dil)
+                ms = cuda_ms(lambda: ds.diffnet_stack(*args, dilations=dil), 3)
+            torch.cuda.synchronize()
+            err = (got - want).abs().max().item()
+            row = dict(B=b, T=t, C=c, cycle=4, k=k, rule_k=rule_k, resident=resident,
+                       ran=ran, max_abs_err=err, tolerance=tol, out_scale=scale, ms=ms,
+                       tflops=num_layers * 8 * b * t * c * 2 * c / ms / 1e9)
+            print("wide_stack", json.dumps(row), flush=True)
+            if ran != (True, num_layers, k):
+                raise AssertionError(f"{what}: ran (tensor cores, launches, split) {ran}")
+            if not torch.equal(got, again) or not torch.equal(args[0], x0_before):
+                raise AssertionError(f"{what}: repeat differs or x0 was written")
+            if not err <= tol:
+                raise AssertionError(f"{what}: max|err| {err} > {tol}")
+            stack_rows.append(row)
+        del args, want, got, again, x0_before
+    mrf_rows = phase_mrf(torch, mrf, WIDE_MRF_CASES)
+
+    hp, syn = build_wide(torch)
+    n_calls = syn.task.gd.denoiser_calls()
+    from diffsinger_tpu_torch.inference.svs import CPOP_PHONE_LIST
+
+    vocab = len(CPOP_PHONE_LIST) + 3
+    rng = np.random.RandomState(5)
+    n_ph = 640 // WIDE_FRAMES_PER_PHONE
+    reqs = [({"txt_tokens": rng.randint(3, vocab, size=(1, n_ph)).astype(np.int64),
+              "pitch_midi": rng.randint(48, 77, size=(1, n_ph)).astype(np.int64),
+              "midi_dur": np.full((1, n_ph), WIDE_FRAMES_PER_PHONE * syn.hop / 44100.0,
+                                  np.float32),
+              "is_slur": np.zeros((1, n_ph), np.int64)}, n_ph * WIDE_FRAMES_PER_PHONE)
+            for _ in range(8)]
+    syn.synthesize_many(reqs)   # warm
+    ds.diffnet_stack.launches = 0
+    mrf.mrf_stage.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    wavs = syn.synthesize_many(reqs)
+    torch.cuda.synchronize()
+    latency = time.perf_counter() - t0
+    launches = {"diffnet_stack": ds.diffnet_stack.launches, "mrf_stage": mrf.mrf_stage.launches}
+    if launches != {"diffnet_stack": n_calls, "mrf_stage": 4} or n_calls != 101:
+        raise AssertionError(f"wide serve: launches {launches}, expected 101 stack and 4 MRF "
+                             f"(C = 128 / 64 / 32 / 16; {n_calls} denoiser calls)")
+    stack_ran(ds, "wide serve")
+    for wav in wavs:
+        if wav.shape != (reqs[0][1] * syn.hop,) or not np.isfinite(wav).all():
+            raise AssertionError(f"wide serve: bad waveform {wav.shape}")
+    check = sing_vs_plain(torch, ds, mrf, syn, reqs, seed=6)
+    frames = 8 * reqs[0][1]
+    serve = {"config": "benchmark/configs/ds512_44k_cpop.json (DiffNet 20 x 512, PLMS-100, "
+                       "PE at 128 bins, NSF-HiFiGAN 44.1 kHz 8/8/2/2/2), seeded weights",
+             "batch": "8 x 640", "launches": launches, "latency_s": latency,
+             "audio_s_per_s": frames * syn.hop / 44100.0 / latency, **check}
+    print("wide_serve", json.dumps(serve), flush=True)
+    sing_check_or_raise("wide serve", check)
+    return {"card": card, "stack": stack_rows, "mrf": mrf_rows, "serve": serve,
+            "launches": launches}
 
 
 # -------------------------------------------------------------------- phase 5d
@@ -3736,6 +3870,7 @@ def main() -> int:
     singing, sing_profile = phase_sing(torch, ds, mrf, card, out_dir)
     shipped = phase_serve_shipped(torch, ds, mrf, card, out_dir)
     matrix = phase_shipped_matrix(torch, ds, mrf, card, out_dir)
+    wide = phase_wide(torch, ds, mrf, card)
     train_rows = phase_train_stack(torch, tr)
     training, train_profile = phase_train(torch, tr, card, out_dir)
     training_cwt, _ = phase_train(torch, tr, card, out_dir, steps=5, cwt=True)
@@ -3767,7 +3902,8 @@ def main() -> int:
         return {"launches": sum(by_path.values()), "launches_by_path": by_path}
 
     serve_paths = {"serving": serving, "serve_cwt": serving_cwt, "singing": singing,
-                   "serve_shipped": shipped, "shipped_matrix": matrix, "cli": cli_run,
+                   "serve_shipped": shipped, "shipped_matrix": matrix, "wide": wide,
+                   "cli": cli_run,
                    "cli_cascade": cascade,
                    "serve_web": web, "vocoders": vocoders, "crf": crf,
                    "vocoder_train": vocoder_train, "parallel": parallel}
@@ -3868,7 +4004,7 @@ def main() -> int:
                    "serving": serving, "profile": profile, "serve_cwt": serving_cwt,
                    "serve_cwt_profile": cwt_profile, "singing": singing,
                    "sing_profile": sing_profile, "serve_shipped": shipped,
-                   "shipped_matrix": matrix, "train_stack": train_rows,
+                   "shipped_matrix": matrix, "wide": wide, "train_stack": train_rows,
                    "training": training, "train_profile": train_profile,
                    "train_cwt": training_cwt, "train_shipped": training_shipped,
                    "train_fs2": training_fs2, "train_midi": training_midi,

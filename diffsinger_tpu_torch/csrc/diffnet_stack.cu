@@ -13,7 +13,8 @@
 //   x    = (x + out[:, :C]) * sqrt(1/2);  skip += out[:, C:]
 //
 // Two instantiations, both on the tensor cores at the shapes the shipped
-// configs reach (C = 128 or 256, dilations up to MAX_DIL), one launch a layer:
+// configs reach (C = 128 or 256, float32 also C = 512, dilations up to
+// MAX_DIL), one launch a layer:
 //
 // bfloat16 (compute_dtype bfloat16) - stack_layer_tc. The TPU kernel keeps
 // the whole [T,C] activation resident in VMEM across all layers; a block here
@@ -78,8 +79,18 @@
 //     at after the copy and waited at the block's end, keeps every block
 //     alive while a peer still reads it. S = 1 has no cluster, barrier or
 //     copy.
+//   * C = 512 (the openvpi release's 512-channel DiffNet) runs split only,
+//     S in {2, 4}: an unsplit block would hold 256 accumulators a thread, and
+//     its y tile alone ((64 + 2d) x 516 floats, 165,120 B at d = 8) leaves no
+//     room for rings of 128 columns a warp. Its weight chunks are 8 rows deep
+//     (one m16n8k8 step; 16 at C <= 256), so S = 4's rings (30,720 B) fit
+//     beside the y tile of d = 16 and S = 2's (55,296 B) beside that of
+//     d <= 10. Per block, S = 2 is C = 256's unsplit shape over a contraction
+//     twice as long (64 rows x 256 output columns, 128 accumulators a
+//     thread) and S = 4 is C = 256's S = 2; a block streams 1/S of the
+//     layer's 8.4 MB of weights.
 //
-// float32 at any other shape (C % 32 == 0 but not 128 or 256, or a dilation
+// float32 at any other shape (C % 32 == 0 but not 128, 256 or 512, or a dilation
 // past MAX_DIL) - the earlier shared-memory tiled SIMT pair of launches a
 // layer (gate_kernel, out_kernel: f32 FMA, x updated in place, g through
 // device memory).
@@ -130,6 +141,11 @@
 // 0.07-0.11 at S = 2 and 0.37-0.39 at S = 4 of 1/S of an unsplit block
 // (tools/stack_split.py). A B = 1 phrase of 1,152 frames runs S = 4 in
 // 0.89 ms, one of 2,432 frames S = 2 in 1.41 ms; full waves keep S = 1.
+// At C = 512 (66 clusters of 2, 30 of 4 resident) a wave of S = 2 takes
+// 4.7 ms a call and one of S = 4 2.75 ms, 0.13-0.18 beyond half of it: the
+// rule takes S = 4 where its waves fill better (up to 30 tiles, 67-90,
+// 133-150); 16 x 1152 (288 tiles) runs S = 2 in 24.7 ms, 62 TFLOP/s (255
+// registers and 16 bytes spilled at S = 2, 228 registers at S = 4).
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -171,18 +187,24 @@ constexpr int NST32 = 3;  // stages of each warp's weight ring
 // one row) hit 32 banks.
 template <int C> __host__ __device__ constexpr int y_stride32() { return C + 4; }
 template <int C, int S> __host__ __device__ constexpr int w_stride32() { return C / (4 * S) + 8; }
+// contraction rows of a weight chunk: at C = 512 one m16n8k8 step, so that
+// the y tile of the widest halo ((64 + 32) x 516 floats, 198,144 B) and the
+// rings fit a block together
+template <int C> __host__ __device__ constexpr int kc32() { return C > 256 ? 8 : KC32; }
 template <int C, int S = 1> __host__ __device__ constexpr size_t smem_bytes32(int d) {
   return ((size_t)(TM + 2 * d) * y_stride32<C>() +
-          (size_t)8 * NST32 * KC32 * w_stride32<C, S>()) * sizeof(float);
+          (size_t)8 * NST32 * kc32<C>() * w_stride32<C, S>()) * sizeof(float);
 }
 
 // The column splits the float32 body is built for: S blocks of a thread-block
-// cluster share a 64-row tile, at C = 256 only (the width the shipped configs
-// run and the split's cost was measured at; a warp keeps whole 8-column mma
-// tiles of each half up to S = 4). The wrapper's rule
+// cluster share a 64-row tile, at C = 256 and C = 512, the widths the split's
+// cost was measured at (a warp keeps whole 8-column mma tiles of each half up
+// to S = 4). C = 512 is split always: an unsplit block's y tile and rings
+// (and its 256 accumulators a thread) do not fit. The wrapper's rule
 // (ops/diffnet_stack.py:splits_for) names the same splits.
 __host__ __device__ constexpr bool split_takes(int C, int split) {
-  return split == 1 || (C == 256 && (split == 2 || split == 4));
+  return C == 512 ? split == 2 || split == 4
+                  : split == 1 || (C == 256 && (split == 2 || split == 4));
 }
 
 // Thread-block clusters (sm_90): the shared::cluster address of the same
@@ -209,13 +231,19 @@ __device__ __forceinline__ void cluster_wait() {
 }
 
 // The widest dilation either body takes: the y tile with both halos still fits
-// beside the weight rings at C = 256. The wrapper's dispatch rule
-// (ops/diffnet_stack.py:TC_MAX_DILATION) names the same widths and dilation.
+// beside the weight rings at C = 256, and at C = 512 split four ways. The
+// wrapper's dispatch rule (ops/diffnet_stack.py:TC_MAX_DILATION) names the
+// same widths and dilation.
 constexpr int MAX_DIL = 16;
 constexpr size_t SMEM_LIMIT = 227 * 1024;
 static_assert(smem_bytes<256>(MAX_DIL) <= SMEM_LIMIT && smem_bytes32<256>(MAX_DIL) <= SMEM_LIMIT &&
-                  smem_bytes<128>(MAX_DIL) <= SMEM_LIMIT && smem_bytes32<128>(MAX_DIL) <= SMEM_LIMIT,
+                  smem_bytes<128>(MAX_DIL) <= SMEM_LIMIT && smem_bytes32<128>(MAX_DIL) <= SMEM_LIMIT &&
+                  smem_bytes32<512, 4>(MAX_DIL) <= SMEM_LIMIT,
               "a tensor-core body's tiles exceed the block's shared memory");
+// <512, 2> holds a halo of up to 10 rows (its rings are twice as wide): the
+// singing configs' cycle 4 (d <= 8); past that it reports no resident
+// cluster, so the split rule never takes it, and it refuses the call.
+static_assert(smem_bytes32<512, 2>(8) <= SMEM_LIMIT, "<512, 2> holds cycle 4's halo");
 
 __device__ __forceinline__ float sigmoid_f(float a) {
   a = fminf(fmaxf(a, -30.f), 30.f);
@@ -503,19 +531,20 @@ stack_layer_tc32(const float* __restrict__ x_in, float* __restrict__ x_out,
   constexpr int WC = CC / 8;             // columns a warp owns in each half
   constexpr int NTH = WC / 8;            // 8-column tiles per half per warp
   constexpr int PPH = WC / 4;            // 16-byte pieces of a warp's row per half
-  constexpr int NG = 3 * C / KC32;       // weight chunks of the dilated conv
-  constexpr int NCH = NG + C / KC32;     // ... plus those of the out projection
+  constexpr int KC = kc32<C>();          // contraction rows of a weight chunk
+  constexpr int NG = 3 * C / KC;         // weight chunks of the dilated conv
+  constexpr int NCH = NG + C / KC;       // ... plus those of the out projection
   constexpr int LPH = CC * 4 / 128;      // 128-byte lines of the block's columns of a half
-  static_assert(split_takes(C, S) && C % 64 == 0 && KC32 % 8 == 0, "whole n-tiles and k-steps");
+  static_assert(split_takes(C, S) && C % 64 == 0 && KC % 8 == 0, "whole n-tiles and k-steps");
 
   extern __shared__ __align__(16) unsigned char smem_raw[];
   // [TM + 2d][YS] y (tile row q is sequence row t0 - d + q); once the conv
   // GEMM is done its first TM rows hold g
   float* ys = reinterpret_cast<float*>(smem_raw);
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  // private to the warp: its weight ring, [NST32][KC32][WS], columns [0, WC)
+  // private to the warp: its weight ring, [NST32][KC][WS], columns [0, WC)
   // gate (or residual), [WC, 2WC) filter (or skip)
-  float* wring = ys + (size_t)(TM + 2 * d) * YS + (size_t)warp * NST32 * KC32 * WS;
+  float* wring = ys + (size_t)(TM + 2 * d) * YS + (size_t)warp * NST32 * KC * WS;
 
   const int g8 = lane / 4, t4 = lane % 4;
   // a cluster is S consecutive blocks along x, so its rank is blockIdx.x % S
@@ -537,14 +566,14 @@ stack_layer_tc32(const float* __restrict__ x_in, float* __restrict__ x_out,
     const int t = t0 + i / (2 * LPH), h = i % (2 * LPH) / LPH;
     if (t < T) prefetch_l2(cond_b + (size_t)t * C2 + h * C + rank * CC + (i % LPH) * 32);
   }
-  // chunk ch: rows [KC32 ch, KC32 ch + KC32) of [w_dil[l] (3C rows); w_out[l]
+  // chunk ch: rows [KC ch, KC ch + KC) of [w_dil[l] (3C rows); w_out[l]
   // (C rows)], the warp's two column groups only
   auto fetch = [&](int ch) {
-    const float* src = (ch < NG ? wd_l + (size_t)ch * KC32 * C2
-                                : wo_l + (size_t)(ch - NG) * KC32 * C2) + wcol;
-    float* dst = wring + (size_t)(ch % NST32) * KC32 * WS;
+    const float* src = (ch < NG ? wd_l + (size_t)ch * KC * C2
+                                : wo_l + (size_t)(ch - NG) * KC * C2) + wcol;
+    float* dst = wring + (size_t)(ch % NST32) * KC * WS;
 #pragma unroll
-    for (int p = lane; p < KC32 * 2 * PPH; p += 32) {
+    for (int p = lane; p < KC * 2 * PPH; p += 32) {
       const int r = p / (2 * PPH), hp = p % (2 * PPH), h = hp / PPH, q = hp % PPH;
       cp_async16(smem_u32(dst + r * WS + h * WC + q * 4), src + (size_t)r * C2 + h * C + q * 4);
     }
@@ -661,20 +690,26 @@ stack_layer_tc32(const float* __restrict__ x_in, float* __restrict__ x_out,
         // the out GEMM contracts over all C columns of g: copy the other
         // blocks' columns from their shared memory into the same place here
         // (nobody writes a block's own columns again in this layer)
+        // (at most 12 float4 loads in flight a thread: all of them at C = 256,
+        // batches of 8 of the 16 or 24 at C = 512)
         constexpr int P4 = CC / 4, NPULL = (S - 1) * TM * P4 / NTHR;
-        static_assert((S - 1) * TM * P4 % NTHR == 0, "whole pulls a thread");
-        float4 v[NPULL];
+        constexpr int PB = NPULL <= 12 ? NPULL : 8;
+        static_assert((S - 1) * TM * P4 % NTHR == 0 && NPULL % PB == 0, "whole pulls a thread");
 #pragma unroll
-        for (int u = 0; u < NPULL; ++u) {
-          const int i = u * NTHR + tid, peer = (rank + 1 + i / (TM * P4)) % S;
-          const int r = i / P4 % TM, col = peer * CC + i % P4 * 4;
-          v[u] = ld_cluster_f4(cluster_map(smem_u32(ys + (size_t)r * YS + col), peer));
-        }
+        for (int u0 = 0; u0 < NPULL; u0 += PB) {
+          float4 v[PB];
 #pragma unroll
-        for (int u = 0; u < NPULL; ++u) {
-          const int i = u * NTHR + tid, peer = (rank + 1 + i / (TM * P4)) % S;
-          const int r = i / P4 % TM, col = peer * CC + i % P4 * 4;
-          *reinterpret_cast<float4*>(ys + (size_t)r * YS + col) = v[u];
+          for (int u = 0; u < PB; ++u) {
+            const int i = (u0 + u) * NTHR + tid, peer = (rank + 1 + i / (TM * P4)) % S;
+            const int r = i / P4 % TM, col = peer * CC + i % P4 * 4;
+            v[u] = ld_cluster_f4(cluster_map(smem_u32(ys + (size_t)r * YS + col), peer));
+          }
+#pragma unroll
+          for (int u = 0; u < PB; ++u) {
+            const int i = (u0 + u) * NTHR + tid, peer = (rank + 1 + i / (TM * P4)) % S;
+            const int r = i / P4 % TM, col = peer * CC + i % P4 * 4;
+            *reinterpret_cast<float4*>(ys + (size_t)r * YS + col) = v[u];
+          }
         }
         // this block has read the others' columns; it waits at its end for
         // every block to have read its own, so none exits while a peer reads
@@ -690,16 +725,16 @@ stack_layer_tc32(const float* __restrict__ x_in, float* __restrict__ x_out,
 #endif
     cp_async_commit();
 
-    const float* wst = wring + (size_t)(ch % NST32) * KC32 * WS;
+    const float* wst = wring + (size_t)(ch % NST32) * KC * WS;
     const float* abase;
     if (ch < NG) {
-      const int tap = (ch * KC32) / C, c0 = (ch * KC32) % C;
+      const int tap = (ch * KC) / C, c0 = (ch * KC) % C;
       abase = ys + (size_t)(tap * d) * YS + c0;   // tile row r + tap*d is t0 + r + (tap-1)d
     } else {
-      abase = ys + (ch - NG) * KC32;              // g
+      abase = ys + (ch - NG) * KC;                // g
     }
 #pragma unroll
-    for (int k8 = 0; k8 < KC32 / 8; ++k8) {
+    for (int k8 = 0; k8 < KC / 8; ++k8) {
       // B fragments of all the warp's n-tiles (gate or residual tiles first,
       // then filter or skip: tile nt is ring columns 8nt..8nt+7), split once
       uint32_t bh[2 * NTH][2], bl[2 * NTH][2];
@@ -820,7 +855,7 @@ int run(const float* x0, float* xbuf, float* skip, const float* step, const E* c
     if (dil[l] < 1) return (int)cudaErrorInvalidValue;
     if (dil[l] > dmax) dmax = dil[l];
   }
-  if (dmax > MAX_DIL) return (int)cudaErrorInvalidValue;
+  if (dmax > MAX_DIL || Body<E, C, S>::smem(dmax) > SMEM_LIMIT) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(Body<E, C, S>::kernel(),
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)Body<E, C, S>::smem(dmax));
@@ -842,9 +877,14 @@ int run(const float* x0, float* xbuf, float* skip, const float* step, const E* c
 
 // How many tiles of the float32 body at width C, split S ways, the card holds
 // at once with dmax its largest dilation: clusters of S blocks
-// (cudaOccupancyMaxActiveClusters), or blocks for S = 1.
+// (cudaOccupancyMaxActiveClusters), or blocks for S = 1; none where the
+// instance's tiles do not fit a block at dmax.
 template <int C, int S> int resident(int dmax, int* out) {
   const size_t smem = smem_bytes32<C, S>(dmax);
+  if (smem > SMEM_LIMIT) {
+    *out = 0;
+    return (int)cudaSuccess;
+  }
   cudaError_t err = cudaFuncSetAttribute(stack_layer_tc32<C, S>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
@@ -1038,11 +1078,21 @@ int run_f32(float* x, float* skip, float* g, const float* step, const float* con
   return (int)cudaSuccess;
 }
 
-// The tensor-core bodies' rule: float32 or bfloat16, C = 128 or 256, every
-// dilation in [1, MAX_DIL].
+// The tensor-core bodies' rule: float32 or bfloat16 at C = 128 or 256,
+// float32 also at C = 512, every dilation in [1, MAX_DIL].
 bool tc_takes(int dtype, int C, int dmax) {
-  return (dtype == 0 || dtype == 1) && (C == 128 || C == 256) && dmax >= 1 &&
-         dmax <= tc::MAX_DIL;
+  return ((dtype == 1 && (C == 128 || C == 256)) ||
+          (dtype == 0 && (C == 128 || C == 256 || C == 512))) &&
+         dmax >= 1 && dmax <= tc::MAX_DIL;
+}
+
+// The shared memory of the widest float32 block a width runs at dmax: its
+// smallest split whose tiles fit.
+size_t tc32_smem(int C, int dmax) {
+  if (C == 128) return tc::smem_bytes32<128>(dmax);
+  if (C == 256) return tc::smem_bytes32<256>(dmax);
+  const size_t two = tc::smem_bytes32<512, 2>(dmax);
+  return two <= tc::SMEM_LIMIT ? two : tc::smem_bytes32<512, 4>(dmax);
 }
 
 }  // namespace
@@ -1055,7 +1105,7 @@ extern "C" int diffnet_stack_tc_info(int dtype, int C, int dmax, int* out) {
   if (!tc_takes(dtype, C, dmax)) return 0;
   out[0] = tc::TM;
   if (dtype == 0)
-    out[1] = (int)(C == 256 ? tc::smem_bytes32<256>(dmax) : tc::smem_bytes32<128>(dmax));
+    out[1] = (int)tc32_smem(C, dmax);
   else
     out[1] = (int)(C == 256 ? tc::smem_bytes<256>(dmax) : tc::smem_bytes<128>(dmax));
   return 1;
@@ -1063,7 +1113,8 @@ extern "C" int diffnet_stack_tc_info(int dtype, int C, int dmax, int* out) {
 
 // How many tiles the float32 tensor-core body holds at once at width C,
 // largest dilation dmax and column split `split` (out[0]: clusters of
-// `split` blocks, blocks for split 1): the wrapper's split rule reads it.
+// `split` blocks, blocks for split 1; 0 where its tiles do not fit a block
+// at dmax): the wrapper's split rule reads it.
 // Returns a cudaError_t code; cudaErrorInvalidValue for a shape or split the
 // body does not take.
 extern "C" int diffnet_stack_resident(int C, int dmax, int split, int* out) {
@@ -1073,11 +1124,14 @@ extern "C" int diffnet_stack_resident(int C, int dmax, int split, int* out) {
   if (C == 256 && split == 2) return tc::resident<256, 2>(dmax, out);
   if (C == 256 && split == 4) return tc::resident<256, 4>(dmax, out);
   if (C == 128 && split == 1) return tc::resident<128, 1>(dmax, out);
+  if (C == 512 && split == 2) return tc::resident<512, 2>(dmax, out);
+  if (C == 512 && split == 4) return tc::resident<512, 4>(dmax, out);
   return (int)cudaErrorInvalidValue;
 }
 
 // path 1, the tensor-core bodies (dtype 0 float32 or 1 bfloat16 cond, w_dil
-// and w_out; C = 128 or 256; dilations up to MAX_DIL): x is x0, read only;
+// and w_out; C = 128 or 256, float32 also 512; dilations up to MAX_DIL, and
+// the split's tiles fit at the largest): x is x0, read only;
 // skip needs no initial value; scratch is two [B,T,C] f32 buffers. split > 1
 // (float32 only, split_takes) runs each 64-row tile on a cluster of that
 // many blocks, each with C/split columns of each half.
@@ -1115,6 +1169,8 @@ extern "C" int diffnet_stack_run(int path, int dtype, int split, void* x, void* 
     if (dtype == 0 && C == 256 && split == 2) STACK_TC(float, 256, 2);
     if (dtype == 0 && C == 256 && split == 4) STACK_TC(float, 256, 4);
     if (dtype == 0 && C == 128 && split == 1) STACK_TC(float, 128, 1);
+    if (dtype == 0 && C == 512 && split == 2) STACK_TC(float, 512, 2);
+    if (dtype == 0 && C == 512 && split == 4) STACK_TC(float, 512, 4);
     if (dtype == 1 && C == 256) STACK_TC(bf16, 256, 1);
     if (dtype == 1 && C == 128) STACK_TC(bf16, 128, 1);
 #undef STACK_TC

@@ -16,11 +16,12 @@ the JAX kernel; ``None`` keeps everything float32. No shipped config sets
 calls a request; singing: 26) run the float32 body.
 
 Which body a CUDA call runs is decided here, by shape
-(:func:`takes_tensor_cores`): float32 or bfloat16 at C = 128 or 256 with
-every dilation up to 16 takes the tensor-core bodies (one launch a layer,
-``x0`` untouched; float32 products as 3xTF32), float32 at any other shape
-(C % 32 == 0) takes the SIMT body (two launches a layer); bfloat16 outside
-the rule, and every other type, raises. Neither ever reaches the plain twin.
+(:func:`takes_tensor_cores`): float32 or bfloat16 at C = 128 or 256, and
+float32 at C = 512, with every dilation up to 16 takes the tensor-core
+bodies (one launch a layer, ``x0`` untouched; float32 products as 3xTF32),
+float32 at any other shape (C % 32 == 0) takes the SIMT body (two launches
+a layer); bfloat16 outside the rule, and every other type, raises. Neither
+ever reaches the plain twin.
 The library reports what it launched: ``diffnet_stack.device_launches``,
 ``.ran_tensor_cores`` and ``.column_split`` hold the last CUDA call's, and
 :func:`tensor_core_info` its tile rows and shared memory for a shape.
@@ -34,11 +35,19 @@ columns are split over a thread-block cluster of k blocks: block j computes
 gate and filter columns ``[jC/k, (j+1)C/k)`` (streaming 1/k of the layer's
 weights), hands its slice of g to the others through distributed shared
 memory, and computes the same 1/k of the residual and skip columns. k = 1 is
-the unsplit body. :func:`column_split` picks k from the shape and what the
+the unsplit body; C = 512 has none (its tile does not fit one block) and
+runs k = 2 or 4. :func:`column_split` picks k from the shape and what the
 card holds at once (``cudaOccupancyMaxActiveClusters`` of each instance, read
-once per width and largest dilation): the k in :data:`SPLITS` with the fewest
-``ceil(tiles / resident(k)) · (1 + SPLIT_COST[k]) / k`` wave-units, the
+once per width and largest dilation; none for an instance whose tiles do not
+fit at that dilation): the k of :func:`splits_for` with the fewest
+``ceil(tiles / resident(k)) · (1 + SPLIT_COST[C][k]) / k`` wave-units, the
 smaller k on a tie. No argument, hparam or environment variable sets k.
+
+Each float32 tensor-core call counts, while a profiler records
+(``utils/trace.py:count``), its tiles (``ds.stack.tiles``, ``ceil(T/64)·B``)
+and the slots of the waves the rule's k gives them (``ds.stack.slots``,
+``ceil(tiles / resident(k)) · resident(k)``): their ratio is how full the
+card's waves were.
 """
 
 from __future__ import annotations
@@ -51,6 +60,7 @@ import torch
 import torch.nn.functional as F
 
 from diffsinger_tpu_torch.ops._build import check, load_library
+from diffsinger_tpu_torch.utils import trace
 
 SQRT_HALF = 0.5 ** 0.5
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -96,51 +106,58 @@ def diffnet_stack_plain(x0, step_proj, cond_proj, w_dil, b_dil, w_out, b_out, *,
     return skips
 
 
-TC_CHANNELS = (128, 256)   # widths the tensor-core bodies are built for
+TC_CHANNELS = (128, 256)   # widths both types' tensor-core bodies are built for
+TC32_CHANNELS = TC_CHANNELS + (512,)   # ... and the float32 body's
 TC_MAX_DILATION = 16       # the widest halo their tiles hold in a block's shared memory
 TILE_ROWS = 64             # rows of one batch row a block (or a cluster) owns
-SPLITS = (1, 2, 4)         # column splits of the float32 body: blocks of a cluster
-# What a split tile costs beyond 1/k of an unsplit one, as a share of that
-# 1/k: every block of a cluster stages the whole y tile, runs the launch's
+# By width, the splits the float32 body is built for and what a k-split tile
+# costs beyond k0/k of a tile at the width's smallest split k0, as a share of
+# that: every block of a cluster stages the whole y tile, runs the launch's
 # fixed latency, and exchanges g. Measured where every k runs one wave
-# (tools/stack_split.py; H100 80GB HBM3, 700 W: B x T = 1 x 1152, 1 x 256,
-# 4 x 384 read 0.07-0.11 at k = 2 and 0.37-0.39 at k = 4). Without it the
-# rule would take k = 4 for 67-90 tiles (3 waves of 30 clusters), which read
-# 0.4-2.2% slower than one unsplit wave (1 x 4800, 3 x 1600, 5 x 1088).
-SPLIT_COST = {1: 0.0, 2: 0.09, 4: 0.38}
+# (tools/stack_split.py; H100 80GB HBM3, 700 W). C = 256: 1 x 1152, 1 x 256,
+# 4 x 384 read 0.07-0.11 at k = 2 and 0.37-0.39 at k = 4; without the cost
+# the rule would take k = 4 for 67-90 tiles (3 waves of 30 clusters), which
+# read 0.4-2.2% slower than one unsplit wave (1 x 4800, 3 x 1600, 5 x 1088).
+# C = 512 (no unsplit body; k0 = 2): 1 x 128, 1 x 384, 1 x 432, 2 x 384,
+# 2 x 896, 1 x 1024, 1 x 1152 at cycle 4 read 0.13-0.18 at k = 4.
+SPLIT_COST = {256: {1: 0.0, 2: 0.09, 4: 0.38}, 512: {2: 0.0, 4: 0.17}}
 
 
 def takes_tensor_cores(c: int, dilations: Sequence[int],
                        compute_dtype: Optional[torch.dtype]) -> bool:
-    """The dispatch rule: float32 (``None``) or bfloat16, C in
-    :data:`TC_CHANNELS` and every dilation in [1, 16] go to the tensor-core
-    bodies. The library holds the same rule and refuses a call outside it."""
-    return ((compute_dtype or torch.float32) in _DTYPE_CODE and c in TC_CHANNELS
+    """The dispatch rule: float32 (``None``) at C in :data:`TC32_CHANNELS`
+    or bfloat16 at C in :data:`TC_CHANNELS`, every dilation in [1, 16], go to
+    the tensor-core bodies. The library holds the same rule and refuses a
+    call outside it."""
+    dt = compute_dtype or torch.float32
+    return (dt in _DTYPE_CODE and c in (TC32_CHANNELS if dt == torch.float32 else TC_CHANNELS)
             and 1 <= min(int(d) for d in dilations)
             and max(int(d) for d in dilations) <= TC_MAX_DILATION)
 
 
 def splits_for(c: int) -> Tuple[int, ...]:
-    """The column splits the float32 body is built for at width ``c``: all of
-    :data:`SPLITS` at C = 256, the width the shipped configs run and
-    :data:`SPLIT_COST` was measured at (a warp keeps whole 8-column ``mma``
-    tiles of each half up to k = 4); other widths stay unsplit. The
-    library's ``split_takes`` names the same."""
-    return SPLITS if c == 256 else (1,)
+    """The column splits the float32 body is built for at width ``c``: those
+    :data:`SPLIT_COST` was measured at, at C = 256 (1, 2, 4) and C = 512
+    (2, 4: no unsplit body; a warp keeps whole 8-column ``mma`` tiles of each
+    half up to k = 4); other widths stay unsplit. The library's
+    ``split_takes`` names the same."""
+    return tuple(SPLIT_COST.get(c, (1,)))
 
 
 def column_split(b: int, t: int, c: int, resident: Dict[int, int]) -> int:
     """The split rule: the k of :func:`splits_for` that runs the call's
     ``ceil(t / 64) · b`` tiles in the fewest wave-units, where a wave is
     ``resident[k]`` tiles at once (clusters of k blocks, one block an SM)
-    and lasts ``(1 + SPLIT_COST[k]) / k`` of an unsplit block; the smaller k
-    on a tie. A k the card holds no cluster of is never taken."""
+    and lasts ``(1 + SPLIT_COST[c][k]) / k`` of a block at the width's
+    smallest split; the smaller k on a tie. A k the card holds no cluster of
+    is never taken; with none at all, the width's smallest split."""
     tiles = -(-t // TILE_ROWS) * b
-    best, best_units = 1, None
-    for k in splits_for(c):
+    cost = SPLIT_COST.get(c, {1: 0.0})
+    best, best_units = splits_for(c)[0], None
+    for k in cost:
         if resident.get(k, 0) < 1:
             continue
-        units = -(-tiles // resident[k]) * (1.0 + SPLIT_COST[k]) / k
+        units = -(-tiles // resident[k]) * (1.0 + cost[k]) / k
         if best_units is None or units < best_units:
             best, best_units = k, units
     return best
@@ -179,8 +196,9 @@ def _entry():
 @functools.lru_cache(maxsize=None)
 def _resident(c: int, dmax: int, device: int) -> Dict[int, int]:
     """Tiles the float32 body holds at once on the card, by split (the
-    library's ``diffnet_stack_resident``); read once per width, largest
-    dilation and device."""
+    library's ``diffnet_stack_resident``; 0 for a split whose tiles do not
+    fit a block at ``dmax``); read once per width, largest dilation and
+    device."""
     fn = load_library("diffnet_stack").diffnet_stack_resident
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)]
@@ -197,8 +215,9 @@ def tensor_core_info(c: int, dilations: Sequence[int],
                      compute_dtype: Optional[torch.dtype]) -> Optional[dict]:
     """What the built library says of these shapes: None when its tensor-core
     bodies do not take them, else the rows a block owns and the shared memory
-    (bytes) a block takes at the largest dilation. Needs the built library,
-    so it runs on the card's machine."""
+    (bytes) a block takes at the largest dilation (float32: of the width's
+    smallest split whose tiles fit). Needs the built library, so it runs on
+    the card's machine."""
     info = load_library("diffnet_stack").diffnet_stack_tc_info
     info.restype = ctypes.c_int
     info.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)]
@@ -248,7 +267,11 @@ def _launch(x0, step_proj, cond_proj, w_dil, b_dil, w_out, b_out, dilations,
     split = 1
     if path and dt == torch.float32:
         dmax = max(int(d) for d in dilations)
-        split = column_split(b, t, c, _resident(c, dmax, x.device.index))
+        resident = _resident(c, dmax, x.device.index)
+        split = column_split(b, t, c, resident)
+        tiles, per_wave = -(-t // TILE_ROWS) * b, resident.get(split) or 1
+        trace.count("ds.stack.tiles", tiles)
+        trace.count("ds.stack.slots", -(-tiles // per_wave) * per_wave)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     report = (ctypes.c_int * 3)()
     err = _entry()(path, _DTYPE_CODE[dt], split, x.data_ptr(), skip.data_ptr(),

@@ -1,4 +1,4 @@
-"""Spans inside the program, on the profiler's clock.
+"""Spans and counters inside the program, on the profiler's clock.
 
 A span names a stage of the program around the host work that issues it::
 
@@ -23,6 +23,14 @@ profile share one clock (within half a millisecond over a 10 s profile on
 an H100 host), and the profile puts the device's intervals on the same
 timeline, so an idle gap of the device can be put down to the span the host
 was in. Kineto's device stamps can stray a few ms from its host stamps.
+
+A counter adds a number of things the program did to a running total::
+
+    trace.count("ds.stack.tiles", tiles)
+
+under the same switch: off, ``count`` reads the flag and returns; on, it
+adds ``n`` to the name's total and one to its calls. :func:`summary` gives
+both beside the spans.
 
 Every name starts with ``ds.`` (the profile's aten ops have none, and a
 benchmark's own ranges another prefix). ``parent`` is the index in
@@ -106,6 +114,7 @@ class Tracer:
     def __init__(self, limit: int = LIMIT):
         self.limit = limit
         self._records: List[Span] = []
+        self._counts: Dict[str, List[int]] = {}   # name -> [calls, total]
         self._lock = threading.Lock()
         self._local = threading.local()
 
@@ -123,11 +132,22 @@ class Tracer:
             return _OFF
         return _Open(self, name, id)
 
+    def count(self, name: str, n: int) -> None:
+        """Add ``n`` to the counter ``name`` while a profiler records, else
+        nothing."""
+        if not _profiler._is_profiler_enabled:
+            return
+        with self._lock:
+            c = self._counts.setdefault(name, [0, 0])
+            c[0] += 1
+            c[1] += n
+
     def spans(self) -> Tuple[Span, ...]:
         return tuple(self._records)
 
     def summary(self) -> Dict[str, Dict[str, float]]:
-        """Per span name, over its closed spans: ``count`` and ``total_ms``."""
+        """Per span name, over its closed spans: ``count`` and ``total_ms``;
+        per counter name: ``count`` (its calls) and ``total``."""
         out: Dict[str, Dict[str, float]] = {}
         for r in self.spans():
             if r.end_ns is None:
@@ -135,16 +155,21 @@ class Tracer:
             s = out.setdefault(r.name, {"count": 0, "total_ms": 0.0})
             s["count"] += 1
             s["total_ms"] += (r.end_ns - r.start_ns) / 1e6
+        with self._lock:
+            for name, (calls, total) in self._counts.items():
+                out[name] = {"count": calls, "total": total}
         return out
 
     def clear(self) -> None:
         with self._lock:
             self._records = []
+            self._counts = {}
 
 
 # the process's tracer
 _TRACER = Tracer()
 span = _TRACER.span
+count = _TRACER.count
 spans = _TRACER.spans
 summary = _TRACER.summary
 clear = _TRACER.clear

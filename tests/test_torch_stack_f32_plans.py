@@ -246,7 +246,7 @@ def test_float16_takes_no_body(d):
 @pytest.mark.parametrize("c,dil,dt,body", [
     (64, (1,), None, 0),             # float32 at another width: SIMT
     (96, (1, 2, 4, 8), None, 0),
-    (512, (1,), None, 0),
+    (384, (1,), None, 0),
     (64, (1,), torch.bfloat16, None),   # bfloat16 at another width: raises
     (48, (1,), None, None),             # C % 32 != 0: raises
     (256, (0, 1), None, None),          # a dilation below 1: raises
@@ -301,14 +301,20 @@ def test_library_limits_match_the_wrapper_rule():
 
 
 # --------------------------------------------------------------- column split
-@pytest.mark.parametrize("t", [5, 301, 1152])
-@pytest.mark.parametrize("cycle", [1, 4])
-@pytest.mark.parametrize("split", tds.SPLITS)
-def test_cluster_split_equals_the_plain_twin_and_jax(split, cycle, t):
+# (C, split, cycle, T): each split at C = 256, and at C = 512 (split only,
+# 8-row weight chunks) its two- and four-way splits; ids split-cycle-T
+CLUSTER_CASES = ([pytest.param(256, k, cycle, t, id=f"{k}-{cycle}-{t}")
+                  for t in (5, 301, 1152) for cycle in (1, 4) for k in tds.splits_for(256)]
+                 + [pytest.param(512, k, 4, t, id=f"c512-{k}-4-{t}")
+                    for t in (5, 97) for k in tds.splits_for(512)])
+
+
+@pytest.mark.parametrize("c, split, cycle, t", CLUSTER_CASES)
+def test_cluster_split_equals_the_plain_twin_and_jax(c, split, cycle, t):
     """k blocks of a cluster share each tile's columns; the result is the
     unsplit function's, every column written once (no NaN left)."""
     num_layers, b = 4, 1 + (split + cycle + t) % 3
-    args = _inputs(10 * split + cycle + t, b, t, 256, num_layers)
+    args = _inputs(10 * split + cycle + t, b, t, c, num_layers)
     dil = tuple(2 ** (i % cycle) for i in range(num_layers))
     got, x0_after = emulate_stack_tc32(*args, dilations=dil, split=split, seed=split)
     want = tds.diffnet_stack_plain(*args, dilations=dil)
@@ -338,8 +344,8 @@ def test_a_missing_cluster_barrier_shows_as_nan(split):
 RESIDENT = [{1: 132, 2: 66, 4: 30}, {1: 132, 2: 64, 4: 32}, {1: 132, 2: 66, 4: 33}]
 
 
-def _units(b, t, k, resident):
-    return -(-(-(-t // TM) * b) // resident[k]) * (1.0 + tds.SPLIT_COST[k]) / k
+def _units(b, t, k, resident, c=256):
+    return -(-(-(-t // TM) * b) // resident[k]) * (1.0 + tds.SPLIT_COST.get(c, {1: 0.0})[k]) / k
 
 
 @pytest.mark.parametrize("resident", RESIDENT)
@@ -372,14 +378,16 @@ def test_the_split_is_capped_by_the_width():
 
 @pytest.mark.parametrize("resident", RESIDENT)
 def test_the_chosen_split_never_takes_more_waves_than_unsplit(resident):
+    """Against the width's smallest split: unsplit at C <= 256, two-way at
+    C = 512, whose body is split only."""
     for b in range(1, 17):
         for t in range(64, 4097, 64):
-            for c in tds.TC_CHANNELS:
-                k = tds.column_split(b, t, c, resident)
+            for c in tds.TC32_CHANNELS:
+                k, k0 = tds.column_split(b, t, c, resident), tds.splits_for(c)[0]
                 assert k in tds.splits_for(c)
-                assert _units(b, t, k, resident) <= _units(b, t, 1, resident), (b, t, c, k)
+                assert _units(b, t, k, resident, c) <= _units(b, t, k0, resident, c), (b, t, c, k)
                 # the fewest wave-units of the splits the width allows, smaller k on a tie
-                best = min(tds.splits_for(c), key=lambda j: (_units(b, t, j, resident), j))
+                best = min(tds.splits_for(c), key=lambda j: (_units(b, t, j, resident, c), j))
                 assert k == best
 
 
@@ -389,7 +397,7 @@ def test_the_measured_split_cost_keeps_one_unsplit_wave(monkeypatch):
     card = RESIDENT[0]
     assert tds.column_split(1, 75 * TM, 256, card) == 1
     assert tds.column_split(16, 640, 256, card) == 2      # 160 tiles: 3 waves of 66
-    monkeypatch.setattr(tds, "SPLIT_COST", {k: 0.0 for k in tds.SPLITS})
+    monkeypatch.setattr(tds, "SPLIT_COST", {**tds.SPLIT_COST, 256: {k: 0.0 for k in tds.SPLIT_COST[256]}})
     assert tds.column_split(1, 75 * TM, 256, card) == 4
 
 
@@ -432,19 +440,29 @@ def test_library_splits_match_the_wrapper_rule():
     """The library's splits, tile rows and instances are the wrapper's: its
     split_takes names the splits of splits_for, it builds and dispatches an
     instance for each (width, split) pair, and every split instance's tiles
-    fit a block's 227 KB at the widest dilation (its smem formula, copied)."""
+    fit a block's 227 KB at the widest dilation it takes (its smem formula,
+    copied)."""
     src = CU.read_text()
     assert _cu_constant("TM") == tds.TILE_ROWS
+    assert "(dtype == 0 && (C == 128 || C == 256 || C == 512))" in src
+    assert "C == 512 ? split == 2 || split == 4" in src
     assert "split == 1 || (C == 256 && (split == 2 || split == 4))" in src
-    assert tds.SPLITS == (1, 2, 4)
-    pairs = {(c, k) for c in tds.TC_CHANNELS for k in tds.splits_for(c)}
+    assert tds.splits_for(256) == (1, 2, 4)
+    assert "return C > 256 ? 8 : KC32;" in src
+    pairs = {(c, k) for c in tds.TC32_CHANNELS for k in tds.splits_for(c)}
     run = {(int(c), int(k)) for c, k in re.findall(r"STACK_TC\(float, (\d+), (\d+)\)", src)}
     resident = {(int(c), int(k)) for c, k in re.findall(r"tc::resident<(\d+), (\d+)>", src)}
     assert run == pairs and resident == pairs
     assert "return C / (4 * S) + 8;" in src
     kc32, nst32 = _cu_constant("KC32"), _cu_constant("NST32")
     for c, k in pairs:
-        smem = ((TM + 2 * tds.TC_MAX_DILATION) * (c + 4) + 8 * nst32 * kc32 * (c // (4 * k) + 8)) * 4
+        # C = 512 takes 8-row chunks; its two-way split holds a halo of 10
+        # rows and not 11 (the d > 10 rule), the others one of 16
+        kc, d = (8, 10 if k == 2 else tds.TC_MAX_DILATION) if c > 256 else (kc32, tds.TC_MAX_DILATION)
+        row = (c + 4) * 4
+        smem = (TM + 2 * d) * row + 8 * nst32 * kc * (c // (4 * k) + 8) * 4
         assert smem <= 227 * 1024
+        if (c, k) == (512, 2):
+            assert smem + 2 * row > 227 * 1024
         # a warp's columns of each half are whole 8-column mma tiles
         assert (c // k // 8) % 8 == 0
