@@ -392,6 +392,7 @@ def phase_stack(torch, ds, cases=STACK_CASES):
 # bf16, the smallest width the body takes
 MRF_CASES = ([(dt, c, 8, t) for dt in ("float32", "bfloat16")
               for c, t in ((128, 65536), (64, 131072), (32, 262144))]
+             + [("float32", 16, 8, 524288)]
              + [(dt, c, b, t) for dt in ("float32", "bfloat16")
                 for c, b, t in ((64, 2, 1037), (128, 1, 16384), (32, 2, 37))]
              + [("bfloat16", 16, 2, 4096)])
@@ -440,7 +441,8 @@ def phase_mrf(torch, mrf, cases=MRF_CASES):
                            H100_BF16_FLOPS if dt else H100_3XTF32_FLOPS)
         row = dict(dtype=dt_name, C=c, B=b, T=t, max_abs_err=err, tolerance=tol,
                    out_scale=scale, ms=ms, tflops=flops / ms / 1e9, plain_ms=plain_ms,
-                   bound_ms=bnd, bound_by=by)
+                   bound_ms=bnd, bound_by=by, bound_share=bnd / ms,
+                   body="mma.sync" if dt else "wgmma")
         if dt is not None:
             row["bound_mma_sync_ms"] = flops / H100_MMA_SYNC_BF16_FLOPS * 1e3
         print("mrf_stage", json.dumps(row), flush=True)
@@ -3891,7 +3893,8 @@ def main() -> int:
     # float32, cycle 1, 8 x 1024: the shipped configs' body (serve_shipped)
     f32_stack = next(r for r in stack_rows if r["dtype"] == "float32" and r["B"] == 8
                      and r["C"] == 256 and r["cycle"] == 1)
-    main_mrf = [r for r in mrf_rows if r["dtype"] == "float32" and r["B"] == 8]
+    # float32 at C = 128 / 64 / 32 (8 x 1024 mel frames): HiFiGAN v1's scales
+    main_mrf = [r for r in mrf_rows if r["dtype"] == "float32" and r["B"] == 8 and r["C"] >= 32]
     # bfloat16 at C = 128 / 64 / 32 (8 x 1024 mel frames): the bf16 vocoder's scales
     bf16_mrf = [r for r in mrf_rows if r["dtype"] == "bfloat16" and r["B"] == 8]
 
@@ -3938,6 +3941,9 @@ def main() -> int:
          "bound_ms": sum(r["bound_ms"] for r in main_mrf),
          "bound_by": main_mrf[0]["bound_by"],
          "library_ms": None,
+         "body": "wgmma",
+         "by_C": [{k: r[k] for k in ("C", "T", "ms", "plain_ms", "bound_ms", "bound_share")}
+                  for r in mrf_rows if r["dtype"] == "float32" and r["B"] == 8],
          "bfloat16": {"max_abs_err": max(r["max_abs_err"] for r in bf16_mrf),
                       "tolerance": min(r["tolerance"] for r in bf16_mrf),
                       "ms": sum(r["ms"] for r in bf16_mrf),

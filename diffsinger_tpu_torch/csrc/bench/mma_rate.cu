@@ -6,11 +6,7 @@
 //   stack  - the 16-deep step of csrc/diffnet_stack.cu's GEMM loop (4
 //            ldmatrix.trans for B, 4 x (ldmatrix A + 8 mma)) from shared
 //            memory, without the weight stream: what the loop could do if
-//            the L2 kept up;
-//   mrf    - the 8-deep step of csrc/mrf_stage.cu for two row tiles and four
-//            column tiles (24 mma), adding its parts one by one: products
-//            only, + lrelu and 3xTF32 split of A, + ldmatrix of A, + loads
-//            and split of B.
+//            the L2 kept up.
 // Prints one line per case: milliseconds, TFLOP/s, nanoseconds per mma per
 // scheduler (an SM has four).
 
@@ -90,77 +86,6 @@ __global__ void __launch_bounds__(THREADS, 1) stack_step_kernel(float* out, int 
   out[blockIdx.x * blockDim.x + threadIdx.x] = s;
 }
 
-// MODE 0: products only; 1: + lrelu and split of A; 2: + ldmatrix of A; 3: + B
-template <int MODE>
-__global__ void mrf_step_kernel(float* out, int iters) {
-  __shared__ __align__(16) float sm[64 * 36];
-  __shared__ float wsm[16 * 40];
-  for (int i = threadIdx.x; i < 64 * 36; i += blockDim.x) sm[i] = i * 0.001f;
-  for (int i = threadIdx.x; i < 16 * 40; i += blockDim.x) wsm[i] = i * 0.002f;
-  __syncthreads();
-  const int lane = threadIdx.x % 32, g8 = lane / 4, t4 = lane % 4;
-  float acc[2][4][4];
-  for (int i = 0; i < 2; ++i)
-    for (int n = 0; n < 4; ++n)
-      for (int e = 0; e < 4; ++e) acc[i][n][e] = 0.f;
-  uint32_t bh[4][2], bl[4][2];
-  for (int n = 0; n < 4; ++n) {
-    bh[n][0] = lane + n;
-    bh[n][1] = lane * 3 + n;
-    bl[n][0] = lane * 7 + n;
-    bl[n][1] = lane * 11 + n;
-  }
-  for (int it = 0; it < iters; ++it) {
-    if (MODE >= 3) {
-#pragma unroll
-      for (int n = 0; n < 4; ++n) {
-        const float* wp = wsm + ((it & 1) * 8 + t4) * 40 + n * 8 + g8;
-        split_tf32(wp[0], bh[n][0], bl[n][0]);
-        split_tf32(wp[4 * 40], bh[n][1], bl[n][1]);
-      }
-    }
-    uint32_t ah[2][4], al[2][4];
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      uint32_t a[4];
-      if (MODE >= 2) {
-        ldmatrix_x4(a, smem_u32(sm + ((j * 16 + (it & 15) + lane % 16) % 64) * 36 +
-                                (it & 3) * 8 + (lane / 16) * 4));
-      } else {
-        a[0] = it + j;
-        a[1] = it * 3 + lane;
-        a[2] = it ^ lane;
-        a[3] = it + lane * j;
-      }
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        if (MODE >= 1) {
-          const float v = __uint_as_float(a[e]);
-          split_tf32(fmaxf(v, 0.1f * v), ah[j][e], al[j][e]);
-        } else {
-          ah[j][e] = a[e];
-          al[j][e] = a[e] + 1;
-        }
-      }
-    }
-#pragma unroll
-    for (int pass = 0; pass < 3; ++pass)
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-#pragma unroll
-        for (int n = 0; n < 4; ++n) {
-          if (pass == 0) mma_tf32(acc[j][n], al[j], bh[n][0], bh[n][1]);
-          else if (pass == 1) mma_tf32(acc[j][n], ah[j], bl[n][0], bl[n][1]);
-          else mma_tf32(acc[j][n], ah[j], bh[n][0], bh[n][1]);
-        }
-  }
-  float s = 0;
-  for (int i = 0; i < 2; ++i)
-    for (int n = 0; n < 4; ++n)
-      for (int e = 0; e < 4; ++e) s += acc[i][n][e];
-  out[blockIdx.x * blockDim.x + threadIdx.x] = s;
-}
-
 template <typename Launch>
 static int report(const char* name, double mma_per_warp_iter, double flop_per_mma, Launch launch) {
   cudaEvent_t e0, e1;
@@ -194,9 +119,5 @@ int main() {
   rc |= report("peak tf32 m16n8k8", 8, 2048, [&](int n) { peak_kernel<1, 8><<<BLOCKS, THREADS>>>(out, n); });
   rc |= report("stack step (bf16, fragments from shared memory)", 32, 4096,
                [&](int n) { stack_step_kernel<<<BLOCKS, THREADS, STACK_SMEM>>>(out, n); });
-  rc |= report("mrf step, products only", 24, 2048, [&](int n) { mrf_step_kernel<0><<<BLOCKS, THREADS>>>(out, n); });
-  rc |= report("mrf step, + lrelu and split of A", 24, 2048, [&](int n) { mrf_step_kernel<1><<<BLOCKS, THREADS>>>(out, n); });
-  rc |= report("mrf step, + ldmatrix of A", 24, 2048, [&](int n) { mrf_step_kernel<2><<<BLOCKS, THREADS>>>(out, n); });
-  rc |= report("mrf step, + loads and split of B", 24, 2048, [&](int n) { mrf_step_kernel<3><<<BLOCKS, THREADS>>>(out, n); });
   return rc;
 }

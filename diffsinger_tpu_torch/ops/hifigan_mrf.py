@@ -15,22 +15,24 @@ axis, zero rows for the shorter kernels); biases b1/b2 [n_branch, n_stage, C].
 ``compute_dtype=torch.bfloat16`` rounds the conv inputs, weights and the chain
 state to bf16 at the JAX kernel's cast points; accumulation stays float32.
 
-Both kernel bodies run on the tensor cores, float32 with the 3xTF32 split,
-bfloat16 with one bf16 product pass, and compute, per T tile, only the rows
-:func:`mrf_window_plan` lists, a branch at a time; :func:`choose_mrf_tiles`
-picks each branch's tile from the body's geometry.
+Both kernel bodies run on the tensor cores, float32 with the 3xTF32 split
+(warpgroup ``wgmma`` products on weights split once, :func:`weight_planes`),
+bfloat16 with one bf16 ``mma.sync`` pass, and compute, per T tile, only the
+rows :func:`mrf_window_plan` lists, a branch at a time;
+:func:`choose_mrf_tiles` picks each branch's tile from the body's geometry.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from diffsinger_tpu_torch.ops._build import check, load_library
+from diffsinger_tpu_torch.utils import trace
 
 LRELU_SLOPE = 0.1
 KERNEL_CHANNELS = (16, 32, 64, 128)
@@ -103,17 +105,41 @@ def mrf_window_plan(kernel_sizes: Tuple[int, ...],
     return plan
 
 
-# kernel geometry per type and channel count (csrc/mrf_stage.cu, MRF_LAUNCH):
-# 8-column tiles per warp, 16-row tiles a warp may own in one conv, rows of a
-# weight slice, blocks per SM, warps per block.
+class MmaGeometry(NamedTuple):
+    """The bfloat16 body (``mma.sync``): 8-column tiles per warp, 16-row
+    tiles a warp may own in one conv, rows of a weight slice, blocks per SM,
+    warps per block."""
+    n_tiles: int
+    row_tiles: int
+    slice_rows: int
+    blocks_per_sm: int
+    n_warps: int
+
+
+class WgmmaGeometry(NamedTuple):
+    """The float32 body (``wgmma``): 64-row tiles a warpgroup may own in one
+    conv, weight rows a ring slot holds (hi and lo planes), ring slots,
+    blocks per SM, warpgroups per block."""
+    row_tiles: int
+    slice_rows: int
+    slots: int
+    blocks_per_sm: int
+    warpgroups: int
+
+
+# kernel geometry per type and channel count (csrc/mrf_stage.cu, MRF_LAUNCH_F32
+# and MRF_LAUNCH)
 _TC_GEOMETRY = {
-    torch.float32: {16: (2, 4, 16, 2, 8), 32: (4, 4, 32, 2, 8), 64: (4, 8, 32, 1, 8),
-                    128: (4, 8, 16, 1, 8)},
-    torch.bfloat16: {16: (2, 4, 16, 2, 8), 32: (4, 4, 32, 2, 8), 64: (8, 2, 64, 1, 16),
-                     128: (8, 2, 64, 1, 16)},
+    torch.float32: {16: WgmmaGeometry(4, 16, 6, 1, 4), 32: WgmmaGeometry(2, 32, 3, 1, 6),
+                    64: WgmmaGeometry(1, 32, 2, 1, 6), 128: WgmmaGeometry(1, 16, 2, 1, 3)},
+    torch.bfloat16: {16: MmaGeometry(2, 4, 16, 2, 8), 32: MmaGeometry(4, 4, 32, 2, 8),
+                     64: MmaGeometry(8, 2, 64, 1, 16), 128: MmaGeometry(8, 2, 64, 1, 16)},
 }
 _SMEM_PER_SM = 228 * 1024       # H100; a block may use 227 KB, 1 KB is reserved per block
-_RING_STAGES = 3
+_RING_STAGES = 3                # the bfloat16 body's weight ring
+_WG_ROWS = 64                   # rows of a wgmma tile
+_BARRIER_BYTES = 128            # the float32 body's ring barriers, before the ring
+TF32_MASK = -8192               # 0xffffe000: sign, exponent, top 10 mantissa bits
 
 
 def _ceil_div(a: int, b: int) -> int:
@@ -123,11 +149,12 @@ def _ceil_div(a: int, b: int) -> int:
 def _smem_layout(c: int, dtype: torch.dtype) -> Tuple[int, int]:
     """Shared memory of one block: bytes a window row takes in its two
     buffers (float32: xc and y, rows of C + 4; bfloat16: xc and the conv
-    input, rows of C + 8), and bytes of the weight ring."""
-    slice_rows = _TC_GEOMETRY[dtype][c][2]
+    input, rows of C + 8), and bytes of the weight ring (float32: its
+    barriers and slots of hi and lo planes)."""
+    geo = _TC_GEOMETRY[dtype][c]
     if dtype == torch.bfloat16:
-        return 2 * (c + 8) * 2, _RING_STAGES * slice_rows * (c + 8) * 2
-    return 2 * (c + 4) * 4, _RING_STAGES * slice_rows * (c + 8) * 4
+        return 2 * (c + 8) * 2, _RING_STAGES * geo.slice_rows * (c + 8) * 2
+    return 2 * (c + 4) * 4, _BARRIER_BYTES + geo.slots * 2 * geo.slice_rows * c * 4
 
 
 def block_smem(c: int, dtype: torch.dtype, rows: int) -> int:
@@ -137,16 +164,26 @@ def block_smem(c: int, dtype: torch.dtype, rows: int) -> int:
 
 
 def pass_rows(c: int, dtype: torch.dtype) -> int:
-    """The longest range one conv may compute: one pass of the warps'
-    16-row tiles, its accumulators in registers."""
-    n_tiles, row_tiles, _, _, n_warps = _TC_GEOMETRY[dtype][c]
-    return 16 * row_tiles * (n_warps // (c // (8 * n_tiles)))
+    """The longest range one conv may compute: one pass of the warps' row
+    tiles (float32: the warpgroups' 64-row tiles), its accumulators in
+    registers."""
+    geo = _TC_GEOMETRY[dtype][c]
+    if dtype == torch.bfloat16:
+        return 16 * geo.row_tiles * (geo.n_warps // (c // (8 * geo.n_tiles)))
+    return _WG_ROWS * geo.row_tiles * geo.warpgroups
 
 
-def _branch_cost(branch: dict, warps_m: int) -> int:
-    """Products a block makes per column tile for one branch, in 16-row tile
-    steps: every conv costs its taps times the row tiles of the busiest warp."""
-    return sum(branch["kernel_size"] * _ceil_div(_ceil_div(hi - lo, 16), warps_m)
+def _branch_cost(branch: dict, c: int, dtype: torch.dtype) -> int:
+    """The products a block makes for one branch, in tile steps. float32:
+    every conv costs its taps times its 64-row tiles (the warpgroups share
+    the SM's tensor cores); bfloat16: its taps times the 16-row tiles of the
+    busiest warp."""
+    geo = _TC_GEOMETRY[dtype][c]
+    if dtype == torch.bfloat16:
+        warps_m = geo.n_warps // (c // (8 * geo.n_tiles))
+        return sum(branch["kernel_size"] * _ceil_div(_ceil_div(hi - lo, 16), warps_m)
+                   for lo, hi in branch["ranges"])
+    return sum(branch["kernel_size"] * _ceil_div(hi - lo, _WG_ROWS)
                for lo, hi in branch["ranges"])
 
 
@@ -158,8 +195,7 @@ def choose_mrf_tiles(c: int, b: int, t: int, kernel_sizes, dilation_sets,
     (:func:`block_smem`, ``blocks per SM`` blocks an SM) and whose first,
     longest range fits one pass of the warps (:func:`pass_rows`), the one with
     the least modelled time ``waves * cost of a block``."""
-    n_tiles, _, _, blocks_per_sm, n_warps = _TC_GEOMETRY[dtype][c]
-    warps_m = n_warps // (c // (8 * n_tiles))
+    blocks_per_sm = _TC_GEOMETRY[dtype][c].blocks_per_sm
     row_bytes, ring_bytes = _smem_layout(c, dtype)
     smem_rows = (_SMEM_PER_SM // blocks_per_sm - 1024 - ring_bytes) // row_bytes
     tiles = []
@@ -172,11 +208,46 @@ def choose_mrf_tiles(c: int, b: int, t: int, kernel_sizes, dilation_sets,
         best, best_time = None, None
         for tile in range(1, min(max_rows - 2 * halo, t) + 1):
             waves = _ceil_div(b * _ceil_div(t, tile), n_sm * blocks_per_sm)
-            time = waves * _branch_cost(mrf_window_plan((k,), (ds,), tile)[0], warps_m)
+            time = waves * _branch_cost(mrf_window_plan((k,), (ds,), tile)[0], c, dtype)
             if best_time is None or time <= best_time:
                 best, best_time = tile, time
         tiles.append(best)
     return tuple(tiles)
+
+
+def split_tf32(a: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The 3xTF32 split of float32 ``a`` as ``csrc/mma_sm90.cuh:split_tf32``
+    makes it: hi keeps the sign, the exponent and the top 10 mantissa bits,
+    lo is the remainder ``a - hi`` (exact in float32) cut the same way."""
+    hi = (a.view(torch.int32) & TF32_MASK).view(torch.float32)
+    lo = ((a - hi).view(torch.int32) & TF32_MASK).view(torch.float32)
+    return hi, lo
+
+
+def weight_planes(w: torch.Tensor) -> torch.Tensor:
+    """Packed weights ``w`` [n_branch, n_stage, k_max*C, C] split once for the
+    float32 body: [n_branch, n_stage, k_max, C / KS, 2, C / 8, KS / 4, 8, 4],
+    per tap and slice of KS input rows (the ring slot's) the hi plane, then
+    the lo plane. A plane is the slice's B operand, K-major as ``wgmma``
+    takes TF32: [C_out][C_in] in core matrices of 8 output columns by 4 input
+    rows (16 bytes), output groups of 8 outer; element (C_in kk, C_out n) of
+    the slice at ((n // 8 * KS / 4 + kk // 4) * 8 + n % 8) * 4 + kk % 4."""
+    nb, ns, rows, c = w.shape
+    ks = _TC_GEOMETRY[torch.float32][c].slice_rows
+    v = w.detach().to(torch.float32).reshape(nb, ns, rows // c, c // ks, ks // 4, 4, c // 8, 8)
+    hi, lo = split_tf32(v.permute(0, 1, 2, 3, 6, 4, 7, 5).contiguous())
+    return torch.stack((hi, lo), dim=4)
+
+
+def _planes_of(w: torch.Tensor) -> torch.Tensor:
+    """:func:`weight_planes` of ``w``, made once and kept on the tensor
+    itself: made anew only when ``w``'s storage or version changes."""
+    key = (w.data_ptr(), w.device, None if w.is_inference() else w._version)
+    kept = getattr(w, "_mrf_planes", None)
+    if kept is None or kept[0] != key:
+        kept = (key, weight_planes(w))
+        w._mrf_planes = kept
+    return kept[1]
 
 
 @functools.lru_cache(maxsize=256)
@@ -200,6 +271,20 @@ def _launch_args(shape, kernel_sizes, dilation_sets, dtype: torch.dtype, n_sm: i
     b, t, c = shape
     tiles = choose_mrf_tiles(c, b, t, kernel_sizes, dilation_sets, n_sm, dtype)
     return _launch_plan(kernel_sizes, dilation_sets, tiles)
+
+
+@functools.lru_cache(maxsize=256)
+def conv_rows(shape, kernel_sizes, dilation_sets, n_sm: int) -> Tuple[int, int]:
+    """Rows the float32 body computes for x of ``shape`` [B, T, C], over
+    every branch, block and conv, each range rounded up to 64-row tiles; and
+    the rows the scale needs, B * T a conv. Their ratio is the recompute the
+    window plan pays: the halo and the rounding."""
+    b, t, c = shape
+    tiles = choose_mrf_tiles(c, b, t, kernel_sizes, dilation_sets, n_sm)
+    done = sum(b * _ceil_div(t, br["tile"])
+               * sum(_WG_ROWS * _ceil_div(hi - lo, _WG_ROWS) for lo, hi in br["ranges"])
+               for br in mrf_window_plan(kernel_sizes, dilation_sets, tiles))
+    return done, sum(2 * len(ds) for ds in dilation_sets) * b * t
 
 
 @functools.lru_cache(maxsize=None)
@@ -236,7 +321,10 @@ def _launch(x, w1, b1, w2, b2, kernel_sizes, dilation_sets, compute_dtype):
         if a.device != x.device:
             raise ValueError(f"{name} is on {a.device}, x on {x.device}")
     xin = x.to(dt).contiguous()
-    w1c, w2c = w1.to(dt).contiguous(), w2.to(dt).contiguous()
+    if dt == torch.float32:
+        w1c, w2c = _planes_of(w1), _planes_of(w2)
+    else:
+        w1c, w2c = w1.to(dt).contiguous(), w2.to(dt).contiguous()
     b1c, b2c = b1.to(torch.float32).contiguous(), b2.to(torch.float32).contiguous()
     # the kernel reads x, w1, w2 in 16-byte pieces and the biases in 8
     for name, a, align in (("x", xin, 16), ("w1", w1c, 16), ("w2", w2c, 16), ("b1", b1c, 8),
@@ -244,8 +332,12 @@ def _launch(x, w1, b1, w2, b2, kernel_sizes, dilation_sets, compute_dtype):
         if a.data_ptr() % align:
             raise ValueError(f"mrf_stage kernel needs {name} aligned to {align} bytes")
     out = torch.empty((b, t, c), dtype=torch.float32, device=x.device)
-    ks, dils, win = _launch_args((b, t, c), kernel_sizes, dilation_sets, dt,
-                                 _sm_count(x.device.index or 0))
+    n_sm = _sm_count(x.device.index or 0)
+    ks, dils, win = _launch_args((b, t, c), kernel_sizes, dilation_sets, dt, n_sm)
+    if dt == torch.float32:
+        done, needed = conv_rows((b, t, c), kernel_sizes, dilation_sets, n_sm)
+        trace.count("ds.mrf.conv_rows", done)
+        trace.count("ds.mrf.out_rows", needed)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     err = _entry()(_DTYPE_CODE[dt], xin.data_ptr(), w1c.data_ptr(), b1c.data_ptr(),
                    w2c.data_ptr(), b2c.data_ptr(), out.data_ptr(), b, t, c, nb, ns, k_max,
@@ -302,13 +394,21 @@ def pack_mrf_scales(generator) -> list:
     """``pack_mrf_params`` for every scale the kernel runs (at most 128
     channels of ResBlock1 chains), ``None`` for the others (the wider scales,
     and every scale of a ``resblock: '2'`` generator, whose single-conv
-    blocks the kernel does not compute); detached, for reuse across calls."""
+    blocks the kernel does not compute); detached, for reuse across calls.
+    For a float32 generator each scale's w1 and w2 also carry their
+    :func:`weight_planes`, which ``mrf_stage`` then finds made."""
     cfg = generator.cfg
     c0 = cfg.upsample_initial_channel
     with torch.no_grad():
-        return [pack_mrf_params(generator, i)
-                if cfg.resblock == "1" and c0 // 2 ** (i + 1) <= 128 else None
-                for i in range(len(cfg.upsample_rates))]
+        packed = [pack_mrf_params(generator, i)
+                  if cfg.resblock == "1" and c0 // 2 ** (i + 1) <= 128 else None
+                  for i in range(len(cfg.upsample_rates))]
+        if cfg.dtype is None:       # the float32 body's weights, split once here
+            for scale in packed:
+                if scale is not None and scale[0].shape[-1] in KERNEL_CHANNELS:
+                    _planes_of(scale[0])
+                    _planes_of(scale[2])
+    return packed
 
 
 def hifigan_mrf_apply(generator, mel: torch.Tensor, packed: Optional[list] = None,

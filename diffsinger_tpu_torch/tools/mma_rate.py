@@ -3,10 +3,9 @@
     python3 -m diffsinger_tpu_torch.tools.mma_rate
 
 Builds ``csrc/bench/mma_rate.cu`` with ``nvcc`` for ``sm_90a`` into
-``build/kernels/`` and runs it: the peak ``mma.sync`` rates (bf16, TF32), the
-stack kernel's GEMM step without its weight stream, and the MRF kernel's step
-part by part. The serving kernels' times in ``PERF.md`` are read against
-these rates. Runs on a machine with an NVIDIA GPU and the CUDA toolkit only.
+``build/kernels/`` and runs it: the peak ``mma.sync`` rates (bf16, TF32) and
+the stack kernel's GEMM step without its weight stream. The ``mma.sync``
+kernels' times in ``PERF.md`` are read against these rates. Runs on a machine with an NVIDIA GPU and the CUDA toolkit only.
 """
 
 from __future__ import annotations

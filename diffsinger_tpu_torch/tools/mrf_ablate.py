@@ -2,14 +2,12 @@
 
     python3 -m diffsinger_tpu_torch.tools.mrf_ablate [bfloat16]
 
-float32 (the default): times the kernel on the three serving scales (C = 128 /
-64 / 32 at 8 x 1024 mel frames) as built, then with parts taken out
-(``-DMRF_ABLATE_ONE_PASS``: one of the three split products;
-``-DMRF_ABLATE_NO_SPLIT``: no hi/lo arithmetic). The ablated builds compute
-wrong values; only their times mean something. Also prints the products the
-plan executes and the time they would take at the card's measured
-``mma.sync`` TF32 rate (3.36 ns per product and scheduler,
-``tools/mma_rate.py``).
+float32 (the default): times the ``wgmma`` body on the four scales (C = 128 /
+64 / 32 / 16 at 8 x 1024 mel frames) as built, then with one of its three
+split products (``-DMRF_ABLATE_ONE_PASS``; wrong values, only the time means
+something). Also prints the products the window plan executes (its halo and
+64-row rounding included) and their time at the card's TF32 peak (495
+TFLOP/s): the share of that peak the body reaches on the work it does.
 
 bfloat16: times the bf16 body on the same scales as built, beside the float32
 body, then without its products (``-DMRF_ABLATE_BF16_NO_MMA``) and without
@@ -24,24 +22,23 @@ from __future__ import annotations
 import json
 import sys
 
-VARIANTS = ((), ("-DMRF_ABLATE_ONE_PASS",), ("-DMRF_ABLATE_NO_SPLIT",),
-            ("-DMRF_ABLATE_ONE_PASS", "-DMRF_ABLATE_NO_SPLIT"))
+VARIANTS = ((), ("-DMRF_ABLATE_ONE_PASS",))
 BF16_VARIANTS = ((), ("-DMRF_ABLATE_BF16_NO_MMA",), ("-DMRF_ABLATE_BF16_NO_EPILOGUE",))
 KS, DS = (3, 7, 11), ((1, 3, 5),) * 3
-MMA_NS = 3.36          # ns per m16n8k8 TF32 mma.sync per scheduler, measured
-SCHEDULERS = 132 * 4
+TF32_FLOPS = 495e12         # dense TF32 peak of an H100 SXM
 MMA_BF16_FLOPS = 637.8e12   # bf16 mma.sync rate, measured (tools/mma_rate.py)
 
 
-def executed_mma(mrf, c: int, b: int, t: int, n_sm: int) -> float:
-    """m16n8k8 TF32 mma.sync products the float32 plan makes the kernel run
-    for x [b, t, c]."""
+def executed_flops(mrf, c: int, b: int, t: int, n_sm: int) -> float:
+    """Tensor-core operations the float32 plan makes the wgmma body run for x
+    [b, t, c]: per conv, taps x 8-deep steps x 64-row tiles x three
+    m64nCk8 products."""
     total = 0
     for br in mrf.mrf_window_plan(KS, DS, mrf.choose_mrf_tiles(c, b, t, KS, DS, n_sm)):
-        per_block = sum(br["kernel_size"] * (c // 8) * -(-(hi - lo) // 16) * (c // 8) * 3
+        per_block = sum(br["kernel_size"] * (c // 8) * -(-(hi - lo) // 64)
                         for lo, hi in br["ranges"])
         total += b * -(-t // br["tile"]) * per_block
-    return float(total)
+    return float(total) * 3 * 2 * 64 * c * 8
 
 
 def executed_mma_bf16(mrf, torch, c: int, b: int, t: int, n_sm: int) -> float:
@@ -85,7 +82,7 @@ def main(argv=None) -> int:
         _build.build(["mrf_stage"], flags)
     n_sm = torch.cuda.get_device_properties(0).multi_processor_count
     gen = torch.Generator(device="cuda").manual_seed(1)
-    for c, t in ((128, 65536), (64, 131072), (32, 262144)):
+    for c, t in ((128, 65536), (64, 131072), (32, 262144)) + (() if bf16 else ((16, 524288),)):
         x = torch.randn(8, t, c, generator=gen, device="cuda") * 0.3
         w1 = torch.randn(3, 3, 11 * c, c, generator=gen, device="cuda") * (7 * c) ** -0.5
         w2 = torch.randn(3, 3, 11 * c, c, generator=gen, device="cuda") * (7 * c) ** -0.5
@@ -113,9 +110,11 @@ def main(argv=None) -> int:
             row["mma_sync_share"] = row["ms_at_mma_sync_rate"] / row["as built"]
             print("mrf_ablate_bf16", json.dumps(row), flush=True)
             continue
-        n_mma = executed_mma(mrf, c, 8, t, n_sm)
-        row["executed_gmma"] = n_mma / 1e9
-        row["ms_at_mma_sync_rate"] = n_mma / SCHEDULERS * MMA_NS * 1e-6
+        flops = executed_flops(mrf, c, 8, t, n_sm)
+        row["executed_tflop"] = flops / 1e12
+        row["recompute"] = flops / 3 / (252 * c * c * 8 * t)
+        row["ms_at_tf32_peak"] = flops / TF32_FLOPS * 1e3
+        row["tf32_peak_share"] = row["ms_at_tf32_peak"] / row["as built"]
         print("mrf_ablate", json.dumps(row), flush=True)
     _build.use_variant("mrf_stage", ())
     mrf._entry.cache_clear()

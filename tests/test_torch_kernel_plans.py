@@ -9,8 +9,9 @@ The float32 MRF kernel computes, per T tile and branch, only the rows that
   * the 3xTF32 arithmetic (mantissa cut to 10 bits, three products, float32
     sums) through a whole scale stays within 1e-4 x scale of the twin, and
     one TF32 pass does not: the recorded reason for the split.
-The kernels read the weight layouts ``pack_diffnet_params`` / ``pack_mrf_params``
-give (no new packing); the only new host layout is the flattened plan.
+The stack kernel reads the weights ``pack_diffnet_params`` gives; the MRF
+kernel's bf16 body reads ``pack_mrf_params``' layout, its float32 body the hi
+and lo planes cut from it (``tests/test_torch_mrf_wgmma_plans.py``).
 """
 
 import numpy as np
@@ -125,13 +126,15 @@ def test_plan_ranges_shrink_by_each_convs_reach_down_to_the_tile():
 @pytest.mark.parametrize("c,b,t", [(128, 8, 65536), (64, 8, 131072), (32, 8, 262144),
                                    (128, 1, 16384), (32, 2, 37), (16, 1, 500)])
 def test_chosen_tiles_fit_shared_memory_and_one_pass_of_the_warps(c, b, t):
+    """The float32 body: a window of xc and y rows of C + 4 floats, 128 bytes
+    of barriers and a ring of slots holding a slice's hi and lo planes; every
+    range in one pass of the warpgroups' 64-row tiles."""
     tiles = mrf.choose_mrf_tiles(c, b, t, KS, DS, 132)
-    n_tiles, row_tiles, slice_rows, blocks_per_sm, n_warps = mrf._TC_GEOMETRY[torch.float32][c]
-    warps_m = n_warps // (c // (8 * n_tiles))
+    row_tiles, slice_rows, slots, blocks_per_sm, groups = mrf._TC_GEOMETRY[torch.float32][c]
     for br in mrf.mrf_window_plan(KS, DS, tiles):
-        smem = (2 * br["rows"] * (c + 4) + 3 * slice_rows * (c + 8)) * 4
+        smem = 2 * br["rows"] * (c + 4) * 4 + 128 + slots * 2 * slice_rows * c * 4
         assert blocks_per_sm * (smem + 1024) <= 228 * 1024
-        assert all(hi - lo <= 16 * row_tiles * warps_m for lo, hi in br["ranges"])
+        assert all(hi - lo <= 64 * row_tiles * groups for lo, hi in br["ranges"])
         assert 1 <= br["tile"] <= t
     # a narrow halo leaves room for a longer tile
     if t > 10000:
@@ -184,8 +187,9 @@ def test_three_tf32_passes_hold_the_float32_tolerance_and_one_pass_does_not():
 
 
 def test_kernels_read_the_existing_weight_layouts():
-    """No new weight packing: the packed MRF weights are tap-major [k*C, C]
-    rows, exactly what the windowed emulation (and the kernel) slices."""
+    """The packed MRF weights are tap-major [k*C, C] rows, exactly what the
+    windowed emulation slices, the bf16 body reads and the float32 body's
+    planes are cut from."""
     x, w1, b1, w2, b2 = _scale_inputs(3, 1, 40, 16, ks=(3,), ns=1)
     k, c = 3, 16
     taps = w1[0, 0, : k * c].reshape(k, c, c)
