@@ -1,227 +1,146 @@
 #!/usr/bin/env python3
-"""Chip smoke run of the torch port on one NVIDIA GPU (written for the H100).
+"""The port's correctness check on one NVIDIA GPU (written for the H100).
 
     python3 chip_smoke.py
 
-Phases, each of which fails the run (non-zero exit) when it fails:
-  1. prints the card's name and power limit, builds the CUDA kernels from
-     diffsinger_tpu_torch/csrc/ with nvcc (sm_90a) into build/kernels/;
-  2. diffnet_stack kernel at the serving shapes (B=8, T=1024, C=256, L=20),
-     dilation cycles 1 and 4, the other serving buckets (4 x 512, 1 x 256),
-     the singing lengths at cycle 4 (2 x 4096 and 1 x 7936), a T that is not
-     a multiple of the tile and a T shorter than the largest dilation, each in
-     bf16 and in f32, plus f32 at C=128 and f32 with d=32 (the SIMT body),
-     against its plain twin; two calls give the same bits and x0 stays
-     untouched; the body that ran and its device launches (one a layer on the
-     tensor cores) are held against the wrapper's rule and the library's
-     report; f32 rows carry the 3xTF32 bound and the FMA bound;
-  3. mrf_stage kernel on the three C<=128 HiFiGAN scales at 8 x 1024 mel
-     frames (C=128/64/32 at T=65536/131072/262144), f32 and bf16 (both on
-     the tensor cores), plus, in both types, B=1, a T that is not a multiple
-     of the tile and a T shorter than one halo, and C=16 in bf16, against its
-     plain twin; two calls give the same bits; bf16 rows carry the bound at
-     the measured mma.sync rate beside the 989 TFLOP/s one;
-  4. serving: the port's FusedSynthesizer with DiffSpeech-LJSpeech at full
-     width (configs/lj/ds_beta6.yaml with bench.py's overrides, HiFiGAN v1)
-     and seeded random weights answers 12 requests in three mel buckets,
-     including one 8 x 1024-frame batch and one single __call__; the launch
-     counts show both kernels ran on that path; the 8 x 1024 batch is run
-     again through the plain twins with the same noise and compared;
-  5. profiles one more 8 x 1024 batch with torch.profiler (device time by
-     kernel, busy share; table in build/chip_smoke/serve_profile.txt);
-  5a. serve_cwt: the same workload with configs/lj/ds_beta6.yaml's own
-     pitch_type cwt (no override; the CWT statistics head biased to a 181 Hz
-     voice): one warm 8 x 1024 batch, 71 stack and 3 MRF launches, its time
-     and profile (serve_cwt_profile.txt), and the batch held against the
-     plain twins on the same noise;
+It checks; it does not measure the system: the benchmark (benchmark/run.py)
+owns every end-to-end time, rate, device-idle share and MFU. Each phase
+raises AssertionError, and the run exits non-zero, when a check fails. The
+kernels are held against their plain twins (ops/*: ``*_plain``), which run
+with TF32 off in cuBLAS and cuDNN (the port's entry points turn it off too);
+the paths are held against those twins, the CPU or a host recomputation.
+Phases, labelled as in the code below:
+  1. the card's name and power limit; the CUDA kernels of
+     diffsinger_tpu_torch/csrc/ built with nvcc (sm_90a) into build/kernels/,
+     ptxas register and spill lines printed;
+  2. stack: diffnet_stack at the serving, singing and batcher shapes (8 x
+     1024 at cycles 1 and 4, 4 x 512, 1 x 256, 3 x 301, 2 x 5 below the
+     largest dilation, 2 x 4096, 1 x 7936), each in bf16 and float32, float32
+     at C = 128 and at d = 32 (the SIMT body), and the float32 column-split
+     shapes (1 x 1152, 1 x 2432, 4 x 384, 16 x 640): within 1e-4 (float32) /
+     1e-2 (bf16) of the output's scale; two calls bit-equal; x0 unwritten;
+     the body that ran, its device launches (one a layer on the tensor cores,
+     two on SIMT), the library's tensor_core_info (shared memory <= 227 KB)
+     and the column split equal to the wrapper's rules on the card's
+     resident counts. Each row also carries the kernel-alone ms, the plain
+     twin's ms and the 3xTF32 / bf16 bound (and the FMA bound for float32);
+  3. mrf: mrf_stage at C = 128 / 64 / 32 (and 16 in float32) on 8 x 1024 mel
+     frames, B = 1, a T off the tile and a T under one halo, in float32 and
+     bf16 (and bf16 at C = 16): within 1e-4 / 1e-2 of the output's scale,
+     two calls bit-equal; rows carry ms, plain ms and bounds as in phase 2;
+  4. serving: FusedSynthesizer over DiffSpeech-LJSpeech at full width
+     (configs/lj/ds_beta6.yaml with bench.py's overrides, bf16 stack,
+     HiFiGAN v1), seeded weights: 12 requests in three mel buckets and one
+     __call__; stack and MRF launches equal K_step and 3 a batch; waveform
+     shapes and finiteness; the 8 x 1024 batch against the plain twins on
+     the same noise within 1e-4 of the waveform's scale;
+  5a. serve_cwt: the same with the config's own cwt pitch: 71 / 3 launches,
+     the batch against the plain twins by phase 4's rule;
   5b. singing: DiffSinger-Opencpop (configs/opencpop/ds1000.yaml at full
-     width: MIDI + rel_pos conditioner, PLMS-25 over the cycle-4 bf16 stack,
-     a PitchExtractor, NSF-HiFiGAN at hop 128 with the 8/8/2 geometry of
-     tools/bench_opencpop.py) with seeded weights answers an 8 x 1024 batch,
-     a 2 x 4096 batch, DiffSingerE2EInfer on EXAMPLE_INPUT and one word-level
+     width, bf16 stack, PLMS-25 = 26 denoiser calls, PE, NSF-HiFiGAN 8/8/2):
+     an 8 x 1024 and a 2 x 4096 batch, the SVS example and a word-level
      input; 26 stack and 2 MRF launches a batch; the 8 x 1024 batch's
-     sampler mel and its vocoder (same mel, F0 and source draws) are each held
-     against the plain twins; one more batch of each size is profiled
-     (build/chip_smoke/sing_profile.txt, sing_long_profile.txt);
-  5c. serve_shipped: the shipped configs with their own float32 stack (no
-     compute_dtype override; the tensor-core f32 body): ds_beta6.yaml (cwt
-     pitch, HiFiGAN v1) on one 8 x 1024 batch, 71 stack and 3 MRF launches;
-     ds1000.yaml (PLMS-25, PE, NSF-HiFiGAN 8/8/2) on an 8 x 1024 and a
-     2 x 4096 batch, 26 stack and 2 MRF launches each; batch seconds,
-     mel-frames/s, profiles (shipped_*_profile.txt), and each batch against
-     the plain twins by the serve_cwt and singing criteria;
-  5d. shipped_matrix: the two longest reverse loops of the shipped configs,
-     as shipped, at full width from seeded weights: configs/lj/ds_pndm.yaml
-     (DiffSpeech + PNDM, K 1000 at speedup 10 from a Gaussian start: 101
-     float32 stack calls a batch; HiFiGAN v1) and
-     configs/opencpop/ds100_adj_rel.yaml (OpenCpop e2e, DDPM K 100 on the
-     linear schedule: 100 calls; PE, NSF-HiFiGAN 8/8/2), both built through
-     the entry points with TF32 switched on, which must leave it off; one
-     warm 8 x 1024 batch each (exactly 101 / 100 stack and 3 / 2 MRF
-     launches, latency, mel-frames/s, profiles shipped_pndm_profile.txt and
-     shipped_adj_rel_profile.txt) held against the plain twins by
-     serve_shipped's criteria; then the float32 LJ vocoder batch and a
-     HifiGanTask step at 16 x 8192 timed with cuDNN's TF32 off and on;
-  5e. wide: the openvpi release's acoustic widths
-     (benchmark/configs/ds512_44k_cpop.json): the float32 stack at C = 512,
-     cycle 4, at 1 x 432, 8 x 640 and 16 x 1152, at each column split the
-     card holds (2 and 4), against its plain twin (1e-4 of the output's
-     scale; the library's report of the body, launches and split; two calls
-     give the same bits, x0 untouched); the float32 MRF at C = 16, the 44.1
-     kHz vocoder's fifth scale, against its twin; the configuration served
-     once (seeded weights, one 8 x 640 batch: 101 stack calls on the
-     tensor-core body, 4 MRF launches) and held against the plain twins by
-     the singing phases' criteria;
-  6. diffnet_train forward and backward kernels at the training shapes
-     (B=24, T=1024, C=H=256, L=20), bf16 and f32, dilation cycles 1 and 4,
-     plus 3 x 301 rows with H=200 and with H=256 (not a tile multiple; the
-     first on the SIMT kernels, the second on the tensor cores), 1 x 1024,
-     2 x 5 (T below the largest dilation) and 2 x 100 with dilations up to
-     16 (the widest halo that fits), in bf16 and in f32 (the shipped
-     configs' type, on the 3xTF32 tensor-core kernels at C = H = 256), against
-     their plain twins on the same inputs: skips, xs and all nine cotangents;
-     two calls give the same bits, and the backward writes none of its
-     inputs; the kernels a call launched are counted inside the library,
-     where it launches them, and the library's own report of its tensor-core
-     tiles and body is held against the wrapper's dispatch rule; f32 rows
-     carry the 3xTF32 bound and the FMA bound;
-  7. training: the port's Trainer on DiffSpeech-LJSpeech at full width
-     (configs/lj/ds_beta6.yaml with tools/bench_train.py's overrides, bf16
-     stack, dropout on, FS2 frozen but for its predictors) first holds one
-     step's kernels against their plain twins (``step_vs_plain``: the
-     forward on the inputs the step gave it, the backward by a step that
-     swaps only the backward, the losses against a step through both
-     twins), then takes ten optimizer steps on one synthetic 24 x 1024-frame
-     batch (launch counts, ms/step, peak memory), and profiles one more step
-     (table in build/chip_smoke/train_profile.txt);
-  7a. train_cwt: the same with the config's own cwt pitch (targets from
-     get_f0cwt of voiced/unvoiced F0 contours): the first step's losses (mel,
-     C, uv, f0_mean, f0_std, the duration terms) and gradients against the
-     plain twins, then five steps;
-  7b. train_shipped: the training step a user of configs/lj/ds_beta6.yaml
-     takes, as shipped: cwt pitch and no compute_dtype, so the stack trains
-     in float32 on the 3xTF32 tensor-core kernels; the synthetic cwt batch at
-     24 x 1024; the first step against the plain twins by a float32
-     criterion, then one warm and five timed steps (median ms, mel-frames/s,
-     peak memory, launches: one forward and one backward call a step, 20 and
-     at most 100 device launches, the library's 3xTF32 body), one profiled
-     step (build/chip_smoke/train_shipped_profile.txt);
-  7c. cli: the user path from a corpus on disk to waveforms on disk with
-     configs/lj/ds_beta6.yaml at full width (cwt pitch, bf16 stack): writes
-     an LJ-style corpus of 64 harmonic-tone utterances with TextGrids under
-     build/chip_smoke/cli/, binarizes it with
-     ``python -m diffsinger_tpu_torch.data.binarize`` in a child process,
-     writes a seeded FS2 checkpoint (fs2_ckpt) and a seeded HiFiGAN v1
-     directory (vocoder_ckpt, weight-norm pairs) in upstream's layout, trains
-     20 steps through ``cli.train`` (sanity validation, validation and a
-     checkpoint at steps 10 and 20), restores step 20 into a fresh Trainer bit
-     for bit, resumes to step 30, runs ``cli.infer`` on the 4 test items
-     (71 stack launches each, 3 MRF launches a vocoder call), and holds the
-     first test utterance's mel and waveform against the plain twins; one
-     step on a dataset batch and one test utterance are profiled
-     (cli_fit_profile.txt, cli_infer_profile.txt);
-  7d. train_fs2: FastSpeech2Task as the shipped FS2 configs train it,
-     configs/lj/fs2.yaml (cwt pitch, mel_loss l1) at 24 x 1024 and
-     configs/opencpop/aux_rel.yaml (MIDI, rel_pos, mel_loss ssim:0.5|l1:0.5)
-     at 24 x 1500: one deterministic step on the card against the same step
-     on the CPU in float64 (first 4 rows; losses within 1e-4 relative, each
-     gradient within 1e-3 of its scale plus the CPU's own float32 step's
-     distance from float64 for that parameter), JAX's loss names, one warm
-     and five timed steps; the aux_rel run is saved for train_midi;
-  7e. train_midi: configs/opencpop/ds1000.yaml as shipped (float32 stack on
-     the 3xTF32 training kernels, cycle 4, MIDI + rel_pos, no pitch
-     embedding) on a synthetic Opencpop batch of 24 x 1500 (150 phones of 10
-     frames, notes 48-72, ~20% slurs, a word every 2-3 phones): the first
-     step against the plain twins by the float32 criterion, one warm, five
-     timed and one profiled step (train_midi_profile.txt), 20 / 80 device
-     launches a call and the library's 3xtf32 body; then
-     configs/opencpop/ds60_rel.yaml on the same batch for four steps with two
-     overrides, fs2_ckpt = train_fs2's aux_rel checkpoint (every FS2 tensor
-     loaded, FS2 frozen) and switch_midi2f0_step 2 (the trainer's record:
-     ground-truth F0 at global steps 0-2, predicted from step 3);
-  7f. train_pe: configs/opencpop/pe.yaml as shipped (PitchExtractionTask) at
-     16 x 2000 frames with padded tails: the first step's BatchNorm running
-     statistics against a float64 host recomputation of flax's rule (every
-     frame, biased variance, momentum 0.99) within 1e-7 of their scale, a
-     limit that the same recomputation with torch's unbiased variance must
-     exceed; five timed steps;
-  7h. cli_cascade (after cli): the published DiffSpeech recipe on the cli
-     phase's binarized corpus: cli.train on configs/lj/fs2.yaml for 20 steps,
-     cli.train on configs/lj/ds_beta6.yaml as shipped (float32) for 10 steps
-     with fs2_ckpt = that run's directory (every FS2 tensor warm-started, the
-     predictors trainable, the rest frozen), cli --infer of both runs on the
-     4 test items (wavs on disk; 71 stack launches an utterance for
-     DiffSpeech, 3 MRF a vocoder call); the float32 training kernels held
-     against the plain twins on the run's largest training batch and a
-     validation batch, and each --infer's first test utterance (B = 1) with
-     its kernels against the plain twins;
-  7i. serve_web: the port's web server on the card over
-     DiffSinger-Opencpop (configs/opencpop/ds1000.yaml as shipped: float32
-     stack, PLMS-25, PE, NSF-HiFiGAN 8/8/2) built from seeded checkpoints
-     written to disk: SVSWebApp over GradioInfer(DiffSingerE2EInfer) on
-     127.0.0.1:0 answers the four gradio demo sentences (RIFF/WAVE PCM16 at
-     24 kHz, each body equal to a direct greet, exactly or within 2 LSB), the
-     first sentence twice at once, 400 for Content-Length -1, 413 past
-     MAX_REQUEST_BYTES, 400 for misaligned notes; per-request wall ms, audio
-     seconds, RTF and launches; the unfused path (fused_infer: false) on
-     EXAMPLE_INPUT against the fused one with the same draws;
-  7j. vocoders: vocoder_compute_dtype bfloat16 for HiFiGAN v1 on an
-     LJ 8 x 1024 mel batch and NSF-HiFiGAN on a singing 8 x 1024 batch (the
-     MRF kernel's bf16 body: 3 + 2 launches), each against the same module
-     on its plain twins (1e-2 of the waveform's scale) and timed beside its float32
-     twin; a resblock '2' generator at HiFiGAN v3's widths from a written
-     checkpoint, card against CPU; ParallelWaveGAN at PWGConfig's defaults
-     from a written official release (.pkl + stats.npy), spec2wav of one
-     1024-frame mel with z from a generator, card against CPU, timed;
-  7k. crf: configs/lj/ds_beta6.yaml with dur_loss: crf: the first
-     training step on 2 rows against the CPU in float64 (fixed diffusion
-     draws) by train_fs2's criterion for the FS2 side (the CRF head and the
-     predictors) and the losses, the training kernels against their plain
-     twins on that step (step_vs_plain), five float32 steps at 24 x 1024; one 8 x 1024 FusedSynthesizer batch on the CRF's
-     Viterbi durations (71 stack, 3 MRF launches), dur_choice against the
-     CPU's, the smallest gap between the best and the second-best path, and
-     log Z within 1e-5 of a float64 host evaluation;
-  7l. vocoder_train: HiFi-GAN training (HifiGanTask) at HiFiGAN v1's widths
-     (512 ch, 8/8/2/2, resblock 1), MPD 2/3/5/7/11 and the 3-scale MSD,
-     configs/base.yaml's audio settings and seeded weights, on 16 crops of 32
-     frames (8192 samples) from a harmonic-tone LJ-style corpus: the first
-     step's D and G losses and gradients on 4 rows against the CPU in float64
-     (losses within 1e-4; each gradient's relative L2 distance within 1e-3
-     beyond the CPU float32 evaluation's own), one warm, five timed steps (ms,
-     audio seconds trained per second, peak memory), one counted step
-     (torch's FLOP count: TFLOP/s and the FMA bound) and a profiled one
-     (vocoder_train_profile.txt); the trained generator loaded into HifiGAN
-     and served on an 8 x 1024 mel batch through the float32 MRF kernel (3
-     launches) against the plain twins within 1e-4 x max(|wav|, 1); MelGAN at
-     its defaults on a 2 x 1024 mel batch, card against CPU; a PQMF
-     analysis -> synthesis round trip of the batch's waveforms;
-  7m. parallel: data and tensor parallelism on one card with
-     configs/lj/ds_beta6.yaml as shipped (cwt, float32, the 3xTF32 training
-     kernels) on the train_shipped batch (24 x 1024) from seeded weights,
-     dropout on: (a) NCCL with one rank, three steps of the mesh trainer
-     against the plain trainer (every loss within 1e-5, the first step's
-     gradients within 1e-6 relative L2, the weight updates within 1e-3),
-     the step's ms and the all-reduces' share of it; (b) NCCL's refusal of
-     two ranks on one card, then two spawned processes with gloo (card
-     tensors staged through the host): dp=2 on 2 x 12 rows and on a 23-row
-     batch (padded to 24) and tp=2, each against one process on the same
-     global batch (the first step's loss within 1e-5, later ones 1e-4, its
-     gradients 1e-3, the updates 1e-2; summation order only), tp=2's
-     resident bytes against tp=1 and peak memory; (c) DP serving of the
-     shipped LJ 8 x 1024 batch, 4 rows a rank, against one process (1e-4 of
-     the waveform's scale), 71 stack and 3 MRF launches a rank; (d) the MFU
-     of the serve_shipped batch and the train_shipped step by ops/flops.py.
-     It measures correctness and the collectives' cost, not scaling;
-  8. prints the kernels line and, last, the device line.
-The plain twins run with TF32 off (cuBLAS and cuDNN), so they are float32
-references; the port's entry points turn it off too when they resolve the
-card. Long output goes to build/chip_smoke/chip_smoke.json.
+     sampler mel (1e-2 of its scale) and its vocoder on the same mel, F0 and
+     source draws (1e-4 of the waveform's scale) against the plain twins;
+  5c. serve_shipped: ds_beta6.yaml and ds1000.yaml with their own float32
+     stack: each batch ran the tensor-core body (20 device launches a call),
+     71 / 3 and 26 / 2 launches a batch, each batch against the plain twins
+     by phases 5a and 5b's rules;
+  5d. shipped_matrix: configs/lj/ds_pndm.yaml (PNDM, 101 stack calls) and
+     configs/opencpop/ds100_adj_rel.yaml (DDPM K 100, PE, NSF) as shipped,
+     built with TF32 switched on: the entry points leave it off through the
+     phase; each config is what its YAML says; exactly 101 / 100 stack and 3
+     / 2 MRF launches; each batch against the plain twins by phase 5c's rules;
+  5e. wide: the openvpi release's widths (benchmark/configs/ds512_44k_cpop.json):
+     the float32 stack at C = 512, cycle 4, at 1 x 432, 8 x 640 and 16 x 1152
+     at each split the card holds: the body, launches and split the library
+     reports, two calls bit-equal, x0 unwritten, 1e-4 of the output's scale
+     (rows carry ms); the float32 MRF at C = 16 by phase 3; the configuration
+     served once: 101 stack launches on the tensor-core body, 4 MRF, the
+     batch against the plain twins by phase 5b's rules;
+  6. train_stack: diffnet_train forward and backward at 24 x 1024 (bf16 and
+     float32, cycles 1 and 4), 3 x 301 with H = 200 (SIMT) and H = 256, 1 x
+     1024, 2 x 5, 2 x 100 at d = 16, and float32 24 x 1500 cycle 4: skips,
+     xs and all nine cotangents within 1e-4 / 1e-2 of each tensor's scale;
+     two calls bit-equal; the backward writes none of its inputs; the
+     kernels a call ran, counted inside the library, and its tensor_core_info
+     (body, shared memory) against the dispatch rule. Rows carry forward and
+     backward ms, plain ms and bounds;
+  7. train: Trainer on DiffSpeech-LJSpeech at full width (bf16 stack,
+     dropout on): one step's kernels against their plain twins
+     (``step_vs_plain``, judged by ``step_agrees``), the loss terms, then two
+     optimizer steps: one forward and one backward launch a step on the
+     tensor cores, finite losses;
+  7a. train_cwt: the same with the config's cwt pitch and its loss terms;
+  7b. train_shipped: ds_beta6.yaml as shipped (float32 stack on the 3xTF32
+     training kernels): the first step by the float32 criterion
+     (``step_agrees_f32``), two steps, 20 forward and <= 100 backward device
+     launches, the library's 3xtf32 body;
+  7d. train_fs2: configs/lj/fs2.yaml at 24 x 1024 and
+     configs/opencpop/aux_rel.yaml at 24 x 1500: one step on the card
+     against the CPU in float64 on 4 rows (losses 1e-4 relative, each
+     gradient within 1e-3 of its scale beyond the CPU float32 step's own
+     distance), JAX's loss names, two finite steps; aux_rel is saved;
+  7e. train_midi: ds1000.yaml as shipped at 24 x 1500: the first step by the
+     float32 criterion, two steps, 20 / 80 device launches and the 3xtf32
+     body; then ds60_rel.yaml warm-started from aux_rel (every FS2 tensor,
+     FS2 frozen) with switch_midi2f0_step 2: four steps, the trainer's F0
+     record [(0, True), (3, False)];
+  7f. train_pe: configs/opencpop/pe.yaml at 16 x 2000 with padded tails: the
+     first step's BatchNorm running statistics within 1e-7 of a float64 host
+     recomputation of flax's rule, a limit the unbiased-variance control must
+     exceed; two finite steps;
+  7c. cli (after 7f): an LJ-style corpus under build/chip_smoke/cli/, the
+     binarizer in a child process (split sizes, cwt_spec, F0 range), seeded
+     FS2 and HiFiGAN
+     checkpoints in upstream's layout, 20 steps through cli.train
+     (validation, checkpoints at 10 and 20), step 20 restored bit for bit,
+     resumed to 30, cli.infer on the 4 test items (the RTF line names the
+     card; wav and mel shapes; 71 stack and 3 MRF launches a call); the
+     training kernels against their twins on the run's largest and a
+     validation batch, the first test utterance against the plain twins;
+  7h. cli_cascade: on that corpus, cli.train on lj/fs2.yaml (20 steps) and
+     lj/ds_beta6.yaml as shipped warm-started from it (10 steps; only the
+     predictors move), --infer of both: launches, wavs, the training kernels
+     and each run's first utterance against the plain twins;
+  7i. serve_web: SVSWebApp over GradioInfer(DiffSingerE2EInfer) on
+     127.0.0.1:0 with ds1000.yaml as shipped from checkpoints on disk: the
+     four gradio demo sentences as RIFF PCM16, each within 2 LSB of a direct
+     greet, the first twice at once, 400 / 413 / 400 for the status rules,
+     26 stack and 2 MRF launches a request; the unfused path against the
+     fused one on the same draws (relative RMS <= 5e-2, correlation > 0.99);
+  7j. vocoders: the bf16 MRF body in HiFiGAN v1 and NSF-HiFiGAN (3 + 2
+     launches) against the plain twins within 1e-2 of the waveform's scale; a
+     resblock '2' generator at HiFiGAN v3's widths and ParallelWaveGAN from a
+     written official release, card against CPU within 1e-4;
+  7k. crf: ds_beta6.yaml with dur_loss: crf: the first step on 2 rows
+     against the CPU in float64 by phase 7d's rule for the FS2 side, the
+     training kernels by ``step_agrees_f32``, two steps; one 8 x 1024 batch
+     on the Viterbi durations: dur_choice equal to the CPU's, log Z within
+     1e-5 of float64, 71 / 3 launches;
+  7l. vocoder_train: HifiGanTask at HiFiGAN v1's widths with MPD and MSD on
+     16 x 8192 samples of a harmonic-tone corpus: the first step's D and G
+     losses (1e-4) and gradients (relative L2 within 1e-3 beyond the CPU
+     float32 step's own) on 4 rows against the CPU in float64, two finite
+     steps; the trained generator through the float32 MRF kernel (3
+     launches) against the plain twins; MelGAN card against CPU; a PQMF
+     round trip;
+  7m. parallel: ds_beta6.yaml as shipped on the train_shipped batch: (a) the
+     mesh trainer under NCCL with one rank against the plain trainer
+     (losses 1e-5, first-step gradients 1e-6, updates 1e-3 relative L2); (b)
+     NCCL refuses two ranks on one card; dp=2 on 2 x 12 and 23 rows and tp=2
+     in two gloo processes against one process, tp=2's resident bytes at
+     most half of tp=1's; (c) DP serving of the LJ 8 x 1024 batch, 4 rows a
+     rank, within 1e-4 of one process, 71 / 3 launches a rank;
+  8. the ``kernels`` line (each kernel's launches by path, its kernel-alone
+     ms, plain ms and bound), the card line and, last, {"ok": true, ...}.
+Long output goes to build/chip_smoke/chip_smoke.json.
 """
 
 import json
 import subprocess
 import sys
-import time
+from contextlib import ExitStack, contextmanager
 from pathlib import Path
 from typing import Optional
 from unittest import mock
@@ -247,14 +166,20 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def host_ms(fn, reps: int) -> float:
-    """Mean milliseconds per call on the host clock, after one warm-up call
-    (a CPU rehearsal's stand-in for ``cuda_ms``)."""
-    fn()
-    t0 = time.perf_counter()
-    for _ in range(reps):
-        fn()
-    return (time.perf_counter() - t0) * 1e3 / reps
+@contextmanager
+def plain_twins(ds=None, mrf=None, tr=None):
+    """The kernel wrappers of the given ops modules (``ops/diffnet_stack``,
+    ``ops/hifigan_mrf``, ``ops/diffnet_train``) replaced by their plain twins
+    while the block runs, the wrappers back after it, also on an exception."""
+    swaps = [(ds, "diffnet_stack", "diffnet_stack_plain"),
+             (mrf, "mrf_stage", "mrf_stage_plain"),
+             (tr, "diffnet_train_fwd", "diffnet_train_stack_fwd_plain"),
+             (tr, "diffnet_train_bwd", "diffnet_train_stack_bwd_plain")]
+    with ExitStack() as stack:
+        for module, entry, twin in swaps:
+            if module is not None:
+                stack.enter_context(mock.patch.object(module, entry, getattr(module, twin)))
+        yield
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -523,24 +448,13 @@ def phase_serve(torch, ds, mrf, card: str):
     big = [request(128, 1024) for _ in range(8)]                 # 8 x 1024 frames
     small = [request(n, 480) for n in (40, 52, 60)]              # bucket 512
     single = request(30, 240)                                    # bucket 256
-    t_w = time.perf_counter()
     syn.warmup([1024, 512, 256], batch_sizes=(8, 4, 1))
-    torch.cuda.synchronize()
-    print(f"serving warm-up: {time.perf_counter() - t_w:.1f} s", flush=True)
 
     ds.diffnet_stack.launches = 0
     mrf.mrf_stage.launches = 0
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
     wav_big = syn.synthesize_many(big)
-    torch.cuda.synchronize()
-    t1 = time.perf_counter()
     wav_small = syn.synthesize_many(small)
-    torch.cuda.synchronize()
-    t2 = time.perf_counter()
     wav_single = syn(*single)
-    torch.cuda.synchronize()
-    t3 = time.perf_counter()
     launches = {"diffnet_stack": ds.diffnet_stack.launches,
                 "mrf_stage": mrf.mrf_stage.launches}
 
@@ -560,8 +474,7 @@ def phase_serve(torch, ds, mrf, card: str):
     noise = torch.randn((k_step + 1, 8, 1024, 80), device="cuda",
                         generator=torch.Generator(device="cuda").manual_seed(5))
     wav_k = syn.synthesize_many(big, noises=[noise])
-    with mock.patch.object(ds, "diffnet_stack", ds.diffnet_stack_plain), \
-            mock.patch.object(mrf, "mrf_stage", mrf.mrf_stage_plain):
+    with plain_twins(ds, mrf):
         wav_p = syn.synthesize_many(big, noises=[noise])
     a, b = np.concatenate(wav_k), np.concatenate(wav_p)
     if not (np.isfinite(a).all() and np.isfinite(b).all()):
@@ -574,15 +487,9 @@ def phase_serve(torch, ds, mrf, card: str):
     # branch mean keep small: 1e-4 relative to the waveform's scale. A wrong
     # cast, transpose or weight layout in the glue moves it by far more.
     wav_tol = 1e-4 * max(float(np.abs(b).max()), 1.0)
-    frames_big = 8 * 1024
-    frames_small = sum(r[0]["txt_tokens"].shape[1] for r in small) * FRAMES_PER_PHONE
     out = {
         "card": card, "requests": len(big) + len(small) + 1, "batches": n_batches,
         "launches": launches,
-        "latency_s": {"batch_8x1024": t1 - t0, "batch_3_in_512": t2 - t1,
-                      "call_240_frames": t3 - t2},
-        "mel_frames_per_s": {"batch_8x1024": frames_big / (t1 - t0),
-                             "all": (frames_big + frames_small + 240) / (t3 - t0)},
         "wav_max_abs": float(np.abs(a).max()),
         "kernel_vs_plain_wav_max_abs_diff": diff,
         "kernel_vs_plain_wav_tolerance": wav_tol,
@@ -592,13 +499,13 @@ def phase_serve(torch, ds, mrf, card: str):
     if not diff <= wav_tol:
         raise AssertionError(f"serving: kernel and plain waveforms differ by {diff} "
                              f"> {wav_tol}")
-    return out, syn, big
+    return out
 
 
-def phase_serve_cwt(torch, ds, mrf, card: str, out_dir: Path):
+def phase_serve_cwt(torch, ds, mrf, card: str):
     """configs/lj/ds_beta6.yaml with its own cwt pitch (no pitch_type
-    override): one warm 8 x 1024 batch, its launches, its time and profile,
-    and the batch again through the plain twins on the same noise."""
+    override): one warm 8 x 1024 batch, its launches, and the batch again
+    through the plain twins on the same noise."""
     import numpy as np
 
     hp, syn = build_synth(torch, frame_pitch=False)
@@ -607,18 +514,11 @@ def phase_serve_cwt(torch, ds, mrf, card: str, out_dir: Path):
     rng = np.random.RandomState(2)
     big = [({"txt_tokens": rng.randint(3, 80, size=(1, 128)).astype(np.int64)}, 1024)
            for _ in range(8)]
-    t_w = time.perf_counter()
     syn.warmup([1024], batch_sizes=(8,))
-    torch.cuda.synchronize()
-    warm_s = time.perf_counter() - t_w
 
     ds.diffnet_stack.launches = 0
     mrf.mrf_stage.launches = 0
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
     wavs = syn.synthesize_many(big)
-    torch.cuda.synchronize()
-    t_batch = time.perf_counter() - t0
     launches = {"diffnet_stack": ds.diffnet_stack.launches,
                 "mrf_stage": mrf.mrf_stage.launches}
     k_step = int(hp["K_step"])
@@ -639,8 +539,7 @@ def phase_serve_cwt(torch, ds, mrf, card: str, out_dir: Path):
     noise = torch.randn((k_step + 1, 8, 1024, 80), device="cuda",
                         generator=torch.Generator(device="cuda").manual_seed(6))
     wav_k = syn.synthesize_many(big, noises=[noise])
-    with mock.patch.object(ds, "diffnet_stack", ds.diffnet_stack_plain), \
-            mock.patch.object(mrf, "mrf_stage", mrf.mrf_stage_plain):
+    with plain_twins(ds, mrf):
         wav_p = syn.synthesize_many(big, noises=[noise])
     a, b = np.concatenate(wav_k), np.concatenate(wav_p)
     if not (np.isfinite(a).all() and np.isfinite(b).all()):
@@ -650,8 +549,7 @@ def phase_serve_cwt(torch, ds, mrf, card: str, out_dir: Path):
     wav_tol = 1e-4 * max(float(np.abs(b).max()), 1.0)
     out = {"card": card, "config": "configs/lj/ds_beta6.yaml as shipped (pitch_type cwt) "
                                    "with bench.py's width and precision, seeded weights",
-           "warmup_s": warm_s, "launches": launches, "latency_s": {"batch_8x1024": t_batch},
-           "mel_frames_per_s": {"batch_8x1024": 8 * 1024 / t_batch},
+           "launches": launches,
            "voiced_share": float((f0 > 0).float().mean()),
            "f0_hz_median": float(f0[f0 > 0].median()) if bool((f0 > 0).any()) else 0.0,
            "wav_max_abs": float(np.abs(a).max()),
@@ -661,64 +559,12 @@ def phase_serve_cwt(torch, ds, mrf, card: str, out_dir: Path):
     if not diff <= wav_tol:
         raise AssertionError(f"serve_cwt: kernel and plain waveforms differ by {diff} "
                              f"> {wav_tol}")
-    profile = phase_profile(torch, lambda: syn.synthesize_many(big), out_dir, "serve_cwt")
-    return out, profile
-
-
-def phase_profile(torch, run, out_dir: Path, name: str = "serve"):
-    """torch.profiler over one call of ``run``: device time by kernel (table
-    in build/chip_smoke/<name>_profile.txt) and the device's busy share, the
-    union of the device intervals over the wall time."""
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 acc_events=True) as prof:
-        t0 = time.perf_counter()
-        run()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    ka = prof.key_averages()
-
-    def on_device(e):
-        # kernels and copies only: CPU operator rows repeat the time of the
-        # kernels they launch, and an annotation mirrored onto the device
-        # timeline (the optimizer's step) spans the idle gaps between them
-        return e.device_type.name == "CUDA" and not e.is_user_annotation
-
-    rows = sorted(((e.key, e.self_device_time_total / 1e3, e.count) for e in ka
-                   if on_device(e) and e.self_device_time_total > 0),
-                  key=lambda r: -r[1])
-    # busy time is the union of the device intervals: a kernel launched to
-    # overlap the one before it (the stack's layers) starts early and waits, so
-    # its own duration counts time the device already spent on its predecessor
-    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
-                   if on_device(e) and e.time_range.end > e.time_range.start)
-    busy_us, cur_lo, cur_hi = 0.0, None, None
-    for lo, hi in spans:
-        if cur_hi is None or lo > cur_hi:
-            if cur_hi is not None:
-                busy_us += cur_hi - cur_lo
-            cur_lo, cur_hi = lo, hi
-        else:
-            cur_hi = max(cur_hi, hi)
-    if cur_hi is not None:
-        busy_us += cur_hi - cur_lo
-    busy_ms = busy_us / 1e3
-    (out_dir / f"{name}_profile.txt").write_text(
-        ka.table(sort_by="self_device_time_total", row_limit=40))
-    summary = {"wall_ms": wall * 1e3, "device_busy_ms": busy_ms,
-               "device_busy_share": busy_ms / (wall * 1e3),
-               "kernel_ms_sum": sum(r[1] for r in rows),
-               "top": [{"name": k[:80], "ms": ms, "calls": n} for k, ms, n in rows[:12]]}
-    print(f"{name}_profile", json.dumps(summary), flush=True)
-    return summary
+    return out
 
 
 # -------------------------------------------------------------------- phase 5b
 SING_FRAMES_PER_PHONE = 8
 SING_HOP = 128
-SING_FRAMES_PER_S = 24000 / SING_HOP     # 187.5 mel frames = 1 s of audio
 # the NSF-HiFiGAN geometry tools/bench_opencpop.py assumes for the released
 # hop-128 vocoder, until its config.yaml is in the repository
 SING_VOCODER = dict(resblock="1", upsample_rates=[8, 8, 2], upsample_kernel_sizes=[16, 16, 4],
@@ -806,27 +652,17 @@ def sing_vs_plain(torch, ds, mrf, syn, requests, seed: int) -> dict:
     bins = int(syn.hp.get("audio_num_mel_bins", 80))
     noise = torch.randn((n_draws, b_pad, t_mel_b, bins), device="cuda", generator=gen)
     with torch.no_grad():
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
         out = syn.task.inference(stacked, t_mel=t_mel_b, noise=noise)
-        torch.cuda.synchronize()
-        t_sampler = time.perf_counter() - t0
-        with mock.patch.object(ds, "diffnet_stack", ds.diffnet_stack_plain):
+        with plain_twins(ds):
             out_p = syn.task.inference(stacked, t_mel=t_mel_b, noise=noise)
         mel_k, mel_p = out["mel_out"], out_p["mel_out"]
         mel_scale = mel_p.abs().max().item()
         mel_diff = (mel_k - mel_p).abs().max().item()
-        t0 = time.perf_counter()
         f0 = syn.pe(mel_k)["f0_denorm_pred"]
-        torch.cuda.synchronize()
-        t_pe = time.perf_counter() - t0
         mel_v = torch.where((out["mel2ph"] > 0)[..., None], mel_k, mel_k.min())
         source = draw_source(b_pad, t_mel_b * syn.hop, "cuda", gen)
-        t0 = time.perf_counter()
         wav_k = syn.vocoder.apply(mel_v, f0=f0, source=source)
-        torch.cuda.synchronize()
-        t_vocoder = time.perf_counter() - t0
-        with mock.patch.object(mrf, "mrf_stage", mrf.mrf_stage_plain):
+        with plain_twins(mrf=mrf):
             wav_p = syn.vocoder.apply(mel_v, f0=f0, source=source)
     wav_scale = wav_p.abs().max().item()
     wav_diff = (wav_k - wav_p).abs().max().item()
@@ -837,9 +673,7 @@ def sing_vs_plain(torch, ds, mrf, syn, requests, seed: int) -> dict:
     # with no clipping carry such a step on, scaled like the mel itself).
     # Vocoder: the float32 MRF kernel (3xTF32) against float32 convolutions,
     # 1e-4 of the waveform's scale, as on the serving path.
-    return {"parts_s": {"sampler_with_fs2": t_sampler, "pe": t_pe,
-                        "vocoder_with_nsf": t_vocoder},
-            "pe_voiced_share": float((f0[out["mel2ph"] > 0] > 0).float().mean()),
+    return {"pe_voiced_share": float((f0[out["mel2ph"] > 0] > 0).float().mean()),
             "sampler_mel_scale": mel_scale,
             "kernel_vs_plain_mel_max_abs_diff": mel_diff,
             "kernel_vs_plain_mel_tolerance": 1e-2 * max(mel_scale, 1.0),
@@ -861,7 +695,7 @@ def sing_check_or_raise(what: str, check: dict) -> None:
                              f"waveform {wav_diff} (tolerance {wav_tol})")
 
 
-def phase_sing(torch, ds, mrf, card: str, out_dir: Path):
+def phase_sing(torch, ds, mrf, card: str):
     import numpy as np
 
     from diffsinger_tpu_torch.inference.svs import EXAMPLE_INPUT
@@ -885,33 +719,16 @@ def phase_sing(torch, ds, mrf, card: str, out_dir: Path):
     long = [request(4096 // SING_FRAMES_PER_PHONE, 4096) for _ in range(2)]
     items = {k: infer.preprocess_input(inp, inp["input_type"])
              for k, inp in (("e2e", EXAMPLE_INPUT), ("word", SING_WORD_INPUT))}
-    t_w = time.perf_counter()
     syn.warmup([1024], batch_sizes=(8,))
     syn.warmup([4096], batch_sizes=(2,))
     syn.warmup([infer.estimate_t_mel(it) for it in items.values()], batch_sizes=(1,))
-    torch.cuda.synchronize()
-    print(f"singing warm-up: {time.perf_counter() - t_w:.1f} s", flush=True)
 
     ds.diffnet_stack.launches = 0
     mrf.mrf_stage.launches = 0
-    times = {}
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
     wav_big = syn.synthesize_many(big)
-    torch.cuda.synchronize()
-    times["batch_8x1024"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
     wav_long = syn.synthesize_many(long)
-    torch.cuda.synchronize()
-    times["batch_2x4096"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
     wav_e2e = infer.infer_once(EXAMPLE_INPUT)
-    torch.cuda.synchronize()
-    times["e2e_example"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
     wav_word = infer.infer_once(SING_WORD_INPUT)
-    torch.cuda.synchronize()
-    times["word_level"] = time.perf_counter() - t0
     launches = {"diffnet_stack": ds.diffnet_stack.launches,
                 "mrf_stage": mrf.mrf_stage.launches}
 
@@ -920,40 +737,25 @@ def phase_sing(torch, ds, mrf, card: str, out_dir: Path):
     if launches != expect:
         raise AssertionError(f"kernel launches on the singing path {launches}, "
                              f"expected {expect}")
-    frames = {"batch_8x1024": 8 * 1024, "batch_2x4096": 2 * 4096,
-              "e2e_example": len(items["e2e"]["ph_token"]) * SING_FRAMES_PER_PHONE,
-              "word_level": len(items["word"]["ph_token"]) * SING_FRAMES_PER_PHONE}
-    for name, wavs, per_row in (("batch_8x1024", wav_big, 1024),
-                                ("batch_2x4096", wav_long, 4096),
-                                ("e2e_example", [wav_e2e], frames["e2e_example"]),
-                                ("word_level", [wav_word], frames["word_level"])):
+    for name, wavs, per_row in (
+            ("batch_8x1024", wav_big, 1024), ("batch_2x4096", wav_long, 4096),
+            ("e2e_example", [wav_e2e], len(items["e2e"]["ph_token"]) * SING_FRAMES_PER_PHONE),
+            ("word_level", [wav_word], len(items["word"]["ph_token"]) * SING_FRAMES_PER_PHONE)):
         for wav in wavs:
             if wav.shape != (per_row * SING_HOP,) or not np.isfinite(wav).all():
                 raise AssertionError(f"singing {name}: bad waveform {wav.shape} for "
                                      f"{per_row} frames")
 
     check = sing_vs_plain(torch, ds, mrf, syn, big, seed=5)
-    voiced = check.pop("pe_voiced_share")
-    total_frames = sum(frames.values())
     result = {
         "card": card, "config": "configs/opencpop/ds1000.yaml (bf16 stack, NSF-HiFiGAN "
                                 "8/8/2, 512 ch, exact source), seeded weights",
         "requests": len(big) + len(long) + 2, "batches": n_batches,
-        "denoiser_calls_per_batch": n_calls, "launches": launches,
-        "latency_s": times,
-        "mel_frames_per_s": {k: frames[k] / times[k] for k in times},
-        "audio_s_per_s": {k: frames[k] / SING_FRAMES_PER_S / times[k] for k in times},
-        "all_mel_frames_per_s": total_frames / sum(times.values()),
-        "batch_8x1024_parts_s": check.pop("parts_s"),
-        "pe_voiced_share": voiced,
-        **check,
+        "denoiser_calls_per_batch": n_calls, "launches": launches, **check,
     }
     print("singing", json.dumps(result), flush=True)
     sing_check_or_raise("singing", check)
-    profile = phase_profile(torch, lambda: syn.synthesize_many(big), out_dir, "sing")
-    profile_long = phase_profile(torch, lambda: syn.synthesize_many(long), out_dir,
-                                 "sing_long")
-    return result, {"batch_8x1024": profile, "batch_2x4096": profile_long}
+    return result
 
 
 # -------------------------------------------------------------------- phase 5c
@@ -967,13 +769,13 @@ def stack_ran(ds, what: str, num_layers: int = 20) -> None:
                              f"expected the tensor-core body, {num_layers}")
 
 
-def phase_serve_shipped(torch, ds, mrf, card: str, out_dir: Path):
+def phase_serve_shipped(torch, ds, mrf, card: str):
     """The shipped configs with their own float32 stack (no compute_dtype
     override): configs/lj/ds_beta6.yaml (cwt pitch, HiFiGAN v1) on one warm
     8 x 1024 batch, configs/opencpop/ds1000.yaml (PLMS-25, PE, NSF-HiFiGAN with
-    the 8/8/2 geometry) on an 8 x 1024 and a 2 x 4096 batch; launches, times,
-    profiles, and each batch against the plain twins by the serve_cwt and
-    singing phases' criteria."""
+    the 8/8/2 geometry) on an 8 x 1024 and a 2 x 4096 batch; launches, and
+    each batch against the plain twins by the serve_cwt and singing phases'
+    criteria."""
     import numpy as np
 
     # --- LJ, ds_beta6.yaml as shipped
@@ -987,11 +789,7 @@ def phase_serve_shipped(torch, ds, mrf, card: str, out_dir: Path):
     syn.warmup([1024], batch_sizes=(8,))
     ds.diffnet_stack.launches = 0
     mrf.mrf_stage.launches = 0
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
     wavs = syn.synthesize_many(big)
-    torch.cuda.synchronize()
-    t_lj = time.perf_counter() - t0
     lj_launches = {"diffnet_stack": ds.diffnet_stack.launches,
                    "mrf_stage": mrf.mrf_stage.launches}
     k_step = int(hp["K_step"])
@@ -1005,16 +803,14 @@ def phase_serve_shipped(torch, ds, mrf, card: str, out_dir: Path):
     noise = torch.randn((k_step + 1, 8, 1024, 80), device="cuda",
                         generator=torch.Generator(device="cuda").manual_seed(7))
     wav_k = syn.synthesize_many(big, noises=[noise])
-    with mock.patch.object(ds, "diffnet_stack", ds.diffnet_stack_plain), \
-            mock.patch.object(mrf, "mrf_stage", mrf.mrf_stage_plain):
+    with plain_twins(ds, mrf):
         wav_p = syn.synthesize_many(big, noises=[noise])
     a, b = np.concatenate(wav_k), np.concatenate(wav_p)
     if not (np.isfinite(a).all() and np.isfinite(b).all()):
         raise AssertionError("serve_shipped LJ: non-finite waveform in the kernel/plain check")
     lj = {"config": "configs/lj/ds_beta6.yaml as shipped (cwt pitch, float32 stack, "
                     "HiFiGAN v1 float32), seeded weights",
-          "launches": lj_launches, "latency_s": {"batch_8x1024": t_lj},
-          "mel_frames_per_s": {"batch_8x1024": 8 * 1024 / t_lj},
+          "launches": lj_launches,
           "wav_max_abs": float(np.abs(a).max()),
           "kernel_vs_plain_wav_max_abs_diff": float(np.abs(a - b).max()),
           # the serve_cwt phase's criterion
@@ -1024,8 +820,6 @@ def phase_serve_shipped(torch, ds, mrf, card: str, out_dir: Path):
         raise AssertionError(f"serve_shipped LJ: kernel and plain waveforms differ by "
                              f"{lj['kernel_vs_plain_wav_max_abs_diff']} > "
                              f"{lj['kernel_vs_plain_wav_tolerance']}")
-    lj["profile"] = phase_profile(torch, lambda: syn.synthesize_many(big), out_dir,
-                                  "shipped_lj")
     del syn, wav_k, wav_p, noise
 
     # --- singing, ds1000.yaml as shipped (the vocoder geometry given)
@@ -1049,14 +843,8 @@ def phase_serve_shipped(torch, ds, mrf, card: str, out_dir: Path):
     syn.warmup([4096], batch_sizes=(2,))
     ds.diffnet_stack.launches = 0
     mrf.mrf_stage.launches = 0
-    times = {}
     for name, reqs in batches.items():
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        wavs = syn.synthesize_many(reqs)
-        torch.cuda.synchronize()
-        times[name] = time.perf_counter() - t0
-        for wav in wavs:
+        for wav in syn.synthesize_many(reqs):
             if wav.shape != (reqs[0][1] * SING_HOP,) or not np.isfinite(wav).all():
                 raise AssertionError(f"serve_shipped singing {name}: bad waveform {wav.shape}")
     sing_launches = {"diffnet_stack": ds.diffnet_stack.launches,
@@ -1065,23 +853,15 @@ def phase_serve_shipped(torch, ds, mrf, card: str, out_dir: Path):
         raise AssertionError(f"serve_shipped singing: kernel launches {sing_launches}, "
                              f"expected {n_calls} stack and 2 MRF a batch")
     stack_ran(ds, "serve_shipped singing")
-    frames = {"batch_8x1024": 8 * 1024, "batch_2x4096": 2 * 4096}
     checks = {name: sing_vs_plain(torch, ds, mrf, syn, reqs, seed=8 + i)
               for i, (name, reqs) in enumerate(batches.items())}
     singing = {"config": "configs/opencpop/ds1000.yaml as shipped (float32 stack, PLMS-25), "
                          "NSF-HiFiGAN 8/8/2, seeded weights",
                "denoiser_calls_per_batch": n_calls, "launches": sing_launches,
-               "latency_s": times,
-               "mel_frames_per_s": {k: frames[k] / times[k] for k in times},
-               "audio_s_per_s": {k: frames[k] / SING_FRAMES_PER_S / times[k] for k in times},
                "kernel_vs_plain": checks}
     print("serve_shipped_singing", json.dumps(singing), flush=True)
     for name, check in checks.items():
         sing_check_or_raise(f"serve_shipped singing {name}", check)
-    singing["profile"] = {
-        name: phase_profile(torch, lambda reqs=reqs: syn.synthesize_many(reqs), out_dir,
-                            f"shipped_sing_{name.split('_')[1]}")
-        for name, reqs in batches.items()}
     out = {"card": card, "lj": lj, "singing": singing,
            "launches": {k: lj_launches[k] + sing_launches[k] for k in lj_launches}}
     return out
@@ -1176,11 +956,7 @@ def phase_wide(torch, ds, mrf, card: str):
     syn.synthesize_many(reqs)   # warm
     ds.diffnet_stack.launches = 0
     mrf.mrf_stage.launches = 0
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
     wavs = syn.synthesize_many(reqs)
-    torch.cuda.synchronize()
-    latency = time.perf_counter() - t0
     launches = {"diffnet_stack": ds.diffnet_stack.launches, "mrf_stage": mrf.mrf_stage.launches}
     if launches != {"diffnet_stack": n_calls, "mrf_stage": 4} or n_calls != 101:
         raise AssertionError(f"wide serve: launches {launches}, expected 101 stack and 4 MRF "
@@ -1190,11 +966,9 @@ def phase_wide(torch, ds, mrf, card: str):
         if wav.shape != (reqs[0][1] * syn.hop,) or not np.isfinite(wav).all():
             raise AssertionError(f"wide serve: bad waveform {wav.shape}")
     check = sing_vs_plain(torch, ds, mrf, syn, reqs, seed=6)
-    frames = 8 * reqs[0][1]
     serve = {"config": "benchmark/configs/ds512_44k_cpop.json (DiffNet 20 x 512, PLMS-100, "
                        "PE at 128 bins, NSF-HiFiGAN 44.1 kHz 8/8/2/2/2), seeded weights",
-             "batch": "8 x 640", "launches": launches, "latency_s": latency,
-             "audio_s_per_s": frames * syn.hop / 44100.0 / latency, **check}
+             "batch": "8 x 640", "launches": launches, **check}
     print("wide_serve", json.dumps(serve), flush=True)
     sing_check_or_raise("wide serve", check)
     return {"card": card, "stack": stack_rows, "mrf": mrf_rows, "serve": serve,
@@ -1206,60 +980,7 @@ def tf32_switches(torch):
     return torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
 
 
-def tf32_cost(torch, voc, card: str) -> dict:
-    """What torch's default (cuDNN TF32 on) cost or saved: the float32 LJ
-    vocoder (HiFiGAN v1, the MRF scales on the kernel, the rest cuDNN) on an
-    8 x 1024 mel batch and one HifiGanTask step (HiFiGAN v1 against MPD and
-    MSD, all cuDNN) on 16 x 8192 samples, each timed with
-    ``cudnn.allow_tf32`` off, on, on, off; the waveform's distance between
-    the two modes. Leaves TF32 off."""
-    import numpy as np
-
-    from diffsinger_tpu_torch.config.hparams import set_hparams
-    from diffsinger_tpu_torch.training.vocoder_task import HifiGanTask
-
-    mel = _voc_mel(torch, 8, 1024, 21)
-    base = set_hparams(str(ROOT / "configs" / "base.yaml"))
-    task = HifiGanTask({k: base[k] for k in VOC_AUDIO_KEYS},
-                       generator=torch.Generator().manual_seed(0))
-    hop = task.gen_cfg.total_upsample
-    g = torch.Generator(device="cuda").manual_seed(22)
-    t_wav = torch.arange(VOC_FRAMES * hop, device="cuda") / task.gen_cfg.audio_sample_rate
-    f = torch.rand((VOC_BATCH, 1), device="cuda", generator=g) * 300 + 100
-    wav = 0.5 * torch.sin(2 * np.pi * f * t_wav) + 0.01 * torch.randn(
-        (VOC_BATCH, t_wav.numel()), device="cuda", generator=g)
-    seg_mel = _voc_mel(torch, VOC_BATCH, VOC_FRAMES, 23)
-    task.train_step(seg_mel, wav)  # warm, TF32 off
-    modes = {False: {"vocoder_ms": [], "step_ms": []}, True: {"vocoder_ms": [], "step_ms": []}}
-    wavs = {}
-    for on in (False, True, True, False):
-        torch.backends.cudnn.allow_tf32 = on
-        with torch.no_grad():
-            wavs[on] = voc.apply(mel)
-            modes[on]["vocoder_ms"].append(cuda_ms(lambda: voc.apply(mel), 3))
-        task.train_step(seg_mel, wav)  # a first step in the mode picks its algorithms
-        torch.cuda.synchronize()
-        steps = []
-        for _ in range(3):
-            t0 = time.perf_counter()
-            task.train_step(seg_mel, wav)
-            torch.cuda.synchronize()
-            steps.append((time.perf_counter() - t0) * 1e3)
-        modes[on]["step_ms"].append(float(np.median(steps)))
-    torch.backends.cudnn.allow_tf32 = False
-    del task
-    scale = wavs[False].abs().max().item()
-    return {"card": card, "vocoder": "HiFiGAN v1 float32, 8 x 1024 mel frames",
-            "step": f"HifiGanTask, HiFiGAN v1 + MPD + MSD, {VOC_BATCH} x "
-                    f"{VOC_FRAMES * hop} samples",
-            "order": "off, on, on, off",
-            "cudnn_tf32_off": modes[False], "cudnn_tf32_on": modes[True],
-            "vocoder_wav_max_abs": scale,
-            "vocoder_wav_tf32_vs_f32_max_abs_diff": (wavs[True] - wavs[False]).abs()
-            .max().item()}
-
-
-def phase_shipped_matrix(torch, ds, mrf, card: str, out_dir: Path):
+def phase_shipped_matrix(torch, ds, mrf, card: str):
     """The two longest reverse loops of the shipped configs, as shipped, at
     full width from seeded weights: configs/lj/ds_pndm.yaml (DiffSpeech +
     PNDM: K = 1000 at speedup 10 from a Gaussian start, 101 float32 stack
@@ -1267,11 +988,9 @@ def phase_shipped_matrix(torch, ds, mrf, card: str, out_dir: Path):
     configs/opencpop/ds100_adj_rel.yaml (OpenCpop e2e: DDPM K = 100 on the
     linear schedule from a Gaussian start, 100 calls; MIDI + rel_pos, the PE's
     F0 into NSF-HiFiGAN 8/8/2). Both are built with TF32 switched on, and the
-    entry points must leave it off. One warm 8 x 1024 batch each: latency,
-    mel-frames/s, launches (exactly 101 / 100 stack, 3 / 2 MRF), profiles
-    (shipped_pndm_profile.txt, shipped_adj_rel_profile.txt), and each batch
-    against the plain twins by serve_shipped's criteria; then the TF32 line
-    (``tf32_cost``)."""
+    entry points must leave it off, to the end of the phase. One warm 8 x 1024
+    batch each: launches (exactly 101 / 100 stack, 3 / 2 MRF), and each batch
+    against the plain twins by serve_shipped's criteria."""
     import numpy as np
 
     torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = True
@@ -1299,11 +1018,7 @@ def phase_shipped_matrix(torch, ds, mrf, card: str, out_dir: Path):
     syn.warmup([1024], batch_sizes=(8,))
     ds.diffnet_stack.launches = 0
     mrf.mrf_stage.launches = 0
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
     wavs = syn.synthesize_many(big)
-    torch.cuda.synchronize()
-    t_lj = time.perf_counter() - t0
     lj_launches = {"diffnet_stack": ds.diffnet_stack.launches,
                    "mrf_stage": mrf.mrf_stage.launches}
     if lj_launches != {"diffnet_stack": 101, "mrf_stage": 3}:
@@ -1316,8 +1031,7 @@ def phase_shipped_matrix(torch, ds, mrf, card: str, out_dir: Path):
     noise = torch.randn((1, 8, 1024, 80), device="cuda",
                         generator=torch.Generator(device="cuda").manual_seed(9))
     wav_k = syn.synthesize_many(big, noises=[noise])
-    with mock.patch.object(ds, "diffnet_stack", ds.diffnet_stack_plain), \
-            mock.patch.object(mrf, "mrf_stage", mrf.mrf_stage_plain):
+    with plain_twins(ds, mrf):
         wav_p = syn.synthesize_many(big, noises=[noise])
     a, b = np.concatenate(wav_k), np.concatenate(wav_p)
     if not (np.isfinite(a).all() and np.isfinite(b).all()):
@@ -1327,8 +1041,6 @@ def phase_shipped_matrix(torch, ds, mrf, card: str, out_dir: Path):
                     "gaussian start, frame pitch, no pitch embedding, float32 stack, "
                     "HiFiGAN v1 float32), seeded weights",
           "denoiser_calls_per_batch": 101, "launches": lj_launches,
-          "latency_s": {"batch_8x1024": t_lj},
-          "mel_frames_per_s": {"batch_8x1024": 8 * 1024 / t_lj},
           "wav_max_abs": float(np.abs(a).max()),
           "kernel_vs_plain_wav_max_abs_diff": float(np.abs(a - b).max()),
           # serve_shipped's LJ criterion
@@ -1338,9 +1050,7 @@ def phase_shipped_matrix(torch, ds, mrf, card: str, out_dir: Path):
         raise AssertionError(f"shipped_matrix ds_pndm: kernel and plain waveforms differ by "
                              f"{lj['kernel_vs_plain_wav_max_abs_diff']} > "
                              f"{lj['kernel_vs_plain_wav_tolerance']}")
-    lj["profile"] = phase_profile(torch, lambda: syn.synthesize_many(big), out_dir,
-                                  "shipped_pndm")
-    del wav_k, wav_p, noise
+    del syn, wav_k, wav_p, noise
 
     # --- singing, ds100_adj_rel.yaml (the vocoder geometry given)
     rng = np.random.RandomState(6)
@@ -1352,11 +1062,7 @@ def phase_shipped_matrix(torch, ds, mrf, card: str, out_dir: Path):
     sing.warmup([1024], batch_sizes=(8,))
     ds.diffnet_stack.launches = 0
     mrf.mrf_stage.launches = 0
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
     wavs = sing.synthesize_many(reqs)
-    torch.cuda.synchronize()
-    t_sing = time.perf_counter() - t0
     sing_launches = {"diffnet_stack": ds.diffnet_stack.launches,
                      "mrf_stage": mrf.mrf_stage.launches}
     if sing_launches != {"diffnet_stack": 100, "mrf_stage": 2}:
@@ -1371,21 +1077,13 @@ def phase_shipped_matrix(torch, ds, mrf, card: str, out_dir: Path):
                          "linear schedule, max_beta 0.06, gaussian start, cycle 4, float32 "
                          "stack, PE), NSF-HiFiGAN 8/8/2, seeded weights",
                "denoiser_calls_per_batch": 100, "launches": sing_launches,
-               "latency_s": {"batch_8x1024": t_sing},
-               "mel_frames_per_s": {"batch_8x1024": 8 * 1024 / t_sing},
-               "audio_s_per_s": {"batch_8x1024": 8 * 1024 / SING_FRAMES_PER_S / t_sing},
                "kernel_vs_plain": check}
     print("shipped_matrix_adj_rel", json.dumps(singing), flush=True)
     sing_check_or_raise("shipped_matrix ds100_adj_rel", check)
-    singing["profile"] = phase_profile(torch, lambda: sing.synthesize_many(reqs), out_dir,
-                                       "shipped_adj_rel")
     del infer, sing
-
-    tf32 = tf32_cost(torch, syn.vocoder, card)
-    print("shipped_matrix_tf32", json.dumps(tf32), flush=True)
     if tf32_switches(torch) != (False, False):
         raise AssertionError("shipped_matrix: TF32 left on")
-    return {"card": card, "ds_pndm": lj, "ds100_adj_rel": singing, "tf32": tf32,
+    return {"card": card, "ds_pndm": lj, "ds100_adj_rel": singing,
             "launches": {k: lj_launches[k] + sing_launches[k] for k in lj_launches}}
 
 
@@ -1664,8 +1362,7 @@ def step_vs_plain(torch, tr, trainer, batch, k_step: int) -> dict:
         lk, gk = trainer.loss_and_grads(batch, t=t, noise=noise, deterministic=True)
     with mock.patch.object(tr, "diffnet_train_bwd", tr.diffnet_train_stack_bwd_plain):
         _, gb = trainer.loss_and_grads(batch, t=t, noise=noise, deterministic=True)
-    with mock.patch.object(tr, "diffnet_train_fwd", tr.diffnet_train_stack_fwd_plain), \
-            mock.patch.object(tr, "diffnet_train_bwd", tr.diffnet_train_stack_bwd_plain):
+    with plain_twins(tr=tr):
         lp, gp = trainer.loss_and_grads(batch, t=t, noise=noise, deterministic=True)
     args, kw = seen[0]
     fwd_rel = {}
@@ -1700,39 +1397,32 @@ def step_agrees(r: dict) -> bool:
             and r["grad_worst_cos"] > 0.999 and r["grad_worst_rel"] < 0.05)
 
 
-def timed_steps(torch, tr, trainer, batch, steps: int):
+# the optimizer steps a training phase takes after its checked first step:
+# the fewest that still hold a step after an update
+STEPS = 2
+
+
+def run_steps(tr, trainer, batch, steps: int):
     """``steps`` optimizer steps (dropout on, draws from the trainer's
-    generator), each timed on the host clock to the device's end, the
-    training kernels' launches counted from zero (``tr`` None: a task that
-    runs none) and the peak memory from a reset. Returns the numbers and
-    each step's losses."""
+    generator), the training kernels' launches counted from zero (``tr``
+    None: a task that runs none). Returns the launch readings and each step's
+    losses."""
     fns = () if tr is None else (tr.diffnet_train_fwd, tr.diffnet_train_bwd)
     for fn in fns:
         fn.launches = 0
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    times, history = [], []
-    for _ in range(steps):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        losses = trainer.train_step(batch)
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
-        history.append({k: float(v) for k, v in losses.items()})
-    out = {"step_ms": [x * 1e3 for x in times],
-           "max_memory_allocated_bytes": torch.cuda.max_memory_allocated()}
-    if fns:
-        out.update({
-            "launches": {fn.__name__: fn.launches for fn in fns},
+    history = [{k: float(v) for k, v in trainer.train_step(batch).items()}
+               for _ in range(steps)]
+    if not fns:
+        return {}, history
+    return {"launches": {fn.__name__: fn.launches for fn in fns},
             # the last step's kernels, as the library counted them where it launched
             "device_launches_last_step": {fn.__name__: fn.device_launches for fn in fns},
-            "ran_tensor_cores": all(fn.ran_tensor_cores for fn in fns)})
-    return out, history
+            "ran_tensor_cores": all(fn.ran_tensor_cores for fn in fns)}, history
 
 
-def phase_train(torch, tr, card: str, out_dir: Path, steps: int = 10, cwt: bool = False):
-    """Frame pitch (``steps`` steps and a profiled one), or with ``cwt`` the
-    config's own cwt pitch (``steps`` steps, no profile)."""
+def phase_train(torch, tr, card: str, cwt: bool = False):
+    """Frame pitch, or with ``cwt`` the config's own cwt pitch: the first
+    step against the plain twins, then two steps."""
     import numpy as np
 
     hp, trainer = build_trainer(torch, frame_pitch=not cwt)
@@ -1747,62 +1437,24 @@ def phase_train(torch, tr, card: str, out_dir: Path, steps: int = 10, cwt: bool 
         raise AssertionError(f"training loss terms {sorted(vs_plain['losses'])}, expected "
                              f"{sorted(want_terms)}")
 
-    timed, history = timed_steps(torch, tr, trainer, batch, steps)
-    profile = (None if cwt else
-               phase_profile(torch, lambda: trainer.train_step(batch), out_dir, "train"))
-
-    warm_ms = float(np.median(timed["step_ms"][1:]))
-    launches, ran_tc = timed["launches"], timed["ran_tensor_cores"]
+    ran, history = run_steps(tr, trainer, batch, STEPS)
+    launches, ran_tc = ran["launches"], ran["ran_tensor_cores"]
     out = {
-        "card": card, "pitch_type": hp["pitch_type"], "steps": steps, "B": b,
-        "T_mel": t_mel, "T_txt": t_txt, **timed,
-        "ms_per_step_median_warm": warm_ms,
-        "mel_frames_per_s": b * t_mel / (warm_ms / 1e3),
+        "card": card, "pitch_type": hp["pitch_type"], "steps": STEPS, "B": b,
+        "T_mel": t_mel, "T_txt": t_txt, **ran,
         "trainable_params": sum(p.numel() for p in trainer.params),
         "first_loss": history[0], "last_loss": history[-1], "kernel_vs_plain": vs_plain,
     }
     print("train_cwt" if cwt else "train", json.dumps(out), flush=True)
-    if launches != {"diffnet_train_fwd": steps, "diffnet_train_bwd": steps}:
-        raise AssertionError(f"training kernel launches {launches}, expected {steps} each")
+    if launches != {"diffnet_train_fwd": STEPS, "diffnet_train_bwd": STEPS}:
+        raise AssertionError(f"training kernel launches {launches}, expected {STEPS} each")
     if not ran_tc:
         raise AssertionError("the training step did not run the tensor-core kernels")
     if not all(np.isfinite(v) for h in history for v in h.values()):
         raise AssertionError(f"non-finite training losses: {history}")
     if not step_agrees(vs_plain):
         raise AssertionError(f"train step kernel vs plain: {vs_plain}")
-    return out, profile
-
-
-# -------------------------------------------------------------------- phase 7b
-def shipped_step(torch, tr, steps: int = 5):
-    """The training step of configs/lj/ds_beta6.yaml as shipped (cwt pitch, no
-    compute_dtype: the float32 stack) on the synthetic cwt batch at 24 x
-    1024: the first step against the plain twins, one warm step, then
-    ``steps`` timed ones. Returns the trainer, the batch and the numbers."""
-    import numpy as np
-
-    hp, trainer = build_trainer(torch, frame_pitch=False, compute_dtype=None)
-    if hp.get("compute_dtype") is not None or trainer.task.compute_dtype is not None:
-        raise AssertionError(f"ds_beta6.yaml as shipped has compute_dtype "
-                             f"{hp.get('compute_dtype')}; the task runs "
-                             f"{trainer.task.compute_dtype}")
-    b, t_txt, t_mel = 24, 128, 1024
-    batch = trainer.prepare_batch(synthetic_cwt_batch(np.random.RandomState(0), b, t_txt,
-                                                      t_mel))
-    vs_plain = step_vs_plain(torch, tr, trainer, batch, int(hp["K_step"]))
-    trainer.train_step(batch)   # warm: the optimizer's state and the allocator
-    timed, history = timed_steps(torch, tr, trainer, batch, steps)
-    dil = tuple(trainer.task.denoise_fn.dilations)
-    med_ms = float(np.median(timed["step_ms"]))
-    out = {
-        "config": "configs/lj/ds_beta6.yaml", "pitch_type": hp["pitch_type"],
-        "compute_dtype": hp.get("compute_dtype"), "steps": steps, "B": b, "T_mel": t_mel,
-        "T_txt": t_txt, **timed,
-        "tensor_core_info": tr.tensor_core_info(b, 256, 256, dil, None),
-        "ms_per_step_median": med_ms, "mel_frames_per_s": b * t_mel / (med_ms / 1e3),
-        "first_loss": history[0], "last_loss": history[-1], "kernel_vs_plain": vs_plain,
-    }
-    return trainer, batch, history, out
+    return out
 
 
 def step_agrees_f32(r: dict) -> bool:
@@ -1819,25 +1471,41 @@ def step_agrees_f32(r: dict) -> bool:
             and r["grad_worst_cos"] > 0.99999 and r["grad_worst_rel"] < 1e-3)
 
 
-def phase_train_shipped(torch, tr, card: str, out_dir: Path, steps: int = 5):
-    """The shipped LJ training step on the card (``shipped_step``), held to
-    its float32 criterion, with launches and the library's body checked and
-    one more step profiled (train_shipped_profile.txt)."""
+# -------------------------------------------------------------------- phase 7b
+def phase_train_shipped(torch, tr, card: str):
+    """The training step of configs/lj/ds_beta6.yaml as shipped (cwt pitch, no
+    compute_dtype: the float32 stack) on the synthetic cwt batch at 24 x
+    1024: the first step against the plain twins by its float32 criterion,
+    then two steps, with launches and the library's body checked."""
     import numpy as np
 
     num_layers = 20
-    trainer, batch, history, out = shipped_step(torch, tr, steps)
-    out["card"] = card
-    out["profile"] = phase_profile(torch, lambda: trainer.train_step(batch), out_dir,
-                                   "train_shipped")
+    hp, trainer = build_trainer(torch, frame_pitch=False, compute_dtype=None)
+    if hp.get("compute_dtype") is not None or trainer.task.compute_dtype is not None:
+        raise AssertionError(f"ds_beta6.yaml as shipped has compute_dtype "
+                             f"{hp.get('compute_dtype')}; the task runs "
+                             f"{trainer.task.compute_dtype}")
+    b, t_txt, t_mel = 24, 128, 1024
+    batch = trainer.prepare_batch(synthetic_cwt_batch(np.random.RandomState(0), b, t_txt,
+                                                      t_mel))
+    vs_plain = step_vs_plain(torch, tr, trainer, batch, int(hp["K_step"]))
+    ran, history = run_steps(tr, trainer, batch, STEPS)
+    dil = tuple(trainer.task.denoise_fn.dilations)
+    out = {
+        "card": card, "config": "configs/lj/ds_beta6.yaml", "pitch_type": hp["pitch_type"],
+        "compute_dtype": hp.get("compute_dtype"), "steps": STEPS, "B": b, "T_mel": t_mel,
+        "T_txt": t_txt, **ran,
+        "tensor_core_info": tr.tensor_core_info(b, 256, 256, dil, None),
+        "first_loss": history[0], "last_loss": history[-1], "kernel_vs_plain": vs_plain,
+    }
     print("train_shipped", json.dumps(out), flush=True)
     want_terms = {"mel", "pdur", "wdur", "sdur", "C", "uv", "f0_mean", "f0_std"}
     if not want_terms <= set(out["first_loss"]):
         raise AssertionError(f"shipped training loss terms {sorted(out['first_loss'])}, "
                              f"expected {sorted(want_terms)}")
-    if out["launches"] != {"diffnet_train_fwd": steps, "diffnet_train_bwd": steps}:
+    if out["launches"] != {"diffnet_train_fwd": STEPS, "diffnet_train_bwd": STEPS}:
         raise AssertionError(f"shipped training launches {out['launches']}, "
-                             f"expected {steps} each")
+                             f"expected {STEPS} each")
     dev = out["device_launches_last_step"]
     if not (dev["diffnet_train_fwd"] == num_layers
             and dev["diffnet_train_bwd"] <= 5 * num_layers and out["ran_tensor_cores"]):
@@ -2002,13 +1670,12 @@ FS2_LOSS_TERMS = {"cwt": {"l1", "pdur", "wdur", "sdur", "C", "uv", "f0_mean", "f
                   "midi": {"ssim", "l1", "pdur", "wdur", "sdur", "uv", "f0"}}
 
 
-def phase_train_fs2(torch, card: str, out_dir: Path, steps: int = 5):
+def phase_train_fs2(torch, card: str, out_dir: Path):
     """FastSpeech2 training as the shipped FS2 configs run it: lj/fs2.yaml
     (cwt pitch, mel_loss l1) at 24 x 1024 and opencpop/aux_rel.yaml (MIDI,
     rel_pos, mel_loss ssim:0.5|l1:0.5) at 24 x 1500; one deterministic step
-    against the same step on the CPU in float64 (``card_vs_cpu_step``), one warm and
-    ``steps`` timed steps; the aux_rel run is saved for train_midi's warm
-    start."""
+    against the same step on the CPU in float64 (``card_vs_cpu_step``), then
+    two steps; the aux_rel run is saved for train_midi's warm start."""
     import numpy as np
 
     out = {}
@@ -2025,13 +1692,10 @@ def phase_train_fs2(torch, card: str, out_dir: Path, steps: int = 5):
         batch = trainer.prepare_batch(host)
         vs_cpu = card_vs_cpu_step(torch, hp, trainer, batch, vocab)
         loss_rel, (grad_excess, _) = vs_cpu["loss_rel"], vs_cpu["grad_excess_worst"]
-        trainer.train_step(batch)  # warm
-        timed, history = timed_steps(torch, None, trainer, batch, steps)
+        _, history = run_steps(None, trainer, batch, STEPS)
         row = {"card": card, "config": config, "task": type(trainer.task).__name__,
                "mel_loss": hp.get("mel_loss"), "pitch_type": hp.get("pitch_type"),
-               "B": b, "T_txt": t_txt, "T_mel": t_mel, "steps": steps, **timed,
-               "ms_per_step_median": float(np.median(timed["step_ms"])),
-               "mel_frames_per_s": b * t_mel / (np.median(timed["step_ms"]) / 1e3),
+               "B": b, "T_txt": t_txt, "T_mel": t_mel, "steps": STEPS,
                "trainable_params": sum(p.numel() for p in trainer.params),
                "first_loss": history[0], "last_loss": history[-1],
                "card_vs_cpu_rows": 4, "card_vs_cpu": vs_cpu}
@@ -2051,15 +1715,15 @@ def phase_train_fs2(torch, card: str, out_dir: Path, steps: int = 5):
 
 
 # -------------------------------------------------------------------- phase 7e
-def phase_train_midi(torch, tr, card: str, out_dir: Path, fs2_ckpt: str, steps: int = 5):
+def phase_train_midi(torch, tr, card: str, fs2_ckpt: str):
     """The Opencpop diffusion configs' training. ds1000.yaml as shipped (the
     float32 stack on the 3xTF32 training kernels, cycle 4, MIDI + rel_pos,
     no pitch embedding) at 24 x 1500: the first step against the plain twins
-    by the float32 criterion, one warm, ``steps`` timed and one profiled
-    step, launches and the library's report. Then ds60_rel.yaml (the MIDI
-    cascade, pitch embedding and F0 losses) on the same batch for four
-    steps, warm-started from train_fs2's aux_rel FS2, with
-    switch_midi2f0_step 2: ground-truth F0 while global_step <= 2."""
+    by the float32 criterion, then two steps, launches and the library's
+    report. Then ds60_rel.yaml (the MIDI cascade, pitch embedding and F0
+    losses) on the same batch for four steps, warm-started from train_fs2's
+    aux_rel FS2, with switch_midi2f0_step 2: ground-truth F0 while
+    global_step <= 2."""
     import numpy as np
 
     num_layers, b, t_txt, t_mel = 20, 24, 150, 1500
@@ -2073,24 +1737,19 @@ def phase_train_midi(torch, tr, card: str, out_dir: Path, fs2_ckpt: str, steps: 
     batch = trainer.prepare_batch(synthetic_midi_batch(np.random.RandomState(0), b, t_txt,
                                                        t_mel, vocab))
     vs_plain = step_vs_plain(torch, tr, trainer, batch, int(hp["K_step"]))
-    trainer.train_step(batch)  # warm
-    timed, history = timed_steps(torch, tr, trainer, batch, steps)
-    profile = phase_profile(torch, lambda: trainer.train_step(batch), out_dir, "train_midi")
+    ran, history = run_steps(tr, trainer, batch, STEPS)
     dil = tuple(task.denoise_fn.dilations)
-    med_ms = float(np.median(timed["step_ms"]))
     ds1000 = {
         "card": card, "config": "configs/opencpop/ds1000.yaml", "compute_dtype": None,
-        "cycle": 4, "B": b, "T_txt": t_txt, "T_mel": t_mel, "steps": steps, **timed,
+        "cycle": 4, "B": b, "T_txt": t_txt, "T_mel": t_mel, "steps": STEPS, **ran,
         "tensor_core_info": tr.tensor_core_info(b, 256, 256, dil, None),
-        "ms_per_step_median": med_ms, "mel_frames_per_s": b * t_mel / (med_ms / 1e3),
         "first_loss": history[0], "last_loss": history[-1], "kernel_vs_plain": vs_plain,
-        "profile": profile,
     }
     print("train_midi", json.dumps(ds1000), flush=True)
     if set(history[0]) != {"mel", "pdur", "wdur", "sdur", "total_loss", "grad_norm"}:
         raise AssertionError(f"train_midi: ds1000 loss terms {sorted(history[0])}")
-    if ds1000["launches"] != {"diffnet_train_fwd": steps, "diffnet_train_bwd": steps}:
-        raise AssertionError(f"train_midi: launches {ds1000['launches']}, expected {steps} each")
+    if ds1000["launches"] != {"diffnet_train_fwd": STEPS, "diffnet_train_bwd": STEPS}:
+        raise AssertionError(f"train_midi: launches {ds1000['launches']}, expected {STEPS} each")
     dev = ds1000["device_launches_last_step"]
     info = ds1000["tensor_core_info"]
     if not (dev == {"diffnet_train_fwd": num_layers, "diffnet_train_bwd": 4 * num_layers}
@@ -2112,11 +1771,11 @@ def phase_train_midi(torch, tr, card: str, out_dir: Path, fs2_ckpt: str, steps: 
     warm = [ln for ln in tee.text.splitlines() if "warm-started fs2" in ln]
     frozen = not any(n.startswith("fs2.") for n, p in trainer2.task.named_parameters()
                      if p.requires_grad)
-    timed2, history2 = timed_steps(torch, tr, trainer2, batch, n2)
+    ran2, history2 = run_steps(tr, trainer2, batch, n2)
     ds60 = {"card": card, "config": "configs/opencpop/ds60_rel.yaml",
             "overrides": {"fs2_ckpt": fs2_ckpt, "switch_midi2f0_step": switch},
             "warm_start_line": warm, "fs2_tensors": n_fs2, "fs2_frozen": frozen,
-            "gt_f0_log": trainer2.gt_f0_log, "steps": n2, **timed2,
+            "gt_f0_log": trainer2.gt_f0_log, "steps": n2, **ran2,
             "losses": history2}
     print("train_midi_cascade", json.dumps(ds60), flush=True)
     if not (warm and warm[-1].endswith(f"({n_fs2} tensors)") and frozen):
@@ -2129,10 +1788,10 @@ def phase_train_midi(torch, tr, card: str, out_dir: Path, fs2_ckpt: str, steps: 
                             "grad_norm"} or not all(np.isfinite(v) for h in history2
                                                     for v in h.values()):
         raise AssertionError(f"train_midi: ds60_rel losses {history2}")
-    if timed2["launches"] != {"diffnet_train_fwd": n2, "diffnet_train_bwd": n2}:
-        raise AssertionError(f"train_midi: ds60_rel launches {timed2['launches']}")
+    if ran2["launches"] != {"diffnet_train_fwd": n2, "diffnet_train_bwd": n2}:
+        raise AssertionError(f"train_midi: ds60_rel launches {ran2['launches']}")
     return {"ds1000": ds1000, "ds60_rel": ds60,
-            "launches": {k: ds1000["launches"][k] + timed2["launches"][k]
+            "launches": {k: ds1000["launches"][k] + ran2["launches"][k]
                          for k in ds1000["launches"]}}
 
 
@@ -2165,12 +1824,12 @@ def pe_stats_host(torch, pe_state, mels, unbiased: bool = False):
     return out
 
 
-def phase_train_pe(torch, card: str, out_dir: Path, steps: int = 5):
+def phase_train_pe(torch, card: str):
     """configs/opencpop/pe.yaml as shipped (PitchExtractionTask) at 16 x 2000
     frames (its max_tokens 32000), rows padded at their tails: the first
     step's new running statistics against the host recomputation of flax's
     rule, with the unbiased-variance recomputation as the control the check
-    must reject, then ``steps`` timed steps."""
+    must reject, then two steps."""
     import numpy as np
 
     b, t = 16, 2000
@@ -2194,8 +1853,7 @@ def phase_train_pe(torch, card: str, out_dir: Path, steps: int = 5):
     before = {k: v.detach().cpu().clone() for k, v in pe.state_dict().items()}
     want = pe_stats_host(torch, before, batch["mels"])
     control = pe_stats_host(torch, before, batch["mels"], unbiased=True)
-    trainer.train_step(batch)  # the first step, also the warm one
-    torch.cuda.synchronize()
+    trainer.train_step(batch)  # the first step
 
     def rel_err(got):
         return {k: float((got[k] - w).abs().max()) / max(float(w.abs().max()), 1.0)
@@ -2209,11 +1867,9 @@ def phase_train_pe(torch, card: str, out_dir: Path, steps: int = 5):
     # ~5e-7 at the first layer (var ~2), which the limit must catch
     limit = 1e-7
     moved = all(not torch.equal(pe.get_buffer(k).cpu(), before[k]) for k in want)
-    timed, history = timed_steps(torch, None, trainer, batch, steps)
+    _, history = run_steps(None, trainer, batch, STEPS)
     out = {"card": card, "config": "configs/opencpop/pe.yaml", "B": b, "T_mel": t,
-           "frames_real": int(lengths.sum()), "steps": steps, **timed,
-           "ms_per_step_median": float(np.median(timed["step_ms"])),
-           "mel_frames_per_s": b * t / (np.median(timed["step_ms"]) / 1e3),
+           "frames_real": int(lengths.sum()), "steps": STEPS,
            "trainable_params": sum(p.numel() for p in trainer.params),
            "first_step_stats_rel_err": stats_err, "stats_limit": limit,
            "unbiased_control_rel_err": control_err, "first_loss": history[0],
@@ -2315,32 +1971,11 @@ class _Tee:
         return "".join(self.parts)
 
 
-class _Clock:
-    """Wall seconds of each call of a patched method, the device synchronized."""
-
-    def __init__(self, torch, owner, name: str):
-        self.torch, self.times = torch, []
-        self.orig = getattr(owner, name)
-        self.patch = mock.patch.object(owner, name, self)
-
-    def __get__(self, obj, objtype=None):
-        return lambda *a, **k: self(obj, *a, **k)
-
-    def __call__(self, *args, **kw):
-        self.torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = self.orig(*args, **kw)
-        self.torch.cuda.synchronize()
-        self.times.append(time.perf_counter() - t0)
-        return out
-
-
 def fit_batches_vs_plain(torch, tr, trainer, hp, agrees):
     """The training kernels at a CLI run's own shapes against their plain
     twins (``step_vs_plain``): the dataset's largest training batch and a
     validation batch (fit's eval batching: max_eval_sentences utterances),
-    each judged by ``agrees``. Returns the prepared largest batch and the
-    readings."""
+    each judged by ``agrees``. Returns the readings."""
     import numpy as np
 
     from diffsinger_tpu_torch.data.dataset import FastSpeechDataset
@@ -2354,17 +1989,15 @@ def fit_batches_vs_plain(torch, tr, trainer, hp, agrees):
     for kind, b in (("train", batch), ("valid", valid_batch)):
         r = step_vs_plain(torch, tr, trainer, b, int(hp["K_step"]))
         readings[kind] = {"batch_shape": list(b["mels"].shape), **r, "agrees": agrees(r)}
-    return batch, readings
+    return readings
 
 
-def utterance_vs_plain(torch, ds, mrf, hp_inf, gen_dir: Path, out_dir: Optional[Path] = None,
-                       profile_name: Optional[str] = None):
+def utterance_vs_plain(torch, ds, mrf, hp_inf, gen_dir: Path):
     """The first test utterance of a CLI run's --infer again (B = 1, its own
     length), with the kernels and with the plain twins, same seed and
     weights; the kernel run must also repeat the mel --infer saved. The
     serving phases' rule: the waveform within 1e-4 of its scale, the log10
-    mel (values around -5..1) within 1e-3 of its scale. Returns the readings
-    and, with ``profile_name``, the kernel run's profile."""
+    mel (values around -5..1) within 1e-3 of its scale."""
     import numpy as np
 
     from diffsinger_tpu_torch import cli
@@ -2387,10 +2020,7 @@ def utterance_vs_plain(torch, ds, mrf, hp_inf, gen_dir: Path, out_dir: Optional[
         return mel, voc.spec2wav(mel, f0=f0)
 
     mel_k, wav_k = utterance()
-    profile = (phase_profile(torch, utterance, out_dir, profile_name)
-               if profile_name else None)
-    with mock.patch.object(ds, "diffnet_stack", ds.diffnet_stack_plain), \
-            mock.patch.object(mrf, "mrf_stage", mrf.mrf_stage_plain):
+    with plain_twins(ds, mrf):
         mel_p, wav_p = utterance()
     saved = np.load(gen_dir / "P_mels_npy" / f"{batch['item_name'][0]}.npy")
     out = {"frames": int(mel_k.shape[0]),
@@ -2402,7 +2032,7 @@ def utterance_vs_plain(torch, ds, mrf, hp_inf, gen_dir: Path, out_dir: Optional[
     out["agrees"] = bool(out["mel_max_abs_diff"] <= out["mel_tolerance"]
                          and out["wav_max_abs_diff"] <= out["wav_tolerance"]
                          and out["infer_vs_rerun_mel_max_abs_diff"] <= out["mel_tolerance"])
-    return out, profile
+    return out
 
 
 def phase_cli(torch, ds, mrf, tr, card: str, out_dir: Path):
@@ -2424,18 +2054,14 @@ def phase_cli(torch, ds, mrf, tr, card: str, out_dir: Path):
     root = out_dir / "cli"
     shutil.rmtree(root, ignore_errors=True)
     root.mkdir(parents=True)
-    t0 = time.perf_counter()
     cfg_path = _cli_corpus(root)
-    corpus_s = time.perf_counter() - t0
 
     # 1. binarize, in a child process: its worker pool forks, and forked
     # workers cannot use the CUDA context this process holds
-    t0 = time.perf_counter()
     proc = subprocess.run([sys.executable, "-m", "diffsinger_tpu_torch.data.binarize",
                            "--config", str(cfg_path)], cwd=ROOT, capture_output=True,
                           text=True, timeout=600,
                           env={**os.environ, "N_PROC": str(min(8, os.cpu_count() or 1))})
-    binarize_s = time.perf_counter() - t0
     (root / "binarize.log").write_text(proc.stdout + proc.stderr)
     if proc.returncode != 0:
         raise AssertionError(f"cli: binarize failed ({proc.returncode}): {proc.stderr[-2000:]}")
@@ -2471,15 +2097,9 @@ def phase_cli(torch, ds, mrf, tr, card: str, out_dir: Path):
     # 3. train: 20 steps, validation and checkpoints at 10 and 20
     ckpt_root = str(root / "checkpoints")
     hp = set_hparams(str(cfg_path), "chip_cli", ckpt_root=ckpt_root)
-    step_clock = _Clock(torch, Trainer, "train_step")
-    val_clock = _Clock(torch, Trainer, "validate")
-    save_clock = _Clock(torch, Trainer, "save_checkpoint")
     for fn in (tr.diffnet_train_fwd, tr.diffnet_train_bwd, ds.diffnet_stack, mrf.mrf_stage):
         fn.launches = 0
-    t0 = time.perf_counter()
-    with step_clock.patch, val_clock.patch, save_clock.patch:
-        trainer = cli.train(hp, device=device)
-    train_s = time.perf_counter() - t0
+    trainer = cli.train(hp, device=device)
     launches = {"diffnet_train_fwd": tr.diffnet_train_fwd.launches,
                 "diffnet_train_bwd": tr.diffnet_train_bwd.launches}
     work = Path(hp["work_dir"])
@@ -2501,9 +2121,7 @@ def phase_cli(torch, ds, mrf, tr, card: str, out_dir: Path):
     # 4. a fresh Trainer restores step 20 bit for bit: params and AdamW moments
     _, task_r = cli._build(hp, device)
     fresh = Trainer(hp, task_r, device=device)
-    t0 = time.perf_counter()
     fresh.initialize()
-    restore_s = time.perf_counter() - t0
     raw = torch.load(ckpt20, map_location="cpu", weights_only=False)
     sd = task_r.state_dict()
     params_equal = all(torch.equal(sd[k].cpu(), v) for k, v in raw["state_dict"]["model"].items())
@@ -2538,23 +2156,14 @@ def phase_cli(torch, ds, mrf, tr, card: str, out_dir: Path):
         launches[k] += resume_launches[k]
 
     # the training kernels at this path's own shapes, against their plain twins
-    batch, fit_vs_plain = fit_batches_vs_plain(torch, tr, trainer, hp_resume, step_agrees)
-    # one more step on the largest batch, profiled, to set beside the train
-    # phase's synthetic 24 x 1024 step
-    trainer.train_step(batch)
-    fit_profile = phase_profile(torch, lambda: trainer.train_step(batch), out_dir, "cli_fit")
-    fit_profile["batch_shape"] = list(batch["mels"].shape)
-    del trainer, batch
+    fit_vs_plain = fit_batches_vs_plain(torch, tr, trainer, hp_resume, step_agrees)
+    del trainer
 
     # 6. --infer on the test split
     hp_inf = set_hparams(str(cfg_path), "chip_cli", infer=True, ckpt_root=ckpt_root)
     ds.diffnet_stack.launches = mrf.mrf_stage.launches = 0
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
     with _Tee() as tee:
         gen_dir = Path(cli.infer(hp_inf, device=device))
-    torch.cuda.synchronize()
-    infer_s = time.perf_counter() - t0
     rtf_line = [ln for ln in tee.text.splitlines() if "RTF" in ln]
     where = torch.cuda.get_device_name(0)
     if not (rtf_line and rtf_line[-1].endswith(f"on {where}")):
@@ -2563,7 +2172,7 @@ def phase_cli(torch, ds, mrf, tr, card: str, out_dir: Path):
     if not gen_dir.name.startswith(f"generated_{CLI_RESUME_STEPS}_"):
         raise AssertionError(f"cli: --infer wrote {gen_dir}: not from the step-30 checkpoint")
     test_items = IndexedDataset(str(binary / "test"))
-    audio_s, names = 0.0, []
+    names = []
     for i in range(len(test_items)):
         it = test_items[i]
         names.append(it["item_name"])
@@ -2575,8 +2184,6 @@ def phase_cli(torch, ds, mrf, tr, card: str, out_dir: Path):
             sr, wav = wavfile.read(gen_dir / "wavs" / f"{kind}_{it['item_name']}.wav")
             if sr != 22050 or wav.shape != (t_mel * 256,):
                 raise AssertionError(f"cli: {kind} wav {wav.shape} at {sr} Hz for {t_mel} frames")
-            if kind == "P":
-                audio_s += len(wav) / sr
     test_items.close()
     k_step = int(hp_inf["K_step"])
     if (launches["diffnet_stack"] != k_step * CLI_TEST
@@ -2585,27 +2192,18 @@ def phase_cli(torch, ds, mrf, tr, card: str, out_dir: Path):
                              "test utterance and 3 MRF a vocoder call (P and G)")
 
     # 7. the first test utterance again, kernels and plain twins
-    infer_vs_plain, infer_profile = utterance_vs_plain(torch, ds, mrf, hp_inf, gen_dir,
-                                                       out_dir, "cli_infer")
+    infer_vs_plain = utterance_vs_plain(torch, ds, mrf, hp_inf, gen_dir)
 
     out = {
         "card": card, "config": "configs/lj/ds_beta6.yaml as shipped (cwt pitch, full width) "
                                 "with the bf16 stack, ground-truth durations and F0 at --infer",
-        "corpus_s": corpus_s, "binarize_s": binarize_s, "items": got,
-        "frames_train_and_test": frames, "voiced_share_min": voiced_min,
-        "f0_hz_range": [f0_lo, f0_hi],
-        "train_s": train_s, "steps": CLI_STEPS, "resumed_to": CLI_RESUME_STEPS,
-        "fit_step_ms_median": float(np.median(step_clock.times)) * 1e3,
-        "fit_step_ms": [x * 1e3 for x in step_clock.times],
-        "fit_kernel_vs_plain": fit_vs_plain,
-        "validation_s": val_clock.times, "checkpoint_bytes": ckpt20.stat().st_size,
-        "checkpoint_save_s": save_clock.times, "checkpoint_restore_s": restore_s,
+        "items": got, "frames_train_and_test": frames, "voiced_share_min": voiced_min,
+        "f0_hz_range": [f0_lo, f0_hi], "steps": CLI_STEPS, "resumed_to": CLI_RESUME_STEPS,
+        "fit_kernel_vs_plain": fit_vs_plain, "checkpoint_bytes": ckpt20.stat().st_size,
         "last_train_loss": [sc for _, k, sc in history if k == "train"][-1],
         "last_val_loss": [sc for _, k, sc in history if k == "val"][-1],
-        "infer_s": infer_s, "audio_s": audio_s, "rtf": audio_s / infer_s,
         "infer_rtf_line": rtf_line[-1],
         "test_items": names, "launches": launches, "infer_kernel_vs_plain": infer_vs_plain,
-        "fit_step_profile": fit_profile, "infer_utterance_profile": infer_profile,
     }
     print("cli", json.dumps(out), flush=True)
     if not all(c["agrees"] for c in fit_vs_plain.values()):
@@ -2659,10 +2257,8 @@ def phase_cli_cascade(torch, ds, mrf, tr, card: str, out_dir: Path):
                                       "fs2_ckpt": fs2_dir}))
     for fn in (tr.diffnet_train_fwd, tr.diffnet_train_bwd, ds.diffnet_stack, mrf.mrf_stage):
         fn.launches = 0
-    t0 = time.perf_counter()
     hp_fs2 = set_hparams(str(fs2_cfg), "cascade_fs2", ckpt_root=ckpt_root)
     fs2_trainer = cli.train(hp_fs2, device="cuda")
-    fs2_s = time.perf_counter() - t0
     fs2_launches = {"diffnet_train_fwd": tr.diffnet_train_fwd.launches,
                     "diffnet_train_bwd": tr.diffnet_train_bwd.launches}
     fs2_hist = fs2_trainer.history
@@ -2673,11 +2269,9 @@ def phase_cli_cascade(torch, ds, mrf, tr, card: str, out_dir: Path):
     fs2_saved = load_torch_state_dict(fs2_ckpt_path)
     del fs2_trainer
 
-    t0 = time.perf_counter()
     hp_ds = set_hparams(str(ds_cfg), "cascade_ds", ckpt_root=ckpt_root)
     with _Tee() as tee:
         ds_trainer = cli.train(hp_ds, device="cuda")
-    ds_s = time.perf_counter() - t0
     task = ds_trainer.task
     n_fs2 = len(task.fs2.state_dict())
     warm = [ln for ln in tee.text.splitlines() if "warm-started fs2" in ln]
@@ -2692,25 +2286,22 @@ def phase_cli_cascade(torch, ds, mrf, tr, card: str, out_dir: Path):
     ds_hist = ds_trainer.history
     # the float32 training kernels at this run's own shapes, against their
     # plain twins by the float32 criterion
-    _, fit_vs_plain = fit_batches_vs_plain(torch, tr, ds_trainer, hp_ds, step_agrees_f32)
+    fit_vs_plain = fit_batches_vs_plain(torch, tr, ds_trainer, hp_ds, step_agrees_f32)
     del ds_trainer, task
 
     # --infer of both runs on the test split
     infer = {}
     for name, cfg in (("cascade_fs2", fs2_cfg), ("cascade_ds", ds_cfg)):
         ds.diffnet_stack.launches = mrf.mrf_stage.launches = 0
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
         gen_dir = Path(cli.infer(set_hparams(str(cfg), name, infer=True, ckpt_root=ckpt_root),
                                  device="cuda"))
-        torch.cuda.synchronize()
-        infer[name] = {"gen_dir": str(gen_dir), "s": time.perf_counter() - t0,
+        infer[name] = {"gen_dir": str(gen_dir),
                        "launches": {"diffnet_stack": ds.diffnet_stack.launches,
                                     "mrf_stage": mrf.mrf_stage.launches}}
     # the first test utterance of each --infer at its B = 1 shape, kernels
     # (the float32 stack, the MRF) against the plain twins
     for name, cfg in (("cascade_fs2", fs2_cfg), ("cascade_ds", ds_cfg)):
-        infer[name]["kernel_vs_plain"], _ = utterance_vs_plain(
+        infer[name]["kernel_vs_plain"] = utterance_vs_plain(
             torch, ds, mrf, set_hparams(str(cfg), name, infer=True, ckpt_root=ckpt_root),
             Path(infer[name]["gen_dir"]))
     test_items = IndexedDataset(str(root / "binary" / "test"))
@@ -2731,7 +2322,7 @@ def phase_cli_cascade(torch, ds, mrf, tr, card: str, out_dir: Path):
                 "mrf_stage": sum(r["launches"]["mrf_stage"] for r in infer.values())}
     out = {"card": card, "fs2_config": "configs/lj/fs2.yaml",
            "ds_config": "configs/lj/ds_beta6.yaml (float32, fs2_ckpt = the FS2 run)",
-           "fs2_train_s": fs2_s, "ds_train_s": ds_s, "fs2_steps": CASCADE_FS2_STEPS,
+           "fs2_steps": CASCADE_FS2_STEPS,
            "ds_steps": CASCADE_DS_STEPS, "warm_start_line": warm, "fs2_tensors": n_fs2,
            "fs2_trainable": trainable, "fs2_frozen_count": len(frozen),
            "frozen_kept": frozen_kept, "predictors_moved": preds_moved,
@@ -2867,20 +2458,15 @@ def phase_serve_web(torch, ds, mrf, card: str, out_dir: Path):
     app = SVSWebApp(core)
     port = app.start("127.0.0.1", 0)
     try:
-        t0 = time.perf_counter()
         direct = [core.greet(*s) for s in WEB_DEMO]   # warm-up, and the reference bodies
-        torch.cuda.synchronize()
-        warm_s = time.perf_counter() - t0
         payloads = [json.dumps(dict(zip(("text", "notes", "notes_duration"), s))).encode()
                     for s in WEB_DEMO]
         ds.diffnet_stack.launches = 0
         mrf.mrf_stage.launches = 0
         requests = []
         for payload in payloads:
-            t0 = time.perf_counter()
             status, ctype, body = _post(port, payload)
-            requests.append({"status": status, "ctype": ctype, "body": body,
-                             "wall_ms": (time.perf_counter() - t0) * 1e3})
+            requests.append({"status": status, "ctype": ctype, "body": body})
         launches = {"diffnet_stack": ds.diffnet_stack.launches,
                     "mrf_stage": mrf.mrf_stage.launches}
         results = [None, None]
@@ -2912,9 +2498,7 @@ def phase_serve_web(torch, ds, mrf, card: str, out_dir: Path):
               and int.from_bytes(body[34:36], "little") == 16 and dsr == sr
               and (len(body) - 44) // 2 == len(wav))
         lsb.append(_lsb(body, wav) if ok else 1 << 16)
-        audio_s = len(wav) / sr
-        rows.append({**r, "format_ok": ok, "samples": len(wav), "audio_s": audio_s,
-                     "rtf": r["wall_ms"] / 1e3 / audio_s, "max_lsb_vs_greet": lsb[-1],
+        rows.append({**r, "format_ok": ok, "samples": len(wav), "max_lsb_vs_greet": lsb[-1],
                      "bit_equal": body == wav_bytes(wav, sr)})
     concurrent_lsb = [_lsb(r[2], direct[0][1]) if r and r[0] == 200 else 1 << 16
                       for r in results]
@@ -2939,15 +2523,10 @@ def phase_serve_web(torch, ds, mrf, card: str, out_dir: Path):
     rand_ini = torch.rand((1, 1, 9), device="cuda", generator=gen)
     rand_ini[:, :, 0] = 0.0
     src = torch.randn((1, t_b * SING_HOP, 9), device="cuda", generator=gen)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
     wav_f = infer.forward_model(item, noise=noise, source=(rand_ini, src))
-    t_fused = time.perf_counter() - t0
     t_pad = pad_frames(n, hp)
-    t0 = time.perf_counter()
     wav_u = unfused.forward_model(item, noise=noise[:, :, :t_mel],
                                   source=(rand_ini, src[:, : t_pad * SING_HOP]))
-    t_unfused = time.perf_counter() - t0
     edge = 16 * SING_HOP   # the vocoder's reach into the padding, in samples
     inner = slice(0, max(len(wav_f) - edge, 0))
     scale = float(np.abs(wav_f).max())
@@ -2964,13 +2543,12 @@ def phase_serve_web(torch, ds, mrf, card: str, out_dir: Path):
                                             / np.linalg.norm(wav_f[inner]))
         if len(wav_f) == len(wav_u) else None,
         "diff_by_frame": np.abs(wav_f - wav_u).reshape(-1, SING_HOP).max(1).round(5).tolist()
-        if len(wav_f) == len(wav_u) else None,
-        "fused_s": t_fused, "unfused_s": t_unfused}
+        if len(wav_f) == len(wav_u) else None}
 
     per_req = {k: v / len(WEB_DEMO) for k, v in launches.items()}
     out = {"card": card, "config": "configs/opencpop/ds1000.yaml as shipped (float32 stack, "
                                    "PLMS-25, PE, NSF-HiFiGAN 8/8/2), seeded checkpoints on disk",
-           "warmup_s": warm_s, "requests": rows, "launches": launches,
+           "requests": rows, "launches": launches,
            "launches_per_request": per_req,
            "bodies_vs_greet": "bit-equal" if all(r["bit_equal"] for r in rows)
            else f"within {max(lsb)} LSB",
@@ -3029,7 +2607,8 @@ def phase_vocoders(torch, mrf, card: str, out_dir: Path):
     """(a) ``vocoder_compute_dtype: bfloat16``: HiFiGAN v1 on the LJ 8 x 1024
     mel batch and NSF-HiFiGAN (8/8/2) on the singing 8 x 1024 batch, the MRF
     scales on the kernel's bf16 body, each against the same module on its
-    plain twins and timed beside its float32 twin; (b) a ``resblock: '2'``
+    plain twins, its distance from the float32 module printed beside it;
+    (b) a ``resblock: '2'``
     generator at HiFiGAN v3's widths from a written checkpoint, card against
     CPU; (c) ParallelWaveGAN at its default widths from a written official
     release (.pkl + stats.npy), ``spec2wav`` of one 1024-frame mel, card
@@ -3097,21 +2676,17 @@ def phase_vocoders(torch, mrf, card: str, out_dir: Path):
     # the main path: every vocoder once, the MRF kernel's launches counted
     mrf.mrf_stage.launches = 0
     with torch.no_grad():
-        torch.cuda.synchronize()
         main = {name: vocs[name][0].apply(mels[name], **kw[name]) for name in vocs}
         wav_v3 = v3.apply(mel_v3)
         wav_pwg = pwg.spec2wav(mel_pwg, z=z)
-        torch.cuda.synchronize()
     launches = {"mrf_stage": mrf.mrf_stage.launches}
 
     out = {"card": card, "launches": launches, "bf16": {}}
     for name, (bf, f32) in vocs.items():
-        with torch.no_grad(), mock.patch.object(mrf, "mrf_stage", mrf.mrf_stage_plain):
+        with torch.no_grad(), plain_twins(mrf=mrf):
             plain = bf.apply(mels[name], **kw[name])
         got = main[name]
         scale = plain.abs().max().item()
-        ms = cuda_ms(lambda: bf.apply(mels[name], **kw[name]), 3)
-        ms32 = cuda_ms(lambda: f32.apply(mels[name], **kw[name]), 3)
         with torch.no_grad():
             wav32 = f32.apply(mels[name], **kw[name])
         out["bf16"][name] = {
@@ -3121,8 +2696,7 @@ def phase_vocoders(torch, mrf, card: str, out_dir: Path):
             # bf16 rounding, phase_mrf's rule, on the waveform's own scale (a
             # tanh output, below 1)
             "kernel_vs_plain_tolerance": 1e-2 * scale,
-            "vs_float32_max_abs_diff": (got - wav32).abs().max().item(),
-            "ms": ms, "float32_ms": ms32}
+            "vs_float32_max_abs_diff": (got - wav32).abs().max().item()}
     with torch.no_grad():
         wav_v3_cpu = v3_cpu.apply(mel_v3.cpu())
     v3_scale = wav_v3_cpu.abs().max().item()
@@ -3131,21 +2705,14 @@ def phase_vocoders(torch, mrf, card: str, out_dir: Path):
                  "B": 2, "T_mel": 1024, "finite": bool(torch.isfinite(wav_v3).all()),
                  "wav_scale": v3_scale,
                  "card_vs_cpu_max_abs_diff": (wav_v3.cpu() - wav_v3_cpu).abs().max().item(),
-                 "tolerance": 1e-4 * max(v3_scale, 1.0),
-                 "ms": cuda_ms(lambda: v3.apply(mel_v3), 5)}
+                 "tolerance": 1e-4 * max(v3_scale, 1.0)}
     wav_pwg_cpu = pwg_cpu.spec2wav(mel_pwg, z=z)
     pwg_scale = float(np.abs(wav_pwg_cpu).max())
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(3):
-        pwg.spec2wav(mel_pwg, z=z)
-    torch.cuda.synchronize()
     out["pwg"] = {"config": "PWGConfig defaults: 30 layers, 3 stacks, 64/128/64 channels, "
                             "upsample 4^4", "T_mel": 1024, "samples": len(wav_pwg),
                   "finite": bool(np.isfinite(wav_pwg).all()), "wav_scale": pwg_scale,
                   "card_vs_cpu_max_abs_diff": float(np.abs(wav_pwg - wav_pwg_cpu).max()),
-                  "tolerance": 1e-4 * max(pwg_scale, 1.0),
-                  "spec2wav_ms": (time.perf_counter() - t0) / 3 * 1e3}
+                  "tolerance": 1e-4 * max(pwg_scale, 1.0)}
     print("vocoders", json.dumps(out), flush=True)
     if launches != {"mrf_stage": 3 + 2}:
         raise AssertionError(f"vocoders: bf16 MRF launches {launches}, expected 3 (LJ) + 2 "
@@ -3243,10 +2810,10 @@ def build_crf_synth(torch, seed: int = 0):
     return hp, FusedSynthesizer(hp, task, voc)  # the card
 
 
-def phase_crf(torch, ds, mrf, tr, card: str, out_dir: Path, steps: int = 5):
-    """``dur_loss: crf`` with configs/lj/ds_beta6.yaml: five float32 training
-    steps on the cwt batch at 24 x 1024 (the training kernels). The first
-    step: on 2 rows against the same step on the CPU in float64 by
+def phase_crf(torch, ds, mrf, tr, card: str):
+    """``dur_loss: crf`` with configs/lj/ds_beta6.yaml: two float32
+    training steps on the cwt batch at 24 x 1024 (the training kernels). The
+    first step: on 2 rows against the same step on the CPU in float64 by
     ``train_fs2``'s criterion for the FS2 side (the CRF head and the other
     predictors, which the denoiser does not reach; the losses all), and the
     training kernels against their plain twins by ``step_vs_plain`` and
@@ -3278,12 +2845,9 @@ def phase_crf(torch, ds, mrf, tr, card: str, out_dir: Path, steps: int = 5):
         vs_cpu = card_vs_cpu_step(torch, hp, trainer, batch, 80, rows=rows, draws=(t, noise),
                                   judged=lambda n: n.startswith("fs2."))
     vs_plain = step_vs_plain(torch, tr, trainer, batch, int(hp["K_step"]))
-    trainer.train_step(batch)  # warm
-    timed, history = timed_steps(torch, tr, trainer, batch, steps)
-    med_ms = float(np.median(timed["step_ms"]))
+    ran, history = run_steps(tr, trainer, batch, STEPS)
     train = {"config": "configs/lj/ds_beta6.yaml, dur_loss: crf (cwt pitch, float32 stack)",
-             "B": 24, "T_mel": 1024, "steps": steps, **timed, "ms_per_step_median": med_ms,
-             "mel_frames_per_s": 24 * 1024 / (med_ms / 1e3), "first_loss": history[0],
+             "B": 24, "T_mel": 1024, "steps": STEPS, **ran, "first_loss": history[0],
              "last_loss": history[-1], "card_vs_cpu_rows": rows, "card_vs_cpu": vs_cpu,
              "kernel_vs_plain": vs_plain}
     del trainer, batch
@@ -3295,14 +2859,9 @@ def phase_crf(torch, ds, mrf, tr, card: str, out_dir: Path, steps: int = 5):
     syn.warmup([1024], batch_sizes=(8,))
     ds.diffnet_stack.launches = 0
     mrf.mrf_stage.launches = 0
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
     wavs = syn.synthesize_many(big)
-    torch.cuda.synchronize()
-    t_batch = time.perf_counter() - t0
     launches = {"diffnet_stack": ds.diffnet_stack.launches, "mrf_stage": mrf.mrf_stage.launches,
-                "diffnet_train_fwd": timed["launches"]["diffnet_train_fwd"],
-                "diffnet_train_bwd": timed["launches"]["diffnet_train_bwd"]}
+                **ran["launches"]}
     # the decode the batch ran, on the card and on the CPU
     tokens = torch.from_numpy(np.concatenate([b["txt_tokens"] for b, _ in big]))
     (t_b, _, _), = syn.plan(big)
@@ -3320,8 +2879,7 @@ def phase_crf(torch, ds, mrf, tr, card: str, out_dir: Path, steps: int = 5):
     dur, dur_cpu = ret["dur_choice"].cpu(), ret_cpu["dur_choice"]
     log_z = log_z.cpu().double()
     frames = [int(m) for m in (ret["mel2ph"] > 0).sum(1).cpu()]
-    serve = {"B": 8, "T_txt": 128, "T_mel": 1024, "latency_s": t_batch,
-             "mel_frames_per_s": sum(frames) / t_batch, "frames": frames,
+    serve = {"B": 8, "T_txt": 128, "T_mel": 1024, "frames": frames,
              "dur_choice_equal_cpu": bool(torch.equal(dur, dur_cpu)),
              "dur_choice_differs_at": int((dur != dur_cpu).sum()),
              "dur_mean": float(dur.float().mean()), "dur_range": [int(dur.min()), int(dur.max())],
@@ -3335,8 +2893,8 @@ def phase_crf(torch, ds, mrf, tr, card: str, out_dir: Path, steps: int = 5):
     if {k: launches[k] for k in ("diffnet_stack", "mrf_stage")} != {"diffnet_stack": k_step,
                                                                      "mrf_stage": 3}:
         raise AssertionError(f"crf: serving launches {launches}, expected {k_step} / 3")
-    if timed["launches"] != {"diffnet_train_fwd": steps, "diffnet_train_bwd": steps}:
-        raise AssertionError(f"crf: training launches {timed['launches']}")
+    if ran["launches"] != {"diffnet_train_fwd": STEPS, "diffnet_train_bwd": STEPS}:
+        raise AssertionError(f"crf: training launches {ran['launches']}")
     if not ({"pdur", "mel"} <= set(history[0]) and not {"wdur", "sdur"} & set(history[0])):
         raise AssertionError(f"crf: loss terms {sorted(history[0])}")
     if not all(np.isfinite(v) for h in history for v in h.values()):
@@ -3416,10 +2974,8 @@ def voc_card_vs_cpu(torch, task, hp, mel, wav, rows: int = 4) -> dict:
     cpu = HifiGanTask(hp, device="cpu")
     cpu.load_state_dict({k: v.cpu() for k, v in task.state_dict().items()})
     host = mel[:rows].cpu(), wav[:rows].cpu()
-    t0 = time.perf_counter()
     _, dg32, gg32 = cpu.losses_and_grads(*host)
     l64, dg64, gg64 = cpu.to(torch.float64).losses_and_grads(*host)
-    cpu_s = time.perf_counter() - t0
     loss_rel = {k: abs(float(lk[k]) - float(l64[k])) / max(abs(float(l64[k])), 1e-12)
                 for k in l64}
     card, f32, f64 = dg + gg, dg32 + gg32, dg64 + gg64
@@ -3430,15 +2986,15 @@ def voc_card_vs_cpu(torch, task, hp, mel, wav, rows: int = 4) -> dict:
             "grad_l2_vs_cpu64_there": vs64[at], "cpu32_l2_vs_cpu64_there": d32[at],
             "grad_l2_worst_vs_cpu64": _worst(vs64), "cpu32_l2_vs_cpu64_worst": _worst(d32),
             "grad_max_worst_vs_cpu64": _worst(_grad_rel(card, f64, names)),
-            "cpu32_max_vs_cpu64_worst": _worst(_grad_rel(f32, f64, names)), "cpu_s": cpu_s}
+            "cpu32_max_vs_cpu64_worst": _worst(_grad_rel(f32, f64, names))}
 
 
-def phase_vocoder_train(torch, mrf, card: str, out_dir: Path, steps: int = 5):
+def phase_vocoder_train(torch, mrf, card: str, out_dir: Path):
     """HiFi-GAN training (``training/vocoder_task.py:HifiGanTask``) at
     HiFiGAN v1's widths with configs/base.yaml's audio settings, seeded
     weights, MPD periods 2-11 and the 3-scale MSD, on 16 x 32-frame crops of
     a harmonic-tone corpus: the first step's losses and gradients on 4 rows
-    against the CPU in float64, one warm, five timed and one profiled step;
+    against the CPU in float64, then two steps;
     the trained generator served through ``HifiGAN`` on an 8 x 1024 mel batch
     (the float32 MRF kernel: 3 launches) against the plain twins; MelGAN at
     its defaults on a 2 x 1024 mel batch, card against CPU; a PQMF
@@ -3446,7 +3002,6 @@ def phase_vocoder_train(torch, mrf, card: str, out_dir: Path, steps: int = 5):
     import copy
 
     import numpy as np
-    from torch.utils.flop_counter import FlopCounterMode
 
     from diffsinger_tpu_torch.config.hparams import set_hparams
     from diffsinger_tpu_torch.inference.vocoder import HifiGAN
@@ -3456,9 +3011,7 @@ def phase_vocoder_train(torch, mrf, card: str, out_dir: Path, steps: int = 5):
 
     base = set_hparams(str(ROOT / "configs" / "base.yaml"))
     hp = {k: base[k] for k in VOC_AUDIO_KEYS}
-    t0 = time.perf_counter()
     task = HifiGanTask(hp, generator=torch.Generator().manual_seed(0))
-    init_s = time.perf_counter() - t0
     cfg = task.gen_cfg
     if (cfg.upsample_initial_channel, cfg.upsample_rates, cfg.resblock,
             len(task.mpd.discriminators), len(task.msd.discriminators)) != (
@@ -3467,36 +3020,14 @@ def phase_vocoder_train(torch, mrf, card: str, out_dir: Path, steps: int = 5):
     mel, wav = voc_train_batch(torch, hp, out_dir / "vocoder_train", task.device)
     vs_cpu = voc_card_vs_cpu(torch, task, hp, mel, wav)
 
-    task.train_step(mel, wav)   # warm
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    step_ms, history = [], []
-    for _ in range(steps):
-        t0 = time.perf_counter()
-        logs = task.train_step(mel, wav)
-        torch.cuda.synchronize()
-        step_ms.append((time.perf_counter() - t0) * 1e3)
-        history.append({k: float(v) for k, v in logs.items()})
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    # the step's operations from its shapes (torch's count of every
-    # convolution and product, forward and backward)
-    with FlopCounterMode(display=False) as flops:
-        task.train_step(mel, wav)
-    step_flop = flops.get_total_flops()
-    profile = phase_profile(torch, lambda: task.train_step(mel, wav), out_dir, "vocoder_train")
-    med_ms = float(np.median(step_ms))
-    audio_s = VOC_BATCH * VOC_FRAMES * cfg.total_upsample / cfg.audio_sample_rate
+    history = [{k: float(v) for k, v in task.train_step(mel, wav).items()}
+               for _ in range(STEPS)]
     train = {"config": "HiFiGAN v1 (512 ch, 8/8/2/2, k 16/16/4/4, resblock 1: 3/7/11 x "
                        "1/3/5), MPD 2/3/5/7/11, MSD x3, configs/base.yaml audio, lr 2e-4, "
                        "betas 0.8/0.99, float32 (TF32 off)",
              "B": VOC_BATCH, "segment_samples": VOC_FRAMES * cfg.total_upsample,
-             "init_s": init_s, "steps": steps, "step_ms": step_ms,
-             "ms_per_step_median": med_ms, "ms_per_step_range": [min(step_ms), max(step_ms)],
-             "audio_s_per_s": audio_s / (med_ms / 1e3), "peak_mem_gb": peak_gb,
-             "step_tflop": step_flop / 1e12, "tflops": step_flop / (med_ms / 1e3) / 1e12,
-             "bound_fma_ms": step_flop / H100_F32_FLOPS * 1e3,
-             "device_idle_share": 1 - profile["device_busy_share"],
-             "first_logs": history[0], "last_logs": history[-1], "card_vs_cpu": vs_cpu}
+             "steps": STEPS, "first_logs": history[0], "last_logs": history[-1],
+             "card_vs_cpu": vs_cpu}
 
     # the trained generator serves through the MRF kernel
     voc = HifiGAN(hp)
@@ -3505,18 +3036,15 @@ def phase_vocoder_train(torch, mrf, card: str, out_dir: Path, steps: int = 5):
     serve_mel = _voc_mel(torch, *VOC_SERVE, 13)
     mrf.mrf_stage.launches = 0
     with torch.no_grad():
-        torch.cuda.synchronize()
         got = voc.apply(serve_mel)
-        torch.cuda.synchronize()
     launches = {"mrf_stage": mrf.mrf_stage.launches}
-    with torch.no_grad(), mock.patch.object(mrf, "mrf_stage", mrf.mrf_stage_plain):
+    with torch.no_grad(), plain_twins(mrf=mrf):
         plain = voc.apply(serve_mel)
     wav_scale = plain.abs().max().item()
     serve = {"B": VOC_SERVE[0], "T_mel": VOC_SERVE[1], "samples": int(got.shape[1]),
              "finite": bool(torch.isfinite(got).all()), "wav_scale": wav_scale,
              "kernel_vs_plain_max_abs_diff": (got - plain).abs().max().item(),
-             "tolerance": 1e-4 * max(wav_scale, 1.0),
-             "ms": cuda_ms(lambda: voc.apply(serve_mel), 3)}
+             "tolerance": 1e-4 * max(wav_scale, 1.0)}
     del voc
 
     # MelGAN at its defaults, card against CPU
@@ -3534,8 +3062,6 @@ def phase_vocoder_train(torch, mrf, card: str, out_dir: Path, steps: int = 5):
               "finite": bool(torch.isfinite(mg_wav).all()), "wav_scale": mg_scale,
               "card_vs_cpu_max_abs_diff": (mg_wav.cpu() - mg_wav_cpu).abs().max().item(),
               "tolerance": 1e-4 * max(mg_scale, 1.0)}
-    with torch.no_grad():
-        melgan["ms"] = cuda_ms(lambda: mg(mg_mel), 3)
     del mg, mg_cpu
 
     # PQMF: analysis -> synthesis of the batch's waveforms, aligned by the
@@ -3547,10 +3073,9 @@ def phase_vocoder_train(torch, mrf, card: str, out_dir: Path, steps: int = 5):
     delay = int(errs.argmin())
     pqmf = {"subbands": 4, "taps": 62, "B": VOC_BATCH, "samples": n,
             "bands_shape": list(pq.analysis(wav).shape), "delay": delay,
-            "mean_abs_err": float(errs[delay]), "mean_abs_level": float(wav.abs().mean()),
-            "ms": cuda_ms(lambda: pq.synthesis(pq.analysis(wav)), 10)}
+            "mean_abs_err": float(errs[delay]), "mean_abs_level": float(wav.abs().mean())}
 
-    out = {"card": card, "train": train, "train_profile": profile, "serve": serve,
+    out = {"card": card, "train": train, "serve": serve,
            "melgan": melgan, "pqmf": pqmf, "launches": launches}
     print("vocoder_train", json.dumps(out), flush=True)
     if set(history[0]) != {"d_loss", "g_loss", "mel", "fm", "adv"} or not all(
@@ -3627,35 +3152,30 @@ def _par_compare(ref: dict, run: dict, init: dict) -> dict:
                    and grads[worst] <= PAR_GRAD_REL_L2 and upd <= PAR_UPDATE_REL_L2)}
 
 
-def phase_parallel(torch, card: str, out_dir: Path, shipped: dict, trained: dict,
-                   device: str = "cuda:0", one_rank_backend: str = "nccl"):
+def phase_parallel(torch, card: str, out_dir: Path, device: str = "cuda:0",
+                   one_rank_backend: str = "nccl"):
     """Data and tensor parallelism on one card, configs/lj/ds_beta6.yaml as
     shipped (float32, cwt, the 3xTF32 training kernels) on the train_shipped
     batch (24 x 1024), seeded weights and draws (dropout on):
       (a) NCCL with one rank on cuda:0: three steps of the mesh trainer
-          against the plain trainer from the same weights and generator; the
-          step's ms and the all-reduces' share of it;
+          against the plain trainer from the same weights and generator;
       (b) two processes sharing the card: NCCL's refusal of two ranks on one
           device, then gloo (tensors staged through the host): dp=2 on 2 x 12
           rows and on a 23-row batch (padded to 24), and tp=2, each against
           the one-process run on the same global batch (first step's summed
           gradients, every step's loss); tp=2's resident bytes for the
-          sharded parameters and their moments against tp=1, peak memory;
+          sharded parameters and their moments against tp=1;
       (c) DP serving on two processes: the shipped LJ 8 x 1024 batch
           (float32 stack) as 4 rows a rank against one process, waveforms
-          within 1e-4 of their scale, 71 stack and 3 MRF launches a rank;
-      (d) MFU of the serve_shipped LJ batch and the train_shipped step by
-          ops/flops.py.
-    These runs hold the semantics and measure the collectives' cost on one
-    card; they do not measure scaling. ``device`` and ``one_rank_backend``
-    let a rehearsal run the phase on the CPU with gloo."""
+          within 1e-4 of their scale, 71 stack and 3 MRF launches a rank.
+    These runs hold the semantics on one card; they do not measure scaling.
+    ``device`` and ``one_rank_backend`` let a rehearsal run the phase on the
+    CPU with gloo."""
     import datetime
 
     import numpy as np
     import torch.distributed as dist
 
-    from diffsinger_tpu_torch.ops import flops as F
-    from diffsinger_tpu_torch.parallel import mesh as pm
     from diffsinger_tpu_torch.parallel.mesh import pad_batch_for_sharding, param_shardings
     from diffsinger_tpu_torch.tools import mesh_check as mc
 
@@ -3690,26 +3210,9 @@ def phase_parallel(torch, card: str, out_dir: Path, shipped: dict, trained: dict
                             init_method=f"tcp://localhost:{mc.free_port()}",
                             world_size=1, rank=0, timeout=datetime.timedelta(seconds=300))
     try:
-        calls = []
-        reduce = pm.Mesh._reduce
-
-        def counted(self, t, group, op):
-            calls.append(t.numel())
-            return reduce(self, t, group, op)
-
-        with mock.patch.object(pm.Mesh, "_reduce", counted):
-            one = mc.train(0, 1, dict(base, batch=batch))
-        per_step = len(calls) // (PAR_STEPS + 1)  # the steps and the first gradient
-        mesh = pm.make_mesh()
-        flat = torch.zeros(max(calls), device=device)
-        scalar = torch.zeros(1, device=device)
-        timer = cuda_ms if device.startswith("cuda") else host_ms
-        flat_ms = timer(lambda: mesh.data_sum(flat), 20)
-        scalar_ms = timer(lambda: mesh.data_sum(scalar), 50)
+        one = mc.train(0, 1, dict(base, batch=batch))
     finally:
         dist.destroy_process_group()
-    step_ms = float(np.median(one["step_ms"][1:]))
-    allreduce_ms = flat_ms + (per_step - 1) * scalar_ms
     vs = _par_compare(ref, one, init)
     keys = ("loss_rel", "grad_rel_l2_worst", "param_max_abs_diff", "update_rel_l2")
     out["nccl_one_rank"] = {
@@ -3717,12 +3220,7 @@ def phase_parallel(torch, card: str, out_dir: Path, shipped: dict, trained: dict
         "grad_worst_param": vs["grad_worst_param"],
         "plain_repeat": {k: repeat[k] for k in keys},
         "loss_rtol": PAR_ONE_RANK_RTOL, "grad_limit": PAR_ONE_RANK_GRAD_REL_L2,
-        "update_limit": PAR_ONE_RANK_UPDATE_REL_L2,
-        "step_ms": one["step_ms"],
-        "plain_step_ms": ref["step_ms"], "step_ms_median": step_ms,
-        "all_reduces_per_step": per_step, "flat_all_reduce_elements": max(calls),
-        "flat_all_reduce_ms": flat_ms, "scalar_all_reduce_ms": scalar_ms,
-        "all_reduce_share": allreduce_ms / step_ms, "launches": one["launches"]}
+        "update_limit": PAR_ONE_RANK_UPDATE_REL_L2, "launches": one["launches"]}
     print("parallel_nccl", json.dumps(out["nccl_one_rank"]), flush=True)
     if not (max(vs["loss_rel"]) <= PAR_ONE_RANK_RTOL
             and vs["grad_rel_l2_worst"] <= PAR_ONE_RANK_GRAD_REL_L2
@@ -3756,23 +3254,19 @@ def phase_parallel(torch, card: str, out_dir: Path, shipped: dict, trained: dict
              "device": device, "warmup": True, "threads": 4}
     serve_one = mc.serve(0, 1, serve)
     torch.cuda.empty_cache()
-    t0 = time.perf_counter()
     ranks = mc.spawn_ranks(mc.jobs, 2, {"threads": 4, "jobs": [
         ("dp24", "train", dict(base, batch=batch, num_data=2)),
         ("dp23", "train", dict(base, batch=batch23, num_data=2)),
         ("tp2", "train", dict(base, batch=batch, num_data=1, num_model=2,
                               hp=dict(hp, num_model_shards=2), sharded_names=names)),
         ("serve", "serve", serve)]}, backend="gloo", timeout=1200)
-    out["gloo_wall_s"] = time.perf_counter() - t0
     checks = {}
     for key, want in (("dp24", ref), ("dp23", ref23), ("tp2", ref)):
         checks[key] = [dict(_par_compare(want, r[key], init), mesh=r[key]["mesh"],
-                            step_ms=r[key]["step_ms"], launches=r[key]["launches"],
-                            peak_bytes=r[key].get("peak_bytes")) for r in ranks]
+                            launches=r[key]["launches"]) for r in ranks]
     for i, r in enumerate(ranks):
         checks["tp2"][i]["resident_bytes"] = r["tp2"]["resident_bytes"]
     checks["tp1_resident_bytes"] = ref["resident_bytes"]
-    checks["tp1_peak_bytes"] = ref.get("peak_bytes")
     out["gloo"] = {"backend": "gloo (card tensors staged through the host)", **checks}
     print("parallel_gloo", json.dumps(out["gloo"]), flush=True)
 
@@ -3783,24 +3277,8 @@ def phase_parallel(torch, card: str, out_dir: Path, shipped: dict, trained: dict
     out["dp_serving"] = {"backend": "gloo", "rows_per_rank": sb // 2,
                          "wav_max_abs_diff": diffs, "tolerance": 1e-4 * scale,
                          "launches": [r["serve"]["launches"] for r in ranks],
-                         "ms": [r["serve"]["ms"] for r in ranks],
-                         "one_process_ms": serve_one["ms"],
                          "one_process_launches": serve_one["launches"]}
     print("parallel_serving", json.dumps(out["dp_serving"]), flush=True)
-
-    # (d) MFU of the shipped serving batch and training step (ops/flops.py)
-    voc_hp = dict(hp_s, use_nsf=False, use_pitch_embed=False)  # HiFiGAN v1, no NSF
-    serve_flops = F.sampler_flops(hp_s, 8, 128, 1024) + F.hifigan_flops(voc_hp, 8, 1024)
-    train_flops = F.train_step_flops(hp, 24, 128, 1024)  # the train_shipped step
-    serve_s = shipped["lj"]["latency_s"]["batch_8x1024"]
-    train_s = trained["ms_per_step_median"] / 1e3
-    out["mfu"] = {
-        "serving_lj_8x1024": {"flops": serve_flops, "seconds": serve_s,
-                              **{k: F.mfu(serve_flops, serve_s, k) for k in F.PEAK_FLOPS}},
-        "train_shipped_24x1024": {"flops": train_flops, "seconds": train_s,
-                                  **{k: F.mfu(train_flops, train_s, k) for k in F.PEAK_FLOPS}},
-        "card": card}
-    print("parallel_mfu", json.dumps(out["mfu"]), flush=True)
 
     out["launches"] = {k: one["launches"][k] + serve_one["launches"][k] + sum(
         r[j]["launches"][k] for r in ranks for j in ("dp24", "dp23", "tp2", "serve"))
@@ -3852,10 +3330,8 @@ def main() -> int:
     card = card_line()
     print("card:", card, "| torch", torch.__version__, "cuda", torch.version.cuda,
           flush=True)
-    t0 = time.perf_counter()
     built = _build.build()
-    build_s = time.perf_counter() - t0
-    print(f"build: {build_s:.1f} s for {[n for n, _, _ in built]}", flush=True)
+    print(f"build: {[n for n, _, _ in built]}", flush=True)
     for name, secs, log in built:
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
@@ -3863,31 +3339,29 @@ def main() -> int:
 
     stack_rows = phase_stack(torch, ds)
     mrf_rows = phase_mrf(torch, mrf)
-    serving, syn, big = phase_serve(torch, ds, mrf, card)
     out_dir = ROOT / "build" / "chip_smoke"
     out_dir.mkdir(parents=True, exist_ok=True)
-    profile = phase_profile(torch, lambda: syn.synthesize_many(big), out_dir)
-    del syn
-    serving_cwt, cwt_profile = phase_serve_cwt(torch, ds, mrf, card, out_dir)
-    singing, sing_profile = phase_sing(torch, ds, mrf, card, out_dir)
-    shipped = phase_serve_shipped(torch, ds, mrf, card, out_dir)
-    matrix = phase_shipped_matrix(torch, ds, mrf, card, out_dir)
+    serving = phase_serve(torch, ds, mrf, card)
+    serving_cwt = phase_serve_cwt(torch, ds, mrf, card)
+    singing = phase_sing(torch, ds, mrf, card)
+    shipped = phase_serve_shipped(torch, ds, mrf, card)
+    matrix = phase_shipped_matrix(torch, ds, mrf, card)
     wide = phase_wide(torch, ds, mrf, card)
     train_rows = phase_train_stack(torch, tr)
-    training, train_profile = phase_train(torch, tr, card, out_dir)
-    training_cwt, _ = phase_train(torch, tr, card, out_dir, steps=5, cwt=True)
-    training_shipped = phase_train_shipped(torch, tr, card, out_dir)
+    training = phase_train(torch, tr, card)
+    training_cwt = phase_train(torch, tr, card, cwt=True)
+    training_shipped = phase_train_shipped(torch, tr, card)
     training_fs2 = phase_train_fs2(torch, card, out_dir)
-    training_midi = phase_train_midi(torch, tr, card, out_dir,
+    training_midi = phase_train_midi(torch, tr, card,
                                      training_fs2["opencpop_aux_rel"]["checkpoint"])
-    training_pe = phase_train_pe(torch, card, out_dir)
+    training_pe = phase_train_pe(torch, card)
     cli_run = phase_cli(torch, ds, mrf, tr, card, out_dir)
     cascade = phase_cli_cascade(torch, ds, mrf, tr, card, out_dir)
     web = phase_serve_web(torch, ds, mrf, card, out_dir)
     vocoders = phase_vocoders(torch, mrf, card, out_dir)
-    crf = phase_crf(torch, ds, mrf, tr, card, out_dir)
+    crf = phase_crf(torch, ds, mrf, tr, card)
     vocoder_train = phase_vocoder_train(torch, mrf, card, out_dir)
-    parallel = phase_parallel(torch, card, out_dir, shipped, training_shipped)
+    parallel = phase_parallel(torch, card, out_dir)
 
     main_stack = stack_rows[0]                        # bf16, cycle 1: serving config
     # float32, cycle 1, 8 x 1024: the shipped configs' body (serve_shipped)
@@ -4006,12 +3480,10 @@ def main() -> int:
                               "launches_path": "train_midi"},
              "configs": [{k: v for k, v in r.items() if k != "errors"} for r in train_rows]})
     with open(out_dir / "chip_smoke.json", "w") as f:
-        json.dump({"card": card, "build_s": build_s, "kernels": kernels,
-                   "serving": serving, "profile": profile, "serve_cwt": serving_cwt,
-                   "serve_cwt_profile": cwt_profile, "singing": singing,
-                   "sing_profile": sing_profile, "serve_shipped": shipped,
-                   "shipped_matrix": matrix, "wide": wide, "train_stack": train_rows,
-                   "training": training, "train_profile": train_profile,
+        json.dump({"card": card, "kernels": kernels,
+                   "serving": serving, "serve_cwt": serving_cwt, "singing": singing,
+                   "serve_shipped": shipped, "shipped_matrix": matrix, "wide": wide,
+                   "train_stack": train_rows, "training": training,
                    "train_cwt": training_cwt, "train_shipped": training_shipped,
                    "train_fs2": training_fs2, "train_midi": training_midi,
                    "train_pe": training_pe, "cli": cli_run, "cli_cascade": cascade,

@@ -1,5 +1,4 @@
-"""Analytic FLOP counters and MFU accounting (counterpart of
-diffsinger_tpu/ops/flops.py).
+"""Analytic FLOP counters (counterpart of diffsinger_tpu/ops/flops.py).
 
 Counts are matmul and convolution multiply-adds x 2 per call, batch
 included; elementwise work is left out (it is bound by bytes, not
@@ -10,35 +9,9 @@ to the JAX package's on the same hparams and within a band of
 
 from __future__ import annotations
 
-import os
 from typing import Any, Dict
 
 import numpy as np
-
-# Dense peak FLOP/s of one NVIDIA H100 SXM (H100 80GB HBM3) at its full power
-# limit of 700 W, from NVIDIA's data sheet, by the arithmetic a path runs:
-PEAK_FLOPS = {
-    "bf16": 989e12,    # H100 80GB HBM3, 700 W: bf16 tensor cores
-    "tf32": 495e12,    # H100 80GB HBM3, 700 W: TF32 tensor cores
-    # H100 80GB HBM3, 700 W: float32 as 3xTF32 (three TF32 products per
-    # product), what the shipped float32 configs run in the stack kernels
-    "3xtf32": 165e12,
-    "fp32": 67e12,     # H100 80GB HBM3, 700 W: float32 outside the tensor cores
-}
-
-
-def peak_flops(dtype: str = "bf16") -> float:
-    """The peak for ``dtype`` (a key of PEAK_FLOPS); ``GPU_PEAK_TFLOPS``
-    overrides it, e.g. for a card set below 700 W."""
-    env = os.environ.get("GPU_PEAK_TFLOPS")
-    if env:
-        return float(env) * 1e12
-    return PEAK_FLOPS[dtype]
-
-
-def mfu(flops: float, seconds: float, dtype: str = "bf16") -> float:
-    """Achieved FLOP/s over the peak for ``dtype``."""
-    return flops / max(seconds, 1e-12) / peak_flops(dtype)
 
 
 # ---------------------------------------------------------------------------

@@ -2,6 +2,8 @@
 how its kernel wrappers dispatch."""
 
 import ast
+import contextlib
+import sys
 from pathlib import Path
 
 import numpy as np
@@ -184,6 +186,30 @@ def test_wrappers_take_the_plain_twin_on_cpu_and_count_nothing():
     torch.testing.assert_close(got, mrf.mrf_stage_plain(*margs, **kw), rtol=0, atol=0)
     assert ds.diffnet_stack.launches == n_stack
     assert mrf.mrf_stage.launches == n_mrf
+
+
+class _Raised(Exception):
+    pass
+
+
+@pytest.mark.parametrize("raises", [False, True], ids=["exit", "exception"])
+def test_plain_twins_swaps_the_wrappers_and_puts_them_back(raises):
+    """chip_smoke.py's plain_twins: inside the block the stack and MRF
+    entries are their plain twins; after it, on a normal exit and on an
+    exception raised inside it (which reaches the caller), the wrappers are
+    back."""
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke
+
+    stack, stage = ds.diffnet_stack, mrf.mrf_stage
+    with pytest.raises(_Raised) if raises else contextlib.nullcontext():
+        with chip_smoke.plain_twins(ds, mrf):
+            assert ds.diffnet_stack is ds.diffnet_stack_plain
+            assert mrf.mrf_stage is mrf.mrf_stage_plain
+            if raises:
+                raise _Raised
+    assert ds.diffnet_stack is stack and mrf.mrf_stage is stage
+    assert stack is not ds.diffnet_stack_plain and stage is not mrf.mrf_stage_plain
 
 
 def test_kernel_sources_and_build_dir_match_the_build_module():
