@@ -52,12 +52,13 @@ Phases, labelled as in the code below:
      phase; each config is what its YAML says; exactly 101 / 100 stack and 3
      / 2 MRF launches; each batch against the plain twins by phase 5c's rules;
   5e. wide: the openvpi release's widths (benchmark/configs/ds512_44k_cpop.json):
-     the float32 stack at C = 512, cycle 4, at 1 x 432, 8 x 640 and 16 x 1152
-     at each split the card holds: the body, launches and split the library
-     reports, two calls bit-equal, x0 unwritten, 1e-4 of the output's scale
-     (rows carry ms); the float32 MRF at C = 16 by phase 3; the configuration
-     served once: 101 stack launches on the tensor-core body, 4 MRF, the
-     batch against the plain twins by phase 5b's rules;
+     the float32 stack at C = 512, cycle 4, at 1 x 432, 8 x 640 and 16 x 1152,
+     and cycle 5 (d = 16) at 1 x 432, at each split the card holds: the
+     library reports the wgmma body, 20 launches and the split, two calls
+     bit-equal, x0 unwritten, 1e-4 of the output's scale (rows carry ms); the
+     float32 MRF at C = 16 by phase 3; the configuration served once: 101
+     stack launches, every one on the wgmma body, 4 MRF, the batch against
+     the plain twins by phase 5b's rules;
   6. train_stack: diffnet_train forward and backward at 24 x 1024 (bf16 and
      float32, cycles 1 and 4), 3 x 301 with H = 200 (SIMT) and H = 256, 1 x
      1024, 2 x 5, 2 x 100 at d = 16, and float32 24 x 1500 cycle 4: skips,
@@ -874,7 +875,9 @@ def phase_serve_shipped(torch, ds, mrf, card: str):
 # take; the float32 MRF at C = 16, the 44.1 kHz vocoder's fifth scale, at a
 # short batch and at the cell's longest (2 x 1152 frames x hop 512)
 WIDE_CONFIG = ROOT / "benchmark" / "configs" / "ds512_44k_cpop.json"
-WIDE_STACK_SHAPES = ((1, 432), (8, 640), (16, 1152))
+# (B, T, dilation cycle): the cell's batches at cycle 4, and one at cycle 5,
+# whose d = 16 halo only the four-way split holds
+WIDE_STACK_SHAPES = ((1, 432, 4), (8, 640, 4), (16, 1152, 4), (1, 432, 5))
 WIDE_MRF_CASES = [("float32", 16, 2, 4096), ("float32", 16, 2, 1152 * 512)]
 WIDE_FRAMES_PER_PHONE = 17
 
@@ -890,22 +893,23 @@ def build_wide(torch, seed: int = 0):
 
 
 def phase_wide(torch, ds, mrf, card: str):
-    """The C = 512 stack against its plain twin at each split, the float32
-    MRF at C = 16, and ds512_44k_cpop served once: one 8 x 640 batch, its
-    launches (101 stack calls on the tensor-core body, one MRF call a scale
-    of at most 128 channels), and the batch against the plain twins by the
-    singing phases' criteria."""
+    """The C = 512 stack against its plain twin at each split the card
+    holds (the wgmma body), the float32 MRF at C = 16, and ds512_44k_cpop
+    served once: one 8 x 640 batch, its launches (101 stack calls, every one
+    on the wgmma body; one MRF call a scale of at most 128 channels), and the
+    batch against the plain twins by the singing phases' criteria."""
     import numpy as np
 
-    num_layers, c, dil = 20, 512, tuple(2 ** (i % 4) for i in range(20))
+    num_layers, c = 20, 512
     gen = torch.Generator(device="cuda").manual_seed(512)
 
     def rn(*shape, scale=1.0):
         return torch.randn(*shape, generator=gen, device="cuda") * scale
 
-    resident = ds._resident(c, max(dil), torch.cuda.current_device())
     stack_rows = []
-    for b, t in WIDE_STACK_SHAPES:
+    for b, t, cycle in WIDE_STACK_SHAPES:
+        dil = tuple(2 ** (i % cycle) for i in range(num_layers))
+        resident = ds._resident(c, max(dil), torch.cuda.current_device())
         args = (torch.relu(rn(b, t, c)), rn(num_layers, b, c, scale=0.5),
                 rn(num_layers, b, t, 2 * c, scale=0.5),
                 rn(num_layers, 3, c, 2 * c, scale=(3 * c) ** -0.5),
@@ -917,21 +921,21 @@ def phase_wide(torch, ds, mrf, card: str):
         tol = 1e-4 * max(scale, 1.0)   # the f32 stack's tolerance (phase 2)
         rule_k = ds.column_split(b, t, c, resident)
         for k in [j for j in ds.splits_for(c) if resident.get(j, 0) > 0]:
-            what = f"wide stack 1 x {b} x {t} C=512 k={k}"
+            what = f"wide stack {b} x {t} C=512 cycle {cycle} k={k}"
             with mock.patch.object(ds, "column_split", lambda *_, k=k: k):
                 got = ds.diffnet_stack(*args, dilations=dil)
-                ran = (ds.diffnet_stack.ran_tensor_cores, ds.diffnet_stack.device_launches,
+                ran = (ds.diffnet_stack.body, ds.diffnet_stack.device_launches,
                        ds.diffnet_stack.column_split)
                 again = ds.diffnet_stack(*args, dilations=dil)
                 ms = cuda_ms(lambda: ds.diffnet_stack(*args, dilations=dil), 3)
             torch.cuda.synchronize()
             err = (got - want).abs().max().item()
-            row = dict(B=b, T=t, C=c, cycle=4, k=k, rule_k=rule_k, resident=resident,
+            row = dict(B=b, T=t, C=c, cycle=cycle, k=k, rule_k=rule_k, resident=resident,
                        ran=ran, max_abs_err=err, tolerance=tol, out_scale=scale, ms=ms,
                        tflops=num_layers * 8 * b * t * c * 2 * c / ms / 1e9)
             print("wide_stack", json.dumps(row), flush=True)
-            if ran != (True, num_layers, k):
-                raise AssertionError(f"{what}: ran (tensor cores, launches, split) {ran}")
+            if ran != ("wgmma", num_layers, k):
+                raise AssertionError(f"{what}: ran (body, launches, split) {ran}")
             if not torch.equal(got, again) or not torch.equal(args[0], x0_before):
                 raise AssertionError(f"{what}: repeat differs or x0 was written")
             if not err <= tol:
@@ -955,12 +959,16 @@ def phase_wide(torch, ds, mrf, card: str):
             for _ in range(8)]
     syn.synthesize_many(reqs)   # warm
     ds.diffnet_stack.launches = 0
+    ds.diffnet_stack.launches_by_body = {}
     mrf.mrf_stage.launches = 0
     wavs = syn.synthesize_many(reqs)
-    launches = {"diffnet_stack": ds.diffnet_stack.launches, "mrf_stage": mrf.mrf_stage.launches}
-    if launches != {"diffnet_stack": n_calls, "mrf_stage": 4} or n_calls != 101:
-        raise AssertionError(f"wide serve: launches {launches}, expected 101 stack and 4 MRF "
-                             f"(C = 128 / 64 / 32 / 16; {n_calls} denoiser calls)")
+    launches = {"diffnet_stack": ds.diffnet_stack.launches, "mrf_stage": mrf.mrf_stage.launches,
+                "diffnet_stack_by_body": dict(ds.diffnet_stack.launches_by_body)}
+    if launches != {"diffnet_stack": n_calls, "mrf_stage": 4,
+                    "diffnet_stack_by_body": {"wgmma": n_calls}} or n_calls != 101:
+        raise AssertionError(f"wide serve: launches {launches}, expected 101 stack calls, all "
+                             f"on the wgmma body, and 4 MRF (C = 128 / 64 / 32 / 16; "
+                             f"{n_calls} denoiser calls)")
     stack_ran(ds, "wide serve")
     for wav in wavs:
         if wav.shape != (reqs[0][1] * syn.hop,) or not np.isfinite(wav).all():
@@ -3402,6 +3410,12 @@ def main() -> int:
                                                "body", "device_launches")}
          | {"launches": shipped["launches"]["diffnet_stack"],
             "launches_path": "serve_shipped"},
+         # float32 at C = 512: the wgmma body, every call of the wide path
+         "float32_c512": {"body": "wgmma",
+                          "launches": wide["launches"]["diffnet_stack_by_body"]["wgmma"],
+                          "launches_path": "wide",
+                          "ms": {f"{r['B']}x{r['T']} cycle {r['cycle']} k={r['k']}": r["ms"]
+                                 for r in wide["stack"]}},
          "configs": stack_rows},
         {"name": "mrf_stage", "route": "cuda",
          "source": "diffsinger_tpu_torch/csrc/mrf_stage.cu",

@@ -12,9 +12,9 @@
 //   out  = g @ w_out[l] + b_out[l]
 //   x    = (x + out[:, :C]) * sqrt(1/2);  skip += out[:, C:]
 //
-// Two instantiations, both on the tensor cores at the shapes the shipped
-// configs reach (C = 128 or 256, float32 also C = 512, dilations up to
-// MAX_DIL), one launch a layer:
+// Three bodies on the tensor cores at the shapes the shipped configs and the
+// release's width reach (C = 128 or 256, float32 also C = 512, dilations up
+// to MAX_DIL), one launch a layer:
 //
 // bfloat16 (compute_dtype bfloat16) - stack_layer_tc. The TPU kernel keeps
 // the whole [T,C] activation resident in VMEM across all layers; a block here
@@ -79,16 +79,52 @@
 //     at after the copy and waited at the block's end, keeps every block
 //     alive while a peer still reads it. S = 1 has no cluster, barrier or
 //     copy.
-//   * C = 512 (the openvpi release's 512-channel DiffNet) runs split only,
-//     S in {2, 4}: an unsplit block would hold 256 accumulators a thread, and
-//     its y tile alone ((64 + 2d) x 516 floats, 165,120 B at d = 8) leaves no
-//     room for rings of 128 columns a warp. Its weight chunks are 8 rows deep
-//     (one m16n8k8 step; 16 at C <= 256), so S = 4's rings (30,720 B) fit
-//     beside the y tile of d = 16 and S = 2's (55,296 B) beside that of
-//     d <= 10. Per block, S = 2 is C = 256's unsplit shape over a contraction
-//     twice as long (64 rows x 256 output columns, 128 accumulators a
-//     thread) and S = 4 is C = 256's S = 2; a block streams 1/S of the
-//     layer's 8.4 MB of weights.
+//
+// float32 at C = 512 (the openvpi release's 512-channel DiffNet) -
+// stack_layer_wg<S>, split only, S in {2, 4}: an unsplit block's y tile,
+// (64 + 2d) x 516 floats (165,120 B at d = 8), leaves no room for the weights
+// of all 1,024 columns. The tile, halo rule, column split, g exchange, cond
+// and x reads, x double buffer and programmatic dependent launch are
+// stack_layer_tc32's; the products are wgmma.mma_async m64n128k8 TF32 in
+// 3xTF32, fed as follows:
+//   * the 2C columns come in eight 64-column units (unit u: gate or residual
+//     columns [64u, 64u + 64) and the filter or skip columns C + the same).
+//     Block rank j owns units [8j/S, 8(j+1)/S), one warpgroup each (S = 2:
+//     four warpgroups, 512 threads; S = 4: two, 256), so a warpgroup's
+//     wgmma is 64 rows x 128 columns, 64 accumulators a thread, with gate
+//     and filter (residual and skip) of a column in the same thread.
+//   * A from registers: each warp ldmatrix's its 16 rows of y at the tap's
+//     row offset (or of g) and splits them into hi and lo once for its
+//     warpgroup, as mrf_stage.cu's wgmma body does.
+//   * B from shared memory, K-major in core matrices, packed once on the host
+//     (ops/diffnet_stack.py:wg_weights): one float32 plane, the bytes of
+//     w_dil and w_out. Each warpgroup streams its unit through a ring of
+//     WG_NST = 2 stages of WG_KC = 16 contraction rows (8 KB), filled by bulk
+//     copies (cp.async.bulk) that complete on the slot's mbarrier; the last
+//     of its four warps done with a stage refills the slot.
+//   * B is split in the stage, once per block: the tensor cores read a
+//     float32 operand's top 19 bits, the hi part of the split (probed on an
+//     H100: every raw element read as its truncation, none as its rounding),
+//     so the a_lo*b_hi and a_hi*b_hi passes read the stage as copied; then,
+//     between two warpgroup barriers (every warp's two passes have read it;
+//     the lo part is written and fenced for the async proxy), each thread
+//     rewrites its share of the stage as b_lo, which the third pass reads.
+//   * Why one plane split in shared memory, and not hi and lo planes packed
+//     ahead as mrf_stage.cu's are: every block streams its columns of the
+//     layer's 8.4 MB from L2 (4.2 MB a layer at S = 2, 0.55 GB a wave of
+//     132 blocks), already 3.1 TB/s at 18 ms a 16 x 1152 call; two planes
+//     would double those bytes and the ring's room (the stack's y tile leaves
+//     67 KB), which would halve the stage to 8 rows. Split in place, the two
+//     stages of 16 rows a warpgroup fit beside the y tile of d <= 8 at S = 2
+//     (64 KB for the four rings) and of d = 16 at S = 4 (32 KB), and the L2
+//     carries one plane, as the mma.sync body's did.
+//   * Measured against the alternatives (tools/stack_split.py and variants
+//     of this body; H100 80GB HBM3, 700 W; 16 x 1152 at S = 2): 8-row
+//     stages four deep were 19% slower (the two barriers and waits a stage
+//     are paid per 8 rows), a third pass kept in flight into the next stage
+//     8-31% slower (the slot is freed later, and the L2 latency shows), two
+//     warpgroups of two units each (N = 256) at S = 2 4-11% slower than four
+//     of one.
 //
 // float32 at any other shape (C % 32 == 0 but not 128, 256 or 512, or a dilation
 // past MAX_DIL) - the earlier shared-memory tiled SIMT pair of launches a
@@ -120,7 +156,17 @@
 // three mma.sync a product (the TF32 mma.sync rate measured on this card,
 // 319.4 TFLOP/s in tools/mma_rate.py, gives 1.6 ms a call for the products
 // alone), so the two have to overlap; the split adds integer and float work
-// beside every mma.
+// beside every mma. At C = 512 (stack_layer_wg; B = 16, T = 1152, cycle 4,
+// S = 2) a call does 1.546 TFLOP, 9.37 ms at 3xTF32 on 495 TFLOP/s; it takes
+// 17.9 ms, 52% of that (the mma.sync body it replaced: 24.9 ms, 38%), and
+// every block streams its 4.2 MB of a layer's weights from L2, 3.1 TB/s over
+// the call. What limits it (variants of its first build, two warpgroups of
+// N = 256; H100 80GB HBM3): each stage's chain of waits - two passes, the
+// two warpgroup barriers around the in-place lo, the third pass - which the
+// other warpgroups' products fill only in part. Leaving out the third pass
+// and its split took 35% off, not copying the weights after the first
+// stages 9%; on the products it did execute it ran at 59% of the TF32 peak
+// in full waves.
 //
 // Grid. A block owns a 64-row tile and runs alone on its SM, so a layer of
 // the unsplit body launches ceil(T/64)*B blocks and lasts as long as one
@@ -142,10 +188,10 @@
 // (tools/stack_split.py). A B = 1 phrase of 1,152 frames runs S = 4 in
 // 0.89 ms, one of 2,432 frames S = 2 in 1.41 ms; full waves keep S = 1.
 // At C = 512 (66 clusters of 2, 30 of 4 resident) a wave of S = 2 takes
-// 4.7 ms a call and one of S = 4 2.75 ms, 0.13-0.18 beyond half of it: the
-// rule takes S = 4 where its waves fill better (up to 30 tiles, 67-90,
-// 133-150); 16 x 1152 (288 tiles) runs S = 2 in 24.7 ms, 62 TFLOP/s (255
-// registers and 16 bytes spilled at S = 2, 228 registers at S = 4).
+// 3.2 ms a call and one of S = 4 2.2 ms, 0.35-0.37 beyond half of it: the
+// rule takes S = 4 only where one wave of it holds every tile (up to 30);
+// 16 x 1152 (288 tiles) runs S = 2 in 17.9 ms, 86 TFLOP/s (S = 2: 512
+// threads of 128 registers, 12 bytes spilled; S = 4: 256 of 174).
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -187,13 +233,9 @@ constexpr int NST32 = 3;  // stages of each warp's weight ring
 // one row) hit 32 banks.
 template <int C> __host__ __device__ constexpr int y_stride32() { return C + 4; }
 template <int C, int S> __host__ __device__ constexpr int w_stride32() { return C / (4 * S) + 8; }
-// contraction rows of a weight chunk: at C = 512 one m16n8k8 step, so that
-// the y tile of the widest halo ((64 + 32) x 516 floats, 198,144 B) and the
-// rings fit a block together
-template <int C> __host__ __device__ constexpr int kc32() { return C > 256 ? 8 : KC32; }
 template <int C, int S = 1> __host__ __device__ constexpr size_t smem_bytes32(int d) {
   return ((size_t)(TM + 2 * d) * y_stride32<C>() +
-          (size_t)8 * NST32 * kc32<C>() * w_stride32<C, S>()) * sizeof(float);
+          (size_t)8 * NST32 * KC32 * w_stride32<C, S>()) * sizeof(float);
 }
 
 // The column splits the float32 body is built for: S blocks of a thread-block
@@ -237,13 +279,8 @@ __device__ __forceinline__ void cluster_wait() {
 constexpr int MAX_DIL = 16;
 constexpr size_t SMEM_LIMIT = 227 * 1024;
 static_assert(smem_bytes<256>(MAX_DIL) <= SMEM_LIMIT && smem_bytes32<256>(MAX_DIL) <= SMEM_LIMIT &&
-                  smem_bytes<128>(MAX_DIL) <= SMEM_LIMIT && smem_bytes32<128>(MAX_DIL) <= SMEM_LIMIT &&
-                  smem_bytes32<512, 4>(MAX_DIL) <= SMEM_LIMIT,
+                  smem_bytes<128>(MAX_DIL) <= SMEM_LIMIT && smem_bytes32<128>(MAX_DIL) <= SMEM_LIMIT,
               "a tensor-core body's tiles exceed the block's shared memory");
-// <512, 2> holds a halo of up to 10 rows (its rings are twice as wide): the
-// singing configs' cycle 4 (d <= 8); past that it reports no resident
-// cluster, so the split rule never takes it, and it refuses the call.
-static_assert(smem_bytes32<512, 2>(8) <= SMEM_LIMIT, "<512, 2> holds cycle 4's halo");
 
 __device__ __forceinline__ float sigmoid_f(float a) {
   a = fminf(fmaxf(a, -30.f), 30.f);
@@ -502,6 +539,69 @@ stack_layer_tc(const float* __restrict__ x_in, float* __restrict__ x_out,
   PHASE_CLOCK(5);
 }
 
+// The float32 bodies' y tile: y = x + step over rows t0 - d .. t0 + TM + d
+// of batch row b ((TM + 2d) rows of YS floats, tile row q is sequence row
+// t0 - d + q), zero outside [0, T); all C columns, whatever the split (each
+// output column reads every channel). Up to 24 float4 loads in flight a thread.
+template <int C, int NT = NTHR>
+__device__ __forceinline__ void stage_y32(float* ys, const float* __restrict__ xin_b,
+                                          const float* __restrict__ step_lb, int t0, int T,
+                                          int d, int tid) {
+  constexpr int YS = y_stride32<C>(), CP4 = C / 4, RPP = NT / CP4, UN = 24 * NTHR / NT;
+  const int c4 = tid % CP4, rq = tid / CP4;
+  const float4 sv = reinterpret_cast<const float4*>(step_lb)[c4];
+  const int nrows = TM + 2 * d;
+  for (int q0 = 0; q0 < nrows; q0 += UN * RPP) {
+    float4 v[UN];
+#pragma unroll
+    for (int u = 0; u < UN; ++u) {
+      const int q = q0 + u * RPP + rq, t = t0 - d + q;
+      v[u] = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (q < nrows && t >= 0 && t < T) {
+        v[u] = reinterpret_cast<const float4*>(xin_b + (size_t)t * C)[c4];
+        v[u].x += sv.x;
+        v[u].y += sv.y;
+        v[u].z += sv.z;
+        v[u].w += sv.w;
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < UN; ++u) {
+      const int q = q0 + u * RPP + rq;
+      if (q < nrows) *reinterpret_cast<float4*>(ys + (size_t)q * YS + c4 * 4) = v[u];
+    }
+  }
+}
+
+// The g exchange of a split float32 body, after a cluster barrier: the out
+// GEMM contracts over all C columns of g, so each block copies the other
+// blocks' columns (CC = C / S each) of the tile's first TM rows from their
+// shared memory (distributed shared memory) into the same place in its own;
+// nobody writes a block's own columns again in the layer. At most 12 float4
+// loads in flight a thread: all of them at C = 256, batches of 8 at C = 512.
+template <int C, int S, int NT = NTHR>
+__device__ __forceinline__ void pull_g(float* ys, int rank, int tid) {
+  constexpr int YS = y_stride32<C>(), CC = C / S, P4 = CC / 4;
+  constexpr int NPULL = (S - 1) * TM * P4 / NT, PB = NPULL <= 12 ? NPULL : 8;
+  static_assert((S - 1) * TM * P4 % NT == 0 && NPULL % PB == 0, "whole pulls a thread");
+#pragma unroll
+  for (int q0 = 0; q0 < NPULL; q0 += PB) {
+    float4 v[PB];
+#pragma unroll
+    for (int u = 0; u < PB; ++u) {
+      const int i = (q0 + u) * NT + tid, peer = (rank + 1 + i / (TM * P4)) % S;
+      const int r = i / P4 % TM, col = peer * CC + i % P4 * 4;
+      v[u] = ld_cluster_f4(cluster_map(smem_u32(ys + (size_t)r * YS + col), peer));
+    }
+#pragma unroll
+    for (int u = 0; u < PB; ++u) {
+      const int i = (q0 + u) * NT + tid, peer = (rank + 1 + i / (TM * P4)) % S;
+      const int r = i / P4 % TM, col = peer * CC + i % P4 * 4;
+      *reinterpret_cast<float4*>(ys + (size_t)r * YS + col) = v[u];
+    }
+  }
+}
+
 // Diagnostic builds of the float32 body (tools/stack_ablate.py; the results
 // are wrong, only the times mean something): -DSTACK_ABLATE_NO_SPLIT feeds
 // the raw bits as both halves, -DSTACK_ABLATE_ONE_PASS runs one of the three
@@ -531,7 +631,7 @@ stack_layer_tc32(const float* __restrict__ x_in, float* __restrict__ x_out,
   constexpr int WC = CC / 8;             // columns a warp owns in each half
   constexpr int NTH = WC / 8;            // 8-column tiles per half per warp
   constexpr int PPH = WC / 4;            // 16-byte pieces of a warp's row per half
-  constexpr int KC = kc32<C>();          // contraction rows of a weight chunk
+  constexpr int KC = KC32;               // contraction rows of a weight chunk
   constexpr int NG = 3 * C / KC;         // weight chunks of the dilated conv
   constexpr int NCH = NG + C / KC;       // ... plus those of the out projection
   constexpr int LPH = CC * 4 / 128;      // 128-byte lines of the block's columns of a half
@@ -589,35 +689,7 @@ stack_layer_tc32(const float* __restrict__ x_in, float* __restrict__ x_out,
       const int t = t0 + i / LPH;
       if (t < T) prefetch_l2(skip + ((size_t)b * T + t) * C + rank * CC + (i % LPH) * 32);
     }
-  // y = x + step, rows t0 - d .. t0 + TM + d, zero outside [0, T): all C
-  // columns, whatever the split (each output column reads every channel)
-  {
-    constexpr int CP4 = C / 4, RPP = NTHR / CP4;   // float4 per row, rows per pass
-    const int c4 = tid % CP4, rq = tid / CP4;
-    const float4 sv = reinterpret_cast<const float4*>(step + ((size_t)l * B + b) * C)[c4];
-    const int nrows = TM + 2 * d;
-    constexpr int UN = 24;
-    for (int q0 = 0; q0 < nrows; q0 += UN * RPP) {
-      float4 v[UN];
-#pragma unroll
-      for (int u = 0; u < UN; ++u) {
-        const int q = q0 + u * RPP + rq, t = t0 - d + q;
-        v[u] = make_float4(0.f, 0.f, 0.f, 0.f);
-        if (q < nrows && t >= 0 && t < T) {
-          v[u] = reinterpret_cast<const float4*>(xin_b + (size_t)t * C)[c4];
-          v[u].x += sv.x;
-          v[u].y += sv.y;
-          v[u].z += sv.z;
-          v[u].w += sv.w;
-        }
-      }
-#pragma unroll
-      for (int u = 0; u < UN; ++u) {
-        const int q = q0 + u * RPP + rq;
-        if (q < nrows) *reinterpret_cast<float4*>(ys + (size_t)q * YS + c4 * 4) = v[u];
-      }
-    }
-  }
+  stage_y32<C>(ys, xin_b, step + ((size_t)l * B + b) * C, t0, T, d, tid);
   __syncthreads();   // y is staged
   PHASE_CLOCK(1);
 
@@ -687,30 +759,7 @@ stack_layer_tc32(const float* __restrict__ x_in, float* __restrict__ x_out,
       } else {
         cluster_arrive();  // every block of the cluster has written its g columns
         cluster_wait();
-        // the out GEMM contracts over all C columns of g: copy the other
-        // blocks' columns from their shared memory into the same place here
-        // (nobody writes a block's own columns again in this layer)
-        // (at most 12 float4 loads in flight a thread: all of them at C = 256,
-        // batches of 8 of the 16 or 24 at C = 512)
-        constexpr int P4 = CC / 4, NPULL = (S - 1) * TM * P4 / NTHR;
-        constexpr int PB = NPULL <= 12 ? NPULL : 8;
-        static_assert((S - 1) * TM * P4 % NTHR == 0 && NPULL % PB == 0, "whole pulls a thread");
-#pragma unroll
-        for (int u0 = 0; u0 < NPULL; u0 += PB) {
-          float4 v[PB];
-#pragma unroll
-          for (int u = 0; u < PB; ++u) {
-            const int i = (u0 + u) * NTHR + tid, peer = (rank + 1 + i / (TM * P4)) % S;
-            const int r = i / P4 % TM, col = peer * CC + i % P4 * 4;
-            v[u] = ld_cluster_f4(cluster_map(smem_u32(ys + (size_t)r * YS + col), peer));
-          }
-#pragma unroll
-          for (int u = 0; u < PB; ++u) {
-            const int i = (u0 + u) * NTHR + tid, peer = (rank + 1 + i / (TM * P4)) % S;
-            const int r = i / P4 % TM, col = peer * CC + i % P4 * 4;
-            *reinterpret_cast<float4*>(ys + (size_t)r * YS + col) = v[u];
-          }
-        }
+        pull_g<C, S>(ys, rank, tid);
         // this block has read the others' columns; it waits at its end for
         // every block to have read its own, so none exits while a peer reads
         cluster_arrive();
@@ -807,14 +856,334 @@ stack_layer_tc32(const float* __restrict__ x_in, float* __restrict__ x_out,
   if constexpr (S > 1) cluster_wait();   // every peer has read this block's g columns
 }
 
-template <typename E, int C, int S> struct Body;   // the kernel and shared memory of a body
+// ----------------------------------------------- float32 at C = 512 on wgmma
+// stack_layer_wg<S>: the body of the note's "C = 512" paragraph. The weights
+// come packed (ops/diffnet_stack.py:wg_weights): per layer the 4C rows of
+// [w_dil (3C rows); w_out (C rows)] in 8-row steps, each step's 2C columns in
+// eight 64-column units (unit u: gate or residual columns [64u, 64u + 64),
+// then filter or skip columns C + [64u, 64u + 64)), a unit's 128 columns in
+// wgmma's K-major core matrices (8 columns x 4 rows, 16 bytes): element (row
+// k, column n) of a unit at ((n / 8) * 2 + k / 4) * 32 + (n % 8) * 4 + k % 4.
+constexpr int WG_KC = 16;                       // contraction rows of a ring stage
+constexpr int WG_NST = 2;                       // stages of each warpgroup's ring
+constexpr int WG_N = 128;                       // a unit's columns: a warpgroup's wgmma N
+constexpr int WG_UNIT = 8 * WG_N;               // floats of a unit in one 8-row step
+constexpr int WG_STEP = (512 / 64) * WG_UNIT;   // floats of one 8-row step, all units
+constexpr size_t WG_LAYER = (size_t)(4 * 512 / 8) * WG_STEP;
+constexpr int WG_BARS = 128;                    // bytes of mbarriers and counters
+constexpr int WG_STAGE = WG_KC * WG_N;          // floats of a ring stage
+// a block split S ways owns 8 / S units: a warpgroup each
+template <int S> __host__ __device__ constexpr int wg_threads() { return 128 * 8 / S; }
+template <int S> __host__ __device__ constexpr size_t smem_bytes_wg(int d) {
+  return WG_BARS + ((size_t)8 / S * WG_NST * WG_STAGE + (size_t)(TM + 2 * d) * y_stride32<512>()) *
+                       sizeof(float);
+}
+static_assert(smem_bytes_wg<4>(MAX_DIL) <= SMEM_LIMIT && smem_bytes_wg<2>(8) <= SMEM_LIMIT &&
+                  smem_bytes_wg<2>(9) > SMEM_LIMIT,
+              "<512, 4> holds the widest halo, <512, 2> cycle 4's (d <= 8)");
+
+// The remainder of the 3xTF32 split (split_tf32's lo)
+__device__ __forceinline__ float tf32_lo(float x) {
+  return __uint_as_float(__float_as_uint(x - __uint_as_float(__float_as_uint(x) & TF32_MASK)) &
+                         TF32_MASK);
+}
+
+// A warpgroup's weight ring: WG_NST slots of one stage of its unit, each
+// filled by bulk copies that complete on the slot's mbarrier.
+struct WgRing {
+  static constexpr int KU = WG_KC / 8;          // 8-row steps a stage
+  static constexpr int NCH = 4 * 512 / WG_KC;   // stages a layer
+  float* ring;          // [WG_NST][WG_STAGE]
+  uint32_t full0;       // the slots' mbarriers
+  int* freed;           // [WG_NST] warps done with a slot, ever
+  const float* wsrc;    // the layer's packed weights at the warpgroup's unit
+  // stage n (rows [16n, 16n + 16) of the layer's 4C) into slot n % WG_NST:
+  // one copy per 8-row step
+  __device__ __forceinline__ void fill(int n) const {
+    if (n >= NCH) return;
+    const int s = n % WG_NST;
+    mbar_arrive_expect_tx(full0 + 8 * s, WG_STAGE * 4);
+#pragma unroll
+    for (int u = 0; u < KU; ++u)
+      bulk_copy_g2s(smem_u32(ring + s * WG_STAGE + u * WG_UNIT),
+                    wsrc + (size_t)(n * KU + u) * WG_STEP, WG_UNIT * 4, full0 + 8 * s);
+  }
+  // this warp is done with stage n: the last of the warpgroup's four to be
+  // done refills its slot with stage n + WG_NST
+  __device__ __forceinline__ void release(int n, int lane) const {
+    if (lane == 0 && atomicAdd(freed + n % WG_NST, 1) % 4 == 3) fill(n + WG_NST);
+  }
+};
+
+// Stage n of a warpgroup's products, A at abase (this lane's row and column
+// of y or g): A loaded and split once into hi and lo; the a_lo*b_hi and
+// a_hi*b_hi passes on the stage as copied (the tensor cores read a float32
+// operand's top 19 bits, its hi part); the stage turned into its lo part in
+// place once every warp's two passes have read it; the a_hi*b_lo pass; the
+// slot released.
+__device__ __forceinline__ void wg_stage(int n, const float* abase, float (&acc)[WG_N / 2],
+                                         const WgRing& rg, int wgi, int wt, int lane) {
+  constexpr int KU = WG_KC / 8, CV = WG_STAGE / 4 / 128;
+  const int s = n % WG_NST;
+  uint32_t ah[KU][4], al[KU][4];
+#pragma unroll
+  for (int u = 0; u < KU; ++u) {
+    uint32_t a[4];
+    ldmatrix_x4(a, smem_u32(abase + u * 8));
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      split_tf32(__uint_as_float(a[e]), ah[u][e], al[u][e]);
+      reg_fence(ah[u][e]);
+      reg_fence(al[u][e]);
+    }
+  }
+  mbar_wait(rg.full0 + 8 * s, (n / WG_NST) & 1);
+  // an 8-deep step's rows of the stage: N columns in core matrices, two
+  // along K (128 bytes apart), 8-column groups 256 bytes apart
+  const uint32_t sb = smem_u32(rg.ring + s * WG_STAGE);
+  wgmma_fence();
+#pragma unroll
+  for (int u = 0; u < KU; ++u) {
+    const uint64_t desc = wgmma_desc(sb + u * WG_N * 32, 128, 256);
+    wgmma_tf32_rs(acc, al[u], desc);
+    wgmma_tf32_rs(acc, ah[u], desc);
+  }
+  wgmma_commit();
+  // meanwhile: this thread's share of the stage as its lo part
+  float4* ring4 = reinterpret_cast<float4*>(rg.ring + s * WG_STAGE);
+  float4 lo[CV];
+#pragma unroll
+  for (int i = 0; i < CV; ++i) {
+    const float4 v = ring4[i * 128 + wt];
+    lo[i] = make_float4(tf32_lo(v.x), tf32_lo(v.y), tf32_lo(v.z), tf32_lo(v.w));
+  }
+  wgmma_wait<0>();
+#pragma unroll
+  for (int u = 0; u < KU; ++u)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) reg_fence(al[u][e]);
+  named_bar_sync(1 + wgi, 128);   // every warp's two passes have read the stage
+#pragma unroll
+  for (int i = 0; i < CV; ++i) ring4[i * 128 + wt] = lo[i];
+  fence_proxy_async();
+  named_bar_sync(1 + wgi, 128);   // the stage holds the lo part
+  wgmma_fence();
+#pragma unroll
+  for (int u = 0; u < KU; ++u)
+    wgmma_tf32_rs(acc, ah[u], wgmma_desc(sb + u * WG_N * 32, 128, 256));
+  wgmma_commit();
+  wgmma_wait<0>();
+#pragma unroll
+  for (int u = 0; u < KU; ++u)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) reg_fence(ah[u][e]);
+  rg.release(n, lane);
+}
+
+// One layer of the float32 stack at C = 512 on one 64-row tile of one batch
+// row, split S ways over a cluster: block rank j owns units [8j/S, 8(j+1)/S),
+// a warpgroup each.
+template <int S>
+__global__ void __launch_bounds__(wg_threads<S>(), 1)
+stack_layer_wg(const float* __restrict__ x_in, float* __restrict__ x_out,
+               float* __restrict__ skip, const float* __restrict__ step,
+               const float* __restrict__ cond, const float* __restrict__ wpk,
+               const float* __restrict__ b_dil, const float* __restrict__ b_out, int B, int T,
+               int l, int d) {
+  constexpr int C = 512, C2 = 2 * C, YS = y_stride32<C>();
+  constexpr int NT = wg_threads<S>(), NWG = 8 / S, NACC = WG_N / 2;
+  constexpr int CC = C / S;              // columns the block owns in each half
+  constexpr int NG = 3 * C / WG_KC;      // stages of the dilated conv
+  constexpr int NCH = NG + C / WG_KC;    // ... plus those of the out projection
+  constexpr int LPH = CC * 4 / 128;      // 128-byte lines of the block's columns of a half
+  static_assert(split_takes(C, S) && S > 1 && WG_STAGE % 512 == 0 &&
+                    NWG * WG_NST * 12 <= WG_BARS, "whole float4 a thread; the barriers fit");
+
+  extern __shared__ __align__(128) float wsmem[];
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  // the warpgroup from a shuffle, so the compiler sees it uniform over the
+  // warp (a wgmma under a branch it cannot prove uniform is serialized)
+  const int wgi = __shfl_sync(0xffffffffu, warp / 4, 0), wl = warp % 4, wt = tid % 128;
+  const int g8 = lane / 4, t4 = lane % 4;
+  const int rank = blockIdx.x % S;       // a cluster is S consecutive blocks along x
+  const int b = blockIdx.y, t0 = blockIdx.x / S * TM;
+  const int unit = rank * NWG + wgi;     // the warpgroup's unit
+  // per warpgroup: WG_NST mbarriers (a stage arrived) and counters (warps
+  // done with a stage, ever), its ring [WG_NST][WG_STAGE]; then y, shared
+  uint64_t* full = reinterpret_cast<uint64_t*>(wsmem) + wgi * WG_NST;
+  int* freed = reinterpret_cast<int*>(reinterpret_cast<uint64_t*>(wsmem) + NWG * WG_NST) +
+               wgi * WG_NST;
+  float* ys = wsmem + WG_BARS / 4 + (size_t)NWG * WG_NST * WG_STAGE;
+  const float* cond_b = cond + ((size_t)l * B + b) * T * C2;
+  const WgRing rg{wsmem + WG_BARS / 4 + (size_t)wgi * WG_NST * WG_STAGE, smem_u32(full), freed,
+                  wpk + (size_t)l * WG_LAYER + (size_t)unit * WG_UNIT};
+
+  // up to griddep_wait() only inputs of the whole call are touched (cond,
+  // weights, step), never x, skip or anything else a layer writes
+  griddep_launch_dependents();
+  if (wt == 0) {
+    for (int s = 0; s < WG_NST; ++s) {
+      mbar_init(rg.full0 + 8 * s, 1);
+      freed[s] = 0;
+    }
+    mbar_init_fence();
+    for (int n = 0; n < WG_NST; ++n) rg.fill(n);
+  }
+  for (int i = tid; i < TM * 2 * LPH; i += NT) {
+    const int t = t0 + i / (2 * LPH), h = i % (2 * LPH) / LPH;
+    if (t < T) prefetch_l2(cond_b + (size_t)t * C2 + h * C + rank * CC + (i % LPH) * 32);
+  }
+  griddep_wait();   // the layer before has completed: x_in and skip are final
+  if (l > 0)
+    for (int i = tid; i < TM * LPH; i += NT) {
+      const int t = t0 + i / LPH;
+      if (t < T) prefetch_l2(skip + ((size_t)b * T + t) * C + rank * CC + (i % LPH) * 32);
+    }
+  stage_y32<C, NT>(ys, x_in + (size_t)b * T * C, step + ((size_t)l * B + b) * C, t0, T, d, tid);
+  __syncthreads();   // y is staged, the barriers are set up
+
+  float acc[NACC];
+#pragma unroll
+  for (int e = 0; e < NACC; ++e) {
+    acc[e] = 0.f;
+    reg_fence(acc[e]);
+  }
+  // this lane's A row (a warp's 16 rows of the tile) and 4-column half of an
+  // 8-deep step; its accumulator rows crow (+ 8)
+  const int arow = wl * 16 + lane % 16, acol = (lane / 16) * 4, crow = wl * 16 + g8;
+  // the conv GEMM: stage n's A is y at the tap's row offset
+  for (int n = 0; n < NG; ++n)
+    wg_stage(n, ys + (size_t)(arow + n * WG_KC / C * d) * YS + n * WG_KC % C + acol, acc, rg, wgi,
+             wt, lane);
+#pragma unroll
+  for (int e = 0; e < NACC; ++e) reg_fence(acc[e]);
+  // gate epilogue: bias + cond, sigmoid * tanh, into the gate accumulators
+  // (column tile j of the unit's gate columns; j + 8 its filter columns)
+  const float* bd_l = b_dil + (size_t)l * C2;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const int col = 64 * unit + 8 * j + 2 * t4;
+    const float2 bg = *reinterpret_cast<const float2*>(bd_l + col);
+    const float2 bf = *reinterpret_cast<const float2*>(bd_l + C + col);
+    float2 cg[2], cf[2];
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      const int t = t0 + crow + hr * 8;
+      cg[hr] = cf[hr] = make_float2(0.f, 0.f);
+      if (t < T) {
+        const float* cr = cond_b + (size_t)t * C2 + col;
+        cg[hr] = *reinterpret_cast<const float2*>(cr);
+        cf[hr] = *reinterpret_cast<const float2*>(cr + C);
+      }
+    }
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      float* ga = &acc[4 * j + 2 * hr];
+      const float* fa = &acc[4 * (j + 8) + 2 * hr];
+      const float g0 = ga[0] + bg.x + cg[hr].x, g1 = ga[1] + bg.y + cg[hr].y;
+      const float f0 = fa[0] + bf.x + cf[hr].x, f1 = fa[1] + bf.y + cf[hr].y;
+      ga[0] = sigmoid_f(g0) * tanh_f(f0);
+      ga[1] = sigmoid_f(g1) * tanh_f(f1);
+    }
+  }
+  __syncthreads();   // every warp has read its last y fragment: g may replace y
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      const int r = crow + hr * 8;
+      const float2 gv = t0 + r < T ? make_float2(acc[4 * j + 2 * hr], acc[4 * j + 2 * hr + 1])
+                                   : make_float2(0.f, 0.f);
+      *reinterpret_cast<float2*>(ys + (size_t)r * YS + 64 * unit + 8 * j + 2 * t4) = gv;
+    }
+#pragma unroll
+  for (int e = 0; e < NACC; ++e) {
+    acc[e] = 0.f;
+    reg_fence(acc[e]);
+  }
+  cluster_arrive();  // every block of the cluster has written its g columns
+  cluster_wait();
+  pull_g<C, S, NT>(ys, rank, tid);
+  // this block has read the others' columns; it waits at its end for every
+  // block to have read its own, so none exits while a peer reads
+  cluster_arrive();
+  __syncthreads();   // the whole g tile is here
+  // the out GEMM over g
+  for (int n = NG; n < NCH; ++n)
+    wg_stage(n, ys + (size_t)arow * YS + (n - NG) * WG_KC + acol, acc, rg, wgi, wt, lane);
+#pragma unroll
+  for (int e = 0; e < NACC; ++e) reg_fence(acc[e]);
+
+  // residual epilogue: x_out = (x_in + res) * sqrt(1/2), skip (+)= sk; x_in
+  // and skip in fragment order from device memory (column tile j of the
+  // unit's residual columns; j + 8 its skip columns)
+  const float* bo_l = b_out + (size_t)l * C2;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const int col = 64 * unit + 8 * j + 2 * t4;
+    const float2 br = *reinterpret_cast<const float2*>(bo_l + col);
+    const float2 bs = *reinterpret_cast<const float2*>(bo_l + C + col);
+    float2 xi[2], so[2];
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      const int t = t0 + crow + hr * 8;
+      xi[hr] = so[hr] = make_float2(0.f, 0.f);
+      if (t < T) {
+        const size_t o = ((size_t)b * T + t) * C + col;
+        xi[hr] = *reinterpret_cast<const float2*>(x_in + o);
+        if (l > 0) so[hr] = *reinterpret_cast<const float2*>(skip + o);
+      }
+    }
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      const int t = t0 + crow + hr * 8;
+      if (t >= T) continue;
+      const size_t o = ((size_t)b * T + t) * C + col;
+      const float* ra = &acc[4 * j + 2 * hr];
+      const float* sa = &acc[4 * (j + 8) + 2 * hr];
+      float2 xo, sk;
+      xo.x = (xi[hr].x + (ra[0] + br.x)) * SQRT_HALF;
+      xo.y = (xi[hr].y + (ra[1] + br.y)) * SQRT_HALF;
+      sk.x = so[hr].x + (sa[0] + bs.x);
+      sk.y = so[hr].y + (sa[1] + bs.y);
+      *reinterpret_cast<float2*>(x_out + o) = xo;
+      *reinterpret_cast<float2*>(skip + o) = sk;
+    }
+  }
+  cluster_wait();   // every peer has read this block's g columns
+}
+
+// A body: its kernel, the shared memory of a block at dilation d, and the
+// launch of one layer (the wgmma body reads w_dil as wg_weights packs both
+// weight tensors, and never w_out).
+template <typename E, int C, int S> struct Body;
 template <int C> struct Body<bf16, C, 1> {
   static auto kernel() { return stack_layer_tc<C>; }
+  static int threads() { return NTHR; }
   static size_t smem(int d) { return smem_bytes<C>(d); }
+  template <typename... A> static cudaError_t launch(const cudaLaunchConfig_t* cfg, A... args) {
+    return cudaLaunchKernelEx(cfg, kernel(), args...);
+  }
 };
 template <int C, int S> struct Body<float, C, S> {
   static auto kernel() { return stack_layer_tc32<C, S>; }
+  static int threads() { return NTHR; }
   static size_t smem(int d) { return smem_bytes32<C, S>(d); }
+  template <typename... A> static cudaError_t launch(const cudaLaunchConfig_t* cfg, A... args) {
+    return cudaLaunchKernelEx(cfg, kernel(), args...);
+  }
+};
+template <int S> struct Body<float, 512, S> {
+  static auto kernel() { return stack_layer_wg<S>; }
+  static int threads() { return wg_threads<S>(); }
+  static size_t smem(int d) { return smem_bytes_wg<S>(d); }
+  static cudaError_t launch(const cudaLaunchConfig_t* cfg, const float* xin, float* xout,
+                            float* skip, const float* step, const float* cond,
+                            const float* w_dil, const float* b_dil, const float*,
+                            const float* b_out, int B, int T, int l, int d) {
+    return cudaLaunchKernelEx(cfg, kernel(), xin, xout, skip, step, cond, w_dil, b_dil, b_out, B,
+                              T, l, d);
+  }
 };
 
 // The launch of one layer: grid, block, shared memory, and the attributes:
@@ -822,9 +1191,9 @@ template <int C, int S> struct Body<float, C, S> {
 template <int S> struct LayerLaunch {
   cudaLaunchConfig_t cfg = {};
   cudaLaunchAttribute attr[2];
-  LayerLaunch(int T, int B, size_t smem, cudaStream_t stream, bool after_a_layer) {
+  LayerLaunch(int T, int B, int threads, size_t smem, cudaStream_t stream, bool after_a_layer) {
     cfg.gridDim = dim3((T + TM - 1) / TM * S, B);
-    cfg.blockDim = dim3(NTHR);
+    cfg.blockDim = dim3(threads);
     cfg.dynamicSmemBytes = smem;
     cfg.stream = stream;
     cfg.attrs = attr;
@@ -866,9 +1235,10 @@ int run(const float* x0, float* xbuf, float* skip, const float* step, const E* c
     float* xout = xbuf + (l % 2) * n;
     // layers after the first may start (their cond and weight copies) while
     // the layer before them drains; layer 0 waits for the caller's kernels
-    LayerLaunch<S> launch(T, B, Body<E, C, S>::smem(dil[l]), stream, l > 0);
-    err = cudaLaunchKernelEx(&launch.cfg, Body<E, C, S>::kernel(), xin, xout, skip, step, cond,
-                             w_dil, b_dil, w_out, b_out, B, T, l, dil[l]);
+    LayerLaunch<S> launch(T, B, Body<E, C, S>::threads(), Body<E, C, S>::smem(dil[l]), stream,
+                          l > 0);
+    err = Body<E, C, S>::launch(&launch.cfg, xin, xout, skip, step, cond, w_dil, b_dil, w_out,
+                                b_out, B, T, l, dil[l]);
     if (err != cudaSuccess) return (int)err;
     ++*n_launched;
   }
@@ -880,26 +1250,27 @@ int run(const float* x0, float* xbuf, float* skip, const float* step, const E* c
 // (cudaOccupancyMaxActiveClusters), or blocks for S = 1; none where the
 // instance's tiles do not fit a block at dmax.
 template <int C, int S> int resident(int dmax, int* out) {
-  const size_t smem = smem_bytes32<C, S>(dmax);
+  typedef Body<float, C, S> Bd;
+  const size_t smem = Bd::smem(dmax);
   if (smem > SMEM_LIMIT) {
     *out = 0;
     return (int)cudaSuccess;
   }
-  cudaError_t err = cudaFuncSetAttribute(stack_layer_tc32<C, S>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  cudaError_t err = cudaFuncSetAttribute(Bd::kernel(), cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)smem);
   if (err != cudaSuccess) return (int)err;
   if (S == 1) {
     int dev = 0, sms = 0, per_sm = 0;
     err = cudaGetDevice(&dev);
     if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     if (err == cudaSuccess)
-      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, stack_layer_tc32<C, S>, NTHR,
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, Bd::kernel(), Bd::threads(),
                                                           smem);
     *out = per_sm * sms;
     return (int)err;
   }
-  LayerLaunch<S> launch(S, 1, smem, 0, false);
-  return (int)cudaOccupancyMaxActiveClusters(out, stack_layer_tc32<C, S>, &launch.cfg);
+  LayerLaunch<S> launch(S, 1, Bd::threads(), smem, 0, false);
+  return (int)cudaOccupancyMaxActiveClusters(out, Bd::kernel(), &launch.cfg);
 }
 
 }  // namespace tc
@@ -1091,8 +1462,8 @@ bool tc_takes(int dtype, int C, int dmax) {
 size_t tc32_smem(int C, int dmax) {
   if (C == 128) return tc::smem_bytes32<128>(dmax);
   if (C == 256) return tc::smem_bytes32<256>(dmax);
-  const size_t two = tc::smem_bytes32<512, 2>(dmax);
-  return two <= tc::SMEM_LIMIT ? two : tc::smem_bytes32<512, 4>(dmax);
+  const size_t two = tc::smem_bytes_wg<2>(dmax);
+  return two <= tc::SMEM_LIMIT ? two : tc::smem_bytes_wg<4>(dmax);
 }
 
 }  // namespace
@@ -1158,7 +1529,7 @@ extern "C" int diffnet_stack_run(int path, int dtype, int split, void* x, void* 
     for (int l = 0; l < L; ++l) dmax = dil[l] > dmax ? dil[l] : dmax;
     if (!tc_takes(dtype, C, dmax) || !tc::split_takes(C, split) || (split > 1 && dtype != 0))
       return (int)cudaErrorInvalidValue;
-    report[1] = 1;
+    report[1] = dtype == 0 && C == 512 ? 2 : 1;
     report[2] = split;
 #define STACK_TC(E, CH, S)                                                                  \
   return tc::run<E, CH, S>((const float*)x, (float*)scratch, (float*)skip,                  \

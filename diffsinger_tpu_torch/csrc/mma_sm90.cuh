@@ -241,4 +241,15 @@ __device__ __forceinline__ void wgmma_tf32_rs(float (&d)[64], const uint32_t (&a
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
 }
 
+// Orders this thread's shared-memory writes (generic proxy) before reads of
+// the same bytes by the async proxy: wgmma operands, bulk copies.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+// A barrier of `count` threads (a multiple of 32) on named barrier `id`
+// (1 to 15; __syncthreads is 0).
+__device__ __forceinline__ void named_bar_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+
 }  // namespace mma90

@@ -18,15 +18,18 @@ calls a request; singing: 26) run the float32 body.
 Which body a CUDA call runs is decided here, by shape
 (:func:`takes_tensor_cores`): float32 or bfloat16 at C = 128 or 256, and
 float32 at C = 512, with every dilation up to 16 takes the tensor-core
-bodies (one launch a layer, ``x0`` untouched; float32 products as 3xTF32),
-float32 at any other shape (C % 32 == 0) takes the SIMT body (two launches
-a layer); bfloat16 outside the rule, and every other type, raises. Neither
-ever reaches the plain twin.
+bodies (one launch a layer, ``x0`` untouched; float32 products as 3xTF32:
+``mma.sync`` at C <= 256, ``wgmma`` at C = 512 on the weights
+:func:`wg_weights` packs once), float32 at any other shape (C % 32 == 0)
+takes the SIMT body (two launches a layer); bfloat16 outside the rule, and
+every other type, raises. Neither ever reaches the plain twin.
 The library reports what it launched: ``diffnet_stack.device_launches``,
-``.ran_tensor_cores`` and ``.column_split`` hold the last CUDA call's, and
-:func:`tensor_core_info` its tile rows and shared memory for a shape.
+``.ran_tensor_cores``, ``.body`` (a name of :data:`BODIES`) and
+``.column_split`` hold the last CUDA call's, ``.launches_by_body`` counts the
+calls by body, and :func:`tensor_core_info` gives its tile rows and shared
+memory for a shape.
 
-The grid of the float32 tensor-core body. A block owns 64 rows of one batch
+The grid of the float32 tensor-core bodies. A block owns 64 rows of one batch
 row and runs alone on its SM (255 registers a thread), so a
 layer launches ``ceil(T/64)·B`` blocks and takes as long as one block: on the
 H100's 132 SMs a B = 1 singing phrase of 1,152 frames fills 18, and a batch of
@@ -109,6 +112,9 @@ def diffnet_stack_plain(x0, step_proj, cond_proj, w_dil, b_dil, w_out, b_out, *,
 TC_CHANNELS = (128, 256)   # widths both types' tensor-core bodies are built for
 TC32_CHANNELS = TC_CHANNELS + (512,)   # ... and the float32 body's
 TC_MAX_DILATION = 16       # the widest halo their tiles hold in a block's shared memory
+WG_CHANNELS = 512          # the float32 width whose body is on wgmma (the others: mma.sync)
+# the library's report of a call's body: 0 SIMT, 1 tensor cores by mma.sync, 2 by wgmma
+BODIES = ("simt", "mma_sync", "wgmma")
 TILE_ROWS = 64             # rows of one batch row a block (or a cluster) owns
 # By width, the splits the float32 body is built for and what a k-split tile
 # costs beyond k0/k of a tile at the width's smallest split k0, as a share of
@@ -118,9 +124,12 @@ TILE_ROWS = 64             # rows of one batch row a block (or a cluster) owns
 # 4 x 384 read 0.07-0.11 at k = 2 and 0.37-0.39 at k = 4; without the cost
 # the rule would take k = 4 for 67-90 tiles (3 waves of 30 clusters), which
 # read 0.4-2.2% slower than one unsplit wave (1 x 4800, 3 x 1600, 5 x 1088).
-# C = 512 (no unsplit body; k0 = 2): 1 x 128, 1 x 384, 1 x 432, 2 x 384,
-# 2 x 896, 1 x 1024, 1 x 1152 at cycle 4 read 0.13-0.18 at k = 4.
-SPLIT_COST = {256: {1: 0.0, 2: 0.09, 4: 0.38}, 512: {2: 0.0, 4: 0.17}}
+# C = 512 (no unsplit body; k0 = 2), the wgmma body: 1 x 128, 1 x 384,
+# 1 x 432, 2 x 384, 2 x 896, 1 x 1024, 1 x 1152 at cycle 4 read 0.35-0.37 at
+# k = 4 (its products take half the time the mma.sync body's took, its
+# y tile and g exchange as long), so k = 4 takes only what one wave of 30
+# clusters holds.
+SPLIT_COST = {256: {1: 0.0, 2: 0.09, 4: 0.38}, 512: {2: 0.0, 4: 0.36}}
 
 
 def takes_tensor_cores(c: int, dilations: Sequence[int],
@@ -233,6 +242,40 @@ def _dilation_array(dilations: Tuple[int, ...]):
     return (ctypes.c_int * len(dilations))(*dilations)
 
 
+def wg_weights(w_dil: torch.Tensor, w_out: torch.Tensor) -> torch.Tensor:
+    """The float32 weights of the C = 512 body packed for its ring:
+    [L, 4C/8, C/64, 2, 8, 2, 8, 4]. Per layer the 4C contraction rows of
+    [w_dil (3C rows, tap-major); w_out (C rows)] in 8-row steps; a step's 2C
+    columns in C/64 units (unit u: gate or residual columns [64u, 64u + 64),
+    then filter or skip columns C + [64u, 64u + 64)); a unit's 128 columns
+    K-major as ``wgmma`` takes TF32 B, in core matrices of 8 columns by 4
+    rows: element (row k, column n) of a unit's step at
+    ((n // 8) * 2 + k // 4) * 32 + (n % 8) * 4 + k % 4. One float32 plane,
+    the same bytes as the two tensors: the body splits it into hi and lo in
+    shared memory (``csrc/diffnet_stack.cu:stack_layer_wg``)."""
+    num_layers, _, c, c2 = w_dil.shape
+    out = torch.empty((num_layers, 4 * c // 8, c // 64, 2, 8, 2, 8, 4), dtype=torch.float32,
+                      device=w_dil.device)
+    for w, steps in ((w_dil.reshape(num_layers, 3 * c, c2), slice(0, 3 * c // 8)),
+                     (w_out, slice(3 * c // 8, 4 * c // 8))):
+        v = w.detach().to(torch.float32).reshape(num_layers, -1, 2, 4, 2, c // 64, 8, 8)
+        out[:, steps].copy_(v.permute(0, 1, 5, 4, 6, 2, 7, 3))
+    return out
+
+
+def _wg_weights_of(w_dil: torch.Tensor, w_out: torch.Tensor) -> torch.Tensor:
+    """:func:`wg_weights` of the pair, made once and kept on ``w_dil``: made
+    anew only when either tensor's storage or version changes (the sampler
+    packs its weights once a call, and its 101 or so stack calls share them)."""
+    key = tuple((w.data_ptr(), w.device, None if w.is_inference() else w._version)
+                for w in (w_dil, w_out))
+    kept = getattr(w_dil, "_wg_weights", None)
+    if kept is None or kept[0] != key:
+        kept = (key, wg_weights(w_dil, w_out))
+        w_dil._wg_weights = kept
+    return kept[1]
+
+
 def _launch(x0, step_proj, cond_proj, w_dil, b_dil, w_out, b_out, dilations,
             compute_dtype) -> torch.Tensor:
     dt = compute_dtype or torch.float32
@@ -261,7 +304,10 @@ def _launch(x0, step_proj, cond_proj, w_dil, b_dil, w_out, b_out, dilations,
         scratch = torch.empty((b * t, c), dtype=dt, device=x.device)   # g
     step = step_proj.to(torch.float32).contiguous()
     cond = cond_proj.to(dt).contiguous()
-    wd, wo = w_dil.to(dt).contiguous(), w_out.to(dt).contiguous()
+    if path and dt == torch.float32 and c == WG_CHANNELS:
+        wd = wo = _wg_weights_of(w_dil, w_out)   # the library reads only w_dil then
+    else:
+        wd, wo = w_dil.to(dt).contiguous(), w_out.to(dt).contiguous()
     bd, bo = b_dil.to(torch.float32).contiguous(), b_out.to(torch.float32).contiguous()
     dil = _dilation_array(tuple(int(d) for d in dilations))
     split = 1
@@ -281,6 +327,9 @@ def _launch(x0, step_proj, cond_proj, w_dil, b_dil, w_out, b_out, dilations,
     check(err, "diffnet_stack")
     diffnet_stack.device_launches, diffnet_stack.ran_tensor_cores = report[0], bool(report[1])
     diffnet_stack.column_split = report[2]
+    body = BODIES[report[1]]
+    diffnet_stack.body = body
+    diffnet_stack.launches_by_body[body] = diffnet_stack.launches_by_body.get(body, 0) + 1
     return skip
 
 
@@ -308,7 +357,9 @@ def diffnet_stack(x0, step_proj, cond_proj, w_dil, b_dil, w_out, b_out, *,
 
 diffnet_stack.launches = 0             # calls that launched kernels
 diffnet_stack.device_launches = None   # kernels the library launched in the last such call
-diffnet_stack.ran_tensor_cores = None  # which body that call ran
+diffnet_stack.ran_tensor_cores = None  # whether that call ran a tensor-core body
+diffnet_stack.body = None              # which body that call ran (a name of BODIES)
+diffnet_stack.launches_by_body = {}    # CUDA calls by the body the library reported
 diffnet_stack.column_split = None      # the column split k that call ran (1: unsplit)
 
 

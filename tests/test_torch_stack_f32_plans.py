@@ -301,8 +301,9 @@ def test_library_limits_match_the_wrapper_rule():
 
 
 # --------------------------------------------------------------- column split
-# (C, split, cycle, T): each split at C = 256, and at C = 512 (split only,
-# 8-row weight chunks) its two- and four-way splits; ids split-cycle-T
+# (C, split, cycle, T): each split at C = 256, and at C = 512 (split only)
+# its two- and four-way column splits, whose wgmma body's stages and ring
+# tests/test_torch_stack_wgmma_plans.py models; ids split-cycle-T
 CLUSTER_CASES = ([pytest.param(256, k, cycle, t, id=f"{k}-{cycle}-{t}")
                   for t in (5, 301, 1152) for cycle in (1, 4) for k in tds.splits_for(256)]
                  + [pytest.param(512, k, 4, t, id=f"c512-{k}-4-{t}")
@@ -439,8 +440,9 @@ def test_the_wrapper_passes_the_rules_split_and_reads_back_the_librarys(monkeypa
 def test_library_splits_match_the_wrapper_rule():
     """The library's splits, tile rows and instances are the wrapper's: its
     split_takes names the splits of splits_for, it builds and dispatches an
-    instance for each (width, split) pair, and every split instance's tiles
-    fit a block's 227 KB at the widest dilation it takes (its smem formula,
+    instance for each (width, split) pair, C = 512's on the wgmma body and
+    no mma.sync instance at C = 512, and every split instance's tiles fit a
+    block's 227 KB at the widest dilation it takes (its smem formula,
     copied)."""
     src = CU.read_text()
     assert _cu_constant("TM") == tds.TILE_ROWS
@@ -448,21 +450,32 @@ def test_library_splits_match_the_wrapper_rule():
     assert "C == 512 ? split == 2 || split == 4" in src
     assert "split == 1 || (C == 256 && (split == 2 || split == 4))" in src
     assert tds.splits_for(256) == (1, 2, 4)
-    assert "return C > 256 ? 8 : KC32;" in src
+    # C = 512 dispatches to stack_layer_wg (tests/test_torch_stack_wgmma_plans.py
+    # models it); the mma.sync body keeps its 16-row chunks at C <= 256
+    assert "template <int S> struct Body<float, 512, S>" in src
+    assert "static auto kernel() { return stack_layer_wg<S>; }" in src
+    assert "kc32" not in src and "(size_t)8 * NST32 * KC32 * w_stride32<C, S>()" in src
+    assert tds.WG_CHANNELS == 512 and tds.BODIES[2] == "wgmma"
+    assert "report[1] = dtype == 0 && C == 512 ? 2 : 1;" in src
     pairs = {(c, k) for c in tds.TC32_CHANNELS for k in tds.splits_for(c)}
     run = {(int(c), int(k)) for c, k in re.findall(r"STACK_TC\(float, (\d+), (\d+)\)", src)}
     resident = {(int(c), int(k)) for c, k in re.findall(r"tc::resident<(\d+), (\d+)>", src)}
     assert run == pairs and resident == pairs
     assert "return C / (4 * S) + 8;" in src
     kc32, nst32 = _cu_constant("KC32"), _cu_constant("NST32")
+    wg_kc, wg_nst, wg_bars = _cu_constant("WG_KC"), _cu_constant("WG_NST"), _cu_constant("WG_BARS")
     for c, k in pairs:
-        # C = 512 takes 8-row chunks; its two-way split holds a halo of 10
-        # rows and not 11 (the d > 10 rule), the others one of 16
-        kc, d = (8, 10 if k == 2 else tds.TC_MAX_DILATION) if c > 256 else (kc32, tds.TC_MAX_DILATION)
         row = (c + 4) * 4
-        smem = (TM + 2 * d) * row + 8 * nst32 * kc * (c // (4 * k) + 8) * 4
+        if c == 512:
+            # two warpgroups' rings of 16-row stages of 4/k 64-column units;
+            # the two-way split holds cycle 4's halo of 8 rows and not 9
+            d = 8 if k == 2 else tds.TC_MAX_DILATION
+            smem = wg_bars + (2 * wg_nst * wg_kc * 128 * (4 // k)) * 4 + (TM + 2 * d) * row
+            if k == 2:
+                assert smem + 2 * row > 227 * 1024
+        else:
+            d = tds.TC_MAX_DILATION
+            smem = (TM + 2 * d) * row + 8 * nst32 * kc32 * (c // (4 * k) + 8) * 4
+            # a warp's columns of each half are whole 8-column mma tiles
+            assert (c // k // 8) % 8 == 0
         assert smem <= 227 * 1024
-        if (c, k) == (512, 2):
-            assert smem + 2 * row > 227 * 1024
-        # a warp's columns of each half are whole 8-column mma tiles
-        assert (c // k // 8) % 8 == 0

@@ -4,10 +4,11 @@ stack body's dispatch rule and column split at C = 512, the configuration
 benchmark's plain reference, and the tracer's counters that the stack's
 fill is read from.
 
-``stack_layer_tc32<512, S>`` runs only on the card; ``chip_smoke.py`` holds
-it against the plain twin there. Its block schedule at C = 512, the wave
-rule at every width and the library's instances and shared memory are held
-with the other widths' in ``tests/test_torch_stack_f32_plans.py``.
+``stack_layer_wg<S>``, the C = 512 body on ``wgmma``, runs only on the card;
+``chip_smoke.py`` holds it against the plain twin there. Its schedule, ring
+and packed weights are modelled in ``tests/test_torch_stack_wgmma_plans.py``;
+the wave rule at every width and the library's instances and shared memory
+are held with the other widths' in ``tests/test_torch_stack_f32_plans.py``.
 """
 
 import copy
@@ -26,7 +27,7 @@ CYCLE4 = tuple(2 ** (i % 4) for i in range(20))
 # resident tiles a wave at C = 512 on the H100's 132 SMs: clusters of 2 and 4
 # as the GPCs hold them (the first as read on an H100 80GB HBM3; the others
 # what another part of the GPCs' SMs could give); at
-# d > 10 the two-way split's tiles do not fit and the library reports none
+# d > 8 the two-way split's tiles do not fit and the library reports none
 RESIDENT = [{2: 66, 4: 30}, {2: 64, 4: 32}, {2: 66, 4: 33}]
 # the cell's device batches: 1-16 rows (powers of two) x 128-frame buckets
 # of up to 1152 frames (Opencpop's 1-12 s at 86.13 frames a second; the
@@ -70,7 +71,7 @@ def test_512_is_split_two_or_four_ways_and_never_unsplit():
 
 
 def test_a_wide_halo_leaves_the_four_way_split():
-    """At d > 10 the library reports no two-way cluster: the rule takes 4,
+    """At d > 8 the library reports no two-way cluster: the rule takes 4,
     and with nothing resident it names the width's smallest split."""
     for b, t in CELL_SHAPES:
         assert tds.column_split(b, t, 512, {2: 0, 4: 30}) == 4
