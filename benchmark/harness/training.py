@@ -1,6 +1,8 @@
 """The training cell: the program's ``Trainer`` built as a user of the
 configuration builds it, with the benchmark's seeded weights, stepped by
-``Trainer.train_step`` on batches of the configuration's length set.
+``Trainer.train_step`` on batches of the configuration's length set. It
+takes the cwt task (DiffSpeech) and the MIDI task (DiffSinger); the batch
+keys each gets are ``make_batch``'s.
 
 Set-up drives that one trainer through its first three steps on three
 different batches and reads, for the check, each step's loss, the first
@@ -27,7 +29,7 @@ from ..counts import diffnet_train as train_counts
 from ..counts import model as model_counts
 from ..reference import cwt
 from ..reference.system import precision
-from ..reference.train import TrainStep
+from ..reference.train import TrainStep, refuse_left_out
 from . import weights
 from .serving import make_weights, part, reference_system
 from .trace import TRACE_SECONDS, OpCalls, Tracer, nbytes
@@ -55,25 +57,47 @@ def _round_up(n: int, m: int) -> int:
     return -(-n // m) * m
 
 
+def word_boundary(is_slur: np.ndarray) -> np.ndarray:
+    """1 at each word's last phone, by a fixed rule with no draw of its own:
+    the phones that are not slurs pair up into words (an initial and its
+    final, the last one alone where their count is odd), and each slur phone
+    joins the word before it."""
+    starts = np.zeros(len(is_slur), bool)
+    starts[np.flatnonzero(is_slur == 0)[::2]] = True
+    out = np.ones(len(is_slur), np.int64)
+    out[:-1] = starts[1:]
+    return out
+
+
 def make_batch(rng: np.random.Generator, specs: List[Dict[str, Any]], hp: Dict[str, Any],
                frame_mult: int, token_mult: int) -> Dict[str, np.ndarray]:
-    """One padded training batch with cwt pitch targets: per utterance
-    durations that fill its frames (at least one a phone), a log-mel around
-    -2, and a voiced/unvoiced F0 contour (vibrato around 110-250 Hz, 15%
-    unvoiced) with its CWT spectrogram and log-F0 statistics."""
+    """One padded training batch, with the keys the program's dataset
+    collates for the configuration: per utterance durations that fill its
+    frames (at least one a phone), a log-mel around -2, and a voiced/unvoiced
+    F0 contour (vibrato around 110-250 Hz, 15% unvoiced). With cwt pitch the
+    contour in Hz with its CWT spectrogram and log-F0 statistics; otherwise,
+    as ``data/dataset.py`` gives frame pitch, its log2 with the unvoiced
+    frames interpolated. A MIDI configuration adds the spec's notes
+    (``pitch_midi``), slurs, each phone's note length (``midi_dur``, as
+    ``traffic.fused_request`` hands it to serving) and ``word_boundary``."""
     b = len(specs)
     t_txt = min(_round_up(max(s["n_phones"] for s in specs), token_mult),
                 int(hp.get("max_input_tokens", 1 << 30)))
     t_mel = min(_round_up(max(s["frames"] for s in specs), frame_mult),
                 int(hp.get("max_frames", 1 << 30)))
     bins = int(hp.get("audio_num_mel_bins", 80))
+    use_cwt, midi = hp.get("pitch_type") == "cwt", bool(hp.get("use_midi"))
     out = {"txt_tokens": np.zeros((b, t_txt), np.int64),
            "mels": np.zeros((b, t_mel, bins), np.float32),
            "mel2ph": np.zeros((b, t_mel), np.int64),
            "f0": np.zeros((b, t_mel), np.float32),
-           "uv": np.zeros((b, t_mel), np.float32),
-           "cwt_spec": np.zeros((b, t_mel, 10), np.float32),
-           "f0_mean": np.zeros((b,), np.float32), "f0_std": np.zeros((b,), np.float32)}
+           "uv": np.zeros((b, t_mel), np.float32)}
+    if use_cwt:
+        out.update(cwt_spec=np.zeros((b, t_mel, 10), np.float32),
+                   f0_mean=np.zeros((b,), np.float32), f0_std=np.zeros((b,), np.float32))
+    if midi:
+        out.update({k: np.zeros((b, t_txt), np.float32 if k == "midi_dur" else np.int64)
+                    for k in ("pitch_midi", "midi_dur", "is_slur", "word_boundary")})
     for i, s in enumerate(specs):
         n, frames = s["n_phones"], s["frames"]
         out["txt_tokens"][i, :n] = s["tokens"]
@@ -82,13 +106,24 @@ def make_batch(rng: np.random.Generator, specs: List[Dict[str, Any]], hp: Dict[s
         out["mels"][i, :frames] = rng.standard_normal((frames, bins)) * 0.5 - 2.0
         f0 = rng.uniform(110, 250) * 2 ** (0.2 * np.sin(np.arange(frames) / rng.uniform(3, 9)))
         f0[rng.random(frames) < 0.15] = 0.0
-        out["f0"][i, :frames] = f0
         out["uv"][i, :frames] = (f0 == 0)
-        _, cont = cwt.get_cont_lf0(f0)
-        mean, std = float(np.mean(cont)), float(np.std(cont))
-        w, _ = cwt.get_lf0_cwt((cont - mean) / std)
-        out["cwt_spec"][i, :frames] = w
-        out["f0_mean"][i], out["f0_std"][i] = mean, std
+        if use_cwt:
+            out["f0"][i, :frames] = f0
+            _, cont = cwt.get_cont_lf0(f0)
+            mean, std = float(np.mean(cont)), float(np.std(cont))
+            w, _ = cwt.get_lf0_cwt((cont - mean) / std)
+            out["cwt_spec"][i, :frames] = w
+            out["f0_mean"][i], out["f0_std"][i] = mean, std
+        else:
+            voiced = f0 > 0
+            lf0 = np.log2(np.where(voiced, f0, 1.0))
+            out["f0"][i, :frames] = np.interp(np.arange(frames), np.flatnonzero(voiced),
+                                              lf0[voiced])
+        if midi:
+            out["pitch_midi"][i, :n] = s["midi"]
+            out["midi_dur"][i, :n] = s["note_s"]
+            out["is_slur"][i, :n] = s["is_slur"]
+            out["word_boundary"][i, :n] = word_boundary(s["is_slur"])
     return out
 
 
@@ -100,12 +135,12 @@ def _bwd_count(args, kwargs, out):
     return train_counts.backward([tuple(a.shape) for a in args], nbytes(args), nbytes(out))
 
 
-def _leaf_gaps(got: Dict[str, float], want: Dict[str, float], skip: set) -> float:
+def _leaf_gaps(got: Dict[str, float], want: Dict[str, float], skip: set):
     """The worst leaf's gap between two norms, over the larger of the
-    reference's norm and its median leaf's."""
+    reference's norm and its median leaf's, and that leaf's name."""
     med = statistics.median(want.values())
-    return max((abs(got[k] - want[k]) / max(want[k], med) for k in want if k not in skip),
-               default=0.0)
+    return max(((abs(got[k] - want[k]) / max(want[k], med), k) for k in want if k not in skip),
+               default=(0.0, ""))
 
 
 class TrainCell:
@@ -126,6 +161,7 @@ class TrainCell:
         from diffsinger_tpu_torch.training.trainer import Trainer
 
         hp = dict(self.hp)
+        refuse_left_out(hp)  # before the window, not after it
         task = DiffSingerTask(hp, vocab_size=int(self.config["vocab_size"]), device=self.device)
         self.w0 = make_weights(self.config, seed, self.device)
         weights.load(task, part(self.w0, "fs2.", "denoise_fn."))
@@ -294,9 +330,12 @@ class TrainCell:
         skip = {k for k, v in want["grad"].items() if v < 1e-3 * med}
         self.skipped = sorted(skip)
         side = "control" if tf32_control else "program"
+        grad, grad_leaf = _leaf_gaps(got["grad"], want["grad"], skip)
+        update, update_leaf = _leaf_gaps(got["update"], want["update"], skip)
         self.diagnostics = {"loss_" + side: got["loss"], "loss_reference": want["loss"],
                             "grad_norm_" + side: got["norm"], "grad_norm_reference": want["norm"],
-                            "leaves_left_out": len(skip), "leaves": len(want["grad"])}
+                            "leaves_left_out": len(skip), "leaves": len(want["grad"]),
+                            "worst_grad_leaf_" + side: grad_leaf,
+                            "worst_update_leaf_" + side: update_leaf}
         loss = max(abs(a - b) / abs(b) for a, b in zip(got["loss"], want["loss"]))
-        return {"loss_gap": loss, "grad_gap": _leaf_gaps(got["grad"], want["grad"], skip),
-                "update_gap": _leaf_gaps(got["update"], want["update"], skip)}, CHECKED_STEPS
+        return {"loss_gap": loss, "grad_gap": grad, "update_gap": update}, CHECKED_STEPS

@@ -1,11 +1,12 @@
 """Frozen copy of the losses of diffsinger_tpu_torch/training/losses.py that
-the benchmark's training cell runs (DiffSpeech with cwt pitch), the plain
-PyTorch math of its reference; it imports nothing of the program.
+the benchmark's training cells run (DiffSpeech with cwt pitch, DiffSinger
+with MIDI inputs), the plain PyTorch math of their reference; it imports
+nothing of the program.
 
-Phone, word and sentence duration losses with ``dur_loss: mse`` (words from
-silences) and the CWT pitch losses. Word durations are a fixed-size segment
-sum (the word count is at most the phone count), as in the JAX package.
-Every mean is over the whole batch.
+Phone, word and sentence duration losses with ``dur_loss: mse``, words from
+silences or (the MIDI task) from ``word_boundary``, and the CWT pitch losses.
+Word durations are a fixed-size segment sum (the word count is at most the
+phone count), as in the JAX package. Every mean is over the whole batch.
 """
 
 from __future__ import annotations
@@ -74,6 +75,30 @@ def duration_losses(losses: Dict[str, torch.Tensor], dur_pred_log: torch.Tensor,
     if lambda_word_dur > 0:
         word_id = (torch.cumsum(is_sil, -1) * (1 - is_sil)).to(torch.long)
         losses["wdur"] = _word_dur_loss(dur_pred, dur_gt, word_id, t_txt + 1) * lambda_word_dur
+    if lambda_sent_dur > 0:
+        sdur = (torch.log(dur_pred.sum(-1) + 1) - torch.log(dur_gt.sum(-1) + 1)) ** 2
+        losses["sdur"] = sdur.mean() * lambda_sent_dur
+
+
+def midi_duration_loss(losses: Dict[str, torch.Tensor], dur_pred_log: torch.Tensor,
+                       mel2ph: torch.Tensor, txt_tokens: torch.Tensor,
+                       word_boundary: torch.Tensor, *, lambda_ph_dur: float = 1.0,
+                       lambda_word_dur: float = 1.0, lambda_sent_dur: float = 0.0) -> None:
+    """The MIDI task's duration losses: as :func:`duration_losses`, but a word
+    ends at each phone whose ``word_boundary`` is 1 (word ids from the
+    shifted cumsum, padding phones in slot 0, which is dropped)."""
+    nonpadding = (txt_tokens != 0).to(torch.float32)
+    dur_gt = mel2ph_to_dur(mel2ph, txt_tokens.shape[1]).to(torch.float32) * nonpadding
+    pdur = (dur_pred_log - torch.log(dur_gt + 1)) ** 2
+    losses["pdur"] = masked_mean(pdur, nonpadding, clamp=False) * lambda_ph_dur
+    dur_pred = clamp0(torch.exp(dur_pred_log) - 1)
+
+    if lambda_word_dur > 0:
+        shifted = torch.nn.functional.pad(word_boundary, (1, 0))[:, :-1]
+        word_id = torch.cumsum(shifted, -1).to(torch.long) + 1
+        word_id = torch.where(txt_tokens == 0, torch.zeros_like(word_id), word_id)
+        losses["wdur"] = (_word_dur_loss(dur_pred, dur_gt, word_id, txt_tokens.shape[1] + 2)
+                          * lambda_word_dur)
     if lambda_sent_dur > 0:
         sdur = (torch.log(dur_pred.sum(-1) + 1) - torch.log(dur_gt.sum(-1) + 1)) ** 2
         losses["sdur"] = sdur.mean() * lambda_sent_dur

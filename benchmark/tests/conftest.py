@@ -21,6 +21,18 @@ TINY = dict(hidden_size=32, residual_channels=32, residual_layers=4, enc_layers=
 LJ_TINY_VOCODER = dict(upsample_rates=[8, 8, 2, 2], upsample_kernel_sizes=[16, 16, 4, 4])
 
 
+# DiffSinger's MIDI training at Opencpop lengths, with its limits set
+# (limits/cpop_train.json): no cell of BENCHMARK.json while its step time
+# spreads beyond the step-time bound (PERF.md), run here as one
+HELD_CELLS = {"cpop_train": {"name": "cpop_train", "config": "ds1000_cpop",
+                             "traffic": "train_batches", "chips": 1}}
+
+
+def bench_cell(name: str) -> dict:
+    """A cell of BENCHMARK.json, or one of the cells held out of it."""
+    return HELD_CELLS[name] if name in HELD_CELLS else manifest.cell(manifest.load(), name)
+
+
 def tiny_config(name: str, k_step: int = 0) -> dict:
     """The configuration ``name`` at small widths and short clips; ``k_step``
     shortens a DDPM loop."""
@@ -31,9 +43,9 @@ def tiny_config(name: str, k_step: int = 0) -> dict:
         hp.update(LJ_TINY_VOCODER)
     if k_step:
         hp["K_step"] = k_step
-    # several training batches of the short clips
-    hp["max_tokens"] = 160
+    # several training batches of the short clips, of several rows each
     corpus = cfg["corpus"]
+    hp["max_tokens"] = 20 * corpus["frames_per_phone"]
     fpp = corpus["frames_per_phone"] / corpus["frames_per_s"]
     corpus.update(clip_s=[2 * fpp, 12 * fpp], mean_s=6 * fpp)
     return cfg

@@ -7,7 +7,7 @@ import pytest
 
 from benchmark.harness import check, manifest
 
-from conftest import tiny_config, tiny_mix
+from conftest import HELD_CELLS, bench_cell, tiny_config, tiny_mix
 
 BENCH = manifest.load()
 SEEDS = [2 ** 31 + 101, 2 ** 31 + 102, 2 ** 31 + 103]
@@ -16,17 +16,19 @@ SEEDS = [2 ** 31 + 101, 2 ** 31 + 102, 2 ** 31 + 103]
 def _cell(name, device):
     from run import cell_class  # noqa: E402  (benchmark/ is on the path: see conftest)
 
-    cell = manifest.cell(BENCH, name)
+    cell = bench_cell(name)
     mix = tiny_mix(cell["traffic"], 24 if cell["traffic"] == "train_batches" else 6)
     config = tiny_config(cell["config"], 8 if name == "lj_batch" else 0)
-    # the MRF kernel takes 16 to 128 channels: every vocoder scale on it
-    config["hparams"]["upsample_initial_channel"] = 256
+    # the MRF kernel takes 16 to 128 channels: every vocoder scale on it, the
+    # 44.1 kHz vocoder's five scales too
+    hp = config["hparams"]
+    hp["upsample_initial_channel"] = max(256, 16 * 2 ** len(hp["upsample_rates"]))
     return cell_class(mix)(cell, config, mix, manifest.limits(name), device,
                            log=lambda *a: None)
 
 
 @pytest.mark.card
-@pytest.mark.parametrize("name", [w["name"] for w in BENCH["workloads"]])
+@pytest.mark.parametrize("name", [w["name"] for w in BENCH["workloads"]] + list(HELD_CELLS))
 def test_control_fails_and_program_passes(card, name):
     from benchmark.harness.training import TrainCell
 

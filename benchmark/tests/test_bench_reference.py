@@ -9,7 +9,7 @@ import torch
 from benchmark.harness import check, manifest, weights
 from benchmark.harness.serving import Cell, make_weights, reference_system
 
-from conftest import tiny_config, tiny_mix
+from conftest import bench_cell, tiny_config, tiny_mix
 
 BENCH = manifest.load()
 # (cell, the DDPM steps kept at small size: 0 keeps the configuration's)
@@ -49,12 +49,16 @@ def test_weights_are_seeded_and_cover_every_leaf():
     assert a["pe.pitch_predictor.linear.bias"].tolist() == [7.5, 0.0]
 
 
-def run_train(seed=2 ** 31 + 21, seconds=0.5):
+# the training cells: the cwt task (DiffSpeech) and the MIDI task (DiffSinger)
+TRAIN_CELLS = ["lj_train", "cpop_train"]
+
+
+def run_train(name="lj_train", seed=2 ** 31 + 21, seconds=0.5):
     from benchmark.harness.training import TrainCell
 
-    run = TrainCell(manifest.cell(BENCH, "lj_train"), tiny_config("ds_beta6_lj"),
-                    tiny_mix("train_batches", 24), manifest.limits("lj_train"), "cpu",
-                    log=lambda *a: None)
+    cell = bench_cell(name)
+    run = TrainCell(cell, tiny_config(cell["config"]), tiny_mix(cell["traffic"], 24),
+                    manifest.limits(name), "cpu", log=lambda *a: None)
     run.setup(seed, False)
     out = run.window(seconds, False)
     run.free()
@@ -62,8 +66,9 @@ def run_train(seed=2 ** 31 + 21, seconds=0.5):
     return run, out, numbers, steps
 
 
-def test_reference_matches_the_training_step():
-    run, out, numbers, steps = run_train()
+@pytest.mark.parametrize("name", TRAIN_CELLS)
+def test_reference_matches_the_training_step(name):
+    run, out, numbers, steps = run_train(name)
     assert out["failed"] == 0 and out["steps"] >= 1 and steps == 3
     # the three checked steps were on three different batches
     assert len(set(run.order[:3])) == 3
